@@ -1,0 +1,33 @@
+"""Hand-written Hopper kernels (CUDA C++ for ``sm_90a``) and their plain
+PyTorch versions.
+
+Each kernel package has three modules, as in the reference: ``ref.py``
+(the plain version), ``kernel.py`` (the ctypes binding of the CUDA
+source in ``csrc/``, with its launch count) and ``ops.py`` (the wrapper
+the model calls: the plain version for CPU tensors, the kernel for CUDA
+tensors, never a fallback from one to the other).
+"""
+from __future__ import annotations
+
+
+def _kernel_modules():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.paged_attention import kernel as pa
+    return (fa, pa)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel name -> launches since the last :func:`reset_launch_counts`."""
+    return {m.launches.name: m.launches.count for m in _kernel_modules()}
+
+
+def reset_launch_counts() -> None:
+    for m in _kernel_modules():
+        m.launches.count = 0
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel of the port (one ``nvcc`` per source, all
+    started together); returns name -> the compiler's report."""
+    from repro_torch.kernels import build
+    return build.build([m.SOURCE for m in _kernel_modules()])

@@ -1,0 +1,101 @@
+"""Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with
+``ctypes``.
+
+Each source has a plain C interface (no PyTorch headers), so ``nvcc``
+builds it in seconds: ``-gencode arch=compute_90a,code=sm_90a -O3
+-shared -Xcompiler -fPIC``.  Libraries land in ``build/kernels/`` at the
+root of the checkout, named by a hash of the source, so an edited source
+is rebuilt and an unchanged one is loaded as it is.  Building happens at
+first use, never at import: this module imports nothing that needs a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+reports: dict[str, str] = {}        # source name -> nvcc/ptxas output
+
+
+class LaunchCount:
+    """A kernel's launch count: a plain integer that the kernel's launch
+    function, and nothing else, adds one to."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(source: str) -> Path:
+    text = (CSRC / source).read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+
+
+def build(sources: list[str]) -> dict[str, str]:
+    """Compile every source whose library is missing, all ``nvcc``
+    processes started together; raises with the compiler's output on the
+    first failure.  Returns source -> compiler report."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for src in sources:
+            out = _target(src)
+            if out.exists():
+                reports.setdefault(src, "(cached)")
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, out)
+        failed = []
+        for src, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            reports[src] = log
+            if proc.returncode != 0:
+                failed.append(f"{src}:\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        return {src: reports[src] for src in sources}
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if needed."""
+    lib = _loaded.get(source)
+    if lib is None:
+        build([source])
+        lib = ctypes.CDLL(str(_target(source)))
+        _loaded[source] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,98 @@
+"""ctypes binding of the CUDA paged decode kernel (K1,
+``csrc/paged_attention.cu``).  CUDA tensors only: the plain version
+lives in ``ref.py`` and the device routing in ``ops.py``."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = "paged_attention.cu"
+REPLACES = "src/repro/kernels/paged_attention/kernel.py:107"
+launches = build.LaunchCount("paged_attention")
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GD = 128 * 16          # threads per CTA x accumulators per thread
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = build.load(SOURCE).paged_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _need(cond: bool, msg) -> None:
+    """Raise ``ValueError(msg())`` unless ``cond``; the message is built
+    only on failure (this runs for every layer of every decode step)."""
+    if not cond:
+        raise ValueError(f"paged kernel: {msg()}")
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    seq_lens: torch.Tensor, *,
+                    extra_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    k_scales: torch.Tensor | None = None,
+                    v_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch K1.  q: (B, Hkv, G, d); k/v pages: (P, page, Hkv, d);
+    page_table: (B, n) int32; seq_lens: (B,) int32; extra_kv: optional
+    (k0, v0), each (B, Hkv, d).  All contiguous, on one CUDA device.
+    Returns (B, Hkv, G, d) in q's dtype."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "paged kernel: the scaled (int8/fp8) variant is not ported yet")
+    tensors = [q, k_pages, v_pages, page_table, seq_lens]
+    if extra_kv is not None:
+        tensors += list(extra_kv)
+    for t in tensors:
+        _need(t.device.type == "cuda" and t.device == q.device,
+              lambda: f"a tensor is on {t.device}, not on q's CUDA device "
+                      f"{q.device}")
+        _need(t.is_contiguous(), lambda: f"a {tuple(t.shape)} input is not "
+                                         f"contiguous")
+    _need(q.dtype in _DTYPES, lambda: f"dtype {q.dtype} not supported")
+    _need(q.dim() == 4, lambda: f"q must be (B, Hkv, G, d), got "
+                                f"{tuple(q.shape)}")
+    b, hkv, g, d = q.shape
+    _need(k_pages.dim() == 4 and k_pages.shape[2:] == (hkv, d)
+          and v_pages.shape == k_pages.shape,
+          lambda: f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do "
+                  f"not match q {tuple(q.shape)}")
+    _need(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
+          lambda: "pools and q differ in dtype")
+    num_pages, page = k_pages.shape[:2]
+    _need(1 <= page <= 32, lambda: f"page size {page} not in [1, 32]")
+    _need(d % 32 == 0 and g * d <= _MAX_GD,
+          lambda: f"head_dim {d} x group {g} not supported")
+    _need(page_table.dtype == torch.int32 and page_table.dim() == 2
+          and page_table.shape[0] == b and page_table.shape[1] >= 1,
+          lambda: f"page_table must be (B, n>=1) int32, got "
+                  f"{tuple(page_table.shape)} {page_table.dtype}")
+    _need(seq_lens.dtype == torch.int32 and seq_lens.shape == (b,),
+          lambda: f"seq_lens must be (B,) int32, got "
+                  f"{tuple(seq_lens.shape)} {seq_lens.dtype}")
+    k0 = v0 = None
+    if extra_kv is not None:
+        k0, v0 = extra_kv
+        _need(k0.shape == (b, hkv, d) and v0.shape == (b, hkv, d)
+              and k0.dtype == q.dtype and v0.dtype == q.dtype,
+              lambda: "extra_kv must be two (B, Hkv, d) tensors of q's dtype")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                     page_table.data_ptr(), seq_lens.data_ptr(),
+                     None if k0 is None else k0.data_ptr(),
+                     None if v0 is None else v0.data_ptr(), out.data_ptr(),
+                     b, hkv, g, d, num_pages, page, page_table.shape[1],
+                     _DTYPES[q.dtype], stream)
+    build.check(rc, "paged_attention")
+    launches.count += 1
+    return out

@@ -1,0 +1,255 @@
+"""Paged decode attention wrapper + the host-side block-pool allocator
+(counterpart of ``repro.kernels.paged_attention.ops``).
+
+* :func:`attend` — the decode read path.  CPU tensors take the plain
+  version (``ref.paged_attention_ref``), CUDA tensors the hand-written
+  kernel; there is no fallback from one to the other.
+* :class:`BlockManager` — the host-side allocator.  It owns ONLY the
+  bookkeeping (free list, per-slot page lists, lengths, prefix index);
+  the stacked ``(L, P, page, Hkv, hd)`` pools live in the serving cache
+  and are updated in place on the device.
+
+Page 0 is the reserved **null page**: table padding and the write slots
+of idle/finished sequences point at it, so garbage reads are masked by
+``seq_lens`` and garbage writes land where no sequence ever looks.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.paged_attention import kernel as _kernel
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+
+def attend(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+           page_table: torch.Tensor, seq_lens: torch.Tensor,
+           extra_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+           k_scales: torch.Tensor | None = None,
+           v_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """q: (B, Hkv, G, d) single decode token -> (B, Hkv, G, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
+                                   extra_kv=extra_kv, k_scales=k_scales,
+                                   v_scales=v_scales)
+    return _kernel.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
+                                   extra_kv=extra_kv, k_scales=k_scales,
+                                   v_scales=v_scales)
+
+
+def pages_for(tokens: int, page_size: int) -> int:
+    """Pages needed to map ``tokens`` positions."""
+    return -(-tokens // page_size)
+
+
+class BlockPoolAuditError(AssertionError):
+    """An invariant of the block-pool bookkeeping is violated (refcount
+    drift, free-list corruption, table/pool inconsistency)."""
+
+
+class BlockManager:
+    """Host-side page allocator for the device-resident block pool.
+
+    Sequences (keyed by serving slot) own ordered lists of fixed-size
+    pages from a global pool.  Allocation happens at block boundaries (a
+    slot is grown to cover its next decode block in one call);
+    reclamation returns a finished slot's pages to the free list in LIFO
+    order so hot pages are reused first.  Pages shared by prefix caching
+    carry a refcount and return to the free list only when their last
+    owner releases them.
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 2:
+            raise ValueError("need >= 2 pages (page 0 is the null page)")
+        if page_size < 1:
+            raise ValueError("page_size must be positive")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self._free = list(range(num_pages - 1, 0, -1))  # page 0 = null page
+        self.pages: dict[int, list[int]] = {}
+        self.lens: dict[int, int] = {}
+        self.hwm = 0                    # pages-in-use high-water mark
+        self.refcount: dict[int, int] = {}
+        self._prefix_index: dict[bytes, int] = {}
+        self._page_key: dict[int, bytes] = {}
+
+    # ----- capacity ---------------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        """Allocatable pages (the null page is never handed out)."""
+        return self.num_pages - 1
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.capacity - len(self._free)
+
+    def pages_for(self, tokens: int) -> int:
+        return pages_for(tokens, self.page_size)
+
+    # ----- allocate / reclaim ----------------------------------------------
+    def ensure(self, slot: int, tokens: int) -> list[int]:
+        """Grow ``slot`` so positions ``[0, tokens)`` are mapped; returns
+        the newly allocated page ids (possibly empty).  Raises
+        ``MemoryError`` when the pool cannot cover the growth."""
+        table = self.pages.setdefault(slot, [])
+        need = self.pages_for(tokens) - len(table)
+        if need > len(self._free):
+            raise MemoryError(
+                f"page pool exhausted: slot {slot} needs {need} more "
+                f"page(s) for {tokens} tokens, {len(self._free)} free of "
+                f"{self.capacity}")
+        new = [self._free.pop() for _ in range(max(need, 0))]
+        for p in new:
+            self.refcount[p] = 1
+        table.extend(new)
+        self.hwm = max(self.hwm, self.pages_in_use)
+        return new
+
+    def adopt(self, slot: int, page_ids: list[int]) -> None:
+        """Map ``slot``'s leading table entries onto already-allocated
+        pages (prompt-prefix sharing): each adopted page's refcount rises
+        by one and NO pool page is consumed.  Only valid on a fresh slot
+        — adopted pages must precede any privately allocated ones so the
+        table stays position-ordered."""
+        table = self.pages.setdefault(slot, [])
+        if table:
+            raise ValueError(
+                f"slot {slot} already owns pages; prefix pages must lead")
+        for p in page_ids:
+            if self.refcount.get(p, 0) < 1:
+                raise ValueError(f"page {p} is not live; cannot adopt")
+            self.refcount[p] += 1
+        table.extend(page_ids)
+
+    def note_tokens(self, slot: int, tokens: int) -> None:
+        """Record that ``slot`` now holds ``tokens`` written positions
+        (monotone per slot; ``audit`` checks it against the table)."""
+        self.lens[slot] = max(self.lens.get(slot, 0), tokens)
+
+    def _release_pages(self, page_ids: list[int]) -> None:
+        """Drop one reference from each page (reverse order so LIFO
+        reuse favors hot pages); a page whose last reference drops
+        returns to the free list and leaves the prefix index."""
+        for p in reversed(page_ids):
+            rc = self.refcount.get(p, 1) - 1
+            if rc > 0:
+                self.refcount[p] = rc
+                continue
+            self.refcount.pop(p, None)
+            self._free.append(p)
+            key = self._page_key.pop(p, None)
+            if key is not None:
+                self._prefix_index.pop(key, None)
+
+    def free_slot(self, slot: int) -> None:
+        """Release every page owned by ``slot`` (EOS / eviction)."""
+        self._release_pages(self.pages.pop(slot, []))
+        self.lens.pop(slot, None)
+
+    # ----- prompt-prefix index ----------------------------------------------
+    def register_prefix(self, key: bytes, page_id: int) -> None:
+        """Publish a fully written prompt page under the exact token
+        bytes it covers (position-dependent: the key is the whole padded
+        prompt up to and including this page).  First writer wins; the
+        entry lives exactly as long as the page has owners."""
+        if key in self._prefix_index:
+            return
+        if self.refcount.get(page_id, 0) < 1:
+            raise ValueError(f"page {page_id} is not live; cannot index")
+        self._prefix_index[key] = page_id
+        self._page_key[page_id] = key
+
+    def lookup_prefix(self, key: bytes) -> int | None:
+        return self._prefix_index.get(key)
+
+    @property
+    def shared_pages(self) -> int:
+        """Logical pages served by sharing beyond their physical count
+        (sum of refcount - 1 over multiply-owned pages)."""
+        return sum(rc - 1 for rc in self.refcount.values() if rc > 1)
+
+    # ----- tables -----------------------------------------------------------
+    def slot_pages(self, slot: int) -> list[int]:
+        return list(self.pages.get(slot, ()))
+
+    def max_slot_pages(self) -> int:
+        return max((len(t) for t in self.pages.values()), default=0)
+
+    def table(self, slots: list[int], n_pages: int) -> np.ndarray:
+        """(len(slots), n_pages) int32 page table, null-page padded."""
+        out = np.zeros((len(slots), n_pages), np.int32)
+        for i, s in enumerate(slots):
+            t = self.pages.get(s, [])[:n_pages]
+            out[i, : len(t)] = t
+        return out
+
+    # ----- invariants -------------------------------------------------------
+    def audit(self) -> dict:
+        """Cross-check every allocator invariant; raises
+        :class:`BlockPoolAuditError` on the first violation, returns a
+        summary dict when clean.
+
+        Invariants: the null page is never owned or free-listed; free
+        pages are unique, in range, and disjoint from every table; a
+        slot's table holds no duplicate pages; each live page's refcount
+        equals its owner count across tables; free + allocated ==
+        capacity; the prefix index and its page->key inverse agree and
+        only reference live pages; recorded lengths fit their tables;
+        the high-water mark bounds current occupancy."""
+        def fail(msg: str):
+            raise BlockPoolAuditError(f"block-pool audit: {msg}")
+
+        free = self._free
+        free_set = set(free)
+        if len(free_set) != len(free):
+            fail(f"free list holds duplicates ({len(free) - len(free_set)})")
+        bad = [p for p in free_set if not 1 <= p < self.num_pages]
+        if bad:
+            fail(f"free list holds out-of-range/null pages {sorted(bad)}")
+        owners: dict[int, int] = {}
+        for slot, table in self.pages.items():
+            if len(set(table)) != len(table):
+                fail(f"slot {slot} maps a page twice: {table}")
+            for p in table:
+                if not 1 <= p < self.num_pages:
+                    fail(f"slot {slot} maps out-of-range/null page {p}")
+                if p in free_set:
+                    fail(f"page {p} is both free and owned by slot {slot}")
+                owners[p] = owners.get(p, 0) + 1
+        if set(self.refcount) != set(owners):
+            fail(f"refcount keys {sorted(self.refcount)} != allocated "
+                 f"pages {sorted(owners)}")
+        for p, rc in self.refcount.items():
+            if rc != owners[p]:
+                fail(f"page {p} refcount {rc} != owner count {owners[p]}")
+        if len(free) + len(owners) != self.capacity:
+            fail(f"{len(free)} free + {len(owners)} allocated != "
+                 f"capacity {self.capacity}")
+        for key, p in self._prefix_index.items():
+            if self._page_key.get(p) != key:
+                fail(f"prefix index maps {key!r} -> page {p} but the "
+                     f"inverse disagrees")
+            if self.refcount.get(p, 0) < 1:
+                fail(f"prefix index references dead page {p}")
+        for p, key in self._page_key.items():
+            if self._prefix_index.get(key) != p:
+                fail(f"page-key inverse {p} -> {key!r} missing from the "
+                     f"prefix index")
+        for slot, n in self.lens.items():
+            cover = len(self.pages.get(slot, ())) * self.page_size
+            if n > cover:
+                fail(f"slot {slot} records {n} tokens but its table "
+                     f"covers only {cover}")
+        if self.hwm < self.pages_in_use:
+            fail(f"hwm {self.hwm} < pages in use {self.pages_in_use}")
+        if self.hwm > self.capacity:
+            fail(f"hwm {self.hwm} > capacity {self.capacity} (occupancy "
+                 f"exceeded the provisioned pool)")
+        return {"pages_in_use": self.pages_in_use,
+                "free_pages": len(free), "slots": len(self.pages),
+                "shared_pages": self.shared_pages}

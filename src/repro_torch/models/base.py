@@ -1,0 +1,141 @@
+"""Model foundations: the config, its padded-dim properties, and the
+per-slot decode state (counterpart of ``repro.models.base``).
+
+Divisibility policy (as in the reference): head counts and the vocab are
+padded to the tensor-parallel axis ``tp``; KV heads smaller than ``tp``
+are replicated up to it.  A single card serves with ``tp=1``, where no
+padding exists.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Literal
+
+import torch
+
+VOCAB_QUANTUM = 256            # vocab padded to a multiple of this
+DEFAULT_TP = 16                # model-axis size the reference configs target
+
+
+def pad_to(n: int, q: int) -> int:
+    return ((n + q - 1) // q) * q
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """Per-slot decoding state threaded through the fused decode loop.
+
+    One instance covers the whole serving batch and every field is a
+    tensor on the serving device, so a block of decode steps runs with no
+    host round trip.  ``pages`` is the persistent ``(B, n_pages)`` int32
+    page table (column padding and idle slots map the null page 0);
+    ``pos`` doubles as the per-slot ``seq_lens`` the page kernel masks
+    against.
+    """
+
+    tokens: torch.Tensor      # (B, 1) int64 — last sampled token per slot
+    pos: torch.Tensor         # (B,)  int32 — position the next step writes
+    active: torch.Tensor      # (B,)  bool  — slot is mid-generation
+    remaining: torch.Tensor   # (B,)  int32 — decode tokens still owed
+    pages: torch.Tensor | None = None
+
+    @classmethod
+    def init(cls, batch: int, device: torch.device,
+             pages: torch.Tensor | None = None) -> "DecodeState":
+        """All-idle state: every slot is a no-op until admission."""
+        return cls(tokens=torch.zeros((batch, 1), dtype=torch.int64,
+                                      device=device),
+                   pos=torch.zeros((batch,), dtype=torch.int32, device=device),
+                   active=torch.zeros((batch,), dtype=torch.bool,
+                                      device=device),
+                   remaining=torch.zeros((batch,), dtype=torch.int32,
+                                         device=device),
+                   pages=pages)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The reference's config fields that the ported (dense) path reads."""
+
+    name: str
+    family: Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+
+    # attention options
+    qkv_bias: bool = False           # qwen2.5
+    qk_norm: bool = False            # qwen3
+    rope_theta: float = 10000.0
+    sliding_window: int = 0          # 0 = full attention
+    tie_embeddings: bool = False
+
+    # numerics / system
+    dtype: torch.dtype = torch.bfloat16
+    kv_dtype: str | None = None      # paged-pool KV precision (None = dtype)
+    page_size: int = 16              # tokens per KV page
+    norm_eps: float = 1e-6
+    tp: int = DEFAULT_TP             # model-axis size the config targets
+
+    # ---------- padded dims -------------------------------------------------
+    @property
+    def padded_heads(self) -> int:
+        return pad_to(self.num_heads, self.tp)
+
+    @property
+    def padded_kv_heads(self) -> int:
+        if self.num_kv_heads >= self.tp:
+            return pad_to(self.num_kv_heads, self.tp)
+        return self.tp  # replicate small KV-head counts up to the axis
+
+    @property
+    def kv_repeat(self) -> int:
+        """How many times each true KV head is replicated."""
+        return self.padded_kv_heads // math.gcd(self.padded_kv_heads,
+                                                self.num_kv_heads) \
+            if self.num_kv_heads else 1
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_to(self.vocab, VOCAB_QUANTUM)
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.padded_heads // self.padded_kv_heads
+
+    # ---------- paged-pool KV precision -------------------------------------
+    #: quantized page-pool dtypes -> (torch dtype, quantization clip range).
+    #: Not served by this port yet: :meth:`kv_pool_dtype` rejects them.
+    KV_DTYPES = {"int8": (torch.int8, 127.0),
+                 "fp8_e4m3": (torch.float8_e4m3fn, 448.0)}
+
+    @property
+    def kv_quantized(self) -> bool:
+        return self.kv_dtype is not None
+
+    def kv_pool_dtype(self) -> torch.dtype:
+        """The dtype paged KV pools are allocated with."""
+        if self.kv_dtype is None:
+            return self.dtype
+        if self.kv_dtype not in self.KV_DTYPES:
+            raise ValueError(
+                f"unknown kv_dtype {self.kv_dtype!r}; expected one of "
+                f"{sorted(self.KV_DTYPES)}")
+        raise NotImplementedError(
+            f"kv_dtype={self.kv_dtype!r}: quantized page pools are not "
+            f"ported yet")
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A tiny same-family config for CPU tests (the reference's
+        ``reduced`` for the dense family)."""
+        small = dict(num_layers=min(self.num_layers, 2), d_model=128,
+                     num_heads=4, num_kv_heads=min(self.num_kv_heads, 2) or 2,
+                     d_ff=256 if self.d_ff else 0, vocab=512, head_dim=32,
+                     tp=1, sliding_window=8 if self.sliding_window else 0)
+        small.update(overrides)
+        return dataclasses.replace(self, name=self.name + "-smoke", **small)

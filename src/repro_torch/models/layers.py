@@ -1,0 +1,247 @@
+"""Shared neural layers for the dense decoder: RMSNorm, RoPE, GQA attention
+(prefill and paged decode), SwiGLU MLP, embeddings (counterpart of
+``repro.models.layers``).
+
+Attention entry points take and return ``(batch, seq, heads, head_dim)``
+tensors.  Prefill attention goes to the flash wrapper (the CUDA kernel K2
+on the card, the plain blocked online-softmax on the CPU); paged decode
+attention goes to the paged wrapper (K1, or its plain version).
+
+Prefill runs its row-wise work (norms, projections, RoPE, the MLP) in
+chunks of ``rows`` rows (the page size) via :func:`by_rows`.  A library
+matmul or reduction may pick another summation order for another number
+of rows, so computing each row in a chunk of the same shape, at the same
+page-aligned place, is what makes a prefix-cached admission give the
+same bits as an unshared one (the contract of
+``repro.models.layers.attn_prefill_prefix_kv``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models.base import ModelConfig
+
+NEG_INF = -1e30
+
+
+def by_rows(fn: Callable, rows: int, *xs: torch.Tensor):
+    """Apply ``fn`` to aligned chunks of ``rows`` rows (dim 1) of ``xs``
+    and concatenate its output(s) along dim 1; ``rows <= 0`` applies it
+    once to the whole."""
+    n = xs[0].shape[1]
+    if rows <= 0 or n <= rows:
+        return fn(*xs)
+    outs = [fn(*(x[:, i:i + rows] for x in xs)) for i in range(0, n, rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Norms & RoPE
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: torch.device | None = None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) or (S,)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs          # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Blocked online-softmax attention.  q: (B, Sq, Hq, hd); k, v:
+    (B, Sk, Hkv, hd) with Hq % Hkv == 0; query row i sits at position
+    ``q_offset + i``."""
+    return flash_ops.attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_pos: torch.Tensor, *,
+                     window: int = 0,
+                     extra_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                     ) -> torch.Tensor:
+    """Single-token attention against a (B, Hkv, S, hd) cache.
+
+    ``extra_kv``: the CURRENT token's (k, v), each (B, Hkv, hd), attended
+    in addition to the cache, whose positions are then masked strictly
+    below ``cur_pos`` (the cache stays read-only inside the layer loop).
+    cur_pos: (B,) index of the token being generated.
+    """
+    b, hkv, sk, hd = k_cache.shape
+    hq = q.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bkgd,bknd->bkgn", qg, k_cache.float()) / math.sqrt(hd)
+    pos = torch.arange(sk, device=q.device)[None, :]
+    cur = cur_pos.long()[:, None]
+    valid = pos < cur if extra_kv is not None else pos <= cur
+    if window > 0:
+        valid = valid & (pos > cur - window)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    if extra_kv is not None:
+        k0, v0 = extra_kv
+        s_self = torch.einsum("bkgd,bkd->bkg", qg, k0.float()) / math.sqrt(hd)
+        s = torch.cat([s, s_self[..., None]], dim=-1)
+    p = torch.softmax(s, dim=-1)
+    if extra_kv is not None:
+        p_cache, p_self = p[..., :-1], p[..., -1]
+        o = torch.einsum("bkgn,bknd->bkgd",
+                         p_cache.to(v_cache.dtype).float(), v_cache.float())
+        o = o + p_self[..., None] * extra_kv[1][:, :, None, :].float()
+    else:
+        o = torch.einsum("bkgn,bknd->bkgd", p.to(v_cache.dtype).float(),
+                         v_cache.float())
+    return o.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
+                 cfg: ModelConfig):
+    b, s = x.shape[:2]
+    skv = x_kv.shape[1]
+    hq, hkv, hd = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x_kv @ p["wk"]
+    v = x_kv @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, skv, hkv, hd)
+    v = v.reshape(b, skv, hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _rope_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig):
+    q, k, v = _project_qkv(p, x, x, cfg)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+    return o.reshape(o.shape[0], o.shape[1], -1) @ p["wo"]
+
+
+def attn_prefill_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, *, rows: int = 0):
+    """Full-prompt self-attention that also returns (k, v) for the pool
+    write.  x: (B, S, d); positions: (S,).  Returns (out (B, S, d),
+    (k, v) each (B, S, Hkv, hd))."""
+    q, k, v = by_rows(lambda xc, pc: _rope_qkv(p, xc, pc, cfg), rows, x,
+                      positions[None, :])
+    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    return by_rows(lambda oc: _out_proj(p, oc), rows, o), (k, v)
+
+
+def attn_prefill_prefix_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                           k_prefix: torch.Tensor, v_prefix: torch.Tensor,
+                           cfg: ModelConfig, *, rows: int = 0):
+    """Prefill attention for a prompt SUFFIX against a cached prefix.
+
+    x: (B, S_new, d) hidden states of the suffix only; positions:
+    (S_new,) absolute positions (prefix_len + arange); k_prefix/v_prefix:
+    (B, prefix_len, Hkv, hd) the shared prefix KV gathered from the pool.
+    The concatenated K/V equal what a full prefill projects, the KV tiles
+    sit at the same absolute positions and ``q_offset`` shifts the causal
+    mask, so the suffix rows come out bit-identical to an unshared
+    prefill's.  Returns (out (B, S_new, d), (k_new, v_new)).
+    """
+    q, k, v = by_rows(lambda xc, pc: _rope_qkv(p, xc, pc, cfg), rows, x,
+                      positions[None, :])
+    prefix_len = k_prefix.shape[1]
+    kf = torch.cat([k_prefix.to(k.dtype), k], dim=1)
+    vf = torch.cat([v_prefix.to(v.dtype), v], dim=1)
+    o = flash_attention(q, kf, vf, causal=True, window=cfg.sliding_window,
+                        q_offset=prefix_len)
+    return by_rows(lambda oc: _out_proj(p, oc), rows, o), (k, v)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           cur_pos: torch.Tensor,
+                           extra_kv: tuple[torch.Tensor, torch.Tensor]
+                           ) -> torch.Tensor:
+    """Single-token attention against a (P, page, Hkv, hd) page pool.
+
+    q: (B, 1, Hq, hd); page_table: (B, n_pages) int32 (null-page padded);
+    cur_pos: (B,) int32 — pooled positions < cur_pos are live, the current
+    token arrives via ``extra_kv``.  The paged wrapper runs K1 on the card
+    and its plain gather version on the CPU."""
+    b, _, hq, hd = q.shape
+    hkv = k_pages.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    o = paged_ops.attend(qg, k_pages, v_pages, page_table, cur_pos,
+                         extra_kv=extra_kv)
+    return o.reshape(b, 1, hq, hd)
+
+
+def attn_decode_paged(p: dict, x: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, page_table: torch.Tensor,
+                      cur_pos: torch.Tensor, cfg: ModelConfig):
+    """One-token self-attention over this layer's page pool (read-only —
+    the (k, v) returned are written after the layer loop in one batched
+    scatter).  x: (B, 1, d).  Returns (out (B, 1, d), k0, v0 (B, Hkv, hd))."""
+    q, k, v = _project_qkv(p, x, x, cfg)
+    pos = cur_pos[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    k0 = k[:, 0].contiguous()
+    v0 = v[:, 0].contiguous()
+    o = paged_decode_attention(q, k_pages, v_pages, page_table, cur_pos,
+                               (k0, v0))
+    return _out_proj(p, o), k0, v0
+
+
+# ---------------------------------------------------------------------------
+# MLP / embeddings
+# ---------------------------------------------------------------------------
+
+def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    return h @ p["wo"]
+
+
+def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens.long()]
+
+
+def lm_head(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ p["tok"].T
+    return x @ p["head"]

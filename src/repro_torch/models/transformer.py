@@ -1,0 +1,328 @@
+"""Dense decoder-only transformer over a block-pool paged KV cache
+(counterpart of ``repro.models.transformer`` for the serving path).
+
+Parameters are plain nested dicts of tensors, as in the reference, with
+the reference's stacked L axis unstacked into a list of per-layer dicts;
+the reference's ``layer_scan`` is a Python loop over that list.  The page
+pools ``(L, P, page, Hkv, hd)`` are updated in place (``index_put_``),
+where the reference donated them through every dispatch.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels.paged_attention.ref import take_pages
+from repro_torch.models import layers as L
+from repro_torch.models.base import DecodeState, ModelConfig
+
+
+def dense_init(gen: torch.Generator, shape: tuple[int, ...],
+               dtype: torch.dtype, scale: float | None = None) -> torch.Tensor:
+    """N(0, 1) * scale (default 1/sqrt(fan_in)), drawn in fp32 on the
+    generator's device and cast — the reference's ``dense_init`` scales."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (x * scale).to(dtype)
+
+
+def _scatter_pages(cache: dict, pages: torch.Tensor, k_new: torch.Tensor,
+                   v_new: torch.Tensor) -> dict:
+    """Write (L, B, S, Hkv, hd) prompt KV into the page pools in place:
+    ONE scatter per pool covering every layer, page and head.  ``pages``:
+    (B, n) page ids with n * page >= S; positions past S receive padding
+    (written, so a freshly filled page is valid in its entirety, but
+    masked by seq_lens on every read)."""
+    page = cache["k_pages"].shape[2]
+    n = pages.shape[1]
+    seq = k_new.shape[2]
+    pad = n * page - seq
+    if pad < 0:
+        raise ValueError(f"page table maps {n * page} positions but the "
+                         f"prompt chunk has {seq}")
+    idx = pages.long()
+    for name, val in (("k_pages", k_new), ("v_pages", v_new)):
+        pool = cache[name]
+        val = torch.nn.functional.pad(val, (0, 0, 0, 0, 0, pad))
+        val = val.reshape(val.shape[:2] + (n, page) + val.shape[3:])
+        pool[:, idx] = val.to(pool.dtype)
+    return cache
+
+
+class DenseLM:
+    """Decoder-only LM served over a paged KV cache."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    # ----- params -----------------------------------------------------------
+    def _attn_params(self, gen: torch.Generator) -> dict:
+        cfg = self.cfg
+        d, hd, dt = cfg.d_model, cfg.head_dim, cfg.dtype
+        hq, hkv, hkv_true = (cfg.padded_heads, cfg.padded_kv_heads,
+                             cfg.num_kv_heads)
+        dev = gen.device
+        wq = dense_init(gen, (d, hq * hd), dt)
+        wk1 = dense_init(gen, (d, hkv_true, hd), dt)
+        wv1 = dense_init(gen, (d, hkv_true, hd), dt)
+        if hkv % hkv_true == 0:     # replicate the true KV heads
+            reps = hkv // hkv_true
+            wk = wk1.repeat(1, reps, 1).reshape(d, hkv * hd)
+            wv = wv1.repeat(1, reps, 1).reshape(d, hkv * hd)
+        else:                       # pad with fresh heads
+            extra = hkv - hkv_true
+            wk = torch.cat([wk1, dense_init(gen, (d, extra, hd), dt)],
+                           dim=1).reshape(d, hkv * hd)
+            wv = torch.cat([wv1, dense_init(gen, (d, extra, hd), dt)],
+                           dim=1).reshape(d, hkv * hd)
+        wo = dense_init(gen, (hq * hd, d), dt)
+        if hq > cfg.num_heads:
+            # zero the padded q-head slots so the padded model equals the
+            # true architecture (wo rows zeroed too keeps them inert)
+            mask = (torch.arange(hq, device=dev) < cfg.num_heads
+                    ).repeat_interleave(hd).to(dt)
+            wq = wq * mask[None, :]
+            wo = wo * mask[:, None]
+        p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+        if cfg.qkv_bias:
+            p["bq"] = torch.zeros(hq * hd, dtype=dt, device=dev)
+            p["bk"] = torch.zeros(hkv * hd, dtype=dt, device=dev)
+            p["bv"] = torch.zeros(hkv * hd, dtype=dt, device=dev)
+        if cfg.qk_norm:
+            p["q_norm"] = torch.ones(hd, dtype=dt, device=dev)
+            p["k_norm"] = torch.ones(hd, dtype=dt, device=dev)
+        return p
+
+    def init_layer(self, gen: torch.Generator) -> dict:
+        cfg = self.cfg
+        dev, dt = gen.device, cfg.dtype
+        return {
+            "attn": self._attn_params(gen),
+            "mlp": {"wi": dense_init(gen, (cfg.d_model, cfg.d_ff), dt),
+                    "wg": dense_init(gen, (cfg.d_model, cfg.d_ff), dt),
+                    "wo": dense_init(gen, (cfg.d_ff, cfg.d_model), dt)},
+            "ln1": torch.ones(cfg.d_model, dtype=dt, device=dev),
+            "ln2": torch.ones(cfg.d_model, dtype=dt, device=dev),
+        }
+
+    def init(self, seed: int = 0, *, device=None) -> dict:
+        """Random weights from ``torch.Generator(device).manual_seed(seed)``
+        (the reference's init scales; not its ``jax.random`` bits — tests
+        carry the reference's weights over with ``repro_torch.bridge``)."""
+        cfg = self.cfg
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        embed = {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                   cfg.dtype, scale=1.0)}
+        if not cfg.tie_embeddings:
+            embed["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                       cfg.dtype)
+        return {"embed": embed,
+                "layers": [self.init_layer(gen)
+                           for _ in range(cfg.num_layers)],
+                "ln_f": torch.ones(cfg.d_model, dtype=cfg.dtype,
+                                   device=gen.device)}
+
+    # ----- blocks ------------------------------------------------------------
+    def _block_tail(self, lp: dict, x: torch.Tensor, a: torch.Tensor
+                    ) -> torch.Tensor:
+        h = x + a
+        return h + L.mlp_forward(lp["mlp"],
+                                 L.rmsnorm(h, lp["ln2"], self.cfg.norm_eps))
+
+    def block_prefill(self, lp: dict, x: torch.Tensor,
+                      positions: torch.Tensor, rows: int = 0):
+        eps = self.cfg.norm_eps
+        hn = L.by_rows(lambda xc: L.rmsnorm(xc, lp["ln1"], eps), rows, x)
+        a, kv = L.attn_prefill_kv(lp["attn"], hn, positions, self.cfg,
+                                  rows=rows)
+        return L.by_rows(lambda xc, ac: self._block_tail(lp, xc, ac), rows,
+                         x, a), kv
+
+    def block_prefill_prefix(self, lp: dict, x: torch.Tensor,
+                             positions: torch.Tensor, k_prefix, v_prefix,
+                             rows: int = 0):
+        """block_prefill for a prompt suffix whose prefix KV already lives
+        in the page pool (prefix-cached admission)."""
+        eps = self.cfg.norm_eps
+        hn = L.by_rows(lambda xc: L.rmsnorm(xc, lp["ln1"], eps), rows, x)
+        a, kv = L.attn_prefill_prefix_kv(lp["attn"], hn, positions, k_prefix,
+                                         v_prefix, self.cfg, rows=rows)
+        return L.by_rows(lambda xc, ac: self._block_tail(lp, xc, ac), rows,
+                         x, a), kv
+
+    def block_decode_paged(self, lp: dict, x: torch.Tensor, k_pages, v_pages,
+                           pages, cur_pos):
+        """One decode token against this layer's (read-only) page pool;
+        returns the current token's (k, v) for the batched write."""
+        a, k0, v0 = L.attn_decode_paged(
+            lp["attn"], L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps), k_pages,
+            v_pages, pages, cur_pos, self.cfg)
+        return self._block_tail(lp, x, a), k0, v0
+
+    # ----- block-pool paged KV cache ----------------------------------------
+    def supports_paged_kv(self) -> bool:
+        """Block-pool KV covers full causal attention."""
+        return self.cfg.sliding_window == 0
+
+    def init_paged_cache(self, num_pages: int, page_size: int | None = None,
+                         *, device=None) -> dict:
+        """Stacked page pools, (L, P, page, Hkv, hd).  Page 0 is the null
+        page (never allocated; absorbs idle-slot writes)."""
+        cfg = self.cfg
+        if not self.supports_paged_kv():
+            raise ValueError("paged KV cache requires sliding_window == 0")
+        shape = (cfg.num_layers, num_pages, page_size or cfg.page_size,
+                 cfg.padded_kv_heads, cfg.head_dim)
+        dev = resolve_device(device)
+        dt = cfg.kv_pool_dtype()
+        return {"k_pages": torch.zeros(shape, dtype=dt, device=dev),
+                "v_pages": torch.zeros(shape, dtype=dt, device=dev)}
+
+    def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        x = L.rmsnorm(x[:, -1:], params["ln_f"], self.cfg.norm_eps)
+        return L.lm_head(params["embed"], x, self.cfg)
+
+    def prefill_paged(self, params: dict, tokens: torch.Tensor, cache: dict,
+                      pages: torch.Tensor):
+        """Prefill the prompt straight into freshly allocated pages.
+
+        tokens: (B, S); pages: (B, n) page ids with n * page >= S.  The
+        whole prompt's KV lands in the pools with ONE scatter per pool.
+        Returns (last-position logits (B, 1, V), cache)."""
+        x = L.embed_lookup(params["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        rows = cache["k_pages"].shape[2]
+        ks, vs = [], []
+        for lp in params["layers"]:
+            x, (k, v) = self.block_prefill(lp, x, positions, rows)
+            ks.append(k)
+            vs.append(v)
+        cache = _scatter_pages(cache, pages, torch.stack(ks), torch.stack(vs))
+        return self._logits(params, x), cache
+
+    def prefill_paged_prefix(self, params: dict, tokens: torch.Tensor,
+                             cache: dict, prefix_pages: torch.Tensor,
+                             pages: torch.Tensor):
+        """Prefill only the prompt SUFFIX against a pool-resident shared
+        prefix (prefix-cached admission).
+
+        tokens: (B, S_new) suffix tokens starting at position
+        ``prefix_pages.shape[1] * page``; prefix_pages: (B, n_pre) shared
+        page ids, read and never written; pages: (B, n_new) fresh pages
+        for the suffix KV.  The suffix hidden states, hence the logits,
+        are bit-identical to a full unshared :meth:`prefill_paged`.
+        Returns (last-position logits, cache)."""
+        x = L.embed_lookup(params["embed"], tokens)
+        b, seq = x.shape[:2]
+        page = cache["k_pages"].shape[2]
+        prefix_len = prefix_pages.shape[1] * page
+        positions = prefix_len + torch.arange(seq, device=x.device)
+        hkv, hd = self.cfg.padded_kv_heads, self.cfg.head_dim
+        ks, vs = [], []
+        for i, lp in enumerate(params["layers"]):
+            kpre = take_pages(cache["k_pages"][i], prefix_pages).reshape(
+                b, prefix_len, hkv, hd)
+            vpre = take_pages(cache["v_pages"][i], prefix_pages).reshape(
+                b, prefix_len, hkv, hd)
+            x, (k, v) = self.block_prefill_prefix(lp, x, positions, kpre,
+                                                  vpre, page)
+            ks.append(k)
+            vs.append(v)
+        cache = _scatter_pages(cache, pages, torch.stack(ks), torch.stack(vs))
+        return self._logits(params, x), cache
+
+    def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
+                    cur_pos: torch.Tensor, pages: torch.Tensor):
+        """tokens: (B, 1); cur_pos: (B,) int32 absolute position being
+        written; pages: (B, n_pages) int32 block-pool page table."""
+        x = L.embed_lookup(params["embed"], tokens)
+        x, cache = self._decode_pool(params, x, cache, cur_pos, pages)
+        x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        return L.lm_head(params["embed"], x, self.cfg), cache
+
+    def _decode_pool(self, params: dict, x: torch.Tensor, cache: dict,
+                     cur_pos: torch.Tensor, pages: torch.Tensor):
+        """Paged decode: attention reads only the mapped pages, and the new
+        token's KV lands with ONE batched scatter per pool over every
+        layer and slot after the (read-only) layer loop."""
+        page = cache["k_pages"].shape[2]
+        n_pages = pages.shape[1]
+        pi = cur_pos.long() // page
+        # writes past the mapped table (a finished slot re-feeding its
+        # frozen position) are redirected to the null page 0 — never into
+        # a live page of this or any other sequence
+        mapped = pages.gather(1, pi.clamp(max=n_pages - 1)[:, None])[:, 0]
+        pids = torch.where(pi < n_pages, mapped.long(),
+                           torch.zeros_like(pi))
+        slots = cur_pos.long() % page
+        ks, vs = [], []
+        for i, lp in enumerate(params["layers"]):
+            x, k0, v0 = self.block_decode_paged(
+                lp, x, cache["k_pages"][i], cache["v_pages"][i], pages,
+                cur_pos)
+            ks.append(k0)
+            vs.append(v0)
+        for name, new in (("k_pages", ks), ("v_pages", vs)):
+            pool = cache[name]
+            pool[:, pids, slots] = torch.stack(new).to(pool.dtype)
+        return x, cache
+
+
+def vocab_mask_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mask padded vocabulary columns to NEG_INF."""
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(cols < vocab, logits,
+                       torch.full_like(logits, L.NEG_INF))
+
+
+def sample_tokens(logits: torch.Tensor, vocab: int,
+                  temperature: float = 0.0) -> torch.Tensor:
+    """logits: (B, 1, V) -> (B, 1) int64 token ids, greedy.  Sampling at
+    temperature > 0 needs a torch threefry to match ``jax.random`` and is
+    not ported yet."""
+    if temperature > 0.0:
+        raise ValueError("temperature > 0 is not supported by the port yet "
+                         "(greedy decoding only)")
+    return vocab_mask_logits(logits, vocab).float().argmax(dim=-1)
+
+
+def decode_loop(model, params: dict, cache: dict, state: DecodeState, *,
+                num_steps: int, temperature: float = 0.0,
+                eos_id: int | None = None):
+    """Fused multi-step decode: ``num_steps`` tokens with no host sync.
+
+    Per-slot ``active``/``remaining`` masks (and EOS) turn finished
+    sequences into no-ops: their fed token and write position freeze, so
+    a drained slot neither advances nor perturbs live neighbours.  Every
+    decision stays on the device.  Returns ``(tokens (B, num_steps),
+    valid (B, num_steps), nonfinite (B, num_steps), state)``; ``nonfinite``
+    flags emitting slots whose logits held NaN/inf.  The pools in
+    ``cache`` are updated in place."""
+    if temperature > 0.0:
+        raise ValueError("temperature > 0 is not supported by the port yet "
+                         "(greedy decoding only)")
+    vocab = model.cfg.vocab
+    st = state
+    toks, valid, bad = [], [], []
+    for _ in range(num_steps):
+        logits, cache = model.decode_step(params, st.tokens, cache, st.pos,
+                                          st.pages)
+        nxt = sample_tokens(logits, vocab)
+        nxt = torch.where(st.active[:, None], nxt, st.tokens)
+        emitted = st.active
+        pos = st.pos + emitted.to(st.pos.dtype)
+        remaining = st.remaining - emitted.to(st.remaining.dtype)
+        active = st.active & (remaining > 0)
+        if eos_id is not None:
+            active = active & (nxt[:, 0] != eos_id)
+        toks.append(nxt[:, 0])
+        valid.append(emitted)
+        bad.append(~torch.isfinite(logits).all(dim=-1).all(dim=-1) & emitted)
+        st = DecodeState(tokens=nxt, pos=pos, active=active,
+                         remaining=remaining, pages=st.pages)
+    return (torch.stack(toks, dim=1), torch.stack(valid, dim=1),
+            torch.stack(bad, dim=1), st)
