@@ -8,20 +8,25 @@ Phases (all by default):
 1. print the card (``nvidia-smi`` name and power limit) and build every
    CUDA kernel of the port from ``src/repro_torch/kernels/csrc``;
 2. ``kernels``: run each kernel against its plain PyTorch version on the
-   card at the serving path's shapes, within a stated tolerance, and time
-   the kernel, the plain version and one library call (timed only) with
-   CUDA events over inputs rotated past the 50 MB L2;
+   card at the serving path's shapes, within a stated tolerance — K1 over
+   bf16/fp32 pools and, scaled, over int8 and fp8_e4m3 pools; K2 — and
+   time the kernel, the plain version and one library call (timed only)
+   with CUDA events over inputs rotated past the 50 MB L2;
 3. ``parity``: serve a smoke-size fp32 model on the card and on the CPU
-   (plain versions) and hold their tokens and logits together;
+   (plain versions) and hold their tokens and logits together, greedy
+   and, over int8 pools, at temperature 0.7;
 4. ``serve``: serve Qwen2.5-14B at its published widths (tp=1, random bf16
-   weights from a seeded torch.Generator) through ``BatchedServer`` —
-   four 8-token prompts plus a prefix-sharing pair, 64 new tokens each,
-   block 32, max_seq 384, page 16 — with kernel launch counts reset just
-   before and read just after; then serve it again without prefix caching
-   and require the same tokens;
-5. ``profile`` (only when named in ``--phases``, with ``serve``): a
-   separate traced serving run, printing device time by kernel and the
-   device's busy share.
+   weights from a seeded torch.Generator, made once) through
+   ``BatchedServer`` — four 8-token prompts plus a prefix-sharing pair, 64
+   new tokens each, block 32, max_seq 384, page 16 — over bf16, int8 and
+   fp8_e4m3 pools, each greedy and at temperature 0.7 (seed 0), with
+   kernel launch counts reset just before each timed run and read just
+   after (K1 must run once per layer per decode step); each
+   configuration is served again without prefix caching and once more
+   with it, and all three runs must emit the same tokens;
+5. ``profile`` (only when named in ``--phases``, with ``serve``): separate
+   traced serving runs (bf16 greedy, int8 at temperature 0.7), printing
+   device time by kernel and the device's busy share.
 
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -80,20 +85,28 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_paged(torch, results: dict) -> None:
+def check_paged(torch, card: str, results: dict, kv: str | None = None
+                ) -> None:
+    """K1 against its plain version.  ``kv`` None: bf16/fp32 pools in q's
+    dtype; "int8" / "fp8_e4m3": the scaled variant, one-byte pools with
+    bf16 scales made by the port's quantizer, q and extra_kv in bf16 or
+    fp32."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                         gather_scales,
                                                          paged_attention_ref)
+    from repro_torch.models.base import ModelConfig
+    from repro_torch.models.layers import kv_dequantize, kv_pool_quantize
     B, HKV, G, D, PAGE, N = 4, 8, 5, 128, 16, 24
     P = 1 + B * N
     lens_l = [0, 71, 135, 383]    # an idle slot, and up to max_seq - 1
     gen = torch.Generator(device="cuda").manual_seed(1)
+    name = "paged_attention" if kv is None else f"paged_attention_{kv}"
 
     def inputs(dtype):
-        kp = torch.randn((P, PAGE, HKV, D), generator=gen, device="cuda",
-                         dtype=torch.float32).to(dtype)
-        vp = torch.randn((P, PAGE, HKV, D), generator=gen, device="cuda",
-                         dtype=torch.float32).to(dtype)
+        """(q, k_pages, v_pages, table, lens, k0, v0, k_scales, v_scales)."""
+        kp = torch.randn((P, PAGE, HKV, D), generator=gen, device="cuda")
+        vp = torch.randn((P, PAGE, HKV, D), generator=gen, device="cuda")
         q = (torch.randn((B, HKV, G, D), generator=gen, device="cuda") * 0.3
              ).to(dtype)
         k0 = (torch.randn((B, HKV, D), generator=gen, device="cuda") * 0.3
@@ -103,42 +116,58 @@ def check_paged(torch, results: dict) -> None:
         table = perm.reshape(B, N).to(torch.int32)
         table[0] = 0                  # the idle slot maps the null page
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-        return q, kp, vp, table, lens, k0, v0
+        if kv is None:
+            return q, kp.to(dtype), vp.to(dtype), table, lens, k0, v0, None, \
+                None
+        qdt, qmax = ModelConfig.KV_DTYPES[kv]
+        (kq, ks), (vq, vs) = (kv_pool_quantize(x, qdt, qmax) for x in (kp, vp))
+        return q, kq, vq, table, lens, k0, v0, ks, vs
+
+    def kernel(q, kp, vp, t, l, a, b, ks, vs, extra=True):
+        return K.paged_attention(q, kp, vp, t, l,
+                                 extra_kv=(a, b) if extra else None,
+                                 k_scales=ks, v_scales=vs)
+
+    def plain(q, kp, vp, t, l, a, b, ks, vs, extra=True):
+        return paged_attention_ref(q, kp, vp, t, l,
+                                   extra_kv=(a, b) if extra else None,
+                                   k_scales=ks, v_scales=vs)
 
     errs = {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        q, kp, vp, table, lens, k0, v0 = inputs(dtype)
+        args = inputs(dtype)
         for extra in (True, False):
-            kv = (k0, v0) if extra else None
-            got = K.paged_attention(q, kp, vp, table, lens, extra_kv=kv)
-            want = paged_attention_ref(q, kp, vp, table, lens, extra_kv=kv)
+            got = kernel(*args, extra=extra)
+            want = plain(*args, extra=extra)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            name = f"{str(dtype)[6:]} extra={extra}"
-            log(f"K1 paged_attention {name}: max_abs_err {err:.3e} "
-                f"(bound {tol:g})")
+            case = f"{name} q={str(dtype)[6:]} extra={extra}"
+            log(f"K1 {case}: max_abs_err {err:.3e} (bound {tol:g})")
             if not err <= tol:
-                raise AssertionError(f"K1 {name}: {err} > {tol}")
+                raise AssertionError(f"K1 {case}: {err} > {tol}")
             errs[dtype] = max(errs.get(dtype, 0.0), err)
-            if extra and dtype == torch.float32:
-                # a seq_len == 0 slot comes out as exactly its v0
-                if not torch.equal(got[0], v0[0][:, None, :].expand(HKV, G, D)):
-                    raise AssertionError("K1: seq_len 0 slot is not v0")
+            # a seq_len == 0 slot comes out as exactly its v0
+            v0 = args[6]
+            if extra and not torch.equal(
+                    got[0], v0[0][:, None, :].expand(HKV, G, D)):
+                raise AssertionError(f"K1 {case}: seq_len 0 slot is not v0")
 
     # timing at the bf16 decode shape, inputs rotated past the L2
     sets = [inputs(torch.bfloat16) for _ in range(ROTATE)]
-    ms = time_ms(torch, lambda q, kp, vp, t, l, a, b: K.paged_attention(
-        q, kp, vp, t, l, extra_kv=(a, b)), sets)
-    plain_ms = time_ms(torch, lambda q, kp, vp, t, l, a, b:
-                       paged_attention_ref(q, kp, vp, t, l, extra_kv=(a, b)),
-                       sets, iters=20)
+    ms = time_ms(torch, kernel, sets)
+    plain_ms = time_ms(torch, plain, sets, iters=20)
     # library yardstick: SDPA over the gathered KV (+ the current column),
-    # GQA expanded beforehand; only the SDPA call is timed
+    # dequantized to bf16 and GQA-expanded beforehand; only the SDPA call
+    # is timed, so it leaves the dequantization out
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_sets = []
-    for q, kp, vp, t, l, a, b in sets:
-        kk = torch.cat([gather_pages(kp, t), a[:, :, None]], dim=2)
-        vv = torch.cat([gather_pages(vp, t), b[:, :, None]], dim=2)
+    for q, kp, vp, t, l, a, b, ks, vs in sets:
+        kk, vv = gather_pages(kp, t), gather_pages(vp, t)
+        if kv is not None:
+            kk = kv_dequantize(kk, gather_scales(ks, t), torch.bfloat16)
+            vv = kv_dequantize(vv, gather_scales(vs, t), torch.bfloat16)
+        kk = torch.cat([kk, a[:, :, None]], dim=2)
+        vv = torch.cat([vv, b[:, :, None]], dim=2)
         S = kk.shape[2]
         mask = torch.arange(S, device="cuda")[None, :] < l[:, None].long()
         mask[:, -1] = True
@@ -149,22 +178,24 @@ def check_paged(torch, results: dict) -> None:
     lib_ms = time_ms(torch, lambda q, k, v, m: sdpa(q, k, v, attn_mask=m),
                      lib_sets)
     live = sum(lens_l)
-    el = 2                                   # bf16 bytes
-    nbytes = (2 * B * HKV * G * D * el                 # q in, out
+    el = 2 if kv is None else 1              # pool bytes per element
+    nbytes = (2 * B * HKV * G * D * 2                  # q in, out (bf16)
               + 2 * live * HKV * D * el                # live K and V rows
-              + 2 * B * HKV * D * el                   # extra k0, v0
+              + (0 if kv is None else 2 * live * HKV * 2)   # their scales
+              + 2 * B * HKV * D * 2                    # extra k0, v0
               + B * N * 4 + B * 4)                     # table, seq_lens
     flops = 4 * sum(n + 1 for n in lens_l) * HKV * G * D
     b_ms, b_by = bound(nbytes, flops)
-    log(f"K1 paged_attention bf16 B={B} Hkv={HKV} G={G} d={D} page={PAGE} "
-        f"n={N} lens={lens_l}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-    results["paged_attention"] = dict(
+    log(f"K1 {name} q=bf16 B={B} Hkv={HKV} G={G} d={D} page={PAGE} "
+        f"n={N} lens={lens_l} [{card}]: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by})")
+    results[name] = dict(
         max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-def check_flash(torch, results: dict) -> None:
+def check_flash(torch, card: str, results: dict) -> None:
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     HQ, HKV, D = 40, 8, 128
@@ -229,8 +260,8 @@ def check_flash(torch, results: dict) -> None:
         flops = 4 * D * HQ * sq * (sq + 1) // 2             # causal pairs
         b_ms, b_by = bound(nbytes, flops)
         log(f"K2 flash_attention bf16 B=1 Sq=Sk={sq} Hq={HQ} Hkv={HKV} "
-            f"d={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+            f"d={D} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
         if sq == 64:   # the serving run's largest admission
             results["flash_attention"] = dict(
                 max_abs_err=errs[64], ms=ms, plain_ms=plain_ms,
@@ -266,16 +297,16 @@ def serve(server, reqs_prompts, new_tokens: int):
 
 def check_parity(torch) -> None:
     """Smoke-size fp32 model: the card (kernels) against the CPU (plain
-    versions), same weights and prompts."""
+    versions), same weights and prompts; greedy over bf16-width pools,
+    and sampled at temperature 0.7 over int8 pools."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import DenseLM
     from repro_torch.runtime.serve import BatchedServer
-    cfg = get_config("qwen2.5-14b").reduced(dtype=torch.float32)
-    cfg = dataclasses.replace(cfg, head_dim=128, d_model=512, num_heads=10,
-                              num_kv_heads=2)
-    model = DenseLM(cfg)
-    cpu_params = model.init(0, device="cpu")
+    base = get_config("qwen2.5-14b").reduced(dtype=torch.float32)
+    base = dataclasses.replace(base, head_dim=128, d_model=512, num_heads=10,
+                               num_kv_heads=2)
+    cpu_params = DenseLM(base).init(0, device="cpu")
 
     def to(tree, dev):
         if isinstance(tree, dict):
@@ -284,43 +315,59 @@ def check_parity(torch) -> None:
             return [to(v, dev) for v in tree]
         return tree.to(dev)
 
-    outs = {}
-    for dev, params in (("cpu", cpu_params), ("cuda", to(cpu_params, "cuda"))):
-        server = BatchedServer(model, params, batch_size=4, max_seq=128,
-                               block_size=8, device=dev)
-        reqs = [server.submit(p, max_new_tokens=16)
-                for p in prompts(cfg.vocab, 3)]
-        server.run_once()
-        outs[dev] = [r.output for r in reqs]
-        if dev == "cuda":
-            launches = server.stats["kernel_launches"]
-        toks = torch.from_numpy(prompts(cfg.vocab, 3)[4][None]).to(dev)
-        pages = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dev)
-        logits, _ = model.prefill_paged(
-            params, toks, model.init_paged_cache(8, device=dev), pages)
-        outs[dev + "_logits"] = logits.float().cpu()
-    err = (outs["cpu_logits"] - outs["cuda_logits"]).abs().max().item()
-    first8 = all(a[:8] == b[:8] for a, b in zip(outs["cpu"], outs["cuda"]))
-    log(f"parity (smoke fp32, card vs CPU): prefill logits max_abs_err "
-        f"{err:.3e} (bound 1e-3), greedy first-8 tokens agree: {first8}, "
-        f"launches {launches}")
-    if not (err <= 1e-3 and first8 and min(launches.values()) > 0):
-        raise AssertionError("card and CPU disagree on the smoke model")
+    # int8: a KV element whose fp32 value lies within the two devices'
+    # summation-order difference of a rounding boundary lands one int8
+    # quantum apart, which moves the logits by up to ~1e-3
+    for kv, temperature, tol in ((None, 0.0, 1e-3), ("int8", 0.7, 1e-2)):
+        model = DenseLM(dataclasses.replace(base, kv_dtype=kv))
+        kernel = "paged_attention" + ("" if kv is None else f"_{kv}")
+        outs = {}
+        for dev, params in (("cpu", cpu_params),
+                            ("cuda", to(cpu_params, "cuda"))):
+            server = BatchedServer(model, params, batch_size=4, max_seq=128,
+                                   block_size=8, temperature=temperature,
+                                   seed=1, device=dev)
+            reqs = [server.submit(p, max_new_tokens=16)
+                    for p in prompts(base.vocab, 3)]
+            server.run_once()
+            outs[dev] = [r.output for r in reqs]
+            if dev == "cuda":
+                launches = server.stats["kernel_launches"]
+            toks = torch.from_numpy(prompts(base.vocab, 3)[4][None]).to(dev)
+            pages = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dev)
+            logits, _ = model.prefill_paged(
+                params, toks, model.init_paged_cache(8, device=dev), pages)
+            outs[dev + "_logits"] = logits.float().cpu()
+        err = (outs["cpu_logits"] - outs["cuda_logits"]).abs().max().item()
+        first8 = all(a[:8] == b[:8] for a, b in zip(outs["cpu"],
+                                                    outs["cuda"]))
+        log(f"parity (smoke fp32, kv_dtype={kv}, temperature {temperature}, "
+            f"card vs CPU): prefill logits max_abs_err {err:.3e} (bound "
+            f"{tol:g}), first-8 tokens agree: {first8}, launches {launches}")
+        if not (err <= tol and first8 and launches[kernel] > 0
+                and launches["flash_attention"] > 0):
+            raise AssertionError(f"card and CPU disagree on the smoke model "
+                                 f"(kv_dtype={kv})")
+
+
+#: the serving runs: (kv_dtype, temperature)
+SERVE_RUNS = ((None, 0.0), (None, 0.7), ("int8", 0.0), ("int8", 0.7),
+              ("fp8_e4m3", 0.0), ("fp8_e4m3", 0.7))
 
 
 def check_serve(torch, card: str, layers: int, profile: bool) -> dict:
+    """Serve Qwen2.5-14B (one set of weights) over bf16, int8 and fp8
+    pools, greedy and at temperature 0.7.  Returns kernel name -> its
+    launches in the run of its own path (the greedy one)."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import DenseLM
-    from repro_torch.runtime.serve import BatchedServer
     cfg = dataclasses.replace(get_config("qwen2.5-14b"), tp=1,
                               num_layers=layers)
     if layers != 48:
         log(f"DEPTH CUT: serving {layers} of Qwen2.5-14B's 48 layers")
-    model = DenseLM(cfg)
     t0 = time.perf_counter()
-    params = model.init(0, device="cuda")
+    params = DenseLM(cfg).init(0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"serve: {cfg.name} tp=1 layers={layers} d={cfg.d_model} "
@@ -328,41 +375,89 @@ def check_serve(torch, card: str, layers: int, profile: bool) -> dict:
         f"vocab={cfg.vocab}: {n_params / 1e9:.3f} B params bf16, init "
         f"{time.perf_counter() - t0:.1f} s")
     work = prompts(cfg.vocab, 0)
-    kw = dict(batch_size=4, max_seq=384, block_size=32, page_size=16)
+    kw = dict(batch_size=4, max_seq=384, block_size=32, page_size=16,
+              seed=0)
+    launches, per_page = {}, {}
+    for kv, temperature in SERVE_RUNS:
+        model = DenseLM(dataclasses.replace(cfg, kv_dtype=kv))
+        got = serve_config(torch, card, model, params, work,
+                           dict(kw, temperature=temperature))
+        per_page[kv] = got["bytes_per_page"]
+        if temperature == 0.0:
+            launches.update(got["launches"])
+    for kv in ("int8", "fp8_e4m3"):
+        if per_page[kv] * 256 != per_page[None] * 130:
+            raise AssertionError(f"{kv} KV bytes per page {per_page[kv]} is "
+                                 f"not 130/256 of bf16's {per_page[None]}")
+    log(f"serve: KV bytes per page bf16 {per_page[None]}, int8 "
+        f"{per_page['int8']}, fp8_e4m3 {per_page['fp8_e4m3']} (130/256)")
+    if profile:
+        for kv, temperature in ((None, 0.0), ("int8", 0.7)):
+            profile_serve(torch, DenseLM(dataclasses.replace(
+                cfg, kv_dtype=kv)), params, dict(kw, temperature=temperature),
+                work[:4], card)
+    return launches
 
+
+def serve_config(torch, card: str, model, params, work, kw) -> dict:
+    """One serving configuration, three runs of the workload: prefix
+    cache on (timed, kernel counts reset just before and read just
+    after), off, and on again; all three must emit the same tokens."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.serve import BatchedServer
+    kv, temperature = model.cfg.kv_dtype, kw["temperature"]
+    kernel = "paged_attention" + ("" if kv is None else f"_{kv}")
+    tag = f"kv_dtype={kv} temperature={temperature}"
     torch.cuda.reset_peak_memory_stats()
     server = BatchedServer(model, params, prefix_cache=True, **kw)
     reset_launch_counts()
     reqs, secs = serve(server, work, 64)
     launches = launch_counts()
     tokens = sum(len(r.output) for r in reqs)
-    peak = torch.cuda.max_memory_allocated()
     st = server.stats
-    log(f"serve (prefix cache on) [{card}]: {tokens} tokens in {secs:.3f} s "
-        f"= {tokens / secs:.1f} tok/s ({1e3 * secs / st['steps']:.2f} ms "
-        f"per decode step, admissions included), blocks {st['blocks']}, "
-        f"prefix hits "
-        f"{st['prefix_hits']} ({st['prefix_shared_pages']} pages), "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB, launches {launches}")
+    # KV bytes of one page in use, scales included
+    server.manager.ensure(0, 1)
+    per_page = server.kv_bytes_in_use() // server.manager.pages_in_use
+    server.manager.free_slot(0)
+    log(f"serve {tag} [{card}]: {tokens} tokens in {secs:.3f} s = "
+        f"{tokens / secs:.1f} tok/s ({1e3 * secs / st['steps']:.2f} ms per "
+        f"decode step, admissions included), steps {st['steps']}, prefix "
+        f"hits {st['prefix_hits']} ({st['prefix_shared_pages']} pages), "
+        f"kv_bytes_in_use/page {per_page}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{launches}")
     if any(len(r.output) != 64 for r in reqs):
-        raise AssertionError("a request did not emit its 64 tokens")
+        raise AssertionError(f"{tag}: a request did not emit its 64 tokens")
     if st["nonfinite_logits"]:
-        raise AssertionError(f"{st['nonfinite_logits']} non-finite logits")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+        raise AssertionError(f"{tag}: {st['nonfinite_logits']} non-finite "
+                             f"logits")
+    if launches[kernel] != model.cfg.num_layers * st["steps"]:
+        raise AssertionError(f"{tag}: {launches[kernel]} K1 launches for "
+                             f"{st['steps']} decode steps, not one a layer")
+    others = {k: n for k, n in launches.items()
+              if k not in (kernel, "flash_attention") and n}
+    if launches["flash_attention"] < 1 or others:
+        raise AssertionError(f"{tag}: kernel launches {launches}")
     if st["prefix_hits"] < 1:
-        raise AssertionError("the prefix pair did not share pages")
+        raise AssertionError(f"{tag}: the prefix pair did not share pages")
 
-    plain = BatchedServer(model, params, prefix_cache=False, **kw)
-    reqs2, secs2 = serve(plain, work, 64)
-    log(f"serve (prefix cache off) [{card}]: {tokens} tokens in "
-        f"{secs2:.3f} s = {tokens / secs2:.1f} tok/s")
-    if [r.output for r in reqs] != [r.output for r in reqs2]:
-        raise AssertionError("prefix-shared tokens differ from unshared")
-    log("serve: prefix-shared tokens equal unshared tokens")
-    if profile:
-        profile_serve(torch, model, params, kw, work[:4], card)
-    return launches
+    unshared, secs2 = serve(BatchedServer(model, params, prefix_cache=False,
+                                          **kw), work, 64)
+    again, secs3 = serve(BatchedServer(model, params, prefix_cache=True,
+                                       **kw), work, 64)
+    log(f"serve {tag}: prefix cache off {tokens / secs2:.1f} tok/s, on "
+        f"again {tokens / secs3:.1f} tok/s")
+    if [r.output for r in reqs] != [r.output for r in unshared]:
+        raise AssertionError(f"{tag}: prefix-shared tokens differ from "
+                             f"unshared")
+    if [r.output for r in reqs] != [r.output for r in again]:
+        raise AssertionError(f"{tag}: a second run with the same seed gave "
+                             f"other tokens")
+    log(f"serve {tag}: prefix-shared tokens equal unshared tokens and a "
+        f"second run's")
+    return {"launches": {kernel: launches[kernel],
+                         "flash_attention": launches["flash_attention"]},
+            "bytes_per_page": per_page}
 
 
 def profile_serve(torch, model, params, kw, work, card) -> None:
@@ -386,9 +481,10 @@ def profile_serve(torch, model, params, kw, work, card) -> None:
         if dev > 0:
             rows.append((dev, ev.key, ev.count))
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"profile [{card}]: {server.stats['steps']} decode steps + 4 "
-        f"admissions in {secs:.3f} s wall; device busy {busy:.3f} s "
-        f"({100 * busy / secs:.1f}%)")
+    log(f"profile kv_dtype={model.cfg.kv_dtype} temperature="
+        f"{kw['temperature']} [{card}]: {server.stats['steps']} decode "
+        f"steps + 4 admissions in {secs:.3f} s wall; device busy "
+        f"{busy:.3f} s ({100 * busy / secs:.1f}%)")
     for dev, key, count in sorted(rows, reverse=True)[:14]:
         log(f"  {dev / 1e3:10.2f} ms  {100 * dev / 1e6 / busy:5.1f}%  "
             f"x{count:<6d} {key[:90]}")
@@ -441,8 +537,9 @@ def main() -> int:
 
     results: dict = {}
     if "kernels" in phases:
-        check_paged(torch, results)
-        check_flash(torch, results)
+        for kv in (None, "int8", "fp8_e4m3"):
+            check_paged(torch, card, results, kv)
+        check_flash(torch, card, results)
     if "parity" in phases:
         check_parity(torch)
     launches = None
@@ -453,12 +550,13 @@ def main() -> int:
     if results and launches is not None:
         kernels = []
         for mod in (pa_kernel, fa_kernel):
-            name = mod.launches.name
-            kernels.append({"name": name, "route": "cuda",
-                            "source": f"src/repro_torch/kernels/csrc/"
-                                      f"{mod.SOURCE}",
-                            "replaces": mod.REPLACES,
-                            "launches": launches[name], **results[name]})
+            for counter in mod.COUNTERS:
+                name = counter.name
+                kernels.append({"name": name, "route": "cuda",
+                                "source": f"src/repro_torch/kernels/csrc/"
+                                          f"{mod.SOURCE}",
+                                "replaces": mod.REPLACES,
+                                "launches": launches[name], **results[name]})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

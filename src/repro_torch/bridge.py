@@ -3,9 +3,9 @@
 The reference (``repro``) stacks its layers on a leading L axis and keeps
 parameters as nested dicts of arrays.  The caller converts those arrays
 to numpy (``np.asarray`` on each leaf) and hands the numpy tree here; the
-bridge itself imports neither ``jax`` nor ``ml_dtypes``.  bfloat16 arrays
-cross through a ``uint16`` view, because ``torch.from_numpy`` does not
-know the numpy bfloat16 extension type.
+bridge itself imports neither ``jax`` nor ``ml_dtypes``.  bfloat16 and
+float8_e4m3fn arrays cross through a ``uint16``/``uint8`` view, because
+``torch.from_numpy`` does not know numpy's extension types.
 """
 from __future__ import annotations
 
@@ -19,15 +19,20 @@ from repro_torch.models.base import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+#: numpy extension types torch.from_numpy does not know: crossed bit for
+#: bit through an unsigned view of the same width
+_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
+          "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 
 def to_tensor(a: np.ndarray, device: torch.device | str = "cpu"
               ) -> torch.Tensor:
-    """One numpy leaf -> tensor, bit for bit (bf16 via a uint16 view).
+    """One numpy leaf -> tensor, bit for bit (bf16 and fp8 via views).
     The tensor owns a copy: the source array may be read-only."""
     a = np.array(a, copy=True, order="C")
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name in _VIEWS:
+        view, dt = _VIEWS[a.dtype.name]
+        t = torch.from_numpy(a.view(view)).view(dt)
     else:
         t = torch.from_numpy(a)
     return t.to(device)
@@ -42,9 +47,22 @@ def torch_dtype(dtype) -> torch.dtype:
     return _DTYPES[name]
 
 
+def key_from_reference(key: np.ndarray, device: torch.device | str = "cpu"
+                       ) -> torch.Tensor:
+    """A legacy ``jax.random`` key as numpy (uint32 words, shape
+    (..., 2)) -> the port's key (:mod:`repro_torch.prng`): the same words
+    in an int64 tensor."""
+    a = np.asarray(key)
+    if a.dtype != np.uint32 or a.shape[-1:] != (2,):
+        raise ValueError(f"expected uint32 key words of shape (..., 2), got "
+                         f"{a.dtype} {a.shape}")
+    return torch.from_numpy(a.astype(np.int64)).to(device)
+
+
 def config_from_reference(ref_cfg) -> ModelConfig:
     """The port's config for a reference ``ModelConfig``: every field the
-    port has, copied; ``dtype`` mapped to torch."""
+    port has, copied (``kv_dtype`` included); ``dtype`` mapped to
+    torch."""
     kw = {}
     for f in dataclasses.fields(ModelConfig):
         if not hasattr(ref_cfg, f.name):

@@ -16,14 +16,19 @@ def _kernel_modules():
     return (fa, pa)
 
 
+def _counters():
+    return [c for m in _kernel_modules() for c in m.COUNTERS]
+
+
 def launch_counts() -> dict[str, int]:
-    """Kernel name -> launches since the last :func:`reset_launch_counts`."""
-    return {m.launches.name: m.launches.count for m in _kernel_modules()}
+    """Kernel (variant) name -> launches since the last
+    :func:`reset_launch_counts`."""
+    return {c.name: c.count for c in _counters()}
 
 
 def reset_launch_counts() -> None:
-    for m in _kernel_modules():
-        m.launches.count = 0
+    for c in _counters():
+        c.count = 0
 
 
 def build_all() -> dict[str, str]:

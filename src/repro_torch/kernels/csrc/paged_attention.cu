@@ -26,11 +26,23 @@
 // Page ids are clamped into the pool so a bad table cannot read out of
 // bounds.  Simple and right first: no cp.async/TMA pipeline, fp32 CUDA-core
 // dots; making it fast is later work.
+//
+// Scaled variant (the TPU kernel's `has_scales` branch): the pool element
+// type KV is int8 or fp8_e4m3 while q, extra_kv and out stay in T (bf16 or
+// fp32).  Each staged element is widened to fp32 and multiplied by its bf16
+// (page, slot, kv-head) scale, so full-precision KV exists only in the
+// shared-memory tile, and p meets fp32 V unrounded.  One-byte pools halve
+// the bytes of the bound; the tiles are staged as fp32 as before, so the
+// shared-memory budget does not change.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -40,6 +52,8 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -53,17 +67,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// T: q / extra_kv / out; KV: pool elements (T itself, or int8 / fp8_e4m3
+// with bf16 scales)
+template <typename T, typename KV>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const T* __restrict__ q,          // (B, Hkv, G, D)
-    const T* __restrict__ k_pages,    // (P, page, Hkv, D)
-    const T* __restrict__ v_pages,    // (P, page, Hkv, D)
+    const KV* __restrict__ k_pages,   // (P, page, Hkv, D)
+    const KV* __restrict__ v_pages,   // (P, page, Hkv, D)
+    const __nv_bfloat16* __restrict__ k_scales,  // (P, page, Hkv), scaled only
+    const __nv_bfloat16* __restrict__ v_scales,
     const int* __restrict__ table,    // (B, n_pages)
     const int* __restrict__ seq_lens, // (B,)
     const T* __restrict__ k0,         // (B, Hkv, D) or null
     const T* __restrict__ v0,         // (B, Hkv, D) or null
     T* __restrict__ out,              // (B, Hkv, G, D)
     int Hkv, int G, int D, int P, int page, int n_pages, float scale) {
+  constexpr bool kScaled = !std::is_same<KV, T>::value;
   extern __shared__ float smem[];
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = NT / 32;
@@ -99,12 +118,19 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   for (int pi = 0; pi < n_live; ++pi) {
     int pid = table[(size_t)b * n_pages + pi];
     pid = min(max(pid, 0), P - 1);
-    const T* kp = k_pages + ((size_t)pid * page * Hkv + h) * D;
-    const T* vp = v_pages + ((size_t)pid * page * Hkv + h) * D;
+    const KV* kp = k_pages + ((size_t)pid * page * Hkv + h) * D;
+    const KV* vp = v_pages + ((size_t)pid * page * Hkv + h) * D;
     for (int i = tid; i < page * D; i += NT) {
       const int t = i / D, c = i - t * D;
-      ks[t * (D + 1) + c] = to_f(kp[t * row_stride + c]);
-      vs[i] = to_f(vp[t * row_stride + c]);
+      float kx = to_f(kp[t * row_stride + c]);
+      float vx = to_f(vp[t * row_stride + c]);
+      if constexpr (kScaled) {  // fused dequant by the (pid, t, h) scale
+        const size_t si = ((size_t)pid * page + t) * Hkv + h;
+        kx *= __bfloat162float(k_scales[si]);
+        vx *= __bfloat162float(v_scales[si]);
+      }
+      ks[t * (D + 1) + c] = kx;
+      vs[i] = vx;
     }
     __syncthreads();
     for (int i = tid; i < G * page; i += NT) {
@@ -183,48 +209,79 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* table, const void* seq_lens, const void* k0,
-           const void* v0, void* out, int B, int Hkv, int G, int D, int P,
-           int page, int n_pages, cudaStream_t stream) {
+           const void* k_scales, const void* v_scales, const void* table,
+           const void* seq_lens, const void* k0, const void* v0, void* out,
+           int B, int Hkv, int G, int D, int P, int page, int n_pages,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)G * D + (size_t)page * (D + 1) + (size_t)page * D +
        (size_t)G * page + 3 * (size_t)G);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_decode_kernel<T, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const float scale = (float)(1.0 / sqrt((double)D));
   dim3 grid(Hkv, B);
-  paged_decode_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(table),
-      static_cast<const int*>(seq_lens), static_cast<const T*>(k0),
-      static_cast<const T*>(v0), static_cast<T*>(out), Hkv, G, D, P, page,
-      n_pages, scale);
+  paged_decode_kernel<T, KV><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_pages),
+      static_cast<const KV*>(v_pages),
+      static_cast<const __nv_bfloat16*>(k_scales),
+      static_cast<const __nv_bfloat16*>(v_scales),
+      static_cast<const int*>(table), static_cast<const int*>(seq_lens),
+      static_cast<const T*>(k0), static_cast<const T*>(v0),
+      static_cast<T*>(out), Hkv, G, D, P, page, n_pages, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_pool(int kv_dtype, const void* q, const void* k_pages,
+                const void* v_pages, const void* k_scales,
+                const void* v_scales, const void* table, const void* seq_lens,
+                const void* k0, const void* v0, void* out, int B, int Hkv,
+                int G, int D, int P, int page, int n_pages,
+                cudaStream_t stream) {
+  const bool scaled = k_scales != nullptr && v_scales != nullptr;
+  if (kv_dtype == 0 && !scaled)
+    return launch<T, T>(q, k_pages, v_pages, nullptr, nullptr, table,
+                        seq_lens, k0, v0, out, B, Hkv, G, D, P, page,
+                        n_pages, stream);
+  if (kv_dtype == 1 && scaled)
+    return launch<T, int8_t>(q, k_pages, v_pages, k_scales, v_scales, table,
+                             seq_lens, k0, v0, out, B, Hkv, G, D, P, page,
+                             n_pages, stream);
+  if (kv_dtype == 2 && scaled)
+    return launch<T, __nv_fp8_e4m3>(q, k_pages, v_pages, k_scales, v_scales,
+                                    table, seq_lens, k0, v0, out, B, Hkv, G,
+                                    D, P, page, n_pages, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  k0/v0 null = no extra column.
+// dtype (q, extra_kv, out): 0 = float32, 1 = bfloat16.  kv_dtype (pools):
+// 0 = q's dtype, unscaled; 1 = int8 and 2 = fp8_e4m3, each with bf16
+// k_scales/v_scales (both non-null).  k0/v0 null = no extra column.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* table, const void* seq_lens, const void* k0, const void* v0,
-    void* out, int B, int Hkv, int G, int D, int P, int page, int n_pages,
-    int dtype, void* stream) {
+    const void* k_scales, const void* v_scales, const void* table,
+    const void* seq_lens, const void* k0, const void* v0, void* out, int B,
+    int Hkv, int G, int D, int P, int page, int n_pages, int dtype,
+    int kv_dtype, void* stream) {
   if (G * D > NT * MAX_ACC || page < 1 || page > 32 || D < 32 || D % 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, table, seq_lens, k0, v0, out,
-                         B, Hkv, G, D, P, page, n_pages, s);
+    return launch_pool<float>(kv_dtype, q, k_pages, v_pages, k_scales,
+                              v_scales, table, seq_lens, k0, v0, out, B, Hkv,
+                              G, D, P, page, n_pages, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, table, seq_lens, k0,
-                                 v0, out, B, Hkv, G, D, P, page, n_pages, s);
+    return launch_pool<__nv_bfloat16>(kv_dtype, q, k_pages, v_pages, k_scales,
+                                      v_scales, table, seq_lens, k0, v0, out,
+                                      B, Hkv, G, D, P, page, n_pages, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,7 @@ from repro_torch.kernels import build
 SOURCE = "flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:73"
 launches = build.LaunchCount("flash_attention")
+COUNTERS = (launches,)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)

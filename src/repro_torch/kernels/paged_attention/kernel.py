@@ -12,8 +12,14 @@ from repro_torch.kernels import build
 SOURCE = "paged_attention.cu"
 REPLACES = "src/repro/kernels/paged_attention/kernel.py:107"
 launches = build.LaunchCount("paged_attention")
+#: the scaled variant's counts, one per pool dtype
+launches_scaled = {torch.int8: build.LaunchCount("paged_attention_int8"),
+                   torch.float8_e4m3fn:
+                   build.LaunchCount("paged_attention_fp8_e4m3")}
+COUNTERS = (launches, *launches_scaled.values())
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}   # scaled pools
 _MAX_GD = 128 * 16          # threads per CTA x accumulators per thread
 _fn = None
 
@@ -22,7 +28,7 @@ def _launcher():
     global _fn
     if _fn is None:
         fn = build.load(SOURCE).paged_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -44,14 +50,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_scales: torch.Tensor | None = None) -> torch.Tensor:
     """Launch K1.  q: (B, Hkv, G, d); k/v pages: (P, page, Hkv, d);
     page_table: (B, n) int32; seq_lens: (B,) int32; extra_kv: optional
-    (k0, v0), each (B, Hkv, d).  All contiguous, on one CUDA device.
-    Returns (B, Hkv, G, d) in q's dtype."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "paged kernel: the scaled (int8/fp8) variant is not ported yet")
+    (k0, v0), each (B, Hkv, d); k_scales/v_scales: (P, page, Hkv) bf16,
+    given together, for int8 or fp8_e4m3 pools (the scaled variant).
+    All contiguous, on one CUDA device.  Returns (B, Hkv, G, d) in q's
+    dtype."""
+    scaled = k_scales is not None
+    _need(scaled == (v_scales is not None),
+          lambda: "k_scales and v_scales must be given together")
     tensors = [q, k_pages, v_pages, page_table, seq_lens]
     if extra_kv is not None:
         tensors += list(extra_kv)
+    if scaled:
+        tensors += [k_scales, v_scales]
     for t in tensors:
         _need(t.device.type == "cuda" and t.device == q.device,
               lambda: f"a tensor is on {t.device}, not on q's CUDA device "
@@ -66,8 +76,19 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
           and v_pages.shape == k_pages.shape,
           lambda: f"pools {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do "
                   f"not match q {tuple(q.shape)}")
-    _need(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
-          lambda: "pools and q differ in dtype")
+    if scaled:
+        _need(k_pages.dtype in _KV_DTYPES and v_pages.dtype == k_pages.dtype,
+              lambda: f"scaled pools must be int8 or fp8_e4m3, got "
+                      f"{k_pages.dtype}/{v_pages.dtype}")
+        _need(k_scales.dtype == torch.bfloat16
+              and v_scales.dtype == torch.bfloat16
+              and k_scales.shape == k_pages.shape[:3]
+              and v_scales.shape == k_pages.shape[:3],
+              lambda: f"scales must be (P, page, Hkv) bf16, got "
+                      f"{tuple(k_scales.shape)} {k_scales.dtype}")
+    else:
+        _need(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
+              lambda: "pools and q differ in dtype")
     num_pages, page = k_pages.shape[:2]
     _need(1 <= page <= 32, lambda: f"page size {page} not in [1, 32]")
     _need(d % 32 == 0 and g * d <= _MAX_GD,
@@ -88,11 +109,14 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                     k_scales.data_ptr() if scaled else None,
+                     v_scales.data_ptr() if scaled else None,
                      page_table.data_ptr(), seq_lens.data_ptr(),
                      None if k0 is None else k0.data_ptr(),
                      None if v0 is None else v0.data_ptr(), out.data_ptr(),
                      b, hkv, g, d, num_pages, page, page_table.shape[1],
-                     _DTYPES[q.dtype], stream)
+                     _DTYPES[q.dtype],
+                     _KV_DTYPES[k_pages.dtype] if scaled else 0, stream)
     build.check(rc, "paged_attention")
-    launches.count += 1
+    (launches_scaled[k_pages.dtype] if scaled else launches).count += 1
     return out

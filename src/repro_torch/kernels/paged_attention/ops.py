@@ -27,7 +27,8 @@ def attend(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
            extra_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
            k_scales: torch.Tensor | None = None,
            v_scales: torch.Tensor | None = None) -> torch.Tensor:
-    """q: (B, Hkv, G, d) single decode token -> (B, Hkv, G, d)."""
+    """q: (B, Hkv, G, d) single decode token -> (B, Hkv, G, d);
+    ``k_scales``/``v_scales`` (P, page, Hkv) for a quantized pool."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
                                    extra_kv=extra_kv, k_scales=k_scales,
@@ -253,3 +254,13 @@ class BlockManager:
         return {"pages_in_use": self.pages_in_use,
                 "free_pages": len(free), "slots": len(self.pages),
                 "shared_pages": self.shared_pages}
+
+    # ----- accounting -------------------------------------------------------
+    def bytes_per_page(self, kv_heads: int, head_dim: int,
+                       itemsize: int = 2, num_layers: int = 1,
+                       scale_itemsize: int = 0) -> int:
+        """Bytes ONE page occupies across both pools and all layers;
+        ``scale_itemsize`` > 0 adds a quantized pool's dequant scales
+        (one per position per KV head per pool)."""
+        return (2 * num_layers * self.page_size * kv_heads
+                * (head_dim * itemsize + scale_itemsize))

@@ -31,7 +31,10 @@ class DecodeState:
     host round trip.  ``pages`` is the persistent ``(B, n_pages)`` int32
     page table (column padding and idle slots map the null page 0);
     ``pos`` doubles as the per-slot ``seq_lens`` the page kernel masks
-    against.
+    against.  ``slot_keys`` holds each slot's request key
+    (:mod:`repro_torch.prng`); the token a slot emits at sequence position
+    q is sampled from ``fold_in(slot_key, q)``, so sampling depends only
+    on the request's own key and position, never on its neighbours.
     """
 
     tokens: torch.Tensor      # (B, 1) int64 — last sampled token per slot
@@ -39,6 +42,7 @@ class DecodeState:
     active: torch.Tensor      # (B,)  bool  — slot is mid-generation
     remaining: torch.Tensor   # (B,)  int32 — decode tokens still owed
     pages: torch.Tensor | None = None
+    slot_keys: torch.Tensor | None = None   # (B, 2) int64 key words
 
     @classmethod
     def init(cls, batch: int, device: torch.device,
@@ -51,7 +55,9 @@ class DecodeState:
                                       device=device),
                    remaining=torch.zeros((batch,), dtype=torch.int32,
                                          device=device),
-                   pages=pages)
+                   pages=pages,
+                   slot_keys=torch.zeros((batch, 2), dtype=torch.int64,
+                                         device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +116,8 @@ class ModelConfig:
 
     # ---------- paged-pool KV precision -------------------------------------
     #: quantized page-pool dtypes -> (torch dtype, quantization clip range).
-    #: Not served by this port yet: :meth:`kv_pool_dtype` rejects them.
+    #: fp8_e4m3 uses the finite max of float8_e4m3fn (448); int8 the
+    #: symmetric signed range.  Scales are always stored bf16.
     KV_DTYPES = {"int8": (torch.int8, 127.0),
                  "fp8_e4m3": (torch.float8_e4m3fn, 448.0)}
 
@@ -122,13 +129,18 @@ class ModelConfig:
         """The dtype paged KV pools are allocated with."""
         if self.kv_dtype is None:
             return self.dtype
-        if self.kv_dtype not in self.KV_DTYPES:
+        try:
+            return self.KV_DTYPES[self.kv_dtype][0]
+        except KeyError:
             raise ValueError(
                 f"unknown kv_dtype {self.kv_dtype!r}; expected one of "
-                f"{sorted(self.KV_DTYPES)}")
-        raise NotImplementedError(
-            f"kv_dtype={self.kv_dtype!r}: quantized page pools are not "
-            f"ported yet")
+                f"{sorted(self.KV_DTYPES)}") from None
+
+    def kv_qmax(self) -> float:
+        """Symmetric clip range of the quantized pool dtype."""
+        if self.kv_dtype is None:
+            raise ValueError("kv_qmax is only defined for quantized KV")
+        return self.KV_DTYPES[self.kv_dtype][1]
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's

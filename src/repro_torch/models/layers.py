@@ -77,6 +77,51 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # ---------------------------------------------------------------------------
+# KV quantization for int8 / fp8_e4m3 page pools
+# ---------------------------------------------------------------------------
+
+def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded as a true float32 division on both devices (the
+    CUDA kernel would multiply by the reciprocal of a Python-scalar
+    divisor, which can differ in the last bit)."""
+    return x / torch.full_like(x, c)
+
+
+def kv_pool_quantize(x: torch.Tensor, qdtype: torch.dtype, qmax: float
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax quantization per (..., head) vector, shared by
+    the int8 (qmax 127) and fp8_e4m3 (qmax 448) pools.
+
+    x: (..., hd) -> (``qdtype`` values, scale (...,) bf16).  The scale
+    ``max(amax / qmax, 1e-8)`` is rounded to bf16 BEFORE the divide, so
+    a write/read round trip reproduces what the attention read
+    dequantizes; only int8 rounds (half to even); values are clipped to
+    +-qmax and then cast."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = torch.clamp_min(div_exact(amax, qmax), 1e-8).to(torch.bfloat16)
+    y = x32 / scale.float()[..., None]
+    if not qdtype.is_floating_point:
+        y = torch.round(y)
+    return torch.clamp(y, -qmax, qmax).to(qdtype), scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
+                  ) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def _kv_roundtripped(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
+    """The quantize->dequantize fixed point of (k, v): exactly the values
+    every later pool read dequantizes.  Quantized prefill attends these
+    instead of the raw projections, so a prefix-cached admission (which
+    reads its prefix off the pool) is bit-identical to an unshared one."""
+    qdt, qmax = cfg.kv_pool_dtype(), cfg.kv_qmax()
+    return (kv_dequantize(*kv_pool_quantize(k, qdt, qmax), k.dtype),
+            kv_dequantize(*kv_pool_quantize(v, qdt, qmax), v.dtype))
+
+
+# ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
@@ -159,34 +204,43 @@ def _out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def attn_prefill_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig, *, rows: int = 0):
+                    cfg: ModelConfig, *, rows: int = 0,
+                    kv_roundtrip: bool = False):
     """Full-prompt self-attention that also returns (k, v) for the pool
-    write.  x: (B, S, d); positions: (S,).  Returns (out (B, S, d),
+    write.  x: (B, S, d); positions: (S,).  ``kv_roundtrip`` (quantized
+    pools) attends the quantize->dequantize round trip of K/V while
+    still returning the raw projections, which the pool write quantizes
+    to the very bytes the round trip came from.  Returns (out (B, S, d),
     (k, v) each (B, S, Hkv, hd))."""
     q, k, v = by_rows(lambda xc, pc: _rope_qkv(p, xc, pc, cfg), rows, x,
                       positions[None, :])
-    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    ka, va = _kv_roundtripped(k, v, cfg) if kv_roundtrip else (k, v)
+    o = flash_attention(q, ka, va, causal=True, window=cfg.sliding_window)
     return by_rows(lambda oc: _out_proj(p, oc), rows, o), (k, v)
 
 
 def attn_prefill_prefix_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
                            k_prefix: torch.Tensor, v_prefix: torch.Tensor,
-                           cfg: ModelConfig, *, rows: int = 0):
+                           cfg: ModelConfig, *, rows: int = 0,
+                           kv_roundtrip: bool = False):
     """Prefill attention for a prompt SUFFIX against a cached prefix.
 
     x: (B, S_new, d) hidden states of the suffix only; positions:
     (S_new,) absolute positions (prefix_len + arange); k_prefix/v_prefix:
-    (B, prefix_len, Hkv, hd) the shared prefix KV gathered from the pool.
-    The concatenated K/V equal what a full prefill projects, the KV tiles
-    sit at the same absolute positions and ``q_offset`` shifts the causal
-    mask, so the suffix rows come out bit-identical to an unshared
-    prefill's.  Returns (out (B, S_new, d), (k_new, v_new)).
+    (B, prefix_len, Hkv, hd) the shared prefix KV gathered from the pool
+    (dequantized, for a quantized pool).  The concatenated K/V equal what
+    a full prefill attends (``kv_roundtrip`` round-trips the suffix as
+    :func:`attn_prefill_kv` does), the KV tiles sit at the same absolute
+    positions and ``q_offset`` shifts the causal mask, so the suffix rows
+    come out bit-identical to an unshared prefill's.  Returns (out
+    (B, S_new, d), (k_new, v_new)).
     """
     q, k, v = by_rows(lambda xc, pc: _rope_qkv(p, xc, pc, cfg), rows, x,
                       positions[None, :])
+    ka, va = _kv_roundtripped(k, v, cfg) if kv_roundtrip else (k, v)
     prefix_len = k_prefix.shape[1]
-    kf = torch.cat([k_prefix.to(k.dtype), k], dim=1)
-    vf = torch.cat([v_prefix.to(v.dtype), v], dim=1)
+    kf = torch.cat([k_prefix.to(k.dtype), ka], dim=1)
+    vf = torch.cat([v_prefix.to(v.dtype), va], dim=1)
     o = flash_attention(q, kf, vf, causal=True, window=cfg.sliding_window,
                         q_offset=prefix_len)
     return by_rows(lambda oc: _out_proj(p, oc), rows, o), (k, v)
@@ -195,28 +249,36 @@ def attn_prefill_prefix_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            cur_pos: torch.Tensor,
-                           extra_kv: tuple[torch.Tensor, torch.Tensor]
+                           extra_kv: tuple[torch.Tensor, torch.Tensor], *,
+                           k_scales: torch.Tensor | None = None,
+                           v_scales: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """Single-token attention against a (P, page, Hkv, hd) page pool.
 
     q: (B, 1, Hq, hd); page_table: (B, n_pages) int32 (null-page padded);
     cur_pos: (B,) int32 — pooled positions < cur_pos are live, the current
-    token arrives via ``extra_kv``.  The paged wrapper runs K1 on the card
-    and its plain gather version on the CPU."""
+    token arrives via ``extra_kv``.  ``k_scales``/``v_scales`` ((P, page,
+    Hkv), quantized pools only) dequantize inside the read.  The paged
+    wrapper runs K1 on the card and its plain gather version on the
+    CPU."""
     b, _, hq, hd = q.shape
     hkv = k_pages.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, hd)
     o = paged_ops.attend(qg, k_pages, v_pages, page_table, cur_pos,
-                         extra_kv=extra_kv)
+                         extra_kv=extra_kv, k_scales=k_scales,
+                         v_scales=v_scales)
     return o.reshape(b, 1, hq, hd)
 
 
 def attn_decode_paged(p: dict, x: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, page_table: torch.Tensor,
-                      cur_pos: torch.Tensor, cfg: ModelConfig):
+                      cur_pos: torch.Tensor, cfg: ModelConfig,
+                      k_scales: torch.Tensor | None = None,
+                      v_scales: torch.Tensor | None = None):
     """One-token self-attention over this layer's page pool (read-only —
     the (k, v) returned are written after the layer loop in one batched
-    scatter).  x: (B, 1, d).  Returns (out (B, 1, d), k0, v0 (B, Hkv, hd))."""
+    scatter, which quantizes them for a quantized pool).  x: (B, 1, d).
+    Returns (out (B, 1, d), k0, v0 (B, Hkv, hd)) in full precision."""
     q, k, v = _project_qkv(p, x, x, cfg)
     pos = cur_pos[:, None]
     q = apply_rope(q, pos, cfg.rope_theta)
@@ -224,7 +286,8 @@ def attn_decode_paged(p: dict, x: torch.Tensor, k_pages: torch.Tensor,
     k0 = k[:, 0].contiguous()
     v0 = v[:, 0].contiguous()
     o = paged_decode_attention(q, k_pages, v_pages, page_table, cur_pos,
-                               (k0, v0))
+                               (k0, v0), k_scales=k_scales,
+                               v_scales=v_scales)
     return _out_proj(p, o), k0, v0
 
 

@@ -5,7 +5,10 @@ Parameters are plain nested dicts of tensors, as in the reference, with
 the reference's stacked L axis unstacked into a list of per-layer dicts;
 the reference's ``layer_scan`` is a Python loop over that list.  The page
 pools ``(L, P, page, Hkv, hd)`` are updated in place (``index_put_``),
-where the reference donated them through every dispatch.
+where the reference donated them through every dispatch.  With
+``cfg.kv_dtype`` set the pools hold int8 or fp8_e4m3 values beside
+``(L, P, page, Hkv)`` bf16 scales; fp8 pools are written and gathered
+through their uint8 view on both devices.
 """
 from __future__ import annotations
 
@@ -13,8 +16,8 @@ import math
 
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.kernels.paged_attention.ref import take_pages
+from repro_torch import prng, resolve_device
+from repro_torch.kernels.paged_attention.ref import byte_view, take_pages
 from repro_torch.models import layers as L
 from repro_torch.models.base import DecodeState, ModelConfig
 
@@ -31,12 +34,15 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
 
 
 def _scatter_pages(cache: dict, pages: torch.Tensor, k_new: torch.Tensor,
-                   v_new: torch.Tensor) -> dict:
+                   v_new: torch.Tensor, cfg: ModelConfig) -> dict:
     """Write (L, B, S, Hkv, hd) prompt KV into the page pools in place:
     ONE scatter per pool covering every layer, page and head.  ``pages``:
     (B, n) page ids with n * page >= S; positions past S receive padding
     (written, so a freshly filled page is valid in its entirety, but
-    masked by seq_lens on every read)."""
+    masked by seq_lens on every read).  Quantized pools quantize on
+    write, their scales landing in ``k_scale``/``v_scale`` with the same
+    scatter, so a page's bytes are a pure function of the tokens it
+    covers (the prefix-sharing contract)."""
     page = cache["k_pages"].shape[2]
     n = pages.shape[1]
     seq = k_new.shape[2]
@@ -45,11 +51,25 @@ def _scatter_pages(cache: dict, pages: torch.Tensor, k_new: torch.Tensor,
         raise ValueError(f"page table maps {n * page} positions but the "
                          f"prompt chunk has {seq}")
     idx = pages.long()
-    for name, val in (("k_pages", k_new), ("v_pages", v_new)):
-        pool = cache[name]
-        val = torch.nn.functional.pad(val, (0, 0, 0, 0, 0, pad))
-        val = val.reshape(val.shape[:2] + (n, page) + val.shape[3:])
-        pool[:, idx] = val.to(pool.dtype)
+
+    def scatter(pool, val):
+        # pad as bytes: uint8 0 is fp8 +0.0, and padding an fp8 tensor
+        # may have no CUDA implementation
+        val = byte_view(val.to(pool.dtype))
+        val = torch.nn.functional.pad(
+            val, (0, 0) * (val.dim() - 3) + (0, pad))
+        byte_view(pool)[:, idx] = val.reshape(
+            val.shape[:2] + (n, page) + val.shape[3:])
+
+    writes = [("k_pages", k_new), ("v_pages", v_new)]
+    if cfg.kv_quantized:
+        qdt, qmax = cfg.kv_pool_dtype(), cfg.kv_qmax()
+        k_new, ks = L.kv_pool_quantize(k_new, qdt, qmax)
+        v_new, vs = L.kv_pool_quantize(v_new, qdt, qmax)
+        writes = [("k_pages", k_new), ("v_pages", v_new), ("k_scale", ks),
+                  ("v_scale", vs)]
+    for name, val in writes:
+        scatter(cache[name], val)
     return cache
 
 
@@ -134,33 +154,35 @@ class DenseLM:
                                  L.rmsnorm(h, lp["ln2"], self.cfg.norm_eps))
 
     def block_prefill(self, lp: dict, x: torch.Tensor,
-                      positions: torch.Tensor, rows: int = 0):
+                      positions: torch.Tensor, rows: int = 0,
+                      kv_roundtrip: bool = False):
         eps = self.cfg.norm_eps
         hn = L.by_rows(lambda xc: L.rmsnorm(xc, lp["ln1"], eps), rows, x)
         a, kv = L.attn_prefill_kv(lp["attn"], hn, positions, self.cfg,
-                                  rows=rows)
+                                  rows=rows, kv_roundtrip=kv_roundtrip)
         return L.by_rows(lambda xc, ac: self._block_tail(lp, xc, ac), rows,
                          x, a), kv
 
     def block_prefill_prefix(self, lp: dict, x: torch.Tensor,
                              positions: torch.Tensor, k_prefix, v_prefix,
-                             rows: int = 0):
+                             rows: int = 0, kv_roundtrip: bool = False):
         """block_prefill for a prompt suffix whose prefix KV already lives
         in the page pool (prefix-cached admission)."""
         eps = self.cfg.norm_eps
         hn = L.by_rows(lambda xc: L.rmsnorm(xc, lp["ln1"], eps), rows, x)
         a, kv = L.attn_prefill_prefix_kv(lp["attn"], hn, positions, k_prefix,
-                                         v_prefix, self.cfg, rows=rows)
+                                         v_prefix, self.cfg, rows=rows,
+                                         kv_roundtrip=kv_roundtrip)
         return L.by_rows(lambda xc, ac: self._block_tail(lp, xc, ac), rows,
                          x, a), kv
 
     def block_decode_paged(self, lp: dict, x: torch.Tensor, k_pages, v_pages,
-                           pages, cur_pos):
+                           pages, cur_pos, k_scales=None, v_scales=None):
         """One decode token against this layer's (read-only) page pool;
         returns the current token's (k, v) for the batched write."""
         a, k0, v0 = L.attn_decode_paged(
             lp["attn"], L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps), k_pages,
-            v_pages, pages, cur_pos, self.cfg)
+            v_pages, pages, cur_pos, self.cfg, k_scales, v_scales)
         return self._block_tail(lp, x, a), k0, v0
 
     # ----- block-pool paged KV cache ----------------------------------------
@@ -171,7 +193,8 @@ class DenseLM:
     def init_paged_cache(self, num_pages: int, page_size: int | None = None,
                          *, device=None) -> dict:
         """Stacked page pools, (L, P, page, Hkv, hd).  Page 0 is the null
-        page (never allocated; absorbs idle-slot writes)."""
+        page (never allocated; absorbs idle-slot writes).  A quantized
+        config adds ``k_scale``/``v_scale``, (L, P, page, Hkv) bf16."""
         cfg = self.cfg
         if not self.supports_paged_kv():
             raise ValueError("paged KV cache requires sliding_window == 0")
@@ -179,8 +202,13 @@ class DenseLM:
                  cfg.padded_kv_heads, cfg.head_dim)
         dev = resolve_device(device)
         dt = cfg.kv_pool_dtype()
-        return {"k_pages": torch.zeros(shape, dtype=dt, device=dev),
-                "v_pages": torch.zeros(shape, dtype=dt, device=dev)}
+        cache = {"k_pages": torch.zeros(shape, dtype=dt, device=dev),
+                 "v_pages": torch.zeros(shape, dtype=dt, device=dev)}
+        if cfg.kv_quantized:
+            for name in ("k_scale", "v_scale"):
+                cache[name] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                          device=dev)
+        return cache
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(x[:, -1:], params["ln_f"], self.cfg.norm_eps)
@@ -192,16 +220,20 @@ class DenseLM:
 
         tokens: (B, S); pages: (B, n) page ids with n * page >= S.  The
         whole prompt's KV lands in the pools with ONE scatter per pool.
+        Quantized pools attend the quantize->dequantize round trip of the
+        fresh KV, the values any later pool read dequantizes.
         Returns (last-position logits (B, 1, V), cache)."""
         x = L.embed_lookup(params["embed"], tokens)
         positions = torch.arange(x.shape[1], device=x.device)
         rows = cache["k_pages"].shape[2]
+        quant = self.cfg.kv_quantized
         ks, vs = [], []
         for lp in params["layers"]:
-            x, (k, v) = self.block_prefill(lp, x, positions, rows)
+            x, (k, v) = self.block_prefill(lp, x, positions, rows, quant)
             ks.append(k)
             vs.append(v)
-        cache = _scatter_pages(cache, pages, torch.stack(ks), torch.stack(vs))
+        cache = _scatter_pages(cache, pages, torch.stack(ks), torch.stack(vs),
+                               self.cfg)
         return self._logits(params, x), cache
 
     def prefill_paged_prefix(self, params: dict, tokens: torch.Tensor,
@@ -214,25 +246,36 @@ class DenseLM:
         ``prefix_pages.shape[1] * page``; prefix_pages: (B, n_pre) shared
         page ids, read and never written; pages: (B, n_new) fresh pages
         for the suffix KV.  The suffix hidden states, hence the logits,
-        are bit-identical to a full unshared :meth:`prefill_paged`.
+        are bit-identical to a full unshared :meth:`prefill_paged`; a
+        quantized pool's prefix is dequantized through its stored scales,
+        the same values the unshared prefill attended.
         Returns (last-position logits, cache)."""
+        cfg = self.cfg
         x = L.embed_lookup(params["embed"], tokens)
         b, seq = x.shape[:2]
         page = cache["k_pages"].shape[2]
         prefix_len = prefix_pages.shape[1] * page
         positions = prefix_len + torch.arange(seq, device=x.device)
-        hkv, hd = self.cfg.padded_kv_heads, self.cfg.head_dim
+        hkv, hd = cfg.padded_kv_heads, cfg.head_dim
+        quant = cfg.kv_quantized
+
+        def prefix(name, i):
+            kv = take_pages(cache[name + "_pages"][i], prefix_pages).reshape(
+                b, prefix_len, hkv, hd)
+            if not quant:
+                return kv
+            sc = cache[name + "_scale"][i][prefix_pages.long()].reshape(
+                b, prefix_len, hkv)
+            return L.kv_dequantize(kv, sc, cfg.dtype)
+
         ks, vs = [], []
         for i, lp in enumerate(params["layers"]):
-            kpre = take_pages(cache["k_pages"][i], prefix_pages).reshape(
-                b, prefix_len, hkv, hd)
-            vpre = take_pages(cache["v_pages"][i], prefix_pages).reshape(
-                b, prefix_len, hkv, hd)
-            x, (k, v) = self.block_prefill_prefix(lp, x, positions, kpre,
-                                                  vpre, page)
+            x, (k, v) = self.block_prefill_prefix(
+                lp, x, positions, prefix("k", i), prefix("v", i), page, quant)
             ks.append(k)
             vs.append(v)
-        cache = _scatter_pages(cache, pages, torch.stack(ks), torch.stack(vs))
+        cache = _scatter_pages(cache, pages, torch.stack(ks), torch.stack(vs),
+                               cfg)
         return self._logits(params, x), cache
 
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
@@ -248,7 +291,9 @@ class DenseLM:
                      cur_pos: torch.Tensor, pages: torch.Tensor):
         """Paged decode: attention reads only the mapped pages, and the new
         token's KV lands with ONE batched scatter per pool over every
-        layer and slot after the (read-only) layer loop."""
+        layer and slot after the (read-only) layer loop; a quantized pool
+        quantizes that (L, B, Hkv, hd) write and scatters its scales the
+        same way."""
         page = cache["k_pages"].shape[2]
         n_pages = pages.shape[1]
         pi = cur_pos.long() // page
@@ -259,16 +304,26 @@ class DenseLM:
         pids = torch.where(pi < n_pages, mapped.long(),
                            torch.zeros_like(pi))
         slots = cur_pos.long() % page
+        quant = self.cfg.kv_quantized
         ks, vs = [], []
         for i, lp in enumerate(params["layers"]):
+            scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
+                      else (None, None))
             x, k0, v0 = self.block_decode_paged(
                 lp, x, cache["k_pages"][i], cache["v_pages"][i], pages,
-                cur_pos)
+                cur_pos, *scales)
             ks.append(k0)
             vs.append(v0)
-        for name, new in (("k_pages", ks), ("v_pages", vs)):
+        writes = [("k_pages", torch.stack(ks)), ("v_pages", torch.stack(vs))]
+        if quant:
+            qdt, qmax = self.cfg.kv_pool_dtype(), self.cfg.kv_qmax()
+            (kq, ksc), (vq, vsc) = (L.kv_pool_quantize(val, qdt, qmax)
+                                    for _, val in writes)
+            writes = [("k_pages", kq), ("v_pages", vq), ("k_scale", ksc),
+                      ("v_scale", vsc)]
+        for name, new in writes:
             pool = cache[name]
-            pool[:, pids, slots] = torch.stack(new).to(pool.dtype)
+            byte_view(pool)[:, pids, slots] = byte_view(new.to(pool.dtype))
         return x, cache
 
 
@@ -280,14 +335,17 @@ def vocab_mask_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 def sample_tokens(logits: torch.Tensor, vocab: int,
-                  temperature: float = 0.0) -> torch.Tensor:
-    """logits: (B, 1, V) -> (B, 1) int64 token ids, greedy.  Sampling at
-    temperature > 0 needs a torch threefry to match ``jax.random`` and is
-    not ported yet."""
-    if temperature > 0.0:
-        raise ValueError("temperature > 0 is not supported by the port yet "
-                         "(greedy decoding only)")
-    return vocab_mask_logits(logits, vocab).float().argmax(dim=-1)
+                  temperature: float = 0.0,
+                  key: torch.Tensor | None = None) -> torch.Tensor:
+    """logits: (B, 1, V) -> (B, 1) int64 token ids: greedy for
+    temperature <= 0, else ``jax.random.categorical(key, logits / T)``
+    under one (2,) key, or under (B, 2) keys, one a slot (the
+    reference's ``sample_tokens_per_slot``, a ``jax.vmap`` over slots), so
+    a slot's token never depends on which other slots share the batch."""
+    logits = vocab_mask_logits(logits, vocab).float()
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1)
+    return prng.categorical(key, L.div_exact(logits, temperature))
 
 
 def decode_loop(model, params: dict, cache: dict, state: DecodeState, *,
@@ -298,20 +356,26 @@ def decode_loop(model, params: dict, cache: dict, state: DecodeState, *,
     Per-slot ``active``/``remaining`` masks (and EOS) turn finished
     sequences into no-ops: their fed token and write position freeze, so
     a drained slot neither advances nor perturbs live neighbours.  Every
-    decision stays on the device.  Returns ``(tokens (B, num_steps),
-    valid (B, num_steps), nonfinite (B, num_steps), state)``; ``nonfinite``
-    flags emitting slots whose logits held NaN/inf.  The pools in
-    ``cache`` are updated in place."""
-    if temperature > 0.0:
-        raise ValueError("temperature > 0 is not supported by the port yet "
-                         "(greedy decoding only)")
+    decision stays on the device.  At temperature > 0 the token a slot
+    emits at sequence position ``pos + 1`` is drawn under
+    ``fold_in(state.slot_keys[slot], pos + 1)``.  Returns ``(tokens (B,
+    num_steps), valid (B, num_steps), nonfinite (B, num_steps), state)``;
+    ``nonfinite`` flags emitting slots whose logits held NaN/inf.  The
+    pools in ``cache`` are updated in place."""
+    if temperature > 0.0 and state.slot_keys is None:
+        raise ValueError("sampling at temperature > 0 needs "
+                         "DecodeState.slot_keys")
     vocab = model.cfg.vocab
     st = state
     toks, valid, bad = [], [], []
     for _ in range(num_steps):
         logits, cache = model.decode_step(params, st.tokens, cache, st.pos,
                                           st.pages)
-        nxt = sample_tokens(logits, vocab)
+        if temperature > 0.0:
+            keys = prng.fold_in(st.slot_keys, st.pos + 1)
+            nxt = sample_tokens(logits, vocab, temperature, keys)
+        else:
+            nxt = sample_tokens(logits, vocab)
         nxt = torch.where(st.active[:, None], nxt, st.tokens)
         emitted = st.active
         pos = st.pos + emitted.to(st.pos.dtype)
@@ -323,6 +387,7 @@ def decode_loop(model, params: dict, cache: dict, state: DecodeState, *,
         valid.append(emitted)
         bad.append(~torch.isfinite(logits).all(dim=-1).all(dim=-1) & emitted)
         st = DecodeState(tokens=nxt, pos=pos, active=active,
-                         remaining=remaining, pages=st.pages)
+                         remaining=remaining, pages=st.pages,
+                         slot_keys=st.slot_keys)
     return (torch.stack(toks, dim=1), torch.stack(valid, dim=1),
             torch.stack(bad, dim=1), st)

@@ -23,12 +23,18 @@ live batch — no batch restart.
   :class:`BlockManager`, indexed by the exact token bytes); admission
   then prefills only the suffix, bit-identically.
 
+* **Sampling.**  Request ``uid`` draws under ``fold_in(PRNGKey(seed),
+  uid)``, and its token at sequence position q under ``fold_in(that key,
+  q)`` (:mod:`repro_torch.prng`, jax's threefry bit for bit): a pure
+  function of (seed, uid, position), as in the reference.
+* **Quantized pools.**  ``cfg.kv_dtype`` = ``"int8"`` or ``"fp8_e4m3"``
+  serves over one-byte pages with bf16 scales, dequantized inside K1.
+
 Admission reserves each request's worst-case page count, so decode can
 never exhaust the pool.  Left out of this port so far: preemption and
 swap, cold parking, fault injection, deadlines and overload control,
 poison shedding (non-finite logits are counted, not shed), the async
-prefill engine, tensor parallelism, snapshots, the dense cache, and
-sampling at temperature > 0.
+prefill engine, tensor parallelism, snapshots and the dense cache.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.paged_attention.ops import BlockManager
 from repro_torch.models.base import DecodeState
@@ -86,10 +92,7 @@ class BatchedServer:
                  block_size: int = 8, eos_id: int | None = None,
                  page_size: int | None = None, num_pages: int | None = None,
                  pipeline: bool = True, prefix_cache: bool = True,
-                 audit: bool = False, device=None):
-        if temperature > 0.0:
-            raise ValueError("temperature > 0 is not supported by the port "
-                             "yet (greedy decoding only)")
+                 audit: bool = False, seed: int = 0, device=None):
         if not model.supports_paged_kv():
             raise ValueError("the port serves the paged KV cache only; "
                              "this model does not support it")
@@ -104,6 +107,7 @@ class BatchedServer:
         self.max_seq = max_seq
         self.block_size = block_size
         self.temperature = temperature
+        self._base_key = prng.PRNGKey(seed, self.device)
         self.eos_id = eos_id
         self.max_inflight = 2 if pipeline else 1
         self.prefix_cache = bool(prefix_cache)
@@ -243,6 +247,10 @@ class BatchedServer:
             self.manager.register_prefix(toks[0, :(i + 1) * page].tobytes(),
                                          table[i])
 
+    def _req_key(self, uid: int) -> torch.Tensor:
+        """The request's PRNG key, ``fold_in(PRNGKey(seed), uid)``."""
+        return prng.fold_in(self._base_key, uid)
+
     def _admit(self, req: Request, slot: int,
                finished: list[Request]) -> None:
         """Prefill ``req`` into ``slot`` of the live batch.  Prompts are
@@ -271,7 +279,12 @@ class BatchedServer:
             logits, self.cache = model.prefill_paged(
                 params, self._h2d(toks), self.cache,
                 self._h2d(np.asarray([new_ids], np.int32)))
-        nxt = sample_tokens(logits, model.cfg.vocab)            # (1, 1)
+        # the first token lands at position plen: drawn under
+        # fold_in(req_key, plen), the total bucketed prompt length on the
+        # prefix path too, exactly as decode draws every later one
+        req_key = self._req_key(req.uid)
+        nxt = sample_tokens(logits, model.cfg.vocab, self.temperature,
+                            prng.fold_in(req_key, plen))         # (1, 1)
         self.manager.note_tokens(slot, plen)
         if self.prefix_cache:
             self._register_prefix(toks, plen, slot)
@@ -283,6 +296,7 @@ class BatchedServer:
         st.pos[slot] = plen
         st.active[slot] = active & (req.max_new_tokens > 1)
         st.remaining[slot] = req.max_new_tokens - 1
+        st.slot_keys[slot] = req_key
         first, finite = torch.stack(
             [nxt[0, 0], torch.isfinite(logits).all().long()]).tolist()
         self.stats["nonfinite_logits"] += int(not finite)
@@ -379,7 +393,8 @@ class BatchedServer:
         self._table_delta()
         toks, valid, bad, self.state = decode_loop(
             self.model, self.params, self.cache, self.state,
-            num_steps=self.block_size, eos_id=self.eos_id)
+            num_steps=self.block_size, temperature=self.temperature,
+            eos_id=self.eos_id)
         host, event = self._d2h_async(toks, valid, bad)
         self.stats["dispatches"] += 1
         self.stats["blocks"] += 1
@@ -424,6 +439,22 @@ class BatchedServer:
                 self._reserved.pop(i, None)
         self.stats["kv_pages_in_use"] = self.manager.pages_in_use
         self.stats["kv_pages_hwm"] = self.manager.hwm
+
+    # ----- accounting --------------------------------------------------------
+    def kv_bytes_in_use(self) -> int:
+        """Live KV footprint: allocated pages only, dequant scales
+        included for a quantized pool."""
+        kp = self.cache["k_pages"]
+        sc = self.cache.get("k_scale")
+        per_page = self.manager.bytes_per_page(
+            kp.shape[3], kp.shape[4], kp.dtype.itemsize,
+            num_layers=kp.shape[0],
+            scale_itemsize=sc.dtype.itemsize if sc is not None else 0)
+        return self.manager.pages_in_use * per_page
+
+    def kv_bytes_capacity(self) -> int:
+        """Bytes of the whole provisioned cache (pools and scales)."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     def _maybe_audit(self) -> None:
         if self.audit_every_block:

@@ -108,22 +108,45 @@ def test_flash_plain_q_offset_rows_bit_identical(prefix, dtype):
 # K1: paged decode
 # ---------------------------------------------------------------------------
 
+def _int8_pool(a: np.ndarray):
+    """An int8 pool and its bf16 scales, by the reference's quantizer, as
+    jax arrays and torch tensors."""
+    vals, scales = ref_layers.kv_pool_quantize(jnp.asarray(a, jnp.float32),
+                                               jnp.int8, 127.0)
+    return ((vals, to_tensor(np.asarray(vals))),
+            (scales, to_tensor(np.asarray(scales))))
+
+
 @pytest.mark.parametrize("extra", [False, True])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,hkv,g,npages,page", [(2, 2, 2, 4, 8),
-                                                 (3, 1, 4, 3, 16),
-                                                 (1, 4, 1, 6, 4),
-                                                 (4, 2, 5, 3, 16)])
-def test_paged_plain_matches_pallas(b, hkv, g, npages, page, dtype, extra):
+@pytest.mark.parametrize("b,hkv,g,npages,page,pool_kind", [
+    pytest.param(*shape, kind, id="-".join(map(str, shape))
+                 + ("" if kind == "full" else f"-{kind}"))
+    for shape, kind in [((2, 2, 2, 4, 8), "full"), ((3, 1, 4, 3, 16), "full"),
+                        ((1, 4, 1, 6, 4), "full"), ((4, 2, 5, 3, 16), "full"),
+                        ((2, 2, 2, 4, 8), "int8"), ((4, 2, 5, 3, 16), "int8")]])
+def test_paged_plain_matches_pallas(b, hkv, g, npages, page, pool_kind, dtype,
+                                    extra):
     """Against the Pallas kernel in interpret mode and the jnp oracle.
     Slot 0 has ``seq_len == 0`` (with ``extra_kv`` it must come out as
-    its v0); the G = 5 case is not a power of two."""
+    its v0); the G = 5 case is not a power of two.  ``int8`` pools take
+    the scaled variant: int8 pages with bf16 scales, q and extra_kv in
+    ``dtype``."""
     jdt, tol = DTYPES[dtype]
     d = 32
     rng = np.random.RandomState(b * 31 + hkv * 7 + g + npages + page)
     pool = npages * b + 1
-    kpj, kpt = _both(rng.randn(pool, page, hkv, d) * 0.3, jdt)
-    vpj, vpt = _both(rng.randn(pool, page, hkv, d), jdt)
+    k_raw = rng.randn(pool, page, hkv, d) * 0.3
+    v_raw = rng.randn(pool, page, hkv, d)
+    scales_j, scales_t = {}, {}
+    if pool_kind == "int8":
+        (kpj, kpt), (ksj, kst) = _int8_pool(k_raw)
+        (vpj, vpt), (vsj, vst) = _int8_pool(v_raw)
+        scales_j = {"k_scales": ksj, "v_scales": vsj}
+        scales_t = {"k_scales": kst, "v_scales": vst}
+    else:
+        kpj, kpt = _both(k_raw, jdt)
+        vpj, vpt = _both(v_raw, jdt)
     qj, qt = _both(rng.randn(b, hkv, g, d) * 0.3, jdt)
     table = (1 + np.arange(b * npages).reshape(b, npages)).astype(np.int32)
     lens = rng.randint(1, npages * page + 1, size=(b,)).astype(np.int32)
@@ -135,12 +158,13 @@ def test_paged_plain_matches_pallas(b, hkv, g, npages, page, dtype, extra):
         kv_j, kv_t = (k0j, v0j), (k0t, v0t)
     args_j = (qj, kpj, vpj, jnp.asarray(table), jnp.asarray(lens))
     args_t = (qt, kpt, vpt, torch.from_numpy(table), torch.from_numpy(lens))
-    got = pa.attend(*args_t, extra_kv=kv_t)
-    want = ref_pk.paged_attention(*args_j, extra_kv=kv_j, interpret=True)
+    got = pa.attend(*args_t, extra_kv=kv_t, **scales_t)
+    want = ref_pk.paged_attention(*args_j, extra_kv=kv_j, interpret=True,
+                                  **scales_j)
     np.testing.assert_allclose(_f32(got), _f32(want), **tol)
     np.testing.assert_allclose(
-        _f32(got), _f32(ref_pr.paged_attention_ref(*args_j, extra_kv=kv_j)),
-        **tol)
+        _f32(got), _f32(ref_pr.paged_attention_ref(*args_j, extra_kv=kv_j,
+                                                   **scales_j)), **tol)
     if extra:
         np.testing.assert_allclose(
             _f32(got[0]), np.broadcast_to(_f32(kv_t[1][0])[:, None, :],
@@ -172,12 +196,23 @@ def test_kernel_launchers_refuse_cpu_tensors_and_count_nothing():
         pa_kernel.paged_attention(torch.zeros((1, 1, 2, 32)), pool, pool,
                                   torch.zeros((1, 2), dtype=torch.int32),
                                   torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="scaled"):
-        pa_kernel.paged_attention(torch.zeros((1, 1, 2, 32)), pool, pool,
+    # the scaled variant refuses CPU tensors too
+    qpool = torch.zeros((3, 4, 1, 32), dtype=torch.int8)
+    scales = torch.zeros((3, 4, 1), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa_kernel.paged_attention(torch.zeros((1, 1, 2, 32)), qpool, qpool,
                                   torch.zeros((1, 2), dtype=torch.int32),
                                   torch.zeros(1, dtype=torch.int32),
-                                  k_scales=torch.zeros((3, 4, 1)),
-                                  v_scales=torch.zeros((3, 4, 1)))
+                                  k_scales=scales, v_scales=scales)
+    with pytest.raises(ValueError, match="together"):
+        pa_kernel.paged_attention(torch.zeros((1, 1, 2, 32)), qpool, qpool,
+                                  torch.zeros((1, 2), dtype=torch.int32),
+                                  torch.zeros(1, dtype=torch.int32),
+                                  k_scales=scales)
     # the CPU route never reaches a kernel
     fa.attention(q, k, k)
+    pa.attend(torch.zeros((1, 1, 2, 32)), qpool, qpool,
+              torch.zeros((1, 2), dtype=torch.int32),
+              torch.zeros(1, dtype=torch.int32), k_scales=scales,
+              v_scales=scales)
     assert launch_counts() == before

@@ -85,6 +85,32 @@ def test_server_tokens_match_reference(models):
     assert set(server.stats["kernel_launches"].values()) == {0}
 
 
+def test_sampled_server_tokens_match_reference(models):
+    """Temperature 0.7: request uid draws under fold_in(PRNGKey(seed),
+    uid) and its token at position q under fold_in(that key, q), on both
+    sides through the same threefry bits."""
+    ref, params, _, _ = models
+    prompts = _prompts()
+    want = _serve(RefServer(ref, params, batch_size=2, max_seq=128,
+                            block_size=4, temperature=0.7, seed=3), prompts)
+    got = _serve(_port_server(models, temperature=0.7, seed=3), prompts)
+    for g, w in zip(got, want):
+        assert len(g) == NEW
+        assert g[:8] == w[:8]
+
+
+def test_sampling_is_a_function_of_seed_uid_and_position(models):
+    """Same seed: same tokens, whether prefix-shared or not and whatever
+    the pipeline depth; another seed: other tokens."""
+    prompts = _prompts()
+    first = _serve(_port_server(models, temperature=0.7, seed=5), prompts)
+    again = _serve(_port_server(models, temperature=0.7, seed=5,
+                                prefix_cache=False, pipeline=False), prompts)
+    other = _serve(_port_server(models, temperature=0.7, seed=6), prompts)
+    assert first == again
+    assert first != other
+
+
 def test_prefix_shared_tokens_equal_unshared(models):
     prompts = _prompts()
     shared = _port_server(models)
@@ -141,6 +167,14 @@ def test_decode_loop_freezes_finished_slots(models):
         pools = {k: v.clone() for k, v in cache.items()}
         return decode_loop(port, pparams, pools, st, num_steps=6)
 
+    with pytest.raises(ValueError, match="slot_keys"):
+        decode_loop(port, pparams, cache,
+                    DecodeState(tokens=torch.tensor([[11], [12]]),
+                                pos=torch.full((2,), 8, dtype=torch.int32),
+                                active=torch.ones(2, dtype=torch.bool),
+                                remaining=torch.ones(2, dtype=torch.int32),
+                                pages=table),
+                    num_steps=1, temperature=0.7)
     toks_all, _, _, _ = run([6, 6])
     toks, valid, bad, st = run([6, 2])
     assert valid[0].all() and valid[1, :2].all() and not valid[1, 2:].any()
@@ -153,8 +187,9 @@ def test_decode_loop_freezes_finished_slots(models):
 
 def test_server_rejects_what_it_cannot_serve(models):
     _, _, port, pparams = models
-    with pytest.raises(ValueError, match="temperature"):
-        BatchedServer(port, pparams, temperature=0.7, device="cpu")
+    bad = DenseLM(dataclasses.replace(port.cfg, kv_dtype="int4"))
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        BatchedServer(bad, pparams, device="cpu")
     server = _port_server(models)
     with pytest.raises(ValueError, match="exceeds max_seq"):
         server.submit(np.arange(1, 130, dtype=np.int32), max_new_tokens=2)
