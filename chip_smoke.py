@@ -9,9 +9,12 @@ Phases (all by default):
    CUDA kernel of the port from ``src/repro_torch/kernels/csrc``;
 2. ``kernels``: run each kernel against its plain PyTorch version on the
    card at the serving path's shapes, within a stated tolerance — K1 over
-   bf16/fp32 pools and, scaled, over int8 and fp8_e4m3 pools; K2 — and
-   time the kernel, the plain version and one library call (timed only)
-   with CUDA events over inputs rotated past the 50 MB L2;
+   bf16/fp32 pools and, scaled, over int8 and fp8_e4m3 pools; K2; K3
+   (``ops.matmul``) and K4 (``ops.accumulate``) at the reference bench's
+   shapes and Qwen2.5-14B's widths — and time the kernel, the plain
+   version and one library call (timed only) with CUDA events over inputs
+   rotated past the 50 MB L2; then drive K3's and K4's path, their
+   wrappers, once at each shape with launch counts reset just before;
 3. ``parity``: serve a smoke-size fp32 model on the card and on the CPU
    (plain versions) and hold their tokens and logits together, greedy
    and, over int8 pools, at temperature 0.7;
@@ -24,9 +27,17 @@ Phases (all by default):
    after (K1 must run once per layer per decode step); each
    configuration is served again without prefix caching and once more
    with it, and all three runs must emit the same tokens;
+   then, with the same weights moved to pinned host memory and paged back
+   layer by layer by the Tensor Prefetcher (lookahead 1), bf16 greedy
+   once more: the same tokens as the resident run, K1 once a layer a
+   step, every layer fetched once a step and once an admission; it prints
+   tok/s, peak device memory, the ledger's window beside two layers'
+   bytes, the pinned bytes and the host-to-device rate;
 5. ``profile`` (only when named in ``--phases``, with ``serve``): separate
-   traced serving runs (bf16 greedy, int8 at temperature 0.7), printing
-   device time by kernel and the device's busy share.
+   traced serving runs (bf16 greedy, int8 at temperature 0.7, and bf16
+   greedy with paged weights), printing device time by kernel and the
+   device's busy share; for paged weights also the copy stream's busy
+   time beside the compute's, and how long both ran at once.
 
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers; the last is ``{"ok": true, "device": {...}}``.  Any
@@ -44,6 +55,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12          # H100 SXM fp32 on the CUDA cores (no TF32)
 ROTATE = 16                      # input copies cycled past the L2 in timing
 BF16_TOL = 3e-2   # both versions accumulate in fp32 and round once to bf16:
                   # they may land one bf16 ulp apart (2^-7 |o| < 0.03 at |o| < 4)
@@ -76,8 +88,9 @@ def time_ms(torch, fn, inputs, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -268,6 +281,166 @@ def check_flash(torch, card: str, results: dict) -> None:
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
+#: K3's shapes: the reference bench's (benchmarks/kernels_bench.py:29), and
+#: Qwen2.5-14B's MLP up-projection at decode batch 4 and at a 2048-token
+#: prefill, w ~ randn / sqrt(K)
+MATMUL_SHAPES = (((256, 512, 256), "float32"), ((4, 5120, 13824), "bfloat16"),
+                 ((2048, 5120, 13824), "bfloat16"))
+#: ragged shapes, both dtypes: checked, not timed
+MATMUL_RAGGED = (((7, 513, 129), "float32"), ((7, 513, 129), "bfloat16"))
+#: K4's shapes: the reference bench's (benchmarks/kernels_bench.py:66), an
+#: 8-way TAB all-reduce of a Qwen2.5-14B 2048-token activation, and a
+#: ragged trailing shape (checked, not timed)
+ACCUMULATE_SHAPES = (((8, 64, 512), "float32"), ((8, 2048, 5120), "bfloat16"))
+ACCUMULATE_RAGGED = (((5, 3, 7, 11), "float32"),)
+
+
+def _matmul_inputs(torch, gen, shape, dtype):
+    m, k, n = shape
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+    return x.to(dtype), w.to(dtype)
+
+
+def check_matmul(torch, card: str, results: dict) -> None:
+    """K3 against its plain version.  fp32: |err| <= 2e-4 + 2e-4 |plain|
+    (the reference's tolerance; summation order only, no TF32).  bf16 at
+    Qwen widths: max |err| <= 1e-2 max |plain| (both sum in fp32 and round
+    once to bf16: one bf16 ulp is 2^-8 relative); bf16 ragged: the
+    reference's 5e-2."""
+    from repro_torch.kernels.streamed_matmul import ops
+    from repro_torch.kernels.streamed_matmul.ref import streamed_matmul_ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape, dt in MATMUL_SHAPES + MATMUL_RAGGED:
+        dtype = getattr(torch, dt)
+        x, w = _matmul_inputs(torch, gen, shape, dtype)
+        got, want = ops.matmul(x, w), streamed_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tag = f"K3 streamed_matmul {dt} {shape}"
+        if got.shape != want.shape or got.dtype != dtype:
+            raise AssertionError(f"{tag}: {got.shape} {got.dtype}")
+        if dt == "float32" or shape in [r[0] for r in MATMUL_RAGGED]:
+            tol = 2e-4 if dt == "float32" else 5e-2
+            ok = bool((err <= tol + tol * want.float().abs()).all())
+            what = f"atol=rtol={tol:g}"
+        else:
+            limit = 1e-2 * want.float().abs().max().item()
+            ok = err.max().item() <= limit
+            what = f"<= {limit:.3e}"
+        log(f"{tag}: max_abs_err {err.max().item():.3e} ({what})")
+        if not ok:
+            raise AssertionError(f"{tag}: outside the tolerance")
+        if (shape, dt) not in MATMUL_SHAPES:
+            continue
+        m, k, n = shape
+        sets = [_matmul_inputs(torch, gen, shape, dtype)
+                for _ in range(ROTATE)]
+        ms = time_ms(torch, ops.matmul, sets)
+        plain_ms = time_ms(torch, streamed_matmul_ref, sets, iters=10)
+        lib_ms = time_ms(torch, torch.matmul, sets)
+        size = 4 if dt == "float32" else 2
+        nbytes = (m * k + k * n + m * n) * size
+        b_ms, b_by = bound(nbytes, 2 * m * k * n,
+                           F32_FLOPS_PER_S if dt == "float32"
+                           else BF16_FLOPS_PER_S)
+        log(f"{tag} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if shape == (4, 5120, 13824):   # Qwen decode: the line's numbers
+            results["streamed_matmul"] = dict(
+                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_accumulate(torch, card: str, results: dict) -> None:
+    """K4 against its plain version: fp32 within 1e-4; bf16 within 5e-2
+    and within one bf16 ulp of the plain sum (both sum in fp32 and round
+    once, in different orders); permuted shards within 1e-5 in fp32 (the
+    reduction is order-free up to fp32 rounding)."""
+    from repro_torch.kernels.write_accumulate import ops
+    from repro_torch.kernels.write_accumulate.ref import write_accumulate_ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def inputs(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def library(s):
+        return torch.sum(s, 0, dtype=torch.float32).to(s.dtype)
+
+    for shape, dt in ACCUMULATE_SHAPES + ACCUMULATE_RAGGED:
+        dtype = getattr(torch, dt)
+        s = inputs(shape, dtype)
+        got, want = ops.accumulate(s), write_accumulate_ref(s)
+        torch.cuda.synchronize()
+        tag = f"K4 write_accumulate {dt} {shape}"
+        if got.shape != want.shape or got.dtype != dtype:
+            raise AssertionError(f"{tag}: {got.shape} {got.dtype}")
+        err = (got.float() - want.float()).abs()
+        tol = 1e-4 if dt == "float32" else 5e-2
+        ok = bool((err <= tol + tol * want.float().abs()).all())
+        if dt == "bfloat16":
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp_min(2.0 ** -126))) - 7)
+            ok = ok and bool((err <= ulp).all())
+        log(f"{tag}: max_abs_err {err.max().item():.3e} (atol=rtol={tol:g}"
+            f"{', and <= 1 bf16 ulp' if dt == 'bfloat16' else ''})")
+        if not ok:
+            raise AssertionError(f"{tag}: outside the tolerance")
+        if shape == (8, 64, 512):
+            perm = torch.randperm(shape[0], generator=gen, device="cuda")
+            d = (ops.accumulate(s[perm]) - got).abs().max().item()
+            log(f"{tag}: permuted shards differ by {d:.3e} (bound 1e-5)")
+            if not d <= 1e-5:
+                raise AssertionError(f"{tag}: not order-free: {d}")
+        if (shape, dt) not in ACCUMULATE_SHAPES:
+            continue
+        sets = [(inputs(shape, dtype),) for _ in range(ROTATE)]
+        ms = time_ms(torch, ops.accumulate, sets)
+        plain_ms = time_ms(torch, write_accumulate_ref, sets, iters=20)
+        lib_ms = time_ms(torch, library, sets)
+        n, size = shape[0], s[0].numel()
+        nbytes = (n + 1) * size * s.element_size()
+        b_ms, b_by = bound(nbytes, (n - 1) * size,
+                           F32_FLOPS_PER_S)   # the adds are fp32 CUDA-core
+        log(f"{tag} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.sum {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if dt == "bfloat16":   # the TAB all-reduce: the line's numbers
+            results["write_accumulate"] = dict(
+                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def drive_ops(torch) -> dict:
+    """K3's and K4's path: their public wrappers, ``ops.matmul`` and
+    ``ops.accumulate``, once at each of their shapes (no serving path
+    reaches them; in the reference only benchmarks/kernels_bench.py
+    does).  Counts are reset just before and read just after; every
+    call must launch its kernel once and nothing else may launch."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.streamed_matmul import ops as sm
+    from repro_torch.kernels.write_accumulate import ops as wa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mm = [_matmul_inputs(torch, gen, shape, getattr(torch, dt))
+          for shape, dt in MATMUL_SHAPES + MATMUL_RAGGED]
+    acc = [torch.randn(shape, generator=gen, device="cuda").to(
+        getattr(torch, dt)) for shape, dt in ACCUMULATE_SHAPES
+        + ACCUMULATE_RAGGED]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [sm.matmul(x, w) for x, w in mm] + [wa.accumulate(s) for s in acc]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {"streamed_matmul": len(mm), "write_accumulate": len(acc)}
+    got = {k: n for k, n in launches.items() if n}
+    log(f"ops path (ops.matmul x{len(mm)}, ops.accumulate x{len(acc)}): "
+        f"launches {got}")
+    if got != want:
+        raise AssertionError(f"ops path launched {got}, expected {want}")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError("ops path: non-finite output")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
@@ -385,6 +558,8 @@ def check_serve(torch, card: str, layers: int, profile: bool) -> dict:
         per_page[kv] = got["bytes_per_page"]
         if temperature == 0.0:
             launches.update(got["launches"])
+        if (kv, temperature) == (None, 0.0):
+            resident_tokens = got["tokens"]
     for kv in ("int8", "fp8_e4m3"):
         if per_page[kv] * 256 != per_page[None] * 130:
             raise AssertionError(f"{kv} KV bytes per page {per_page[kv]} is "
@@ -396,7 +571,84 @@ def check_serve(torch, card: str, layers: int, profile: bool) -> dict:
             profile_serve(torch, DenseLM(dataclasses.replace(
                 cfg, kv_dtype=kv)), params, dict(kw, temperature=temperature),
                 work[:4], card)
+    model = DenseLM(cfg.with_pager(enabled=True, lookahead=1))
+    serve_paged(torch, card, model, params, work, dict(kw, temperature=0.0),
+                resident_tokens)
+    if profile:
+        profile_serve(torch, model, params, dict(kw, temperature=0.0),
+                      work[:4], card)
     return launches
+
+
+def serve_paged(torch, card: str, model, params, work, kw,
+                want: list) -> None:
+    """The same weights, moved to the remote tier (pinned host memory)
+    and paged back layer by layer by the Tensor Prefetcher, serving the
+    same workload once (bf16 pools, greedy): the tokens must equal the
+    resident run's, K1 must run once a layer a decode step, and the
+    prefetcher must fetch every layer once a decode step and once an
+    admission.  ``params["layers"]`` is replaced by the placed layers,
+    which frees their device copies."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.memory import LOCAL, REMOTE
+    from repro_torch.runtime.serve import BatchedServer
+    cfg, mem = model.cfg, model.mem
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params["layers"] = mem.place_layer_weights(params["layers"])
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    placed, pf = params["layers"], mem.prefetcher
+    if pf is None or mem.degraded:
+        raise AssertionError(f"paged serve: placement degraded "
+                             f"{mem.describe()}")
+    if not all(p.buffer.is_pinned() for p in placed.packed):
+        raise AssertionError("paged serve: a remote layer is not pinned")
+    led = mem.ledger
+    total = led.classes(REMOTE)["layer_weights"]
+    window = led.classes(LOCAL)["layer_weights_window"]
+    log(f"paged serve [{card}]: placed {cfg.num_layers} layers in "
+        f"{place_s:.1f} s; device memory allocated {before / 2**30:.2f} -> "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; pinned host "
+        f"{placed.nbytes} bytes (ledger remote layer_weights {total}); "
+        f"ledger local layer_weights_window {window} bytes = 2 x per-layer "
+        f"{2 * (total // cfg.num_layers)}; window allocated "
+        f"{pf.window_bytes} bytes")
+    if window != 2 * (total // cfg.num_layers):
+        raise AssertionError("paged serve: the window is not two layers")
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchedServer(model, params, prefix_cache=True, **kw)
+    reset_launch_counts()
+    fetches, fetched = pf.fetches, pf.fetched_bytes
+    reqs, secs = serve(server, work, 64)
+    launches = launch_counts()
+    fetches, fetched = pf.fetches - fetches, pf.fetched_bytes - fetched
+    st = server.stats
+    tokens = sum(len(r.output) for r in reqs)
+    log(f"paged serve kv_dtype=None temperature=0.0 lookahead=1 [{card}]: "
+        f"{tokens} tokens in {secs:.3f} s = {tokens / secs:.2f} tok/s "
+        f"({1e3 * secs / st['steps']:.2f} ms per decode step, admissions "
+        f"included), steps {st['steps']}, admissions {st['admitted']}, "
+        f"layer fetches {fetches}, {fetched} bytes host-to-device = "
+        f"{fetched / secs / 1e9:.2f} GB/s over the run, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB, launches {launches}")
+    log(f"paged serve: ledger at peak pool occupancy "
+        f"{json.dumps(server.tier_stats_peak())}")
+    if [r.output for r in reqs] != want:
+        raise AssertionError("paged serve: tokens differ from the resident "
+                             "run's")
+    if st["nonfinite_logits"]:
+        raise AssertionError("paged serve: non-finite logits")
+    if launches["paged_attention"] != cfg.num_layers * st["steps"]:
+        raise AssertionError(f"paged serve: {launches['paged_attention']} "
+                             f"K1 launches for {st['steps']} decode steps")
+    if fetches != cfg.num_layers * (st["steps"] + st["admitted"]):
+        raise AssertionError(f"paged serve: {fetches} layer fetches for "
+                             f"{st['steps']} steps + {st['admitted']} "
+                             f"admissions")
+    log("paged serve: tokens equal the resident run's; K1 once a layer a "
+        "step; every layer fetched once a step and once an admission")
 
 
 def serve_config(torch, card: str, model, params, work, kw) -> dict:
@@ -457,7 +709,7 @@ def serve_config(torch, card: str, model, params, work, kw) -> dict:
         f"second run's")
     return {"launches": {kernel: launches[kernel],
                          "flash_attention": launches["flash_attention"]},
-            "bytes_per_page": per_page}
+            "bytes_per_page": per_page, "tokens": [r.output for r in reqs]}
 
 
 def profile_serve(torch, model, params, kw, work, card) -> None:
@@ -481,13 +733,55 @@ def profile_serve(torch, model, params, kw, work, card) -> None:
         if dev > 0:
             rows.append((dev, ev.key, ev.count))
     busy = sum(r[0] for r in rows) / 1e6
+    paged = model.mem.prefetcher is not None
     log(f"profile kv_dtype={model.cfg.kv_dtype} temperature="
-        f"{kw['temperature']} [{card}]: {server.stats['steps']} decode "
-        f"steps + 4 admissions in {secs:.3f} s wall; device busy "
-        f"{busy:.3f} s ({100 * busy / secs:.1f}%)")
+        f"{kw['temperature']}{' paged weights' if paged else ''} [{card}]: "
+        f"{server.stats['steps']} decode steps + 4 admissions in "
+        f"{secs:.3f} s wall; device busy {busy:.3f} s "
+        f"({100 * busy / secs:.1f}%)")
     for dev, key, count in sorted(rows, reverse=True)[:14]:
         log(f"  {dev / 1e3:10.2f} ms  {100 * dev / 1e6 / busy:5.1f}%  "
             f"x{count:<6d} {key[:90]}")
+    if paged:
+        # the copy engine's host-to-device copies against everything
+        # else on the device, as unions of their intervals
+        copy, compute = [], []
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                span = (ev.time_range.start, ev.time_range.end)
+                (copy if ev.name.startswith("Memcpy HtoD") else
+                 compute).append(span)
+        copy, compute = _union(copy), _union(compute)
+        both = _overlap(copy, compute)
+        c_s, k_s = (sum(e - b for b, e in u) / 1e6 for u in (copy, compute))
+        log(f"profile paged weights [{card}]: copy stream (host-to-device) "
+            f"busy {c_s:.3f} s, compute busy {k_s:.3f} s, both at once "
+            f"{both / 1e6:.3f} s, of {secs:.3f} s wall")
+
+
+def _union(spans):
+    """Merge (start, end) intervals into a sorted disjoint list."""
+    out = []
+    for b, e in sorted(spans):
+        if out and b <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([b, e])
+    return out
+
+
+def _overlap(a, b) -> float:
+    """Length of the intersection of two sorted disjoint interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(hi - lo, 0)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 def _leaves(tree):
@@ -520,6 +814,8 @@ def main() -> int:
     from repro_torch.kernels import build_all
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.streamed_matmul import kernel as sm_kernel
+    from repro_torch.kernels.write_accumulate import kernel as wa_kernel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -540,6 +836,9 @@ def main() -> int:
         for kv in (None, "int8", "fp8_e4m3"):
             check_paged(torch, card, results, kv)
         check_flash(torch, card, results)
+        check_matmul(torch, card, results)
+        check_accumulate(torch, card, results)
+        ops_launches = drive_ops(torch)
     if "parity" in phases:
         check_parity(torch)
     launches = None
@@ -549,14 +848,19 @@ def main() -> int:
 
     if results and launches is not None:
         kernels = []
-        for mod in (pa_kernel, fa_kernel):
+        serving = "BatchedServer, greedy run of its pool dtype (serve phase)"
+        wrappers = "ops.matmul / ops.accumulate at their shapes (kernels phase)"
+        for mod, path, counts in ((pa_kernel, serving, launches),
+                                  (fa_kernel, serving, launches),
+                                  (sm_kernel, wrappers, ops_launches),
+                                  (wa_kernel, wrappers, ops_launches)):
             for counter in mod.COUNTERS:
                 name = counter.name
                 kernels.append({"name": name, "route": "cuda",
                                 "source": f"src/repro_torch/kernels/csrc/"
                                           f"{mod.SOURCE}",
-                                "replaces": mod.REPLACES,
-                                "launches": launches[name], **results[name]})
+                                "replaces": mod.REPLACES, "path": path,
+                                "launches": counts[name], **results[name]})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.base import ModelConfig
+from repro_torch.models.base import ModelConfig, PagerPolicy
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -61,14 +61,19 @@ def key_from_reference(key: np.ndarray, device: torch.device | str = "cpu"
 
 def config_from_reference(ref_cfg) -> ModelConfig:
     """The port's config for a reference ``ModelConfig``: every field the
-    port has, copied (``kv_dtype`` included); ``dtype`` mapped to
-    torch."""
+    port has, copied (``kv_dtype`` included); ``dtype`` mapped to torch
+    and the reference's pager policy to the port's."""
     kw = {}
     for f in dataclasses.fields(ModelConfig):
         if not hasattr(ref_cfg, f.name):
             continue
         v = getattr(ref_cfg, f.name)
-        kw[f.name] = torch_dtype(v) if f.name == "dtype" else v
+        if f.name == "dtype":
+            v = torch_dtype(v)
+        elif f.name == "pager":
+            v = PagerPolicy(**{p.name: getattr(v, p.name)
+                               for p in dataclasses.fields(PagerPolicy)})
+        kw[f.name] = v
     return ModelConfig(**kw)
 
 

@@ -13,7 +13,9 @@ from __future__ import annotations
 def _kernel_modules():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.paged_attention import kernel as pa
-    return (fa, pa)
+    from repro_torch.kernels.streamed_matmul import kernel as sm
+    from repro_torch.kernels.write_accumulate import kernel as wa
+    return (fa, pa, sm, wa)
 
 
 def _counters():

@@ -1,0 +1,47 @@
+"""repro_torch.memory -- the FengHuang memory-orchestration subsystem on
+the card (counterpart of ``repro.memory``).
+
+* :mod:`repro_torch.memory.tiers` -- the local/remote/cold hierarchy
+  (HBM, pinned host, pageable host), the modeled tier links, fault
+  injection and the placement primitives (``page_out`` / ``page_in``).
+* :mod:`repro_torch.memory.policies` -- residency policies
+  (``PinLocal``, ``DoubleBufferPrefetch``, ``BlockPoolResidency``) and
+  :class:`PagerConfig`.
+* :mod:`repro_torch.memory.orchestrator` -- :class:`MemoryOrchestrator`
+  and the :class:`TensorPrefetcher` that pages layer weights from pinned
+  host memory on a copy stream.
+* :mod:`repro_torch.memory.accounting` -- the per-tier ledger and the
+  window/capacity formulas.
+
+Not ported yet: ``PageSwapper`` (preemption, cold parking), KV offload
+between steps and MoE expert paging.
+"""
+from repro_torch.memory.accounting import (MemoryLedger, capacity_reduction,
+                                           modeled_transfer_s,
+                                           paged_window_bytes,
+                                           peak_local_bytes,
+                                           resident_window_bytes, tree_bytes)
+from repro_torch.memory.orchestrator import (MemoryOrchestrator,
+                                             TensorPrefetcher)
+from repro_torch.memory.policies import (BlockPoolResidency,
+                                         DoubleBufferPrefetch, PagedLayers,
+                                         PagerConfig, PinLocal)
+from repro_torch.memory.tiers import (COLD, DEFAULT_TIER_LINKS, HIERARCHY,
+                                      LOCAL, REMOTE, FaultPlan, Packed, Tier,
+                                      TierEdge, TierTransferError, edge,
+                                      fault_plan, hierarchy,
+                                      install_fault_plan, page_in, page_out,
+                                      transfer_with_retry)
+
+__all__ = [
+    "MemoryLedger", "capacity_reduction", "modeled_transfer_s",
+    "paged_window_bytes", "peak_local_bytes", "resident_window_bytes",
+    "tree_bytes",
+    "MemoryOrchestrator", "TensorPrefetcher",
+    "BlockPoolResidency", "DoubleBufferPrefetch", "PagedLayers",
+    "PagerConfig", "PinLocal",
+    "COLD", "DEFAULT_TIER_LINKS", "HIERARCHY", "LOCAL", "REMOTE",
+    "FaultPlan", "Packed", "Tier", "TierEdge", "TierTransferError",
+    "edge", "fault_plan", "hierarchy",
+    "install_fault_plan", "page_in", "page_out", "transfer_with_retry",
+]

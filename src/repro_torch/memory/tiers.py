@@ -1,0 +1,316 @@
+"""The memory tiers on the card (counterpart of ``repro.memory.tiers``).
+
+The paper's hierarchy, fastest first, mapped onto one CUDA machine:
+
+* **local**  = the CUDA device's memory (HBM);
+* **remote** = page-locked ("pinned") host memory, which the copy engine
+  reads at the link's full rate and asynchronously to compute;
+* **cold**   = pageable host memory, the capacity backstop.
+
+On the CPU all three are host tensors: the reference's degenerate CPU
+case, where the tiers stay logically distinct (the ledger and the
+prefetcher keep them apart) while sharing one memory.
+
+Each tier carries a MODELED bandwidth and latency for its link into the
+hierarchy (:data:`DEFAULT_TIER_LINKS`, the reference's numbers, copied
+as they are): the ledger charges transfers with them.  They are model
+numbers, not measurements of this machine.
+
+A tree moves between tiers packed into one flat byte buffer
+(:class:`Packed`): :func:`page_out` packs it into a tier's buffer,
+:func:`page_in` copies such a buffer into a local one and views the
+tree out of it.  Eager transfers consult the installed
+:class:`FaultPlan` first (:func:`check_transfer`).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import time
+import weakref
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.memory.accounting import modeled_transfer_s
+
+LOCAL = "local"
+REMOTE = "remote"
+COLD = "cold"
+HIERARCHY = (LOCAL, REMOTE, COLD)
+
+# Modeled per-tier link parameters (bandwidth_gbps, latency_us), the
+# reference's: local ~ H200-class HBM; remote ~ the FengHuang TAB crossbar
+# slice per GPU (paper 4.1, 4 TB/s); cold ~ High-Bandwidth Flash.  MODEL
+# numbers charged by the ledger, not measurements.
+DEFAULT_TIER_LINKS: dict[str, tuple[float, float]] = {
+    LOCAL: (4800.0, 0.22),
+    REMOTE: (4000.0, 2.0),
+    COLD: (64.0, 50.0),
+}
+
+#: byte alignment of each leaf in a packed buffer: the device allocator's
+#: own (512), so a library kernel sees a paged-in weight aligned as it
+#: would see a freshly allocated one
+ALIGN = 512
+
+
+def _link(name: str) -> tuple[float, float]:
+    return DEFAULT_TIER_LINKS.get(name, DEFAULT_TIER_LINKS[REMOTE])
+
+
+@dataclasses.dataclass(frozen=True)
+class Tier:
+    """One level of the hierarchy: a logical name, the memory that backs
+    it, and the modeled bandwidth/latency of its link."""
+
+    name: str
+    kind: str | None
+    bandwidth_gbps: float = 0.0
+    latency_us: float = 0.0
+
+    def __post_init__(self) -> None:
+        if not self.bandwidth_gbps:
+            bw, lat = _link(self.name)
+            object.__setattr__(self, "bandwidth_gbps", bw)
+            if not self.latency_us:
+                object.__setattr__(self, "latency_us", lat)
+
+
+@dataclasses.dataclass(frozen=True)
+class TierEdge:
+    """The modeled link between two tiers: bandwidth is the narrower of
+    the two endpoints', latency crosses both interfaces."""
+
+    src: str
+    dst: str
+    bandwidth_gbps: float
+    latency_us: float
+
+    def transfer_s(self, nbytes: int) -> float:
+        """Modeled time to move ``nbytes`` across this edge."""
+        return modeled_transfer_s(nbytes,
+                                  bandwidth_gbps=self.bandwidth_gbps,
+                                  latency_us=self.latency_us)
+
+
+def hierarchy(device: str | torch.device) -> tuple[Tier, ...]:
+    """The tiers, fastest first, as they are backed for compute on
+    ``device``: HBM, pinned host and pageable host memory for a CUDA
+    device; host memory for all three on the CPU."""
+    if torch.device(device).type == "cuda":
+        kinds = ("device", "pinned_host", "pageable_host")
+    else:
+        kinds = ("host",) * len(HIERARCHY)
+    return tuple(Tier(n, k) for n, k in zip(HIERARCHY, kinds))
+
+
+def edge(src: str, dst: str) -> TierEdge:
+    """The modeled link between two tiers (unknown names take the
+    remote tier's link, so charging never throws on a custom label)."""
+    (sbw, slat), (dbw, dlat) = _link(src), _link(dst)
+    return TierEdge(src=src, dst=dst,
+                    bandwidth_gbps=min(sbw, dbw) or max(sbw, dbw),
+                    latency_us=slat + dlat)
+
+
+# ---------------------------------------------------------------------------
+# Fault injection: tier transfers as fallible, bounded-latency operations
+# ---------------------------------------------------------------------------
+
+class TierTransferError(RuntimeError):
+    """A tier transfer failed (injected by a :class:`FaultPlan`, or a
+    failure surfaced through :func:`transfer_with_retry`)."""
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """Deterministic (seeded) fault injection for eager tier transfers,
+    the reference's transfer faults: ``fail_first_n`` / ``spike_first_n``
+    hit the first N attempts exactly; ``fail_rate`` / ``spike_rate``
+    draw per attempt from a numpy generator seeded with ``seed``.  (The
+    reference's pool-exhaustion and engine-crash injections belong to
+    serving features the port does not have yet.)"""
+
+    seed: int = 0
+    fail_first_n: int = 0
+    fail_rate: float = 0.0
+    spike_first_n: int = 0
+    spike_rate: float = 0.0
+    spike_s: float = 0.05
+
+    def __post_init__(self) -> None:
+        self._rng = np.random.default_rng(self.seed)
+        self.transfers = 0       # attempts observed
+        self.failures = 0        # attempts failed
+        self.spikes = 0          # attempts delayed
+
+    def before_transfer(self, what: str, nbytes: int = 0) -> None:
+        """Called before each attempt: sleeps for an injected latency
+        spike, raises for an injected failure."""
+        idx = self.transfers
+        self.transfers += 1
+        spike = idx < self.spike_first_n or (
+            self.spike_rate > 0.0 and self._rng.random() < self.spike_rate)
+        if spike:
+            self.spikes += 1
+            time.sleep(self.spike_s)
+        fail = idx < self.fail_first_n or (
+            self.fail_rate > 0.0 and self._rng.random() < self.fail_rate)
+        if fail:
+            self.failures += 1
+            raise TierTransferError(
+                f"injected transfer failure #{self.failures} "
+                f"({what}, attempt {idx}, {nbytes} bytes)")
+
+
+_FAULT_PLAN: FaultPlan | None = None
+
+
+def install_fault_plan(plan: FaultPlan | None) -> FaultPlan | None:
+    """Install (or clear, with None) the process-wide fault plan;
+    returns the previously installed one."""
+    global _FAULT_PLAN
+    prev, _FAULT_PLAN = _FAULT_PLAN, plan
+    return prev
+
+
+@contextlib.contextmanager
+def fault_plan(plan: FaultPlan):
+    """Scoped fault injection."""
+    prev = install_fault_plan(plan)
+    try:
+        yield plan
+    finally:
+        install_fault_plan(prev)
+
+
+def check_transfer(what: str, nbytes: int = 0) -> None:
+    """Fault-injection checkpoint for one eager tier-transfer attempt."""
+    if _FAULT_PLAN is not None:
+        _FAULT_PLAN.before_transfer(what, nbytes)
+
+
+def transfer_with_retry(fn: Callable[[], Any], *, what: str,
+                        nbytes: int = 0, retries: int = 3,
+                        backoff_s: float = 0.001,
+                        timeout_s: float | None = None,
+                        monitor=None) -> Any:
+    """Run one tier transfer with retry, exponential backoff and a
+    timeout.  ``fn`` moves the bytes and may raise
+    :class:`TierTransferError`; each successful attempt's duration goes
+    to ``monitor.observe`` if given; an attempt over ``timeout_s`` counts
+    as failed.  After ``retries`` retries the error propagates as
+    :class:`TierTransferError` for the caller's degradation policy."""
+    delay = backoff_s
+    last: Exception | None = None
+    for attempt in range(retries + 1):
+        t0 = time.monotonic()
+        try:
+            check_transfer(what, nbytes)
+            out = fn()
+        except TierTransferError as e:
+            last = e
+        else:
+            dt = time.monotonic() - t0
+            if monitor is not None:
+                monitor.observe(dt)
+            if timeout_s is None or dt <= timeout_s:
+                return out
+            last = TierTransferError(
+                f"{what} attempt {attempt} took {dt:.3f}s "
+                f"(> timeout {timeout_s:.3f}s)")
+        if attempt < retries:
+            time.sleep(delay)
+            delay *= 2
+    raise TierTransferError(
+        f"{what} failed after {retries + 1} attempts: {last}") from last
+
+
+# ---------------------------------------------------------------------------
+# Placement primitives
+# ---------------------------------------------------------------------------
+
+def host_buffer(nbytes: int, *, pinned: bool) -> torch.Tensor:
+    """An uninitialised ``nbytes`` uint8 host buffer, page-locked if
+    ``pinned`` (registered with ``cudaHostRegister`` at its exact size:
+    PyTorch's pinned allocator rounds every block up to a power of two,
+    which would pin ~1.7x the bytes of a 550 MB layer).  The
+    registration ends when the buffer object is collected.  A failed
+    registration raises."""
+    buf = torch.empty(nbytes, dtype=torch.uint8)
+    if pinned and nbytes:
+        cudart = torch.cuda.cudart()
+        rc = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, 0))
+        if rc != 0:
+            raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed "
+                               f"with CUDA error {rc}")
+        weakref.finalize(buf, cudart.cudaHostUnregister,
+                         buf.data_ptr()).atexit = False
+    return buf
+
+
+def _flatten(tree: dict, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        elif isinstance(v, torch.Tensor):
+            yield prefix + (k,), v
+        else:
+            raise TypeError(f"cannot page a {type(v).__name__} leaf at "
+                            f"{prefix + (k,)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Packed:
+    """A tree (nested dicts of tensors) held in one flat uint8 buffer:
+    each leaf at an :data:`ALIGN`-aligned offset.  One buffer is one
+    copy per move, and a window of such buffers is allocated once."""
+
+    buffer: torch.Tensor
+    layout: tuple      # ((path, dtype, shape, offset), ...)
+
+    @property
+    def nbytes(self) -> int:
+        return self.buffer.numel()
+
+    def unpack(self, buf: torch.Tensor | None = None) -> dict:
+        """The tree as views into ``buf`` (default: this buffer)."""
+        buf = self.buffer if buf is None else buf
+        tree: dict = {}
+        for path, dtype, shape, off in self.layout:
+            n = math.prod(shape) * dtype.itemsize
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = buf[off:off + n].view(dtype).view(shape)
+        return tree
+
+
+def page_out(tree: dict, tier: str = REMOTE) -> Packed:
+    """Copy ``tree`` into one new buffer in ``tier`` (remote: pinned
+    host memory when the leaves are on a CUDA device; cold: pageable
+    host memory; on the CPU both are host memory).  Synchronous."""
+    if tier not in (REMOTE, COLD):
+        raise ValueError(f"page_out moves trees to the remote or cold "
+                         f"tier, not {tier!r}")
+    leaves, layout, off = [], [], 0
+    for path, x in _flatten(tree):
+        leaves.append(x)
+        layout.append((path, x.dtype, tuple(x.shape), off))
+        off += -(-x.numel() * x.element_size() // ALIGN) * ALIGN
+    pinned = tier == REMOTE and any(x.is_cuda for x in leaves)
+    packed = Packed(host_buffer(off, pinned=pinned), tuple(layout))
+    for x, view in zip(leaves, _flatten(packed.unpack())):
+        view[1].copy_(x)
+    return packed
+
+
+def page_in(packed: Packed, out: torch.Tensor) -> dict:
+    """Copy a packed tree into the local buffer ``out`` (at least
+    ``packed.nbytes`` long) on the current stream, asynchronously from a
+    pinned source, and return the tree as views into ``out``."""
+    out[:packed.nbytes].copy_(packed.buffer, non_blocking=True)
+    return packed.unpack(out)

@@ -61,6 +61,19 @@ class DecodeState:
 
 
 @dataclasses.dataclass(frozen=True)
+class PagerPolicy:
+    """FengHuang paging policy carried in the model config, resolved into
+    a residency-policy matrix by
+    :meth:`repro_torch.memory.MemoryOrchestrator.plan` (the reference's
+    ``PagerPolicy``).  ``enabled`` pages the per-layer weights from the
+    remote tier through a ``1 + lookahead`` layer window."""
+    enabled: bool = False
+    lookahead: int = 1
+    offload_kv: bool = False
+    page_experts: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's config fields that the ported (dense) path reads."""
 
@@ -87,6 +100,7 @@ class ModelConfig:
     page_size: int = 16              # tokens per KV page
     norm_eps: float = 1e-6
     tp: int = DEFAULT_TP             # model-axis size the config targets
+    pager: PagerPolicy = dataclasses.field(default_factory=PagerPolicy)
 
     # ---------- padded dims -------------------------------------------------
     @property
@@ -113,6 +127,9 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.padded_heads // self.padded_kv_heads
+
+    def with_pager(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, pager=PagerPolicy(**kw))
 
     # ---------- paged-pool KV precision -------------------------------------
     #: quantized page-pool dtypes -> (torch dtype, quantization clip range).

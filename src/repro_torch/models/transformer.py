@@ -3,7 +3,10 @@
 
 Parameters are plain nested dicts of tensors, as in the reference, with
 the reference's stacked L axis unstacked into a list of per-layer dicts;
-the reference's ``layer_scan`` is a Python loop over that list.  The page
+the reference's ``layer_scan`` is a Python loop that takes its layers
+from the model's :class:`repro_torch.memory.MemoryOrchestrator`
+(``self.mem``): the list itself for resident weights, the Tensor
+Prefetcher's stream for weights placed in the remote tier.  The page
 pools ``(L, P, page, Hkv, hd)`` are updated in place (``index_put_``),
 where the reference donated them through every dispatch.  With
 ``cfg.kv_dtype`` set the pools hold int8 or fp8_e4m3 values beside
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.kernels.paged_attention.ref import byte_view, take_pages
+from repro_torch.memory import MemoryOrchestrator
 from repro_torch.models import layers as L
 from repro_torch.models.base import DecodeState, ModelConfig
 
@@ -78,6 +82,7 @@ class DenseLM:
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        self.mem = MemoryOrchestrator.plan(cfg)
 
     # ----- params -----------------------------------------------------------
     def _attn_params(self, gen: torch.Generator) -> dict:
@@ -228,7 +233,7 @@ class DenseLM:
         rows = cache["k_pages"].shape[2]
         quant = self.cfg.kv_quantized
         ks, vs = [], []
-        for lp in params["layers"]:
+        for lp in self.mem.layers(params["layers"]):
             x, (k, v) = self.block_prefill(lp, x, positions, rows, quant)
             ks.append(k)
             vs.append(v)
@@ -269,7 +274,7 @@ class DenseLM:
             return L.kv_dequantize(kv, sc, cfg.dtype)
 
         ks, vs = [], []
-        for i, lp in enumerate(params["layers"]):
+        for i, lp in enumerate(self.mem.layers(params["layers"])):
             x, (k, v) = self.block_prefill_prefix(
                 lp, x, positions, prefix("k", i), prefix("v", i), page, quant)
             ks.append(k)
@@ -306,7 +311,7 @@ class DenseLM:
         slots = cur_pos.long() % page
         quant = self.cfg.kv_quantized
         ks, vs = [], []
-        for i, lp in enumerate(params["layers"]):
+        for i, lp in enumerate(self.mem.layers(params["layers"])):
             scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
                       else (None, None))
             x, k0, v0 = self.block_decode_paged(

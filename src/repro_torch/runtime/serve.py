@@ -29,6 +29,13 @@ live batch — no batch restart.
   function of (seed, uid, position), as in the reference.
 * **Quantized pools.**  ``cfg.kv_dtype`` = ``"int8"`` or ``"fp8_e4m3"``
   serves over one-byte pages with bf16 scales, dequantized inside K1.
+* **Memory tiers.**  The server shares the model's
+  :class:`MemoryOrchestrator` (``model.mem``): the KV pool's bookkeeping
+  is its ledger-connected block pool, so weights, their prefetch window
+  and the live KV pages report into one per-tier ledger
+  (:meth:`BatchedServer.tier_stats`).  Weights placed in the remote tier
+  (``model.mem.place_layer_weights``) are paged in layer by layer by the
+  model's layer loops; the server needs nothing else for that.
 
 Admission reserves each request's worst-case page count, so decode can
 never exhaust the pool.  Left out of this port so far: preemption and
@@ -48,7 +55,7 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.paged_attention.ops import BlockManager
+from repro_torch.memory import MemoryOrchestrator
 from repro_torch.models.base import DecodeState
 from repro_torch.models.transformer import decode_loop, sample_tokens
 
@@ -112,12 +119,23 @@ class BatchedServer:
         self.max_inflight = 2 if pipeline else 1
         self.prefix_cache = bool(prefix_cache)
         self.audit_every_block = bool(audit)
-        self.page_size = page_size or model.cfg.page_size
+        # the model's orchestrator: one ledger for its weights and this
+        # server's KV pool
+        self.mem: MemoryOrchestrator = model.mem
+        cfg = model.cfg
+        self.page_size = page_size or cfg.page_size
         per_seq = -(-max_seq // self.page_size)
         self.num_pages = num_pages or batch_size * per_seq + 1
-        self.manager = BlockManager(self.num_pages, self.page_size)
-        self.cache = model.init_paged_cache(self.num_pages, self.page_size,
-                                            device=self.device)
+        self.kv = self.mem.block_pool(self.num_pages, self.page_size)
+        self.manager = self.kv.manager
+        self.kv.bind_kv_shape(
+            cfg.padded_kv_heads, cfg.head_dim,
+            cfg.kv_pool_dtype().itemsize, cfg.num_layers,
+            scale_itemsize=2 if cfg.kv_quantized else 0)
+        self.cache = self.mem.place_kv_pool(model.init_paged_cache(
+            self.num_pages, self.page_size, device=self.device))
+        self._peak_pages = 0
+        self.tiers_peak: dict | None = None
         self._table_w = 1
         self._narrow_blocks = 0
         self._mirror = np.zeros((batch_size, 1), np.int32)
@@ -288,6 +306,8 @@ class BatchedServer:
         self.manager.note_tokens(slot, plen)
         if self.prefix_cache:
             self._register_prefix(toks, plen, slot)
+        self.kv.record()
+        self._note_peak()
         # splice the slot into the live state, in stream order behind any
         # block in flight
         st = self.state
@@ -312,6 +332,7 @@ class BatchedServer:
                                        and first == self.eos_id):
             self.manager.free_slot(slot)       # done at admission
             self._reserved.pop(slot, None)
+            self.kv.record()                   # the ledger tracks it
             self._finalize(req, finished)
             return
         self.slots[slot] = req
@@ -391,6 +412,8 @@ class BatchedServer:
             self.manager.ensure(i, min(self._slot_pos[i] + self._planned[i],
                                        self.max_seq))
         self._table_delta()
+        self.kv.record()
+        self._note_peak()
         toks, valid, bad, self.state = decode_loop(
             self.model, self.params, self.cache, self.state,
             num_steps=self.block_size, temperature=self.temperature,
@@ -439,6 +462,7 @@ class BatchedServer:
                 self._reserved.pop(i, None)
         self.stats["kv_pages_in_use"] = self.manager.pages_in_use
         self.stats["kv_pages_hwm"] = self.manager.hwm
+        self.kv.record()
 
     # ----- accounting --------------------------------------------------------
     def kv_bytes_in_use(self) -> int:
@@ -456,9 +480,28 @@ class BatchedServer:
         """Bytes of the whole provisioned cache (pools and scales)."""
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
+    def tier_stats(self) -> dict:
+        """Per-tier residency snapshot of the shared ledger."""
+        return self.mem.ledger.snapshot()
+
+    def tier_stats_peak(self) -> dict:
+        """The per-tier snapshot taken at peak pool occupancy (the
+        end-of-run :meth:`tier_stats` is drained: every page is
+        reclaimed by then)."""
+        return self.tiers_peak or self.tier_stats()
+
+    def _note_peak(self) -> None:
+        """Snapshot the ledger whenever pool occupancy reaches a new (or
+        equal) peak."""
+        if self.manager.pages_in_use >= self._peak_pages:
+            self._peak_pages = self.manager.pages_in_use
+            self.tiers_peak = self.mem.ledger.snapshot()
+
     def _maybe_audit(self) -> None:
+        """Debug mode: the allocator audit and the ledger cross-check
+        (:meth:`BlockPoolResidency.audit`) after every scheduling step."""
         if self.audit_every_block:
-            self.manager.audit()
+            self.kv.audit()
             self.stats["audits"] += 1
 
     def run_once(self) -> list[Request]:
