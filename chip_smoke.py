@@ -3,18 +3,27 @@
 
     python3 chip_smoke.py [--layers N] [--phases kernels,parity,serve]
 
-Phases (all by default):
+Phases (kernels, parity and serve by default):
 
-1. print the card (``nvidia-smi`` name and power limit) and build every
-   CUDA kernel of the port from ``src/repro_torch/kernels/csrc``;
+1. print the card (``nvidia-smi`` name and power limit), build every CUDA
+   kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
+   per source, all at once) and print each kernel's registers, shared
+   memory and spills as ``ptxas -v`` reports them;
 2. ``kernels``: run each kernel against its plain PyTorch version on the
    card at the serving path's shapes, within a stated tolerance — K1 over
-   bf16/fp32 pools and, scaled, over int8 and fp8_e4m3 pools; K2; K3
-   (``ops.matmul``) and K4 (``ops.accumulate``) at the reference bench's
-   shapes and Qwen2.5-14B's widths — and time the kernel, the plain
-   version and one library call (timed only) with CUDA events over inputs
-   rotated past the 50 MB L2; then drive K3's and K4's path, their
-   wrappers, once at each shape with launch counts reset just before;
+   bf16/fp32 pools and, scaled, over int8 and fp8_e4m3 pools, at the
+   kernels phase's and the serving run's lengths (two launches must give
+   the same bits, a seq_len 0 slot exactly its v0, and a slot's bits must
+   not move when the other slots change); K2; K3 (``ops.matmul``, each of
+   its four routes as ``plan`` picks them: Qwen2.5-14B's up- and
+   down-projections at decode and prefill widths, an unaligned view, the
+   reference bench's fp32 shape, ragged shapes; two launches must give
+   the same bits) and K4 (``ops.accumulate``) — and time the kernel and
+   one library call (timed only) by replaying a CUDA graph of 50 calls
+   over inputs rotated past the 50 MB L2 (device time, without the host's
+   launch overhead), and the plain version eagerly; then drive K3's and
+   K4's path, their wrappers, once at each shape with launch counts reset
+   just before, each K3 route reached;
 3. ``parity``: serve a smoke-size fp32 model on the card and on the CPU
    (plain versions) and hold their tokens and logits together, greedy
    and, over int8 pools, at temperature 0.7;
@@ -37,10 +46,14 @@ Phases (all by default):
    traced serving runs (bf16 greedy, int8 at temperature 0.7, and bf16
    greedy with paged weights), printing device time by kernel and the
    device's busy share; for paged weights also the copy stream's busy
-   time beside the compute's, and how long both ran at once.
+   time beside the compute's, and how long both ran at once;
+6. ``sweep`` (only when named): K3's splitk and wgmma routes timed side by
+   side over M = 1 .. 64 at Qwen2.5-14B's MLP shapes, where the planner's
+   ``SPLITK_MAX_M`` comes from.
 
 The second-to-last line of standard output is a JSON object with each
-kernel's numbers; the last is ``{"ok": true, "device": {...}}``.  Any
+kernel's numbers, one entry per kernel (variant or route) and timed
+shape; the last is ``{"ok": true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
 It exits non-zero at once when no CUDA device is present.
 """
@@ -73,19 +86,68 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, inputs, iters: int = 50) -> float:
+def ptxas_summary(report: str) -> list[str]:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: its
+    (mangled) name, registers, shared memory and spills; warnings and
+    errors as they are."""
+    out, name, spill = [], "", ""
+    for line in report.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif "spill" in line:
+            spill = line
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name[:110]}: {line.split(':', 1)[-1].strip()}; "
+                       f"{spill}")
+        elif "warning" in line or "error" in line:
+            out.append(line)
+    return out
+
+
+_SIDE = None
+
+
+def time_ms(torch, fn, inputs, iters: int = 50, graph: bool = True) -> float:
     """Mean ms per call over ``iters`` calls cycling through ``inputs``
-    (so each call finds its operands out of L2), after warm-up."""
+    (so each call finds its operands out of L2), after warm-up.  With
+    ``graph`` the calls are captured once in a CUDA graph and the replay
+    is timed: the device's time for the work, without the host's launch
+    overhead (which exceeds a small kernel's own time); without it, the
+    calls are issued eagerly and the host's time counts where it is the
+    longer."""
     for i in range(3):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if not graph:
+        start.record()
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    global _SIDE
+    if _SIDE is None:       # one warm-up stream: cuBLAS keeps a workspace
+        _SIDE = torch.cuda.Stream()   # for every stream it has run on
+    g = torch.cuda.CUDAGraph()
+    side = _SIDE
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*inputs[0])
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+    g.replay()
+    torch.cuda.synchronize()
     start.record()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
+    g.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    del g
+    return ms
 
 
 def bound(nbytes: float, flops: float,
@@ -98,25 +160,34 @@ def bound(nbytes: float, flops: float,
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+#: K1's timed shapes: the kernels phase's (an idle slot, up to max_seq - 1)
+#: and the serving run's (lengths of its four 8-token prompts a few blocks
+#: into decode); both over a 24-page table, as the serve phase's
+K1_LENS = ([0, 71, 135, 383], [8, 40, 72, 72])
+
+
 def check_paged(torch, card: str, results: dict, kv: str | None = None
                 ) -> None:
     """K1 against its plain version.  ``kv`` None: bf16/fp32 pools in q's
     dtype; "int8" / "fp8_e4m3": the scaled variant, one-byte pools with
     bf16 scales made by the port's quantizer, q and extra_kv in bf16 or
-    fp32."""
+    fp32.  Also: a seq_len 0 slot is exactly its v0, two launches give
+    the same bits, and a slot's bits do not move when the other slots'
+    lengths, pages and page contents change (the split grid depends only
+    on the table's width)."""
     from repro_torch.kernels.paged_attention import kernel as K
-    from repro_torch.kernels.paged_attention.ref import (gather_pages,
+    from repro_torch.kernels.paged_attention.ref import (byte_view,
+                                                         gather_pages,
                                                          gather_scales,
                                                          paged_attention_ref)
     from repro_torch.models.base import ModelConfig
     from repro_torch.models.layers import kv_dequantize, kv_pool_quantize
     B, HKV, G, D, PAGE, N = 4, 8, 5, 128, 16, 24
     P = 1 + B * N
-    lens_l = [0, 71, 135, 383]    # an idle slot, and up to max_seq - 1
     gen = torch.Generator(device="cuda").manual_seed(1)
     name = "paged_attention" if kv is None else f"paged_attention_{kv}"
 
-    def inputs(dtype):
+    def inputs(dtype, lens_l=K1_LENS[0]):
         """(q, k_pages, v_pages, table, lens, k0, v0, k_scales, v_scales)."""
         kp = torch.randn((P, PAGE, HKV, D), generator=gen, device="cuda")
         vp = torch.randn((P, PAGE, HKV, D), generator=gen, device="cuda")
@@ -127,7 +198,8 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None
         v0 = torch.randn((B, HKV, D), generator=gen, device="cuda").to(dtype)
         perm = torch.randperm(P - 1, generator=gen, device="cuda")[:B * N] + 1
         table = perm.reshape(B, N).to(torch.int32)
-        table[0] = 0                  # the idle slot maps the null page
+        if lens_l[0] == 0:
+            table[0] = 0              # the idle slot maps the null page
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
         if kv is None:
             return q, kp.to(dtype), vp.to(dtype), table, lens, k0, v0, None, \
@@ -148,64 +220,98 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None
 
     errs = {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        args = inputs(dtype)
-        for extra in (True, False):
-            got = kernel(*args, extra=extra)
-            want = plain(*args, extra=extra)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            case = f"{name} q={str(dtype)[6:]} extra={extra}"
-            log(f"K1 {case}: max_abs_err {err:.3e} (bound {tol:g})")
-            if not err <= tol:
-                raise AssertionError(f"K1 {case}: {err} > {tol}")
-            errs[dtype] = max(errs.get(dtype, 0.0), err)
-            # a seq_len == 0 slot comes out as exactly its v0
-            v0 = args[6]
-            if extra and not torch.equal(
-                    got[0], v0[0][:, None, :].expand(HKV, G, D)):
-                raise AssertionError(f"K1 {case}: seq_len 0 slot is not v0")
+        for lens_l in K1_LENS:
+            args = inputs(dtype, lens_l)
+            for extra in (True, False):
+                got = kernel(*args, extra=extra)
+                again = kernel(*args, extra=extra)
+                want = plain(*args, extra=extra)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                case = f"{name} q={str(dtype)[6:]} lens={lens_l} extra={extra}"
+                log(f"K1 {case}: max_abs_err {err:.3e} (bound {tol:g})")
+                if not err <= tol:
+                    raise AssertionError(f"K1 {case}: {err} > {tol}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K1 {case}: two launches differ")
+                key = (dtype, tuple(lens_l))
+                errs[key] = max(errs.get(key, 0.0), err)
+                # a seq_len == 0 slot comes out as exactly its v0
+                v0 = args[6]
+                if extra and lens_l[0] == 0 and not torch.equal(
+                        got[0], v0[0][:, None, :].expand(HKV, G, D)):
+                    raise AssertionError(f"K1 {case}: seq_len 0 slot is not v0")
+    log(f"K1 {name}: two launches bit-identical; seq_len 0 slot exactly v0")
 
-    # timing at the bf16 decode shape, inputs rotated past the L2
-    sets = [inputs(torch.bfloat16) for _ in range(ROTATE)]
-    ms = time_ms(torch, kernel, sets)
-    plain_ms = time_ms(torch, plain, sets, iters=20)
-    # library yardstick: SDPA over the gathered KV (+ the current column),
-    # dequantized to bf16 and GQA-expanded beforehand; only the SDPA call
-    # is timed, so it leaves the dequantization out
+    # slot independence: slot 2's bits with the other slots changed
+    args = list(inputs(torch.bfloat16))
+    before = kernel(*args)
+    other = inputs(torch.bfloat16, [5, 200, 0, 17])
+    mine = args[3][2].clone()
+    for i in (0, 1, 3):
+        args[3][i] = other[3][i]
+        args[4][i] = other[4][i]
+        keep = torch.isin(args[3][i].long(), mine.long(), invert=True)
+        pages = args[3][i].long()[keep]
+        for j in (1, 2, 7, 8):          # pools (fp8 as bytes) and scales
+            if args[j] is not None:
+                byte_view(args[j])[pages] = byte_view(other[j])[pages]
+    after = kernel(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(before[2], after[2]):
+        raise AssertionError(f"K1 {name}: slot 2 moved when the others did")
+    log(f"K1 {name}: slot 2 bit-identical with the other slots' lengths, "
+        f"pages and page contents changed")
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_sets = []
-    for q, kp, vp, t, l, a, b, ks, vs in sets:
-        kk, vv = gather_pages(kp, t), gather_pages(vp, t)
-        if kv is not None:
-            kk = kv_dequantize(kk, gather_scales(ks, t), torch.bfloat16)
-            vv = kv_dequantize(vv, gather_scales(vs, t), torch.bfloat16)
-        kk = torch.cat([kk, a[:, :, None]], dim=2)
-        vv = torch.cat([vv, b[:, :, None]], dim=2)
-        S = kk.shape[2]
-        mask = torch.arange(S, device="cuda")[None, :] < l[:, None].long()
-        mask[:, -1] = True
-        lib_sets.append((q.reshape(B, HKV * G, 1, D),
-                         kk.repeat_interleave(G, dim=1),
-                         vv.repeat_interleave(G, dim=1),
-                         mask[:, None, None, :]))
-    lib_ms = time_ms(torch, lambda q, k, v, m: sdpa(q, k, v, attn_mask=m),
-                     lib_sets)
-    live = sum(lens_l)
-    el = 2 if kv is None else 1              # pool bytes per element
-    nbytes = (2 * B * HKV * G * D * 2                  # q in, out (bf16)
-              + 2 * live * HKV * D * el                # live K and V rows
-              + (0 if kv is None else 2 * live * HKV * 2)   # their scales
-              + 2 * B * HKV * D * 2                    # extra k0, v0
-              + B * N * 4 + B * 4)                     # table, seq_lens
-    flops = 4 * sum(n + 1 for n in lens_l) * HKV * G * D
-    b_ms, b_by = bound(nbytes, flops)
-    log(f"K1 {name} q=bf16 B={B} Hkv={HKV} G={G} d={D} page={PAGE} "
-        f"n={N} lens={lens_l} [{card}]: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
-        f"({b_by})")
-    results[name] = dict(
-        max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    rows = []
+    for lens_l in K1_LENS:
+        # timing at the bf16 decode shape, inputs rotated past the L2
+        sets = [inputs(torch.bfloat16, lens_l) for _ in range(ROTATE)]
+        ms = time_ms(torch, kernel, sets)
+        eager_ms = time_ms(torch, kernel, sets, graph=False)
+        plain_ms = time_ms(torch, plain, sets, iters=20, graph=False)
+        # library yardstick: SDPA over the gathered KV (+ the current
+        # column), dequantized to bf16 and GQA-expanded beforehand; only
+        # the SDPA call is timed, so it leaves the dequantization out
+        lib_sets = []
+        for q, kp, vp, t, l, a, b, ks, vs in sets:
+            kk, vv = gather_pages(kp, t), gather_pages(vp, t)
+            if kv is not None:
+                kk = kv_dequantize(kk, gather_scales(ks, t), torch.bfloat16)
+                vv = kv_dequantize(vv, gather_scales(vs, t), torch.bfloat16)
+            kk = torch.cat([kk, a[:, :, None]], dim=2)
+            vv = torch.cat([vv, b[:, :, None]], dim=2)
+            S = kk.shape[2]
+            mask = torch.arange(S, device="cuda")[None, :] < l[:, None].long()
+            mask[:, -1] = True
+            lib_sets.append((q.reshape(B, HKV * G, 1, D),
+                             kk.repeat_interleave(G, dim=1),
+                             vv.repeat_interleave(G, dim=1),
+                             mask[:, None, None, :]))
+        lib_ms = time_ms(torch, lambda q, k, v, m: sdpa(q, k, v, attn_mask=m),
+                         lib_sets)
+        live = sum(lens_l)
+        el = 2 if kv is None else 1              # pool bytes per element
+        nbytes = (2 * B * HKV * G * D * 2                  # q in, out (bf16)
+                  + 2 * live * HKV * D * el                # live K and V rows
+                  + (0 if kv is None else 2 * live * HKV * 2)   # their scales
+                  + 2 * B * HKV * D * 2                    # extra k0, v0
+                  + B * N * 4 + B * 4)                     # table, seq_lens
+        flops = 4 * sum(n + 1 for n in lens_l) * HKV * G * D
+        b_ms, b_by = bound(nbytes, flops)
+        shape = (f"B={B} Hkv={HKV} G={G} d={D} page={PAGE} n={N} "
+                 f"lens={lens_l}")
+        log(f"K1 {name} q=bf16 {shape} [{card}]: kernel {ms:.4f} ms "
+            f"(eager, host included: {eager_ms:.4f}), plain {plain_ms:.4f} "
+            f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of the bound, kernel / sdpa "
+            f"{ms / lib_ms:.2f}x")
+        rows.append(dict(shape=shape, max_abs_err=errs[
+            (torch.bfloat16, tuple(lens_l))], ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            eager_ms=eager_ms))
+    results[name] = rows
 
 
 def check_flash(torch, card: str, results: dict) -> None:
@@ -263,7 +369,7 @@ def check_flash(torch, card: str, results: dict) -> None:
         ms = time_ms(torch, lambda q, k, v: run(K.flash_attention, q, k, v),
                      sets)
         plain_ms = time_ms(torch, lambda q, k, v: run(
-            flash_attention_ref, q, k, v), sets, iters=5)
+            flash_attention_ref, q, k, v), sets, iters=5, graph=False)
         lib_sets = [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(
             HQ // HKV, dim=1), v.transpose(1, 2).repeat_interleave(
             HQ // HKV, dim=1)) for q, k, v in sets]
@@ -276,18 +382,26 @@ def check_flash(torch, card: str, results: dict) -> None:
             f"d={D} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
         if sq == 64:   # the serving run's largest admission
-            results["flash_attention"] = dict(
+            results["flash_attention"] = [dict(
+                shape=f"B=1 Sq=Sk={sq} Hq={HQ} Hkv={HKV} d={D} bf16",
                 max_abs_err=errs[64], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
 
 
 #: K3's shapes: the reference bench's (benchmarks/kernels_bench.py:29), and
-#: Qwen2.5-14B's MLP up-projection at decode batch 4 and at a 2048-token
-#: prefill, w ~ randn / sqrt(K)
-MATMUL_SHAPES = (((256, 512, 256), "float32"), ((4, 5120, 13824), "bfloat16"),
-                 ((2048, 5120, 13824), "bfloat16"))
+#: Qwen2.5-14B's MLP up-projection (5120 -> 13824) and down-projection
+#: (13824 -> 5120) at decode batch 4 and at a 2048-token prefill, w ~
+#: randn / sqrt(K); (shape, dtype, w's row padding): a padded w is a view
+#: whose row stride TMA cannot describe, so the up-projection with it
+#: times the wmma route at Qwen width
+MATMUL_SHAPES = (((256, 512, 256), "float32", 0),
+                 ((4, 5120, 13824), "bfloat16", 0),
+                 ((4, 13824, 5120), "bfloat16", 0),
+                 ((2048, 5120, 13824), "bfloat16", 0),
+                 ((2048, 13824, 5120), "bfloat16", 0),
+                 ((2048, 5120, 13824), "bfloat16", 1))
 #: ragged shapes, both dtypes: checked, not timed
-MATMUL_RAGGED = (((7, 513, 129), "float32"), ((7, 513, 129), "bfloat16"))
+MATMUL_RAGGED = (((7, 513, 129), "float32", 0), ((7, 513, 129), "bfloat16", 0))
 #: K4's shapes: the reference bench's (benchmarks/kernels_bench.py:66), an
 #: 8-way TAB all-reduce of a Qwen2.5-14B 2048-token activation, and a
 #: ragged trailing shape (checked, not timed)
@@ -295,32 +409,44 @@ ACCUMULATE_SHAPES = (((8, 64, 512), "float32"), ((8, 2048, 5120), "bfloat16"))
 ACCUMULATE_RAGGED = (((5, 3, 7, 11), "float32"),)
 
 
-def _matmul_inputs(torch, gen, shape, dtype):
+def _matmul_inputs(torch, gen, shape, dtype, pad=0):
     m, k, n = shape
     x = torch.randn((m, k), generator=gen, device="cuda")
-    w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
-    return x.to(dtype), w.to(dtype)
+    w = torch.randn((k, n + pad), generator=gen, device="cuda") / k ** 0.5
+    return x.to(dtype), w.to(dtype)[:, :n]
+
+
+def _route(torch, x, w) -> str:
+    from repro_torch.kernels.streamed_matmul import kernel as K
+    (m, k), n = x.shape, w.shape[1]
+    return K.plan(m, k, n, x.dtype,
+                  x.dtype == torch.bfloat16 and K.aligned(x, w)).name
 
 
 def check_matmul(torch, card: str, results: dict) -> None:
-    """K3 against its plain version.  fp32: |err| <= 2e-4 + 2e-4 |plain|
-    (the reference's tolerance; summation order only, no TF32).  bf16 at
-    Qwen widths: max |err| <= 1e-2 max |plain| (both sum in fp32 and round
-    once to bf16: one bf16 ulp is 2^-8 relative); bf16 ragged: the
-    reference's 5e-2."""
+    """K3 against its plain version, one route at a time as ``plan``
+    picks it.  fp32: |err| <= 2e-4 + 2e-4 |plain| (the reference's
+    tolerance; summation order only, no TF32).  bf16 at Qwen widths: max
+    |err| <= 1e-2 max |plain| (both sum in fp32 and round once to bf16:
+    one bf16 ulp is 2^-8 relative); bf16 ragged: the reference's 5e-2.
+    Every case is launched twice and must give the same bits (split-K
+    sums its partials in a fixed order)."""
     from repro_torch.kernels.streamed_matmul import ops
     from repro_torch.kernels.streamed_matmul.ref import streamed_matmul_ref
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for shape, dt in MATMUL_SHAPES + MATMUL_RAGGED:
+    for shape, dt, pad in MATMUL_SHAPES + MATMUL_RAGGED:
         dtype = getattr(torch, dt)
-        x, w = _matmul_inputs(torch, gen, shape, dtype)
-        got, want = ops.matmul(x, w), streamed_matmul_ref(x, w)
+        x, w = _matmul_inputs(torch, gen, shape, dtype, pad)
+        route = _route(torch, x, w)
+        got, again = ops.matmul(x, w), ops.matmul(x, w)
+        want = streamed_matmul_ref(x, w)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
-        tag = f"K3 streamed_matmul {dt} {shape}"
+        tag = (f"K3 streamed_matmul_{route} {dt} {shape}"
+               f"{f' w row stride {w.stride(0)}' if pad else ''}")
         if got.shape != want.shape or got.dtype != dtype:
             raise AssertionError(f"{tag}: {got.shape} {got.dtype}")
-        if dt == "float32" or shape in [r[0] for r in MATMUL_RAGGED]:
+        if dt == "float32" or (shape, dt, pad) in MATMUL_RAGGED:
             tol = 2e-4 if dt == "float32" else 5e-2
             ok = bool((err <= tol + tol * want.float().abs()).all())
             what = f"atol=rtol={tol:g}"
@@ -328,16 +454,21 @@ def check_matmul(torch, card: str, results: dict) -> None:
             limit = 1e-2 * want.float().abs().max().item()
             ok = err.max().item() <= limit
             what = f"<= {limit:.3e}"
-        log(f"{tag}: max_abs_err {err.max().item():.3e} ({what})")
+        same = torch.equal(got, again)
+        log(f"{tag}: max_abs_err {err.max().item():.3e} ({what}); two "
+            f"launches bit-identical: {same}")
         if not ok:
             raise AssertionError(f"{tag}: outside the tolerance")
-        if (shape, dt) not in MATMUL_SHAPES:
+        if not same:
+            raise AssertionError(f"{tag}: two launches differ")
+        if (shape, dt, pad) not in MATMUL_SHAPES:
             continue
         m, k, n = shape
-        sets = [_matmul_inputs(torch, gen, shape, dtype)
+        sets = [_matmul_inputs(torch, gen, shape, dtype, pad)
                 for _ in range(ROTATE)]
         ms = time_ms(torch, ops.matmul, sets)
-        plain_ms = time_ms(torch, streamed_matmul_ref, sets, iters=10)
+        plain_ms = time_ms(torch, streamed_matmul_ref, sets, iters=10,
+                           graph=False)
         lib_ms = time_ms(torch, torch.matmul, sets)
         size = 4 if dt == "float32" else 2
         nbytes = (m * k + k * n + m * n) * size
@@ -345,11 +476,41 @@ def check_matmul(torch, card: str, results: dict) -> None:
                            F32_FLOPS_PER_S if dt == "float32"
                            else BF16_FLOPS_PER_S)
         log(f"{tag} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        if shape == (4, 5120, 13824):   # Qwen decode: the line's numbers
-            results["streamed_matmul"] = dict(
-                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of the bound, kernel / torch.matmul "
+            f"{ms / lib_ms:.2f}x")
+        results.setdefault(f"streamed_matmul_{route}", []).append(dict(
+            shape=f"({m},{k})@({k},{n}) {dt}"
+                  f"{f', w row stride {w.stride(0)}' if pad else ''}",
+            max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+
+
+def sweep_matmul(torch, card: str) -> None:
+    """Where K3's planner switches from splitk to wgmma: both routes timed
+    at Qwen2.5-14B's two MLP shapes for M = 1 .. 64 (``--phases sweep``;
+    ``SPLITK_MAX_M`` is set from this)."""
+    from repro_torch.kernels.streamed_matmul import kernel as K
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for k, n in ((5120, 13824), (13824, 5120)):
+        for m in (1, 2, 4, 8, 16, 32, 64):
+            sets = [_matmul_inputs(torch, gen, (m, k, n), torch.bfloat16)
+                    for _ in range(ROTATE)]
+            times = {}
+            for name in ("splitk", "wgmma"):
+                if name == "splitk" and m > 8:      # its widest template
+                    continue
+                route = (K._plan_splitk(m, k, n) if name == "splitk" else
+                         K.plan(m, k, n, torch.bfloat16, True)
+                         if m > K.SPLITK_MAX_M else
+                         K.Route("wgmma", (-(-m // 128) * -(-n // 256), 1, 1),
+                                 1, k))
+                times[name] = time_ms(torch, lambda x, w, r=route: K._launch(
+                    x, w, r), sets)
+            lib = time_ms(torch, torch.matmul, sets)
+            log(f"K3 sweep ({m},{k})@({k},{n}) bf16 [{card}]: " + ", ".join(
+                f"{r} {t:.4f} ms" for r, t in times.items())
+                + f", torch.matmul {lib:.4f} ms")
 
 
 def check_accumulate(torch, card: str, results: dict) -> None:
@@ -396,7 +557,8 @@ def check_accumulate(torch, card: str, results: dict) -> None:
             continue
         sets = [(inputs(shape, dtype),) for _ in range(ROTATE)]
         ms = time_ms(torch, ops.accumulate, sets)
-        plain_ms = time_ms(torch, write_accumulate_ref, sets, iters=20)
+        plain_ms = time_ms(torch, write_accumulate_ref, sets, iters=20,
+                           graph=False)
         lib_ms = time_ms(torch, library, sets)
         n, size = shape[0], s[0].numel()
         nbytes = (n + 1) * size * s.element_size()
@@ -404,33 +566,42 @@ def check_accumulate(torch, card: str, results: dict) -> None:
                            F32_FLOPS_PER_S)   # the adds are fp32 CUDA-core
         log(f"{tag} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.sum {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        if dt == "bfloat16":   # the TAB all-reduce: the line's numbers
-            results["write_accumulate"] = dict(
-                max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        results.setdefault("write_accumulate", []).append(dict(
+            shape=f"{shape} {dt}", max_abs_err=err.max().item(), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
 
 
 def drive_ops(torch) -> dict:
     """K3's and K4's path: their public wrappers, ``ops.matmul`` and
     ``ops.accumulate``, once at each of their shapes (no serving path
     reaches them; in the reference only benchmarks/kernels_bench.py
-    does).  Counts are reset just before and read just after; every
-    call must launch its kernel once and nothing else may launch."""
+    does).  Counts are reset just before and read just after; every call
+    must launch the kernel of the route ``plan`` gives its shape once,
+    every K3 route must run, the ragged bf16 shape must take the wmma
+    route, and nothing else may launch."""
+    from collections import Counter
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.streamed_matmul import ops as sm
     from repro_torch.kernels.write_accumulate import ops as wa
     gen = torch.Generator(device="cuda").manual_seed(5)
-    mm = [_matmul_inputs(torch, gen, shape, getattr(torch, dt))
-          for shape, dt in MATMUL_SHAPES + MATMUL_RAGGED]
+    mm = [_matmul_inputs(torch, gen, shape, getattr(torch, dt), pad)
+          for shape, dt, pad in MATMUL_SHAPES + MATMUL_RAGGED]
     acc = [torch.randn(shape, generator=gen, device="cuda").to(
         getattr(torch, dt)) for shape, dt in ACCUMULATE_SHAPES
         + ACCUMULATE_RAGGED]
+    routes = [_route(torch, x, w) for x, w in mm]
+    if routes[-1] != "wmma" or set(routes) != {"wgmma", "splitk", "wmma",
+                                               "f32"}:
+        raise AssertionError(f"K3 routes {routes}: the ragged bf16 shape "
+                             f"must take wmma and every route must run")
     torch.cuda.synchronize()
     reset_launch_counts()
     outs = [sm.matmul(x, w) for x, w in mm] + [wa.accumulate(s) for s in acc]
     torch.cuda.synchronize()
     launches = launch_counts()
-    want = {"streamed_matmul": len(mm), "write_accumulate": len(acc)}
+    want = {f"streamed_matmul_{r}": c for r, c in Counter(routes).items()}
+    want["write_accumulate"] = len(acc)
     got = {k: n for k, n in launches.items() if n}
     log(f"ops path (ops.matmul x{len(mm)}, ops.accumulate x{len(acc)}): "
         f"launches {got}")
@@ -539,6 +710,9 @@ def check_serve(torch, card: str, layers: int, profile: bool) -> dict:
                               num_layers=layers)
     if layers != 48:
         log(f"DEPTH CUT: serving {layers} of Qwen2.5-14B's 48 layers")
+    log(f"serve: device memory allocated before the weights "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB (left by earlier "
+        f"phases)")
     t0 = time.perf_counter()
     params = DenseLM(cfg).init(0, device="cuda")
     torch.cuda.synchronize()
@@ -801,8 +975,9 @@ def main() -> int:
                     help="serving depth (Qwen2.5-14B has 48; cut only if "
                          "the time limit forces it)")
     ap.add_argument("--phases", default="kernels,parity,serve",
-                    help="comma list of kernels, parity, serve and profile "
-                         "(a traced serving run, off by default)")
+                    help="comma list of kernels, parity, serve, profile (a "
+                         "traced serving run) and sweep (K3's routes over "
+                         "M); the last two are off by default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -827,9 +1002,8 @@ def main() -> int:
     reports = build_all()
     log(f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
     for src, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {src}: {line.strip()}")
+        for line in ptxas_summary(rep):
+            log(f"  {src}: {line}")
 
     results: dict = {}
     if "kernels" in phases:
@@ -839,6 +1013,8 @@ def main() -> int:
         check_matmul(torch, card, results)
         check_accumulate(torch, card, results)
         ops_launches = drive_ops(torch)
+    if "sweep" in phases:
+        sweep_matmul(torch, card)
     if "parity" in phases:
         check_parity(torch)
     launches = None
@@ -856,11 +1032,12 @@ def main() -> int:
                                   (wa_kernel, wrappers, ops_launches)):
             for counter in mod.COUNTERS:
                 name = counter.name
-                kernels.append({"name": name, "route": "cuda",
-                                "source": f"src/repro_torch/kernels/csrc/"
-                                          f"{mod.SOURCE}",
-                                "replaces": mod.REPLACES, "path": path,
-                                "launches": counts[name], **results[name]})
+                for row in results[name]:
+                    kernels.append({"name": name, "route": "cuda",
+                                    "source": f"src/repro_torch/kernels/"
+                                              f"csrc/{mod.SOURCE}",
+                                    "replaces": mod.REPLACES, "path": path,
+                                    "launches": counts[name], **row})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

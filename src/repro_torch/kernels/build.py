@@ -22,9 +22,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: sources that call the driver API (``cuTensorMapEncodeTiled``) link
+#: libcuda through the toolkit's stub; the driver's own library is loaded
+#: at run time
+DRIVER_API = {"streamed_matmul.cu"}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_counters: dict = {}                # device -> zeroed int32 counters
 reports: dict[str, str] = {}        # source name -> nvcc/ptxas output
 
 
@@ -48,6 +53,16 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _link_flags(source: str, nvcc: str) -> list[str]:
+    if source not in DRIVER_API:
+        return []
+    root = Path(nvcc).resolve().parents[1]
+    stubs = [p for p in (root / "lib64" / "stubs",
+                         root / "targets" / "x86_64-linux" / "lib" / "stubs")
+             if p.exists()]
+    return [f"-L{p}" for p in stubs] + ["-lcuda"]
+
+
 def _target(source: str) -> Path:
     text = (CSRC / source).read_bytes()
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
@@ -67,7 +82,9 @@ def build(sources: list[str]) -> dict[str, str]:
                 reports.setdefault(src, "(cached)")
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+            nvcc = _nvcc()
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src),
+                   *_link_flags(src, nvcc)]
             procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True), tmp, out)
@@ -93,6 +110,19 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(source)))
         _loaded[source] = lib
     return lib
+
+
+def counters(device, n: int):
+    """``n`` zeroed int32 split counters on ``device``.  A kernel that sums
+    split partials in its last CTA counts arrivals in them and leaves each
+    one zero again, so one buffer serves every launch on a stream; it
+    grows (zeroed anew) when a launch needs more."""
+    import torch
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def check(rc: int, what: str) -> None:

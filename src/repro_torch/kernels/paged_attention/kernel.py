@@ -1,6 +1,10 @@
 """ctypes binding of the CUDA paged decode kernel (K1,
 ``csrc/paged_attention.cu``).  CUDA tensors only: the plain version
-lives in ``ref.py`` and the device routing in ``ops.py``."""
+lives in ``ref.py`` and the device routing in ``ops.py``.
+
+The kernel splits each slot's page walk over CTAs of ``PAGES_PER_SPLIT``
+pages (flash-decoding); the wrapper allocates the splits' fp32 scratch
+(``scratch_floats``) and hands it the shared zeroed split counters."""
 from __future__ import annotations
 
 import ctypes
@@ -20,15 +24,27 @@ COUNTERS = (launches, *launches_scaled.values())
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}   # scaled pools
-_MAX_GD = 128 * 16          # threads per CTA x accumulators per thread
+_MAX_G, _MAX_D = 8, 256     # query rows per kv-head; columns (2 a thread)
+#: pages per split: a constant of the kernel (``PPS`` in the source)
+PAGES_PER_SPLIT = 2
 _fn = None
+
+
+def splits(n_pages: int) -> int:
+    """Splits of a page-table row of ``n_pages``: the grid's z extent."""
+    return -(-n_pages // PAGES_PER_SPLIT)
+
+
+def scratch_floats(b: int, hkv: int, g: int, d: int, n_pages: int) -> int:
+    """fp32 scratch of one launch: (m, l) and acc (G x d) per split."""
+    return b * hkv * splits(n_pages) * g * (d + 2)
 
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = build.load(SOURCE).paged_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -91,8 +107,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
               lambda: "pools and q differ in dtype")
     num_pages, page = k_pages.shape[:2]
     _need(1 <= page <= 32, lambda: f"page size {page} not in [1, 32]")
-    _need(d % 32 == 0 and g * d <= _MAX_GD,
+    _need(d % 32 == 0 and d <= _MAX_D and g <= _MAX_G,
           lambda: f"head_dim {d} x group {g} not supported")
+    _need(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+          lambda: "pools must be 16-byte aligned")
     _need(page_table.dtype == torch.int32 and page_table.dim() == 2
           and page_table.shape[0] == b and page_table.shape[1] >= 1,
           lambda: f"page_table must be (B, n>=1) int32, got "
@@ -107,6 +125,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
               and k0.dtype == q.dtype and v0.dtype == q.dtype,
               lambda: "extra_kv must be two (B, Hkv, d) tensors of q's dtype")
     out = torch.empty_like(q)
+    n = page_table.shape[1]
+    partial = counters = None
+    if splits(n) > 1:
+        partial = torch.empty(scratch_floats(b, hkv, g, d, n),
+                              dtype=torch.float32, device=q.device)
+        counters = build.counters(q.device, b * hkv)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                      k_scales.data_ptr() if scaled else None,
@@ -114,7 +138,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      page_table.data_ptr(), seq_lens.data_ptr(),
                      None if k0 is None else k0.data_ptr(),
                      None if v0 is None else v0.data_ptr(), out.data_ptr(),
-                     b, hkv, g, d, num_pages, page, page_table.shape[1],
+                     None if partial is None else partial.data_ptr(),
+                     None if counters is None else counters.data_ptr(),
+                     b, hkv, g, d, num_pages, page, n,
                      _DTYPES[q.dtype],
                      _KV_DTYPES[k_pages.dtype] if scaled else 0, stream)
     build.check(rc, "paged_attention")

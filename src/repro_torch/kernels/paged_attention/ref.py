@@ -96,3 +96,72 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
     else:
         o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return o.to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, page_table, seq_lens,
+                              extra_kv=None, k_scales=None, v_scales=None,
+                              *, pages_per_split: int = 2):
+    """The CUDA kernel's flash-decoding written plainly (tests only):
+    the same arguments and result as :func:`paged_attention_ref`.
+
+    Slot b attends its ``n_live`` pages (those holding a position below
+    ``seq_lens[b]``; all ``n_pages`` when it has no live position and no
+    extra column, the reference's all-masked softmax).  They are cut into
+    splits of ``pages_per_split`` pages; each split keeps its own fp32
+    (m, l, acc) with m starting at -1e30; the splits are merged in split
+    order with weights exp(m_s - M); the extra column is folded in last,
+    in full precision.  A slot with no live page and an extra column
+    merges nothing (m = -1e30, l = 0, acc = 0) and comes out as its v0."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    b, hkv, g, d = q.shape
+    n = page_table.shape[1]
+    page = k_pages.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    table = page_table.long().clamp(0, k_pages.shape[0] - 1)
+    k = take_pages(k_pages, table).float()          # (B, n, page, Hkv, d)
+    v = take_pages(v_pages, table).float()
+    if k_scales is not None:
+        k = k * k_scales[table].float()[..., None]
+        v = v * v_scales[table].float()[..., None]
+    out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        length = int(seq_lens[i])
+        n_live = (min(n, -(-length // page)) if length > 0
+                  else (0 if extra_kv is not None else n))
+        qi = q[i].float()                           # (Hkv, G, d)
+        parts = []
+        for p0 in range(0, max(n_live, 1), pages_per_split):
+            p1 = min(p0 + pages_per_split, n_live)
+            m = torch.full((hkv, g), NEG_INF, device=q.device)
+            l_ = torch.zeros((hkv, g), device=q.device)
+            acc = torch.zeros((hkv, g, d), device=q.device)
+            if p1 > p0:
+                ks = k[i, p0:p1].reshape(-1, hkv, d)   # (T, Hkv, d)
+                vs = v[i, p0:p1].reshape(-1, hkv, d)
+                s = torch.einsum("hgd,thd->hgt", qi, ks) * scale
+                pos = p0 * page + torch.arange(ks.shape[0], device=q.device)
+                s = torch.where(pos < length, s, torch.full_like(s, NEG_INF))
+                m = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m[..., None])
+                l_ = p.sum(-1)
+                acc = torch.einsum("hgt,thd->hgd", p, vs)
+            parts.append((m, l_, acc))
+        big_m = parts[0][0]
+        for m, _, _ in parts[1:]:
+            big_m = torch.maximum(big_m, m)
+        l_tot = torch.zeros_like(big_m)
+        acc_tot = torch.zeros((hkv, g, d), device=q.device)
+        for m, l_, acc in parts:              # in split order
+            wgt = torch.exp(m - big_m)
+            l_tot = l_tot + l_ * wgt
+            acc_tot = acc_tot + acc * wgt[..., None]
+        if extra_kv is not None:
+            k0, v0 = (t[i].float() for t in extra_kv)     # (Hkv, d)
+            s0 = torch.einsum("hgd,hd->hg", qi, k0) * scale
+            m_f = torch.maximum(big_m, s0)
+            alpha, p0 = torch.exp(big_m - m_f), torch.exp(s0 - m_f)
+            l_tot = l_tot * alpha + p0
+            acc_tot = acc_tot * alpha[..., None] + p0[..., None] * v0[:, None]
+        out[i] = acc_tot / l_tot.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)

@@ -18,9 +18,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = 256,
 
     Operands must be 2-D, non-empty and contraction-compatible (the
     reference's errors).  ``bm``/``bk``/``bn`` are the reference's TPU
-    block sizes, kept in the signature and checked to be positive; the
-    card's kernel tiles with its own sizes (``csrc/streamed_matmul.cu``)
-    and masks ragged edges itself, so nothing is padded here."""
+    block sizes, kept in the signature and checked to be positive; on the
+    card ``kernel.plan`` picks the route and its tiles from the shape and
+    alignment (``csrc/streamed_matmul.cu``), and the kernels mask ragged
+    edges themselves, so nothing is padded here."""
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"streamed matmul takes 2-D operands, got "
                          f"x{tuple(x.shape)} w{tuple(w.shape)}")

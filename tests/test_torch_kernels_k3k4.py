@@ -177,4 +177,5 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         wa_kernel.write_accumulate(torch.zeros((2, 3)))
     assert launch_counts() == before
-    assert {"streamed_matmul", "write_accumulate"} <= set(before)
+    assert {f"streamed_matmul_{r}" for r in sm_kernel.ROUTES} | {
+        "write_accumulate"} <= set(before)
