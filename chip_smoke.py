@@ -14,8 +14,14 @@ Phases (kernels, parity and serve by default):
    bf16/fp32 pools and, scaled, over int8 and fp8_e4m3 pools, at the
    kernels phase's and the serving run's lengths (two launches must give
    the same bits, a seq_len 0 slot exactly its v0, and a slot's bits must
-   not move when the other slots change); K2; K3 (``ops.matmul``, each of
-   its four routes as ``plan`` picks them: Qwen2.5-14B's up- and
+   not move when the other slots change), at Qwen2.5-14B's G = 5 and at
+   G = 12 and 16 (d = 128, and 256) over bf16 and int8 pools; K2 on the
+   route ``plan`` picks (wgmma for bf16, simt for fp32 and unaligned bf16
+   views) at d = 32, 64, 128 and 256, windows, kv_valid padding and
+   Sq = Sk up to 2048, two launches giving the same bits, and suffix rows
+   at q_offset 48 and 200 bit-identical to the unshared rows; K3
+   (``ops.matmul``, each of its four routes as ``plan`` picks them:
+   Qwen2.5-14B's up- and
    down-projections at decode and prefill widths, an unaligned view, the
    reference bench's fp32 shape, ragged shapes; two launches must give
    the same bits) and K4 (``ops.accumulate``) — and time the kernel and
@@ -35,7 +41,9 @@ Phases (kernels, parity and serve by default):
    kernel launch counts reset just before each timed run and read just
    after (K1 must run once per layer per decode step); each
    configuration is served again without prefix caching and once more
-   with it, and all three runs must emit the same tokens;
+   with it, and all three runs must emit the same tokens; every prefill
+   must take K2's wgmma route (the parity phase's fp32 model its simt
+   route);
    then, with the same weights moved to pinned host memory and paged back
    layer by layer by the Tensor Prefetcher (lookahead 1), bf16 greedy
    once more: the same tokens as the resident run, K1 once a layer a
@@ -164,17 +172,25 @@ def bound(nbytes: float, flops: float,
 #: and the serving run's (lengths of its four 8-token prompts a few blocks
 #: into decode); both over a 24-page table, as the serve phase's
 K1_LENS = ([0, 71, 135, 383], [8, 40, 72, 72])
+#: K1's groups past 8 query rows a kv head (Hkv, G, d, timed):
+#: starcoder2-15b's 48/4 heads, qwen3-235b's 64/4 and recurrentgemma-9b's
+#: 16/1 at d = 256 (the 16-row instantiation), over bf16 and int8 pools
+K1_GROUPS = ((4, 12, 128, False), (4, 16, 128, True), (1, 16, 256, False))
 
 
-def check_paged(torch, card: str, results: dict, kv: str | None = None
-                ) -> None:
-    """K1 against its plain version.  ``kv`` None: bf16/fp32 pools in q's
-    dtype; "int8" / "fp8_e4m3": the scaled variant, one-byte pools with
-    bf16 scales made by the port's quantizer, q and extra_kv in bf16 or
-    fp32.  Also: a seq_len 0 slot is exactly its v0, two launches give
-    the same bits, and a slot's bits do not move when the other slots'
-    lengths, pages and page contents change (the split grid depends only
-    on the table's width)."""
+def check_paged(torch, card: str, results: dict, kv: str | None = None,
+                hkv: int = 8, g: int = 5, d: int = 128,
+                timed: bool = True) -> None:
+    """K1 against its plain version at Hkv kv heads of G query rows and
+    head dim d (Qwen2.5-14B's 8 x 5 x 128 by default).  ``kv`` None:
+    bf16/fp32 pools in q's dtype; "int8" / "fp8_e4m3": the scaled
+    variant, one-byte pools with bf16 scales made by the port's
+    quantizer, q and extra_kv in bf16 or fp32.  Also: a seq_len 0 slot is
+    exactly its v0, two launches give the same bits, and a slot's bits do
+    not move when the other slots' lengths, pages and page contents
+    change (the split grid depends only on the table's width).  With
+    ``timed`` the kernel, its plain version and SDPA are timed at both
+    length sets."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention.ref import (byte_view,
                                                          gather_pages,
@@ -182,7 +198,7 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None
                                                          paged_attention_ref)
     from repro_torch.models.base import ModelConfig
     from repro_torch.models.layers import kv_dequantize, kv_pool_quantize
-    B, HKV, G, D, PAGE, N = 4, 8, 5, 128, 16, 24
+    B, HKV, G, D, PAGE, N = 4, hkv, g, d, 16, 24
     P = 1 + B * N
     gen = torch.Generator(device="cuda").manual_seed(1)
     name = "paged_attention" if kv is None else f"paged_attention_{kv}"
@@ -228,7 +244,8 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None
                 want = plain(*args, extra=extra)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
-                case = f"{name} q={str(dtype)[6:]} lens={lens_l} extra={extra}"
+                case = (f"{name} Hkv={HKV} G={G} d={D} q={str(dtype)[6:]} "
+                        f"lens={lens_l} extra={extra}")
                 log(f"K1 {case}: max_abs_err {err:.3e} (bound {tol:g})")
                 if not err <= tol:
                     raise AssertionError(f"K1 {case}: {err} > {tol}")
@@ -241,7 +258,8 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None
                 if extra and lens_l[0] == 0 and not torch.equal(
                         got[0], v0[0][:, None, :].expand(HKV, G, D)):
                     raise AssertionError(f"K1 {case}: seq_len 0 slot is not v0")
-    log(f"K1 {name}: two launches bit-identical; seq_len 0 slot exactly v0")
+    log(f"K1 {name} Hkv={HKV} G={G} d={D}: two launches bit-identical; "
+        f"seq_len 0 slot exactly v0")
 
     # slot independence: slot 2's bits with the other slots changed
     args = list(inputs(torch.bfloat16))
@@ -260,8 +278,10 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None
     torch.cuda.synchronize()
     if not torch.equal(before[2], after[2]):
         raise AssertionError(f"K1 {name}: slot 2 moved when the others did")
-    log(f"K1 {name}: slot 2 bit-identical with the other slots' lengths, "
-        f"pages and page contents changed")
+    log(f"K1 {name} Hkv={HKV} G={G} d={D}: slot 2 bit-identical with the "
+        f"other slots' lengths, pages and page contents changed")
+    if not timed:
+        return
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
@@ -311,22 +331,66 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None
             (torch.bfloat16, tuple(lens_l))], ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             eager_ms=eager_ms))
-    results[name] = rows
+    results.setdefault(name, []).extend(rows)
+
+
+#: K2's checked cases: (B, Sq, Sk, Hq, Hkv, d, keywords).  Qwen2.5-14B's
+#: 40/8 heads at d = 128 (a prompt of 8, 64, 384 and 2048 tokens, a
+#: prefix-cached suffix, a window), 24/8 heads at d = 64, a 32-wide head,
+#: and recurrentgemma-9b's 16/1 heads at d = 256 with a window and
+#: non-causal over kv_valid padding
+FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
+               (1, 384, 384, 40, 8, 128, {}),
+               (1, 2048, 2048, 40, 8, 128, {}),
+               (1, 16, 64, 40, 8, 128, {"q_offset": 48}),
+               (1, 50, 50, 40, 8, 128, {"window": 13}),
+               (1, 40, 64, 40, 8, 128, {"causal": False, "kv_valid": 50}),
+               (2, 96, 96, 24, 8, 64, {}), (1, 70, 70, 8, 8, 32, {}),
+               (1, 50, 50, 16, 1, 256, {"window": 13}),
+               (1, 40, 64, 16, 1, 256, {"causal": False, "kv_valid": 50}),
+               (1, 300, 300, 16, 1, 256, {}),
+               (1, 2048, 2048, 16, 1, 256, {}))
+#: K2's timed shapes (route, dtype, Sq = Sk, Hq, Hkv, d): the main path's
+#: route at Qwen2.5-14B's width over four prompt lengths and at d = 256;
+#: the simt route at the width of the parity phase's fp32 model
+FLASH_TIMED = (("wgmma", "bfloat16", 8, 40, 8, 128),
+               ("wgmma", "bfloat16", 64, 40, 8, 128),
+               ("wgmma", "bfloat16", 384, 40, 8, 128),
+               ("wgmma", "bfloat16", 2048, 40, 8, 128),
+               ("wgmma", "bfloat16", 2048, 16, 1, 256),
+               ("simt", "float32", 384, 40, 8, 128))
+
+
+def _flash_pairs(torch, sq, sk, causal=True, window=0, q_offset=None,
+                 kv_valid=None) -> int:
+    """Attended (query, key) pairs of one head: the work the data needs."""
+    from repro_torch.kernels.flash_attention.ref import _mask
+    q_offset = sk - sq if q_offset is None else q_offset
+    kv_valid = sk if kv_valid is None else kv_valid
+    return int(_mask(q_offset + torch.arange(sq), torch.arange(sk),
+                     causal=causal, window=window, kv_valid=kv_valid).sum())
 
 
 def check_flash(torch, card: str, results: dict) -> None:
+    """K2 against its plain version, each case in bf16 (within 3e-2) and
+    fp32 (within 1e-4), launched twice for the same bits; the route each
+    launch took (its launch count) must be the one ``plan`` gives: wgmma
+    for bf16 (TMA-describable), simt for fp32 and for a bf16 view with a
+    head stride TMA cannot describe.  The prefix contract: rows attended
+    as a suffix at q_offset 48 (Sq = Sk = 64) and 200 (Sq = Sk = 384, a
+    row at another place in its query tile) are bit-identical to the
+    unshared rows, on both routes.  Then the timed shapes."""
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    HQ, HKV, D = 40, 8, 128
     gen = torch.Generator(device="cuda").manual_seed(2)
 
-    def inputs(sq, sk, dtype):
-        q = (torch.randn((1, sq, HQ, D), generator=gen, device="cuda") * 0.3
-             ).to(dtype)
-        k = (torch.randn((1, sk, HKV, D), generator=gen, device="cuda") * 0.3
-             ).to(dtype)
-        v = torch.randn((1, sk, HKV, D), generator=gen, device="cuda").to(dtype)
-        return q, k, v
+    def inputs(b, sq, sk, hq, hkv, d, dtype, pad=0):
+        q = torch.randn((b, sq, hq, d + pad), generator=gen, device="cuda")
+        k = torch.randn((b, sk, hkv, d + pad), generator=gen, device="cuda")
+        v = torch.randn((b, sk, hkv, d + pad), generator=gen, device="cuda")
+        return ((q * 0.3).to(dtype)[..., :d], (k * 0.3).to(dtype)[..., :d],
+                v.to(dtype)[..., :d])
 
     def run(fn, q, k, v, **kw):
         kw.setdefault("causal", True)
@@ -335,57 +399,91 @@ def check_flash(torch, card: str, results: dict) -> None:
         kw.setdefault("kv_valid", k.shape[1])
         return fn(q, k, v, **kw)
 
-    cases = [(8, 8, {}), (64, 64, {}), (384, 384, {}),
-             (16, 64, {"q_offset": 48}),            # prefix-cached suffix
-             (50, 50, {"window": 13}), (40, 64, {"causal": False,
-                                                 "kv_valid": 50})]
+    def routed(q, k, v, **kw):
+        """(output, the route whose count moved)."""
+        before = launch_counts()
+        out = run(K.flash_attention, q, k, v, **kw)
+        moved = [n for n, c in launch_counts().items() if c != before[n]]
+        return out, moved
+
     errs = {}
+    unaligned = ((1, 64, 64, 40, 8, 128, {}), (1, 50, 50, 16, 1, 256,
+                                                 {"window": 13}))
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        for sq, sk, kw in cases:
-            q, k, v = inputs(sq, sk, dtype)
-            got = run(K.flash_attention, q, k, v, **kw)
+        cases = [(c, 0) for c in FLASH_CASES]
+        if dtype == torch.bfloat16:      # head stride d + 9: not TMA's
+            cases += [(c, 8 + 1) for c in unaligned]
+        for (b, sq, sk, hq, hkv, d, kw), pad in cases:
+            q, k, v = inputs(b, sq, sk, hq, hkv, d, dtype, pad)
+            want_route = K.plan(dtype, d, hq // hkv,
+                                dtype == torch.bfloat16
+                                and K.aligned(q, k, v))
+            got, moved = routed(q, k, v, **kw)
+            again = run(K.flash_attention, q, k, v, **kw)
             want = run(flash_attention_ref, q, k, v, **kw)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            name = f"{str(dtype)[6:]} Sq={sq} Sk={sk} {kw}"
-            log(f"K2 flash_attention {name}: max_abs_err {err:.3e} "
-                f"(bound {tol:g})")
+            name = (f"flash_attention_{want_route} {str(dtype)[6:]} B={b} "
+                    f"Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} d={d} {kw}"
+                    f"{f' head stride {q.stride(2)}' if pad else ''}")
+            same = torch.equal(got, again)
+            log(f"K2 {name}: max_abs_err {err:.3e} (bound {tol:g}); two "
+                f"launches bit-identical: {same}")
+            if moved != [f"flash_attention_{want_route}"]:
+                raise AssertionError(f"K2 {name}: launched {moved}")
             if not err <= tol:
                 raise AssertionError(f"K2 {name}: {err} > {tol}")
-            if dtype == torch.bfloat16:
-                errs[sq] = max(errs.get(sq, 0.0), err)
+            if not same:
+                raise AssertionError(f"K2 {name}: two launches differ")
+            if not kw and not pad:
+                key = (want_route, sq, hq, hkv, d)
+                errs[key] = max(errs.get(key, 0.0), err)
     # the prefix contract: suffix rows with q_offset equal the full rows
-    q, k, v = inputs(64, 64, torch.bfloat16)
-    full = run(K.flash_attention, q, k, v)
-    part = run(K.flash_attention, q[:, 48:], k, v, q_offset=48)
-    torch.cuda.synchronize()
-    if not torch.equal(full[:, 48:], part):
-        raise AssertionError("K2: q_offset rows differ from unshared rows")
-    log("K2 flash_attention: q_offset=48 rows bit-identical to unshared rows")
+    for dtype in (torch.bfloat16, torch.float32):
+        for sq, off in ((64, 48), (384, 200)):
+            q, k, v = inputs(1, sq, sq, 40, 8, 128, dtype)
+            full = run(K.flash_attention, q, k, v)
+            part = run(K.flash_attention, q[:, off:], k, v, q_offset=off)
+            torch.cuda.synchronize()
+            if not torch.equal(full[:, off:], part):
+                raise AssertionError(f"K2 {str(dtype)[6:]}: q_offset={off} "
+                                     f"rows differ from unshared rows")
+    log("K2 flash_attention: q_offset=48 (Sq=Sk=64) and q_offset=200 "
+        "(Sq=Sk=384) rows bit-identical to unshared rows, bf16 (wgmma) "
+        "and fp32 (simt)")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for sq in (8, 64, 384):
-        sets = [inputs(sq, sq, torch.bfloat16) for _ in range(ROTATE)]
+    for route, dt, sq, hq, hkv, d in FLASH_TIMED:
+        dtype = getattr(torch, dt)
+        # at 2048 tokens a set is ~30 MB: four sets still rotate past L2
+        sets = [inputs(1, sq, sq, hq, hkv, d, dtype)
+                for _ in range(ROTATE if sq < 2048 else 4)]
+        if K.plan(dtype, d, hq // hkv, dtype == torch.bfloat16) != route:
+            raise AssertionError(f"K2 timed {route}: plan disagrees")
         ms = time_ms(torch, lambda q, k, v: run(K.flash_attention, q, k, v),
                      sets)
         plain_ms = time_ms(torch, lambda q, k, v: run(
-            flash_attention_ref, q, k, v), sets, iters=5, graph=False)
+            flash_attention_ref, q, k, v), sets, iters=1 if sq >= 2048
+            else 5, graph=False)
         lib_sets = [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(
-            HQ // HKV, dim=1), v.transpose(1, 2).repeat_interleave(
-            HQ // HKV, dim=1)) for q, k, v in sets]
+            hq // hkv, dim=1), v.transpose(1, 2).repeat_interleave(
+            hq // hkv, dim=1)) for q, k, v in sets]
         lib_ms = time_ms(torch, lambda q, k, v: sdpa(q, k, v, is_causal=True),
                          lib_sets)
-        nbytes = 2 * (2 * sq * HQ * D + 2 * sq * HKV * D)   # q,out,k,v bf16
-        flops = 4 * D * HQ * sq * (sq + 1) // 2             # causal pairs
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"K2 flash_attention bf16 B=1 Sq=Sk={sq} Hq={HQ} Hkv={HKV} "
-            f"d={D} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        if sq == 64:   # the serving run's largest admission
-            results["flash_attention"] = [dict(
-                shape=f"B=1 Sq=Sk={sq} Hq={HQ} Hkv={HKV} d={D} bf16",
-                max_abs_err=errs[64], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
+        size = sets[0][0].element_size()
+        nbytes = size * (2 * sq * hq * d + 2 * sq * hkv * d)  # q,out,k,v
+        flops = 4 * d * hq * _flash_pairs(torch, sq, sq)      # causal pairs
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dt ==
+                           "bfloat16" else F32_FLOPS_PER_S)
+        shape = f"B=1 Sq=Sk={sq} Hq={hq} Hkv={hkv} d={d} causal {dt}"
+        log(f"K2 flash_attention_{route} {shape} [{card}]: kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound, "
+            f"kernel / sdpa {ms / lib_ms:.2f}x")
+        results.setdefault(f"flash_attention_{route}", []).append(dict(
+            shape=shape, max_abs_err=errs[(route, sq, hq, hkv, d)], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
 
 
 #: K3's shapes: the reference bench's (benchmarks/kernels_bench.py:29), and
@@ -639,10 +737,12 @@ def serve(server, reqs_prompts, new_tokens: int):
     return reqs, time.perf_counter() - t0
 
 
-def check_parity(torch) -> None:
+def check_parity(torch) -> dict:
     """Smoke-size fp32 model: the card (kernels) against the CPU (plain
     versions), same weights and prompts; greedy over bf16-width pools,
-    and sampled at temperature 0.7 over int8 pools."""
+    and sampled at temperature 0.7 over int8 pools.  Its prefills must
+    take K2's simt route (fp32).  Returns the greedy card run's kernel
+    launches."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import DenseLM
@@ -676,7 +776,9 @@ def check_parity(torch) -> None:
             server.run_once()
             outs[dev] = [r.output for r in reqs]
             if dev == "cuda":
-                launches = server.stats["kernel_launches"]
+                launches = dict(server.stats["kernel_launches"])
+                if kv is None:
+                    greedy = launches
             toks = torch.from_numpy(prompts(base.vocab, 3)[4][None]).to(dev)
             pages = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dev)
             logits, _ = model.prefill_paged(
@@ -688,10 +790,14 @@ def check_parity(torch) -> None:
         log(f"parity (smoke fp32, kv_dtype={kv}, temperature {temperature}, "
             f"card vs CPU): prefill logits max_abs_err {err:.3e} (bound "
             f"{tol:g}), first-8 tokens agree: {first8}, launches {launches}")
-        if not (err <= tol and first8 and launches[kernel] > 0
-                and launches["flash_attention"] > 0):
+        if not (err <= tol and first8 and launches[kernel] > 0):
             raise AssertionError(f"card and CPU disagree on the smoke model "
                                  f"(kv_dtype={kv})")
+        if not (launches["flash_attention_simt"] > 0
+                and launches["flash_attention_wgmma"] == 0):
+            raise AssertionError(f"fp32 smoke model: K2 launches "
+                                 f"{launches}, expected the simt route only")
+    return greedy
 
 
 #: the serving runs: (kv_dtype, temperature)
@@ -817,6 +923,10 @@ def serve_paged(torch, card: str, model, params, work, kw,
     if launches["paged_attention"] != cfg.num_layers * st["steps"]:
         raise AssertionError(f"paged serve: {launches['paged_attention']} "
                              f"K1 launches for {st['steps']} decode steps")
+    if launches["flash_attention_simt"] or not launches[
+            "flash_attention_wgmma"]:
+        raise AssertionError(f"paged serve: K2 launches {launches}; every "
+                             f"bf16 prefill must take the wgmma route")
     if fetches != cfg.num_layers * (st["steps"] + st["admitted"]):
         raise AssertionError(f"paged serve: {fetches} layer fetches for "
                              f"{st['steps']} steps + {st['admitted']} "
@@ -861,9 +971,10 @@ def serve_config(torch, card: str, model, params, work, kw) -> dict:
         raise AssertionError(f"{tag}: {launches[kernel]} K1 launches for "
                              f"{st['steps']} decode steps, not one a layer")
     others = {k: n for k, n in launches.items()
-              if k not in (kernel, "flash_attention") and n}
-    if launches["flash_attention"] < 1 or others:
-        raise AssertionError(f"{tag}: kernel launches {launches}")
+              if k not in (kernel, "flash_attention_wgmma") and n}
+    if launches["flash_attention_wgmma"] < 1 or others:
+        raise AssertionError(f"{tag}: kernel launches {launches}; every "
+                             f"bf16 prefill must take K2's wgmma route")
     if st["prefix_hits"] < 1:
         raise AssertionError(f"{tag}: the prefix pair did not share pages")
 
@@ -881,8 +992,8 @@ def serve_config(torch, card: str, model, params, work, kw) -> dict:
                              f"other tokens")
     log(f"serve {tag}: prefix-shared tokens equal unshared tokens and a "
         f"second run's")
-    return {"launches": {kernel: launches[kernel],
-                         "flash_attention": launches["flash_attention"]},
+    return {"launches": {kernel: launches[kernel], "flash_attention_wgmma":
+                         launches["flash_attention_wgmma"]},
             "bytes_per_page": per_page, "tokens": [r.output for r in reqs]}
 
 
@@ -1009,22 +1120,29 @@ def main() -> int:
     if "kernels" in phases:
         for kv in (None, "int8", "fp8_e4m3"):
             check_paged(torch, card, results, kv)
+        for hkv, g, d, timed in K1_GROUPS:
+            for kv in (None, "int8"):
+                check_paged(torch, card, results, kv, hkv=hkv, g=g, d=d,
+                            timed=timed and kv is None)
         check_flash(torch, card, results)
         check_matmul(torch, card, results)
         check_accumulate(torch, card, results)
         ops_launches = drive_ops(torch)
     if "sweep" in phases:
         sweep_matmul(torch, card)
+    parity_launches = None
     if "parity" in phases:
-        check_parity(torch)
+        parity_launches = check_parity(torch)
     launches = None
     if "serve" in phases:
         launches = check_serve(torch, card, args.layers,
                                "profile" in phases)
 
-    if results and launches is not None:
+    if results and launches is not None and parity_launches is not None:
         kernels = []
         serving = "BatchedServer, greedy run of its pool dtype (serve phase)"
+        smoke = ("BatchedServer, fp32 smoke model, greedy card run (parity "
+                 "phase)")
         wrappers = "ops.matmul / ops.accumulate at their shapes (kernels phase)"
         for mod, path, counts in ((pa_kernel, serving, launches),
                                   (fa_kernel, serving, launches),
@@ -1032,6 +1150,8 @@ def main() -> int:
                                   (wa_kernel, wrappers, ops_launches)):
             for counter in mod.COUNTERS:
                 name = counter.name
+                if name == "flash_attention_simt":
+                    path, counts = smoke, parity_launches
                 for row in results[name]:
                     kernels.append({"name": name, "route": "cuda",
                                     "source": f"src/repro_torch/kernels/"

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: sources that call the driver API (``cuTensorMapEncodeTiled``) link
 #: libcuda through the toolkit's stub; the driver's own library is loaded
 #: at run time
-DRIVER_API = {"streamed_matmul.cu"}
+DRIVER_API = {"streamed_matmul.cu", "flash_attention.cu"}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -63,8 +64,22 @@ def _link_flags(source: str, nvcc: str) -> list[str]:
     return [f"-L{p}" for p in stubs] + ["-lcuda"]
 
 
-def _target(source: str) -> Path:
+def _text(source: str, seen: set[str] | None = None) -> bytes:
+    """The source's bytes followed by those of every header it includes
+    from ``csrc/`` (``#include "name"``), recursively, each once."""
+    seen = set() if seen is None else seen
+    seen.add(source)
     text = (CSRC / source).read_bytes()
+    out = [text]
+    for name in re.findall(rb'^\s*#include\s+"([^"]+)"', text, re.M):
+        name = name.decode()
+        if name not in seen:
+            out.append(_text(name, seen))
+    return b"".join(out)
+
+
+def _target(source: str) -> Path:
+    text = _text(source)
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 

@@ -28,12 +28,15 @@
 //     Elements are widened to fp32 (and int8 / fp8 scaled) as they are
 //     read from shared memory.
 //   * Scores: 8 lanes take a position (a warp 4 positions), each lane 4
-//     consecutive d at a time (vector shared-memory reads) for 8 query rows
-//     at once, then a reduce-scatter over the 8 lanes: 7 shuffles for 8
-//     rows, where a shuffle reduce per row would chain 5 per row.  Online
-//     softmax in fp32 with m starting at the finite -1e30; PV with a thread
-//     per column d (two at d = 256) holding all G <= 8 rows' accumulators,
-//     so one V element feeds G independent FMAs.  Three barriers a page.
+//     consecutive d at a time (vector shared-memory reads) for all MAXG
+//     query rows at once, then a reduce-scatter over the 8 lanes per group
+//     of 8 rows: 7 shuffles for 8 rows, where a shuffle reduce per row
+//     would chain 5 per row.  Online softmax in fp32 with m starting at the
+//     finite -1e30; PV with a thread per column d (two at d = 256) holding
+//     all MAXG rows' accumulators, so one V element feeds G independent
+//     FMAs.  Three barriers a page.  MAXG is 8 for G <= 8 and 16 for G <=
+//     16 (two row groups, twice the registers); G <= 8 runs the 8-row
+//     instantiation, whose code is the 8-row kernel's alone.
 //   * Splits past the slot's last live page exit at once.  A slot with one
 //     live split finishes in that CTA; otherwise each split writes
 //     (m, l, acc) in fp32 to a scratch, and the last CTA of the (slot,
@@ -67,7 +70,7 @@ namespace {
 constexpr int NT = 128;           // threads per CTA
 constexpr int NWARPS = NT / 32;
 constexpr int PPS = 2;            // pages per split (kernel.py mirrors it)
-constexpr int MAXG = 8;           // query rows per kv-head (one score pass)
+constexpr int MAX_GROUP = 16;     // G a launch takes (kernel.py's MAX_G)
 constexpr int DPT = 2;            // columns a thread owns: D <= NT * DPT
 constexpr float NEG_INF = -1e30f;
 
@@ -142,8 +145,7 @@ __device__ bool arrive_last(int* counter, int splits) {
 // the 8 lanes of an aligned group each hold 8 partial sums v[0..8); after
 // three xor-shuffle steps lane j of the group holds the group's total of
 // v[j] (a reduce-scatter: 7 shuffles for 8 sums, in a fixed order)
-__device__ __forceinline__ float reduce_scatter8(const float (&v)[8],
-                                                 int lane) {
+__device__ __forceinline__ float reduce_scatter8(const float* v, int lane) {
   const bool h4 = lane & 4, h2 = lane & 2, h1 = lane & 1;
   float a[4], b[2];
 #pragma unroll
@@ -170,18 +172,18 @@ __host__ __device__ inline size_t tile_bytes(int G, int D, int page,
 }
 
 // dynamic shared memory of one CTA, in bytes
-__host__ __device__ inline size_t smem_bytes(int G, int D, int page, int S,
-                                             size_t kv_size) {
+__host__ __device__ inline size_t smem_bytes(int maxg, int G, int D, int page,
+                                             int S, size_t kv_size) {
   return tile_bytes(G, D, page, kv_size) +
-         sizeof(float) * ((size_t)MAXG * D + 2 * (size_t)D +
+         sizeof(float) * ((size_t)maxg * D + 2 * (size_t)D +
                           2 * (size_t)G * page + 4 * (size_t)G +
                           2 * (size_t)PPS * page + 3 * (size_t)S * G) +
          sizeof(int) * PPS;
 }
 
 // T: q / extra_kv / out; KV: pool elements (T itself, or int8 / fp8_e4m3
-// with bf16 scales)
-template <typename T, typename KV>
+// with bf16 scales); MAXG: 8 or 16 query rows (G <= MAXG)
+template <typename T, typename KV, int MAXG>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     const T* __restrict__ q,          // (B, Hkv, G, D)
     const KV* __restrict__ k_pages,   // (P, page, Hkv, D)
@@ -284,8 +286,8 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     float* pb = ps + buf * G * page;
     const KV* kp = kt + (size_t)pi * page * D;
     // scores: 8 lanes a position (4 positions a warp), each lane 4
-    // consecutive d at a time; the 8 query rows (rows past G zero)
-    // reduced together
+    // consecutive d at a time; the MAXG query rows (rows past G zero)
+    // reduced together, 8 at a time
     for (int t0 = warp * 4; t0 < page; t0 += NWARPS * 4) {
       const int t = t0 + grp;
       const bool tv = t < page;
@@ -306,8 +308,12 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
           }
         }
       }
-      const float s = reduce_scatter8(part, lane);
-      if (tv && sub < G) pb[sub * page + t] = valid ? s * ks : NEG_INF;
+#pragma unroll
+      for (int rg = 0; rg < MAXG / 8; ++rg) {
+        const float s = reduce_scatter8(part + 8 * rg, lane);
+        const int g = 8 * rg + sub;
+        if (tv && g < G) pb[g * page + t] = valid ? s * ks : NEG_INF;
+      }
     }
     __syncthreads();
     // online softmax: a warp per query row, a lane per page slot
@@ -459,7 +465,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     }
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, int MAXG>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scales, const void* v_scales, const void* table,
            const void* seq_lens, const void* k0, const void* v0, void* out,
@@ -468,12 +474,12 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   const int S = (n_pages + PPS - 1) / PPS;
   if (S > 1 && (partial == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, D, page, S, sizeof(KV));
+  const size_t smem = smem_bytes(MAXG, G, D, page, S, sizeof(KV));
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   static size_t attr = 48 * 1024;   // largest dynamic size allowed so far
   if (smem > attr) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T, KV>,
+        paged_decode_kernel<T, KV, MAXG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr = smem;
@@ -481,7 +487,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   if (B > 65535 || S > 65535) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)D));
   dim3 grid(Hkv, B, S);
-  paged_decode_kernel<T, KV><<<grid, NT, smem, stream>>>(
+  paged_decode_kernel<T, KV, MAXG><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k_pages),
       static_cast<const KV*>(v_pages),
       static_cast<const __nv_bfloat16*>(k_scales),
@@ -493,6 +499,21 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename KV>
+int launch_g(const void* q, const void* k_pages, const void* v_pages,
+             const void* k_scales, const void* v_scales, const void* table,
+             const void* seq_lens, const void* k0, const void* v0, void* out,
+             void* partial, void* counters, int B, int Hkv, int G, int D,
+             int P, int page, int n_pages, cudaStream_t stream) {
+  if (G <= 8)
+    return launch<T, KV, 8>(q, k_pages, v_pages, k_scales, v_scales, table,
+                            seq_lens, k0, v0, out, partial, counters, B, Hkv,
+                            G, D, P, page, n_pages, stream);
+  return launch<T, KV, 16>(q, k_pages, v_pages, k_scales, v_scales, table,
+                           seq_lens, k0, v0, out, partial, counters, B, Hkv,
+                           G, D, P, page, n_pages, stream);
+}
+
 template <typename T>
 int launch_pool(int kv_dtype, const void* q, const void* k_pages,
                 const void* v_pages, const void* k_scales,
@@ -502,15 +523,15 @@ int launch_pool(int kv_dtype, const void* q, const void* k_pages,
                 int n_pages, cudaStream_t stream) {
   const bool scaled = k_scales != nullptr && v_scales != nullptr;
   if (kv_dtype == 0 && !scaled)
-    return launch<T, T>(q, k_pages, v_pages, nullptr, nullptr, table,
+    return launch_g<T, T>(q, k_pages, v_pages, nullptr, nullptr, table,
                         seq_lens, k0, v0, out, partial, counters, B, Hkv, G, D,
                         P, page, n_pages, stream);
   if (kv_dtype == 1 && scaled)
-    return launch<T, int8_t>(q, k_pages, v_pages, k_scales, v_scales, table,
+    return launch_g<T, int8_t>(q, k_pages, v_pages, k_scales, v_scales, table,
                              seq_lens, k0, v0, out, partial, counters, B, Hkv,
                              G, D, P, page, n_pages, stream);
   if (kv_dtype == 2 && scaled)
-    return launch<T, __nv_fp8_e4m3>(q, k_pages, v_pages, k_scales, v_scales,
+    return launch_g<T, __nv_fp8_e4m3>(q, k_pages, v_pages, k_scales, v_scales,
                                     table, seq_lens, k0, v0, out, partial,
                                     counters, B, Hkv, G, D, P, page, n_pages,
                                     stream);
@@ -532,7 +553,7 @@ extern "C" int paged_attention_launch(
     const void* seq_lens, const void* k0, const void* v0, void* out,
     void* partial, void* counters, int B, int Hkv, int G, int D, int P,
     int page, int n_pages, int dtype, int kv_dtype, void* stream) {
-  if (G < 1 || G > MAXG || D > NT * DPT || page < 1 || page > 32 ||
+  if (G < 1 || G > MAX_GROUP || D > NT * DPT || page < 1 || page > 32 ||
       D < 32 || D % 32 || n_pages < 1 ||
       ((reinterpret_cast<uintptr_t>(k_pages) |
         reinterpret_cast<uintptr_t>(v_pages)) & 15))

@@ -70,11 +70,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         q_offset: int | None = None,
                         kv_valid: int | None = None, q_block: int = 16,
-                        kv_block: int = 32) -> torch.Tensor:
+                        kv_block: int = 64) -> torch.Tensor:
     """Blocked online-softmax attention, the plain version of K2.
 
     q: (B, Sq, Hq, d); k, v: (B, Sk, Hkv, d), Hq % Hkv == 0, GQA read in
-    place.  KV tiles sit at absolute positions 0, kv_block, ...; scores
+    place.  KV tiles sit at absolute positions 0, kv_block, ...
+    (``kv_block`` defaults to the wgmma route's key tile,
+    ``kernel.KEY_TILE["wgmma"]``); scores
     accumulate in fp32 and the probabilities are rounded to v's dtype
     before the PV product, as in the reference.  Key tiles past the
     causal frontier of a query tile add exactly zero and are skipped.

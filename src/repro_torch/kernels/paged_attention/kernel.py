@@ -24,7 +24,9 @@ COUNTERS = (launches, *launches_scaled.values())
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}   # scaled pools
-_MAX_G, _MAX_D = 8, 256     # query rows per kv-head; columns (2 a thread)
+#: query rows per kv-head (``MAX_GROUP`` in the source: G <= 8 runs the
+#: 8-row instantiation, 8 < G <= 16 the 16-row one); columns (2 a thread)
+MAX_G, MAX_D = 16, 256
 #: pages per split: a constant of the kernel (``PPS`` in the source)
 PAGES_PER_SPLIT = 2
 _fn = None
@@ -38,6 +40,19 @@ def splits(n_pages: int) -> int:
 def scratch_floats(b: int, hkv: int, g: int, d: int, n_pages: int) -> int:
     """fp32 scratch of one launch: (m, l) and acc (G x d) per split."""
     return b * hkv * splits(n_pages) * g * (d + 2)
+
+
+def shape_error(g: int, d: int, page: int) -> str | None:
+    """Why the kernel does not take a group of ``g`` query rows, head dim
+    ``d`` and ``page``-row pages, or None if it does (the binding raises
+    ValueError with this message)."""
+    if not 1 <= g <= MAX_G:
+        return f"group G={g} not in [1, {MAX_G}]"
+    if d % 32 or not 32 <= d <= MAX_D:
+        return f"head_dim {d} not a multiple of 32 in [32, {MAX_D}]"
+    if not 1 <= page <= 32:
+        return f"page size {page} not in [1, 32]"
+    return None
 
 
 def _launcher():
@@ -106,9 +121,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         _need(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
               lambda: "pools and q differ in dtype")
     num_pages, page = k_pages.shape[:2]
-    _need(1 <= page <= 32, lambda: f"page size {page} not in [1, 32]")
-    _need(d % 32 == 0 and d <= _MAX_D and g <= _MAX_G,
-          lambda: f"head_dim {d} x group {g} not supported")
+    err = shape_error(g, d, page)
+    _need(err is None, lambda: err)
     _need(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
           lambda: "pools must be 16-byte aligned")
     _need(page_table.dtype == torch.int32 and page_table.dim() == 2
