@@ -28,9 +28,17 @@ def launch_counts() -> dict[str, int]:
     return {c.name: c.count for c in _counters()}
 
 
+def instance_counts() -> dict[str, dict[str, int]]:
+    """Kernel (variant) name -> {template instantiation -> launches} since
+    the last :func:`reset_launch_counts`, for the kernels that name their
+    instantiations (K1: query rows; K2: head dim)."""
+    return {c.name: dict(c.by_instance) for c in _counters()}
+
+
 def reset_launch_counts() -> None:
     for c in _counters():
         c.count = 0
+        c.by_instance.clear()
 
 
 def build_all() -> dict[str, str]:

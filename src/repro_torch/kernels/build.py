@@ -36,11 +36,18 @@ reports: dict[str, str] = {}        # source name -> nvcc/ptxas output
 
 class LaunchCount:
     """A kernel's launch count: a plain integer that the kernel's launch
-    function, and nothing else, adds one to."""
+    function, and nothing else, adds one to; where one kernel has several
+    template instantiations, ``by_instance`` also counts each."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.by_instance: dict[str, int] = {}
+
+    def add(self, instance: str) -> None:
+        """One launch of the instantiation ``instance``."""
+        self.count += 1
+        self.by_instance[instance] = self.by_instance.get(instance, 0) + 1
 
 
 def _nvcc() -> str:

@@ -31,8 +31,8 @@
 //     (64-byte at D = 32).  S = Q K^T is wgmma m64n64k16 with both operands
 //     K-major in shared memory; the masks and the online softmax (max and
 //     sum over the four threads that hold a row, fp32, m from the finite
-//     -1e30, 2^x of log2(e)-scaled scores, scale and subtract in one fma)
-//     run in registers; P is rounded to bf16 in registers, as the reference
+//     -1e30, 2^x of log2(e)-scaled scores, scale and subtract in one fma
+//     for every score that counts, on every tile) run in registers; P is rounded to bf16 in registers, as the reference
 //     rounds it to V's dtype, and is the register A operand of wgmma
 //     m64n{D}k16 against the V tile (MN-major: transpose bit, the MN-major
 //     strides); O accumulates in fp32 registers and is rounded once.  Each
@@ -55,7 +55,9 @@
 //   * keys are never split across CTAs; and
 //   * a row's result depends on nothing but that row: its MMA row (or its
 //     sequential dots), its own max and sum reductions in a fixed order,
-//     its own rescaling.
+//     its own rescaling, and each of its unmasked scores rounded the same
+//     way whether or not the tile crosses an edge of the query tile (whose
+//     rows, and so edges, move with q_offset).
 // Tiles past the causal frontier of the query tile's last row, or past
 // kv_valid, are skipped: for every row they would add exp(-1e30 - m) == 0
 // after its own diagonal, with alpha == 1.  The wgmma route also skips the
@@ -275,6 +277,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// accumulator operand lists, 16 registers at a time
+#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
+
 // D (64 x 64, fp32) (+)= A (64 x 16, K-major) * B (16 x 64, K-major), both
 // from shared memory; scale_d 0 overwrites D
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
@@ -287,19 +293,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : ACC16(0), ACC16(16)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 32, fp32) += A (64 x 16 bf16, registers) * B (16 x 32, from
-// shared memory, MN-major: transpose bit set)
+// D (64 x N, fp32) += A (64 x 16 bf16, registers) * B (16 x N, from shared
+// memory, MN-major: transpose bit set), N = 32, 64, 128 or 256 (D's size
+// picks the overload)
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
                                          uint64_t db) {
   asm volatile(
@@ -310,15 +310,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
       "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : ACC16(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 64, fp32) += A (64 x 16 bf16, registers) * B (16 x 64, from
-// shared memory, MN-major: transpose bit set)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db) {
   asm volatile(
@@ -329,19 +324,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : ACC16(0), ACC16(16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 128, fp32) += A (64 x 16 bf16, registers) * B (16 x 128, from
-// shared memory, MN-major: transpose bit set)
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t db) {
   asm volatile(
@@ -352,27 +338,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : ACC16(0), ACC16(16), ACC16(32), ACC16(48)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 256, fp32) += A (64 x 16 bf16, registers) * B (16 x 256, from
-// shared memory, MN-major: transpose bit set)
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
                                          uint64_t db) {
   asm volatile(
@@ -383,40 +352,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
       "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : ACC16(0), ACC16(16), ACC16(32), ACC16(48),
+        ACC16(64), ACC16(80), ACC16(96), ACC16(112)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+#undef ACC16
+#undef ACC4
 
 // S = Q K^T of one key tile into acc, issued (not committed): D / 16 k16
 // steps, 32 bytes along a swizzled row, then the next column chunk
@@ -445,8 +387,14 @@ struct Mask {
 // The online softmax of the key tile at k0 over a thread's two rows
 // (accumulator layout): S (sc) becomes P in place, in fp32; m, l and the
 // rescale factor alpha of each row move on.  Masks are applied only on
-// tiles that cross a boundary.  Max and sum of a row: its 16 values here,
-// then over the four threads that hold it, in a fixed order.
+// tiles that cross a boundary, and they decide only which scores count:
+// every unmasked score is rounded the same way on every tile (the max of
+// the raw scores scaled once, exact since the scale is positive; p =
+// 2^(s * scale - m) with the scale and the subtraction in one fma), so a
+// row's bits do not depend on which tiles its query tile finds at an
+// edge.  A masked score gives p = 2^(-1e30 - m).  Max and sum of a row:
+// its 16 values here, then over the four threads that hold it, in a
+// fixed order.
 __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], int k0,
@@ -456,7 +404,9 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
                     (mk.causal && k0 + BK - 1 > mk.qp_first) ||
                     (mk.window > 0 && k0 <= mk.qp_last - mk.window);
   float mx[2] = {NEG_INF, NEG_INF};
-  if (edge) {   // scale, then mask: masked scores are the finite -1e30
+  uint32_t ok_bits = 0xffffffffu;   // bit i: score i counts
+  if (edge) {
+    ok_bits = 0;
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int h = (i >> 1) & 1;
@@ -465,16 +415,19 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
       bool ok = kp < mk.kv_valid;
       if (mk.causal) ok = ok && kp <= qp;
       if (mk.window > 0) ok = ok && kp > qp - mk.window;
-      sc[i] = ok ? sc[i] * scale_log2 : NEG_INF;
-      mx[h] = fmaxf(mx[h], sc[i]);
+      if (ok) {
+        ok_bits |= 1u << i;
+        mx[h] = fmaxf(mx[h], sc[i]);
+      }
     }
-  } else {      // the max of the raw scores, scaled once (scale > 0)
+  } else {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i)
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) mx[h] *= scale_log2;
   }
+  // scaled once; a row half with no score that counts keeps -1e30
+  mx[0] = ok_bits & 0x33333333u ? mx[0] * scale_log2 : NEG_INF;
+  mx[1] = ok_bits & 0xccccccccu ? mx[1] * scale_log2 : NEG_INF;
   float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -486,8 +439,12 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
   }
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) sc[i] = ex2(sc[i] - m[(i >> 1) & 1]);
-  } else {      // scale and subtract in one fma
+    for (int i = 0; i < BK / 2; ++i) {
+      const float mi = m[(i >> 1) & 1];
+      sc[i] = ex2((ok_bits >> i) & 1 ? fmaf(sc[i], scale_log2, -mi)
+                                     : NEG_INF - mi);
+    }
+  } else {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i)
       sc[i] = ex2(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));

@@ -46,6 +46,12 @@ def plan(dtype: torch.dtype, d: int, g: int, aligned: bool) -> str:
     return "simt"
 
 
+def instance(d: int) -> str:
+    """The template instantiation a launch of head dim ``d`` runs, within
+    its route."""
+    return f"d={d}"
+
+
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
     """(batch, sequence, head) strides of a 4-D tensor in elements, a
     size-1 dim's stride replaced by its contiguous value (PyTorch leaves
@@ -117,5 +123,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      int(causal), int(window), int(q_offset), int(kv_valid),
                      _DTYPES[q.dtype], ROUTES.index(route), stream)
     build.check(rc, f"flash_attention_{route}")
-    launches[route].count += 1
+    launches[route].add(instance(d))
     return out

@@ -42,6 +42,12 @@ def scratch_floats(b: int, hkv: int, g: int, d: int, n_pages: int) -> int:
     return b * hkv * splits(n_pages) * g * (d + 2)
 
 
+def instance(g: int) -> str:
+    """The template instantiation a group of ``g`` query rows runs: its
+    rows a kv head (``paged_decode_kernel<T, KV, 8>`` or ``<..., 16>``)."""
+    return "rows=8" if g <= 8 else "rows=16"
+
+
 def shape_error(g: int, d: int, page: int) -> str | None:
     """Why the kernel does not take a group of ``g`` query rows, head dim
     ``d`` and ``page``-row pages, or None if it does (the binding raises
@@ -158,5 +164,5 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      _DTYPES[q.dtype],
                      _KV_DTYPES[k_pages.dtype] if scaled else 0, stream)
     build.check(rc, "paged_attention")
-    (launches_scaled[k_pages.dtype] if scaled else launches).count += 1
+    (launches_scaled[k_pages.dtype] if scaled else launches).add(instance(g))
     return out

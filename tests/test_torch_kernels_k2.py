@@ -30,7 +30,8 @@ from repro.kernels.flash_attention import ops as ref_fa  # noqa: E402
 from repro.kernels.paged_attention import ops as ref_pa  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro_torch.bridge import to_tensor  # noqa: E402
-from repro_torch.kernels import build, launch_counts  # noqa: E402
+from repro_torch.kernels import (build, instance_counts,  # noqa: E402
+                                 launch_counts, reset_launch_counts)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
@@ -216,6 +217,38 @@ def test_flash_counters_one_per_route():
         assert f"flash_attention_{r}" in counts
 
 
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_instance_names_the_head_dim(d):
+    """K2 counts its launches by head dim too (one instantiation each, per
+    route), so a row of the kernels' JSON line reads its own count."""
+    assert fa_kernel.instance(d) == f"d={d}"
+    src = (build.CSRC / fa_kernel.SOURCE).read_text()
+    assert f"wg::launch_nc<{d}>" in src and f"SIMT(float, {d})" in src
+
+
+def test_launch_count_by_instance_and_reset():
+    c = build.LaunchCount("probe")
+    c.add("d=128")
+    c.add("d=128")
+    c.add("d=256")
+    assert c.count == 3 and c.by_instance == {"d=128": 2, "d=256": 1}
+    counters = fa_kernel.COUNTERS + pa_kernel.COUNTERS
+    saved = [(k.count, dict(k.by_instance)) for k in counters]
+    try:
+        fa_kernel.launches["wgmma"].add("d=64")
+        pa_kernel.launches.add("rows=16")
+        got = instance_counts()
+        assert got["flash_attention_wgmma"].get("d=64", 0) >= 1
+        assert got["paged_attention"].get("rows=16", 0) >= 1
+        assert set(got) == set(launch_counts())
+        reset_launch_counts()
+        assert all(not v for v in instance_counts().values())
+        assert not any(launch_counts().values())
+    finally:
+        for k, (n, by) in zip(counters, saved):
+            k.count, k.by_instance = n, by
+
+
 # ---------------------------------------------------------------------------
 # K1 beyond G = 8
 # ---------------------------------------------------------------------------
@@ -284,6 +317,15 @@ def test_paged_shape_error_takes_groups_up_to_16(g, d):
     (5, 128, 0, "page"), (5, 128, 33, "page")])
 def test_paged_shape_error_refuses(g, d, page, what):
     assert what in pa_kernel.shape_error(g, d, page)
+
+
+@pytest.mark.parametrize("g", list(range(1, 17)))
+def test_paged_instance_is_the_sources_choice(g):
+    """The instantiation K1's launches are counted under is the one the
+    source picks: 8 rows up to G = 8, 16 past it."""
+    src = (build.CSRC / pa_kernel.SOURCE).read_text()
+    assert re.search(r"if \(G <= 8\)\s+return launch<T, KV, 8>", src)
+    assert pa_kernel.instance(g) == ("rows=8" if g <= 8 else "rows=16")
 
 
 def test_paged_group_limit_in_binding_equals_the_source():
