@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--layers N] [--phases kernels,parity,serve]
+    python3 chip_smoke.py [--layers N] [--phases kernels,parity,serve,tiers]
 
-Phases (kernels, parity and serve by default):
+Phases (kernels, parity, serve and tiers by default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
@@ -52,18 +52,47 @@ Phases (kernels, parity and serve by default):
    step, every layer fetched once a step and once an admission; it prints
    tok/s, peak device memory, the ledger's window beside two layers'
    bytes, the pinned bytes and the host-to-device rate;
-5. ``profile`` (only when named in ``--phases``, with ``serve``): separate
+5. ``tiers``: KV across the memory tiers, Qwen2.5-14B at full depth
+   whatever ``--layers`` says, on the serve phase's four 8-token prompts
+   (64 new tokens, block 32, max_seq 384, page 16, seed 0):
+   preemption -- a pool of 13 pages (12 usable against four requests of
+   5 worst-case pages) over bf16, int8 and fp8_e4m3 pools, greedy and at
+   temperature 0.7: the tokens must equal an uncontended run's (the
+   serve phase's, when it ran at full depth), at least one preemption,
+   every victim resumed; preemption mid-decode -- the pool run dry after
+   the first block (``FaultPlan(exhaust_at_block=1)``), bf16 greedy and
+   fp8_e4m3 at 0.7: victims stash 3 pages each that decode wrote, the
+   same tokens; cold parking -- stashes straight
+   to the cold tier (``cold_park_after_blocks=0``, the remote tier's
+   high-water mark flat through every swap-out) and parked by age (1),
+   bf16 greedy, every park promoted back, the same tokens; ``offload_kv``
+   -- the weights paged from pinned host memory and the KV pools at rest
+   there too, paged a layer at a time: the resident run's tokens, nothing
+   degraded, every layer's pool slice paged in and written back once a
+   step and once an admission, timed against the same placed weights
+   serving with the pools in device memory (paged, offload, offload,
+   paged), and once more with the pool run dry mid-decode (preemption
+   from pools at rest, the same tokens).  In every run K1 runs once a layer a
+   decode step and K2 once a layer an admission.  It prints the stash
+   bytes per tier, the measured swap-out, swap-in, park and promote rates
+   (bytes over each transfer's wall time) beside the ledger's modeled
+   seconds (the paper's ``DEFAULT_TIER_LINKS``), where a swap's time goes
+   (a new registered or pageable buffer, each copy, at 1 and 24 pages),
+   and the offload run's tok/s, peak device memory and KV window bytes
+   against the resident pool's bytes;
+6. ``profile`` (only when named in ``--phases``, with ``serve``): separate
    traced serving runs (bf16 greedy, int8 at temperature 0.7, and bf16
    greedy with paged weights), printing device time by kernel and the
    device's busy share; for paged weights also the copy stream's busy
    time beside the compute's, and how long both ran at once;
-6. ``sweep`` (only when named): K3's splitk and wgmma routes timed side by
+7. ``sweep`` (only when named): K3's splitk and wgmma routes timed side by
    side over M = 1 .. 64 at Qwen2.5-14B's MLP shapes, where the planner's
    ``SPLITK_MAX_M`` comes from.
 
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
-shape; the last is ``{"ok": true, "device": {...}}``.  Any
+shape, ``tiers_launches`` beside ``launches``; the last is ``{"ok":
+true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
 It exits non-zero at once when no CUDA device is present.
 """
@@ -835,18 +864,14 @@ SERVE_RUNS = ((None, 0.0), (None, 0.7), ("int8", 0.0), ("int8", 0.7),
               ("fp8_e4m3", 0.0), ("fp8_e4m3", 0.7))
 
 
-def check_serve(torch, card: str, layers: int, profile: bool) -> dict:
-    """Serve Qwen2.5-14B (one set of weights) over bf16, int8 and fp8
-    pools, greedy and at temperature 0.7.  Returns kernel name -> its
-    launches in the run of its own path (the greedy one), and kernel name
-    -> {template instantiation -> launches} in that run."""
+def qwen_params(torch, layers: int):
+    """Qwen2.5-14B at its published widths, tp=1, ``layers`` deep, and
+    random bf16 weights from a seeded torch.Generator on the card."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import DenseLM
     cfg = dataclasses.replace(get_config("qwen2.5-14b"), tp=1,
                               num_layers=layers)
-    if layers != 48:
-        log(f"DEPTH CUT: serving {layers} of Qwen2.5-14B's 48 layers")
     log(f"serve: device memory allocated before the weights "
         f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB (left by earlier "
         f"phases)")
@@ -858,20 +883,36 @@ def check_serve(torch, card: str, layers: int, profile: bool) -> dict:
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff} "
         f"vocab={cfg.vocab}: {n_params / 1e9:.3f} B params bf16, init "
         f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+#: the serving runs' server settings (the BENCH_serve.json workload's)
+SERVE_KW = dict(batch_size=4, max_seq=384, block_size=32, page_size=16,
+                seed=0)
+
+
+def check_serve(torch, card: str, cfg, params, profile: bool):
+    """Serve Qwen2.5-14B (one set of weights) over bf16, int8 and fp8
+    pools, greedy and at temperature 0.7.  Returns kernel name -> its
+    launches in the run of its own path (the greedy one), kernel name ->
+    {template instantiation -> launches} in that run, and each run's
+    tokens by (kv_dtype, temperature)."""
+    import dataclasses
+    from repro_torch.models.transformer import DenseLM
+    if cfg.num_layers != 48:
+        log(f"DEPTH CUT: serving {cfg.num_layers} of Qwen2.5-14B's 48 "
+            f"layers")
     work = prompts(cfg.vocab, 0)
-    kw = dict(batch_size=4, max_seq=384, block_size=32, page_size=16,
-              seed=0)
-    launches, instances, per_page = {}, {}, {}
+    launches, instances, per_page, tokens = {}, {}, {}, {}
     for kv, temperature in SERVE_RUNS:
         model = DenseLM(dataclasses.replace(cfg, kv_dtype=kv))
         got = serve_config(torch, card, model, params, work,
-                           dict(kw, temperature=temperature))
+                           dict(SERVE_KW, temperature=temperature))
         per_page[kv] = got["bytes_per_page"]
         if temperature == 0.0:
             launches.update(got["launches"])
             instances.update(got["instances"])
-        if (kv, temperature) == (None, 0.0):
-            resident_tokens = got["tokens"]
+        tokens[kv, temperature] = got["tokens"]
     for kv in ("int8", "fp8_e4m3"):
         if per_page[kv] * 256 != per_page[None] * 130:
             raise AssertionError(f"{kv} KV bytes per page {per_page[kv]} is "
@@ -881,15 +922,23 @@ def check_serve(torch, card: str, layers: int, profile: bool) -> dict:
     if profile:
         for kv, temperature in ((None, 0.0), ("int8", 0.7)):
             profile_serve(torch, DenseLM(dataclasses.replace(
-                cfg, kv_dtype=kv)), params, dict(kw, temperature=temperature),
-                work[:4], card)
+                cfg, kv_dtype=kv)), params,
+                dict(SERVE_KW, temperature=temperature), work[:4], card)
+    return launches, instances, tokens
+
+
+def check_serve_paged(torch, card: str, cfg, params, want,
+                      profile: bool) -> None:
+    """The serve phase's last run: bf16 greedy with the weights paged from
+    pinned host memory (consumes ``params["layers"]``)."""
+    from repro_torch.models.transformer import DenseLM
+    work = prompts(cfg.vocab, 0)
     model = DenseLM(cfg.with_pager(enabled=True, lookahead=1))
-    serve_paged(torch, card, model, params, work, dict(kw, temperature=0.0),
-                resident_tokens)
+    serve_paged(torch, card, model, params, work,
+                dict(SERVE_KW, temperature=0.0), want)
     if profile:
-        profile_serve(torch, model, params, dict(kw, temperature=0.0),
+        profile_serve(torch, model, params, dict(SERVE_KW, temperature=0.0),
                       work[:4], card)
-    return launches, instances
 
 
 def serve_paged(torch, card: str, model, params, work, kw,
@@ -1031,6 +1080,363 @@ def serve_config(torch, card: str, model, params, work, kw) -> dict:
             "bytes_per_page": per_page, "tokens": [r.output for r in reqs]}
 
 
+# ---------------------------------------------------------------------------
+# KV across the tiers
+# ---------------------------------------------------------------------------
+
+#: the tiers phase's pool for preemption: 12 usable pages against four
+#: requests of 5 worst-case pages each (8-token prompts, 64 new tokens,
+#: page 16), so two decode at once and the backlog head must preempt
+TIERS_POOL = 13
+
+
+class Launches:
+    """Kernel launches summed over the tiers phase's runs; each run's
+    counts are reset just before it and read just after."""
+
+    def __init__(self):
+        self.total: dict = {}
+        self.by_instance: dict = {}
+
+    def run(self, torch, server, work):
+        """Serve ``work`` once (64 new tokens each) and count; returns
+        (tokens, seconds, this run's launches)."""
+        from repro_torch.kernels import (instance_counts, launch_counts,
+                                         reset_launch_counts)
+        reset_launch_counts()
+        reqs, secs = serve(server, work, 64)
+        got, inst = launch_counts(), instance_counts()
+        for k, n in got.items():
+            self.total[k] = self.total.get(k, 0) + n
+        for k, d in inst.items():
+            mine = self.by_instance.setdefault(k, {})
+            for i, n in d.items():
+                mine[i] = mine.get(i, 0) + n
+        tokens = [r.output for r in reqs]
+        tag = getattr(server, "tag", "")
+        if any(len(t) != 64 for t in tokens) or any(r.error for r in reqs):
+            raise AssertionError(f"tiers {tag}: a request did not emit its "
+                                 f"64 tokens: {[r.error for r in reqs]}")
+        st, cfg = server.stats, server.model.cfg
+        kernel = "paged_attention" + ("" if cfg.kv_dtype is None
+                                      else f"_{cfg.kv_dtype}")
+        if st["nonfinite_logits"]:
+            raise AssertionError(f"tiers {tag}: non-finite logits")
+        if got[kernel] != cfg.num_layers * st["steps"]:
+            raise AssertionError(f"tiers {tag}: {got[kernel]} K1 launches "
+                                 f"for {st['steps']} decode steps")
+        if (got["flash_attention_wgmma"] != cfg.num_layers * st["admitted"]
+                or got["flash_attention_simt"]):
+            raise AssertionError(f"tiers {tag}: K2 launches {got} for "
+                                 f"{st['admitted']} admissions")
+        return tokens, secs, got
+
+
+def _gbps(nbytes: float, secs: float) -> str:
+    return f"{nbytes / secs / 1e9:.2f}" if secs > 0 else "n/a"
+
+
+def tier_report(server, card: str) -> None:
+    """Stash bytes per tier, each transfer kind's measured rate, and the
+    ledger's modeled seconds for the same bytes."""
+    sw, led = server.swapper, server.mem.ledger
+    log(f"tiers {server.tag} [{card}]: stash peak bytes per tier "
+        f"{sw.stash_hwm()}, stash bytes left {sw.outstanding_bytes}")
+    for what, t in sorted(sw.timings.items()):
+        log(f"  measured {what}: {t['count']} transfers, {t['bytes']} bytes "
+            f"in {t['seconds'] * 1e3:.3f} ms wall = "
+            f"{_gbps(t['bytes'], t['seconds'])} GB/s")
+    for edge, x in led.transfers().items():
+        log(f"  modeled {edge} (the paper's DEFAULT_TIER_LINKS, not this "
+            f"card): {x['count']} transfers, {x['bytes']} bytes, "
+            f"{x['modeled_s'] * 1e3:.4f} ms = "
+            f"{_gbps(x['bytes'], x['modeled_s'])} GB/s")
+
+
+def swap_cost(torch, card: str, page_bytes: int) -> None:
+    """Where a swap's wall time goes: for stashes of 1 and 24 pages of
+    ``page_bytes`` each, the median of five of each step a transfer takes
+    -- a new tier buffer (remote: an exact-size registered pinned
+    buffer; cold: pageable), a device-to-host copy into each, a
+    host-to-device copy from pinned memory, and the park and promote
+    copies -- as ``PageSwapper`` does them."""
+    import statistics
+    from repro_torch.memory import COLD, REMOTE, tiers
+
+    def ms(fn):
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(out)
+
+    for pages in (1, 24):
+        n = pages * page_bytes
+        dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+        pinned = tiers.tier_empty((n,), torch.uint8, REMOTE, device="cuda")
+        pageable = tiers.tier_empty((n,), torch.uint8, COLD, device="cuda")
+        steps = {
+            "new remote buffer (register + unregister)":
+                lambda: tiers.tier_empty((n,), torch.uint8, REMOTE,
+                                         device="cuda"),
+            "new cold buffer (pageable)": lambda: tiers.tier_empty(
+                (n,), torch.uint8, COLD, device="cuda"),
+            "D2H into registered pinned": lambda: pinned.copy_(
+                dev, non_blocking=True),
+            "D2H into pageable": lambda: pageable.copy_(dev),
+            "H2D from registered pinned": lambda: dev.copy_(
+                pinned, non_blocking=True),
+            "pinned -> new pageable (park)": lambda: tiers.to_tier(
+                pinned, COLD, device="cuda"),
+            "pageable -> new pinned (promote)": lambda: tiers.to_tier(
+                pageable, REMOTE, device="cuda"),
+        }
+        for what, fn in steps.items():
+            t = ms(fn)
+            log(f"swap cost [{card}]: {pages} page(s), {n} bytes: {what} "
+                f"{t:.3f} ms = {_gbps(n, t / 1e3)} GB/s")
+
+
+def check_tiers(torch, card: str, cfg, params, counts: Launches,
+                served: dict | None) -> list:
+    """Preemption over the three pool dtypes at both temperatures,
+    preemption mid-decode (a stash of pages decode wrote) and cold
+    parking; returns the bf16 greedy uncontended tokens.  ``served``: the
+    serve phase's tokens by (kv_dtype, temperature) when it ran these
+    settings at full depth (its first four requests are this phase's
+    workload, in the same slots); else the uncontended runs are made
+    here."""
+    import dataclasses
+    from repro_torch.memory import REMOTE, FaultPlan, fault_plan
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    work = prompts(cfg.vocab, 0)[:4]
+    swap_cost(torch, card, 2 * cfg.num_layers * SERVE_KW["page_size"]
+              * cfg.num_kv_heads * cfg.head_dim * 2)
+
+    def server(kv, temperature, **kw):
+        model = DenseLM(dataclasses.replace(cfg, kv_dtype=kv))
+        srv = BatchedServer(model, params, audit=True,
+                            **dict(SERVE_KW, temperature=temperature), **kw)
+        srv.tag = " ".join([f"kv_dtype={kv} temperature={temperature}"]
+                           + [f"{k}={v}" for k, v in kw.items()])
+        return srv
+
+    uncontended = {}
+    for kv, temperature in SERVE_RUNS:
+        if served is not None:
+            want, base = served[kv, temperature][:4], "the serve phase's run"
+        else:
+            want, base_s, _ = counts.run(torch, server(kv, temperature), work)
+            base = f"{base_s:.3f} s uncontended"
+        uncontended[kv, temperature] = want
+        srv = server(kv, temperature, num_pages=TIERS_POOL)
+        got, secs, launches = counts.run(torch, srv, work)
+        st = srv.stats
+        log(f"tiers {srv.tag} [{card}]: {secs:.3f} s ({base}), steps "
+            f"{st['steps']}, admissions {st['admitted']}, preemptions "
+            f"{st['preemptions']} ({st['preempted_pages']} pages), resumes "
+            f"{st['resumes']}, launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+        tier_report(srv, card)
+        if got != want:
+            raise AssertionError(f"tiers {srv.tag}: preempted tokens differ "
+                                 f"from the uncontended run's")
+        if st["preemptions"] < 1 or st["resumes"] != st["preemptions"] \
+                or st["sheds"]:
+            raise AssertionError(f"tiers {srv.tag}: {st}")
+    resident = uncontended[None, 0.0]
+    # the pool runs dry after the first block: the victims have decoded
+    # 32 tokens past their 8-token prompts, 3 pages each, which K1's
+    # decode steps wrote
+    for kv, temperature in ((None, 0.0), ("fp8_e4m3", 0.7)):
+        srv = server(kv, temperature)
+        srv.tag += " mid-decode pool exhaustion at block 1"
+        with fault_plan(FaultPlan(exhaust_at_block=1, exhaust_blocks=2)):
+            got, secs, _ = counts.run(torch, srv, work)
+        st = srv.stats
+        log(f"tiers {srv.tag} [{card}]: {secs:.3f} s, steps {st['steps']}, "
+            f"pool faults {st['pool_faults']}, preemptions "
+            f"{st['preemptions']} ({st['preempted_pages']} pages), resumes "
+            f"{st['resumes']}")
+        tier_report(srv, card)
+        if got != uncontended[kv, temperature]:
+            raise AssertionError(f"tiers {srv.tag}: tokens differ from the "
+                                 f"uncontended run's")
+        if (st["pool_faults"] != 1 or st["preemptions"] < 1
+                or st["preempted_pages"] < 3 * st["preemptions"]
+                or st["resumes"] != st["preemptions"] or st["sheds"]):
+            raise AssertionError(f"tiers {srv.tag}: {st}")
+    for park_after in (0, 1):
+        srv = server(None, 0.0, num_pages=TIERS_POOL,
+                     cold_park_after_blocks=park_after)
+        led, flat = srv.mem.ledger, []
+        preempt = srv._preempt_slot
+
+        def watched(i, finished, preempt=preempt, led=led, flat=flat):
+            before = led.hwm(REMOTE)
+            preempt(i, finished)
+            flat.append(led.hwm(REMOTE) == before)
+
+        srv._preempt_slot = watched
+        got, secs, _ = counts.run(torch, srv, work)
+        st = srv.stats
+        log(f"tiers {srv.tag} [{card}]: {secs:.3f} s, preemptions "
+            f"{st['preemptions']}, cold parks {st['cold_parks']}, promotes "
+            f"{st['cold_promotes']}, remote hwm flat through each swap-out "
+            f"{flat}")
+        tier_report(srv, card)
+        if got != resident:
+            raise AssertionError(f"tiers {srv.tag}: tokens differ from the "
+                                 f"uncontended run's")
+        if (st["cold_parks"] < 1 or st["cold_promotes"] != st["cold_parks"]
+                or st["resumes"] != st["preemptions"]):
+            raise AssertionError(f"tiers {srv.tag}: {st}")
+        if park_after == 0 and not all(flat):
+            raise AssertionError(f"tiers {srv.tag}: a swap-out raised the "
+                                 f"remote tier's high-water mark")
+    log("tiers: preempted (at admission and mid-decode) and cold-parked "
+        "tokens equal the uncontended runs'; every victim resumed, every "
+        "park promoted back")
+    return resident
+
+
+def check_offload(torch, card: str, cfg, params, want: list,
+                  counts: Launches) -> None:
+    """``offload_kv`` with paged weights, bf16 greedy: the resident run's
+    tokens, nothing degraded, every layer's pool slice paged in and
+    written back once a step and once an admission; then the same with
+    the pool run dry mid-decode (preemption swaps from pools at rest in
+    pinned host memory).  The offload's cost: the same weights, paged
+    the same way, serve the same four prompts with the pools in device
+    memory, interleaved with the offloaded runs (paged, offload, offload,
+    paged).  Consumes ``params["layers"]`` (re-made from the same seed if
+    an earlier run already moved them to the host)."""
+    import gc
+    import statistics
+    from repro_torch.memory import (LOCAL, FaultPlan, PagedLayers, PinLocal,
+                                    fault_plan)
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    if isinstance(params["layers"], PagedLayers):
+        params["layers"] = None
+        gc.collect()
+        params["layers"] = DenseLM(cfg).init(0, device="cuda")["layers"]
+    model = DenseLM(cfg.with_pager(enabled=True, lookahead=1,
+                                   offload_kv=True))
+    mem = model.mem
+    params["layers"] = mem.place_layer_weights(params["layers"])
+    gc.collect()
+    torch.cuda.synchronize()
+    work = prompts(cfg.vocab, 0)[:4]
+
+    def server(offload: bool, **kw):
+        """A server on the placed weights; without ``offload`` its pools
+        stay in device memory (the kv_pool policy is PinLocal while it
+        places them)."""
+        policy = mem.policies["kv_pool"]
+        if not offload:
+            mem.policies["kv_pool"] = PinLocal()
+        try:
+            srv = BatchedServer(model, params,
+                                **dict(SERVE_KW, temperature=0.0), **kw)
+        finally:
+            mem.policies["kv_pool"] = policy
+        srv.tag = " ".join(
+            ["offload_kv" if offload else "paged weights, pools in device "
+             "memory", "kv_dtype=None temperature=0.0"]
+            + [f"{k}={v}" for k, v in kw.items()])
+        if offload and (mem.degraded or srv.cache["k_pages"].is_cuda
+                        or not all(t.is_pinned()
+                                   for t in srv.cache.values())):
+            raise AssertionError(f"offload: {mem.describe()}; pools at "
+                                 f"rest must be pinned host memory")
+        if not offload and not srv.cache["k_pages"].is_cuda:
+            raise AssertionError("paged weights: the pools left the device")
+        return srv
+
+    def run(offload: bool, checked: bool = False):
+        srv = server(offload)
+        win, pf = mem.kv_window, mem.prefetcher
+        w0, f0 = (win.fetches if offload else 0), pf.fetches
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got, secs, _ = counts.run(torch, srv, work)
+        st = srv.stats
+        ms = 1e3 * secs / st["steps"]
+        passes = cfg.num_layers * (st["steps"] + st["admitted"])
+        log(f"{srv.tag} [{card}]: {sum(len(t) for t in got)} tokens in "
+            f"{secs:.3f} s = {sum(len(t) for t in got) / secs:.2f} tok/s "
+            f"({ms:.1f} ms per decode step, admissions included), steps "
+            f"{st['steps']}, admissions {st['admitted']}, layer weight "
+            f"fetches {pf.fetches - f0}, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+            f"above the {base / 2**30:.2f} GiB held before the run")
+        if got != want:
+            raise AssertionError(f"{srv.tag}: tokens differ from the "
+                                 f"resident run's")
+        if pf.fetches - f0 != passes:
+            raise AssertionError(f"{srv.tag}: {pf.fetches - f0} weight "
+                                 f"fetches, expected {passes}")
+        if offload and not (win.fetches - w0 == win.writebacks == passes):
+            raise AssertionError(f"offload: {win.fetches - w0} slices paged "
+                                 f"in, {win.writebacks} written back, "
+                                 f"expected {passes}")
+        if checked:
+            log(f"offload_kv [{card}]: KV slices paged in "
+                f"{win.fetches - w0}, written back {win.writebacks}; KV "
+                f"window {win.window_bytes} bytes in device memory against "
+                f"the resident pool's {srv.kv_bytes_capacity()} bytes "
+                f"(pinned host); ledger local {mem.ledger.classes(LOCAL)}")
+        return ms
+
+    times = {True: [], False: []}
+    for offload, checked in ((False, False), (True, True), (True, False),
+                             (False, False)):
+        times[offload].append(run(offload, checked))
+    paged, off = (statistics.mean(times[k]) for k in (False, True))
+    log(f"offload_kv cost [{card}]: ms per decode step (admissions "
+        f"included), paged weights with pools in device memory "
+        f"{times[False]}, offload_kv {times[True]} (run order paged, "
+        f"offload, offload, paged); means {paged:.3f} and {off:.3f} ms, "
+        f"offload {100 * (off - paged) / paged:+.2f}%; spread within each "
+        f"{max(times[False]) - min(times[False]):.3f} and "
+        f"{max(times[True]) - min(times[True]):.3f} ms")
+
+    # preemption from pools at rest, mid-decode: the pool runs dry after
+    # the first block, and the swapper gathers the victims' 3 pages each
+    # (prefill and decode wrote them through the window) on the host,
+    # behind the window's write-backs, and scatters them back there
+    srv = server(True, audit=True)
+    srv.tag += " mid-decode pool exhaustion at block 1"
+    with fault_plan(FaultPlan(exhaust_at_block=1, exhaust_blocks=2)):
+        got, secs, _ = counts.run(torch, srv, work)
+    st = srv.stats
+    log(f"{srv.tag} [{card}]: {secs:.3f} s, steps {st['steps']}, pool "
+        f"faults {st['pool_faults']}, preemptions {st['preemptions']} "
+        f"({st['preempted_pages']} pages), resumes {st['resumes']}")
+    tier_report(srv, card)
+    if got != want:
+        raise AssertionError(f"{srv.tag}: tokens differ from the resident "
+                             f"run's")
+    if (st["pool_faults"] != 1 or st["preemptions"] < 1
+            or st["preempted_pages"] < 3 * st["preemptions"]
+            or st["resumes"] != st["preemptions"] or st["sheds"]):
+        raise AssertionError(f"{srv.tag}: {st}")
+    if mem.degraded:
+        raise AssertionError(f"offload degraded: {mem.degraded}")
+    log("offload_kv: tokens equal the resident run's, with and without "
+        "preemption; nothing degraded; every layer's pool paged once a "
+        "step and once an admission")
+    params["layers"] = None
+    del srv, model, mem
+    gc.collect()
+
+
 def profile_serve(torch, model, params, kw, work, card) -> None:
     """A separate traced run (four requests, one 32-step block): device
     time by kernel name and the device's busy share of the wall time."""
@@ -1119,10 +1525,10 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=48,
                     help="serving depth (Qwen2.5-14B has 48; cut only if "
                          "the time limit forces it)")
-    ap.add_argument("--phases", default="kernels,parity,serve",
-                    help="comma list of kernels, parity, serve, profile (a "
-                         "traced serving run) and sweep (K3's routes over "
-                         "M); the last two are off by default")
+    ap.add_argument("--phases", default="kernels,parity,serve,tiers",
+                    help="comma list of kernels, parity, serve, tiers, "
+                         "profile (a traced serving run) and sweep (K3's "
+                         "routes over M); the last two are off by default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1167,10 +1573,24 @@ def main() -> int:
     parity_launches = None
     if "parity" in phases:
         parity_launches = check_parity(torch)
-    launches = None
+    launches = tiers = served = None
     if "serve" in phases:
-        launches = check_serve(torch, card, args.layers,
-                               "profile" in phases)
+        cfg, params = qwen_params(torch, args.layers)
+        *launches, served = check_serve(torch, card, cfg, params,
+                                        "profile" in phases)
+    if "tiers" in phases:
+        if "serve" not in phases or cfg.num_layers != 48:
+            cfg48, params48 = qwen_params(torch, 48)
+            full = None
+        else:
+            cfg48, params48, full = cfg, params, served
+        tiers = Launches()
+        resident = check_tiers(torch, card, cfg48, params48, tiers, full)
+    if "serve" in phases:
+        check_serve_paged(torch, card, cfg, params, served[None, 0.0],
+                          "profile" in phases)
+    if "tiers" in phases:
+        check_offload(torch, card, cfg48, params48, resident, tiers)
 
     if results and launches is not None and parity_launches is not None:
         # a row's launches: its instantiation's (K1: query rows; K2: head
@@ -1181,6 +1601,12 @@ def main() -> int:
         smoke = ("BatchedServer, fp32 smoke model, greedy card run (parity "
                  "phase)")
         wrappers = "ops.matmul / ops.accumulate at their shapes (kernels phase)"
+        def count(counts, name, row):
+            total, by_instance = counts
+            return (by_instance.get(name, {}).get(row["instance"], 0)
+                    if "instance" in row else total.get(name, 0))
+
+        tiered = (tiers.total, tiers.by_instance) if tiers else ({}, {})
         for mod, path, counts in ((pa_kernel, serving, launches),
                                   (fa_kernel, serving, launches),
                                   (sm_kernel, wrappers, (ops_launches, {})),
@@ -1189,16 +1615,16 @@ def main() -> int:
                 name = counter.name
                 if name == "flash_attention_simt":
                     path, counts = smoke, parity_launches
-                total, by_instance = counts
                 for row in results[name]:
-                    n = (by_instance[name].get(row["instance"], 0)
-                         if "instance" in row else total[name])
+                    n = count(counts, name, row)
                     kernels.append({"name": name, "route": "cuda",
                                     "source": f"src/repro_torch/kernels/"
                                               f"csrc/{mod.SOURCE}",
                                     "replaces": mod.REPLACES,
                                     "path": path if n else
                                     "kernels phase only", "launches": n,
+                                    "tiers_launches": count(tiered, name,
+                                                            row),
                                     **row})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

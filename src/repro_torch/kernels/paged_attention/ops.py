@@ -148,7 +148,10 @@ class BlockManager:
                 self._prefix_index.pop(key, None)
 
     def free_slot(self, slot: int) -> None:
-        """Release every page owned by ``slot`` (EOS / eviction)."""
+        """Release every page owned by ``slot`` (EOS, eviction,
+        preemption).  A preempted slot's shared prefix pages just lose one
+        reference: its stash holds their bytes, and its resume writes them
+        into pages of its own (sharing is dropped, the tokens unchanged)."""
         self._release_pages(self.pages.pop(slot, []))
         self.lens.pop(slot, None)
 

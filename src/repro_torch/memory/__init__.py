@@ -5,43 +5,49 @@ the card (counterpart of ``repro.memory``).
   (HBM, pinned host, pageable host), the modeled tier links, fault
   injection and the placement primitives (``page_out`` / ``page_in``).
 * :mod:`repro_torch.memory.policies` -- residency policies
-  (``PinLocal``, ``DoubleBufferPrefetch``, ``BlockPoolResidency``) and
+  (``PinLocal``, ``DoubleBufferPrefetch``, ``OffloadBetweenSteps``,
+  ``BlockPoolResidency``), each with ``pick_tier``, and
   :class:`PagerConfig`.
-* :mod:`repro_torch.memory.orchestrator` -- :class:`MemoryOrchestrator`
-  and the :class:`TensorPrefetcher` that pages layer weights from pinned
-  host memory on a copy stream.
+* :mod:`repro_torch.memory.orchestrator` -- :class:`MemoryOrchestrator`,
+  the :class:`TensorPrefetcher` that pages layer weights from pinned
+  host memory on a copy stream, and the :class:`KVWindow` that pages
+  offloaded KV pools beside them.
+* :mod:`repro_torch.memory.swap` -- the :class:`PageSwapper` behind
+  preemption and cold parking.
 * :mod:`repro_torch.memory.accounting` -- the per-tier ledger and the
   window/capacity formulas.
 
-Not ported yet: ``PageSwapper`` (preemption, cold parking), KV offload
-between steps and MoE expert paging.
+Not ported yet: MoE expert paging.
 """
 from repro_torch.memory.accounting import (MemoryLedger, capacity_reduction,
                                            modeled_transfer_s,
                                            paged_window_bytes,
                                            peak_local_bytes,
                                            resident_window_bytes, tree_bytes)
-from repro_torch.memory.orchestrator import (MemoryOrchestrator,
+from repro_torch.memory.orchestrator import (KVWindow, MemoryOrchestrator,
                                              TensorPrefetcher)
 from repro_torch.memory.policies import (BlockPoolResidency,
-                                         DoubleBufferPrefetch, PagedLayers,
+                                         DoubleBufferPrefetch,
+                                         OffloadBetweenSteps, PagedLayers,
                                          PagerConfig, PinLocal)
+from repro_torch.memory.swap import PageSwapper, SwapHandle
 from repro_torch.memory.tiers import (COLD, DEFAULT_TIER_LINKS, HIERARCHY,
                                       LOCAL, REMOTE, FaultPlan, Packed, Tier,
-                                      TierEdge, TierTransferError, edge,
-                                      fault_plan, hierarchy,
-                                      install_fault_plan, page_in, page_out,
-                                      transfer_with_retry)
+                                      TierEdge, TierTransferError,
+                                      active_fault_plan, edge, fault_plan,
+                                      hierarchy, install_fault_plan, page_in,
+                                      page_out, transfer_with_retry)
 
 __all__ = [
     "MemoryLedger", "capacity_reduction", "modeled_transfer_s",
     "paged_window_bytes", "peak_local_bytes", "resident_window_bytes",
     "tree_bytes",
-    "MemoryOrchestrator", "TensorPrefetcher",
-    "BlockPoolResidency", "DoubleBufferPrefetch", "PagedLayers",
-    "PagerConfig", "PinLocal",
+    "KVWindow", "MemoryOrchestrator", "TensorPrefetcher",
+    "BlockPoolResidency", "DoubleBufferPrefetch", "OffloadBetweenSteps",
+    "PagedLayers", "PagerConfig", "PinLocal",
+    "PageSwapper", "SwapHandle",
     "COLD", "DEFAULT_TIER_LINKS", "HIERARCHY", "LOCAL", "REMOTE",
     "FaultPlan", "Packed", "Tier", "TierEdge", "TierTransferError",
-    "edge", "fault_plan", "hierarchy",
+    "active_fault_plan", "edge", "fault_plan", "hierarchy",
     "install_fault_plan", "page_in", "page_out", "transfer_with_retry",
 ]

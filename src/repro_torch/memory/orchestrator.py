@@ -12,12 +12,19 @@ and makes the compute stream wait on a layer's copy only when the loop
 reaches that layer.  Device residency is ``1 + lookahead`` layers of
 weights instead of all of them.
 
+Under ``offload_kv`` the KV pools rest in the remote tier too, and
+:class:`KVWindow` is the reference's ``paged_scan_cache``: each layer's
+pool slice is paged in before its attention and written back whole after
+it, on the prefetcher's copy stream, with the same lookahead and event
+discipline.  The model's loops take (layer weights, layer pools) pairs
+from :meth:`MemoryOrchestrator.layers_kv`.
+
 :class:`MemoryOrchestrator` is the subsystem's front door, as in the
 reference: ``MemoryOrchestrator.plan(cfg)`` resolves the policy matrix
 from the config's pager policy; the instance owns placement
-(``place_layer_weights``, ``place_kv_pool``, ``block_pool``), the layer
-iterator the model's loops take their layers from (:meth:`layers`), and
-the shared ledger.
+(``place``, ``place_layer_weights``, ``place_kv_pool``, ``block_pool``),
+the layer iterators the model's loops take their layers from
+(:meth:`layers`, :meth:`layers_kv`), and the shared ledger.
 """
 from __future__ import annotations
 
@@ -30,8 +37,12 @@ from repro_torch.memory import tiers
 from repro_torch.memory.accounting import (MemoryLedger, paged_window_bytes,
                                            tree_bytes)
 from repro_torch.memory.policies import (BlockPoolResidency,
-                                         DoubleBufferPrefetch, PagedLayers,
+                                         DoubleBufferPrefetch,
+                                         OffloadBetweenSteps, PagedLayers,
                                          PagerConfig, PinLocal)
+
+#: the cache leaves that are KV pools, each stacked (L, ...) by layer
+POOL_KEYS = ("k_pages", "v_pages", "k_scale", "v_scale")
 
 
 class TensorPrefetcher:
@@ -107,6 +118,100 @@ class TensorPrefetcher:
             yield packed[i].unpack(self.window[i % width])
 
 
+class KVWindow:
+    """Pages KV pools at rest in the remote tier through ``1 + lookahead``
+    per-layer device slots (the reference's ``paged_scan_cache``).
+
+    ``pools`` are the (L, ...) host tensors at rest (pinned on the card);
+    :meth:`stream` yields layer i's slices, ``{name: (...) view}``, from
+    window slot ``i % (1 + lookahead)``.  Layer i + lookahead is paged in
+    before layer i is yielded; when the loop moves past layer i, the slot
+    is written back whole (the step's in-place KV writes included) behind
+    an event the compute stream recorded after layer i, and the next
+    layer for that slot is paged in behind the write-back on the same copy
+    stream.  After the last layer the compute stream waits on the final
+    write-back, so anything that waits for the compute stream (a block's
+    harvest) sees the pools at rest complete.  On the CPU the copies are
+    host copies.  ``fetches`` / ``writebacks`` count layer slices moved
+    each way."""
+
+    def __init__(self, pools: dict[str, torch.Tensor], lookahead: int,
+                 device: torch.device, copy_stream=None):
+        if lookahead < 0:
+            raise ValueError(f"lookahead must be >= 0, got {lookahead}")
+        self.pools = pools
+        self.lookahead = lookahead
+        self.device = torch.device(device)
+        self.window = [{k: torch.empty(p.shape[1:], dtype=p.dtype,
+                                       device=self.device)
+                        for k, p in pools.items()}
+                       for _ in range(1 + lookahead)]
+        if self.device.type == "cuda" and copy_stream is None:
+            copy_stream = torch.cuda.Stream(self.device)
+        self.copy_stream = copy_stream
+        self.num_layers = next(iter(pools.values())).shape[0]
+        self.fetches = 0
+        self.writebacks = 0
+
+    @property
+    def slot_bytes(self) -> int:
+        return tree_bytes(self.window[0])
+
+    @property
+    def window_bytes(self) -> int:
+        """Device bytes the window holds."""
+        return len(self.window) * self.slot_bytes
+
+    def holds(self, cache: dict) -> bool:
+        """Whether ``cache``'s pools are the ones at rest here."""
+        return all(cache.get(k) is p for k, p in self.pools.items())
+
+    def stream(self) -> Iterator[dict]:
+        n, ahead, width = self.num_layers, self.lookahead, len(self.window)
+        copy = self.copy_stream
+        if copy is not None:
+            compute = torch.cuda.current_stream(self.device)
+            copy.wait_event(compute.record_event())
+            ready: dict[int, torch.cuda.Event] = {}
+
+        def move(dst: dict, src: dict) -> None:
+            if copy is None:
+                for k in self.pools:
+                    tiers.copy_bytes(dst[k], src[k])
+                return
+            with torch.cuda.stream(copy):
+                for k in self.pools:
+                    tiers.copy_bytes(dst[k], src[k], non_blocking=True)
+
+        def page_in(j: int) -> None:
+            move(self.window[j % width], {k: p[j] for k, p in
+                                          self.pools.items()})
+            if copy is not None:
+                ready[j] = copy.record_event()
+            self.fetches += 1
+
+        def write_back(i: int) -> None:
+            if copy is not None:
+                copy.wait_event(compute.record_event())
+            move({k: p[i] for k, p in self.pools.items()},
+                 self.window[i % width])
+            self.writebacks += 1
+
+        for j in range(min(ahead, n)):
+            page_in(j)
+        for i in range(n):
+            if i:
+                write_back(i - 1)
+            if i + ahead < n:
+                page_in(i + ahead)
+            if copy is not None:
+                compute.wait_event(ready.pop(i))
+            yield self.window[i % width]
+        write_back(n - 1)
+        if copy is not None:
+            compute.wait_event(copy.record_event())
+
+
 class MemoryOrchestrator:
     """Binds tensor classes to residency policies for one model/server.
 
@@ -123,6 +228,7 @@ class MemoryOrchestrator:
         self.policies.setdefault("layer_weights", PinLocal())
         self.policies.setdefault("kv_pool", PinLocal())
         self.prefetcher: TensorPrefetcher | None = None
+        self.kv_window: KVWindow | None = None
         # tensor class -> reason, when a tier fault forced a documented
         # degradation to local residency
         self.degraded: dict[str, str] = {}
@@ -137,16 +243,42 @@ class MemoryOrchestrator:
             lookahead=getattr(pp, "lookahead", 1),
             offload_kv=getattr(pp, "offload_kv", False),
             page_experts=getattr(pp, "page_experts", False))
-        if pager_config.enabled and pager_config.offload_kv:
-            raise NotImplementedError(
-                "offload_kv (KV pools parked in the remote tier between "
-                "steps) is not ported yet")
-        policies = {"layer_weights": (
-            DoubleBufferPrefetch(lookahead=pager_config.lookahead)
-            if pager_config.enabled else PinLocal())}
+        policies = {
+            "layer_weights": (
+                DoubleBufferPrefetch(lookahead=pager_config.lookahead)
+                if pager_config.enabled else PinLocal()),
+            "kv_pool": (
+                OffloadBetweenSteps()
+                if pager_config.enabled and pager_config.offload_kv
+                else PinLocal())}
         return cls(pager_config, policies)
 
     # ----- placement --------------------------------------------------------
+    def place(self, tensor_class: str, tree: dict,
+              access_stats: dict | None = None) -> dict:
+        """Place a whole tensor class (a dict of tensors) in the tier its
+        policy picks (``pick_tier``: the home tier, or a colder one when
+        ``access_stats`` justify it), recording residency, capacity and
+        the placement's tier-edge charge.  An injected tier fault falls
+        back to local residency, the reason in
+        ``degraded[tensor_class]``."""
+        policy = self.policies.get(tensor_class, PinLocal())
+        tier = policy.pick_tier(access_stats)
+        nbytes = tree_bytes(tree)
+        try:
+            placed = (policy.place(tree) if tier == policy.tier
+                      else tiers.eager_to_tier(
+                          tree, tier, what=f"place_{tensor_class}"))
+        except tiers.TierTransferError as e:
+            self.degraded[tensor_class] = (
+                f"{tier} placement -> local residency ({e})")
+            tier, placed = tiers.LOCAL, tree
+        self.ledger.record(tier, tensor_class, nbytes)
+        self.ledger.record_capacity(tier, tensor_class, nbytes)
+        if tier != tiers.LOCAL:
+            self.ledger.charge_transfer(tiers.LOCAL, tier, nbytes)
+        return placed
+
     def place_layer_weights(self, layers: list) -> list:
         """Place the per-layer params by the layer-weights policy and
         record the residency: with paging, every layer at rest in the
@@ -182,17 +314,59 @@ class MemoryOrchestrator:
         return placed
 
     def place_kv_pool(self, cache: dict) -> dict:
-        """Residency for the serving KV cache: device-resident (the
-        reference's PinLocal branch; offload_kv is not ported), provisioned
-        capacity recorded -- only live pages count as residency."""
+        """Residency for the serving KV cache, provisioned capacity
+        recorded (only live pages count as residency).  Device-resident
+        by default; under ``offload_kv`` the pools rest in the remote tier
+        (pinned host memory on the card) and a :class:`KVWindow` of
+        ``1 + lookahead`` layer slices is allocated in device memory (the
+        ledger's local ``kv_pool_window``).  An injected tier fault at
+        placement degrades to local residency: the pools stay where they
+        are, offload is switched off and the reason is recorded in
+        ``degraded["kv_pool"]``."""
         policy = self.policies["kv_pool"]
-        self.ledger.record_capacity(policy.tier, "kv_pool", tree_bytes(cache))
-        return policy.place(cache)
+        nbytes = tree_bytes(cache)
+        device = cache["k_pages"].device
+        try:
+            placed = policy.place(cache)
+        except tiers.TierTransferError as e:
+            self.degraded["kv_pool"] = (
+                f"remote offload -> local residency ({e})")
+            policy = PinLocal()
+            self.policies["kv_pool"] = policy
+            self.config = dataclasses.replace(self.config, offload_kv=False)
+            placed = policy.place(cache)
+        self.ledger.record_capacity(policy.tier, "kv_pool", nbytes)
+        if policy.tier == tiers.LOCAL:
+            return placed
+        self.ledger.charge_transfer(tiers.LOCAL, policy.tier, nbytes)
+        self.kv_window = KVWindow(
+            {k: placed[k] for k in POOL_KEYS if k in placed},
+            self.config.lookahead, device,
+            self.prefetcher.copy_stream if self.prefetcher else None)
+        window = self.kv_window.window_bytes
+        self.ledger.record(tiers.LOCAL, "kv_pool_window", window)
+        self.ledger.record_capacity(tiers.LOCAL, "kv_pool_window", window)
+        return placed
 
     def block_pool(self, num_pages: int, page_size: int
                    ) -> BlockPoolResidency:
-        """A block-pool residency that reports to this ledger."""
-        return BlockPoolResidency(num_pages, page_size, ledger=self.ledger)
+        """A block-pool residency that reports to this ledger, in the
+        kv_pool policy's tier."""
+        return BlockPoolResidency(num_pages, page_size, ledger=self.ledger,
+                                  tier=self.policies["kv_pool"].tier)
+
+    def kv_offloaded(self, cache: dict) -> bool:
+        """Whether ``cache``'s pools rest in the remote tier (placed by
+        this orchestrator's :meth:`place_kv_pool`)."""
+        return self.kv_window is not None and self.kv_window.holds(cache)
+
+    def settle_kv(self) -> None:
+        """Wait until every write-back of the KV window has landed, before
+        the host reads or writes pools at rest (swaps, snapshots)."""
+        w = self.kv_window
+        if w is not None and w.copy_stream is not None:
+            torch.cuda.current_stream(w.device).synchronize()
+            w.copy_stream.synchronize()
 
     # ----- execution --------------------------------------------------------
     def layers(self, layers: list) -> Iterator[dict]:
@@ -205,6 +379,24 @@ class MemoryOrchestrator:
             raise ValueError("these layers were placed in the remote tier "
                              "by another orchestrator")
         return iter(layers)
+
+    def layers_kv(self, layers: list, cache: dict
+                  ) -> Iterator[tuple[dict, dict]]:
+        """The model's layer loop with each layer's KV pools: (layer
+        weights, ``{pool name: layer i's slice}``).  Pools at rest in the
+        remote tier come through the :class:`KVWindow` (device slots, in
+        place writes written back); resident pools are sliced in place."""
+        weights = self.layers(layers)
+        if not self.kv_offloaded(cache):
+            names = [k for k in POOL_KEYS if k in cache]
+            for i, lp in enumerate(weights):
+                yield lp, {k: cache[k][i] for k in names}
+            return
+        kv = self.kv_window.stream()
+        for lp in weights:
+            yield lp, next(kv)
+        for _ in kv:        # runs the last layer's write-back
+            pass
 
     # ----- introspection ----------------------------------------------------
     def describe(self) -> dict:

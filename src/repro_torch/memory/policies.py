@@ -6,13 +6,17 @@ tensor class lives at rest and how it is placed there.
   remote tier (pinned host memory), streamed through a (1 + lookahead)
   layer window in device memory by the Tensor Prefetcher
   (:class:`repro_torch.memory.orchestrator.TensorPrefetcher`).
+* :class:`OffloadBetweenSteps` -- ``offload_kv``: the KV pools at rest
+  in the remote tier between steps, paged through device memory one
+  layer at a time by the orchestrator's KV window.
 * :class:`BlockPoolResidency` -- the block-pool paged KV cache: wraps
   the host-side :class:`BlockManager` and reports the pool's live bytes
   to the shared ledger.
 
-The reference's ``OffloadBetweenSteps`` (KV pools parked remote between
-steps) and ``TopKExpertPrefetch`` (MoE expert paging) are not ported
-yet.
+Every policy answers ``pick_tier(access_stats)``: the tier its class
+should occupy given how it is accessed (the home tier unless the stats
+justify a colder one).  The reference's ``TopKExpertPrefetch`` (MoE
+expert paging) is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,8 +38,8 @@ class PagerConfig:
 
     enabled      -- page per-layer weights through the remote tier.
     lookahead    -- layers fetched ahead of the one computing (paper w=1).
-    offload_kv   -- park KV pools in the remote tier between steps (not
-                    ported yet: planning it raises).
+    offload_kv   -- with ``enabled``: the KV pools at rest in the remote
+                    tier, paged through a per-layer window.
     page_experts -- MoE expert paging (a no-op without experts, as in the
                     reference; the port serves no MoE family yet).
     """
@@ -54,6 +58,9 @@ class PinLocal:
 
     def place(self, tree: Any) -> Any:
         return tree
+
+    def pick_tier(self, access_stats: dict | None = None) -> str:
+        return self.tier
 
 
 class PagedLayers(list):
@@ -93,23 +100,65 @@ class DoubleBufferPrefetch:
         return PagedLayers([tiers.page_out(lp, self.tier) for lp in layers],
                            device)
 
+    def pick_tier(self, access_stats: dict | None = None) -> str:
+        # the window touches every layer every step: layer weights never
+        # go colder than their home tier
+        return self.tier
+
+
+@dataclasses.dataclass(frozen=True)
+class OffloadBetweenSteps:
+    """KV pools at rest in the remote tier between steps; each layer's
+    pool slice is paged through device memory by the orchestrator's
+    :class:`repro_torch.memory.orchestrator.KVWindow`.  Only
+    ``pool_keys`` move; any other leaf stays where it is."""
+
+    pool_keys: tuple[str, ...] = ("k_pages", "v_pages", "k_scale", "v_scale")
+    tier: str = tiers.REMOTE
+    # a pool untouched for this many steps belongs in the cold tier
+    cold_after_idle_steps: int = 64
+
+    def place(self, tree: dict) -> dict:
+        """Copy the pool leaves into the remote tier (pinned host memory
+        when they are on a CUDA device); one fault-injection checkpoint
+        for the whole placement."""
+        tiers.check_transfer("host_put", tree_bytes(
+            [v for k, v in tree.items() if k in self.pool_keys]))
+        return {k: (tiers.to_tier(v, self.tier) if k in self.pool_keys
+                    else v) for k, v in tree.items()}
+
+    def pick_tier(self, access_stats: dict | None = None) -> str:
+        """A pool idle for ``cold_after_idle_steps`` steps demotes to
+        cold (it pays the slow link once on resume instead of holding
+        remote capacity every step it is not read)."""
+        if (access_stats and access_stats.get("idle_steps", 0)
+                >= self.cold_after_idle_steps):
+            return tiers.COLD
+        return self.tier
+
 
 class BlockPoolResidency:
     """Block-pool paged KV residency: the host-side :class:`BlockManager`
     (allocation at block boundaries, reclamation on completion) plus the
-    pool's live bytes reported into the shared :class:`MemoryLedger`.
-    The device pools themselves live in the serving cache, in device
-    memory (the reference's KV offload is not ported).  Per-page bytes
-    come from :meth:`bind_kv_shape`."""
+    pool's live bytes reported into the shared :class:`MemoryLedger`, in
+    ``tier`` (the kv_pool policy's: local, or remote under
+    ``offload_kv``).  The pools themselves live in the serving cache.
+    Per-page bytes come from :meth:`bind_kv_shape`."""
 
     tensor_class = "kv_pool"
-    tier = tiers.LOCAL
 
     def __init__(self, num_pages: int, page_size: int,
-                 ledger: MemoryLedger | None = None):
+                 ledger: MemoryLedger | None = None,
+                 tier: str = tiers.LOCAL):
         self.manager = BlockManager(num_pages, page_size)
         self.ledger = ledger
+        self.tier = tier
         self._bytes_per_page = 0
+
+    def pick_tier(self, access_stats: dict | None = None) -> str:
+        # the live pool is read every step; only its preemption stashes
+        # move down the hierarchy (PageSwapper.park)
+        return self.tier
 
     def bind_kv_shape(self, kv_heads: int, head_dim: int, itemsize: int,
                       num_layers: int = 1, scale_itemsize: int = 0) -> None:
@@ -128,12 +177,19 @@ class BlockPoolResidency:
             self.ledger.record(self.tier, self.tensor_class,
                                self._live_bytes())
 
-    def audit(self) -> dict:
-        """The manager's allocator audit plus the ledger cross-check:
+    def audit(self, swapper=None, stashes=()) -> dict:
+        """The manager's allocator audit plus the ledger cross-checks:
         the recorded ``kv_pool`` bytes must equal the live pages times
-        the page bytes (meaningful right after :meth:`record`)."""
+        the page bytes (meaningful right after :meth:`record`), and, with
+        ``swapper``, its stash lines against ``stashes``, every
+        :class:`repro_torch.memory.swap.SwapHandle` the caller holds: each
+        stash's tensors must hold its ``nbytes``, their count must be the
+        swapper's live handles, and each tier's ledger line must be the
+        sum of the stashes in that tier."""
         summary = self.manager.audit()
-        if self.ledger is not None and self._bytes_per_page:
+        if self.ledger is None:
+            return summary
+        if self._bytes_per_page:
             got = self.ledger.classes(self.tier).get(self.tensor_class)
             if got is not None and got != self._live_bytes():
                 raise BlockPoolAuditError(
@@ -141,4 +197,26 @@ class BlockPoolResidency:
                     f"{self.tensor_class} records {got} bytes but "
                     f"{self.manager.pages_in_use} live pages x "
                     f"{self._bytes_per_page} bytes = {self._live_bytes()}")
+        if swapper is None:
+            return summary
+        held: dict[str, int] = {}
+        for h in stashes:
+            size = sum(t.numel() * t.element_size()
+                       for t in h.arrays().values())
+            if size != h.nbytes:
+                raise BlockPoolAuditError(
+                    f"stash audit: a {h.page_count}-page stash in {h.tier} "
+                    f"says {h.nbytes} bytes but its tensors hold {size}")
+            held[h.tier] = held.get(h.tier, 0) + h.nbytes
+        if swapper.live_handles != len(stashes):
+            raise BlockPoolAuditError(
+                f"stash audit: the swapper counts {swapper.live_handles} "
+                f"live stashes, the caller holds {len(stashes)}")
+        for tier in set(held) | set(swapper.stash_bytes()):
+            got = self.ledger.classes(tier).get(swapper.tensor_class, 0)
+            if got != held.get(tier, 0):
+                raise BlockPoolAuditError(
+                    f"ledger residency drift: {tier}/"
+                    f"{swapper.tensor_class} records {got} bytes but the "
+                    f"live stashes hold {held.get(tier, 0)}")
         return summary

@@ -19,8 +19,10 @@ numbers, not measurements of this machine.
 A tree moves between tiers packed into one flat byte buffer
 (:class:`Packed`): :func:`page_out` packs it into a tier's buffer,
 :func:`page_in` copies such a buffer into a local one and views the
-tree out of it.  Eager transfers consult the installed
-:class:`FaultPlan` first (:func:`check_transfer`).
+tree out of it.  Single tensors get real tier memory from
+:func:`tier_empty` (pinned for remote on the card, pageable for cold)
+and move with :func:`eager_to_tier`.  Eager transfers consult the
+installed :class:`FaultPlan` first (:func:`check_transfer`).
 """
 from __future__ import annotations
 
@@ -127,12 +129,18 @@ class TierTransferError(RuntimeError):
 
 @dataclasses.dataclass
 class FaultPlan:
-    """Deterministic (seeded) fault injection for eager tier transfers,
-    the reference's transfer faults: ``fail_first_n`` / ``spike_first_n``
-    hit the first N attempts exactly; ``fail_rate`` / ``spike_rate``
-    draw per attempt from a numpy generator seeded with ``seed``.  (The
-    reference's pool-exhaustion and engine-crash injections belong to
-    serving features the port does not have yet.)"""
+    """Deterministic (seeded) fault injection, the reference's.
+
+    Transfer faults: ``fail_first_n`` / ``spike_first_n`` hit the first N
+    eager transfer attempts exactly; ``fail_rate`` / ``spike_rate`` draw
+    per attempt from a numpy generator seeded with ``seed``.
+
+    Pool exhaustion mid-decode: ``exhaust_at_block`` arms it; the server
+    asks :meth:`take_pool_exhaustion` once per decode block and, at the
+    armed block, steals every free page for ``exhaust_blocks`` blocks,
+    forcing a real ``MemoryError`` in the next page growth and the
+    emergency-preemption recovery.  (The reference's engine-crash
+    injections belong to the disaggregated prefill engine, not ported.)"""
 
     seed: int = 0
     fail_first_n: int = 0
@@ -140,12 +148,15 @@ class FaultPlan:
     spike_first_n: int = 0
     spike_rate: float = 0.0
     spike_s: float = 0.05
+    exhaust_at_block: int | None = None
+    exhaust_blocks: int = 2
 
     def __post_init__(self) -> None:
         self._rng = np.random.default_rng(self.seed)
         self.transfers = 0       # attempts observed
         self.failures = 0        # attempts failed
         self.spikes = 0          # attempts delayed
+        self._exhaust_armed = self.exhaust_at_block is not None
 
     def before_transfer(self, what: str, nbytes: int = 0) -> None:
         """Called before each attempt: sleeps for an injected latency
@@ -165,6 +176,15 @@ class FaultPlan:
                 f"injected transfer failure #{self.failures} "
                 f"({what}, attempt {idx}, {nbytes} bytes)")
 
+    def take_pool_exhaustion(self, block: int) -> bool:
+        """True exactly once, at the armed decode block (the caller then
+        steals the pool's free pages and releases them
+        ``exhaust_blocks`` blocks later)."""
+        if self._exhaust_armed and block >= self.exhaust_at_block:
+            self._exhaust_armed = False
+            return True
+        return False
+
 
 _FAULT_PLAN: FaultPlan | None = None
 
@@ -175,6 +195,11 @@ def install_fault_plan(plan: FaultPlan | None) -> FaultPlan | None:
     global _FAULT_PLAN
     prev, _FAULT_PLAN = _FAULT_PLAN, plan
     return prev
+
+
+def active_fault_plan() -> FaultPlan | None:
+    """The installed fault plan, if any."""
+    return _FAULT_PLAN
 
 
 @contextlib.contextmanager
@@ -233,14 +258,16 @@ def transfer_with_retry(fn: Callable[[], Any], *, what: str,
 # Placement primitives
 # ---------------------------------------------------------------------------
 
-def host_buffer(nbytes: int, *, pinned: bool) -> torch.Tensor:
-    """An uninitialised ``nbytes`` uint8 host buffer, page-locked if
-    ``pinned`` (registered with ``cudaHostRegister`` at its exact size:
-    PyTorch's pinned allocator rounds every block up to a power of two,
-    which would pin ~1.7x the bytes of a 550 MB layer).  The
-    registration ends when the buffer object is collected.  A failed
-    registration raises."""
-    buf = torch.empty(nbytes, dtype=torch.uint8)
+def host_empty(shape: tuple[int, ...], dtype: torch.dtype, *,
+               pinned: bool) -> torch.Tensor:
+    """An uninitialised contiguous host tensor, page-locked if ``pinned``
+    (registered with ``cudaHostRegister`` at its exact size: PyTorch's
+    pinned allocator rounds every block up to a power of two, which
+    would pin ~1.7x the bytes of a 550 MB layer).  The registration ends
+    when the returned tensor object is collected.  A failed registration
+    raises."""
+    buf = torch.empty(shape, dtype=dtype)
+    nbytes = buf.numel() * buf.element_size()
     if pinned and nbytes:
         cudart = torch.cuda.cudart()
         rc = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, 0))
@@ -250,6 +277,59 @@ def host_buffer(nbytes: int, *, pinned: bool) -> torch.Tensor:
         weakref.finalize(buf, cudart.cudaHostUnregister,
                          buf.data_ptr()).atexit = False
     return buf
+
+
+def host_buffer(nbytes: int, *, pinned: bool) -> torch.Tensor:
+    """An uninitialised ``nbytes`` uint8 host buffer (:func:`host_empty`)."""
+    return host_empty((nbytes,), torch.uint8, pinned=pinned)
+
+
+def tier_empty(shape: tuple[int, ...], dtype: torch.dtype, tier: str, *,
+               device: str | torch.device) -> torch.Tensor:
+    """An uninitialised host tensor in ``tier`` for data that computes on
+    ``device``: pinned host memory for the remote tier when ``device`` is
+    a CUDA device, pageable host memory for the cold tier (and for every
+    tier on the CPU, where the tiers share one memory)."""
+    if tier not in (REMOTE, COLD):
+        raise ValueError(f"host tiers are remote and cold, not {tier!r}")
+    pinned = tier == REMOTE and torch.device(device).type == "cuda"
+    return host_empty(tuple(shape), dtype, pinned=pinned)
+
+
+def copy_bytes(dst: torch.Tensor, src: torch.Tensor, *,
+               non_blocking: bool = False) -> torch.Tensor:
+    """``dst.copy_(src)`` through both tensors' ``uint8`` views: a byte
+    copy, the same for every dtype (fp8 included) on every device pair.
+    Both must be contiguous with equal shapes and dtypes."""
+    if dst.shape != src.shape or dst.dtype != src.dtype:
+        raise ValueError(f"copy_bytes: {tuple(src.shape)} {src.dtype} into "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    dst.view(torch.uint8).copy_(src.view(torch.uint8),
+                                non_blocking=non_blocking)
+    return dst
+
+
+def to_tier(x: torch.Tensor, tier: str, *,
+            device: str | torch.device | None = None) -> torch.Tensor:
+    """A copy of ``x`` in ``tier``'s memory (:func:`tier_empty`), for data
+    that computes on ``device`` (default: where ``x`` lives).
+    Synchronous."""
+    out = tier_empty(x.shape, x.dtype, tier,
+                     device=x.device if device is None else device)
+    return copy_bytes(out, x.contiguous())
+
+
+def eager_to_tier(tree: dict, tier: str, *, what: str | None = None
+                  ) -> dict:
+    """Move a dict of tensors into ``tier`` now (the reference's
+    ``eager_to_tier``): one fault-injection checkpoint for the whole
+    tree, then a copy of every leaf into that tier's memory.  The local
+    tier is the identity."""
+    if tier == LOCAL:
+        return tree
+    nbytes = sum(x.numel() * x.element_size() for x in tree.values())
+    check_transfer(what or f"to_{tier}", nbytes)
+    return {k: to_tier(v, tier) for k, v in tree.items()}
 
 
 def _flatten(tree: dict, prefix: tuple = ()):

@@ -5,13 +5,16 @@ Parameters are plain nested dicts of tensors, as in the reference, with
 the reference's stacked L axis unstacked into a list of per-layer dicts;
 the reference's ``layer_scan`` is a Python loop that takes its layers
 from the model's :class:`repro_torch.memory.MemoryOrchestrator`
-(``self.mem``): the list itself for resident weights, the Tensor
-Prefetcher's stream for weights placed in the remote tier.  The page
-pools ``(L, P, page, Hkv, hd)`` are updated in place (``index_put_``),
-where the reference donated them through every dispatch.  With
-``cfg.kv_dtype`` set the pools hold int8 or fp8_e4m3 values beside
-``(L, P, page, Hkv)`` bf16 scales; fp8 pools are written and gathered
-through their uint8 view on both devices.
+(``self.mem.layers_kv``): the list itself for resident weights, the
+Tensor Prefetcher's stream for weights placed in the remote tier, each
+layer beside its slices of the page pools.  The pools ``(L, P, page,
+Hkv, hd)`` are updated in place (``index_put_``), where the reference
+donated them through every dispatch: resident pools with one batched
+scatter after the layer loop, pools at rest in the remote tier
+(``offload_kv``) inside the loop, in the layer's window slot, which the
+orchestrator writes back.  With ``cfg.kv_dtype`` set the pools hold int8
+or fp8_e4m3 values beside ``(L, P, page, Hkv)`` bf16 scales; fp8 pools
+are written and gathered through their uint8 view on both devices.
 """
 from __future__ import annotations
 
@@ -75,6 +78,30 @@ def _scatter_pages(cache: dict, pages: torch.Tensor, k_new: torch.Tensor,
     for name, val in writes:
         scatter(cache[name], val)
     return cache
+
+
+def _layer(pools: dict) -> dict:
+    """One layer's pool slices as a one-layer stack (views: writes land
+    in the slices)."""
+    return {k: v[None] for k, v in pools.items()}
+
+
+def _write_tokens(pools: dict, pids: torch.Tensor, slots: torch.Tensor,
+                  k_new: torch.Tensor, v_new: torch.Tensor,
+                  cfg: ModelConfig) -> None:
+    """Write each slot's current-token KV, (L, B, Hkv, hd), at (page
+    ``pids``, offset ``slots``) of (L, ...) pools, in place; a quantized
+    pool quantizes the write and scatters its scales the same way."""
+    writes = [("k_pages", k_new), ("v_pages", v_new)]
+    if cfg.kv_quantized:
+        qdt, qmax = cfg.kv_pool_dtype(), cfg.kv_qmax()
+        (kq, ksc), (vq, vsc) = (L.kv_pool_quantize(val, qdt, qmax)
+                                for _, val in writes)
+        writes = [("k_pages", kq), ("v_pages", vq), ("k_scale", ksc),
+                  ("v_scale", vsc)]
+    for name, new in writes:
+        pool = pools[name]
+        byte_view(pool)[:, pids, slots] = byte_view(new.to(pool.dtype))
 
 
 class DenseLM:
@@ -232,13 +259,19 @@ class DenseLM:
         positions = torch.arange(x.shape[1], device=x.device)
         rows = cache["k_pages"].shape[2]
         quant = self.cfg.kv_quantized
+        offloaded = self.mem.kv_offloaded(cache)
         ks, vs = [], []
-        for lp in self.mem.layers(params["layers"]):
+        for lp, pools in self.mem.layers_kv(params["layers"], cache):
             x, (k, v) = self.block_prefill(lp, x, positions, rows, quant)
-            ks.append(k)
-            vs.append(v)
-        cache = _scatter_pages(cache, pages, torch.stack(ks), torch.stack(vs),
+            if offloaded:
+                _scatter_pages(_layer(pools), pages, k[None], v[None],
                                self.cfg)
+            else:
+                ks.append(k)
+                vs.append(v)
+        if not offloaded:
+            cache = _scatter_pages(cache, pages, torch.stack(ks),
+                                   torch.stack(vs), self.cfg)
         return self._logits(params, x), cache
 
     def prefill_paged_prefix(self, params: dict, tokens: torch.Tensor,
@@ -263,24 +296,30 @@ class DenseLM:
         positions = prefix_len + torch.arange(seq, device=x.device)
         hkv, hd = cfg.padded_kv_heads, cfg.head_dim
         quant = cfg.kv_quantized
+        offloaded = self.mem.kv_offloaded(cache)
 
-        def prefix(name, i):
-            kv = take_pages(cache[name + "_pages"][i], prefix_pages).reshape(
+        def prefix(pools, name):
+            kv = take_pages(pools[name + "_pages"], prefix_pages).reshape(
                 b, prefix_len, hkv, hd)
             if not quant:
                 return kv
-            sc = cache[name + "_scale"][i][prefix_pages.long()].reshape(
+            sc = pools[name + "_scale"][prefix_pages.long()].reshape(
                 b, prefix_len, hkv)
             return L.kv_dequantize(kv, sc, cfg.dtype)
 
         ks, vs = [], []
-        for i, lp in enumerate(self.mem.layers(params["layers"])):
+        for lp, pools in self.mem.layers_kv(params["layers"], cache):
             x, (k, v) = self.block_prefill_prefix(
-                lp, x, positions, prefix("k", i), prefix("v", i), page, quant)
-            ks.append(k)
-            vs.append(v)
-        cache = _scatter_pages(cache, pages, torch.stack(ks), torch.stack(vs),
-                               cfg)
+                lp, x, positions, prefix(pools, "k"), prefix(pools, "v"),
+                page, quant)
+            if offloaded:
+                _scatter_pages(_layer(pools), pages, k[None], v[None], cfg)
+            else:
+                ks.append(k)
+                vs.append(v)
+        if not offloaded:
+            cache = _scatter_pages(cache, pages, torch.stack(ks),
+                                   torch.stack(vs), cfg)
         return self._logits(params, x), cache
 
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
@@ -298,7 +337,9 @@ class DenseLM:
         token's KV lands with ONE batched scatter per pool over every
         layer and slot after the (read-only) layer loop; a quantized pool
         quantizes that (L, B, Hkv, hd) write and scatters its scales the
-        same way."""
+        same way.  Pools at rest in the remote tier (``offload_kv``) take
+        each layer's write inside the loop instead, in the layer's window
+        slot, before the orchestrator writes the slot back."""
         page = cache["k_pages"].shape[2]
         n_pages = pages.shape[1]
         pi = cur_pos.long() // page
@@ -310,25 +351,23 @@ class DenseLM:
                            torch.zeros_like(pi))
         slots = cur_pos.long() % page
         quant = self.cfg.kv_quantized
+        offloaded = self.mem.kv_offloaded(cache)
         ks, vs = [], []
-        for i, lp in enumerate(self.mem.layers(params["layers"])):
-            scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quant
+        for lp, pools in self.mem.layers_kv(params["layers"], cache):
+            scales = ((pools["k_scale"], pools["v_scale"]) if quant
                       else (None, None))
             x, k0, v0 = self.block_decode_paged(
-                lp, x, cache["k_pages"][i], cache["v_pages"][i], pages,
-                cur_pos, *scales)
-            ks.append(k0)
-            vs.append(v0)
-        writes = [("k_pages", torch.stack(ks)), ("v_pages", torch.stack(vs))]
-        if quant:
-            qdt, qmax = self.cfg.kv_pool_dtype(), self.cfg.kv_qmax()
-            (kq, ksc), (vq, vsc) = (L.kv_pool_quantize(val, qdt, qmax)
-                                    for _, val in writes)
-            writes = [("k_pages", kq), ("v_pages", vq), ("k_scale", ksc),
-                      ("v_scale", vsc)]
-        for name, new in writes:
-            pool = cache[name]
-            byte_view(pool)[:, pids, slots] = byte_view(new.to(pool.dtype))
+                lp, x, pools["k_pages"], pools["v_pages"], pages, cur_pos,
+                *scales)
+            if offloaded:
+                _write_tokens(_layer(pools), pids, slots, k0[None], v0[None],
+                              self.cfg)
+            else:
+                ks.append(k0)
+                vs.append(v0)
+        if not offloaded:
+            _write_tokens(cache, pids, slots, torch.stack(ks),
+                          torch.stack(vs), self.cfg)
         return x, cache
 
 

@@ -31,17 +31,39 @@ live batch — no batch restart.
   serves over one-byte pages with bf16 scales, dequantized inside K1.
 * **Memory tiers.**  The server shares the model's
   :class:`MemoryOrchestrator` (``model.mem``): the KV pool's bookkeeping
-  is its ledger-connected block pool, so weights, their prefetch window
-  and the live KV pages report into one per-tier ledger
-  (:meth:`BatchedServer.tier_stats`).  Weights placed in the remote tier
-  (``model.mem.place_layer_weights``) are paged in layer by layer by the
-  model's layer loops; the server needs nothing else for that.
+  is its ledger-connected block pool, so weights, their prefetch window,
+  the live KV pages and the preemption stashes report into one per-tier
+  ledger (:meth:`BatchedServer.tier_stats`).  Weights placed in the
+  remote tier (``model.mem.place_layer_weights``) are paged in layer by
+  layer by the model's layer loops; under ``with_pager(enabled=True,
+  offload_kv=True)`` the KV pools rest in the remote tier too and are
+  paged beside them.
+* **Page-granular preemption.**  Admission reserves each request's
+  worst-case page count, so decode never exhausts the pool.  When the
+  backlog head is blocked on pages, the pipeline drains and victims
+  chosen by ``preempt_policy`` (``"lru"``, ``"fewest_pages"``,
+  ``"lowest_progress"`` or a callable ``(server, slots) -> slots``) are
+  swapped to the remote tier by a :class:`PageSwapper`; they resume,
+  ahead of the backlog, when pages free up, with their original sampling
+  key, so their tokens equal an uncontended run's.  Prefix-shared pages
+  are stashed and restored private, and new admissions stop sharing
+  while victims wait (``stats["prefix_drops"]``); tokens are unchanged.
+* **Cold parking.**  ``cold_park_after_blocks``: None keeps stashes in
+  the remote tier; 0 stashes victims straight into the cold tier; N > 0
+  parks a stash once it is N blocks old.  A parked stash is promoted
+  cold -> remote, then swapped in.
+* **Faults.**  Tier transfers retry under an installed
+  :class:`FaultPlan` (``swap_retries``, ``swap_timeout_s``; slow ones are
+  counted by a straggler monitor).  A swap that still fails sheds its
+  victim with a structured ``Request.error``; an injected mid-decode
+  pool exhaustion is recovered by emergency preemption (or sheds the only
+  live sequence).
+* **Snapshots.**  :meth:`BatchedServer.snapshot` / :meth:`restore` carry
+  every in-flight sequence across a restart (a cold stash stays cold).
 
-Admission reserves each request's worst-case page count, so decode can
-never exhaust the pool.  Left out of this port so far: preemption and
-swap, cold parking, fault injection, deadlines and overload control,
-poison shedding (non-finite logits are counted, not shed), the async
-prefill engine, tensor parallelism, snapshots and the dense cache.
+Left out of this port so far: deadlines and overload control, poison
+shedding (non-finite logits are counted, not shed), the async prefill
+engine, tensor parallelism and the dense cache.
 """
 from __future__ import annotations
 
@@ -55,9 +77,11 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.kernels import launch_counts
-from repro_torch.memory import MemoryOrchestrator
+from repro_torch.memory import MemoryOrchestrator, tiers
+from repro_torch.memory.swap import PageSwapper, SwapHandle
 from repro_torch.models.base import DecodeState
 from repro_torch.models.transformer import decode_loop, sample_tokens
+from repro_torch.runtime.ft import POOLS, StragglerMonitor
 
 
 @dataclasses.dataclass
@@ -70,7 +94,23 @@ class Request:
     admitted_at_block: int | None = None   # stats["blocks"] at admission
     submitted_block: int | None = None     # stats["blocks"] at submit
     first_token_block: int | None = None   # stats["blocks"] at first token
-    outcome: str | None = None             # "completed" (None = in flight)
+    outcome: str | None = None     # "completed" | "shed" (None = in flight)
+    # why the server ended the request instead of completing it:
+    # {"reason", "detail", "uid", "tokens_emitted"}; None on completion
+    error: dict | None = None
+
+
+@dataclasses.dataclass
+class _Preempted:
+    """A sequence swapped out of the live batch: its request, the position
+    it resumes from, its KV stash (``handle.tier`` says where the stash
+    is) and its sampling key, so resumed tokens are unchanged."""
+
+    req: Request
+    pos: int
+    handle: SwapHandle
+    key: torch.Tensor                # (2,) request key
+    stashed_block: int = 0           # stats["blocks"] at the swap-out
 
 
 def _bucket(n: int, quantum: int = 8) -> int:
@@ -87,7 +127,14 @@ class BatchedServer:
 
     ``submit()`` requests, then ``run_once()`` serves until every admitted
     request completes.  ``device`` defaults to the GPU and raises without
-    one; pass ``device="cpu"`` for the plain PyTorch path."""
+    one; pass ``device="cpu"`` for the plain PyTorch path.
+
+    ``num_pages`` below the batch's worst case oversubscribes the pool and
+    engages preemption (``preempt``, default on; ``preempt_policy``
+    picks victims).  ``swap_retries`` / ``swap_timeout_s`` bound each tier
+    transfer; ``cold_park_after_blocks`` parks stashes in the cold tier;
+    ``audit`` runs the allocator and ledger audit after every scheduling
+    step."""
 
     # blocks a narrower bucketed table width must persist before the
     # table shrinks (growth is immediate: an unmapped page would corrupt
@@ -99,7 +146,10 @@ class BatchedServer:
                  block_size: int = 8, eos_id: int | None = None,
                  page_size: int | None = None, num_pages: int | None = None,
                  pipeline: bool = True, prefix_cache: bool = True,
-                 audit: bool = False, seed: int = 0, device=None):
+                 audit: bool = False, seed: int = 0, device=None,
+                 preempt: bool = True, preempt_policy="lru",
+                 swap_retries: int = 3, swap_timeout_s: float | None = None,
+                 cold_park_after_blocks: int | None = None):
         if not model.supports_paged_kv():
             raise ValueError("the port serves the paged KV cache only; "
                              "this model does not support it")
@@ -114,11 +164,15 @@ class BatchedServer:
         self.max_seq = max_seq
         self.block_size = block_size
         self.temperature = temperature
+        self.seed = seed
         self._base_key = prng.PRNGKey(seed, self.device)
         self.eos_id = eos_id
         self.max_inflight = 2 if pipeline else 1
         self.prefix_cache = bool(prefix_cache)
         self.audit_every_block = bool(audit)
+        self.preempt_enabled = bool(preempt)
+        self.preempt_policy = preempt_policy
+        self.cold_park_after_blocks = cold_park_after_blocks
         # the model's orchestrator: one ledger for its weights and this
         # server's KV pool
         self.mem: MemoryOrchestrator = model.mem
@@ -126,14 +180,22 @@ class BatchedServer:
         self.page_size = page_size or cfg.page_size
         per_seq = -(-max_seq // self.page_size)
         self.num_pages = num_pages or batch_size * per_seq + 1
+        # placed first: the block pool reports in the tier the placement
+        # settled on (remote under offload_kv, local after a degradation)
+        self.cache = self.mem.place_kv_pool(model.init_paged_cache(
+            self.num_pages, self.page_size, device=self.device))
         self.kv = self.mem.block_pool(self.num_pages, self.page_size)
         self.manager = self.kv.manager
         self.kv.bind_kv_shape(
             cfg.padded_kv_heads, cfg.head_dim,
             cfg.kv_pool_dtype().itemsize, cfg.num_layers,
             scale_itemsize=2 if cfg.kv_quantized else 0)
-        self.cache = self.mem.place_kv_pool(model.init_paged_cache(
-            self.num_pages, self.page_size, device=self.device))
+        self.transfer_monitor = StragglerMonitor(factor=3.0)
+        self.swapper = PageSwapper(ledger=self.mem.ledger,
+                                   retries=swap_retries,
+                                   timeout_s=swap_timeout_s,
+                                   monitor=self.transfer_monitor,
+                                   device=self.device)
         self._peak_pages = 0
         self.tiers_peak: dict | None = None
         self._table_w = 1
@@ -147,6 +209,12 @@ class BatchedServer:
         self._reserved: dict[int, int] = {}    # slot -> worst-case pages
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._backlog: collections.deque[Request] = collections.deque()
+        self._preempted: list[_Preempted] = []   # resume-FIFO
+        self._sched_counter = 0
+        self._last_sched = [0] * batch_size      # for the lru policy
+        self._pool_fault = False       # mid-decode exhaustion latched
+        self._fault_release_block: int | None = None
+        self._fault_slot = -1          # phantom slot holding stolen pages
         self._uid = 0
         self._ttft_samples: list[int] = []
         self._launch_base = launch_counts()
@@ -157,7 +225,11 @@ class BatchedServer:
                       "table_delta_entries": 0, "prefix_hits": 0,
                       "prefix_shared_pages": 0, "audits": 0,
                       "nonfinite_logits": 0, "ttft_p50_blocks": 0.0,
-                      "ttft_p99_blocks": 0.0,
+                      "ttft_p99_blocks": 0.0, "preemptions": 0,
+                      "preempted_pages": 0, "resumes": 0, "sheds": 0,
+                      "cold_parks": 0, "cold_promotes": 0,
+                      "pool_faults": 0, "prefix_drops": 0,
+                      "swap_retries": 0, "slow_transfers": 0,
                       "kernel_launches": dict.fromkeys(self._launch_base, 0)}
 
     # ----- host <-> device ---------------------------------------------------
@@ -204,11 +276,20 @@ class BatchedServer:
         self.queue.put(req)
         return req
 
-    def _finalize(self, req: Request, finished: list[Request]) -> None:
-        req.outcome = "completed"
-        self.stats["completed"] += 1
+    #: terminal outcome -> the stats counter it increments
+    _OUTCOME_KEYS = {"completed": "completed", "shed": "sheds"}
+
+    def _finalize(self, req: Request, outcome: str,
+                  finished: list[Request] | None = None) -> None:
+        """The one terminal transition of a request: stamp its outcome,
+        count it, set ``done``.  Idempotent."""
+        if req.outcome is not None:
+            return
+        req.outcome = outcome
+        self.stats[self._OUTCOME_KEYS[outcome]] += 1
         req.done.set()
-        finished.append(req)
+        if finished is not None:
+            finished.append(req)
 
     # ----- admission ---------------------------------------------------------
     def _admit_plen(self, prompt_len: int, max_new_tokens: int) -> int:
@@ -234,6 +315,15 @@ class BatchedServer:
 
     def _free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
+
+    def _under_pressure(self) -> bool:
+        """New admissions neither reuse nor publish shared pages while
+        victims wait swapped out (their resume must not contend with
+        refcount-pinned pages) or worst-case reservations crowd the pool;
+        sharing is invisible in the tokens."""
+        if self._preempted or self._pool_fault:
+            return True
+        return sum(self._reserved.values()) > 0.9 * self.manager.capacity
 
     # ----- prefix caching ----------------------------------------------------
     def _shareable_pages(self, plen: int) -> int:
@@ -279,8 +369,11 @@ class BatchedServer:
         toks[0, plen - len(req.prompt):] = req.prompt
         self._reserved[slot] = self._worst_pages(len(req.prompt),
                                                  req.max_new_tokens)
-        shared = (self._shared_prefix_pages(toks, plen)
-                  if self.prefix_cache else [])
+        share = self.prefix_cache
+        if share and self._under_pressure():
+            share = False
+            self.stats["prefix_drops"] += 1
+        shared = self._shared_prefix_pages(toks, plen) if share else []
         if shared:
             self.manager.adopt(slot, shared)
         new_ids = self.manager.ensure(slot, plen)
@@ -304,7 +397,7 @@ class BatchedServer:
         nxt = sample_tokens(logits, model.cfg.vocab, self.temperature,
                             prng.fold_in(req_key, plen))         # (1, 1)
         self.manager.note_tokens(slot, plen)
-        if self.prefix_cache:
+        if share:
             self._register_prefix(toks, plen, slot)
         self.kv.record()
         self._note_peak()
@@ -322,6 +415,8 @@ class BatchedServer:
         self.stats["nonfinite_logits"] += int(not finite)
         self._slot_pos[slot] = plen
         self._planned[slot] = 0
+        self._sched_counter += 1
+        self._last_sched[slot] = self._sched_counter
         req.admitted_at_block = self.stats["blocks"]
         req.output.append(first)
         req.first_token_block = self.stats["blocks"]
@@ -333,13 +428,25 @@ class BatchedServer:
             self.manager.free_slot(slot)       # done at admission
             self._reserved.pop(slot, None)
             self.kv.record()                   # the ledger tracks it
-            self._finalize(req, finished)
+            self._finalize(req, "completed", finished)
             return
         self.slots[slot] = req
 
-    def _admit_from_queue(self, finished: list[Request]) -> None:
-        """Fill free slots from the queue in arrival order; the head
-        request waits (FIFO kept) until its worst-case pages are free."""
+    def _admit_from_queue(self, finished: list[Request],
+                          allow_preempt: bool = False) -> None:
+        """Fill free slots: swapped-out victims resume first (resume-FIFO:
+        they are older than every queued request), then the backlog in
+        arrival order.  The head request waits (FIFO kept) until its
+        worst-case pages are free, or, with ``allow_preempt`` (nothing in
+        flight), preempts victims for them."""
+        while self._preempted and self._free_slots():
+            ps = self._preempted[0]
+            if not self._resume_ready(ps):
+                break
+            self._preempted.pop(0)
+            if not self._resume(ps, self._free_slots()[0], finished):
+                self._preempted.insert(0, ps)   # physically blocked
+                break
         while True:
             free = self._free_slots()
             if not free:
@@ -351,9 +458,248 @@ class BatchedServer:
                     return
             req = self._backlog[0]
             if not self._admission_pages_ready(req):
-                return
+                if not (allow_preempt and self._try_preempt_for(req,
+                                                                finished)):
+                    return            # blocked on pages, not on slots
+                free = self._free_slots()
+                if not free or not self._admission_pages_ready(req):
+                    return
             self._backlog.popleft()
-            self._admit(req, free[0], finished)
+            try:
+                self._admit(req, free[0], finished)
+            except MemoryError:
+                # physically out of pages (an injected exhaustion window):
+                # roll the reservation back and keep FIFO order
+                self.manager.free_slot(free[0])
+                self._reserved.pop(free[0], None)
+                self._backlog.appendleft(req)
+                return
+
+    # ----- preemption --------------------------------------------------------
+    def _victim_order(self, cands: list[int]) -> list[int]:
+        """Live slots ranked by ``preempt_policy``, first preempted
+        first."""
+        pol = self.preempt_policy
+        if callable(pol):
+            return list(pol(self, cands))
+        if pol == "lru":             # least recently scheduled
+            return sorted(cands, key=lambda i: self._last_sched[i])
+        if pol == "fewest_pages":    # cheapest swap traffic
+            return sorted(cands,
+                          key=lambda i: len(self.manager.slot_pages(i)))
+        if pol == "lowest_progress":  # least sunk decode work
+            return sorted(cands, key=lambda i: (
+                len(self.slots[i].output)
+                / max(self.slots[i].max_new_tokens, 1)))
+        raise ValueError(f"unknown preempt_policy {pol!r}")
+
+    def _shortfall(self, req: Request) -> int:
+        worst = self._worst_pages(len(req.prompt), req.max_new_tokens)
+        return worst - (self.manager.capacity - sum(self._reserved.values()))
+
+    def _select_victims(self, shortfall: int) -> list[int]:
+        """Fewest victims, in policy order, whose reservations cover
+        ``shortfall`` pages; [] when preempting everyone falls short."""
+        cands = [i for i, r in enumerate(self.slots) if r is not None]
+        out, freed = [], 0
+        for i in self._victim_order(cands):
+            if freed >= shortfall:
+                break
+            out.append(i)
+            freed += self._reserved.get(i, 0)
+        return out if freed >= shortfall else []
+
+    def _preempt_wanted(self) -> bool:
+        """Should the pipeline drain so the backlog head can preempt?
+        Preemption on, no victim already waiting (one round resolves
+        before the next starts), a free slot, a head blocked on pages, and
+        victims that cover its shortfall."""
+        if not (self.preempt_enabled and self._backlog
+                and not self._preempted and self._free_slots()):
+            return False
+        req = self._backlog[0]
+        if self._admission_pages_ready(req):
+            return False
+        return bool(self._select_victims(self._shortfall(req)))
+
+    def _try_preempt_for(self, req: Request,
+                         finished: list[Request]) -> bool:
+        """Swap out enough victims for ``req`` to admit.  Called only with
+        nothing in flight, so the stashed pages hold exactly the
+        harvested positions."""
+        if not (self.preempt_enabled and not self._preempted):
+            return False
+        victims = self._select_victims(self._shortfall(req))
+        for i in victims:
+            self._preempt_slot(i, finished)
+        return bool(victims)
+
+    def _preempt_slot(self, i: int, finished: list[Request]) -> None:
+        """Swap slot ``i``'s written pages out (to the cold tier directly
+        under ``cold_park_after_blocks=0``, else remote) and free its pages
+        and reservation.  Shared prefix pages are stashed like private
+        ones and come back private.  An unrecoverable transfer fault sheds
+        the victim with a structured error."""
+        req = self.slots[i]
+        pos = self._slot_pos[i]
+        pids = self.manager.slot_pages(i)[:self.manager.pages_for(pos)]
+        tier = (tiers.COLD if self.cold_park_after_blocks == 0
+                else tiers.REMOTE)
+        self.mem.settle_kv()
+        try:
+            handle = self.swapper.swap_out(self.cache, pids, tier=tier)
+        except tiers.TierTransferError as e:
+            self._shed(i, finished, reason="preempt_swap_failed",
+                       detail=str(e))
+            return
+        if tier == tiers.COLD:
+            self.stats["cold_parks"] += 1
+        self._preempted.append(_Preempted(
+            req=req, pos=pos, handle=handle, key=self._req_key(req.uid),
+            stashed_block=self.stats["blocks"]))
+        self._evict_slot(i)
+        self.stats["preemptions"] += 1
+        self.stats["preempted_pages"] += len(pids)
+        self.kv.record()
+
+    def _cold_park_sweep(self) -> None:
+        """Park remote stashes at least ``cold_park_after_blocks`` blocks
+        old in the cold tier.  A park that fails leaves the stash remote
+        (capacity not reclaimed; tokens untouched)."""
+        thresh = self.cold_park_after_blocks
+        if not thresh:                # None or 0: no sweep
+            return
+        for ps in self._preempted:
+            if (ps.handle.tier == tiers.REMOTE
+                    and self.stats["blocks"] - ps.stashed_block >= thresh):
+                try:
+                    self.swapper.park(ps.handle)
+                except tiers.TierTransferError:
+                    continue
+                self.stats["cold_parks"] += 1
+
+    def _evict_slot(self, i: int) -> None:
+        """Release slot ``i``'s pages and reservation and deactivate it on
+        the device (preemption and shedding; nothing is in flight).  Its
+        table row is zeroed by the next block's delta."""
+        self.manager.free_slot(i)
+        self._reserved.pop(i, None)
+        self.slots[i] = None
+        self._planned[i] = 0
+        self._slot_pos[i] = 0
+        self.state.active[i] = False
+        self.state.remaining[i] = 0
+
+    def _error(self, req: Request, reason: str, detail: str) -> dict:
+        return {"reason": reason, "detail": detail, "uid": req.uid,
+                "tokens_emitted": len(req.output)}
+
+    def _shed(self, i: int, finished: list[Request], *, reason: str,
+              detail: str) -> None:
+        """Last resort: end slot ``i``'s request with a structured error
+        (the server goes on)."""
+        req = self.slots[i]
+        self._evict_slot(i)
+        req.error = self._error(req, reason, detail)
+        self._finalize(req, "shed", finished)
+        self.kv.record()
+
+    def _shed_preempted(self, ps: _Preempted, finished: list[Request], *,
+                        reason: str, detail: str) -> None:
+        """Shed a swapped-out victim whose restore failed."""
+        self.swapper.release(ps.handle)
+        ps.req.error = self._error(ps.req, reason, detail)
+        self._finalize(ps.req, "shed", finished)
+
+    def _resume_worst(self, ps: _Preempted) -> int:
+        left = ps.req.max_new_tokens - len(ps.req.output)
+        return self.manager.pages_for(min(ps.pos + left, self.max_seq))
+
+    def _resume_ready(self, ps: _Preempted) -> bool:
+        """A victim resumes only when its remaining worst case fits the
+        unreserved pool (admission's gate)."""
+        return self._resume_worst(ps) <= (self.manager.capacity
+                                          - sum(self._reserved.values()))
+
+    def _resume(self, ps: _Preempted, slot: int,
+                finished: list[Request]) -> bool:
+        """Restore a swapped-out victim into ``slot``: allocate pages for
+        its positions, promote a cold stash to remote, swap it in, and
+        re-activate the slot with its own key (the page table follows at
+        the next block's delta).  False: physically blocked, retry later;
+        True: consumed (resumed or shed)."""
+        self._reserved[slot] = self._resume_worst(ps)
+        try:
+            new_ids = self.manager.ensure(slot, ps.pos)
+        except MemoryError:
+            self.manager.free_slot(slot)
+            self._reserved.pop(slot, None)
+            return False
+        try:
+            if ps.handle.tier != tiers.REMOTE:
+                # the hierarchy is a path: cold -> remote, then remote ->
+                # local
+                self.swapper.promote(ps.handle)
+                self.stats["cold_promotes"] += 1
+            self.mem.settle_kv()
+            self.cache = self.swapper.swap_in(self.cache, new_ids, ps.handle)
+        except tiers.TierTransferError as e:
+            self.manager.free_slot(slot)
+            self._reserved.pop(slot, None)
+            self._shed_preempted(ps, finished, reason="resume_swap_failed",
+                                 detail=str(e))
+            return True
+        self.manager.note_tokens(slot, ps.pos)
+        st = self.state
+        st.tokens[slot, 0] = ps.req.output[-1]
+        st.pos[slot] = ps.pos
+        st.active[slot] = True
+        st.remaining[slot] = ps.req.max_new_tokens - len(ps.req.output)
+        st.slot_keys[slot] = ps.key
+        self.slots[slot] = ps.req
+        self._slot_pos[slot] = ps.pos
+        self._planned[slot] = 0
+        self._sched_counter += 1
+        self._last_sched[slot] = self._sched_counter
+        self.stats["resumes"] += 1
+        self.kv.record()
+        self._note_peak()
+        return True
+
+    # ----- injected faults ---------------------------------------------------
+    def _fault_injection_tick(self) -> None:
+        """Service an armed pool-exhaustion fault: at the armed block,
+        steal every free page into a phantom slot; give them back
+        ``exhaust_blocks`` blocks later (host bookkeeping only)."""
+        plan = tiers.active_fault_plan()
+        if (self._fault_release_block is not None
+                and self.stats["blocks"] >= self._fault_release_block):
+            self.manager.free_slot(self._fault_slot)
+            self._fault_release_block = None
+        if plan is None or not plan.take_pool_exhaustion(
+                self.stats["blocks"]):
+            return
+        steal = self.manager.free_pages * self.page_size
+        if steal:
+            self.manager.ensure(self._fault_slot, steal)
+        self._fault_release_block = self.stats["blocks"] + plan.exhaust_blocks
+        self.stats["pool_faults"] += 1
+
+    def _recover_pool_fault(self, finished: list[Request]) -> None:
+        """Mid-decode pool exhaustion, nothing in flight: preempt one
+        victim so decode can go on; with one live sequence there is
+        nothing to preempt for it, so it is shed."""
+        self._pool_fault = False
+        live = [i for i, r in enumerate(self.slots) if r is not None]
+        if not live:
+            return
+        order = self._victim_order(live)
+        if len(live) == 1:
+            self._shed(order[0], finished, reason="pool_exhausted",
+                       detail="mid-decode page allocation failed with no "
+                              "preemptable victim")
+            return
+        self._preempt_slot(order[0], finished)
 
     # ----- decode ------------------------------------------------------------
     def _live_remaining(self, i: int) -> int:
@@ -398,8 +744,10 @@ class BatchedServer:
 
     def _dispatch_block(self):
         """Issue ONE decode block without waiting for earlier ones.  Page
-        growth covering every planned write is allocated first (it cannot
-        fail: admission reserved each request's worst case)."""
+        growth covering every planned write is allocated first; it fails
+        only under an injected exhaustion (admission reserved each
+        request's worst case): then the plan is rolled back, the fault
+        latched, and None returned so ``run_once`` can recover."""
         advances: dict[int, tuple[Request, int]] = {}
         for i, req in enumerate(self.slots):
             if req is None:
@@ -408,9 +756,16 @@ class BatchedServer:
             if adv > 0:
                 advances[i] = (req, adv)
                 self._planned[i] += adv
-        for i in advances:
-            self.manager.ensure(i, min(self._slot_pos[i] + self._planned[i],
-                                       self.max_seq))
+        self._fault_injection_tick()
+        try:
+            for i in advances:
+                self.manager.ensure(i, min(self._slot_pos[i]
+                                           + self._planned[i], self.max_seq))
+        except MemoryError:
+            for i, (req, adv) in advances.items():
+                self._planned[i] -= adv
+            self._pool_fault = True
+            return None
         self._table_delta()
         self.kv.record()
         self._note_peak()
@@ -455,7 +810,7 @@ class BatchedServer:
             if (len(req.output) >= req.max_new_tokens
                     or (self.eos_id is not None and req.output
                         and req.output[-1] == self.eos_id)):
-                self._finalize(req, finished)
+                self._finalize(req, "completed", finished)
                 self.slots[i] = None
                 self._planned[i] = 0
                 self.manager.free_slot(i)
@@ -463,6 +818,7 @@ class BatchedServer:
         self.stats["kv_pages_in_use"] = self.manager.pages_in_use
         self.stats["kv_pages_hwm"] = self.manager.hwm
         self.kv.record()
+        self._cold_park_sweep()
 
     # ----- accounting --------------------------------------------------------
     def kv_bytes_in_use(self) -> int:
@@ -498,34 +854,67 @@ class BatchedServer:
             self.tiers_peak = self.mem.ledger.snapshot()
 
     def _maybe_audit(self) -> None:
-        """Debug mode: the allocator audit and the ledger cross-check
-        (:meth:`BlockPoolResidency.audit`) after every scheduling step."""
+        """Debug mode: the allocator audit and the ledger cross-checks
+        (:meth:`BlockPoolResidency.audit`: live pages, and the stash
+        bytes against the swapped-out victims' stashes) after every
+        scheduling step."""
         if self.audit_every_block:
-            self.kv.audit()
+            self.kv.audit(swapper=self.swapper,
+                          stashes=[ps.handle for ps in self._preempted])
             self.stats["audits"] += 1
 
-    def run_once(self) -> list[Request]:
+    def run_once(self, max_blocks: int | None = None) -> list[Request]:
         """Admit queued requests and serve until every admitted request
-        completes; returns the finished ones.  Up to two blocks stay in
-        flight: the next block is issued before the previous block's
-        harvest, so host scheduling overlaps device work."""
+        completes; returns the finished ones (shed ones too: see
+        ``Request.error``).  Up to two blocks stay in flight: the next
+        block is issued before the previous block's harvest, so host
+        scheduling overlaps device work.  When preemption is wanted or a
+        pool fault is latched, dispatching pauses until nothing is in
+        flight, so swaps see fully harvested state.  ``max_blocks`` bounds
+        the blocks dispatched in this call (for snapshots between
+        blocks); nothing is in flight when it returns."""
         finished: list[Request] = []
         self._admit_from_queue(finished)
         inflight: collections.deque = collections.deque()
+        dispatched = 0
         while True:
-            while len(inflight) < self.max_inflight and self._can_dispatch():
-                inflight.append(self._dispatch_block())
+            if not (self._pool_fault or self._preempt_wanted()):
+                while (len(inflight) < self.max_inflight
+                       and self._can_dispatch()
+                       and (max_blocks is None or dispatched < max_blocks)):
+                    blk = self._dispatch_block()
+                    if blk is None:      # pool fault latched: drain first
+                        break
+                    dispatched += 1
+                    inflight.append(blk)
             if inflight:
                 self._harvest(inflight.popleft(), finished)
-                self._admit_from_queue(finished)
+                self._admit_from_queue(finished, allow_preempt=not inflight)
                 self._maybe_audit()
                 continue
-            self._admit_from_queue(finished)
+            if self._pool_fault:
+                self._recover_pool_fault(finished)
+                self._maybe_audit()
+                continue
+            if max_blocks is not None and dispatched >= max_blocks:
+                break
+            self._admit_from_queue(finished, allow_preempt=True)
             self._maybe_audit()
             if not self._can_dispatch():
-                break
+                if self._fault_release_block is None:
+                    break
+                # nothing can decode, so the block clock stands still and
+                # the injected exhaustion window is over: give the pages
+                # back
+                self.manager.free_slot(self._fault_slot)
+                self._fault_release_block = None
+                self._admit_from_queue(finished, allow_preempt=True)
+                if not self._can_dispatch():
+                    break
         if finished:
             self.stats["batches"] += 1
+        self.stats["swap_retries"] = self.swapper.retry_attempts
+        self.stats["slow_transfers"] = self.transfer_monitor.flags
         if self._ttft_samples:
             arr = np.asarray(self._ttft_samples, np.float64)
             self.stats["ttft_p50_blocks"] = float(np.percentile(arr, 50))
@@ -534,3 +923,86 @@ class BatchedServer:
         self.stats["kernel_launches"] = {k: now[k] - self._launch_base[k]
                                          for k in now}
         return finished
+
+    # ----- checkpoint/restart ------------------------------------------------
+    def _drain_queue(self) -> None:
+        while True:
+            try:
+                self._backlog.append(self.queue.get_nowait())
+            except queue.Empty:
+                return
+
+    def snapshot(self) -> dict:
+        """Every in-flight sequence as host data: live slots (their pages
+        read out through the swapper), swapped-out victims (their stash as
+        it is, with its tier) and queued requests.  :meth:`restore` on a
+        server of the same model, weights and seed takes it back.  Call
+        between ``run_once`` calls (nothing in flight)."""
+        self._drain_queue()
+        self.mem.settle_kv()
+
+        def entry(req: Request, pos: int, h: SwapHandle | None = None):
+            e = {"uid": req.uid, "prompt": np.asarray(req.prompt, np.int32),
+                 "max_new_tokens": req.max_new_tokens,
+                 "output": list(req.output), "pos": int(pos),
+                 "submitted_block": req.submitted_block}
+            if pos:
+                e.update(h.materialize().arrays())
+                e["tier"] = h.tier
+            return e
+
+        seqs = []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            pos = self._slot_pos[i]
+            pids = self.manager.slot_pages(i)[:self.manager.pages_for(pos)]
+            h = self.swapper.swap_out(self.cache, pids)
+            self.swapper.release(h)         # a read-out, not a stash
+            seqs.append(entry(req, pos, h))
+        for ps in self._preempted:
+            seqs.append(entry(ps.req, ps.pos, ps.handle))
+        for req in self._backlog:
+            seqs.append(entry(req, 0))
+        seqs.sort(key=lambda e: e["uid"])
+        return {"seed": self.seed, "uid": self._uid,
+                "blocks": self.stats["blocks"], "sequences": seqs}
+
+    def restore(self, snap: dict) -> None:
+        """Take a :meth:`snapshot` back into this idle server (same model,
+        weights and seed).  Sequences with written positions come back as
+        swapped-out stashes in the tier they were in, and resume through
+        the preemption path with their own keys; the others rejoin the
+        backlog.  Prefix pages come back private."""
+        if snap["seed"] != self.seed:
+            raise ValueError(f"snapshot seed {snap['seed']} != server seed "
+                             f"{self.seed} (tokens would diverge)")
+        if (any(r is not None for r in self.slots) or self._preempted
+                or self._backlog or not self.queue.empty()):
+            raise ValueError("restore requires an idle server")
+        self._uid = max(self._uid, int(snap["uid"]))
+        blocks = self.stats["blocks"]
+        snap_blocks = int(snap.get("blocks", 0))
+        for s in sorted(snap["sequences"], key=lambda e: e["uid"]):
+            req = Request(int(s["uid"]), np.asarray(s["prompt"], np.int32),
+                          max_new_tokens=int(s["max_new_tokens"]))
+            req.output = [int(t) for t in s["output"]]
+            sb = s.get("submitted_block")
+            req.submitted_block = (blocks if sb is None
+                                   else blocks - snap_blocks + int(sb))
+            if not int(s["pos"]):
+                self._backlog.append(req)
+                continue
+            tier = s.get("tier", tiers.REMOTE)
+            arrays = {a: tiers.to_tier(torch.as_tensor(s[a]), tier,
+                                       device=self.device)
+                      for a in POOLS if a in s}
+            handle = SwapHandle(
+                page_count=arrays["k"].shape[1],
+                nbytes=sum(t.numel() * t.element_size()
+                           for t in arrays.values()),
+                tier=tier, device=self.device, **arrays)
+            self.swapper.adopt(handle)
+            self._preempted.append(_Preempted(
+                req=req, pos=int(s["pos"]), handle=handle,
+                key=self._req_key(req.uid), stashed_block=blocks))

@@ -229,9 +229,11 @@ def test_orchestrator_iterates_resident_layers_as_they_are(reference):
     placed = other.place_layer_weights(layers)
     with pytest.raises(ValueError, match="another orchestrator"):
         mem.layers(placed)
-    with pytest.raises(NotImplementedError, match="offload_kv"):
-        MemoryOrchestrator.plan(config_from_reference(
-            reference[0]).with_pager(enabled=True, offload_kv=True))
+    # offload_kv plans the reference's between-steps KV offload
+    offload = MemoryOrchestrator.plan(config_from_reference(
+        reference[0]).with_pager(enabled=True, offload_kv=True))
+    assert offload.describe() == {"layer_weights": "DoubleBufferPrefetch",
+                                  "kv_pool": "OffloadBetweenSteps"}
 
 
 # ---------------------------------------------------------------------------
