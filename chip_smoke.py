@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--layers N] [--phases kernels,parity,serve,tiers]
+    python3 chip_smoke.py [--layers N] [--phases kernels,parity,serve,tiers,disagg]
 
-Phases (kernels, parity, serve and tiers by default):
+Phases (kernels, parity, serve, tiers and disagg by default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
@@ -80,18 +80,46 @@ Phases (kernels, parity, serve and tiers by default):
    (a new registered or pageable buffer, each copy, at 1 and 24 pages),
    and the offload run's tok/s, peak device memory and KV window bytes
    against the resident pool's bytes;
-6. ``profile`` (only when named in ``--phases``, with ``serve``): separate
+6. ``disagg``: disaggregated prefill and the request lifecycle,
+   Qwen2.5-14B at full depth whatever ``--layers`` says (the weights of
+   the full-depth phases), on the serving benchmark's interference
+   traffic (batch 4, block 32, max_seq 384, page 16, seed 0: four 8-token
+   prompts with 32, 64, 96 and 96 new tokens and two 128-token prompts
+   with 8, admitted as slots free; ``prefill_chunk_tokens`` 32):
+   monolithic against disaggregated over bf16 (greedy and 0.7), int8
+   (0.7) and fp8_e4m3 (greedy), each pair's tokens equal, the decode
+   stall at most one block disaggregated and at least three monolithic,
+   K2 once a layer a chunk (576 launches disaggregated, 288 monolithic,
+   wgmma only); the serve phase's prefix pair through the engine (three
+   shared pages adopted as completed chunks, the unshared tokens); chunks
+   of 32, 64 and 128 with the long prompts arriving while decode is live
+   (the stall within ceil(chunk / block)); a prefill-engine crash before
+   its second chunk and a decode-engine crash at an adoption (the
+   uncontended tokens after lease reclaim and retry); NaN written into
+   one victim's private page after the first block (only it is shed); a
+   deadline of one block on a staged prompt (expired, its pages
+   reclaimed); ``max_pending=2`` against the burst of six (four
+   rejected); a snapshot with one handoff staged and one prefill
+   mid-chunk, restored into a new server (the uncontended tokens).  Every
+   run audits after each step and ends with every page, handoff and
+   stash reclaimed.  It prints ms per decode step (wall, and on the card
+   from CUDA events around each decode block), the longest gap between
+   two decode blocks on the card, TTFT p50/p99 in blocks, the stage time
+   and bytes of a handoff (and of its host copy when a snapshot reads
+   it) and the ledger's ``kv_handoff`` peak;
+7. ``profile`` (only when named in ``--phases``, with ``serve``): separate
    traced serving runs (bf16 greedy, int8 at temperature 0.7, and bf16
    greedy with paged weights), printing device time by kernel and the
    device's busy share; for paged weights also the copy stream's busy
    time beside the compute's, and how long both ran at once;
-7. ``sweep`` (only when named): K3's splitk and wgmma routes timed side by
+8. ``sweep`` (only when named): K3's splitk and wgmma routes timed side by
    side over M = 1 .. 64 at Qwen2.5-14B's MLP shapes, where the planner's
    ``SPLITK_MAX_M`` comes from.
 
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
-shape, ``tiers_launches`` beside ``launches``; the last is ``{"ok":
+shape, ``tiers_launches`` and ``disagg_launches`` beside ``launches``;
+the last is ``{"ok":
 true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
 It exits non-zero at once when no CUDA device is present.
@@ -1437,6 +1465,431 @@ def check_offload(torch, card: str, cfg, params, want: list,
     gc.collect()
 
 
+# ---------------------------------------------------------------------------
+# disaggregated prefill and the request lifecycle
+# ---------------------------------------------------------------------------
+
+#: the disagg phase's prefill chunk (one block's worth of tokens)
+DISAGG_CHUNK = 32
+#: the serving benchmark's interference traffic: four 8-token prompts
+#: with staggered budgets, so slots free at different blocks, and two
+#: 128-token prompts that arrive mid-stream as slots free
+DISAGG_STEADY_NEW = (32, 64, 96, 96)
+DISAGG_LONG, DISAGG_LONG_NEW = 128, 8
+
+
+def disagg_work(vocab: int) -> list:
+    """(prompt, max_new_tokens) of the interference traffic."""
+    import numpy as np
+    rng = np.random.RandomState(17)
+    work = [(rng.randint(0, vocab, 8).astype(np.int32), m)
+            for m in DISAGG_STEADY_NEW]
+    return work + [(rng.randint(0, vocab, DISAGG_LONG).astype(np.int32),
+                    DISAGG_LONG_NEW) for _ in range(2)]
+
+
+class DisaggRun:
+    """One serving run of the disagg phase: launch counts reset just
+    before it and read just after (summed into ``total`` /
+    ``by_instance`` across the phase), and a CUDA event before and after
+    every decode block.  From the events come each block's span on the
+    card's timeline and the gaps between two blocks that advance a
+    request in both: what work issued between them (a prefill) costs a
+    decoding slot on the card.  A gap that no request decodes across
+    (nothing left to dispatch while the engine drains a burst) stalls
+    nobody and is left out."""
+
+    total: dict = {}
+    by_instance: dict = {}
+
+    def __init__(self, torch, card: str, server, tag: str):
+        self.torch, self.card, self.server, self.tag = torch, card, server, tag
+
+    def __call__(self, submit, checks: bool = True, drained: bool = True):
+        """Submit through ``submit(server)`` (which may serve blocks
+        itself) and serve until every request is done; returns the
+        requests.  ``checks``: no non-finite logits; ``drained``: every
+        page, handoff and stash reclaimed at the end."""
+        from repro_torch.kernels import (instance_counts, launch_counts,
+                                         reset_launch_counts)
+        torch, srv = self.torch, self.server
+        events, plain = [], srv._dispatch_block
+
+        def timed():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            blk = plain()
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            if blk is not None:       # the requests this block advances
+                events.append((start, end,
+                               {req.uid for req, _ in blk[2].values()}))
+            return blk
+
+        reset_launch_counts()
+        srv._dispatch_block = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = submit(srv)
+            for _ in range(200):
+                if all(r.done.is_set() for r in reqs):
+                    break
+                srv.run_once()
+            torch.cuda.synchronize()
+            self.secs = time.perf_counter() - t0
+        finally:
+            del srv._dispatch_block
+        if not all(r.done.is_set() for r in reqs):
+            raise AssertionError(f"disagg {self.tag}: requests stuck")
+        got, inst = launch_counts(), instance_counts()
+        for k, n in got.items():
+            DisaggRun.total[k] = DisaggRun.total.get(k, 0) + n
+        for k, d in inst.items():
+            mine = DisaggRun.by_instance.setdefault(k, {})
+            for i, n in d.items():
+                mine[i] = mine.get(i, 0) + n
+        self.launches = got
+        self.block_ms = [s.elapsed_time(e) for s, e, _ in events]
+        self.gaps_ms = [a[1].elapsed_time(b[0])
+                        for a, b in zip(events, events[1:]) if a[2] & b[2]]
+        st, cfg = srv.stats, srv.model.cfg
+        kernel = "paged_attention" + ("" if cfg.kv_dtype is None
+                                      else f"_{cfg.kv_dtype}")
+        prefills = (st["prefill_chunks"] if srv.prefill is not None
+                    else st["admitted"])
+        if got[kernel] != cfg.num_layers * st["steps"]:
+            raise AssertionError(f"disagg {self.tag}: {got[kernel]} K1 "
+                                 f"launches for {st['steps']} decode steps")
+        if (got["flash_attention_wgmma"] != cfg.num_layers * prefills
+                or got["flash_attention_simt"]):
+            raise AssertionError(f"disagg {self.tag}: K2 launches {got} for "
+                                 f"{prefills} prefill chunks / admissions")
+        if checks and st["nonfinite_logits"]:
+            raise AssertionError(f"disagg {self.tag}: non-finite logits")
+        m = srv.manager
+        m.audit()
+        busy_engine = srv.prefill is not None and (
+            not srv.prefill.idle or srv.prefill.staging.outstanding_bytes)
+        if drained and (m.pages_in_use or m.handoff_pages or srv._preempted
+                        or busy_engine):
+            raise AssertionError(f"disagg {self.tag}: not fully reclaimed "
+                                 f"({m.pages_in_use} pages, "
+                                 f"{m.handoff_pages} handoff pages)")
+        steps = max(st["steps"], 1)
+        log(f"disagg {self.tag} [{self.card}]: {self.secs:.3f} s, "
+            f"{1e3 * self.secs / steps:.2f} ms per decode step wall "
+            f"(prefills included), {sum(self.block_ms) / steps:.2f} ms per "
+            f"decode step between the events around each block (the card's "
+            f"timeline, host-bound), steps {st['steps']}, blocks "
+            f"{st['blocks']}, longest gap between two decode blocks on the "
+            f"card that a request decodes across "
+            f"{max(self.gaps_ms, default=0.0):.2f} ms, prefill chunks "
+            f"{st['prefill_chunks']}, handoffs {st['handoffs']}, admitted "
+            f"{st['admitted']}, decode stall max/total "
+            f"{st['decode_stall_blocks_max']}/"
+            f"{st['decode_stall_blocks_total']} blocks, TTFT p50/p99 "
+            f"{st['ttft_p50_blocks']}/{st['ttft_p99_blocks']} blocks, "
+            f"e2e p50/p99 {st['e2e_p50_blocks']}/{st['e2e_p99_blocks']} "
+            f"blocks, K1 {got[kernel]}, K2 wgmma "
+            f"{got['flash_attention_wgmma']}")
+        return reqs
+
+
+def _submit_all(work, deadlines=None):
+    deadlines = deadlines or {}
+
+    def submit(server):
+        return [server.submit(p, max_new_tokens=m,
+                              deadline_blocks=deadlines.get(i))
+                for i, (p, m) in enumerate(work)]
+    return submit
+
+
+def _submit_mid_stream(work):
+    """The four short prompts, one decode block, then the long ones: they
+    prefill while decode is live."""
+    def submit(server):
+        reqs = [server.submit(p, max_new_tokens=m) for p, m in work[:4]]
+        server.run_once(max_blocks=1)
+        return reqs + [server.submit(p, max_new_tokens=m)
+                       for p, m in work[4:]]
+    return submit
+
+
+def stage_cost(torch, card: str, server, pages: int) -> None:
+    """What staging one handoff of ``pages`` pages costs on the card: the
+    deferred gather (device time between CUDA events around the call,
+    and the call's wall time), and, when a snapshot reads the stash, its
+    copy into new registered pinned host memory."""
+    import gc
+    import statistics
+    pids = list(range(1, pages + 1))
+    staging = server.prefill.staging
+    dev, wall = [], []
+    for i in range(6):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        h = staging.swap_out(server.cache, pids, defer=True)
+        end.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if i:                                    # the first one warms up
+            dev.append(start.elapsed_time(end))
+            wall.append(1e3 * (t1 - t0))
+        n = h.nbytes
+        staging.release(h)
+        del h
+    mat = []
+    for _ in range(3):
+        h = staging.swap_out(server.cache, pids, defer=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h.materialize()
+        mat.append(1e3 * (time.perf_counter() - t0))
+        staging.release(h)
+        del h
+        gc.collect()
+    d = statistics.median(dev)
+    log(f"disagg stage cost [{card}]: one handoff of {pages} pages = {n} "
+        f"bytes: deferred gather {d:.4f} ms on the card "
+        f"({_gbps(2 * n, d / 1e3)} GB/s read + write), "
+        f"{statistics.median(wall):.3f} ms wall for the call (medians of "
+        f"5); the host copy a snapshot makes (new registered pinned "
+        f"buffers + D2H) {statistics.median(mat):.3f} ms (median of 3)")
+
+
+def check_disagg(torch, card: str, cfg, params, served: dict | None) -> None:
+    """Disaggregated prefill and the request lifecycle at full depth: the
+    interference traffic monolithic and disaggregated (bf16 greedy and at
+    0.7, int8 at 0.7, fp8 greedy), the serve phase's prefix pair through
+    the engine, a chunk sweep with the long prompts arriving mid-stream,
+    both engine crashes, a poisoned victim, a deadline, overload control
+    and a snapshot taken mid-handoff.  ``served``: the serve phase's
+    tokens by (kv_dtype, temperature) when it ran at full depth."""
+    import dataclasses
+    from repro_torch.memory import REMOTE, FaultPlan, fault_plan
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    work = disagg_work(cfg.vocab)
+    kw = dict(SERVE_KW)
+
+    def server(kv=None, temperature=0.0, disagg=True, **extra):
+        model = DenseLM(dataclasses.replace(cfg, kv_dtype=kv))
+        if disagg:
+            extra.setdefault("prefill_async", True)
+            extra.setdefault("prefill_chunk_tokens", DISAGG_CHUNK)
+        return BatchedServer(model, params, audit=True,
+                             **dict(kw, temperature=temperature), **extra)
+
+    def tokens(reqs):
+        return [r.output for r in reqs]
+
+    # monolithic against disaggregated on the interference traffic
+    want = {}
+    gaps = {}
+    for kv, temperature in ((None, 0.0), (None, 0.7), ("int8", 0.7),
+                            ("fp8_e4m3", 0.0)):
+        out = {}
+        for disagg in (False, True):
+            tag = (f"{'disaggregated' if disagg else 'monolithic'} "
+                   f"kv_dtype={kv} temperature={temperature}")
+            srv = server(kv, temperature, disagg)
+            run = DisaggRun(torch, card, srv, tag)
+            reqs = run(_submit_all(work))
+            st = srv.stats
+            if any(r.outcome != "completed" for r in reqs):
+                raise AssertionError(f"disagg {tag}: {[r.error for r in reqs]}")
+            out[disagg] = tokens(reqs)
+            gaps[disagg, kv, temperature] = max(run.gaps_ms, default=0.0)
+            layers = cfg.num_layers
+            if disagg:
+                if (st["prefill_chunks"] != 12 or st["handoffs"] != 6
+                        or run.launches["flash_attention_wgmma"]
+                        != 12 * layers
+                        or st["decode_stall_blocks_max"] > 1):
+                    raise AssertionError(f"disagg {tag}: {st}")
+                staging = srv.prefill.staging
+                t = staging.timings["kv_swap_out"]
+                log(f"disagg {tag}: {t['count']} handoffs staged, "
+                    f"{t['bytes'] // t['count']} bytes and "
+                    f"{1e3 * t['seconds'] / t['count']:.3f} ms wall each "
+                    f"(the deferred gather's call); ledger kv_handoff peak "
+                    f"by tier {staging.stash_hwm()} bytes, now "
+                    f"{srv.mem.ledger.classes(REMOTE).get('kv_handoff')}")
+            elif (st["admitted"] != 6 or st["decode_stall_blocks_max"] < 3
+                  or run.launches["flash_attention_wgmma"] != 6 * layers):
+                raise AssertionError(f"monolithic {tag}: {st}")
+        if out[True] != out[False]:
+            raise AssertionError(f"disagg kv_dtype={kv} temperature="
+                                 f"{temperature}: disaggregated tokens "
+                                 f"differ from monolithic")
+        want[kv, temperature] = out[True]
+        log(f"disagg kv_dtype={kv} temperature={temperature}: "
+            f"disaggregated tokens equal monolithic; longest gap between "
+            f"decode blocks on the card {gaps[False, kv, temperature]:.2f} "
+            f"ms monolithic, {gaps[True, kv, temperature]:.2f} ms "
+            f"disaggregated")
+    greedy = want[None, 0.0]
+
+    srv = server()
+    stage_cost(torch, card, srv, DISAGG_LONG // kw["page_size"])
+    del srv
+
+    # the serve phase's prefix pair through the engine: the second prompt
+    # adopts the first one's three published pages as completed chunks
+    # and prefills its 16-token suffix at q_offset 48
+    pair = prompts(cfg.vocab, 0)[4:]
+    if served is not None:
+        unshared = served[None, 0.0][4:]
+    else:
+        unshared = tokens(DisaggRun(torch, card, server(prefix_cache=False),
+                                    "prefix pair, unshared")(
+            _submit_all([(p, 64) for p in pair])))
+
+    def submit_pair(server):
+        first = [server.submit(pair[0], max_new_tokens=64)]
+        server.run_once(max_blocks=0)       # prefilled, published, adopted
+        return first + [server.submit(pair[1], max_new_tokens=64)]
+
+    srv = server()
+    got = tokens(DisaggRun(torch, card, srv, "prefix pair")(submit_pair))
+    st = srv.stats
+    if got != unshared or st["prefix_hits"] != 1 \
+            or st["prefix_shared_pages"] != 3 or st["prefill_chunks"] != 3:
+        raise AssertionError(f"disagg prefix pair: tokens equal unshared "
+                             f"{got == unshared}, {st}")
+    log("disagg prefix pair: 3 shared pages adopted as completed chunks; "
+        "tokens equal the unshared run's")
+
+    # chunk sweep, the long prompts arriving while decode is live
+    for chunk in (DISAGG_CHUNK, 2 * DISAGG_CHUNK, 4 * DISAGG_CHUNK):
+        srv = server(prefill_chunk_tokens=chunk)
+        run = DisaggRun(torch, card, srv, f"mid-stream chunk {chunk}")
+        got = tokens(run(_submit_mid_stream(work)))
+        st, bound = srv.stats, -(-chunk // kw["block_size"])
+        if got != greedy or st["decode_stall_blocks_max"] > bound \
+                or st["prefill_chunks"] != 4 + 2 * (DISAGG_LONG // chunk):
+            raise AssertionError(f"disagg chunk {chunk}: tokens equal "
+                                 f"{got == greedy}, {st}")
+
+    # engine crashes: the prefill engine before its second chunk, the
+    # decode engine at its first adoption from block 1
+    for plan, what in ((FaultPlan(crash_prefill_at_chunk=2), "prefill"),
+                       (FaultPlan(crash_adopt_at_block=1), "adopt")):
+        srv = server(handoff_lease_blocks=2)
+        with fault_plan(plan):
+            got = tokens(DisaggRun(torch, card, srv, f"{what} crash")(
+                _submit_all(work)))
+        st = srv.stats
+        if got != greedy or st["engine_crashes"] != 1 \
+                or st["crash_requeues"] < 1 or (
+                    what == "adopt" and st["lease_reclaims"] < 1):
+            raise AssertionError(f"disagg {what} crash: tokens equal "
+                                 f"{got == greedy}, {st}")
+
+    # NaN in one victim's private page after the first block
+    def submit_poisoned(server):
+        reqs = _submit_all(work)(server)
+        server.run_once(max_blocks=1)
+        slot = 1
+        victim = server.slots[slot]
+        pid = next(p for p in server.manager.pages[slot]
+                   if server.manager.refcount[p] == 1)
+        server.cache["k_pages"][:, pid] = float("nan")
+        for _ in range(20):
+            server.run_once(max_blocks=1)
+            if victim.done.is_set():
+                break
+        # a one-off corruption: scrub the freed pages before reuse
+        for pool in ("k_pages", "v_pages"):
+            torch.nan_to_num_(server.cache[pool])
+        submit_poisoned.victim = victim
+        return reqs
+
+    srv = server()
+    reqs = DisaggRun(torch, card, srv, "NaN in one victim's page")(
+        submit_poisoned, checks=False)
+    victim = submit_poisoned.victim
+    st = srv.stats
+    others = [(r.output, w) for r, w in zip(reqs, greedy) if r is not victim]
+    if (victim.outcome != "shed"
+            or victim.error["reason"] != "poisoned_logits"
+            or st["poison_sheds"] != 1 or st["sheds"] != 1
+            or any(a != b for a, b in others)):
+        raise AssertionError(f"disagg poison: victim {victim.error}, {st}")
+    log(f"disagg poison: only uid {victim.uid} shed ({victim.error}); the "
+        f"others' tokens equal the uncontended run's")
+
+    # a deadline of one block on the first long prompt: it expires staged
+    srv = server()
+    reqs = DisaggRun(torch, card, srv, "deadline_blocks=1 on uid 5")(
+        _submit_all(work, {4: 1}))
+    late = reqs[4]
+    if (late.outcome != "expired" or late.error["reason"]
+            != "deadline_expired" or srv.stats["expired"] != 1
+            or any(r.output != w for i, (r, w) in enumerate(zip(reqs, greedy))
+                   if i != 4)):
+        raise AssertionError(f"disagg deadline: {late.error}, {srv.stats}")
+    log(f"disagg deadline: uid {late.uid} expired ({late.error['detail']}), "
+        f"its pages reclaimed; the others' tokens equal the uncontended "
+        f"run's")
+
+    # overload control: two pending at most against a burst of six
+    srv = server(max_pending=2)
+    reqs = DisaggRun(torch, card, srv, "max_pending=2, burst of 6")(
+        lambda s: [r for r in _submit_all(work)(s)])
+    rejected = [r for r in reqs if r.outcome == "rejected"]
+    if (len(rejected) != 4 or srv.stats["rejected"] != 4
+            or any(r.error["reason"] != "admission_rejected"
+                   for r in rejected)
+            or tokens(reqs[:2]) != greedy[:2]):
+        raise AssertionError(f"disagg overload: {srv.stats}")
+    log("disagg overload: 4 of 6 rejected at submit, the 2 admitted "
+        "complete with the uncontended tokens")
+
+    # snapshot with one handoff staged and one prefill mid-chunk
+    def submit_snapshot(server):
+        reqs = [server.submit(p, max_new_tokens=m) for p, m in work[:5]]
+        server.run_once(max_blocks=0)        # burst: 4 adopted, 1 staged
+        reqs.append(server.submit(work[5][0], max_new_tokens=work[5][1]))
+        server.run_once(max_blocks=0)        # the last one: one chunk
+        eng = server.prefill
+        if ([h.req.uid for h in eng.ready] != [5]
+                or [(i.req.uid, i.done) for i in eng.inflight]
+                != [(6, DISAGG_CHUNK)]):
+            raise AssertionError("disagg snapshot: not mid-handoff")
+        t0 = time.perf_counter()
+        snap = server.snapshot()
+        submit_snapshot.secs = time.perf_counter() - t0
+        submit_snapshot.snap = snap
+        return []
+
+    srv = server()
+    DisaggRun(torch, card, srv, "snapshot mid-handoff")(submit_snapshot,
+                                                         drained=False)
+    snap = submit_snapshot.snap
+    srv2 = server()
+    srv2.restore(snap)
+    restored = list(srv2._backlog) + [ps.req for ps in srv2._preempted]
+    restored.sort(key=lambda r: r.uid)
+    DisaggRun(torch, card, srv2, "restored")(lambda s: restored)
+    if tokens(restored) != greedy:
+        raise AssertionError("disagg restore: tokens differ from the "
+                             "uninterrupted run's")
+    nbytes = sum(s[a].numel() * s[a].element_size()
+                 for s in snap["sequences"] for a in ("k", "v") if a in s)
+    log(f"disagg snapshot: {len(snap['sequences'])} sequences, {nbytes} KV "
+        f"bytes, taken in {submit_snapshot.secs * 1e3:.1f} ms; restored "
+        f"tokens equal the uninterrupted run's")
+    log("disagg: every pair equal; stall <= 1 block disaggregated, >= 3 "
+        "monolithic; crashes, restore and prefix runs give the "
+        "uncontended tokens; only the NaN victim shed; every audit clean")
+
+
 def profile_serve(torch, model, params, kw, work, card) -> None:
     """A separate traced run (four requests, one 32-step block): device
     time by kernel name and the device's busy share of the wall time."""
@@ -1525,10 +1978,11 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=48,
                     help="serving depth (Qwen2.5-14B has 48; cut only if "
                          "the time limit forces it)")
-    ap.add_argument("--phases", default="kernels,parity,serve,tiers",
+    ap.add_argument("--phases", default="kernels,parity,serve,tiers,disagg",
                     help="comma list of kernels, parity, serve, tiers, "
-                         "profile (a traced serving run) and sweep (K3's "
-                         "routes over M); the last two are off by default")
+                         "disagg, profile (a traced serving run) and sweep "
+                         "(K3's routes over M); the last two are off by "
+                         "default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1578,14 +2032,19 @@ def main() -> int:
         cfg, params = qwen_params(torch, args.layers)
         *launches, served = check_serve(torch, card, cfg, params,
                                         "profile" in phases)
-    if "tiers" in phases:
+    if phases & {"tiers", "disagg"}:
+        # the full-depth phases share one set of weights: the serve
+        # phase's when it ran at 48 layers
         if "serve" not in phases or cfg.num_layers != 48:
             cfg48, params48 = qwen_params(torch, 48)
             full = None
         else:
             cfg48, params48, full = cfg, params, served
+    if "tiers" in phases:
         tiers = Launches()
         resident = check_tiers(torch, card, cfg48, params48, tiers, full)
+    if "disagg" in phases:
+        check_disagg(torch, card, cfg48, params48, full)
     if "serve" in phases:
         check_serve_paged(torch, card, cfg, params, served[None, 0.0],
                           "profile" in phases)
@@ -1625,6 +2084,9 @@ def main() -> int:
                                     "kernels phase only", "launches": n,
                                     "tiers_launches": count(tiered, name,
                                                             row),
+                                    "disagg_launches": count(
+                                        (DisaggRun.total,
+                                         DisaggRun.by_instance), name, row),
                                     **row})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,9 @@ class BlockManager:
         self.refcount: dict[int, int] = {}
         self._prefix_index: dict[bytes, int] = {}
         self._page_key: dict[int, bytes] = {}
+        # prefill->decode handoffs: token -> (pages, written positions)
+        self._handoffs: dict[int, tuple[list[int], int]] = {}
+        self._next_handoff = 1
 
     # ----- capacity ---------------------------------------------------------
     @property
@@ -155,6 +158,47 @@ class BlockManager:
         self._release_pages(self.pages.pop(slot, []))
         self.lens.pop(slot, None)
 
+    # ----- prefill->decode handoffs ------------------------------------------
+    def detach_to_handoff(self, slot: int) -> int:
+        """Detach ``slot``'s pages into a handoff token: the slot goes, its
+        pages keep their refcounts (the handoff owns them now), and the
+        token later rebinds them to a decode slot
+        (:meth:`adopt_from_handoff`).  No page is copied, freed or
+        reallocated across the engine boundary."""
+        if slot not in self.pages:
+            raise KeyError(f"slot {slot} owns no pages to hand off")
+        token = self._next_handoff
+        self._next_handoff += 1
+        self._handoffs[token] = (self.pages.pop(slot),
+                                 self.lens.pop(slot, 0))
+        return token
+
+    def adopt_from_handoff(self, slot: int, token: int) -> list[int]:
+        """Rebind a handoff's pages to a fresh decode ``slot`` (refcounts
+        unchanged); returns the page ids, now ``slot``'s table."""
+        if token not in self._handoffs:
+            raise KeyError(f"unknown handoff token {token}")
+        if self.pages.get(slot):
+            raise ValueError(
+                f"slot {slot} already owns pages; cannot adopt handoff")
+        pages, tokens = self._handoffs.pop(token)
+        self.pages[slot] = pages
+        if tokens:
+            self.note_tokens(slot, tokens)
+        return list(pages)
+
+    def release_handoff(self, token: int) -> None:
+        """Drop a handoff without adopting it (expiry, lease reclaim): its
+        pages lose the handoff's reference as :meth:`free_slot` releases a
+        slot's."""
+        pages, _ = self._handoffs.pop(token, ([], 0))
+        self._release_pages(pages)
+
+    @property
+    def handoff_pages(self) -> int:
+        """Pages held by prefill->decode handoffs."""
+        return sum(len(p) for p, _ in self._handoffs.values())
+
     # ----- prompt-prefix index ----------------------------------------------
     def register_prefix(self, key: bytes, page_id: int) -> None:
         """Publish a fully written prompt page under the exact token
@@ -204,7 +248,8 @@ class BlockManager:
         equals its owner count across tables; free + allocated ==
         capacity; the prefix index and its page->key inverse agree and
         only reference live pages; recorded lengths fit their tables;
-        the high-water mark bounds current occupancy."""
+        the high-water mark bounds current occupancy.  Handoffs count as
+        owners (owned by no slot, refcounted by the handoff)."""
         def fail(msg: str):
             raise BlockPoolAuditError(f"block-pool audit: {msg}")
 
@@ -216,7 +261,10 @@ class BlockManager:
         if bad:
             fail(f"free list holds out-of-range/null pages {sorted(bad)}")
         owners: dict[int, int] = {}
-        for slot, table in self.pages.items():
+        tables = list(self.pages.items()) + [
+            (f"handoff:{tok}", pages)
+            for tok, (pages, _) in self._handoffs.items()]
+        for slot, table in tables:
             if len(set(table)) != len(table):
                 fail(f"slot {slot} maps a page twice: {table}")
             for p in table:
@@ -249,6 +297,10 @@ class BlockManager:
             if n > cover:
                 fail(f"slot {slot} records {n} tokens but its table "
                      f"covers only {cover}")
+        for tok, (pages, n) in self._handoffs.items():
+            if n > len(pages) * self.page_size:
+                fail(f"handoff {tok} records {n} tokens but covers only "
+                     f"{len(pages) * self.page_size}")
         if self.hwm < self.pages_in_use:
             fail(f"hwm {self.hwm} < pages in use {self.pages_in_use}")
         if self.hwm > self.capacity:
@@ -256,7 +308,8 @@ class BlockManager:
                  f"exceeded the provisioned pool)")
         return {"pages_in_use": self.pages_in_use,
                 "free_pages": len(free), "slots": len(self.pages),
-                "shared_pages": self.shared_pages}
+                "shared_pages": self.shared_pages,
+                "handoff_pages": self.handoff_pages}
 
     # ----- accounting -------------------------------------------------------
     def bytes_per_page(self, kv_heads: int, head_dim: int,

@@ -11,6 +11,12 @@ Two halves, as in the reference:
   per (tier, tensor class), fed by the orchestrator's placements and the
   block pool, plus per-edge transfer charges.
 
+Remote-tier KV posts under two tensor classes, as in the reference:
+``"kv_swap"`` (preemption stashes) and ``"kv_handoff"`` (the staging of
+completed prefills in flight from the prefill engine to the decode
+engine), so the remote capacity disaggregation needs stays apart from
+what preemption needs.
+
 Trees are nested dicts, lists and tuples of tensors (the port's params
 and caches).
 """

@@ -22,7 +22,8 @@ from :meth:`MemoryOrchestrator.layers_kv`.
 :class:`MemoryOrchestrator` is the subsystem's front door, as in the
 reference: ``MemoryOrchestrator.plan(cfg)`` resolves the policy matrix
 from the config's pager policy; the instance owns placement
-(``place``, ``place_layer_weights``, ``place_kv_pool``, ``block_pool``),
+(``place``, ``place_layer_weights``, ``place_kv_pool``, ``block_pool``,
+``staging_swapper``),
 the layer iterators the model's loops take their layers from
 (:meth:`layers`, :meth:`layers_kv`), and the shared ledger.
 """
@@ -354,6 +355,17 @@ class MemoryOrchestrator:
         kv_pool policy's tier."""
         return BlockPoolResidency(num_pages, page_size, ledger=self.ledger,
                                   tier=self.policies["kv_pool"].tier)
+
+    def staging_swapper(self, *, tensor_class: str = "kv_handoff",
+                        **kwargs):
+        """A :class:`repro_torch.memory.swap.PageSwapper` reporting to this
+        ledger whose stash lines post under ``tensor_class`` (default
+        ``"kv_handoff"``: the prefill->decode staging buffer in the remote
+        tier), apart from the preemption swapper's ``"kv_swap"``.  The
+        engine boundary runs entirely through this staging contract."""
+        from repro_torch.memory.swap import PageSwapper
+        return PageSwapper(ledger=self.ledger, tensor_class=tensor_class,
+                           **kwargs)
 
     def kv_offloaded(self, cache: dict) -> bool:
         """Whether ``cache``'s pools rest in the remote tier (placed by

@@ -24,11 +24,20 @@ in stream order behind any block in flight.  Pools held in host memory
 gathered and scattered by the host; the caller settles the device's
 pending write-backs first.
 
+A deferred swap-out (``defer=True``, the prefill->decode handoff's
+staging) gathers the pages at call time too, on the compute stream in
+order behind every KV write enqueued before it, but into device memory,
+without a host wait; the copy into the tier's host memory is made only
+when the stash is read (:meth:`SwapHandle.materialize`).  The caller may
+free the pages at once: any later write to them is queued behind the
+gather.
+
 Every movement is a fallible, bounded-latency transfer through
 :func:`repro_torch.memory.tiers.transfer_with_retry` (fault-injection
 checkpoint, retry with backoff, timeout, straggler monitor), is charged
-to the ledger's tier edge, and posts its stash bytes under the
-``kv_swap`` tensor class of the tier it occupies.  Counters move only on
+to the ledger's tier edge, and posts its stash bytes under the swapper's
+tensor class (``kv_swap`` for preemption stashes, ``kv_handoff`` for
+handoff staging) in the tier it occupies.  Counters move only on
 success.  :attr:`PageSwapper.timings` keeps the bytes and the wall time
 of each successful transfer by kind.
 """
@@ -68,10 +77,18 @@ class SwapHandle:
     v_scale: torch.Tensor | None = None
     tier: str = tiers.REMOTE
     device: torch.device = torch.device("cpu")
+    # gathered but not yet copied to ``tier``'s host memory (a deferred
+    # swap-out: the tensors are the gather's, on ``device``)
+    deferred: bool = False
 
     def materialize(self) -> "SwapHandle":
-        """The stash as host tensors: a swap-out copies eagerly, so this
-        is the handle itself (kept for the reference's name)."""
+        """The stash as host tensors in its tier: a deferred stash is
+        copied there now (once); an eager one is returned as it is."""
+        if self.deferred:
+            for a, t in self.arrays().items():
+                setattr(self, a, tiers.to_tier(t, self.tier,
+                                               device=self.device))
+            self.deferred = False
         return self
 
     def arrays(self) -> dict[str, torch.Tensor]:
@@ -84,6 +101,21 @@ def _pools(cache: dict) -> list[tuple[str, torch.Tensor]]:
     return [(a, cache[key]) for a, key in POOLS if key in cache]
 
 
+def _take(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[:, idx]`` of a contiguous (L, P, ...) pool, gathered as
+    whole pages of the widest integer word that divides a page's bytes
+    (a byte-wise gather of many small elements runs far below the memory
+    rate; fp8 is never indexed as fp8)."""
+    rows = pool.view(torch.uint8).reshape(pool.shape[0], pool.shape[1], -1)
+    for word in (torch.int64, torch.int32, torch.int16):
+        if rows.shape[2] % word.itemsize == 0:
+            rows = rows.view(word)
+            break
+    out = rows.index_select(1, idx)
+    return out.view(torch.uint8).view(pool.dtype).view(
+        (pool.shape[0], len(idx)) + tuple(pool.shape[2:]))
+
+
 class PageSwapper:
     """Swap-out/swap-in of block-pool KV pages, and stash moves between
     the host tiers.
@@ -92,15 +124,20 @@ class PageSwapper:
     parameterize the transfer contract and ``monitor`` (a
     :class:`repro_torch.runtime.ft.StragglerMonitor`) flags slow
     transfers.  ``device`` is where the served pools compute.  Stashes
-    go to the remote tier unless a swap-out names another."""
+    go to the remote tier unless a swap-out names another.
+    ``tensor_class`` names the ledger line its stashes post under:
+    ``"kv_swap"`` for preemption, ``"kv_handoff"`` for the staging of
+    prefill->decode handoffs, so the two uses of the remote tier stay
+    apart."""
 
-    tensor_class = "kv_swap"
     tier = tiers.REMOTE
 
     def __init__(self, *, ledger: MemoryLedger | None = None,
                  retries: int = 3, backoff_s: float = 0.001,
                  timeout_s: float | None = None, monitor=None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cpu",
+                 tensor_class: str = "kv_swap"):
+        self.tensor_class = tensor_class
         self.ledger = ledger
         self.retries = retries
         self.backoff_s = backoff_s
@@ -191,7 +228,7 @@ class PageSwapper:
         if not pools[0][1].is_cuda:
             idx = torch.tensor(page_ids, dtype=torch.long)
             for a, pool in pools:
-                byte_view(out[a]).copy_(byte_view(pool)[:, idx])
+                byte_view(out[a]).copy_(byte_view(_take(pool, idx)))
             return out
         ready = torch.cuda.current_stream(self.device).record_event()
         copy = self._stream()
@@ -200,31 +237,51 @@ class PageSwapper:
             idx = torch.tensor(page_ids, dtype=torch.long,
                                device=self.device)
             for a, pool in pools:
-                byte_view(out[a]).copy_(byte_view(pool).index_select(1, idx),
+                byte_view(out[a]).copy_(byte_view(_take(pool, idx)),
                                         non_blocking=True)
             done = copy.record_event()
         done.synchronize()
         return out
 
+    def _gather_now(self, pools, page_ids: list[int]) -> dict:
+        """Copy ``page_ids`` of every pool into new tensors where the
+        pools are, on the current stream (queued behind its earlier
+        writes, ahead of any later one); the page ids go over from pinned
+        memory, so the host never waits for the stream."""
+        idx = torch.tensor(page_ids, dtype=torch.long)
+        dev = pools[0][1].device
+        if dev.type == "cuda":
+            idx = idx.pin_memory().to(dev, non_blocking=True)
+        return {a: _take(pool, idx) for a, pool in pools}
+
     def swap_out(self, cache: dict, page_ids: list[int],
-                 tier: str | None = None) -> SwapHandle:
+                 tier: str | None = None, defer: bool = False
+                 ) -> SwapHandle:
         """Gather ``page_ids`` from every pool and stash them in ``tier``
         (default: the swapper's home tier, remote; ``tiers.COLD`` stashes
         a deep-preemption victim straight into the cold tier, so the
         remote tier never holds it).  Returns once the stash holds the
-        pages' bytes, so the caller may free the pages.  Raises
-        :class:`tiers.TierTransferError` once the retry budget is spent
-        (the caller's degradation policy takes over)."""
+        pages' bytes, so the caller may free the pages.  ``defer=True``
+        gathers into device memory in stream order instead and leaves the
+        host copy to :meth:`SwapHandle.materialize` (the caller may free
+        the pages all the same).  Raises :class:`tiers.TierTransferError`
+        once the retry budget is spent (the caller's degradation policy
+        takes over)."""
         tier = self.tier if tier is None else tier
         pools = _pools(cache)
         n = len(page_ids)
         nbytes = sum(p.shape[0] * n * p[0, 0].numel() * p.element_size()
                      for _, p in pools)
-        host = self._transfer(
-            lambda: self._gather(pools, list(page_ids), tier),
-            what="kv_swap_out", nbytes=nbytes)
+        if defer:
+            host = self._transfer(
+                lambda: self._gather_now(pools, list(page_ids)),
+                what="kv_swap_out", nbytes=nbytes)
+        else:
+            host = self._transfer(
+                lambda: self._gather(pools, list(page_ids), tier),
+                what="kv_swap_out", nbytes=nbytes)
         handle = SwapHandle(page_count=n, nbytes=nbytes, tier=tier,
-                            device=self.device, **host)
+                            device=self.device, deferred=defer, **host)
         self.swap_outs += 1
         self.live_handles += 1
         self._account(tier, nbytes)
@@ -289,6 +346,7 @@ class PageSwapper:
         for a, t in self._transfer(move, what=what,
                                    nbytes=handle.nbytes).items():
             setattr(handle, a, t)
+        handle.deferred = False
         self._account(src, -handle.nbytes)
         self._account(tier, handle.nbytes)
         self._charge(src, tier, handle.nbytes)

@@ -139,8 +139,14 @@ class FaultPlan:
     asks :meth:`take_pool_exhaustion` once per decode block and, at the
     armed block, steals every free page for ``exhaust_blocks`` blocks,
     forcing a real ``MemoryError`` in the next page growth and the
-    emergency-preemption recovery.  (The reference's engine-crash
-    injections belong to the disaggregated prefill engine, not ported.)"""
+    emergency-preemption recovery.
+
+    Engine crashes in disaggregated serving: ``crash_prefill_at_chunk``
+    arms the prefill engine's death before its N-th chunk dispatch (its
+    in-flight prefills and staged handoffs become orphans that only the
+    server's lease watchdog reclaims); ``crash_adopt_at_block`` drops the
+    first handoff adopted at or after that decode block, mid-adoption
+    (its staged pages stay in the registry until the lease runs out)."""
 
     seed: int = 0
     fail_first_n: int = 0
@@ -150,6 +156,8 @@ class FaultPlan:
     spike_s: float = 0.05
     exhaust_at_block: int | None = None
     exhaust_blocks: int = 2
+    crash_prefill_at_chunk: int | None = None
+    crash_adopt_at_block: int | None = None
 
     def __post_init__(self) -> None:
         self._rng = np.random.default_rng(self.seed)
@@ -157,6 +165,9 @@ class FaultPlan:
         self.failures = 0        # attempts failed
         self.spikes = 0          # attempts delayed
         self._exhaust_armed = self.exhaust_at_block is not None
+        self._prefill_chunks = 0
+        self._prefill_crash_armed = self.crash_prefill_at_chunk is not None
+        self._adopt_crash_armed = self.crash_adopt_at_block is not None
 
     def before_transfer(self, what: str, nbytes: int = 0) -> None:
         """Called before each attempt: sleeps for an injected latency
@@ -182,6 +193,24 @@ class FaultPlan:
         ``exhaust_blocks`` blocks later)."""
         if self._exhaust_armed and block >= self.exhaust_at_block:
             self._exhaust_armed = False
+            return True
+        return False
+
+    def take_prefill_crash(self) -> bool:
+        """Counts prefill chunk dispatches; True exactly once, when the
+        armed chunk is about to go out."""
+        self._prefill_chunks += 1
+        if (self._prefill_crash_armed
+                and self._prefill_chunks >= self.crash_prefill_at_chunk):
+            self._prefill_crash_armed = False
+            return True
+        return False
+
+    def take_adopt_crash(self, block: int) -> bool:
+        """True exactly once, at the first handoff adoption at or after
+        the armed decode block."""
+        if self._adopt_crash_armed and block >= self.crash_adopt_at_block:
+            self._adopt_crash_armed = False
             return True
         return False
 

@@ -322,6 +322,24 @@ class DenseLM:
                                    torch.stack(vs), cfg)
         return self._logits(params, x), cache
 
+    def prefill_paged_chunk(self, params: dict, tokens: torch.Tensor,
+                            cache: dict, done_pages: torch.Tensor,
+                            pages: torch.Tensor):
+        """Continue a CHUNKED prefill: the next page-aligned slice of the
+        prompt against the request's own earlier chunks.
+
+        tokens: (B, S_chunk) prompt slice starting at position
+        ``done_pages.shape[1] * page``; done_pages: (B, n_done) pages the
+        request's earlier chunks filled; pages: (B, n_new) fresh pages for
+        this chunk.  This is :meth:`prefill_paged_prefix` with the
+        request's completed chunks as the prefix, so a prompt prefilled in
+        page-aligned chunks gives the logits and pool bytes of one
+        :meth:`prefill_paged`, bit for bit (the async prefill engine,
+        :mod:`repro_torch.runtime.prefill`, relies on it).
+        Returns (last-position logits, cache)."""
+        return self.prefill_paged_prefix(params, tokens, cache, done_pages,
+                                         pages)
+
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
                     cur_pos: torch.Tensor, pages: torch.Tensor):
         """tokens: (B, 1); cur_pos: (B,) int32 absolute position being

@@ -96,8 +96,11 @@ def save_server_snapshot(path, snap: dict) -> Path:
     seqs = []
     for i, s in enumerate(snap["sequences"]):
         entry = {k: s[k] for k in ("uid", "max_new_tokens", "output", "pos")}
-        if s.get("submitted_block") is not None:
-            entry["submitted_block"] = int(s["submitted_block"])
+        # request-lifecycle metadata (arrival block, SLA deadline): a
+        # restored server rebases both onto its own block clock
+        for k in ("submitted_block", "deadline_blocks"):
+            if s.get(k) is not None:
+                entry[k] = int(s[k])
         # the stash's tier (remote / cold): a restored server re-adopts it
         # in the same tier
         if s.get("tier") is not None:

@@ -59,11 +59,31 @@ live batch — no batch restart.
   pool exhaustion is recovered by emergency preemption (or sheds the only
   live sequence).
 * **Snapshots.**  :meth:`BatchedServer.snapshot` / :meth:`restore` carry
-  every in-flight sequence across a restart (a cold stash stays cold).
+  every in-flight sequence across a restart (a cold stash stays cold), a
+  staged handoff as a stash at ``pos = plen`` whose output is its first
+  token, a mid-chunk prefill as backlog; deadlines are rebased so the
+  remaining time-to-live carries over.
+* **Disaggregated prefill.**  ``prefill_async=True`` admits through the
+  async :class:`~repro_torch.runtime.prefill.PrefillEngine`: prompts
+  prefill in page-aligned ``prefill_chunk_tokens`` chunks, one chunk a
+  scheduling round while decode is live, and completed prompts are
+  adopted from KV page handoffs, so a long prompt stalls decode by one
+  chunk instead of its whole length, with the monolithic server's tokens
+  (``stats["decode_stall_blocks_max"]``, ``stats["ttft_p50_blocks"]``).
+* **Request lifecycle.**  ``submit(..., deadline_blocks=N)`` cancels a
+  request N blocks after its submission at whatever stage it is in
+  (backlog, preempted, mid-prefill, staged for handoff, decoding once the
+  pipeline drained; ``outcome == "expired"``).  ``max_pending`` /
+  ``overload_factor`` reject what the server cannot credibly serve at
+  ``submit`` (``outcome == "rejected"``).  A slot whose harvest hits
+  non-finite logits is shed alone once the pipeline drained
+  (``"poisoned_logits"``).  An engine crash (``FaultPlan``'s
+  ``crash_prefill_at_chunk`` / ``crash_adopt_at_block``) is recovered by
+  the lease watchdog (``handoff_lease_blocks``): partial prefills are
+  freed and retried at once, staged handoffs when their lease runs out,
+  with the tokens of the run without the crash.
 
-Left out of this port so far: deadlines and overload control, poison
-shedding (non-finite logits are counted, not shed), the async prefill
-engine, tensor parallelism and the dense cache.
+Left out of this port so far: tensor parallelism and the dense cache.
 """
 from __future__ import annotations
 
@@ -94,10 +114,16 @@ class Request:
     admitted_at_block: int | None = None   # stats["blocks"] at admission
     submitted_block: int | None = None     # stats["blocks"] at submit
     first_token_block: int | None = None   # stats["blocks"] at first token
-    outcome: str | None = None     # "completed" | "shed" (None = in flight)
+    # SLA time-to-live in decode blocks from submitted_block: past it the
+    # request is cancelled at whatever stage it is in (None: no deadline)
+    deadline_blocks: int | None = None
+    # "completed" | "shed" | "rejected" | "expired" (None = in flight)
+    outcome: str | None = None
     # why the server ended the request instead of completing it:
     # {"reason", "detail", "uid", "tokens_emitted"}; None on completion
     error: dict | None = None
+    # counted in the admission-control view of not-yet-started demand
+    _pending_counted: bool = dataclasses.field(default=False, repr=False)
 
 
 @dataclasses.dataclass
@@ -134,12 +160,30 @@ class BatchedServer:
     picks victims).  ``swap_retries`` / ``swap_timeout_s`` bound each tier
     transfer; ``cold_park_after_blocks`` parks stashes in the cold tier;
     ``audit`` runs the allocator and ledger audit after every scheduling
-    step."""
+    step.
+
+    ``prefill_async`` admits through the async prefill engine in
+    ``prefill_chunk_tokens`` chunks (default 4 pages) with KV page
+    handoffs; ``max_pending`` caps queued requests and ``overload_factor``
+    the projected worst-case page demand (x the pool), beyond which
+    ``submit`` rejects; ``handoff_lease_blocks`` is how long a staged
+    handoff stays adoptable before the watchdog reclaims it."""
 
     # blocks a narrower bucketed table width must persist before the
     # table shrinks (growth is immediate: an unmapped page would corrupt
     # decode; shrinking only saves masked attention columns)
     SHRINK_PATIENCE = 8
+
+    # class defaults, so scheduler-only harnesses that skip __init__ see
+    # the monolithic, host-only paths (they bind what they fake)
+    prefill = None
+    kv = None
+    manager = None
+    swapper = None
+    max_pending: int | None = None
+    overload_factor: float | None = None
+    handoff_lease_blocks: int = 64
+    cold_park_after_blocks: int | None = None
 
     def __init__(self, model, params, *, batch_size: int = 4,
                  max_seq: int = 256, temperature: float = 0.0,
@@ -149,7 +193,12 @@ class BatchedServer:
                  audit: bool = False, seed: int = 0, device=None,
                  preempt: bool = True, preempt_policy="lru",
                  swap_retries: int = 3, swap_timeout_s: float | None = None,
-                 cold_park_after_blocks: int | None = None):
+                 cold_park_after_blocks: int | None = None,
+                 prefill_async: bool = False,
+                 prefill_chunk_tokens: int | None = None,
+                 max_pending: int | None = None,
+                 overload_factor: float | None = None,
+                 handoff_lease_blocks: int = 64):
         if not model.supports_paged_kv():
             raise ValueError("the port serves the paged KV cache only; "
                              "this model does not support it")
@@ -173,6 +222,9 @@ class BatchedServer:
         self.preempt_enabled = bool(preempt)
         self.preempt_policy = preempt_policy
         self.cold_park_after_blocks = cold_park_after_blocks
+        self.max_pending = max_pending
+        self.overload_factor = overload_factor
+        self.handoff_lease_blocks = handoff_lease_blocks
         # the model's orchestrator: one ledger for its weights and this
         # server's KV pool
         self.mem: MemoryOrchestrator = model.mem
@@ -196,6 +248,7 @@ class BatchedServer:
                                    timeout_s=swap_timeout_s,
                                    monitor=self.transfer_monitor,
                                    device=self.device)
+        self._init_sched_state(batch_size)
         self._peak_pages = 0
         self.tiers_peak: dict | None = None
         self._table_w = 1
@@ -205,19 +258,42 @@ class BatchedServer:
                                       pages=self._h2d(self._mirror))
         self.slots: list[Request | None] = [None] * batch_size
         self._slot_pos = [0] * batch_size      # host mirror of state.pos
-        self._planned = [0] * batch_size       # in-flight decode tokens
-        self._reserved: dict[int, int] = {}    # slot -> worst-case pages
+        self._launch_base = launch_counts()
+        self.stats["kernel_launches"] = dict.fromkeys(self._launch_base, 0)
+        if prefill_async:
+            from repro_torch.runtime.prefill import PrefillEngine
+            self.prefill = PrefillEngine(self,
+                                         chunk_tokens=prefill_chunk_tokens)
+
+    def _init_sched_state(self, batch_size: int) -> None:
+        """The scheduler's host state: queues, reservations, lifecycle
+        bookkeeping and stats (split out so scheduler-only harnesses that
+        skip ``__init__`` set up exactly what the scheduler touches)."""
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._backlog: collections.deque[Request] = collections.deque()
+        self._uid = 0
         self._preempted: list[_Preempted] = []   # resume-FIFO
-        self._sched_counter = 0
-        self._last_sched = [0] * batch_size      # for the lru policy
+        self._reserved: dict[int, int] = {}    # slot -> worst-case pages
+        self._planned = [0] * batch_size       # in-flight decode tokens
         self._pool_fault = False       # mid-decode exhaustion latched
         self._fault_release_block: int | None = None
         self._fault_slot = -1          # phantom slot holding stolen pages
-        self._uid = 0
+        self._sched_counter = 0
+        self._last_sched = [0] * batch_size      # for the lru policy
+        # slots whose harvest hit non-finite logits (slot -> request),
+        # engine-crash leftovers for the lease watchdog, and the
+        # admission-control view of not-yet-started demand
+        self._poisoned: dict[int, Request] = {}
+        self._orphan_prefills: list[tuple[int, Request]] = []
+        self._orphan_handoffs: list = []         # KVHandoff
+        self._pending_count = 0
+        self._pending_pages = 0
+        self._pending_lock = threading.Lock()
+        # prompt tokens prefilled ahead of pending decode work since the
+        # last decode dispatch (folded into decode_stall_blocks_*)
+        self._stall_tokens = 0
         self._ttft_samples: list[int] = []
-        self._launch_base = launch_counts()
+        self._e2e_samples: list[int] = []
         self.stats = {"steps": 0, "tokens": 0, "batches": 0, "blocks": 0,
                       "dispatches": 0, "admitted": 0, "completed": 0,
                       "host_syncs": 0, "kv_pages_in_use": 0,
@@ -230,7 +306,13 @@ class BatchedServer:
                       "cold_parks": 0, "cold_promotes": 0,
                       "pool_faults": 0, "prefix_drops": 0,
                       "swap_retries": 0, "slow_transfers": 0,
-                      "kernel_launches": dict.fromkeys(self._launch_base, 0)}
+                      "prefill_chunks": 0, "handoffs": 0,
+                      "decode_stall_blocks_max": 0,
+                      "decode_stall_blocks_total": 0,
+                      "rejected": 0, "expired": 0, "poison_sheds": 0,
+                      "engine_crashes": 0, "lease_reclaims": 0,
+                      "crash_requeues": 0, "e2e_p50_blocks": 0.0,
+                      "e2e_p99_blocks": 0.0, "kernel_launches": {}}
 
     # ----- host <-> device ---------------------------------------------------
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
@@ -252,10 +334,15 @@ class BatchedServer:
         return hs, ev
 
     # ----- request intake ----------------------------------------------------
-    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32
-               ) -> Request:
-        """Enqueue a request; oversized work is rejected here, in the
-        caller's frame."""
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32, *,
+               deadline_blocks: int | None = None) -> Request:
+        """Enqueue a request; oversized work raises here, in the caller's
+        frame.  ``deadline_blocks``: the request is cancelled
+        (``outcome == "expired"``) once that many decode blocks pass
+        without its completion.  Under overload control (``max_pending``,
+        ``overload_factor``) a request the server cannot credibly serve
+        comes back at once, ``done`` set, ``outcome == "rejected"`` and a
+        structured ``error``, instead of joining an unbounded queue."""
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) < 1:
             raise ValueError("empty prompt")
@@ -273,23 +360,200 @@ class BatchedServer:
         self._uid += 1
         req = Request(self._uid, prompt, max_new_tokens=max_new_tokens)
         req.submitted_block = self.stats["blocks"]
+        req.deadline_blocks = deadline_blocks
+        overload = self._admission_gate(req, worst)
+        if overload is not None:
+            req.error = self._error(req, "admission_rejected", overload)
+            self._finalize(req, "rejected")
+            return req
         self.queue.put(req)
         return req
 
+    # ----- request lifecycle: outcomes, overload control, deadlines ---------
     #: terminal outcome -> the stats counter it increments
-    _OUTCOME_KEYS = {"completed": "completed", "shed": "sheds"}
+    _OUTCOME_KEYS = {"completed": "completed", "shed": "sheds",
+                     "rejected": "rejected", "expired": "expired"}
 
     def _finalize(self, req: Request, outcome: str,
                   finished: list[Request] | None = None) -> None:
         """The one terminal transition of a request: stamp its outcome,
-        count it, set ``done``.  Idempotent."""
+        release its admission-control accounting, count it, sample its
+        end-to-end latency (completions), set ``done``.  Idempotent, so
+        racing cancellations cannot count twice."""
         if req.outcome is not None:
             return
         req.outcome = outcome
+        self._pending_remove(req)
         self.stats[self._OUTCOME_KEYS[outcome]] += 1
+        if outcome == "completed" and req.submitted_block is not None:
+            self._e2e_samples.append(self.stats["blocks"]
+                                     - req.submitted_block)
         req.done.set()
         if finished is not None:
             finished.append(req)
+
+    def _admission_gate(self, req: Request, worst: int) -> str | None:
+        """Overload admission control, under one lock: count the request
+        into the pending-demand view and return None, or return why it is
+        rejected.  The page term projects live reservations plus every
+        not-yet-started request's worst case against ``overload_factor``
+        x the pool: demand past that cannot make its deadline anyway."""
+        with self._pending_lock:
+            if (self.max_pending is not None
+                    and self._pending_count >= self.max_pending):
+                return f"pending requests at max_pending={self.max_pending}"
+            if self.overload_factor is not None:
+                projected = (sum(self._reserved.values())
+                             + self._pending_pages + worst)
+                budget = self.overload_factor * self.manager.capacity
+                if projected > budget:
+                    return (f"projected worst-case demand {projected} pages"
+                            f" > {budget:.0f} (overload_factor="
+                            f"{self.overload_factor} x capacity "
+                            f"{self.manager.capacity})")
+            req._pending_counted = True
+            self._pending_count += 1
+            self._pending_pages += worst
+            return None
+
+    def _pending_add(self, req: Request) -> None:
+        """(Re-)count a not-yet-started request into the pending view
+        (crash requeue, restore, admission rollback); never twice."""
+        with self._pending_lock:
+            if not req._pending_counted:
+                req._pending_counted = True
+                self._pending_count += 1
+                self._pending_pages += self._worst_pages(
+                    len(req.prompt), req.max_new_tokens)
+
+    def _pending_remove(self, req: Request) -> None:
+        with self._pending_lock:
+            if req._pending_counted:
+                req._pending_counted = False
+                self._pending_count -= 1
+                self._pending_pages -= self._worst_pages(
+                    len(req.prompt), req.max_new_tokens)
+
+    def _record_kv(self) -> None:
+        """Push the pool's footprint into the ledger, when there is a pool
+        (scheduler-only harnesses have none; the reference records
+        unconditionally there, its fault R3)."""
+        if self.kv is not None:
+            self.kv.record()
+
+    def _deadline_passed(self, req: Request) -> bool:
+        return (req.deadline_blocks is not None
+                and req.submitted_block is not None
+                and self.stats["blocks"]
+                >= req.submitted_block + req.deadline_blocks)
+
+    def _expire_req(self, req: Request, finished: list[Request],
+                    stage: str) -> None:
+        req.error = self._error(
+            req, "deadline_expired",
+            f"deadline of {req.deadline_blocks} blocks passed while {stage}")
+        self._finalize(req, "expired", finished)
+
+    def _expiry_stall(self) -> bool:
+        """A live slot past its deadline stalls dispatch until the
+        pipeline drains: evicting it under a block in flight and admitting
+        into the slot would hand that block's tokens to the new occupant."""
+        return any(r is not None and self._deadline_passed(r)
+                   for r in self.slots)
+
+    def _expire_sweep(self, finished: list[Request], drained: bool) -> None:
+        """Cancel every expired request wherever it is -- backlog,
+        swapped out, mid-prefill, staged for handoff and, with the
+        pipeline drained, a live slot -- and reclaim its pages."""
+        if any(self._deadline_passed(r) for r in self._backlog):
+            keep: collections.deque = collections.deque()
+            for req in self._backlog:
+                if self._deadline_passed(req):
+                    self._expire_req(req, finished, "backlogged")
+                else:
+                    keep.append(req)
+            self._backlog = keep
+        for ps in list(self._preempted):
+            if self._deadline_passed(ps.req):
+                self._preempted.remove(ps)
+                if self.swapper is not None and ps.handle is not None:
+                    self.swapper.release(ps.handle)
+                self._expire_req(ps.req, finished, "preempted")
+        eng = self.prefill
+        if eng is not None:
+            for inf in list(eng.inflight):
+                if self._deadline_passed(inf.req):
+                    eng.inflight.remove(inf)
+                    self.manager.free_slot(inf.slot)
+                    self._reserved.pop(inf.slot, None)
+                    self._expire_req(inf.req, finished, "mid-prefill")
+                    self._record_kv()
+            for h in list(eng.ready):
+                if self._deadline_passed(h.req):
+                    eng.ready.remove(h)
+                    self.manager.release_handoff(h.token)
+                    self._reserved.pop(h.pslot, None)
+                    if h.handle is not None:
+                        eng.staging.release(h.handle)
+                    self._expire_req(h.req, finished, "staged for handoff")
+                    self._record_kv()
+        if drained:
+            for i, req in enumerate(self.slots):
+                if req is not None and self._deadline_passed(req):
+                    self._evict_slot(i)
+                    self._expire_req(req, finished, "decoding")
+                    self._record_kv()
+
+    # ----- engine-crash recovery ---------------------------------------------
+    def _requeue(self, req: Request, finished: list[Request]) -> None:
+        """Put an engine-crash victim back at the front of the backlog (it
+        is older than everything behind it), unless its deadline passed.
+        The retry's tokens equal the lost attempt's: prefill and sampling
+        are functions of (seed, uid, position)."""
+        if self._deadline_passed(req):
+            self._expire_req(req, finished, "awaiting crash retry")
+            return
+        self._backlog.appendleft(req)
+        self._pending_add(req)
+        self.stats["crash_requeues"] += 1
+
+    def _reclaim_orphan_handoff(self, h, finished: list[Request]) -> None:
+        """Release an orphaned or overdue handoff's pages through the
+        handoff registry, drop its staged bytes, retry its request."""
+        self.manager.release_handoff(h.token)
+        self._reserved.pop(h.pslot, None)
+        if h.handle is not None and self.prefill is not None:
+            self.prefill.staging.release(h.handle)
+        self.stats["lease_reclaims"] += 1
+        self._requeue(h.req, finished)
+        self._record_kv()
+
+    def _lease_watchdog(self, finished: list[Request],
+                        force: bool = False) -> None:
+        """Reclaim engine-crash leftovers.  A crashed prefill's partial
+        pages are garbage: freed, the request retried at once.  An
+        orphaned handoff holds complete, adoptable state, so its pages
+        stay until its lease runs out (or its deadline passes); a handoff
+        staged past its lease without a crash is reclaimed too.
+        ``force`` (snapshot, idle decode) cuts every orphan's lease short."""
+        if self._orphan_prefills:
+            for pslot, req in self._orphan_prefills:
+                self.manager.free_slot(pslot)
+                self._reserved.pop(pslot, None)
+                self._requeue(req, finished)
+            self._orphan_prefills.clear()
+            self._record_kv()
+        for h in list(self._orphan_handoffs):
+            if (force or self.stats["blocks"] >= h.lease_expiry_block
+                    or self._deadline_passed(h.req)):
+                self._orphan_handoffs.remove(h)
+                self._reclaim_orphan_handoff(h, finished)
+        eng = self.prefill
+        if eng is not None:
+            for h in list(eng.ready):
+                if self.stats["blocks"] >= h.lease_expiry_block:
+                    eng.ready.remove(h)
+                    self._reclaim_orphan_handoff(h, finished)
 
     # ----- admission ---------------------------------------------------------
     def _admit_plen(self, prompt_len: int, max_new_tokens: int) -> int:
@@ -380,6 +644,7 @@ class BatchedServer:
         model, params = self.model, self.params
         if shared:
             suffix = toks[:, len(shared) * self.page_size:]
+            self._note_prefill_dispatch(suffix.shape[1])
             logits, self.cache = model.prefill_paged_prefix(
                 params, self._h2d(suffix), self.cache,
                 self._h2d(np.asarray([shared], np.int32)),
@@ -387,6 +652,7 @@ class BatchedServer:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_shared_pages"] += len(shared)
         else:
+            self._note_prefill_dispatch(plen)
             logits, self.cache = model.prefill_paged(
                 params, self._h2d(toks), self.cache,
                 self._h2d(np.asarray([new_ids], np.int32)))
@@ -419,8 +685,7 @@ class BatchedServer:
         self._last_sched[slot] = self._sched_counter
         req.admitted_at_block = self.stats["blocks"]
         req.output.append(first)
-        req.first_token_block = self.stats["blocks"]
-        self._ttft_samples.append(req.first_token_block - req.submitted_block)
+        self._record_first_token(req)
         self.stats["tokens"] += 1
         self.stats["admitted"] += 1
         if req.max_new_tokens <= 1 or (self.eos_id is not None
@@ -438,7 +703,13 @@ class BatchedServer:
         they are older than every queued request), then the backlog in
         arrival order.  The head request waits (FIFO kept) until its
         worst-case pages are free, or, with ``allow_preempt`` (nothing in
-        flight), preempts victims for them."""
+        flight), preempts victims for them.  Lifecycle upkeep comes
+        first: crash leftovers are reclaimed and expired requests
+        cancelled (live slots only when nothing is in flight, which
+        ``allow_preempt`` also signals)."""
+        self._drain_queue()
+        self._lease_watchdog(finished)
+        self._expire_sweep(finished, drained=allow_preempt)
         while self._preempted and self._free_slots():
             ps = self._preempted[0]
             if not self._resume_ready(ps):
@@ -447,6 +718,9 @@ class BatchedServer:
             if not self._resume(ps, self._free_slots()[0], finished):
                 self._preempted.insert(0, ps)   # physically blocked
                 break
+        if self.prefill is not None:
+            self._async_admission(finished, allow_preempt)
+            return
         while True:
             free = self._free_slots()
             if not free:
@@ -465,6 +739,7 @@ class BatchedServer:
                 if not free or not self._admission_pages_ready(req):
                     return
             self._backlog.popleft()
+            self._pending_remove(req)
             try:
                 self._admit(req, free[0], finished)
             except MemoryError:
@@ -473,7 +748,96 @@ class BatchedServer:
                 self.manager.free_slot(free[0])
                 self._reserved.pop(free[0], None)
                 self._backlog.appendleft(req)
+                self._pending_add(req)
                 return
+
+    # ----- disaggregated admission (the async prefill engine) ----------------
+    def _async_admission(self, finished: list[Request],
+                         allow_preempt: bool) -> None:
+        """Admission through the prefill engine: starts are strictly FIFO
+        behind the page gate, one chunk advances a scheduling round while
+        decode work is pending (a long prompt never stalls decode for more
+        than a chunk), and ready handoffs are adopted into free slots.
+        With decode idle the engine pumps freely: chunking costs nothing
+        when nothing can stall."""
+        eng = self.prefill
+        while True:
+            self._drain_queue()
+            started = False
+            while (self._backlog and len(eng.inflight) < eng.max_inflight
+                   and self._admission_pages_ready(self._backlog[0])):
+                req = self._backlog.popleft()
+                self._pending_remove(req)
+                eng.start(req)
+                started = True
+            if (self._backlog and not started and allow_preempt
+                    and not self._admission_pages_ready(self._backlog[0])
+                    and self._try_preempt_for(self._backlog[0], finished)):
+                continue
+            progressed = eng.pump_once(finished)
+            if not self._can_dispatch() and (progressed or started):
+                # decode idle: finish the whole burst before adopting (the
+                # first adoption would make decode dispatchable and feed
+                # the other prefills one chunk a block), as monolithic
+                # admission admits every queued request before decoding
+                continue
+            adopted = False
+            while eng.ready and self._free_slots():
+                self._adopt_handoff(eng.ready.popleft(),
+                                    self._free_slots()[0], finished)
+                adopted = True
+            if self._can_dispatch():
+                return               # decode work pending: yield to it
+            if not (progressed or adopted or started):
+                return               # engine drained or blocked
+
+    def _adopt_handoff(self, h, slot: int, finished: list[Request]) -> None:
+        """Decode-side adoption of a completed prefill: the handoff's pages
+        rebind to ``slot`` (its table follows in the next block's delta),
+        the staged bytes are released, and the slot is spliced into the
+        decode state as a resume at ``pos = plen``, in stream order behind
+        any block in flight.  No prefill, no KV copy."""
+        plan = tiers.active_fault_plan()
+        if plan is not None and plan.take_adopt_crash(self.stats["blocks"]):
+            # injected decode-engine crash mid-adoption: the pages stay in
+            # the registry under the handoff's lease (another engine could
+            # still adopt them) until the watchdog reclaims and retries
+            self._orphan_handoffs.append(h)
+            self.stats["engine_crashes"] += 1
+            return
+        req = h.req
+        self.manager.adopt_from_handoff(slot, h.token)
+        # the worst-case reservation moves over from the pseudo-slot
+        self._reserved[slot] = self._reserved.pop(
+            h.pslot, self._worst_pages(len(req.prompt), req.max_new_tokens))
+        self.prefill.staging.release(h.handle)
+        first = h.first_token
+        self.stats["nonfinite_logits"] += int(not h.finite)
+        req.admitted_at_block = self.stats["blocks"]
+        req.output.append(first)
+        self._record_first_token(req)
+        self.stats["tokens"] += 1
+        self.stats["admitted"] += 1
+        if req.max_new_tokens <= 1 or (self.eos_id is not None
+                                       and first == self.eos_id):
+            self.manager.free_slot(slot)       # done at adoption
+            self._reserved.pop(slot, None)
+            self._finalize(req, "completed", finished)
+            self.kv.record()
+            return
+        st = self.state
+        st.tokens[slot] = h.nxt[0]
+        st.pos[slot] = h.plen
+        st.active[slot] = True
+        st.remaining[slot] = req.max_new_tokens - 1
+        st.slot_keys[slot] = h.key
+        self.slots[slot] = req
+        self._slot_pos[slot] = h.plen
+        self._planned[slot] = 0
+        self._sched_counter += 1
+        self._last_sched[slot] = self._sched_counter
+        self.kv.record()
+        self._note_peak()
 
     # ----- preemption --------------------------------------------------------
     def _victim_order(self, cands: list[int]) -> list[int]:
@@ -604,6 +968,19 @@ class BatchedServer:
         self._finalize(req, "shed", finished)
         self.kv.record()
 
+    def _service_poison(self, finished: list[Request]) -> None:
+        """Shed every slot whose harvest hit non-finite logits; the rest
+        of the batch decodes on.  Runs with nothing in flight (poisoned
+        slots stall dispatch), so eviction never races a block."""
+        for i, req in list(self._poisoned.items()):
+            if self.slots[i] is req:
+                self.stats["poison_sheds"] += 1
+                self._shed(i, finished, reason="poisoned_logits",
+                           detail=f"non-finite logits in decode block "
+                                  f"{self.stats['blocks']} at position "
+                                  f"{self._slot_pos[i]}")
+        self._poisoned.clear()
+
     def _shed_preempted(self, ps: _Preempted, finished: list[Request], *,
                         reason: str, detail: str) -> None:
         """Shed a swapped-out victim whose restore failed."""
@@ -713,6 +1090,34 @@ class BatchedServer:
     def _can_dispatch(self) -> bool:
         return any(self._live_remaining(i) > 0 for i in range(self.batch))
 
+    # ----- prefill/decode interference accounting ----------------------------
+    def _note_prefill_dispatch(self, ntokens: int) -> None:
+        """Count ``ntokens`` of prefill issued while decode work was
+        pending: until the next decode block goes out they are the decode
+        stall.  Prefill with nothing to decode is free and not counted.
+        Work-based, so the metric is deterministic."""
+        if self._can_dispatch():
+            self._stall_tokens += ntokens
+
+    def _fold_stall(self) -> None:
+        """At a decode dispatch, turn the prefill tokens of the gap before
+        it into stalled blocks (ceil in block-size units): monolithic
+        admission of a long prompt charges the whole prompt to one gap,
+        the async engine at most one chunk."""
+        if self._stall_tokens:
+            stall = -(-self._stall_tokens // self.block_size)
+            self.stats["decode_stall_blocks_max"] = max(
+                self.stats["decode_stall_blocks_max"], stall)
+            self.stats["decode_stall_blocks_total"] += stall
+            self._stall_tokens = 0
+
+    def _record_first_token(self, req: Request) -> None:
+        """TTFT sample in decode blocks (submission to first token)."""
+        req.first_token_block = self.stats["blocks"]
+        if req.submitted_block is not None:
+            self._ttft_samples.append(req.first_token_block
+                                      - req.submitted_block)
+
     def _table_delta(self) -> None:
         """Bring the device page table up to the manager's tables: in
         place by the changed entries, or rebuilt whole when the bucketed
@@ -774,6 +1179,7 @@ class BatchedServer:
             num_steps=self.block_size, temperature=self.temperature,
             eos_id=self.eos_id)
         host, event = self._d2h_async(toks, valid, bad)
+        self._fold_stall()
         self.stats["dispatches"] += 1
         self.stats["blocks"] += 1
         self.stats["steps"] += self.block_size
@@ -796,17 +1202,28 @@ class BatchedServer:
             if self.slots[i] is req:
                 self._planned[i] -= adv
         for i, req in enumerate(self.slots):
-            if req is None:
+            if req is None or i in self._poisoned:
+                # a slot flagged in an earlier block: what it produced
+                # since is downstream of non-finite state
                 continue
             emitted = 0
+            poisoned = False
             for t in range(self.block_size):
                 if not valid_h[i, t]:
                     break                 # the active mask is monotone
+                if bad_h[i, t]:
+                    poisoned = True       # this token and later: garbage
+                    break
                 req.output.append(int(toks_h[i, t]))
                 emitted += 1
             self.stats["tokens"] += emitted
             self._slot_pos[i] += emitted
             self.manager.note_tokens(i, self._slot_pos[i])
+            if poisoned:
+                # shed once the pipeline drained (run_once stalls on it),
+                # never under a block in flight
+                self._poisoned[i] = req
+                continue
             if (len(req.output) >= req.max_new_tokens
                     or (self.eos_id is not None and req.output
                         and req.output[-1] == self.eos_id)):
@@ -861,6 +1278,10 @@ class BatchedServer:
         if self.audit_every_block:
             self.kv.audit(swapper=self.swapper,
                           stashes=[ps.handle for ps in self._preempted])
+            if self.prefill is not None:
+                self.kv.audit(swapper=self.prefill.staging, stashes=[
+                    h.handle for h in (list(self.prefill.ready)
+                                       + self._orphan_handoffs)])
             self.stats["audits"] += 1
 
     def run_once(self, max_blocks: int | None = None) -> list[Request]:
@@ -868,9 +1289,10 @@ class BatchedServer:
         completes; returns the finished ones (shed ones too: see
         ``Request.error``).  Up to two blocks stay in flight: the next
         block is issued before the previous block's harvest, so host
-        scheduling overlaps device work.  When preemption is wanted or a
-        pool fault is latched, dispatching pauses until nothing is in
-        flight, so swaps see fully harvested state.  ``max_blocks`` bounds
+        scheduling overlaps device work.  When preemption is wanted, a
+        pool fault is latched, a slot is poisoned or a live slot's
+        deadline passed, dispatching pauses until nothing is in flight, so
+        swaps and evictions see fully harvested state.  ``max_blocks`` bounds
         the blocks dispatched in this call (for snapshots between
         blocks); nothing is in flight when it returns."""
         finished: list[Request] = []
@@ -878,7 +1300,9 @@ class BatchedServer:
         inflight: collections.deque = collections.deque()
         dispatched = 0
         while True:
-            if not (self._pool_fault or self._preempt_wanted()):
+            stall = (self._pool_fault or self._poisoned
+                     or self._preempt_wanted() or self._expiry_stall())
+            if not stall:
                 while (len(inflight) < self.max_inflight
                        and self._can_dispatch()
                        and (max_blocks is None or dispatched < max_blocks)):
@@ -896,21 +1320,32 @@ class BatchedServer:
                 self._recover_pool_fault(finished)
                 self._maybe_audit()
                 continue
+            if self._poisoned:
+                self._service_poison(finished)
+                self._maybe_audit()
+                continue
             if max_blocks is not None and dispatched >= max_blocks:
                 break
             self._admit_from_queue(finished, allow_preempt=True)
             self._maybe_audit()
-            if not self._can_dispatch():
-                if self._fault_release_block is None:
-                    break
-                # nothing can decode, so the block clock stands still and
-                # the injected exhaustion window is over: give the pages
-                # back
-                self.manager.free_slot(self._fault_slot)
-                self._fault_release_block = None
-                self._admit_from_queue(finished, allow_preempt=True)
-                if not self._can_dispatch():
-                    break
+            if not (self._can_dispatch() or self._pool_fault):
+                if self._fault_release_block is not None:
+                    # nothing can decode, so the block clock stands still
+                    # and the injected exhaustion window is over: give the
+                    # pages back
+                    self.manager.free_slot(self._fault_slot)
+                    self._fault_release_block = None
+                    self._admit_from_queue(finished, allow_preempt=True)
+                    if self._can_dispatch():
+                        continue
+                if self._orphan_handoffs:
+                    # idle decode stops the block clock, so a lease in
+                    # blocks never lapses: reclaim the orphans now
+                    self._lease_watchdog(finished, force=True)
+                    self._admit_from_queue(finished, allow_preempt=True)
+                    if self._can_dispatch():
+                        continue
+                break
         if finished:
             self.stats["batches"] += 1
         self.stats["swap_retries"] = self.swapper.retry_attempts
@@ -919,6 +1354,10 @@ class BatchedServer:
             arr = np.asarray(self._ttft_samples, np.float64)
             self.stats["ttft_p50_blocks"] = float(np.percentile(arr, 50))
             self.stats["ttft_p99_blocks"] = float(np.percentile(arr, 99))
+        if self._e2e_samples:
+            arr = np.asarray(self._e2e_samples, np.float64)
+            self.stats["e2e_p50_blocks"] = float(np.percentile(arr, 50))
+            self.stats["e2e_p99_blocks"] = float(np.percentile(arr, 99))
         now = launch_counts()
         self.stats["kernel_launches"] = {k: now[k] - self._launch_base[k]
                                          for k in now}
@@ -935,17 +1374,24 @@ class BatchedServer:
     def snapshot(self) -> dict:
         """Every in-flight sequence as host data: live slots (their pages
         read out through the swapper), swapped-out victims (their stash as
-        it is, with its tier) and queued requests.  :meth:`restore` on a
-        server of the same model, weights and seed takes it back.  Call
-        between ``run_once`` calls (nothing in flight)."""
+        it is, with its tier), staged handoffs (their staged stash, at
+        ``pos = plen`` with their first token as output), mid-chunk
+        prefills and queued requests (as backlog: prefill is
+        deterministic, so redoing it is exact).  Engine-crash orphans are
+        reclaimed first (a restart is a new lease epoch).  ``blocks``
+        anchors the deadline clocks.  :meth:`restore` on a server of the
+        same model, weights and seed takes it back.  Call between
+        ``run_once`` calls (nothing in flight)."""
         self._drain_queue()
+        self._lease_watchdog([], force=True)
         self.mem.settle_kv()
 
         def entry(req: Request, pos: int, h: SwapHandle | None = None):
             e = {"uid": req.uid, "prompt": np.asarray(req.prompt, np.int32),
                  "max_new_tokens": req.max_new_tokens,
                  "output": list(req.output), "pos": int(pos),
-                 "submitted_block": req.submitted_block}
+                 "submitted_block": req.submitted_block,
+                 "deadline_blocks": req.deadline_blocks}
             if pos:
                 e.update(h.materialize().arrays())
                 e["tier"] = h.tier
@@ -962,6 +1408,13 @@ class BatchedServer:
             seqs.append(entry(req, pos, h))
         for ps in self._preempted:
             seqs.append(entry(ps.req, ps.pos, ps.handle))
+        if self.prefill is not None:
+            for h in self.prefill.ready:
+                e = entry(h.req, h.plen, h.handle)
+                e["output"] = [h.first_token]
+                seqs.append(e)
+            for inf in self.prefill.inflight:
+                seqs.append(entry(inf.req, 0))
         for req in self._backlog:
             seqs.append(entry(req, 0))
         seqs.sort(key=lambda e: e["uid"])
@@ -973,12 +1426,15 @@ class BatchedServer:
         weights and seed).  Sequences with written positions come back as
         swapped-out stashes in the tier they were in, and resume through
         the preemption path with their own keys; the others rejoin the
-        backlog.  Prefix pages come back private."""
+        backlog.  Prefix pages come back private.  Deadlines are rebased
+        onto this server's block clock, so each request keeps the
+        time-to-live it had left (downtime does not run the clock)."""
         if snap["seed"] != self.seed:
             raise ValueError(f"snapshot seed {snap['seed']} != server seed "
                              f"{self.seed} (tokens would diverge)")
         if (any(r is not None for r in self.slots) or self._preempted
-                or self._backlog or not self.queue.empty()):
+                or self._backlog or not self.queue.empty()
+                or (self.prefill is not None and not self.prefill.idle)):
             raise ValueError("restore requires an idle server")
         self._uid = max(self._uid, int(snap["uid"]))
         blocks = self.stats["blocks"]
@@ -987,11 +1443,14 @@ class BatchedServer:
             req = Request(int(s["uid"]), np.asarray(s["prompt"], np.int32),
                           max_new_tokens=int(s["max_new_tokens"]))
             req.output = [int(t) for t in s["output"]]
+            dl = s.get("deadline_blocks")
+            req.deadline_blocks = None if dl is None else int(dl)
             sb = s.get("submitted_block")
             req.submitted_block = (blocks if sb is None
                                    else blocks - snap_blocks + int(sb))
             if not int(s["pos"]):
                 self._backlog.append(req)
+                self._pending_add(req)
                 continue
             tier = s.get("tier", tiers.REMOTE)
             arrays = {a: tiers.to_tier(torch.as_tensor(s[a]), tier,

@@ -217,7 +217,7 @@ def test_block_manager_audit_catches_corruption():
     m.adopt(1, m.slot_pages(0)[:1])
     m.ensure(1, 6)
     assert m.audit() == {"pages_in_use": 4, "free_pages": 3, "slots": 2,
-                         "shared_pages": 1}
+                         "shared_pages": 1, "handoff_pages": 0}
     m.refcount[m.slot_pages(0)[0]] = 1           # refcount drift
     with pytest.raises(BlockPoolAuditError, match="refcount"):
         m.audit()
