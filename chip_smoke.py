@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--layers N] [--phases kernels,parity,serve,tiers,disagg]
+    python3 chip_smoke.py [--layers N]
+                          [--phases kernels,parity,moe,serve,tiers,disagg]
 
-Phases (kernels, parity, serve, tiers and disagg by default):
+Phases (kernels, parity, moe, serve, tiers and disagg by default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
@@ -15,7 +16,8 @@ Phases (kernels, parity, serve, tiers and disagg by default):
    kernels phase's and the serving run's lengths (two launches must give
    the same bits, a seq_len 0 slot exactly its v0, and a slot's bits must
    not move when the other slots change), at Qwen2.5-14B's G = 5 and at
-   G = 12 and 16 (d = 128, and 256) over bf16 and int8 pools; K2 on the
+   G = 12 and 16 (d = 128, and 256) over bf16 and int8 pools, and at
+   granite-moe-3b-a800m's G = 3, d = 64 over bf16 and int8; K2 on the
    route ``plan`` picks (wgmma for bf16, simt for fp32 and unaligned bf16
    views) at d = 32, 64, 128 and 256, windows (some skipping whole key
    tiles), kv_valid padding and Sq = Sk up to 2048, each element and each
@@ -26,7 +28,11 @@ Phases (kernels, parity, serve, tiers and disagg by default):
    Qwen2.5-14B's up- and
    down-projections at decode and prefill widths, an unaligned view, the
    reference bench's fp32 shape, ragged shapes; two launches must give
-   the same bits) and K4 (``ops.accumulate``) — and time the kernel and
+   the same bits), K4 (``ops.accumulate``) and the expert gather (bit
+   for bit against ``index_select`` on the host bank plus a copy, over
+   granite's banks in mapped pinned host memory and on the card, every
+   and no expert routed, a ragged byte-wise bank; its byte counter equal
+   to the routed rows' bytes) — and time the kernel and
    one library call (timed only) by replaying a CUDA graph of 50 calls
    over inputs rotated past the 50 MB L2 (device time, without the host's
    launch overhead), and the plain version eagerly; then drive K3's and
@@ -34,8 +40,31 @@ Phases (kernels, parity, serve, tiers and disagg by default):
    just before, each K3 route reached;
 3. ``parity``: serve a smoke-size fp32 model on the card and on the CPU
    (plain versions) and hold their tokens and logits together, greedy
-   and, over int8 pools, at temperature 0.7;
-4. ``serve``: serve Qwen2.5-14B at its published widths (tp=1, random bf16
+   and, over int8 pools, at temperature 0.7; the same for a smoke-size
+   MoE (served resident on both, and expert-paged on the card: the
+   card's resident tokens) and a VLM (prefill with patches, then four
+   decode steps: logits within 1e-3);
+4. ``moe``: serve granite-moe-3b-a800m at its published widths and full
+   depth (32 layers, d 1536, 24/8 heads, 40 experts top-8 of d_ff 512,
+   tp=1, random bf16 weights) on the serve phase's four 8-token prompts
+   (64 new tokens, batch 4, block 32, max_seq 384, page 16, seed 0),
+   before the Qwen weights exist: resident over bf16 pools (greedy and
+   0.7) and int8 pools (0.7); then the expert banks moved to mapped
+   pinned host memory (``page_experts``): greedy and 0.7 with the layer
+   pager off, greedy with it on, each with the resident run's tokens.
+   Every run: K1 32 times a decode step, K2 32 times an admission on the
+   wgmma route; expert-paged, the gather once a layer a step and an
+   admission, its counted bytes equal to the routed experts x 4,718,592,
+   at most min(B k, E) experts routed in one gather (device counters),
+   the staging buffers one layer's bank (allocated bytes), the ledger's
+   local ``expert_weights`` -- the reference's model of the staging,
+   from the shapes -- within (min(B k, E) + 1) / E of a layer's bank
+   (within (top_k + 1) / E after a batch-1 run), and one decode step
+   asking for no host sync (``set_sync_debug_mode``).  It prints tok/s,
+   ms a step, peak device memory resident against expert-paged, the
+   bytes at rest, the experts staged a layer a step, the staging
+   buffers' bytes and the staged bytes' rate;
+5. ``serve``: serve Qwen2.5-14B at its published widths (tp=1, random bf16
    weights from a seeded torch.Generator, made once) through
    ``BatchedServer`` — four 8-token prompts plus a prefix-sharing pair, 64
    new tokens each, block 32, max_seq 384, page 16 — over bf16, int8 and
@@ -52,7 +81,7 @@ Phases (kernels, parity, serve, tiers and disagg by default):
    step, every layer fetched once a step and once an admission; it prints
    tok/s, peak device memory, the ledger's window beside two layers'
    bytes, the pinned bytes and the host-to-device rate;
-5. ``tiers``: KV across the memory tiers, Qwen2.5-14B at full depth
+6. ``tiers``: KV across the memory tiers, Qwen2.5-14B at full depth
    whatever ``--layers`` says, on the serve phase's four 8-token prompts
    (64 new tokens, block 32, max_seq 384, page 16, seed 0):
    preemption -- a pool of 13 pages (12 usable against four requests of
@@ -80,7 +109,7 @@ Phases (kernels, parity, serve, tiers and disagg by default):
    (a new registered or pageable buffer, each copy, at 1 and 24 pages),
    and the offload run's tok/s, peak device memory and KV window bytes
    against the resident pool's bytes;
-6. ``disagg``: disaggregated prefill and the request lifecycle,
+7. ``disagg``: disaggregated prefill and the request lifecycle,
    Qwen2.5-14B at full depth whatever ``--layers`` says (the weights of
    the full-depth phases), on the serving benchmark's interference
    traffic (batch 4, block 32, max_seq 384, page 16, seed 0: four 8-token
@@ -107,18 +136,20 @@ Phases (kernels, parity, serve, tiers and disagg by default):
    two decode blocks on the card, TTFT p50/p99 in blocks, the stage time
    and bytes of a handoff (and of its host copy when a snapshot reads
    it) and the ledger's ``kv_handoff`` peak;
-7. ``profile`` (only when named in ``--phases``, with ``serve``): separate
+8. ``profile`` (only when named in ``--phases``, with ``serve``): separate
    traced serving runs (bf16 greedy, int8 at temperature 0.7, and bf16
    greedy with paged weights), printing device time by kernel and the
    device's busy share; for paged weights also the copy stream's busy
    time beside the compute's, and how long both ran at once;
-8. ``sweep`` (only when named): K3's splitk and wgmma routes timed side by
+9. ``sweep`` (only when named): K3's splitk and wgmma routes timed side by
    side over M = 1 .. 64 at Qwen2.5-14B's MLP shapes, where the planner's
    ``SPLITK_MAX_M`` comes from.
 
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
-shape, ``tiers_launches`` and ``disagg_launches`` beside ``launches``;
+shape, ``tiers_launches``, ``disagg_launches`` and ``moe_launches``
+beside ``launches`` (a row at granite's shapes, and the gather's, reads
+``launches`` from the moe phase);
 the last is ``{"ok":
 true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
@@ -239,7 +270,7 @@ K1_GROUPS = ((4, 12, 128, False), (4, 16, 128, True), (1, 16, 256, False))
 
 def check_paged(torch, card: str, results: dict, kv: str | None = None,
                 hkv: int = 8, g: int = 5, d: int = 128,
-                timed: bool = True) -> None:
+                timed: bool = True, phase: str = "serve") -> None:
     """K1 against its plain version at Hkv kv heads of G query rows and
     head dim d (Qwen2.5-14B's 8 x 5 x 128 by default).  ``kv`` None:
     bf16/fp32 pools in q's dtype; "int8" / "fp8_e4m3": the scaled
@@ -249,7 +280,7 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None,
     not move when the other slots' lengths, pages and page contents
     change (the split grid depends only on the table's width).  With
     ``timed`` the kernel, its plain version and SDPA are timed at both
-    length sets."""
+    length sets, their rows read launches from ``phase``'s path."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention.ref import (byte_view,
                                                          gather_pages,
@@ -386,7 +417,7 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None,
             f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
             f"{100 * b_ms / ms:.1f}% of the bound, kernel / sdpa "
             f"{ms / lib_ms:.2f}x")
-        rows.append(dict(shape=shape, instance=K.instance(G),
+        rows.append(dict(shape=shape, instance=K.instance(G), phase=phase,
                          max_abs_err=errs[(torch.bfloat16, tuple(lens_l))],
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms, eager_ms=eager_ms))
@@ -409,7 +440,8 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 300, 300, 40, 8, 128, {"window": 100}),
                (1, 100, 384, 40, 8, 128, {"q_offset": 284, "window": 100}),
                (1, 40, 64, 40, 8, 128, {"causal": False, "kv_valid": 50}),
-               (2, 96, 96, 24, 8, 64, {}), (1, 70, 70, 8, 8, 32, {}),
+               (2, 96, 96, 24, 8, 64, {}), (1, 8, 8, 24, 8, 64, {}),
+               (1, 70, 70, 8, 8, 32, {}),
                (1, 50, 50, 16, 1, 256, {"window": 13}),
                (1, 40, 64, 16, 1, 256, {"causal": False, "kv_valid": 50}),
                (1, 300, 300, 16, 1, 256, {}),
@@ -423,10 +455,15 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
 FLASH_PREFIX = ((64, 48, 40, 8, 128, 0), (384, 200, 40, 8, 128, 0),
                 (384, 130, 40, 8, 128, 0), (384, 130, 40, 8, 128, 100),
                 (384, 130, 16, 1, 256, 100))
+#: granite-moe-3b-a800m's attention (Hq, Hkv, d): its rows belong to the
+#: moe phase's path
+GRANITE_ATTN = (24, 8, 64)
 #: K2's timed shapes (route, dtype, Sq = Sk, Hq, Hkv, d): the main path's
-#: route at Qwen2.5-14B's width over four prompt lengths and at d = 256;
-#: the simt route at the width of the parity phase's fp32 model
+#: route at Qwen2.5-14B's width over four prompt lengths, at
+#: granite-moe-3b-a800m's admission (8 tokens, 24/8 heads, d = 64) and at
+#: d = 256; the simt route at the width of the parity phase's fp32 model
 FLASH_TIMED = (("wgmma", "bfloat16", 8, 40, 8, 128),
+               ("wgmma", "bfloat16", 8, 24, 8, 64),
                ("wgmma", "bfloat16", 64, 40, 8, 128),
                ("wgmma", "bfloat16", 384, 40, 8, 128),
                ("wgmma", "bfloat16", 2048, 40, 8, 128),
@@ -565,6 +602,7 @@ def check_flash(torch, card: str, results: dict) -> None:
             f"kernel / sdpa {ms / lib_ms:.2f}x")
         results.setdefault(f"flash_attention_{route}", []).append(dict(
             shape=shape, instance=K.instance(d),
+            phase="moe" if (hq, hkv, d) == GRANITE_ATTN else "serve",
             max_abs_err=errs[(route, sq, hq, hkv, d)], ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
@@ -754,6 +792,116 @@ def check_accumulate(torch, card: str, results: dict) -> None:
             library_ms=lib_ms))
 
 
+#: the expert gather's main-path shape: granite-moe-3b-a800m's three banks
+#: of one layer, (E, d, f), (E, d, f), (E, f, d) bf16, and a decode
+#: step's routing at batch 4, top-8 of 40 (the union of four tokens'
+#: choices); a ragged fp32 case takes the byte-wise path
+GATHER_MAIN = (40, 1536, 512, 4, 8)
+GATHER_RAGGED = ((5, 3, 7), "float32")
+PCIE_BYTES_PER_S = 64e9          # PCIe Gen5 x16, one direction
+
+
+def _routed_mask(torch, gen, experts: int, tokens: int, top_k: int):
+    """The union of ``tokens`` tokens' top-k choices, each a random set
+    of ``top_k`` of ``experts``: an (E,) bool mask on the card."""
+    mask = torch.zeros(experts, dtype=torch.bool, device="cuda")
+    for _ in range(tokens):
+        mask[torch.randperm(experts, generator=gen,
+                            device="cuda")[:top_k]] = True
+    return mask
+
+
+def check_gather(torch, card: str, results: dict) -> None:
+    """The expert gather (port-only) against its plain version
+    (``index_select`` on the host bank, then a copy to the device), bit
+    for bit over the whole buffers (routed rows copied, the others left
+    as they were): granite's banks in mapped pinned host memory under a
+    decode step's routing, the same banks resident on the card, every
+    and no expert routed, and a ragged fp32 bank (the byte-wise path).
+    The kernel's byte counter must equal the routed rows' bytes.  Then
+    the main shape is timed: the kernel (eager, CUDA events: one launch
+    moves ~0.1 GB, so the host's launch cost is noise), its plain
+    version, and for scale the copy engine moving the same bytes from
+    pinned memory in one ``copy_`` (not the same function: no PyTorch
+    call gathers host rows into device memory, so ``library_ms`` is
+    null)."""
+    from repro_torch.kernels.expert_gather import kernel as K
+    from repro_torch.kernels.expert_gather.ref import expert_gather_ref
+    from repro_torch.memory import REMOTE, tiers
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    e, d, f, tokens, top_k = GATHER_MAIN
+
+    def banks(shapes, dtype, host=True):
+        out = []
+        for shape in shapes:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            out.append(tiers.to_tier(x, REMOTE, mapped=True) if host else x)
+        return out
+
+    def case(tag, src, mask):
+        """(kernel buffers, plain buffers, bytes routed)."""
+        init = [torch.randn(b.shape, generator=gen, device="cuda").to(
+            b.dtype) for b in src]
+        got, want = [x.clone() for x in init], [x.clone() for x in init]
+        counter = torch.zeros(1, dtype=torch.int64, device="cuda")
+        K.expert_gather(src, mask, got, counter)
+        again = [x.clone() for x in init]
+        K.expert_gather(src, mask, again,
+                        torch.zeros(1, dtype=torch.int64, device="cuda"))
+        expert_gather_ref(src, mask, want)
+        torch.cuda.synchronize()
+        routed = int(mask.sum())
+        nbytes = routed * sum(b[0].numel() * b.element_size() for b in src)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"expert gather {tag}: {routed} of {mask.numel()} experts "
+            f"routed, bit-equal to index_select + copy: {same}; counter "
+            f"{int(counter)} bytes (routed rows {nbytes})")
+        if not same or not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"expert gather {tag}: differs from its "
+                                 f"plain version or between launches")
+        if int(counter) != nbytes:
+            raise AssertionError(f"expert gather {tag}: counted "
+                                 f"{int(counter)} bytes, routed {nbytes}")
+        return nbytes
+
+    shapes = ((e, d, f), (e, d, f), (e, f, d))
+    host = banks(shapes, torch.bfloat16)
+    mask = _routed_mask(torch, gen, e, tokens, top_k)
+    nbytes = case(f"granite banks {shapes} bf16 mapped host, batch "
+                  f"{tokens} top-{top_k}", host, mask)
+    case("granite banks on the card", [b.to("cuda") for b in host], mask)
+    case("every expert", host, torch.ones(e, dtype=torch.bool,
+                                          device="cuda"))
+    case("no expert", host, torch.zeros(e, dtype=torch.bool, device="cuda"))
+    shape, dt = GATHER_RAGGED
+    case(f"ragged {shape} {dt} (byte-wise)",
+         banks((shape,) * 3, getattr(torch, dt)),
+         _routed_mask(torch, gen, shape[0], 1, 2))
+
+    out = [torch.empty(b.shape, dtype=b.dtype, device="cuda") for b in host]
+    counter = torch.zeros(1, dtype=torch.int64, device="cuda")
+    ms = time_ms(torch, lambda: K.expert_gather(host, mask, out, counter),
+                 [()], iters=20, graph=False)
+    plain_ms = time_ms(torch, lambda: expert_gather_ref(host, mask, out),
+                       [()], iters=5, graph=False)
+    flat = tiers.tier_empty((nbytes,), torch.uint8, REMOTE, device="cuda")
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dma_ms = time_ms(torch, lambda: dev.copy_(flat, non_blocking=True), [()],
+                     iters=20, graph=False)
+    b_ms = max(nbytes / PCIE_BYTES_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    tag = f"E={e} d={d} f={f} x3 bf16, {int(mask.sum())} routed"
+    log(f"expert gather {tag} [{card}]: kernel {ms:.4f} ms = "
+        f"{nbytes / ms / 1e6:.2f} GB/s, plain {plain_ms:.4f} ms, copy "
+        f"engine for the same {nbytes} bytes from pinned memory "
+        f"{dma_ms:.4f} ms = {nbytes / dma_ms / 1e6:.2f} GB/s, bound "
+        f"{b_ms:.6f} ms (bytes over PCIe Gen5 x16 at 64 GB/s), "
+        f"{100 * b_ms / ms:.1f}% of the bound")
+    results.setdefault("expert_gather", []).append(dict(
+        shape=tag, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by="bytes", library_ms=None, copy_engine_ms=dma_ms,
+        gbps=nbytes / ms / 1e6))
+
+
 def drive_ops(torch) -> dict:
     """K3's and K4's path: their public wrappers, ``ops.matmul`` and
     ``ops.accumulate``, once at each of their shapes (no serving path
@@ -838,13 +986,6 @@ def check_parity(torch) -> dict:
                                num_kv_heads=2)
     cpu_params = DenseLM(base).init(0, device="cpu")
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
-
     # int8: a KV element whose fp32 value lies within the two devices'
     # summation-order difference of a rounding boundary lands one int8
     # quantum apart, which moves the logits by up to ~1e-3
@@ -853,7 +994,7 @@ def check_parity(torch) -> dict:
         kernel = "paged_attention" + ("" if kv is None else f"_{kv}")
         outs = {}
         for dev, params in (("cpu", cpu_params),
-                            ("cuda", to(cpu_params, "cuda"))):
+                            ("cuda", _to(cpu_params, "cuda"))):
             reset_launch_counts()
             server = BatchedServer(model, params, batch_size=4, max_seq=128,
                                    block_size=8, temperature=temperature,
@@ -885,6 +1026,94 @@ def check_parity(torch) -> dict:
             raise AssertionError(f"fp32 smoke model: K2 launches "
                                  f"{launches}, expected the simt route only")
     return greedy
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def check_parity_families(torch) -> None:
+    """Smoke-size fp32 MoE (granite-moe-3b-a800m reduced: 4 experts, top-2)
+    and VLM (llava-next-34b reduced: 8 patches), the card against the CPU
+    with the same weights.  MoE: served greedy (the serve phase's
+    prompts), tokens' first 8 and the prefill logits (bound 1e-3) agree;
+    served once more on the card with its banks in mapped pinned host
+    memory (``page_experts``): the card's resident tokens, through the
+    expert gather.  VLM: ``prefill_paged`` with patches, then four decode
+    steps, logits within 1e-3 at every step."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.serve import BatchedServer
+    cfg = get_config("granite-moe-3b-a800m").reduced(dtype=torch.float32)
+    model = build_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    work = prompts(cfg.vocab, 3)
+    outs = {}
+    for dev, params in (("cpu", cpu_params),
+                        ("cuda", _to(cpu_params, "cuda"))):
+        server = BatchedServer(model, params, batch_size=4, max_seq=128,
+                               block_size=8, seed=1, device=dev)
+        reqs = [server.submit(p, max_new_tokens=16) for p in work]
+        server.run_once()
+        outs[dev] = [r.output for r in reqs]
+        toks = torch.from_numpy(work[4][None]).to(dev)
+        pages = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dev)
+        logits, _ = model.prefill_paged(
+            params, toks, model.init_paged_cache(8, device=dev), pages)
+        outs[dev + "_logits"] = logits.float().cpu()
+    err = (outs["cpu_logits"] - outs["cuda_logits"]).abs().max().item()
+    first8 = all(a[:8] == b[:8] for a, b in zip(outs["cpu"], outs["cuda"]))
+    paged = build_model(cfg.with_pager(page_experts=True))
+    pparams = dict(params)
+    pparams["layers"] = paged.mem.place_layer_weights(params["layers"])
+    server = BatchedServer(paged, pparams, batch_size=4, max_seq=128,
+                           block_size=8, seed=1, device="cuda")
+    reqs = [server.submit(p, max_new_tokens=16) for p in work]
+    reset_launch_counts()
+    server.run_once()
+    gathers = launch_counts()["expert_gather"]
+    same = [r.output for r in reqs] == outs["cuda"]
+    log(f"parity (smoke fp32 MoE, card vs CPU): prefill logits max_abs_err "
+        f"{err:.3e} (bound 1e-3), first-8 tokens agree: {first8}; "
+        f"expert-paged on the card (banks in mapped pinned host memory): "
+        f"the card's resident tokens: {same}, {gathers} expert gathers")
+    if not (err <= 1e-3 and first8 and same and gathers > 0):
+        raise AssertionError("smoke MoE: card and CPU disagree, or the "
+                             "expert-paged tokens differ")
+
+    cfg = get_config("llava-next-34b").reduced(dtype=torch.float32)
+    model = build_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    patches = torch.randn((1, cfg.num_patches, cfg.d_model), generator=gen)
+    toks = torch.randint(1, cfg.vocab, (1, 12), generator=gen)
+    feed = torch.randint(1, cfg.vocab, (1, 4), generator=gen)
+    total = cfg.num_patches + toks.shape[1]
+    logits = {}
+    for dev, params in (("cpu", cpu_params),
+                        ("cuda", _to(cpu_params, "cuda"))):
+        pages = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+        out, cache = model.prefill_paged(
+            params, toks.to(dev), model.init_paged_cache(4, device=dev),
+            pages, extra={"patches": patches.to(dev)})
+        steps = [out.float().cpu()]
+        for i in range(feed.shape[1]):
+            out, cache = model.decode_step(
+                params, feed[:, i:i + 1].to(dev), cache,
+                torch.tensor([total + i], dtype=torch.int32, device=dev),
+                pages)
+            steps.append(out.float().cpu())
+        logits[dev] = torch.stack(steps)
+    err = (logits["cpu"] - logits["cuda"]).abs().max().item()
+    log(f"parity (smoke fp32 VLM, {cfg.num_patches} patches + 12 tokens, "
+        f"then 4 decode steps, card vs CPU): logits max_abs_err {err:.3e} "
+        f"(bound 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError("smoke VLM: card and CPU disagree")
 
 
 #: the serving runs: (kv_dtype, temperature)
@@ -1109,6 +1338,231 @@ def serve_config(torch, card: str, model, params, work, kw) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# MoE serving with expert paging
+# ---------------------------------------------------------------------------
+
+#: the moe phase's resident runs: (kv_dtype, temperature)
+MOE_RUNS = ((None, 0.0), (None, 0.7), ("int8", 0.7))
+
+
+def granite_params(torch):
+    """granite-moe-3b-a800m at its published widths and full depth (32
+    layers, d 1536, 24/8 heads, 40 experts top-8 of d_ff 512, vocab
+    49155), tp=1, random bf16 weights from a seeded torch.Generator on
+    the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoELM
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), tp=1)
+    t0 = time.perf_counter()
+    params = MoELM(cfg).init(0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"moe: {cfg.name} tp=1 layers={cfg.num_layers} d={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} experts={cfg.num_experts}"
+        f" top-{cfg.top_k} d_ff={cfg.d_ff} vocab={cfg.vocab} (padded "
+        f"{cfg.padded_vocab}): {sum(t.numel() for t in _leaves(params)) / 1e9:.3f}"
+        f" B params, {sum(t.numel() * t.element_size() for t in _leaves(params))}"
+        f" bytes, init {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def _no_sync_decode_step(torch, model, params) -> int:
+    """One decode step of ``model`` at batch 4 under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the number of host syncs
+    it asked for (after a warm-up step)."""
+    import warnings
+    cache = model.init_paged_cache(9, device="cuda")
+    pages = torch.arange(1, 9, dtype=torch.int32, device="cuda").reshape(4, 2)
+    tokens = torch.tensor([[5], [17], [123], [9]], device="cuda")
+    pos = torch.tensor([3, 7, 12, 20], dtype=torch.int32, device="cuda")
+    model.decode_step(params, tokens, cache, pos, pages)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.decode_step(params, tokens, cache, pos, pages)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    for msg in syncs[:3]:
+        log(f"  sync: {msg[:160]}")
+    return len(syncs)
+
+
+def check_moe(torch, card: str, counts: Launches) -> None:
+    """granite-moe-3b-a800m at full width and depth through
+    ``BatchedServer`` on the serve phase's workload (four 8-token
+    prompts, 64 new tokens, batch 4, block 32, max_seq 384, page 16,
+    seed 0).  Resident: bf16 greedy and at 0.7, int8 pools at 0.7.  Then
+    the expert banks move to mapped pinned host memory
+    (``page_experts``): bf16 greedy and 0.7 with the layer pager off,
+    greedy with it on (the rest of each layer paged by the Tensor
+    Prefetcher), each with the resident run's tokens.  Every run: K1 32
+    times a decode step, K2 32 times an admission on the wgmma route;
+    expert-paged, the expert gather once a layer a step and an
+    admission, its counted bytes = the routed experts x 4,718,592, at
+    most min(B k, E) experts routed in one gather, the staging buffers
+    one layer's bank, the ledger's local ``expert_weights`` (the
+    reference's model) within (min(B k, E) + 1) / E of a layer's bank,
+    and within (top_k + 1) / E in a batch-1 run; one expert-paged decode
+    step asks for no host sync."""
+    import dataclasses
+    from repro_torch.memory import LOCAL, REMOTE
+    from repro_torch.models.moe import MoELM
+    from repro_torch.runtime.serve import BatchedServer
+    cfg, params = granite_params(torch)
+    work = prompts(cfg.vocab, 0)[:4]
+    e, k, layers = cfg.padded_experts, cfg.top_k, cfg.num_layers
+    row = 3 * cfg.d_model * cfg.d_ff * cfg.dtype.itemsize   # 4,718,592
+    bank = e * row                                         # one layer
+    batch = SERVE_KW["batch_size"]
+    problems, resident, peak = [], {}, {}
+
+    def serve_run(model, prms, temperature, tag):
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(model, prms,
+                               **dict(SERVE_KW, temperature=temperature))
+        server.tag = tag
+        toks, secs, got = counts.run(torch, server, work)
+        st = server.stats
+        tokens = sum(len(t) for t in toks)
+        peak[tag] = torch.cuda.max_memory_allocated()
+        log(f"moe {tag} [{card}]: {tokens} tokens in {secs:.3f} s = "
+            f"{tokens / secs:.1f} tok/s ({1e3 * secs / st['steps']:.2f} ms "
+            f"per decode step, admissions included), steps {st['steps']}, "
+            f"admissions {st['admitted']}, max_memory_allocated "
+            f"{peak[tag] / 2**30:.3f} GiB, launches "
+            f"{ {n: c for n, c in got.items() if c} }")
+        return toks, server, got, secs
+
+    for kv, temperature in MOE_RUNS:
+        tag = f"resident kv_dtype={kv} temperature={temperature}"
+        toks, _, got, _ = serve_run(
+            MoELM(dataclasses.replace(cfg, kv_dtype=kv)), params,
+            temperature, tag)
+        if got["expert_gather"]:
+            problems.append(f"{tag}: {got['expert_gather']} expert gathers")
+        resident[kv, temperature] = toks
+
+    def paged_run(model, prms, temperature, tag):
+        ep = model.mem.expert_policy
+        ep.reset_stats()
+        toks, server, got, secs = serve_run(model, prms, temperature, tag)
+        st = server.stats
+        stats = ep.gather_stats()
+        n_gathers = sum(r["gathers"] for r in stats.values())
+        if not (got["expert_gather"] == n_gathers
+                == layers * (st["steps"] + st["admitted"])):
+            problems.append(f"{tag}: {got['expert_gather']} gather launches,"
+                            f" {n_gathers} gathers, {st['steps']} steps + "
+                            f"{st['admitted']} admissions")
+        for n, r in sorted(stats.items()):
+            what = "decode step" if n == batch * k else f"call of {n} rows"
+            log(f"moe {tag}: a {what} ({n} = tokens x top-{k}): "
+                f"{r['gathers']} gathers, {r['routed_experts'] / r['gathers']:.2f}"
+                f" experts staged a layer, {r['staged_bytes']} bytes staged "
+                f"= {r['routed_experts']} routed x {row}: "
+                f"{r['staged_bytes'] == r['routed_experts'] * row}")
+            if r["staged_bytes"] != r["routed_experts"] * row:
+                problems.append(f"{tag}: staged {r['staged_bytes']} bytes "
+                                f"for {r['routed_experts']} routed experts")
+            log(f"moe {tag}: at most {r['max_routed']} experts routed in "
+                f"one gather of {n} rows (bound min(N, E) = {min(n, e)})")
+            if not 1 <= r["max_routed"] <= min(n, e):
+                problems.append(f"{tag}: {r['max_routed']} experts routed "
+                                f"in one gather of {n} rows")
+        dec = stats.get(batch * k)
+        if dec:
+            per_step = dec["staged_bytes"] / (dec["gathers"] / layers)
+            log(f"moe {tag}: {per_step / 1e9:.3f} GB staged a decode step; "
+                f"all staged bytes over the run's wall time "
+                f"{sum(r['staged_bytes'] for r in stats.values()) / secs / 1e9:.2f}"
+                f" GB/s")
+        led = model.mem.ledger
+        local = led.classes(LOCAL).get("expert_weights", 0)
+        bound_rows = min(batch * k, e) + 1
+        staging = ep.staging_bytes()
+        log(f"moe {tag}: ledger remote expert_weights "
+            f"{led.classes(REMOTE).get('expert_weights')} bytes at rest "
+            f"({layers} x {bank}); ledger local expert_weights (the "
+            f"reference's model, from the shapes) {local} = "
+            f"{local / bank:.3f} of a layer's bank (bound "
+            f"(min(B k, E) + 1) / E = {bound_rows}/{e}); the card's "
+            f"staging buffers (allocated) {staging} bytes = "
+            f"{staging / bank:.3f} of a layer's bank")
+        if local > bound_rows * row:
+            problems.append(f"{tag}: local expert_weights {local} > "
+                            f"{bound_rows} rows")
+        if staging != bank:
+            problems.append(f"{tag}: staging buffers {staging} bytes, "
+                            f"one layer's bank is {bank}")
+        if toks != resident[None, temperature]:
+            problems.append(f"{tag}: tokens differ from the resident run's")
+        else:
+            log(f"moe {tag}: tokens equal the resident run's")
+        return server
+
+    # banks to mapped pinned host memory; the device copies are freed
+    model = MoELM(cfg.with_pager(page_experts=True))
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = dict(params, layers=model.mem.place_layer_weights(
+        params["layers"]))
+    torch.cuda.synchronize()
+    banks = params["layers"][0]["moe"]
+    log(f"moe: banks placed in {time.perf_counter() - t0:.1f} s; pinned "
+        f"{all(banks[n].is_pinned() for n in ('wi', 'wg', 'wo'))}; device "
+        f"memory allocated {before / 2**30:.3f} -> "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    syncs = _no_sync_decode_step(torch, model, params)
+    log(f"moe: one expert-paged decode step asked for {syncs} host syncs")
+    if syncs:
+        problems.append(f"an expert-paged decode step synced {syncs} times")
+    for temperature in (0.0, 0.7):
+        paged_run(model, params, temperature,
+                  f"expert-paged temperature={temperature}")
+    # the reference's residency bound at batch 1: (top_k + 1) / E
+    one = BatchedServer(model, params, **dict(SERVE_KW, batch_size=1))
+    serve(one, work[:1], 8)
+    local = model.mem.ledger.classes(LOCAL)["expert_weights"]
+    log(f"moe expert-paged batch 1: ledger local expert_weights (the "
+        f"reference's model) {local} = {local / bank:.4f} of a layer's bank "
+        f"(bound (top_k + 1) / E = {(k + 1) / e:.4f}); the card's staging "
+        f"buffers {model.mem.expert_policy.staging_bytes()} bytes")
+    if local > (k + 1) * row:
+        problems.append(f"batch 1: local expert_weights {local} > "
+                        f"{(k + 1) * row}")
+    del one          # its params hold the attention weights on the card
+
+    # the rest of each layer paged too (the banks stay where they are)
+    model = MoELM(cfg.with_pager(enabled=True, lookahead=1,
+                                 page_experts=True))
+    params = dict(params, layers=model.mem.place_layer_weights(
+        params["layers"]))
+    torch.cuda.synchronize()
+    pf, led = model.mem.prefetcher, model.mem.ledger
+    fetches = pf.fetches
+    server = paged_run(model, params, 0.0,
+                       "expert-paged + paged layers temperature=0.0")
+    st = server.stats
+    window = led.classes(LOCAL)["layer_weights_window"]
+    rest = led.classes(REMOTE)["layer_weights"]
+    log(f"moe paged layers: window {window} bytes = 2 x {rest // layers} "
+        f"(a layer without its banks), allocated {pf.window_bytes}; "
+        f"{pf.fetches - fetches} layer fetches")
+    if (window != 2 * (rest // layers) or pf.fetches - fetches
+            != layers * (st["steps"] + st["admitted"])):
+        problems.append("paged layers: window or fetches wrong")
+    log(f"moe peak device memory [{card}] (max_memory_allocated, GiB): "
+        + ", ".join(f"{t} {b / 2**30:.3f}" for t, b in peak.items()))
+    if problems:
+        raise AssertionError("moe phase: " + "; ".join(problems))
+    log("moe: every gate held")
+
+
+# ---------------------------------------------------------------------------
 # KV across the tiers
 # ---------------------------------------------------------------------------
 
@@ -1119,10 +1573,11 @@ TIERS_POOL = 13
 
 
 class Launches:
-    """Kernel launches summed over the tiers phase's runs; each run's
+    """Kernel launches summed over a phase's runs (tiers, moe); each run's
     counts are reset just before it and read just after."""
 
-    def __init__(self):
+    def __init__(self, phase: str = "tiers"):
+        self.phase = phase
         self.total: dict = {}
         self.by_instance: dict = {}
 
@@ -1143,19 +1598,19 @@ class Launches:
         tokens = [r.output for r in reqs]
         tag = getattr(server, "tag", "")
         if any(len(t) != 64 for t in tokens) or any(r.error for r in reqs):
-            raise AssertionError(f"tiers {tag}: a request did not emit its "
+            raise AssertionError(f"{self.phase} {tag}: a request did not emit its "
                                  f"64 tokens: {[r.error for r in reqs]}")
         st, cfg = server.stats, server.model.cfg
         kernel = "paged_attention" + ("" if cfg.kv_dtype is None
                                       else f"_{cfg.kv_dtype}")
         if st["nonfinite_logits"]:
-            raise AssertionError(f"tiers {tag}: non-finite logits")
+            raise AssertionError(f"{self.phase} {tag}: non-finite logits")
         if got[kernel] != cfg.num_layers * st["steps"]:
-            raise AssertionError(f"tiers {tag}: {got[kernel]} K1 launches "
+            raise AssertionError(f"{self.phase} {tag}: {got[kernel]} K1 launches "
                                  f"for {st['steps']} decode steps")
         if (got["flash_attention_wgmma"] != cfg.num_layers * st["admitted"]
                 or got["flash_attention_simt"]):
-            raise AssertionError(f"tiers {tag}: K2 launches {got} for "
+            raise AssertionError(f"{self.phase} {tag}: K2 launches {got} for "
                                  f"{st['admitted']} admissions")
         return tokens, secs, got
 
@@ -1978,11 +2433,12 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=48,
                     help="serving depth (Qwen2.5-14B has 48; cut only if "
                          "the time limit forces it)")
-    ap.add_argument("--phases", default="kernels,parity,serve,tiers,disagg",
-                    help="comma list of kernels, parity, serve, tiers, "
-                         "disagg, profile (a traced serving run) and sweep "
-                         "(K3's routes over M); the last two are off by "
-                         "default")
+    ap.add_argument("--phases",
+                    default="kernels,parity,moe,serve,tiers,disagg",
+                    help="comma list of kernels, parity, moe, serve, "
+                         "tiers, disagg, profile (a traced serving run) "
+                         "and sweep (K3's routes over M); the last two are "
+                         "off by default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1992,6 +2448,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build_all
+    from repro_torch.kernels.expert_gather import kernel as eg_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.streamed_matmul import kernel as sm_kernel
@@ -2018,7 +2475,11 @@ def main() -> int:
             for kv in (None, "int8"):
                 check_paged(torch, card, results, kv, hkv=hkv, g=g, d=d,
                             timed=timed and kv is None)
+        for kv in (None, "int8"):      # granite-moe-3b-a800m's decode
+            check_paged(torch, card, results, kv, hkv=8, g=3, d=64,
+                        phase="moe")
         check_flash(torch, card, results)
+        check_gather(torch, card, results)
         check_matmul(torch, card, results)
         check_accumulate(torch, card, results)
         ops_launches = drive_ops(torch)
@@ -2027,6 +2488,14 @@ def main() -> int:
     parity_launches = None
     if "parity" in phases:
         parity_launches = check_parity(torch)
+        check_parity_families(torch)
+    moe = None
+    if "moe" in phases:
+        # before the Qwen2.5-14B weights exist: its peak device memory is
+        # the MoE's alone
+        moe = Launches("moe")
+        check_moe(torch, card, moe)
+        torch.cuda.empty_cache()
     launches = tiers = served = None
     if "serve" in phases:
         cfg, params = qwen_params(torch, args.layers)
@@ -2066,27 +2535,34 @@ def main() -> int:
                     if "instance" in row else total.get(name, 0))
 
         tiered = (tiers.total, tiers.by_instance) if tiers else ({}, {})
+        moed = (moe.total, moe.by_instance) if moe else ({}, {})
+        moe_path = ("BatchedServer, granite-moe-3b-a800m at full width, "
+                    "greedy and sampled runs summed (moe phase)")
         for mod, path, counts in ((pa_kernel, serving, launches),
                                   (fa_kernel, serving, launches),
                                   (sm_kernel, wrappers, (ops_launches, {})),
-                                  (wa_kernel, wrappers, (ops_launches, {}))):
+                                  (wa_kernel, wrappers, (ops_launches, {})),
+                                  (eg_kernel, moe_path, moed)):
             for counter in mod.COUNTERS:
                 name = counter.name
                 if name == "flash_attention_simt":
                     path, counts = smoke, parity_launches
                 for row in results[name]:
-                    n = count(counts, name, row)
+                    mine = ((moe_path, moed) if row.get("phase") == "moe"
+                            else (path, counts))
+                    n = count(mine[1], name, row)
                     kernels.append({"name": name, "route": "cuda",
                                     "source": f"src/repro_torch/kernels/"
                                               f"csrc/{mod.SOURCE}",
                                     "replaces": mod.REPLACES,
-                                    "path": path if n else
+                                    "path": mine[0] if n else
                                     "kernels phase only", "launches": n,
                                     "tiers_launches": count(tiered, name,
                                                             row),
                                     "disagg_launches": count(
                                         (DisaggRun.total,
                                          DisaggRun.by_instance), name, row),
+                                    "moe_launches": count(moed, name, row),
                                     **row})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

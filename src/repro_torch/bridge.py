@@ -61,8 +61,9 @@ def key_from_reference(key: np.ndarray, device: torch.device | str = "cpu"
 
 def config_from_reference(ref_cfg) -> ModelConfig:
     """The port's config for a reference ``ModelConfig``: every field the
-    port has, copied (``kv_dtype`` included); ``dtype`` mapped to torch
-    and the reference's pager policy to the port's."""
+    port has, copied (``kv_dtype``, the MoE fields and ``num_patches``
+    included); ``dtype`` mapped to torch and the reference's pager policy
+    to the port's."""
     kw = {}
     for f in dataclasses.fields(ModelConfig):
         if not hasattr(ref_cfg, f.name):
@@ -84,9 +85,11 @@ def _tree(node, device):
 
 
 def params_from_reference(tree: dict, device=None) -> dict:
-    """The reference ``DenseLM.init`` tree, as numpy, -> the port's
-    params: the stacked ``layers`` subtree is unstacked along its
-    leading L axis into a list of per-layer dicts."""
+    """The reference ``DenseLM.init`` tree (or ``MoELM``'s / ``VLM``'s),
+    as numpy, -> the port's params: the stacked ``layers`` subtree is
+    unstacked along its leading L axis into a list of per-layer dicts
+    (an MoE layer's ``moe``: the fp32 router (d, E) and the banks (E, d,
+    f) / (E, f, d), each leaf bit for bit)."""
     dev = resolve_device(device)
     layers = tree["layers"]
 

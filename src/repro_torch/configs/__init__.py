@@ -1,26 +1,32 @@
-"""Architecture registry: ``get_config(id)`` for the ported families.
+"""Architecture registry: ``get_config(id)`` / ``build_model(cfg)`` /
+``get_model(id)`` for the ported families.
 
 The reference registers ten architectures plus the paper's workloads;
-this port serves the dense decoder family so far.  Asking for an
+this port serves the dense decoder, MoE and VLM families.  Asking for an
 architecture that is not ported raises a clear error instead of handing
 out a config no model here can run.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.models.base import ModelConfig
 
 _MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "llava-next-34b": "llava_next_34b",
+    # the paper's workloads, runnable form
+    "grok-1": "grok_1",
+    "qwen3-235b": "qwen3_235b",
 }
 
 #: architectures of the reference that are not ported yet
 NOT_PORTED = (
     "qwen3-14b", "minicpm-2b", "starcoder2-15b", "recurrentgemma-9b",
-    "xlstm-125m", "whisper-base", "moonshot-v1-16b-a3b",
-    "granite-moe-3b-a800m", "llava-next-34b", "gpt3-175b", "grok-1",
-    "qwen3-235b",
+    "xlstm-125m", "whisper-base", "gpt3-175b",
 )
 
 
@@ -33,3 +39,27 @@ def get_config(arch_id: str) -> ModelConfig:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
+
+
+def build_model(cfg: ModelConfig):
+    """The model class for a config's family: ``DenseLM``, ``MoELM`` or
+    ``VLM``; the reference's other families are not ported yet."""
+    if cfg.family == "dense":
+        from repro_torch.models.transformer import DenseLM
+        return DenseLM(cfg)
+    if cfg.family == "vlm":
+        from repro_torch.models.vlm import VLM
+        return VLM(cfg)
+    if cfg.family == "moe":
+        from repro_torch.models.moe import MoELM
+        return MoELM(cfg)
+    raise NotImplementedError(
+        f"the {cfg.family!r} family is not ported to PyTorch yet")
+
+
+def get_model(arch_id: str, **overrides):
+    """``(model, cfg)`` for an architecture, fields overridden first."""
+    cfg = get_config(arch_id)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return build_model(cfg), cfg

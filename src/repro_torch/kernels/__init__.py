@@ -5,17 +5,19 @@ Each kernel package has three modules, as in the reference: ``ref.py``
 (the plain version), ``kernel.py`` (the ctypes binding of the CUDA
 source in ``csrc/``, with its launch count) and ``ops.py`` (the wrapper
 the model calls: the plain version for CPU tensors, the kernel for CUDA
-tensors, never a fallback from one to the other).
+tensors, never a fallback from one to the other).  The expert gather
+(``expert_gather``) is port-only: it has no TPU counterpart.
 """
 from __future__ import annotations
 
 
 def _kernel_modules():
+    from repro_torch.kernels.expert_gather import kernel as eg
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.paged_attention import kernel as pa
     from repro_torch.kernels.streamed_matmul import kernel as sm
     from repro_torch.kernels.write_accumulate import kernel as wa
-    return (fa, pa, sm, wa)
+    return (fa, pa, sm, wa, eg)
 
 
 def _counters():

@@ -6,18 +6,17 @@ the card (counterpart of ``repro.memory``).
   injection and the placement primitives (``page_out`` / ``page_in``).
 * :mod:`repro_torch.memory.policies` -- residency policies
   (``PinLocal``, ``DoubleBufferPrefetch``, ``OffloadBetweenSteps``,
-  ``BlockPoolResidency``), each with ``pick_tier``, and
-  :class:`PagerConfig`.
+  ``BlockPoolResidency``, ``TopKExpertPrefetch``), each with
+  ``pick_tier``, and :class:`PagerConfig`.
 * :mod:`repro_torch.memory.orchestrator` -- :class:`MemoryOrchestrator`,
   the :class:`TensorPrefetcher` that pages layer weights from pinned
-  host memory on a copy stream, and the :class:`KVWindow` that pages
-  offloaded KV pools beside them.
+  host memory on a copy stream, the :class:`KVWindow` that pages
+  offloaded KV pools beside them, and the expert gather
+  (``gather_experts``) that pages in routed MoE experts.
 * :mod:`repro_torch.memory.swap` -- the :class:`PageSwapper` behind
   preemption and cold parking.
 * :mod:`repro_torch.memory.accounting` -- the per-tier ledger and the
   window/capacity formulas.
-
-Not ported yet: MoE expert paging.
 """
 from repro_torch.memory.accounting import (MemoryLedger, capacity_reduction,
                                            modeled_transfer_s,
@@ -29,7 +28,8 @@ from repro_torch.memory.orchestrator import (KVWindow, MemoryOrchestrator,
 from repro_torch.memory.policies import (BlockPoolResidency,
                                          DoubleBufferPrefetch,
                                          OffloadBetweenSteps, PagedLayers,
-                                         PagerConfig, PinLocal)
+                                         PagerConfig, PinLocal,
+                                         TopKExpertPrefetch)
 from repro_torch.memory.swap import PageSwapper, SwapHandle
 from repro_torch.memory.tiers import (COLD, DEFAULT_TIER_LINKS, HIERARCHY,
                                       LOCAL, REMOTE, FaultPlan, Packed, Tier,
@@ -44,7 +44,7 @@ __all__ = [
     "tree_bytes",
     "KVWindow", "MemoryOrchestrator", "TensorPrefetcher",
     "BlockPoolResidency", "DoubleBufferPrefetch", "OffloadBetweenSteps",
-    "PagedLayers", "PagerConfig", "PinLocal",
+    "PagedLayers", "PagerConfig", "PinLocal", "TopKExpertPrefetch",
     "PageSwapper", "SwapHandle",
     "COLD", "DEFAULT_TIER_LINKS", "HIERARCHY", "LOCAL", "REMOTE",
     "FaultPlan", "Packed", "Tier", "TierEdge", "TierTransferError",

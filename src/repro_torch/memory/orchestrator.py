@@ -40,7 +40,8 @@ from repro_torch.memory.accounting import (MemoryLedger, paged_window_bytes,
 from repro_torch.memory.policies import (BlockPoolResidency,
                                          DoubleBufferPrefetch,
                                          OffloadBetweenSteps, PagedLayers,
-                                         PagerConfig, PinLocal)
+                                         PagerConfig, PinLocal,
+                                         TopKExpertPrefetch, merge)
 
 #: the cache leaves that are KV pools, each stacked (L, ...) by layer
 POOL_KEYS = ("k_pages", "v_pages", "k_scale", "v_scale")
@@ -57,7 +58,9 @@ class TensorPrefetcher:
     slot is overwritten only after an event recorded on the compute
     stream once every op reading its previous layer was enqueued, so a
     copy never races the compute that reads the slot; nothing is
-    allocated on the copy stream.  On the CPU there are no streams: the
+    allocated on the copy stream.  A layer's ``at_rest`` leaves (expert
+    banks under expert paging) are never streamed: they come with the
+    yielded layer as they rest.  On the CPU there are no streams: the
     copy is a host copy, and the window and the counters work the same.
 
     ``fetches`` counts layers fetched and ``fetched_bytes`` their bytes:
@@ -116,7 +119,8 @@ class TensorPrefetcher:
                 issue(i + ahead)
             if cuda:
                 compute.wait_event(ready.pop(i))
-            yield packed[i].unpack(self.window[i % width])
+            yield merge(packed[i].unpack(self.window[i % width]),
+                        self.layers.at_rest[i])
 
 
 class KVWindow:
@@ -216,10 +220,11 @@ class KVWindow:
 class MemoryOrchestrator:
     """Binds tensor classes to residency policies for one model/server.
 
-    Tensor classes: ``layer_weights`` (the per-layer params) and
-    ``kv_pool`` (the block pool).  ``plan`` resolves the policy matrix
-    from a :class:`PagerConfig`; placement, the layer iterator, the block
-    pool's bookkeeping and the ledger all go through the instance."""
+    Tensor classes: ``layer_weights`` (the per-layer params),
+    ``kv_pool`` (the block pool) and ``expert_weights`` (MoE banks).
+    ``plan`` resolves the policy matrix from a :class:`PagerConfig`;
+    placement, the layer iterator, the expert gather, the block pool's
+    bookkeeping and the ledger all go through the instance."""
 
     def __init__(self, config: PagerConfig,
                  policies: dict[str, Any] | None = None):
@@ -252,7 +257,19 @@ class MemoryOrchestrator:
                 OffloadBetweenSteps()
                 if pager_config.enabled and pager_config.offload_kv
                 else PinLocal())}
-        return cls(pager_config, policies)
+        num_experts = getattr(model_config, "num_experts", 0)
+        if pager_config.page_experts and num_experts:
+            policies["expert_weights"] = TopKExpertPrefetch(
+                num_experts=num_experts,
+                top_k=getattr(model_config, "top_k", 1))
+        mem = cls(pager_config, policies)
+        if "expert_weights" in policies:
+            policies["expert_weights"].ledger = mem.ledger
+        return mem
+
+    @property
+    def expert_policy(self) -> TopKExpertPrefetch | None:
+        return self.policies.get("expert_weights")
 
     # ----- placement --------------------------------------------------------
     def place(self, tensor_class: str, tree: dict,
@@ -280,17 +297,51 @@ class MemoryOrchestrator:
             self.ledger.charge_transfer(tiers.LOCAL, tier, nbytes)
         return placed
 
+    def _split_experts(self, layers: list) -> tuple[list, list]:
+        """Each layer's params split into (everything else, its expert
+        banks), both nested dicts."""
+        ep = self.expert_policy
+        rest, banks = [], []
+        for lp in layers:
+            r, b = {}, {}
+            for path, x in tiers._flatten(lp):
+                node = b if ep.matches(path) else r
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = x
+            rest.append(r)
+            banks.append(b)
+        return rest, banks
+
     def place_layer_weights(self, layers: list) -> list:
-        """Place the per-layer params by the layer-weights policy and
-        record the residency: with paging, every layer at rest in the
-        remote tier (the caller drops its device-resident list, which
-        frees it) and a (1 + lookahead)-layer local window, whose buffers
-        are allocated here; without, all layers local.  An injected tier
-        fault at placement degrades to local residency (paging off, the
-        reason in ``degraded["layer_weights"]``)."""
+        """Place the per-layer params: expert-bank leaves in the expert
+        policy's tier (mapped pinned host memory on the card), the rest
+        by the layer-weights policy.  With paging, every layer's rest at
+        rest in the remote tier (the caller drops its device-resident
+        list, which frees it) and a (1 + lookahead)-layer local window,
+        whose buffers are allocated here, holding no expert bank; without,
+        the rest local.  The ledger records both residencies, the window
+        and the placement transfers, line for line as the reference.  An
+        injected tier fault at placement degrades to local residency
+        (paging off, banks where they were, the reason in
+        ``degraded["layer_weights"]``)."""
         wp = self.policies["layer_weights"]
+        ep = self.expert_policy
+        expert_bytes = 0
         try:
-            placed = wp.place(layers)
+            if ep is None:
+                placed = wp.place(layers)
+            else:
+                rest, banks = self._split_experts(layers)
+                # the rest first: a fault there leaves the banks unplaced
+                # and unrecorded; the expert policy records what it places
+                paged = (wp.place(rest) if wp.tier == tiers.REMOTE
+                         else None)
+                banks = ep.place(banks)
+                expert_bytes = tree_bytes(banks)
+                placed = (PagedLayers(paged.packed, paged.device, banks)
+                          if paged is not None
+                          else [merge(r, b) for r, b in zip(rest, banks)])
         except tiers.TierTransferError as e:
             self.degraded["layer_weights"] = (
                 f"remote paging -> local residency ({e})")
@@ -298,11 +349,16 @@ class MemoryOrchestrator:
             self.policies["layer_weights"] = wp
             self.config = dataclasses.replace(self.config, enabled=False)
             placed = layers
-        total = tree_bytes(layers)
+            ep, expert_bytes = None, 0
+        if ep is not None and ep.tier != tiers.LOCAL:
+            self.ledger.charge_transfer(tiers.LOCAL, ep.tier, expert_bytes)
+        total = tree_bytes(layers) - expert_bytes
         if wp.tier == tiers.REMOTE:
             self.ledger.charge_transfer(tiers.LOCAL, tiers.REMOTE, total)
             self.ledger.record(tiers.REMOTE, "layer_weights", total)
             self.ledger.record_capacity(tiers.REMOTE, "layer_weights", total)
+            # the window covers only what the prefetcher streams: expert
+            # banks stay at rest (their routed rows are gathered instead)
             per_layer = total // max(len(layers), 1)
             window = int(paged_window_bytes(per_layer, self.config.lookahead))
             self.ledger.record(tiers.LOCAL, "layer_weights_window", window)
@@ -313,6 +369,16 @@ class MemoryOrchestrator:
             self.ledger.record(tiers.LOCAL, "layer_weights", total)
             self.ledger.record_capacity(tiers.LOCAL, "layer_weights", total)
         return placed
+
+    def gather_experts(self, banks: dict, ids: torch.Tensor) -> dict:
+        """Routed-expert staging for :func:`repro_torch.models.moe.
+        moe_ffn_topk`: through the expert policy when one is planned
+        (banks at rest, routed rows paged in, residency recorded); the
+        banks themselves otherwise (already local)."""
+        ep = self.expert_policy
+        if ep is not None:
+            return ep.gather(banks, ids)
+        return {k: banks[k] for k in ("wi", "wg", "wo")}
 
     def place_kv_pool(self, cache: dict) -> dict:
         """Residency for the serving KV cache, provisioned capacity

@@ -12,11 +12,13 @@ tensor class lives at rest and how it is placed there.
 * :class:`BlockPoolResidency` -- the block-pool paged KV cache: wraps
   the host-side :class:`BlockManager` and reports the pool's live bytes
   to the shared ledger.
+* :class:`TopKExpertPrefetch` -- ``page_experts``: MoE expert banks at
+  rest in the remote tier (mapped pinned host memory), only the routed
+  experts' rows paged in by the expert-gather kernel.
 
 Every policy answers ``pick_tier(access_stats)``: the tier its class
 should occupy given how it is accessed (the home tier unless the stats
-justify a colder one).  The reference's ``TopKExpertPrefetch`` (MoE
-expert paging) is not ported yet.
+justify a colder one).
 """
 from __future__ import annotations
 
@@ -40,8 +42,9 @@ class PagerConfig:
     lookahead    -- layers fetched ahead of the one computing (paper w=1).
     offload_kv   -- with ``enabled``: the KV pools at rest in the remote
                     tier, paged through a per-layer window.
-    page_experts -- MoE expert paging (a no-op without experts, as in the
-                    reference; the port serves no MoE family yet).
+    page_experts -- MoE expert paging: banks at rest in the remote tier,
+                    routed rows paged in (a no-op without experts, as in
+                    the reference).
     """
 
     enabled: bool = False
@@ -63,17 +66,35 @@ class PinLocal:
         return self.tier
 
 
+def merge(tree: dict, extra: dict | None) -> dict:
+    """A new nested dict: ``tree`` with ``extra``'s leaves added (the
+    layer's leaves kept out of its packed buffer put back)."""
+    if not extra:
+        return tree
+    out = dict(tree)
+    for k, v in extra.items():
+        out[k] = merge(out.get(k, {}), v) if isinstance(v, dict) else v
+    return out
+
+
 class PagedLayers(list):
     """Per-layer weights at rest in the remote tier.
 
     Still a list of per-layer dicts, as the port's params keep them: each
     dict holds host views of that layer's :class:`tiers.Packed` buffer
     (``packed[i]``), which is what the prefetcher copies to the device in
-    one transfer.  ``device`` is where the layers compute."""
+    one transfer, plus the layer's ``at_rest[i]`` leaves, which stay out
+    of the buffer and are never streamed (expert banks under
+    :class:`TopKExpertPrefetch`).  ``device`` is where the layers
+    compute."""
 
-    def __init__(self, packed: list[tiers.Packed], device: torch.device):
-        super().__init__(p.unpack() for p in packed)
+    def __init__(self, packed: list[tiers.Packed], device: torch.device,
+                 at_rest: list[dict] | None = None):
+        at_rest = at_rest or [{} for _ in packed]
+        super().__init__(merge(p.unpack(), a)
+                         for p, a in zip(packed, at_rest, strict=True))
         self.packed = packed
+        self.at_rest = at_rest
         self.device = device
 
     @property
@@ -220,3 +241,213 @@ class BlockPoolResidency:
                     f"{swapper.tensor_class} records {got} bytes but the "
                     f"live stashes hold {held.get(tier, 0)}")
         return summary
+
+
+@dataclasses.dataclass
+class TopKExpertPrefetch:
+    """MoE expert paging: banks at rest in the remote tier, only routed
+    rows local (the reference's ``TopKExpertPrefetch``).
+
+    The expert banks (``wi``/``wg``/``wo``, each with a leading expert
+    axis) are the workload class where disaggregated memory pays off
+    most: a top-k router touches k of E experts per token, so decode
+    needs only the routed rows in local memory.  Routing is
+    data-dependent, so there is no lookahead window: the gather *is* the
+    prefetch, issued as soon as the router's top-k lands.
+
+    On the card the banks rest in pinned host memory registered mapped,
+    and :meth:`gather` marks the routed experts in an (E,) device mask
+    from which the expert-gather kernel copies just their rows into one
+    reused device buffer per bank shape (zeroed once, at allocation).
+    The ledger's local line is the reference's model, derived from the
+    shapes: ``min(ids.numel(), E)`` routed rows + 1 staging row per bank.
+    The port's staging buffers hold every row of a bank, one buffer per
+    bank shape shared by all layers: :meth:`staging_bytes` says what
+    they take.  The device counters ``counts[device, N]`` hold the bytes
+    the kernel copied, the experts the masks routed and the most routed
+    in one gather, for a run to hold together.
+    """
+
+    num_experts: int
+    top_k: int
+    bank_keys: tuple[str, ...] = ("wi", "wg", "wo")
+    tier: str = tiers.REMOTE
+    # an expert routed to fewer than this fraction of tokens earns cold
+    # residency (rarely-read, read-mostly: the High-Bandwidth-Flash
+    # tenant profile)
+    cold_route_fraction: float = 0.02
+    ledger: MemoryLedger | None = None
+    tensor_class = "expert_weights"
+
+    def __post_init__(self) -> None:
+        self._cold_experts: set[int] = set()
+        self._cold_cap = 0
+        self._local_cap = 0
+        self._staging: dict = {}   # (key, device, shape, dtype) -> buffer
+        #: (device, routed rows N of a call) -> int64 (3,) on the device:
+        #: [bytes the gather copied, experts the masks routed, the most
+        #: experts routed in one gather]
+        self.counts: dict[tuple, torch.Tensor] = {}
+        self.gathers: dict[int, int] = {}     # N -> gather calls
+
+    def matches(self, path: tuple[str, ...]) -> bool:
+        """Leaf-path selector for expert-bank leaves inside a layer's
+        params (``("moe", "wi")`` etc.)."""
+        return "moe" in path and path[-1] in self.bank_keys
+
+    def place(self, tree):
+        """Copy the banks (a dict of them, or nested dicts and lists of
+        such, as one per layer) into the home tier (mapped pinned host
+        memory on the card) and record their residency there; one
+        fault-injection checkpoint first, as the reference's
+        ``host_put``, so a fault records nothing."""
+        nb = tree_bytes(tree)
+        tiers.check_transfer("host_put", nb)
+        placed = self._home(tree)
+        if self.ledger is not None:
+            self.ledger.record(self.tier, self.tensor_class, nb)
+            self.ledger.record_capacity(self.tier, self.tensor_class, nb)
+        return placed
+
+    def _home(self, tree):
+        if isinstance(tree, dict):
+            return {k: self._home(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self._home(v) for v in tree]
+        return self.to_home(tree)
+
+    def to_home(self, x: torch.Tensor) -> torch.Tensor:
+        """One bank in the home tier: a CUDA bank is copied into pinned
+        host memory registered mapped, which the gather kernel reads in
+        place; a bank already in pinned host memory (placed before)
+        stays where it is; a CPU bank is copied."""
+        if x.device.type == "cpu" and x.is_pinned():
+            return x
+        return tiers.to_tier(x, self.tier, mapped=True)
+
+    def pick_tier(self, access_stats: dict | None = None) -> str:
+        """Access-frequency placement: ``route_fraction`` (this bank's
+        share of routed tokens) below ``cold_route_fraction`` -> cold."""
+        if (access_stats is not None
+                and access_stats.get("route_fraction", 1.0)
+                < self.cold_route_fraction):
+            return tiers.COLD
+        return self.tier
+
+    def bank_tiers(self, route_counts) -> list[str]:
+        """Per-expert tier choice from observed routing counts (one
+        count per expert): expert e's share of total routes drives
+        :meth:`pick_tier`."""
+        counts = [int(c) for c in route_counts]
+        total = max(sum(counts), 1)
+        return [self.pick_tier({"route_fraction": c / total})
+                for c in counts]
+
+    def rebalance(self, banks: dict, route_counts) -> list[str]:
+        """Re-split the ledger's ``expert_weights`` residency between
+        the home tier and cold from observed routing, charging the tier
+        edge for every expert bank that moved since the last rebalance.
+        The physical banks stay one tensor per key; what moves is the
+        hierarchy's view (residency lines and modeled transfer charges),
+        so routed outputs are unchanged by construction."""
+        chosen = self.bank_tiers(route_counts)
+        cold = {i for i, t in enumerate(chosen) if t == tiers.COLD}
+        if self.ledger is not None:
+            nb = tree_bytes({k: banks[k] for k in self.bank_keys
+                             if k in banks})
+            per = nb // max(self.num_experts, 1)
+            prev = self._cold_experts
+            for _ in cold - prev:
+                self.ledger.charge_transfer(self.tier, tiers.COLD, per)
+            for _ in prev - cold:
+                self.ledger.charge_transfer(tiers.COLD, self.tier, per)
+            cold_b = per * len(cold)
+            self.ledger.record(self.tier, self.tensor_class, nb - cold_b)
+            self.ledger.record(tiers.COLD, self.tensor_class, cold_b)
+            self._cold_cap = max(self._cold_cap, cold_b)
+            self.ledger.record_capacity(tiers.COLD, self.tensor_class,
+                                        self._cold_cap)
+        self._cold_experts = cold
+        return chosen
+
+    def resident_bytes(self, banks: dict, num_rows: int) -> int:
+        """Local bytes the reference's gather keeps resident: ``num_rows``
+        routed rows + 1 staging row per bank (the in-flight fetch)."""
+        total = 0
+        for k in self.bank_keys:
+            bank = banks[k]
+            row = tree_bytes(bank) // max(bank.shape[0], 1)
+            total += (min(num_rows, bank.shape[0]) + 1) * row
+        return total
+
+    def staging_bytes(self) -> int:
+        """Bytes of the device staging buffers allocated so far (what the
+        port's gathers hold locally, beside the ledger's modeled line)."""
+        return tree_bytes(list(self._staging.values()))
+
+    def _buffer(self, name: str, bank: torch.Tensor, device: torch.device
+                ) -> torch.Tensor:
+        key = (name, device, tuple(bank.shape), bank.dtype)
+        buf = self._staging.get(key)
+        if buf is None:
+            buf = torch.zeros(bank.shape, dtype=bank.dtype, device=device)
+            self._staging[key] = buf
+        return buf
+
+    def gather(self, banks: dict, ids: torch.Tensor) -> dict:
+        """Page in the routed experts: ``ids`` (N,) expert indices
+        (duplicates fine) on the computing device.  Returns ``{key: (E,
+        ...) buffer}`` on that device whose rows of the experts in ``ids``
+        equal the banks' (other rows are stale: a caller reads only the
+        routed ones).  No host sync: the mask is built and read on the
+        device.  The ledger's local line is the reference's, recorded
+        from the shapes."""
+        n = int(ids.shape[0])
+        if self.ledger is not None:
+            nb = self.resident_bytes(banks, n)
+            self.ledger.record(tiers.LOCAL, self.tensor_class, nb)
+            # gather staging is provisioned at its largest routed set
+            self._local_cap = max(self._local_cap, nb)
+            self.ledger.record_capacity(tiers.LOCAL, self.tensor_class,
+                                        self._local_cap)
+        from repro_torch.kernels.expert_gather import ops as gather_ops
+        device = ids.device
+        src = [banks[k] for k in self.bank_keys]
+        # the value as a device tensor: ``mask[ids] = True`` would copy
+        # the Python scalar from the host and wait for it
+        mask = torch.zeros(src[0].shape[0], dtype=torch.bool, device=device)
+        mask.index_put_((ids,), torch.ones_like(ids, dtype=torch.bool))
+        counts = self.counts.get((device, n))
+        if counts is None:
+            counts = torch.zeros(3, dtype=torch.int64, device=device)
+            self.counts[device, n] = counts
+        out = [self._buffer(k, b, device)
+               for k, b in zip(self.bank_keys, src)]
+        gather_ops.gather(src, mask, out, counter=counts[0:1])
+        routed = mask.sum()
+        counts[1:2].add_(routed)
+        torch.maximum(counts[2:3], routed, out=counts[2:3])
+        self.gathers[n] = self.gathers.get(n, 0) + 1
+        return dict(zip(self.bank_keys, out))
+
+    def gather_stats(self) -> dict:
+        """Since the last :meth:`reset_stats`, by the routed rows N of a
+        call (tokens x top_k: a decode step's or an admission's):
+        ``{N: {"gathers", "staged_bytes", "routed_experts",
+        "max_routed"}}``, the last the most experts one gather routed
+        (reads the device counters: a host sync)."""
+        out: dict[int, dict] = {}
+        for (_, n), c in self.counts.items():
+            staged, routed, most = c.tolist()
+            row = out.setdefault(n, {"gathers": self.gathers.get(n, 0),
+                                     "staged_bytes": 0, "routed_experts": 0,
+                                     "max_routed": 0})
+            row["staged_bytes"] += staged
+            row["routed_experts"] += routed
+            row["max_routed"] = max(row["max_routed"], most)
+        return out
+
+    def reset_stats(self) -> None:
+        for c in self.counts.values():
+            c.zero_()
+        self.gathers.clear()

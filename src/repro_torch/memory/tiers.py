@@ -287,19 +287,26 @@ def transfer_with_retry(fn: Callable[[], Any], *, what: str,
 # Placement primitives
 # ---------------------------------------------------------------------------
 
+#: ``cudaHostRegisterMapped``: the registered range is also mapped into
+#: the device's address space, so a kernel can read it directly
+HOST_REGISTER_MAPPED = 2
+
+
 def host_empty(shape: tuple[int, ...], dtype: torch.dtype, *,
-               pinned: bool) -> torch.Tensor:
+               pinned: bool, mapped: bool = False) -> torch.Tensor:
     """An uninitialised contiguous host tensor, page-locked if ``pinned``
     (registered with ``cudaHostRegister`` at its exact size: PyTorch's
     pinned allocator rounds every block up to a power of two, which
-    would pin ~1.7x the bytes of a 550 MB layer).  The registration ends
-    when the returned tensor object is collected.  A failed registration
-    raises."""
+    would pin ~1.7x the bytes of a 550 MB layer).  ``mapped`` registers
+    it with ``cudaHostRegisterMapped``, so a kernel reads it in place
+    (the expert banks at rest).  The registration ends when the returned
+    tensor object is collected.  A failed registration raises."""
     buf = torch.empty(shape, dtype=dtype)
     nbytes = buf.numel() * buf.element_size()
     if pinned and nbytes:
         cudart = torch.cuda.cudart()
-        rc = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, 0))
+        flags = HOST_REGISTER_MAPPED if mapped else 0
+        rc = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, flags))
         if rc != 0:
             raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed "
                                f"with CUDA error {rc}")
@@ -314,15 +321,17 @@ def host_buffer(nbytes: int, *, pinned: bool) -> torch.Tensor:
 
 
 def tier_empty(shape: tuple[int, ...], dtype: torch.dtype, tier: str, *,
-               device: str | torch.device) -> torch.Tensor:
+               device: str | torch.device, mapped: bool = False
+               ) -> torch.Tensor:
     """An uninitialised host tensor in ``tier`` for data that computes on
     ``device``: pinned host memory for the remote tier when ``device`` is
-    a CUDA device, pageable host memory for the cold tier (and for every
-    tier on the CPU, where the tiers share one memory)."""
+    a CUDA device (``mapped`` into the device's address space if asked),
+    pageable host memory for the cold tier (and for every tier on the
+    CPU, where the tiers share one memory)."""
     if tier not in (REMOTE, COLD):
         raise ValueError(f"host tiers are remote and cold, not {tier!r}")
     pinned = tier == REMOTE and torch.device(device).type == "cuda"
-    return host_empty(tuple(shape), dtype, pinned=pinned)
+    return host_empty(tuple(shape), dtype, pinned=pinned, mapped=mapped)
 
 
 def copy_bytes(dst: torch.Tensor, src: torch.Tensor, *,
@@ -339,12 +348,14 @@ def copy_bytes(dst: torch.Tensor, src: torch.Tensor, *,
 
 
 def to_tier(x: torch.Tensor, tier: str, *,
-            device: str | torch.device | None = None) -> torch.Tensor:
+            device: str | torch.device | None = None,
+            mapped: bool = False) -> torch.Tensor:
     """A copy of ``x`` in ``tier``'s memory (:func:`tier_empty`), for data
     that computes on ``device`` (default: where ``x`` lives).
     Synchronous."""
     out = tier_empty(x.shape, x.dtype, tier,
-                     device=x.device if device is None else device)
+                     device=x.device if device is None else device,
+                     mapped=mapped)
     return copy_bytes(out, x.contiguous())
 
 

@@ -75,7 +75,8 @@ class PagerPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's config fields that the ported (dense) path reads."""
+    """The reference's config fields that the ported families (dense,
+    MoE, VLM) read."""
 
     name: str
     family: Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
@@ -93,6 +94,14 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int = 0          # 0 = full attention
     tie_embeddings: bool = False
+
+    # MoE
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+
+    # vlm (llava): precomputed patch embeddings prepended (stub tower)
+    num_patches: int = 576
 
     # numerics / system
     dtype: torch.dtype = torch.bfloat16
@@ -123,6 +132,10 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to(self.vocab, VOCAB_QUANTUM)
+
+    @property
+    def padded_experts(self) -> int:
+        return pad_to(self.num_experts, self.tp) if self.num_experts else 0
 
     @property
     def q_per_kv(self) -> int:
@@ -161,10 +174,17 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
-        ``reduced`` for the dense family)."""
+        ``reduced`` for the dense, MoE and VLM families)."""
         small = dict(num_layers=min(self.num_layers, 2), d_model=128,
                      num_heads=4, num_kv_heads=min(self.num_kv_heads, 2) or 2,
                      d_ff=256 if self.d_ff else 0, vocab=512, head_dim=32,
-                     tp=1, sliding_window=8 if self.sliding_window else 0)
+                     tp=1, num_patches=8,
+                     sliding_window=8 if self.sliding_window else 0)
+        if self.num_experts:
+            # high capacity factor => no token dropping at smoke scale
+            # (capacity-based MoE drops differently for different batch
+            # shapes by design)
+            small.update(num_experts=4, top_k=min(self.top_k, 2),
+                         capacity_factor=8.0)
         small.update(overrides)
         return dataclasses.replace(self, name=self.name + "-smoke", **small)

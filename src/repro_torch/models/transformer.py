@@ -1,5 +1,6 @@
 """Dense decoder-only transformer over a block-pool paged KV cache
-(counterpart of ``repro.models.transformer`` for the serving path).
+(counterpart of ``repro.models.transformer`` for the serving path); the
+MoE and VLM families subclass it (``ffn`` is the MoE's hook).
 
 Parameters are plain nested dicts of tensors, as in the reference, with
 the reference's stacked L axis unstacked into a list of per-layer dicts;
@@ -179,11 +180,21 @@ class DenseLM:
                                    device=gen.device)}
 
     # ----- blocks ------------------------------------------------------------
-    def _block_tail(self, lp: dict, x: torch.Tensor, a: torch.Tensor
-                    ) -> torch.Tensor:
+    def ffn(self, lp: dict, x: torch.Tensor, rows: int = 0) -> torch.Tensor:
+        """The block's feed-forward (the reference's ``ffn`` hook): the
+        SwiGLU MLP, in ``rows``-row chunks (:func:`L.by_rows`).  Families
+        with another FFN (MoE) override it."""
+        return L.by_rows(lambda xc: L.mlp_forward(lp["mlp"], xc), rows, x)
+
+    def _block_tail(self, lp: dict, x: torch.Tensor, a: torch.Tensor,
+                    rows: int = 0) -> torch.Tensor:
+        """Residual, norm and FFN after attention.  Adds and norms are
+        row-wise (the norm chunked like the rest of prefill's row-wise
+        work); the FFN is the hook's, over all rows at once."""
         h = x + a
-        return h + L.mlp_forward(lp["mlp"],
-                                 L.rmsnorm(h, lp["ln2"], self.cfg.norm_eps))
+        hn = L.by_rows(lambda hc: L.rmsnorm(hc, lp["ln2"], self.cfg.norm_eps),
+                       rows, h)
+        return h + self.ffn(lp, hn, rows)
 
     def block_prefill(self, lp: dict, x: torch.Tensor,
                       positions: torch.Tensor, rows: int = 0,
@@ -192,8 +203,7 @@ class DenseLM:
         hn = L.by_rows(lambda xc: L.rmsnorm(xc, lp["ln1"], eps), rows, x)
         a, kv = L.attn_prefill_kv(lp["attn"], hn, positions, self.cfg,
                                   rows=rows, kv_roundtrip=kv_roundtrip)
-        return L.by_rows(lambda xc, ac: self._block_tail(lp, xc, ac), rows,
-                         x, a), kv
+        return self._block_tail(lp, x, a, rows), kv
 
     def block_prefill_prefix(self, lp: dict, x: torch.Tensor,
                              positions: torch.Tensor, k_prefix, v_prefix,
@@ -205,8 +215,7 @@ class DenseLM:
         a, kv = L.attn_prefill_prefix_kv(lp["attn"], hn, positions, k_prefix,
                                          v_prefix, self.cfg, rows=rows,
                                          kv_roundtrip=kv_roundtrip)
-        return L.by_rows(lambda xc, ac: self._block_tail(lp, xc, ac), rows,
-                         x, a), kv
+        return self._block_tail(lp, x, a, rows), kv
 
     def block_decode_paged(self, lp: dict, x: torch.Tensor, k_pages, v_pages,
                            pages, cur_pos, k_scales=None, v_scales=None):
@@ -247,15 +256,19 @@ class DenseLM:
         return L.lm_head(params["embed"], x, self.cfg)
 
     def prefill_paged(self, params: dict, tokens: torch.Tensor, cache: dict,
-                      pages: torch.Tensor):
+                      pages: torch.Tensor, extra: dict | None = None):
         """Prefill the prompt straight into freshly allocated pages.
 
-        tokens: (B, S); pages: (B, n) page ids with n * page >= S.  The
-        whole prompt's KV lands in the pools with ONE scatter per pool.
-        Quantized pools attend the quantize->dequantize round trip of the
-        fresh KV, the values any later pool read dequantizes.
-        Returns (last-position logits (B, 1, V), cache)."""
+        tokens: (B, S); pages: (B, n) page ids with n * page >= S (S
+        counts the patches too when ``extra`` holds ``"patches"``, (B, P,
+        d) embeddings prepended at positions 0..P-1: the VLM's stub vision
+        tower).  The whole prompt's KV lands in the pools with ONE
+        scatter per pool.  Quantized pools attend the quantize->dequantize
+        round trip of the fresh KV, the values any later pool read
+        dequantizes.  Returns (last-position logits (B, 1, V), cache)."""
         x = L.embed_lookup(params["embed"], tokens)
+        if extra and "patches" in extra:
+            x = torch.cat([extra["patches"].to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         rows = cache["k_pages"].shape[2]
         quant = self.cfg.kv_quantized

@@ -83,6 +83,16 @@ live batch — no batch restart.
   freed and retried at once, staged handoffs when their lease runs out,
   with the tokens of the run without the crash.
 
+* **Model families.**  Any model of :func:`repro_torch.configs.
+  build_model` serves: ``DenseLM``, ``MoELM`` (with ``page_experts`` its
+  banks rest in the remote tier and only routed experts are paged in,
+  on the device, with no host sync) and ``VLM``, text-only as in the
+  reference (``submit`` takes no patches).  An MoE's capacity depends
+  on the tokens of a call, so its prefix-shared, chunked and
+  disaggregated admissions may keep or drop other choices than a
+  monolithic one: the reference's semantics, not a bit-identity
+  contract.
+
 Left out of this port so far: tensor parallelism and the dense cache.
 """
 from __future__ import annotations
