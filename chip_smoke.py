@@ -32,7 +32,9 @@ Phases (kernels, parity, moe, serve, tiers and disagg by default):
    for bit against ``index_select`` on the host bank plus a copy, over
    granite's banks in mapped pinned host memory and on the card, every
    and no expert routed, a ragged byte-wise bank; its byte counter equal
-   to the routed rows' bytes) — and time the kernel and
+   to the routed rows' bytes; a warm call returning while ~50 ms of
+   queued sleep still runs; timed in turns with one ``copy_`` of the
+   same bytes) — and time the kernel and
    one library call (timed only) by replaying a CUDA graph of 50 calls
    over inputs rotated past the 50 MB L2 (device time, without the host's
    launch overhead), and the plain version eagerly; then drive K3's and
@@ -56,6 +58,7 @@ Phases (kernels, parity, moe, serve, tiers and disagg by default):
    wgmma route; expert-paged, the gather once a layer a step and an
    admission, its counted bytes equal to the routed experts x 4,718,592,
    at most min(B k, E) experts routed in one gather (device counters),
+   every gather on the route ``plan`` gives the placed banks,
    the staging buffers one layer's bank (allocated bytes), the ledger's
    local ``expert_weights`` -- the reference's model of the staging,
    from the shapes -- within (min(B k, E) + 1) / E of a layer's bank
@@ -149,7 +152,7 @@ The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
 shape, ``tiers_launches``, ``disagg_launches`` and ``moe_launches``
 beside ``launches`` (a row at granite's shapes, and the gather's, reads
-``launches`` from the moe phase);
+``launches`` from the moe phase, by route);
 the last is ``{"ok":
 true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
@@ -811,20 +814,29 @@ def _routed_mask(torch, gen, experts: int, tokens: int, top_k: int):
     return mask
 
 
+#: cycles of ``torch.cuda._sleep`` queued ahead of the no-wait gate's
+#: gather: ~50 ms at an H100 SXM's 1.98 GHz boost clock
+SLEEP_CYCLES = 100_000_000
+
+
 def check_gather(torch, card: str, results: dict) -> None:
     """The expert gather (port-only) against its plain version
     (``index_select`` on the host bank, then a copy to the device), bit
     for bit over the whole buffers (routed rows copied, the others left
-    as they were): granite's banks in mapped pinned host memory under a
-    decode step's routing, the same banks resident on the card, every
-    and no expert routed, and a ragged fp32 bank (the byte-wise path).
-    The kernel's byte counter must equal the routed rows' bytes.  Then
-    the main shape is timed: the kernel (eager, CUDA events: one launch
-    moves ~0.1 GB, so the host's launch cost is noise), its plain
-    version, and for scale the copy engine moving the same bytes from
-    pinned memory in one ``copy_`` (not the same function: no PyTorch
-    call gathers host rows into device memory, so ``library_ms`` is
-    null)."""
+    as they were), on the route ``plan`` gives (``sm``): granite's banks
+    in mapped pinned host memory (``tiers.host_empty(..., mapped=True)``:
+    ``cudaHostAlloc``) under a decode step's routing, the same banks
+    resident on the card, every and no expert routed, and a ragged fp32
+    bank (the byte-wise path).  The kernel's byte counter must equal the
+    routed rows' bytes.  No wait: with ~50 ms of ``torch.cuda._sleep``
+    queued, a warm gather must return while the stream is still busy (a
+    sync inside the C library, which ``set_sync_debug_mode`` cannot see,
+    would wait).  Then the main shape is timed (eager, CUDA events: one
+    launch moves ~0.1 GB, so the host's launch cost is noise) in turns
+    with the copy engine moving the same bytes from pinned memory in one
+    ``copy_`` (not the same function: no PyTorch call gathers host rows
+    into device memory, so ``library_ms`` is null), and the plain
+    version."""
     from repro_torch.kernels.expert_gather import kernel as K
     from repro_torch.kernels.expert_gather.ref import expert_gather_ref
     from repro_torch.memory import REMOTE, tiers
@@ -839,13 +851,15 @@ def check_gather(torch, card: str, results: dict) -> None:
         return out
 
     def case(tag, src, mask):
-        """(kernel buffers, plain buffers, bytes routed)."""
+        """Bytes routed; the kernel bit-equal to the plain version, twice,
+        its counter the routed bytes, each launch on the planned route."""
         init = [torch.randn(b.shape, generator=gen, device="cuda").to(
             b.dtype) for b in src]
-        got, want = [x.clone() for x in init], [x.clone() for x in init]
+        got, again, want = ([x.clone() for x in init] for _ in range(3))
+        route = K.plan([b.device for b in src], got[0].device)
+        before = K.launches.by_instance.get(route, 0)
         counter = torch.zeros(1, dtype=torch.int64, device="cuda")
         K.expert_gather(src, mask, got, counter)
-        again = [x.clone() for x in init]
         K.expert_gather(src, mask, again,
                         torch.zeros(1, dtype=torch.int64, device="cuda"))
         expert_gather_ref(src, mask, want)
@@ -853,15 +867,20 @@ def check_gather(torch, card: str, results: dict) -> None:
         routed = int(mask.sum())
         nbytes = routed * sum(b[0].numel() * b.element_size() for b in src)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
-        log(f"expert gather {tag}: {routed} of {mask.numel()} experts "
-            f"routed, bit-equal to index_select + copy: {same}; counter "
-            f"{int(counter)} bytes (routed rows {nbytes})")
+        log(f"expert gather {tag}, route {route}: {routed} of "
+            f"{mask.numel()} experts routed, bit-equal to index_select + "
+            f"copy: {same}; counter {int(counter)} bytes (routed rows "
+            f"{nbytes})")
         if not same or not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"expert gather {tag}: differs from its "
                                  f"plain version or between launches")
         if int(counter) != nbytes:
             raise AssertionError(f"expert gather {tag}: counted "
                                  f"{int(counter)} bytes, routed {nbytes}")
+        if K.launches.by_instance.get(route, 0) != before + 2:
+            raise AssertionError(f"expert gather {tag}: launches by route "
+                                 f"{K.launches.by_instance}, expected 2 "
+                                 f"more on {route}")
         return nbytes
 
     shapes = ((e, d, f), (e, d, f), (e, f, d))
@@ -880,26 +899,47 @@ def check_gather(torch, card: str, results: dict) -> None:
 
     out = [torch.empty(b.shape, dtype=b.dtype, device="cuda") for b in host]
     counter = torch.zeros(1, dtype=torch.int64, device="cuda")
-    ms = time_ms(torch, lambda: K.expert_gather(host, mask, out, counter),
-                 [()], iters=20, graph=False)
-    plain_ms = time_ms(torch, lambda: expert_gather_ref(host, mask, out),
-                       [()], iters=5, graph=False)
+    route = K.plan([b.device for b in host], out[0].device)
+
+    def gather():
+        K.expert_gather(host, mask, out, counter)
+
+    gather()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    gather()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    log(f"expert gather no-wait, route {route}: the call returned in "
+        f"{host_ms:.3f} ms with the stream still busy: {busy}")
+    if not busy:
+        raise AssertionError("expert gather: the host waited for the device")
     flat = tiers.tier_empty((nbytes,), torch.uint8, REMOTE, device="cuda")
     dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
-    dma_ms = time_ms(torch, lambda: dev.copy_(flat, non_blocking=True), [()],
-                     iters=20, graph=False)
+    timed = {"copy_": lambda: dev.copy_(flat, non_blocking=True),
+             route: gather}
+    ms: dict = {}
+    for name in ("copy_", route, route, "copy_"):
+        ms.setdefault(name, []).append(time_ms(torch, timed[name], [()],
+                                               iters=20, graph=False))
+    plain_ms = time_ms(torch, lambda: expert_gather_ref(host, mask, out),
+                       [()], iters=5, graph=False)
     b_ms = max(nbytes / PCIE_BYTES_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     tag = f"E={e} d={d} f={f} x3 bf16, {int(mask.sum())} routed"
-    log(f"expert gather {tag} [{card}]: kernel {ms:.4f} ms = "
-        f"{nbytes / ms / 1e6:.2f} GB/s, plain {plain_ms:.4f} ms, copy "
-        f"engine for the same {nbytes} bytes from pinned memory "
-        f"{dma_ms:.4f} ms = {nbytes / dma_ms / 1e6:.2f} GB/s, bound "
-        f"{b_ms:.6f} ms (bytes over PCIe Gen5 x16 at 64 GB/s), "
-        f"{100 * b_ms / ms:.1f}% of the bound")
+    t, dma_ms = min(ms[route]), min(ms["copy_"])
+    log(f"expert gather {tag}, route {route} [{card}]: kernel {t:.4f} ms = "
+        f"{nbytes / t / 1e6:.2f} GB/s (turns {ms[route]}), plain "
+        f"{plain_ms:.4f} ms; the copy engine moves the same {nbytes} bytes "
+        f"from pinned memory in one copy_ in {dma_ms:.4f} ms = "
+        f"{nbytes / dma_ms / 1e6:.2f} GB/s (turns {ms['copy_']}): "
+        f"{t / dma_ms:.3f}x the copy_; bound {b_ms:.6f} ms (bytes over PCIe "
+        f"Gen5 x16 at 64 GB/s), {100 * b_ms / t:.1f}% of the bound")
     results.setdefault("expert_gather", []).append(dict(
-        shape=tag, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by="bytes", library_ms=None, copy_engine_ms=dma_ms,
-        gbps=nbytes / ms / 1e6))
+        shape=tag, instance=route, max_abs_err=0.0, ms=t, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by="bytes", library_ms=None,
+        copy_engine_ms=dma_ms, gbps=nbytes / t / 1e6))
 
 
 def drive_ops(torch) -> dict:
@@ -1407,8 +1447,11 @@ def check_moe(torch, card: str, counts: Launches) -> None:
     one layer's bank, the ledger's local ``expert_weights`` (the
     reference's model) within (min(B k, E) + 1) / E of a layer's bank,
     and within (top_k + 1) / E in a batch-1 run; one expert-paged decode
-    step asks for no host sync."""
+    step asks for no host sync; every gather takes the route ``plan``
+    gives the placed banks."""
     import dataclasses
+    from repro_torch.kernels import instance_counts
+    from repro_torch.kernels.expert_gather import kernel as EG
     from repro_torch.memory import LOCAL, REMOTE
     from repro_torch.models.moe import MoELM
     from repro_torch.runtime.serve import BatchedServer
@@ -1450,6 +1493,11 @@ def check_moe(torch, card: str, counts: Launches) -> None:
         ep = model.mem.expert_policy
         ep.reset_stats()
         toks, server, got, secs = serve_run(model, prms, temperature, tag)
+        routes = instance_counts()["expert_gather"]
+        log(f"moe {tag}: gathers by route {routes}")
+        if set(routes) != {route}:
+            problems.append(f"{tag}: gathers by route {routes}, not all on "
+                            f"{route}")
         st = server.stats
         stats = ep.gather_stats()
         n_gathers = sum(r["gathers"] for r in stats.values())
@@ -1512,12 +1560,15 @@ def check_moe(torch, card: str, counts: Launches) -> None:
         params["layers"]))
     torch.cuda.synchronize()
     banks = params["layers"][0]["moe"]
+    route = EG.plan([banks[n].device for n in ("wi", "wg", "wo")],
+                    torch.device("cuda", 0))
     log(f"moe: banks placed in {time.perf_counter() - t0:.1f} s; pinned "
         f"{all(banks[n].is_pinned() for n in ('wi', 'wg', 'wo'))}; device "
         f"memory allocated {before / 2**30:.3f} -> "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     syncs = _no_sync_decode_step(torch, model, params)
-    log(f"moe: one expert-paged decode step asked for {syncs} host syncs")
+    log(f"moe: one expert-paged decode step asked for {syncs} host syncs; "
+        f"gather route {route}")
     if syncs:
         problems.append(f"an expert-paged decode step synced {syncs} times")
     for temperature in (0.0, 0.7):

@@ -44,7 +44,10 @@ def reset_launch_counts() -> None:
 
 
 def build_all() -> dict[str, str]:
-    """Build every kernel of the port (one ``nvcc`` per source, all
-    started together); returns name -> the compiler's report."""
+    """Build every kernel of the port and the memory layer's mapped host
+    allocation (one ``nvcc`` per source, all started together); returns
+    name -> the compiler's report."""
     from repro_torch.kernels import build
-    return build.build([m.SOURCE for m in _kernel_modules()])
+    from repro_torch.memory import tiers
+    return build.build([m.SOURCE for m in _kernel_modules()]
+                       + [tiers.HOST_ALLOC_SOURCE])

@@ -5,26 +5,36 @@
 // rows with an XLA gather (`jnp.take` + `page_in` in
 // src/repro/memory/policies.py, TopKExpertPrefetch.gather), one bank row
 // per (token, choice).  Here the banks (E, ...) rest in pinned host memory
-// registered with cudaHostRegisterMapped, and one launch copies, for every
-// bank, the rows of the experts whose byte in the (E,) device mask is set
-// into a device buffer of the bank's shape.  The kernel reads the mask
-// itself (written by the router's top-k on the same stream), so the host
-// never learns which experts were routed and never waits; rows of
+// mapped into the device's address space, and one launch copies, for
+// every bank, the rows of the experts whose byte in the (E,) device mask
+// is set into a device buffer of the bank's shape.  The kernel reads the
+// mask itself (written by the router's top-k on the same stream), so the
+// host never learns which experts were routed and never waits; rows of
 // unrouted experts are not touched.  Each CTA adds the bytes it copied to
 // a device counter, so a run can show that only routed rows moved.
 //
 // What bounds it on this card: the bytes, read across PCIe (Gen5 x16, 64
 // GB/s a direction) by the SMs themselves (zero-copy loads of mapped host
-// memory) and written once to HBM.  Design for that: enough 16-byte loads
-// in flight to cover the link's latency -- CTAs of 256 threads, each
-// thread holding 4 loads in flight, each CTA one 64 KB chunk of one row,
-// one grid over (chunk, expert, bank), CTAs of unrouted experts leaving at
-// once.  Rows whose length or pointers are not 16-byte multiples take a
-// byte-wise path.  Measured on H100 80GB HBM3 machines: other launch
-// shapes (128 to 1024 threads, 4 to 16 loads in flight, 16 KB to 256 KB
-// chunks) moved the rate by a few percent, while between machines the
-// SMs' zero-copy reads ran at 21 or 48 GB/s where the copy engine moved
-// 43 to 55 from the same pinned memory.
+// memory) and written once to HBM.  How fast the SMs read the link
+// depends on the machine and on the host memory: on H100 80GB HBM3
+// machines 48 GB/s on some, and on the others 19.7 GB/s from malloc'd
+// memory registered with cudaHostRegisterMapped against 28.5 GB/s from
+// memory cudaHostAlloc mapped, where a copy engine moved 42.5 GB/s from
+// the same memory.  So the banks rest in cudaHostAlloc'd memory
+// (host_alloc.cu).  A copy engine is started only by the host, which must
+// not learn the routing: copies chosen on the device (conditional graph
+// nodes, run as memcpy128 kernels, and device-launched graphs) ran no
+// faster than this kernel over the banks' memory, and cp.async.bulk
+// reads of the mapped rows slower (tools/gather_designs.py measures each
+// beside it).
+//
+// Design: enough 16-byte loads in flight to cover the link's latency --
+// CTAs of 256 threads, each thread holding 4 loads in flight, each CTA
+// one 64 KB chunk of one row, one grid over (chunk, expert, bank), CTAs of
+// unrouted experts leaving at once.  Rows whose length or pointers are
+// not 16-byte multiples take a byte-wise path.  Other launch shapes (128
+// to 1024 threads, 4 to 16 loads in flight, 16 KB to 256 KB chunks) moved
+// the rate by a few percent.  Banks in device memory take the same path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -2,10 +2,18 @@
 port-only: it pages the routed experts' rows of expert banks at rest in
 mapped pinned host memory into device buffers, reading the routing mask
 on the device.  CUDA output buffers only: the plain version lives in
-``ref.py`` and the device routing in ``ops.py``."""
+``ref.py`` and the device routing in ``ops.py``.
+
+One route, ``sm``: the SMs read the mask and copy the routed rows
+themselves, from banks in mapped pinned host memory
+(``tiers.host_empty(..., mapped=True)``) or on the buffers' device.
+Copies chosen on the device through CUDA graphs, and ``cp.async.bulk``
+reads, were measured and set aside (``tools/gather_designs.py``,
+``PERF.md`` §6)."""
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import torch
 
@@ -16,10 +24,36 @@ SOURCE = "expert_gather.cu"
 REPLACES = "none (port-only; the reference's XLA gather is " \
            "src/repro/memory/policies.py:441)"
 MAX_BANKS = 4
+#: launches by route: ``launches.by_instance["sm"]``
 launches = build.LaunchCount("expert_gather")
 COUNTERS = (launches,)
 
+log = logging.getLogger(__name__)
 _fn = None
+_logged: set = set()
+
+
+def plan(banks_on, buffers_on: torch.device) -> str:
+    """The route of a gather from banks on the devices ``banks_on`` (one
+    ``torch.device`` a bank: ``cpu`` for mapped pinned host memory) into
+    buffers on ``buffers_on``: ``sm`` for a CUDA device and banks in host
+    memory or on that device; logged once at INFO for each of the two
+    placements.  Raises ValueError for anything else."""
+    if buffers_on.type != "cuda":
+        raise ValueError(f"expert gather kernel: buffers on {buffers_on}, "
+                         f"not a CUDA device")
+    host = False
+    for d in banks_on:
+        if d.type == "cpu":
+            host = True
+        elif d != buffers_on:
+            raise ValueError(f"expert gather kernel: a bank on {d}, "
+                             f"buffers on {buffers_on}")
+    if host not in _logged:
+        _logged.add(host)
+        log.info("expert gather: route sm for banks in %s memory",
+                 "host" if host else "device")
+    return "sm"
 
 
 def _launcher():
@@ -40,18 +74,17 @@ def _launcher():
 
 def expert_gather(banks, mask: torch.Tensor, out,
                   counter: torch.Tensor) -> None:
-    """Launch the gather: ``banks`` (E, ...) contiguous, each in mapped
-    pinned host memory (``tiers.host_empty(..., mapped=True)``) or on the
-    buffers' device; ``out`` their device buffers, same shapes and
-    dtypes; ``mask`` (E,) bool on that device; ``counter`` one int64 on
-    it, to which the kernel adds the bytes it copied."""
+    """Launch the gather on the route :func:`plan` gives: ``banks`` (E,
+    ...) contiguous, each in mapped pinned host memory
+    (``tiers.host_empty(..., mapped=True)``) or on the buffers' device;
+    ``out`` their device buffers, same shapes and dtypes; ``mask`` (E,)
+    bool on that device; ``counter`` one int64 on it, to which the kernel
+    adds the bytes it copied."""
     if not out or len(out) != len(banks) or len(out) > MAX_BANKS:
         raise ValueError(f"expert gather kernel: {len(banks)} banks into "
                          f"{len(out)} buffers (1..{MAX_BANKS})")
     dev = out[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"expert gather kernel: buffers on {dev}, not a "
-                         f"CUDA device")
+    route = plan([b.device for b in banks], dev)
     e = banks[0].shape[0]
     host = 0
     for i, (bank, buf) in enumerate(zip(banks, out)):
@@ -68,9 +101,6 @@ def expert_gather(banks, mask: torch.Tensor, out,
                              f"{buf.device}")
         if bank.device.type == "cpu":
             host |= 1 << i
-        elif bank.device != dev:
-            raise ValueError(f"expert gather kernel: bank {i} on "
-                             f"{bank.device}, buffers on {dev}")
     if (mask.device != dev or mask.dtype != torch.bool
             or mask.shape != (e,)):
         raise ValueError(f"expert gather kernel: mask {tuple(mask.shape)} "
@@ -90,6 +120,6 @@ def expert_gather(banks, mask: torch.Tensor, out,
                      counter.data_ptr(), stream)
     if rc == 1 and host:     # cudaErrorInvalidValue from the mapping
         raise RuntimeError("expert gather kernel: a host bank is not "
-                           "registered mapped pinned memory (CUDA error 1)")
+                           "mapped pinned memory (CUDA error 1)")
     build.check(rc, "expert_gather")
-    launches.count += 1
+    launches.add(route)

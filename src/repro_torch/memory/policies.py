@@ -255,7 +255,8 @@ class TopKExpertPrefetch:
     data-dependent, so there is no lookahead window: the gather *is* the
     prefetch, issued as soon as the router's top-k lands.
 
-    On the card the banks rest in pinned host memory registered mapped,
+    On the card the banks rest in pinned host memory mapped into the
+    device's address space (``cudaHostAlloc``),
     and :meth:`gather` marks the routed experts in an (E,) device mask
     from which the expert-gather kernel copies just their rows into one
     reused device buffer per bank shape (zeroed once, at allocation).
@@ -317,10 +318,10 @@ class TopKExpertPrefetch:
         return self.to_home(tree)
 
     def to_home(self, x: torch.Tensor) -> torch.Tensor:
-        """One bank in the home tier: a CUDA bank is copied into pinned
-        host memory registered mapped, which the gather kernel reads in
-        place; a bank already in pinned host memory (placed before)
-        stays where it is; a CPU bank is copied."""
+        """One bank in the home tier: a CUDA bank is copied into mapped
+        pinned host memory, which the gather kernel reads in place; a
+        bank already in pinned host memory (placed before) stays where
+        it is; a CPU bank is copied."""
         if x.device.type == "cpu" and x.is_pinned():
             return x
         return tiers.to_tier(x, self.tier, mapped=True)

@@ -27,6 +27,7 @@ installed :class:`FaultPlan` first (:func:`check_transfer`).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import math
 import time
@@ -287,9 +288,40 @@ def transfer_with_retry(fn: Callable[[], Any], *, what: str,
 # Placement primitives
 # ---------------------------------------------------------------------------
 
-#: ``cudaHostRegisterMapped``: the registered range is also mapped into
-#: the device's address space, so a kernel can read it directly
-HOST_REGISTER_MAPPED = 2
+#: the source (in ``repro_torch/kernels/csrc/``) of mapped allocations
+HOST_ALLOC_SOURCE = "host_alloc.cu"
+#: its binding, loaded at the first mapped allocation
+_host_alloc: dict = {}
+
+
+def _host_alloc_fns() -> dict:
+    if not _host_alloc:
+        from repro_torch.kernels import build
+        lib = build.load(HOST_ALLOC_SOURCE)
+        lib.host_alloc_mapped.argtypes = [ctypes.c_longlong,
+                                          ctypes.POINTER(ctypes.c_void_p)]
+        lib.host_alloc_mapped.restype = ctypes.c_int
+        lib.host_alloc_free.argtypes = [ctypes.c_void_p]
+        lib.host_alloc_free.restype = ctypes.c_int
+        _host_alloc.update(alloc=lib.host_alloc_mapped,
+                           free=lib.host_alloc_free)
+    return _host_alloc
+
+
+def _mapped_empty(shape: tuple[int, ...], dtype: torch.dtype
+                  ) -> torch.Tensor:
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    if not nbytes:
+        return torch.empty(shape, dtype=dtype)
+    fns = _host_alloc_fns()
+    ptr = ctypes.c_void_p()
+    rc = fns["alloc"](nbytes, ctypes.byref(ptr))
+    if rc != 0:
+        raise RuntimeError(f"cudaHostAlloc of {nbytes} bytes failed with "
+                           f"CUDA error {rc}")
+    raw = (ctypes.c_uint8 * nbytes).from_address(ptr.value)
+    weakref.finalize(raw, fns["free"], ptr.value).atexit = False
+    return torch.frombuffer(raw, dtype=torch.uint8).view(dtype).view(shape)
 
 
 def host_empty(shape: tuple[int, ...], dtype: torch.dtype, *,
@@ -297,16 +329,22 @@ def host_empty(shape: tuple[int, ...], dtype: torch.dtype, *,
     """An uninitialised contiguous host tensor, page-locked if ``pinned``
     (registered with ``cudaHostRegister`` at its exact size: PyTorch's
     pinned allocator rounds every block up to a power of two, which
-    would pin ~1.7x the bytes of a 550 MB layer).  ``mapped`` registers
-    it with ``cudaHostRegisterMapped``, so a kernel reads it in place
-    (the expert banks at rest).  The registration ends when the returned
-    tensor object is collected.  A failed registration raises."""
+    would pin ~1.7x the bytes of a 550 MB layer); the registration ends
+    when the returned tensor object is collected, and a failed one
+    raises.  ``pinned`` and ``mapped``: the memory is also mapped into
+    the devices' address space, so a kernel reads it in place (the
+    expert banks at rest); it comes from ``cudaHostAlloc`` at its exact
+    size (``host_alloc.cu``, built at the first such call), which the
+    SMs read faster than registered memory, and ``cudaFreeHost`` frees
+    it when the last view of its storage goes.  A failed allocation
+    raises RuntimeError."""
+    if pinned and mapped:
+        return _mapped_empty(shape, dtype)
     buf = torch.empty(shape, dtype=dtype)
     nbytes = buf.numel() * buf.element_size()
     if pinned and nbytes:
         cudart = torch.cuda.cudart()
-        flags = HOST_REGISTER_MAPPED if mapped else 0
-        rc = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, flags))
+        rc = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, 0))
         if rc != 0:
             raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed "
                                f"with CUDA error {rc}")
