@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--layers N]
-                          [--phases kernels,parity,moe,serve,tiers,disagg]
+                          [--phases kernels,parity,moe,gpt3,serve,dense,
+                                    tiers,disagg]
 
-Phases (kernels, parity, moe, serve, tiers and disagg by default):
+Phases (kernels, parity, moe, gpt3, serve, dense, tiers and disagg by
+default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
@@ -16,10 +18,16 @@ Phases (kernels, parity, moe, serve, tiers and disagg by default):
    kernels phase's and the serving run's lengths (two launches must give
    the same bits, a seq_len 0 slot exactly its v0, and a slot's bits must
    not move when the other slots change), at Qwen2.5-14B's G = 5 and at
-   G = 12 and 16 (d = 128, and 256) over bf16 and int8 pools, and at
-   granite-moe-3b-a800m's G = 3, d = 64 over bf16 and int8; K2 on the
+   G = 12 and 16 (d = 128, and 256) over bf16 and int8 pools, at
+   granite-moe-3b-a800m's G = 3, d = 64 over bf16 and int8, and at the
+   MHA models' G = 1: gpt3-175b's 96 kv heads at d = 128 and
+   minicpm-2b's 36 at d = 64 (timed, as G = 12 and 16 are), each
+   element and each output row (against its largest value) within
+   tolerance; K2 on the
    route ``plan`` picks (wgmma for bf16, simt for fp32 and unaligned bf16
-   views) at d = 32, 64, 128 and 256, windows (some skipping whole key
+   views) at d = 32, 64, 128 and 256, G = 1 (96/96 heads at d = 128,
+   36/36 at d = 64, both also timed at an 8-token admission), windows
+   (some skipping whole key
    tiles), kv_valid padding and Sq = Sk up to 2048, each element and each
    row (against its largest value) within tolerance, two launches giving
    the same bits, and suffix rows at q_offset 48, 200 and 130 (with and
@@ -29,13 +37,15 @@ Phases (kernels, parity, moe, serve, tiers and disagg by default):
    down-projections at decode and prefill widths, an unaligned view, the
    reference bench's fp32 shape, ragged shapes; two launches must give
    the same bits), K4 (``ops.accumulate``) and the expert gather (bit
-   for bit against ``index_select`` on the host bank plus a copy, over
-   granite's banks in mapped pinned host memory and on the card, every
-   and no expert routed, a ragged byte-wise bank; its byte counter equal
-   to the routed rows' bytes; a warm call returning while ~50 ms of
-   queued sleep still runs; timed in turns with one ``copy_`` of the
-   same bytes) — and time the kernel and
-   one library call (timed only) by replaying a CUDA graph of 50 calls
+   for bit against ``index_select`` on the host bank plus
+   ``index_copy_``, packed into min(N, E) + 1 rows through the moe path's
+   slot map over granite's banks in mapped pinned host memory and on the
+   card, every and no expert routed, and through the identity slot map
+   into buffers of the bank's shape, a ragged byte-wise bank among them;
+   its byte counter equal to the routed rows' bytes; a warm call
+   returning while ~50 ms of queued sleep still runs; timed in turns
+   with one ``copy_`` of the same bytes) — and time the kernel and one
+   library call (timed only) by replaying a CUDA graph of 50 calls
    over inputs rotated past the 50 MB L2 (device time, without the host's
    launch overhead), and the plain version eagerly; then drive K3's and
    K4's path, their wrappers, once at each shape with launch counts reset
@@ -44,8 +54,12 @@ Phases (kernels, parity, moe, serve, tiers and disagg by default):
    (plain versions) and hold their tokens and logits together, greedy
    and, over int8 pools, at temperature 0.7; the same for a smoke-size
    MoE (served resident on both, and expert-paged on the card: the
-   card's resident tokens) and a VLM (prefill with patches, then four
-   decode steps: logits within 1e-3);
+   card's resident tokens), a VLM (prefill with patches, then four
+   decode steps: logits within 1e-3), and the dense configs qwen3-14b,
+   minicpm-2b (G = 1 kept), starcoder2-15b and gpt3-175b (G = 1 kept)
+   over pools and qwen2.5-14b with a window of 8 and with ``kv_quant``
+   over the dense slab (first-8 tokens, logits within 1e-3; K1 never
+   over the slab);
 4. ``moe``: serve granite-moe-3b-a800m at its published widths and full
    depth (32 layers, d 1536, 24/8 heads, 40 experts top-8 of d_ff 512,
    tp=1, random bf16 weights) on the serve phase's four 8-token prompts
@@ -58,15 +72,30 @@ Phases (kernels, parity, moe, serve, tiers and disagg by default):
    wgmma route; expert-paged, the gather once a layer a step and an
    admission, its counted bytes equal to the routed experts x 4,718,592,
    at most min(B k, E) experts routed in one gather (device counters),
-   every gather on the route ``plan`` gives the placed banks,
-   the staging buffers one layer's bank (allocated bytes), the ledger's
-   local ``expert_weights`` -- the reference's model of the staging,
-   from the shapes -- within (min(B k, E) + 1) / E of a layer's bank
-   (within (top_k + 1) / E after a batch-1 run), and one decode step
-   asking for no host sync (``set_sync_debug_mode``).  It prints tok/s,
-   ms a step, peak device memory resident against expert-paged, the
-   bytes at rest, the experts staged a layer a step, the staging
-   buffers' bytes and the staged bytes' rate;
+   every gather on the route ``plan`` gives the placed banks, the
+   staging alive at a decode step's gathers equal to the ledger's live
+   ``expert_weights`` line, (min(B k, E) + 1) rows a bank, at batch 4
+   and in a batch-1 run, the most staging alive equal to its capacity
+   line, and one decode step asking for no host sync
+   (``set_sync_debug_mode``).  It logs whether a decode step's packed
+   dispatch gives the resident dispatch's bits, and prints tok/s, ms a
+   step, peak device memory resident against expert-paged, the bytes at
+   rest, the experts staged a layer a step, the staging alive and the
+   staged bytes' rate;
+4b. ``gpt3``: serve gpt3-175b at its published widths (d 12288, 96/96
+   heads, MHA: G = 1, d_ff 32768, vocab 50257) and 8 of its 96 layers
+   (REDUCED depth: 29.0 GB of bf16 layers and 2.47 GB of embedding and
+   head; the whole model is 348 GB), tp=1, random bf16 weights, after
+   the moe phase and before the Qwen weights exist, on the serve phase's
+   four 8-token prompts (32 new tokens, batch 4, block 32, max_seq 384,
+   page 16, seed 0): resident greedy and at 0.7, then greedy with the
+   layers paged from pinned host memory by the Tensor Prefetcher (the
+   paper's case: GPT-3's weights in remote memory) with the resident
+   run's tokens; K1 once a layer a decode step at G = 1, K2 once a layer
+   an admission on the wgmma route, every layer fetched once a step and
+   an admission.  It prints the host's MemTotal, tok/s, ms a step and
+   peak device memory beside the floors (a step's bytes over 3.35 TB/s
+   resident, the layers over 64 GB/s paged);
 5. ``serve``: serve Qwen2.5-14B at its published widths (tp=1, random bf16
    weights from a seeded torch.Generator, made once) through
    ``BatchedServer`` — four 8-token prompts plus a prefix-sharing pair, 64
@@ -84,6 +113,23 @@ Phases (kernels, parity, moe, serve, tiers and disagg by default):
    step, every layer fetched once a step and once an admission; it prints
    tok/s, peak device memory, the ledger's window beside two layers'
    bytes, the pinned bytes and the host-to-device rate;
+5b. ``dense``: Qwen2.5-14B at full width and depth (the serve phase's
+   weights) over the dense per-slot slab, ``BatchedServer(paged=False)``,
+   on the serve phase's four prompts (64 new tokens): bf16 greedy and at
+   0.7, ``kv_quant`` greedy; K1 never launches, K2 once a layer an
+   admission.  K1 and its plain version round differently, and 48
+   random layers amplify that past the first-8 rule (0.5 in bf16), so
+   the slab is held: in bf16 and int8 to the paged runs read through
+   K1's plain version, whose arithmetic its read shares (first-8 match
+   rate >= 0.75; one decode step from the same stored KV within a max
+   |dlogit| of 1e-2); ``kv_quant``'s prefill to the bf16 slab's logits
+   and ``kv_quantize`` of its values, bit for bit, and its first tokens
+   to the bf16 run's; and, with the same weights converted to fp32, to
+   K1 itself (the first-8 rule and the 1e-2 step bound), beside K1 against
+   its plain version by depth in bf16 and fp32 (a rounding gap shrinks
+   with the unit); timed in turns with a paged bf16 run, it prints ms a
+   step, tok/s, the slab's bytes beside the paged pool's peak bytes and
+   its fragmentation one block in, and peak device memory;
 6. ``tiers``: KV across the memory tiers, Qwen2.5-14B at full depth
    whatever ``--layers`` says, on the serve phase's four 8-token prompts
    (64 new tokens, block 32, max_seq 384, page 16, seed 0):
@@ -150,9 +196,11 @@ Phases (kernels, parity, moe, serve, tiers and disagg by default):
 
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
-shape, ``tiers_launches``, ``disagg_launches`` and ``moe_launches``
-beside ``launches`` (a row at granite's shapes, and the gather's, reads
-``launches`` from the moe phase, by route);
+shape, ``tiers_launches``, ``disagg_launches``, ``moe_launches``,
+``gpt3_launches`` and ``dense_launches`` beside ``launches`` (a row at
+granite's shapes, and the gather's, reads ``launches`` from the moe
+phase, by route; a row at gpt3-175b's from the gpt3 phase; a shape no
+driven path runs, minicpm-2b's, reads 0);
 the last is ``{"ok":
 true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
@@ -161,6 +209,8 @@ It exits non-zero at once when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -268,14 +318,20 @@ K1_LENS = ([0, 71, 135, 383], [8, 40, 72, 72])
 #: K1's groups past 8 query rows a kv head (Hkv, G, d, timed):
 #: starcoder2-15b's 48/4 heads, qwen3-235b's 64/4 and recurrentgemma-9b's
 #: 16/1 at d = 256 (the 16-row instantiation), over bf16 and int8 pools
-K1_GROUPS = ((4, 12, 128, False), (4, 16, 128, True), (1, 16, 256, False))
+K1_GROUPS = ((4, 12, 128, True, "serve"), (4, 16, 128, True, "serve"),
+             (1, 16, 256, False, "serve"), (36, 1, 64, True, "kernels"),
+             (96, 1, 128, True, "gpt3"))
 
 
 def check_paged(torch, card: str, results: dict, kv: str | None = None,
                 hkv: int = 8, g: int = 5, d: int = 128,
                 timed: bool = True, phase: str = "serve") -> None:
     """K1 against its plain version at Hkv kv heads of G query rows and
-    head dim d (Qwen2.5-14B's 8 x 5 x 128 by default).  ``kv`` None:
+    head dim d (Qwen2.5-14B's 8 x 5 x 128 by default), each element and
+    each output row (one slot, head and query row, against its own
+    largest |plain| value) within the tolerance: outputs over a few
+    hundred near-uniform positions are ~0.05-0.1, where the absolute
+    bound alone would let a dropped page pass.  ``kv`` None:
     bf16/fp32 pools in q's dtype; "int8" / "fp8_e4m3": the scaled
     variant, one-byte pools with bf16 scales made by the port's
     quantizer, q and extra_kv in bf16 or fp32.  Also: a seq_len 0 slot is
@@ -336,12 +392,17 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None,
                 again = kernel(*args, extra=extra)
                 want = plain(*args, extra=extra)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
+                diff = (got.float() - want.float()).abs()
+                err = diff.max().item()
+                rel = (diff.amax(-1) / want.float().abs().amax(-1).clamp_min(
+                    1e-30)).max().item()
                 case = (f"{name} Hkv={HKV} G={G} d={D} q={str(dtype)[6:]} "
                         f"lens={lens_l} extra={extra}")
-                log(f"K1 {case}: max_abs_err {err:.3e} (bound {tol:g})")
-                if not err <= tol:
-                    raise AssertionError(f"K1 {case}: {err} > {tol}")
+                log(f"K1 {case}: max_abs_err {err:.3e}, largest row error "
+                    f"over the row's max |plain| {rel:.3e} (bound {tol:g} "
+                    f"for both)")
+                if not (err <= tol and rel <= tol):
+                    raise AssertionError(f"K1 {case}: {err}, {rel} > {tol}")
                 if not torch.equal(got, again):
                     raise AssertionError(f"K1 {case}: two launches differ")
                 key = (dtype, tuple(lens_l))
@@ -449,7 +510,10 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 40, 64, 16, 1, 256, {"causal": False, "kv_valid": 50}),
                (1, 300, 300, 16, 1, 256, {}),
                (1, 2048, 2048, 16, 1, 256, {}),
-               (1, 2048, 2048, 16, 1, 256, {"window": 256}))
+               (1, 2048, 2048, 16, 1, 256, {"window": 256}),
+               (1, 8, 8, 96, 96, 128, {}), (1, 384, 384, 96, 96, 128, {}),
+               (1, 8, 8, 36, 36, 64, {}), (1, 64, 64, 36, 36, 64, {}),
+               (1, 50, 50, 36, 36, 64, {"window": 13}))
 #: the prefix contract's cases: (Sq = Sk, q_offset, Hq, Hkv, d, window).
 #: At 130 a row sits at another place of its query tile than unshared
 #: (25 positions a tile at 40/8 heads, 4 at 16/1), and with a window of
@@ -458,15 +522,21 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
 FLASH_PREFIX = ((64, 48, 40, 8, 128, 0), (384, 200, 40, 8, 128, 0),
                 (384, 130, 40, 8, 128, 0), (384, 130, 40, 8, 128, 100),
                 (384, 130, 16, 1, 256, 100))
-#: granite-moe-3b-a800m's attention (Hq, Hkv, d): its rows belong to the
-#: moe phase's path
-GRANITE_ATTN = (24, 8, 64)
+#: the paths a K2 row's launches are read from, by attention (Hq, Hkv,
+#: d): granite-moe-3b-a800m's (moe phase), gpt3-175b's MHA (gpt3 phase),
+#: minicpm-2b's MHA (no driven path: kernels phase only); else serve
+ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
+              (36, 36, 64): "kernels"}
 #: K2's timed shapes (route, dtype, Sq = Sk, Hq, Hkv, d): the main path's
 #: route at Qwen2.5-14B's width over four prompt lengths, at
-#: granite-moe-3b-a800m's admission (8 tokens, 24/8 heads, d = 64) and at
-#: d = 256; the simt route at the width of the parity phase's fp32 model
+#: granite-moe-3b-a800m's admission (8 tokens, 24/8 heads, d = 64), at
+#: MHA (G = 1) admissions of gpt3-175b (96/96, d = 128) and minicpm-2b
+#: (36/36, d = 64) and at d = 256; the simt route at the width of the
+#: parity phase's fp32 model
 FLASH_TIMED = (("wgmma", "bfloat16", 8, 40, 8, 128),
                ("wgmma", "bfloat16", 8, 24, 8, 64),
+               ("wgmma", "bfloat16", 8, 96, 96, 128),
+               ("wgmma", "bfloat16", 8, 36, 36, 64),
                ("wgmma", "bfloat16", 64, 40, 8, 128),
                ("wgmma", "bfloat16", 384, 40, 8, 128),
                ("wgmma", "bfloat16", 2048, 40, 8, 128),
@@ -605,7 +675,7 @@ def check_flash(torch, card: str, results: dict) -> None:
             f"kernel / sdpa {ms / lib_ms:.2f}x")
         results.setdefault(f"flash_attention_{route}", []).append(dict(
             shape=shape, instance=K.instance(d),
-            phase="moe" if (hq, hkv, d) == GRANITE_ATTN else "serve",
+            phase=ATTN_PHASE.get((hq, hkv, d), "serve"),
             max_abs_err=errs[(route, sq, hq, hkv, d)], ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
@@ -819,19 +889,33 @@ def _routed_mask(torch, gen, experts: int, tokens: int, top_k: int):
 SLEEP_CYCLES = 100_000_000
 
 
+def _slot_map(torch, mask, n: int):
+    """The moe path's packing for a gather of ``n`` routed choices: rows
+    min(n, E) + 1, each routed expert's row its rank in the mask, the
+    rest on the spare last row."""
+    rows = min(n, mask.numel()) + 1
+    slots = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    slots.masked_fill_(~mask, rows - 1)
+    return rows, slots
+
+
 def check_gather(torch, card: str, results: dict) -> None:
     """The expert gather (port-only) against its plain version
-    (``index_select`` on the host bank, then a copy to the device), bit
-    for bit over the whole buffers (routed rows copied, the others left
-    as they were), on the route ``plan`` gives (``sm``): granite's banks
-    in mapped pinned host memory (``tiers.host_empty(..., mapped=True)``:
-    ``cudaHostAlloc``) under a decode step's routing, the same banks
-    resident on the card, every and no expert routed, and a ragged fp32
-    bank (the byte-wise path).  The kernel's byte counter must equal the
-    routed rows' bytes.  No wait: with ~50 ms of ``torch.cuda._sleep``
-    queued, a warm gather must return while the stream is still busy (a
-    sync inside the C library, which ``set_sync_debug_mode`` cannot see,
-    would wait).  Then the main shape is timed (eager, CUDA events: one
+    (``index_select`` on the host bank, then ``index_copy_`` on the
+    device), bit for bit over the whole buffers (routed rows copied, the
+    others left as they were), on the route ``plan`` gives (``sm``):
+    packed as the moe path packs, into min(N, E) + 1 rows through the
+    slot map, granite's banks in mapped pinned host memory
+    (``tiers.host_empty(..., mapped=True)``: ``cudaHostAlloc``) under a
+    decode step's routing (N = 32), the same banks resident on the card,
+    every expert routed (N = 64, an admission) and none; through the
+    identity slot map (``arange(E)``: buffers of the bank's shape) the
+    same decode routing and a ragged fp32 bank (the byte-wise path).
+    The kernel's byte counter must equal the routed rows' bytes.  No
+    wait: with ~50 ms of ``torch.cuda._sleep`` queued, a warm gather
+    must return while the stream is still busy (a sync inside the C
+    library, which ``set_sync_debug_mode`` cannot see, would wait).
+    Then the main shape is timed (eager, CUDA events: one
     launch moves ~0.1 GB, so the host's launch cost is noise) in turns
     with the copy engine moving the same bytes from pinned memory in one
     ``copy_`` (not the same function: no PyTorch call gathers host rows
@@ -850,27 +934,33 @@ def check_gather(torch, card: str, results: dict) -> None:
             out.append(tiers.to_tier(x, REMOTE, mapped=True) if host else x)
         return out
 
-    def case(tag, src, mask):
+    def case(tag, src, mask, n=None):
         """Bytes routed; the kernel bit-equal to the plain version, twice,
-        its counter the routed bytes, each launch on the planned route."""
-        init = [torch.randn(b.shape, generator=gen, device="cuda").to(
-            b.dtype) for b in src]
+        its counter the routed bytes, each launch on the planned route.
+        ``n``: the routed choices a packed gather serves (None: the
+        identity slot map, a buffer of the bank's E rows)."""
+        e_rows = src[0].shape[0]
+        rows, slots = ((e_rows, torch.arange(e_rows, dtype=torch.int32,
+                                             device="cuda"))
+                       if n is None else _slot_map(torch, mask, n))
+        init = [torch.randn((rows,) + tuple(b.shape[1:]), generator=gen,
+                            device="cuda").to(b.dtype) for b in src]
         got, again, want = ([x.clone() for x in init] for _ in range(3))
         route = K.plan([b.device for b in src], got[0].device)
         before = K.launches.by_instance.get(route, 0)
         counter = torch.zeros(1, dtype=torch.int64, device="cuda")
-        K.expert_gather(src, mask, got, counter)
-        K.expert_gather(src, mask, again,
+        K.expert_gather(src, mask, slots, got, counter)
+        K.expert_gather(src, mask, slots, again,
                         torch.zeros(1, dtype=torch.int64, device="cuda"))
-        expert_gather_ref(src, mask, want)
+        expert_gather_ref(src, mask, slots, want)
         torch.cuda.synchronize()
         routed = int(mask.sum())
         nbytes = routed * sum(b[0].numel() * b.element_size() for b in src)
         same = all(torch.equal(a, b) for a, b in zip(got, want))
         log(f"expert gather {tag}, route {route}: {routed} of "
-            f"{mask.numel()} experts routed, bit-equal to index_select + "
-            f"copy: {same}; counter {int(counter)} bytes (routed rows "
-            f"{nbytes})")
+            f"{mask.numel()} experts routed into {rows} rows, bit-equal to "
+            f"index_select + index_copy_: {same}; counter {int(counter)} "
+            f"bytes (routed rows {nbytes})")
         if not same or not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"expert gather {tag}: differs from its "
                                  f"plain version or between launches")
@@ -886,23 +976,29 @@ def check_gather(torch, card: str, results: dict) -> None:
     shapes = ((e, d, f), (e, d, f), (e, f, d))
     host = banks(shapes, torch.bfloat16)
     mask = _routed_mask(torch, gen, e, tokens, top_k)
+    n = tokens * top_k
     nbytes = case(f"granite banks {shapes} bf16 mapped host, batch "
-                  f"{tokens} top-{top_k}", host, mask)
-    case("granite banks on the card", [b.to("cuda") for b in host], mask)
-    case("every expert", host, torch.ones(e, dtype=torch.bool,
-                                          device="cuda"))
-    case("no expert", host, torch.zeros(e, dtype=torch.bool, device="cuda"))
+                  f"{tokens} top-{top_k}, packed", host, mask, n)
+    case("granite banks on the card, packed", [b.to("cuda") for b in host],
+         mask, n)
+    case("every expert, packed (an admission's N = 64)", host,
+         torch.ones(e, dtype=torch.bool, device="cuda"), 2 * n)
+    case("no expert, packed", host,
+         torch.zeros(e, dtype=torch.bool, device="cuda"), n)
+    case("granite banks mapped host, identity slots", host, mask)
     shape, dt = GATHER_RAGGED
-    case(f"ragged {shape} {dt} (byte-wise)",
+    case(f"ragged {shape} {dt} (byte-wise), identity slots",
          banks((shape,) * 3, getattr(torch, dt)),
          _routed_mask(torch, gen, shape[0], 1, 2))
 
-    out = [torch.empty(b.shape, dtype=b.dtype, device="cuda") for b in host]
+    rows, slots = _slot_map(torch, mask, n)
+    out = [torch.empty((rows,) + tuple(b.shape[1:]), dtype=b.dtype,
+                       device="cuda") for b in host]
     counter = torch.zeros(1, dtype=torch.int64, device="cuda")
     route = K.plan([b.device for b in host], out[0].device)
 
     def gather():
-        K.expert_gather(host, mask, out, counter)
+        K.expert_gather(host, mask, slots, out, counter)
 
     gather()
     torch.cuda.synchronize()
@@ -924,10 +1020,12 @@ def check_gather(torch, card: str, results: dict) -> None:
     for name in ("copy_", route, route, "copy_"):
         ms.setdefault(name, []).append(time_ms(torch, timed[name], [()],
                                                iters=20, graph=False))
-    plain_ms = time_ms(torch, lambda: expert_gather_ref(host, mask, out),
+    plain_ms = time_ms(torch, lambda: expert_gather_ref(host, mask, slots,
+                                                        out),
                        [()], iters=5, graph=False)
     b_ms = max(nbytes / PCIE_BYTES_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    tag = f"E={e} d={d} f={f} x3 bf16, {int(mask.sum())} routed"
+    tag = (f"E={e} d={d} f={f} x3 bf16, {int(mask.sum())} routed, packed "
+           f"into {rows} rows")
     t, dma_ms = min(ms[route]), min(ms["copy_"])
     log(f"expert gather {tag}, route {route} [{card}]: kernel {t:.4f} ms = "
         f"{nbytes / t / 1e6:.2f} GB/s (turns {ms[route]}), plain "
@@ -1156,6 +1254,66 @@ def check_parity_families(torch) -> None:
         raise AssertionError("smoke VLM: card and CPU disagree")
 
 
+#: the parity phase's dense models at smoke size, fp32: (arch, overrides
+#: of ``reduced``).  minicpm-2b and gpt3-175b's MHA keeps G = 1 with 4 kv
+#: heads (``reduced`` would make it G = 2); qwen2.5-14b with a window of 8
+#: and with ``kv_quant`` serves from the dense slab
+PARITY_DENSE = (("qwen3-14b", {}), ("minicpm-2b", {"num_kv_heads": 4}),
+                ("starcoder2-15b", {}), ("gpt3-175b", {"num_kv_heads": 4}),
+                ("qwen2.5-14b", {"sliding_window": 8}),
+                ("qwen2.5-14b", {"kv_quant": True}))
+
+
+def check_parity_dense(torch) -> None:
+    """The dense configs of ``PARITY_DENSE`` at smoke size, fp32, the
+    card against the CPU with the same weights: served greedy
+    (``paged=None``: pools, or the slab for a window or ``kv_quant``) on
+    the serve phase's prompts, the first 8 tokens of every request equal,
+    and the prefill logits within 1e-3; on the card K1 runs once a layer
+    a decode step over pools and never over the slab."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.serve import BatchedServer
+    for arch, kw in PARITY_DENSE:
+        cfg = get_config(arch).reduced(dtype=torch.float32, **kw)
+        model = build_model(cfg)
+        cpu_params = model.init(0, device="cpu")
+        work = prompts(cfg.vocab, 3)
+        outs = {}
+        for dev, params in (("cpu", cpu_params),
+                            ("cuda", _to(cpu_params, "cuda"))):
+            server = BatchedServer(model, params, batch_size=4, max_seq=128,
+                                   block_size=8, seed=1, device=dev)
+            reqs = [server.submit(p, max_new_tokens=16) for p in work]
+            reset_launch_counts()
+            server.run_once()
+            k1 = launch_counts()["paged_attention"]
+            outs[dev] = [r.output for r in reqs]
+            toks = torch.from_numpy(work[4][None]).to(dev)
+            if server.paged:
+                pages = torch.tensor([[1, 2, 3]], dtype=torch.int32,
+                                     device=dev)
+                logits, _ = model.prefill_paged(
+                    params, toks, model.init_paged_cache(8, device=dev),
+                    pages)
+            else:
+                logits, _ = model.prefill(
+                    params, toks, model.init_cache(1, 128, device=dev))
+            outs[dev + "_logits"] = logits.float().cpu()
+        err = (outs["cpu_logits"] - outs["cuda_logits"]).abs().max().item()
+        first8 = all(a[:8] == b[:8] for a, b in zip(outs["cpu"],
+                                                    outs["cuda"]))
+        k1_ok = (k1 == cfg.num_layers * server.stats["steps"]
+                 if server.paged else k1 == 0)
+        log(f"parity (smoke fp32 {arch} {kw}, G = {cfg.q_per_kv}, "
+            f"{'pools' if server.paged else 'dense slab'}, card vs CPU): "
+            f"prefill logits max_abs_err {err:.3e} (bound 1e-3), first-8 "
+            f"tokens agree: {first8}, K1 launches on the card {k1}")
+        if not (err <= 1e-3 and first8 and k1_ok):
+            raise AssertionError(f"smoke {arch} {kw}: card and CPU disagree "
+                                 f"or K1 launched {k1} times")
+
+
 #: the serving runs: (kv_dtype, temperature)
 SERVE_RUNS = ((None, 0.0), (None, 0.7), ("int8", 0.0), ("int8", 0.7),
               ("fp8_e4m3", 0.0), ("fp8_e4m3", 0.7))
@@ -1239,14 +1397,15 @@ def check_serve_paged(torch, card: str, cfg, params, want,
 
 
 def serve_paged(torch, card: str, model, params, work, kw,
-                want: list) -> None:
+                want: list, new: int = 64) -> dict:
     """The same weights, moved to the remote tier (pinned host memory)
     and paged back layer by layer by the Tensor Prefetcher, serving the
-    same workload once (bf16 pools, greedy): the tokens must equal the
-    resident run's, K1 must run once a layer a decode step, and the
-    prefetcher must fetch every layer once a decode step and once an
-    admission.  ``params["layers"]`` is replaced by the placed layers,
-    which frees their device copies."""
+    same workload once (bf16 pools, greedy, ``new`` tokens a request):
+    the tokens must equal the resident run's, K1 must run once a layer a
+    decode step, and the prefetcher must fetch every layer once a decode
+    step and once an admission.  ``params["layers"]`` is replaced by the
+    placed layers, which frees their device copies.  Returns the run's
+    seconds, decode steps, tokens and peak device memory."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.memory import LOCAL, REMOTE
     from repro_torch.runtime.serve import BatchedServer
@@ -1265,7 +1424,7 @@ def serve_paged(torch, card: str, model, params, work, kw,
     led = mem.ledger
     total = led.classes(REMOTE)["layer_weights"]
     window = led.classes(LOCAL)["layer_weights_window"]
-    log(f"paged serve [{card}]: placed {cfg.num_layers} layers in "
+    log(f"paged serve {cfg.name} [{card}]: placed {cfg.num_layers} layers in "
         f"{place_s:.1f} s; device memory allocated {before / 2**30:.2f} -> "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; pinned host "
         f"{placed.nbytes} bytes (ledger remote layer_weights {total}); "
@@ -1278,12 +1437,14 @@ def serve_paged(torch, card: str, model, params, work, kw,
     server = BatchedServer(model, params, prefix_cache=True, **kw)
     reset_launch_counts()
     fetches, fetched = pf.fetches, pf.fetched_bytes
-    reqs, secs = serve(server, work, 64)
+    reqs, secs = serve(server, work, new)
     launches = launch_counts()
     fetches, fetched = pf.fetches - fetches, pf.fetched_bytes - fetched
     st = server.stats
     tokens = sum(len(r.output) for r in reqs)
-    log(f"paged serve kv_dtype=None temperature=0.0 lookahead=1 [{card}]: "
+    peak = torch.cuda.max_memory_allocated()
+    log(f"paged serve {cfg.name} kv_dtype=None temperature=0.0 lookahead=1 "
+        f"[{card}]: "
         f"{tokens} tokens in {secs:.3f} s = {tokens / secs:.2f} tok/s "
         f"({1e3 * secs / st['steps']:.2f} ms per decode step, admissions "
         f"included), steps {st['steps']}, admissions {st['admitted']}, "
@@ -1311,6 +1472,8 @@ def serve_paged(torch, card: str, model, params, work, kw,
                              f"admissions")
     log("paged serve: tokens equal the resident run's; K1 once a layer a "
         "step; every layer fetched once a step and once an admission")
+    return {"secs": secs, "steps": st["steps"], "tokens": tokens,
+            "peak": peak}
 
 
 def serve_config(torch, card: str, model, params, work, kw) -> dict:
@@ -1431,6 +1594,31 @@ def _no_sync_decode_step(torch, model, params) -> int:
     return len(syncs)
 
 
+def packed_dispatch_bits(torch, cfg, lp: dict, batch: int) -> None:
+    """Log whether a decode step's packed dispatch (routed experts'
+    rows copied into min(N, E) + 1 slots, GEMMs batched over those) gives
+    the resident dispatch's bits (GEMMs batched over all E): cuBLAS may
+    pick another kernel for another batch count."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xt = (torch.randn((batch, cfg.d_model), generator=gen, device="cuda")
+          * 0.5).to(cfg.dtype)
+    routing = moe.route(lp["router"], xt, cfg)
+    ids = routing[1].reshape(-1)
+    mask = torch.zeros(cfg.padded_experts, dtype=torch.bool, device="cuda")
+    mask[ids] = True
+    rows, slots = _slot_map(torch, mask, ids.numel())
+    order = torch.full((rows,), int(mask.nonzero()[0, 0]), device="cuda")
+    order[slots[mask].long()] = mask.nonzero()[:, 0]
+    packed = {n: lp[n][order] for n in ("wi", "wg", "wo")}
+    a = moe.dispatch(lp, xt, routing)
+    b = moe.dispatch(packed, xt, routing, slots)
+    log(f"moe: one layer's dispatch at batch {batch}, packed into {rows} "
+        f"slots against all {cfg.padded_experts} experts: bit-equal "
+        f"{torch.equal(a, b)}, max |diff| "
+        f"{(a.float() - b.float()).abs().max().item():.3e}")
+
+
 def check_moe(torch, card: str, counts: Launches) -> None:
     """granite-moe-3b-a800m at full width and depth through
     ``BatchedServer`` on the serve phase's workload (four 8-token
@@ -1443,12 +1631,16 @@ def check_moe(torch, card: str, counts: Launches) -> None:
     times a decode step, K2 32 times an admission on the wgmma route;
     expert-paged, the expert gather once a layer a step and an
     admission, its counted bytes = the routed experts x 4,718,592, at
-    most min(B k, E) experts routed in one gather, the staging buffers
-    one layer's bank, the ledger's local ``expert_weights`` (the
-    reference's model) within (min(B k, E) + 1) / E of a layer's bank,
-    and within (top_k + 1) / E in a batch-1 run; one expert-paged decode
-    step asks for no host sync; every gather takes the route ``plan``
-    gives the placed banks."""
+    most min(B k, E) experts routed in one gather, the staging alive at
+    every gather of a decode step equal to the ledger's live
+    ``expert_weights`` line for it, min(B k, E) + 1 rows a bank (33 of
+    40 at batch 4; 9 in a batch-1 run), byte for byte, and the most
+    staging ever alive equal to the ledger's capacity line (41 rows: an
+    admission routes N = 64); one expert-paged decode step asks for no
+    host sync; every gather takes the route ``plan`` gives the placed
+    banks.  Before the paged runs it logs whether one layer's packed
+    dispatch (batches of S = 33 experts) gives the bits of the resident
+    one (batches of E = 40), at a decode step's shapes."""
     import dataclasses
     from repro_torch.kernels import instance_counts
     from repro_torch.kernels.expert_gather import kernel as EG
@@ -1489,6 +1681,30 @@ def check_moe(torch, card: str, counts: Launches) -> None:
             problems.append(f"{tag}: {got['expert_gather']} expert gathers")
         resident[kv, temperature] = toks
 
+    def staging_gates(model, tag, b):
+        """F3: the staging alive at each gather of a decode step (N = b
+        k rows) is the ledger's live line for it, (min(N, E) + 1) rows a
+        bank, byte for byte; the most ever alive is the capacity line."""
+        ep, led = model.mem.expert_policy, model.mem.ledger
+        n = b * k
+        live = led.classes(LOCAL).get("expert_weights", 0)
+        cap = led.capacities(LOCAL).get("expert_weights", 0)
+        want = (min(n, e) + 1) * row
+        lo, hi = ep.live_at_gather.get(n, (None, None))
+        log(f"moe {tag}: staging alive at a decode step's gathers {lo}.."
+            f"{hi} bytes = {(hi or 0) / bank:.3f} of a layer's bank; the "
+            f"ledger's live expert_weights {live} ({min(n, e) + 1} of {e} "
+            f"rows: {want}); peak staging {ep.staging_peak} against the "
+            f"capacity line {cap}; remote expert_weights "
+            f"{led.classes(REMOTE).get('expert_weights')} bytes at rest "
+            f"({layers} x {bank})")
+        if not lo == hi == live == want:
+            problems.append(f"{tag}: staging alive {lo}..{hi}, ledger live "
+                            f"{live}, {min(n, e) + 1} rows {want}")
+        if ep.staging_peak != cap:
+            problems.append(f"{tag}: peak staging {ep.staging_peak}, "
+                            f"capacity line {cap}")
+
     def paged_run(model, prms, temperature, tag):
         ep = model.mem.expert_policy
         ep.reset_stats()
@@ -1528,29 +1744,14 @@ def check_moe(torch, card: str, counts: Launches) -> None:
                 f"all staged bytes over the run's wall time "
                 f"{sum(r['staged_bytes'] for r in stats.values()) / secs / 1e9:.2f}"
                 f" GB/s")
-        led = model.mem.ledger
-        local = led.classes(LOCAL).get("expert_weights", 0)
-        bound_rows = min(batch * k, e) + 1
-        staging = ep.staging_bytes()
-        log(f"moe {tag}: ledger remote expert_weights "
-            f"{led.classes(REMOTE).get('expert_weights')} bytes at rest "
-            f"({layers} x {bank}); ledger local expert_weights (the "
-            f"reference's model, from the shapes) {local} = "
-            f"{local / bank:.3f} of a layer's bank (bound "
-            f"(min(B k, E) + 1) / E = {bound_rows}/{e}); the card's "
-            f"staging buffers (allocated) {staging} bytes = "
-            f"{staging / bank:.3f} of a layer's bank")
-        if local > bound_rows * row:
-            problems.append(f"{tag}: local expert_weights {local} > "
-                            f"{bound_rows} rows")
-        if staging != bank:
-            problems.append(f"{tag}: staging buffers {staging} bytes, "
-                            f"one layer's bank is {bank}")
+        staging_gates(model, tag, server.batch)
         if toks != resident[None, temperature]:
             problems.append(f"{tag}: tokens differ from the resident run's")
         else:
             log(f"moe {tag}: tokens equal the resident run's")
         return server
+
+    packed_dispatch_bits(torch, cfg, params["layers"][0]["moe"], batch)
 
     # banks to mapped pinned host memory; the device copies are freed
     model = MoELM(cfg.with_pager(page_experts=True))
@@ -1574,17 +1775,11 @@ def check_moe(torch, card: str, counts: Launches) -> None:
     for temperature in (0.0, 0.7):
         paged_run(model, params, temperature,
                   f"expert-paged temperature={temperature}")
-    # the reference's residency bound at batch 1: (top_k + 1) / E
+    # batch 1: (top_k + 1) rows a bank
+    model.mem.expert_policy.reset_stats()
     one = BatchedServer(model, params, **dict(SERVE_KW, batch_size=1))
     serve(one, work[:1], 8)
-    local = model.mem.ledger.classes(LOCAL)["expert_weights"]
-    log(f"moe expert-paged batch 1: ledger local expert_weights (the "
-        f"reference's model) {local} = {local / bank:.4f} of a layer's bank "
-        f"(bound (top_k + 1) / E = {(k + 1) / e:.4f}); the card's staging "
-        f"buffers {model.mem.expert_policy.staging_bytes()} bytes")
-    if local > (k + 1) * row:
-        problems.append(f"batch 1: local expert_weights {local} > "
-                        f"{(k + 1) * row}")
+    staging_gates(model, "expert-paged batch 1", 1)
     del one          # its params hold the attention weights on the card
 
     # the rest of each layer paged too (the banks stay where they are)
@@ -1614,6 +1809,474 @@ def check_moe(torch, card: str, counts: Launches) -> None:
 
 
 # ---------------------------------------------------------------------------
+# GPT-3 175B at full width, and the dense cache
+# ---------------------------------------------------------------------------
+
+#: gpt3-175b's depth on one card: 8 of its 96 layers (a layer is
+#: 1,811,939,328 params, 3.62 GB in bf16: the whole model is 348 GB)
+GPT3_LAYERS = 8
+#: new tokens a request in the gpt3 phase: the serve phase's 64, cut to
+#: one decode block (a paged step reads 29 GB over PCIe)
+GPT3_NEW = 32
+
+
+def host_mem_total() -> str:
+    """The host's ``MemTotal`` (``/proc/meminfo``), as the kernel says it."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return line.split(":", 1)[1].strip()
+    return "unknown"
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def check_gpt3(torch, card: str, counts: Launches) -> None:
+    """gpt3-175b at its published widths (d 12288, 96/96 heads: MHA, G =
+    1, head dim 128, d_ff 32768, vocab 50257) and 8 of its 96 layers,
+    tp=1, random bf16 weights, on the serve phase's four 8-token prompts
+    (32 new tokens, batch 4, block 32, max_seq 384, page 16, seed 0):
+    resident, greedy and at 0.7; then greedy with the layers moved to
+    pinned host memory and paged back by the Tensor Prefetcher, with the
+    resident run's tokens.  Every run: K1 once a layer a decode step on
+    its 8-row instantiation (G = 1, Hkv = 96), K2 once a layer an
+    admission on the wgmma route at d = 128, none on simt; paged, every
+    layer fetched once a step and once an admission.  Prints tok/s, ms a
+    step and peak device memory beside each run's floor: a resident step
+    reads every layer and the head from HBM (3.35 TB/s), a paged one the
+    layers over PCIe Gen5 x16 (64 GB/s)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instance_counts
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    full = get_config("gpt3-175b")
+    cfg = dataclasses.replace(full, tp=1, num_layers=GPT3_LAYERS)
+    t0 = time.perf_counter()
+    model = DenseLM(cfg)
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    layer = _nbytes(params["layers"][0])
+    layers = layer * cfg.num_layers
+    embed, head = (_nbytes(params["embed"][n]) for n in ("tok", "head"))
+    log(f"gpt3: {cfg.name} tp=1 d={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} (G = {cfg.q_per_kv}) head_dim={cfg.head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab} (padded {cfg.padded_vocab}); "
+        f"REDUCED depth: {cfg.num_layers} of {full.num_layers} layers, "
+        f"{layer} bytes a layer, {layers} in all, embedding {embed} and "
+        f"head {head} (the full model {full.num_layers * layer + embed + head}"
+        f" bytes); host MemTotal {host_mem_total()}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    work = prompts(cfg.vocab, 0)[:4]
+    L = cfg.num_layers
+    floor_ms = 1e3 * (layers + head) / HBM_BYTES_PER_S
+    problems, resident = [], {}
+    for temperature in (0.0, 0.7):
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(model, params,
+                               **dict(SERVE_KW, temperature=temperature))
+        server.tag = tag = f"resident temperature={temperature}"
+        toks, secs, got = counts.run(torch, server, work, GPT3_NEW)
+        inst, st = instance_counts(), server.stats
+        tokens = sum(len(t) for t in toks)
+        log(f"gpt3 {tag} [{card}]: {tokens} tokens in {secs:.3f} s = "
+            f"{tokens / secs:.2f} tok/s ({1e3 * secs / st['steps']:.2f} ms a "
+            f"decode step, admissions included; floor {floor_ms:.2f} ms: "
+            f"{(layers + head) / 1e9:.2f} GB at 3.35 TB/s), steps "
+            f"{st['steps']}, admissions {st['admitted']}, "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"by instantiation K1 {inst['paged_attention']} K2 "
+            f"{inst['flash_attention_wgmma']}")
+        if (inst["paged_attention"] != {"rows=8": L * st["steps"]}
+                or inst["flash_attention_wgmma"]
+                != {"d=128": L * st["admitted"]}):
+            problems.append(f"{tag}: launches {inst}")
+        resident[temperature] = toks
+    run = serve_paged(torch, card, DenseLM(cfg.with_pager(enabled=True,
+                                                          lookahead=1)),
+                      params, work, dict(SERVE_KW, temperature=0.0),
+                      resident[0.0], GPT3_NEW)
+    paged_floor = layers / PCIE_BYTES_PER_S
+    log(f"gpt3 paged [{card}]: {run['tokens'] / run['secs']:.2f} tok/s, "
+        f"{run['secs'] / run['steps']:.3f} s a decode step (admissions "
+        f"included; floor {paged_floor:.3f} s: {layers / 1e9:.2f} GB at 64 "
+        f"GB/s), max_memory_allocated {run['peak'] / 2**30:.2f} GiB")
+    if problems:
+        raise AssertionError("gpt3 phase: " + "; ".join(problems))
+    log("gpt3: every gate held")
+
+
+#: the dense phase's runs over the slab: (kv_quant, temperature)
+DENSE_RUNS = ((False, 0.0), (False, 0.7), (True, 0.0))
+#: the first-8 rule for tokens that need not be bit-equal: the first 8 tokens
+#: of the requests agree at this rate at least, and one decode step's
+#: max |logit difference| stays within the bound.  The bound is set from
+#: the readings at full width and depth (Qwen2.5-14B, 48 layers, on an
+#: H100 80GB HBM3): pairs that should agree read 0.000 (the slab against
+#: the pools' plain read, bf16 and int8) and 2.7e-4 (fp32, the slab and
+#: K1's plain version against K1); the least perturbation it must catch,
+#: one bf16 rounding of its own (K1 against its plain version over bf16
+#: pools), reads 0.66
+MATCH_FIRST8 = 0.75
+LOGIT_BOUND = 1e-2
+#: depths of the rounding witness's one-step sweep (of 48)
+WITNESS_DEPTHS = (1, 4, 16, 48)
+
+
+def _match_first8(got, want) -> float:
+    pairs = [(a, b) for g, w in zip(got, want) for a, b in zip(g[:8], w[:8])]
+    return sum(a == b for a, b in pairs) / max(len(pairs), 1)
+
+
+@contextlib.contextmanager
+def plain_paged_read():
+    """The paged decode read takes K1's plain version on the card: the
+    same arithmetic as the slab's read (fp32 scores, probabilities and
+    sums over the stored values), where K1 sums in another order."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    kernel = ops.attend
+    ops.attend = ref.paged_attention_ref
+    try:
+        yield
+    finally:
+        ops.attend = kernel
+
+
+def _one_step(torch, model, params, cache, fed: int, pos: int,
+              pages=None):
+    """One decode step feeding ``fed`` at position ``pos`` (a batch of
+    one): its logits, fp32 on the host."""
+    out, _ = model.decode_step(
+        params, torch.tensor([[fed]], device="cuda"), cache,
+        torch.tensor([pos], dtype=torch.int32, device="cuda"), pages)
+    return out.float().cpu()
+
+
+def _slab_from_pools(torch, pools: dict, table, quant: bool) -> dict:
+    """A batch-1 slab holding the values a one-slot page table maps:
+    every layer's pages gathered in position order (int8 values and
+    their scales for an int8 pool)."""
+    from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                         gather_scales)
+    layers = pools["k_pages"].shape[0]
+    slab = {n: torch.stack([gather_pages(pools[f"{n}_pages"][i], table)
+                            for i in range(layers)]) for n in ("k", "v")}
+    if quant:
+        for n in ("k", "v"):
+            slab[f"{n}_scale"] = torch.stack(
+                [gather_scales(pools[f"{n}_scale"][i], table)
+                 for i in range(layers)])
+    return slab
+
+
+def _convert_params(torch, tree, dtype) -> None:
+    """Every floating-point leaf of a parameter tree converted in place,
+    one leaf at a time, the old copies' memory handed back after each
+    item of a list (a layer)."""
+    for k, v in list(tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            _convert_params(torch, v, dtype)
+            if isinstance(tree, list):
+                torch.cuda.empty_cache()
+        elif v.is_floating_point():
+            tree[k] = v.to(dtype)
+
+
+def check_rounding_witness(torch, card: str, cfg, params, work) -> list:
+    """Why K1 and its plain version part at full width: each rounds once
+    in its own order, and 48 layers of random weights amplify the
+    difference, or K1 errs.  (1) One decode step from the same stored KV
+    (a prompt prefilled into pools), K1 against its plain version, at
+    ``WITNESS_DEPTHS`` in bf16, then with the same weights in fp32
+    (activations and pools: a rounding unit 2^16 times finer): a
+    rounding difference shrinks with the unit, a fault does not.  (2) At
+    full depth in fp32, the issue's contract against K1 itself: the slab
+    holding the pools' values takes one step within ``LOGIT_BOUND`` of
+    K1's, and greedy runs over the slab and through K1's plain version
+    agree with the K1 run under the first-8 rule (>= 0.75).  The
+    weights are converted to fp32 in place, leaf by leaf, and back to
+    bf16 (exact: every value came from bf16) before it returns.
+    Returns the failed gates."""
+    import dataclasses
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    prompt = torch.from_numpy(work[0][None]).to("cuda")
+    table = torch.tensor([[1, 2, 3]], dtype=torch.int32, device="cuda")
+    n = prompt.shape[1]
+    problems, gaps, last = [], {}, {}
+
+    def sweep(dtype):
+        for depth in WITNESS_DEPTHS:
+            c = dataclasses.replace(cfg, num_layers=depth, dtype=dtype)
+            p = dict(params, layers=params["layers"][:depth])
+            pool = DenseLM(c)
+            logits, pools = pool.prefill_paged(
+                p, prompt, pool.init_paged_cache(4, device="cuda"), table)
+            fed = int(logits.argmax())
+            k1 = _one_step(torch, pool, p, pools, fed, n, table)
+            with plain_paged_read():
+                plain = _one_step(torch, pool, p, pools, fed, n, table)
+            gaps[dtype, depth] = (k1 - plain).abs().max().item()
+            last.update(c=c, pools=pools, fed=fed, k1=k1)
+            del pools
+        log(f"dense witness: one decode step from the same stored KV, K1 "
+            f"against its plain version, max |dlogit| by depth, "
+            f"{str(dtype)[6:]} weights, activations and pools [{card}]: "
+            + ", ".join(f"{d} layers {gaps[dtype, d]:.3e}"
+                        for d in WITNESS_DEPTHS))
+
+    t0 = time.perf_counter()
+    sweep(torch.bfloat16)
+    last.clear()
+    log(f"dense witness: device memory allocated before the fp32 weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    _convert_params(torch, params, torch.float32)
+    try:
+        sweep(torch.float32)
+        c32, fed = last["c"], last["fed"]
+        slab = _slab_from_pools(torch, last["pools"], table, False)
+        mine = _one_step(torch, DenseLM(c32), params, slab, fed, n)
+        slab_gap = (mine - last["k1"]).abs().max().item()
+        k1_gap = gaps[torch.float32, WITNESS_DEPTHS[-1]]
+        del slab, last["pools"]
+        ratios = [f"{d} layers {gaps[torch.float32, d] / b:.2e}"
+                  if (b := gaps[torch.bfloat16, d]) else
+                  f"{d} layers - (bf16 0)" for d in WITNESS_DEPTHS]
+        log(f"dense witness: fp32 over bf16 gap by depth: "
+            + ", ".join(ratios)
+            + f"; fp32 at {c32.num_layers} layers, one step from the pools' "
+              f"values: the slab against K1 {slab_gap:.3e}, K1's plain "
+              f"version against K1 {k1_gap:.3e} (bound {LOGIT_BOUND})")
+        for what, gap in (("the slab", slab_gap), ("K1's plain version",
+                                                   k1_gap)):
+            if not gap <= LOGIT_BOUND:
+                problems.append(f"fp32 one step: {what} |dlogit| {gap} "
+                                f"from K1's")
+        runs = {}
+        for tag, paged, plain_read in (("paged K1", True, False),
+                                       ("paged K1's plain version", True,
+                                        True),
+                                       ("slab", False, False)):
+            with (plain_paged_read() if plain_read
+                  else contextlib.nullcontext()):
+                server = BatchedServer(DenseLM(c32), params, paged=paged,
+                                       prefix_cache=False, **SERVE_KW)
+                reqs, secs = serve(server, work, 64)
+            runs[tag] = [r.output for r in reqs]
+            if server.stats["nonfinite_logits"]:
+                problems.append(f"fp32 {tag}: non-finite logits")
+            if tag != "paged K1":
+                m = _match_first8(runs[tag], runs["paged K1"])
+                log(f"dense witness: fp32 greedy at {c32.num_layers} layers "
+                    f"(64 new tokens), {tag} against the paged K1 run: "
+                    f"first-8 match {m:.3f}, all tokens equal "
+                    f"{runs[tag] == runs['paged K1']}")
+                if m < MATCH_FIRST8:
+                    problems.append(f"fp32 {tag}: first-8 match {m} "
+                                    f"against K1's run")
+    finally:
+        _convert_params(torch, params, torch.bfloat16)
+    log(f"dense witness: {time.perf_counter() - t0:.1f} s, the weights "
+        f"back in bf16")
+    return problems
+
+
+def check_quant_prefill(torch, cfg, params, prompt) -> list:
+    """``kv_quant``'s prefill, as the reference's: attention over the
+    unquantized KV, then the slab stores int8 values and bf16 scales of
+    exactly that KV.  So its logits are the bf16 slab's bit for bit, and
+    its slab is ``kv_quantize`` of the bf16 slab's values, every layer.
+    Returns the failed gates."""
+    import dataclasses
+    from repro_torch.models.layers import kv_quantize
+    from repro_torch.models.transformer import DenseLM
+    got = {}
+    for quant in (False, True):
+        model = DenseLM(dataclasses.replace(cfg, kv_quant=quant))
+        got[quant] = model.prefill(params, prompt, model.init_cache(
+            1, SERVE_KW["max_seq"], device="cuda"))
+    n = prompt.shape[1]
+    (lb, cb), (lq, cq) = got[False], got[True]
+    want = {}
+    for name in ("k", "v"):
+        want[name], want[f"{name}_scale"] = kv_quantize(cb[name][:, :, :, :n])
+    same = {name: torch.equal(cq[name][:, :, :, :n], w)
+            for name, w in want.items()}
+    log(f"dense: kv_quant prefill of an {n}-token prompt at "
+        f"{cfg.num_layers} layers: logits bit-equal to the bf16 slab's "
+        f"{torch.equal(lb, lq)}; slab bit-equal to kv_quantize of the bf16 "
+        f"slab, by leaf {same}")
+    if not (torch.equal(lb, lq) and all(same.values())):
+        return [f"kv_quant prefill: logits equal {torch.equal(lb, lq)}, "
+                f"slab leaves equal {same}"]
+    return []
+
+
+def check_dense(torch, card: str, cfg, params, counts: Launches,
+                served: dict | None) -> None:
+    """Qwen2.5-14B at full width and depth (the serve phase's weights)
+    served over the dense per-slot slab (``paged=False``) on the serve
+    phase's four 8-token prompts (64 new tokens, batch 4, block 32,
+    max_seq 384, seed 0): bf16 greedy and at 0.7, and ``kv_quant`` (int8
+    values, bf16 scales a token and head) greedy.  K1 launches 0 times
+    (the slab's decode read is plain torch), K2 once a layer an admission
+    on the wgmma route.
+
+    Two valid reads of the same stored KV round differently, and at full
+    width with random weights the top logits sit so close that greedy
+    tokens part early: the phase measures that floor in the same call, K1
+    against its plain version (``plain_paged_read``) over the same pools,
+    and ``check_rounding_witness`` shows it is rounding (the gap shrinks
+    with fp32's unit) and holds the slab to K1 itself in fp32.  Gates in
+    bf16 and int8: (1) from identical stored KV (a prompt prefilled into
+    pools; the slab holds those values, int8 and scales for
+    ``kv_quant``), one decode step over the slab is within
+    ``LOGIT_BOUND`` of the same step over the pools through the plain
+    read, whose arithmetic the slab's read shares; (2) the bf16 slab
+    runs' tokens agree with the paged runs through the plain read under
+    the first-8 rule (match >= 0.75); (3) ``kv_quant``: its prefill
+    gives the bf16 slab's logits and stores ``kv_quantize`` of its
+    values (``check_quant_prefill``), so each request's first token is
+    the bf16 greedy slab run's.  Its later tokens are held to no pool
+    run: the reference's dense prefill attends the unquantized KV where
+    an int8 pool's attends its round trip.  Reported beside them: each
+    slab run against the K1 run of its pool precision (the serve phase's
+    when it ran at full depth).  Timed in turns with a paged bf16 greedy
+    run (paged, slab runs, paged); prints ms a step, tok/s, the slab's
+    bytes beside the paged pool's peak bytes and its ``fragmentation()``
+    one block into the run, and peak device memory."""
+    import dataclasses
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    work = prompts(cfg.vocab, 0)[:4]
+    problems, timing = [], {}
+
+    def paged_run(kv, temperature, tag):
+        """A paged run, one block first to read the pool mid-run."""
+        from repro_torch.kernels import reset_launch_counts
+        model = DenseLM(dataclasses.replace(cfg, kv_dtype=kv))
+        server = BatchedServer(model, params, prefix_cache=False,
+                               **dict(SERVE_KW, temperature=temperature))
+        reqs = [server.submit(p, max_new_tokens=64) for p in work]
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.run_once(max_blocks=1)
+        frag = server.manager.fragmentation()
+        live, pages = server.kv_bytes_in_use(), server.manager.pages_in_use
+        server.run_once()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = server.stats
+        log(f"dense {tag} [{card}]: {1e3 * secs / st['steps']:.2f} ms a "
+            f"decode step, {sum(len(r.output) for r in reqs) / secs:.1f} "
+            f"tok/s; pool after one block: {pages} pages in use, {live} "
+            f"bytes live of {server.kv_bytes_capacity()} provisioned, "
+            f"fragmentation {frag:.4f}; peak {st['kv_pages_hwm']} pages = "
+            f"{st['kv_pages_hwm'] * (live // max(pages, 1))} bytes")
+        timing.setdefault(tag, []).append(secs / st["steps"])
+        return [r.output for r in reqs]
+
+    k1 = {k: v[:4] for k, v in (served or {}).items()}
+    k1[None, 0.0] = paged_run(None, 0.0, "paged bf16 greedy")
+    for kv, temperature in ((None, 0.7), ("int8", 0.0)):
+        if (kv, temperature) not in k1:
+            k1[kv, temperature] = paged_run(kv, temperature,
+                                            f"paged kv_dtype={kv} "
+                                            f"temperature={temperature}")
+    plain = {}
+    with plain_paged_read():
+        for kv, temperature in ((None, 0.0), (None, 0.7), ("int8", 0.0)):
+            plain[kv, temperature] = paged_run(
+                kv, temperature, f"paged kv_dtype={kv} temperature="
+                                 f"{temperature}, K1's plain version")
+    for kv in (None, "int8"):
+        floor = _match_first8(plain[kv, 0.0], k1[kv, 0.0])
+        log(f"dense: two valid reads of kv_dtype={kv} pools at full width, "
+            f"K1's plain version against K1, greedy: first-8 match "
+            f"{floor:.3f}, all tokens equal {plain[kv, 0.0] == k1[kv, 0.0]}")
+
+    # one step from identical stored KV: pools, and the slab holding them
+    prompt = torch.from_numpy(work[0][None]).to("cuda")
+    table = torch.tensor([[1, 2, 3]], dtype=torch.int32, device="cuda")
+    n = prompt.shape[1]
+    for kv in (None, "int8"):
+        pool = DenseLM(dataclasses.replace(cfg, kv_dtype=kv))
+        logits, pools = pool.prefill_paged(
+            params, prompt, pool.init_paged_cache(4, device="cuda"), table)
+        fed = int(logits.argmax())
+        slab = _slab_from_pools(torch, pools, table, kv is not None)
+        dense = DenseLM(dataclasses.replace(cfg, kv_quant=kv is not None))
+        mine = _one_step(torch, dense, params, slab, fed, n)
+        step_k1 = _one_step(torch, pool, params, pools, fed, n, table)
+        with plain_paged_read():
+            step_plain = _one_step(torch, pool, params, pools, fed, n, table)
+        err = (mine - step_plain).abs().max().item()
+        log(f"dense: one decode step from the same stored KV "
+            f"(kv_dtype={kv} pools; the slab holds their values): slab "
+            f"against the pools' plain read max |dlogit| {err:.3e} (bound "
+            f"{LOGIT_BOUND}); against K1 "
+            f"{(mine - step_k1).abs().max().item():.3e}, K1's plain version "
+            f"against K1 {(step_plain - step_k1).abs().max().item():.3e} "
+            f"(logits: max |x| {step_k1.abs().max().item():.2f}, std "
+            f"{step_k1.std().item():.2f})")
+        if not err <= LOGIT_BOUND:
+            problems.append(f"kv_dtype={kv}: one step over the slab "
+                            f"|dlogit| {err} from the pools' plain read")
+
+    slabs = {}
+    for quant, temperature in DENSE_RUNS:
+        model = DenseLM(dataclasses.replace(cfg, kv_quant=quant))
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(model, params, paged=False,
+                               **dict(SERVE_KW, temperature=temperature))
+        server.tag = tag = f"slab kv_quant={quant} temperature={temperature}"
+        toks, secs, got = counts.run(torch, server, work)
+        st = server.stats
+        slab = server.kv_bytes_in_use()
+        key = ("int8" if quant else None), temperature
+        timing.setdefault(tag, []).append(secs / st["steps"])
+        log(f"dense {tag} [{card}]: {1e3 * secs / st['steps']:.2f} ms a "
+            f"decode step, {sum(len(t) for t in toks) / secs:.1f} tok/s, "
+            f"slab {slab} bytes ({tuple(server.cache['k'].shape)} "
+            f"{server.cache['k'].dtype} k and v"
+            f"{' + bf16 scales' if quant else ''}), max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"{ {k: c for k, c in got.items() if c} }; first-8 match "
+            f"against the paged run of its pool precision through the "
+            f"plain read {_match_first8(toks, plain[key]):.3f}, through K1 "
+            f"{_match_first8(toks, k1[key]):.3f}")
+        if server.paged or st["nonfinite_logits"]:
+            problems.append(f"{tag}: paged {server.paged}, non-finite "
+                            f"{st['nonfinite_logits']}")
+        if not quant and _match_first8(toks, plain[key]) < MATCH_FIRST8:
+            problems.append(f"{tag}: first-8 match "
+                            f"{_match_first8(toks, plain[key])} against "
+                            f"the plain read's paged run")
+        slabs[quant, temperature] = toks
+    firsts = [[t[0] for t in slabs[q, 0.0]] for q in (False, True)]
+    log(f"dense: first tokens, bf16 slab greedy {firsts[0]}, kv_quant slab "
+        f"greedy {firsts[1]}")
+    if firsts[0] != firsts[1]:
+        problems.append(f"kv_quant: first tokens {firsts[1]}, the bf16 "
+                        f"slab's {firsts[0]}")
+    problems += check_quant_prefill(torch, cfg, params, prompt)
+    del server, model
+    paged_run(None, 0.0, "paged bf16 greedy")
+    log(f"dense: ms a decode step by run, in the order run [{card}]: "
+        + ", ".join(f"{k} {[round(1e3 * v, 2) for v in vs]}"
+                    for k, vs in timing.items()))
+    gc.collect()
+    problems += check_rounding_witness(torch, card, cfg, params, work)
+    if problems:
+        raise AssertionError("dense phase: " + "; ".join(problems))
+    log("dense: every gate held")
+
+
+# ---------------------------------------------------------------------------
 # KV across the tiers
 # ---------------------------------------------------------------------------
 
@@ -1624,21 +2287,24 @@ TIERS_POOL = 13
 
 
 class Launches:
-    """Kernel launches summed over a phase's runs (tiers, moe); each run's
-    counts are reset just before it and read just after."""
+    """Kernel launches summed over a phase's runs (tiers, moe, gpt3,
+    dense); each run's counts are reset just before it and read just
+    after."""
 
     def __init__(self, phase: str = "tiers"):
         self.phase = phase
         self.total: dict = {}
         self.by_instance: dict = {}
 
-    def run(self, torch, server, work):
-        """Serve ``work`` once (64 new tokens each) and count; returns
-        (tokens, seconds, this run's launches)."""
+    def run(self, torch, server, work, new: int = 64):
+        """Serve ``work`` once (``new`` new tokens each) and count: K1
+        once a layer a decode step (never over the dense slab), K2 once a
+        layer an admission on the wgmma route; returns (tokens, seconds,
+        this run's launches)."""
         from repro_torch.kernels import (instance_counts, launch_counts,
                                          reset_launch_counts)
         reset_launch_counts()
-        reqs, secs = serve(server, work, 64)
+        reqs, secs = serve(server, work, new)
         got, inst = launch_counts(), instance_counts()
         for k, n in got.items():
             self.total[k] = self.total.get(k, 0) + n
@@ -1648,15 +2314,20 @@ class Launches:
                 mine[i] = mine.get(i, 0) + n
         tokens = [r.output for r in reqs]
         tag = getattr(server, "tag", "")
-        if any(len(t) != 64 for t in tokens) or any(r.error for r in reqs):
+        if any(len(t) != new for t in tokens) or any(r.error for r in reqs):
             raise AssertionError(f"{self.phase} {tag}: a request did not emit its "
-                                 f"64 tokens: {[r.error for r in reqs]}")
+                                 f"{new} tokens: {[r.error for r in reqs]}")
         st, cfg = server.stats, server.model.cfg
         kernel = "paged_attention" + ("" if cfg.kv_dtype is None
                                       else f"_{cfg.kv_dtype}")
         if st["nonfinite_logits"]:
             raise AssertionError(f"{self.phase} {tag}: non-finite logits")
-        if got[kernel] != cfg.num_layers * st["steps"]:
+        k1 = sum(n for k, n in got.items() if k.startswith("paged_attention"))
+        if not server.paged:
+            if k1:
+                raise AssertionError(f"{self.phase} {tag}: {k1} K1 launches "
+                                     f"over the dense slab")
+        elif got[kernel] != cfg.num_layers * st["steps"]:
             raise AssertionError(f"{self.phase} {tag}: {got[kernel]} K1 launches "
                                  f"for {st['steps']} decode steps")
         if (got["flash_attention_wgmma"] != cfg.num_layers * st["admitted"]
@@ -2485,11 +3156,12 @@ def main() -> int:
                     help="serving depth (Qwen2.5-14B has 48; cut only if "
                          "the time limit forces it)")
     ap.add_argument("--phases",
-                    default="kernels,parity,moe,serve,tiers,disagg",
-                    help="comma list of kernels, parity, moe, serve, "
-                         "tiers, disagg, profile (a traced serving run) "
-                         "and sweep (K3's routes over M); the last two are "
-                         "off by default")
+                    default="kernels,parity,moe,gpt3,serve,dense,tiers,"
+                            "disagg",
+                    help="comma list of kernels, parity, moe, gpt3, serve, "
+                         "dense, tiers, disagg, profile (a traced serving "
+                         "run) and sweep (K3's routes over M); the last two "
+                         "are off by default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -2522,10 +3194,10 @@ def main() -> int:
     if "kernels" in phases:
         for kv in (None, "int8", "fp8_e4m3"):
             check_paged(torch, card, results, kv)
-        for hkv, g, d, timed in K1_GROUPS:
+        for hkv, g, d, timed, phase in K1_GROUPS:
             for kv in (None, "int8"):
                 check_paged(torch, card, results, kv, hkv=hkv, g=g, d=d,
-                            timed=timed and kv is None)
+                            timed=timed and kv is None, phase=phase)
         for kv in (None, "int8"):      # granite-moe-3b-a800m's decode
             check_paged(torch, card, results, kv, hkv=8, g=3, d=64,
                         phase="moe")
@@ -2540,6 +3212,7 @@ def main() -> int:
     if "parity" in phases:
         parity_launches = check_parity(torch)
         check_parity_families(torch)
+        check_parity_dense(torch)
     moe = None
     if "moe" in phases:
         # before the Qwen2.5-14B weights exist: its peak device memory is
@@ -2547,12 +3220,19 @@ def main() -> int:
         moe = Launches("moe")
         check_moe(torch, card, moe)
         torch.cuda.empty_cache()
-    launches = tiers = served = None
+    gpt3 = None
+    if "gpt3" in phases:
+        # also before the Qwen2.5-14B weights: 31.5 GB of its own
+        gpt3 = Launches("gpt3")
+        check_gpt3(torch, card, gpt3)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = tiers = served = dense = None
     if "serve" in phases:
         cfg, params = qwen_params(torch, args.layers)
         *launches, served = check_serve(torch, card, cfg, params,
                                         "profile" in phases)
-    if phases & {"tiers", "disagg"}:
+    if phases & {"tiers", "disagg", "dense"}:
         # the full-depth phases share one set of weights: the serve
         # phase's when it ran at 48 layers
         if "serve" not in phases or cfg.num_layers != 48:
@@ -2565,6 +3245,9 @@ def main() -> int:
         resident = check_tiers(torch, card, cfg48, params48, tiers, full)
     if "disagg" in phases:
         check_disagg(torch, card, cfg48, params48, full)
+    if "dense" in phases:
+        dense = Launches("dense")
+        check_dense(torch, card, cfg48, params48, dense, full)
     if "serve" in phases:
         check_serve_paged(torch, card, cfg, params, served[None, 0.0],
                           "profile" in phases)
@@ -2585,10 +3268,20 @@ def main() -> int:
             return (by_instance.get(name, {}).get(row["instance"], 0)
                     if "instance" in row else total.get(name, 0))
 
-        tiered = (tiers.total, tiers.by_instance) if tiers else ({}, {})
-        moed = (moe.total, moe.by_instance) if moe else ({}, {})
+        def summed(run):
+            return (run.total, run.by_instance) if run else ({}, {})
+
+        tiered, moed, gpt3d, densed = (summed(r) for r in
+                                       (tiers, moe, gpt3, dense))
         moe_path = ("BatchedServer, granite-moe-3b-a800m at full width, "
                     "greedy and sampled runs summed (moe phase)")
+        # rows whose shape is another path's than their kernel's
+        by_phase = {
+            "moe": (moe_path, moed),
+            "gpt3": ("BatchedServer, gpt3-175b at full width (8 of 96 "
+                     "layers), resident greedy and sampled runs summed "
+                     "(gpt3 phase)", gpt3d),
+            "kernels": ("kernels phase only", ({}, {}))}
         for mod, path, counts in ((pa_kernel, serving, launches),
                                   (fa_kernel, serving, launches),
                                   (sm_kernel, wrappers, (ops_launches, {})),
@@ -2599,8 +3292,7 @@ def main() -> int:
                 if name == "flash_attention_simt":
                     path, counts = smoke, parity_launches
                 for row in results[name]:
-                    mine = ((moe_path, moed) if row.get("phase") == "moe"
-                            else (path, counts))
+                    mine = by_phase.get(row.get("phase"), (path, counts))
                     n = count(mine[1], name, row)
                     kernels.append({"name": name, "route": "cuda",
                                     "source": f"src/repro_torch/kernels/"
@@ -2614,6 +3306,10 @@ def main() -> int:
                                         (DisaggRun.total,
                                          DisaggRun.by_instance), name, row),
                                     "moe_launches": count(moed, name, row),
+                                    "gpt3_launches": count(gpt3d, name,
+                                                           row),
+                                    "dense_launches": count(densed, name,
+                                                            row),
                                     **row})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

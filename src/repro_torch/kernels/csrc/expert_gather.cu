@@ -7,9 +7,11 @@
 // per (token, choice).  Here the banks (E, ...) rest in pinned host memory
 // mapped into the device's address space, and one launch copies, for
 // every bank, the rows of the experts whose byte in the (E,) device mask
-// is set into a device buffer of the bank's shape.  The kernel reads the
-// mask itself (written by the router's top-k on the same stream), so the
-// host never learns which experts were routed and never waits; rows of
+// is set into a device buffer, packed: expert e's row into row slot[e]
+// of a buffer of min(N, E) + 1 rows (the slot map, a prefix sum over the
+// mask, is built on the device too).  The kernel reads the mask itself
+// (written by the router's top-k on the same stream), so the host never
+// learns which experts were routed and never waits; rows of
 // unrouted experts are not touched.  Each CTA adds the bytes it copied to
 // a device counter, so a run can show that only routed rows moved.
 //
@@ -57,7 +59,7 @@ struct Banks {
 template <bool VEC>
 __global__ void __launch_bounds__(NT) expert_gather_kernel(
     const __grid_constant__ Banks b, const uint8_t* __restrict__ mask,
-    unsigned long long* __restrict__ counter) {
+    const int* __restrict__ slot, unsigned long long* __restrict__ counter) {
   const int e = blockIdx.y;
   const int k = blockIdx.z;
   if (!mask[e]) return;
@@ -66,7 +68,7 @@ __global__ void __launch_bounds__(NT) expert_gather_kernel(
   if (lo >= row) return;
   const long long hi = lo + CHUNK < row ? lo + CHUNK : row;
   const char* src = b.src[k] + (long long)e * row;
-  char* dst = b.dst[k] + (long long)e * row;
+  char* dst = b.dst[k] + (long long)slot[e] * row;
   if constexpr (VEC) {
     const uint4* s = reinterpret_cast<const uint4*>(src + lo);
     uint4* d = reinterpret_cast<uint4*>(dst + lo);
@@ -90,16 +92,19 @@ __global__ void __launch_bounds__(NT) expert_gather_kernel(
 
 // src[i]: bank i (E rows of row[i] bytes), host memory when bit i of
 // host_banks is set (mapped through cudaHostGetDevicePointer), device
-// memory otherwise; dst[i]: its device buffer of the same shape; mask:
-// (E,) bytes on the device; counter: one unsigned 64-bit device word the
-// bytes copied are added to.  Returns the first CUDA error (0 if none).
+// memory otherwise; dst[i]: its device buffer of rows of the same
+// bytes; mask: (E,) bytes on the device; slots: (E,) int32 on the device,
+// the buffer row of each routed expert; counter: one
+// unsigned 64-bit device word the bytes copied are added to.  Returns
+// the first CUDA error (0 if none).
 extern "C" int expert_gather_launch(const void* const* src,
                                     void* const* dst, const long long* row,
                                     int n_banks, int host_banks,
-                                    const void* mask, int num_experts,
-                                    void* counter, void* stream) {
+                                    const void* mask, const void* slots,
+                                    int num_experts, void* counter,
+                                    void* stream) {
   if (n_banks < 1 || n_banks > MAX_BANKS || num_experts < 1 ||
-      num_experts > 65535)
+      num_experts > 65535 || slots == nullptr)
     return (int)cudaErrorInvalidValue;
   Banks b = {};
   long long longest = 0;
@@ -126,10 +131,11 @@ extern "C" int expert_gather_launch(const void* const* src,
             n_banks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const int* sl = static_cast<const int*>(slots);
   unsigned long long* c = static_cast<unsigned long long*>(counter);
   if (vec)
-    expert_gather_kernel<true><<<grid, NT, 0, st>>>(b, m, c);
+    expert_gather_kernel<true><<<grid, NT, 0, st>>>(b, m, sl, c);
   else
-    expert_gather_kernel<false><<<grid, NT, 0, st>>>(b, m, c);
+    expert_gather_kernel<false><<<grid, NT, 0, st>>>(b, m, sl, c);
   return (int)cudaGetLastError();
 }

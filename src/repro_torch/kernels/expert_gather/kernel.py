@@ -1,8 +1,9 @@
 """ctypes binding of the CUDA expert gather (``csrc/expert_gather.cu``),
 port-only: it pages the routed experts' rows of expert banks at rest in
-mapped pinned host memory into device buffers, reading the routing mask
-on the device.  CUDA output buffers only: the plain version lives in
-``ref.py`` and the device routing in ``ops.py``.
+mapped pinned host memory into device buffers, packed through a slot
+map, reading the routing mask on the device.  CUDA output buffers
+only: the plain version lives in ``ref.py`` and the device routing in
+``ops.py``.
 
 One route, ``sm``: the SMs read the mask and copy the routed rows
 themselves, from banks in mapped pinned host memory
@@ -60,26 +61,27 @@ def _launcher():
     global _fn
     if _fn is None:
         fn = build.load(SOURCE).expert_gather_launch
-        # (src, dst, row, n_banks, host_banks, mask, num_experts, counter,
-        #  stream)
+        # (src, dst, row, n_banks, host_banks, mask, slots, num_experts,
+        #  counter, stream)
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def expert_gather(banks, mask: torch.Tensor, out,
+def expert_gather(banks, mask: torch.Tensor, slots: torch.Tensor, out,
                   counter: torch.Tensor) -> None:
     """Launch the gather on the route :func:`plan` gives: ``banks`` (E,
     ...) contiguous, each in mapped pinned host memory
     (``tiers.host_empty(..., mapped=True)``) or on the buffers' device;
-    ``out`` their device buffers, same shapes and dtypes; ``mask`` (E,)
-    bool on that device; ``counter`` one int64 on it, to which the kernel
-    adds the bytes it copied."""
+    ``mask`` (E,) bool and ``slots`` (E,) int32 on that device, each
+    routed expert's row in the buffers (below S); ``out`` their device
+    buffers (S, ...), same dtypes and row shapes; ``counter`` one int64
+    on that device, to which the kernel adds the bytes it copied."""
     if not out or len(out) != len(banks) or len(out) > MAX_BANKS:
         raise ValueError(f"expert gather kernel: {len(banks)} banks into "
                          f"{len(out)} buffers (1..{MAX_BANKS})")
@@ -88,8 +90,8 @@ def expert_gather(banks, mask: torch.Tensor, out,
     e = banks[0].shape[0]
     host = 0
     for i, (bank, buf) in enumerate(zip(banks, out)):
-        if (bank.shape != buf.shape or bank.dtype != buf.dtype
-                or bank.shape[0] != e):
+        if (bank.shape[1:] != buf.shape[1:] or buf.shape[0] < 1
+                or bank.dtype != buf.dtype or bank.shape[0] != e):
             raise ValueError(f"expert gather kernel: bank {i} "
                              f"{tuple(bank.shape)} {bank.dtype} into "
                              f"{tuple(buf.shape)} {buf.dtype}")
@@ -106,6 +108,11 @@ def expert_gather(banks, mask: torch.Tensor, out,
         raise ValueError(f"expert gather kernel: mask {tuple(mask.shape)} "
                          f"{mask.dtype} on {mask.device}, expected ({e},) "
                          f"bool on {dev}")
+    if (slots.device != dev or slots.dtype != torch.int32
+            or slots.shape != (e,) or not slots.is_contiguous()):
+        raise ValueError(f"expert gather kernel: slots {tuple(slots.shape)}"
+                         f" {slots.dtype} on {slots.device}, expected ({e},)"
+                         f" int32 on {dev}")
     if (counter.device != dev or counter.dtype != torch.int64
             or counter.numel() != 1):
         raise ValueError("expert gather kernel: counter must be one int64 "
@@ -116,8 +123,8 @@ def expert_gather(banks, mask: torch.Tensor, out,
     row = (ctypes.c_longlong * n)(*(b[0].numel() * b.element_size()
                                     for b in banks))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _launcher()(src, dst, row, n, host, mask.data_ptr(), e,
-                     counter.data_ptr(), stream)
+    rc = _launcher()(src, dst, row, n, host, mask.data_ptr(),
+                     slots.data_ptr(), e, counter.data_ptr(), stream)
     if rc == 1 and host:     # cudaErrorInvalidValue from the mapping
         raise RuntimeError("expert gather kernel: a host bank is not "
                            "mapped pinned memory (CUDA error 1)")

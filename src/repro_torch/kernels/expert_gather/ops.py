@@ -9,19 +9,21 @@ from repro_torch.kernels.expert_gather import kernel as _kernel
 from repro_torch.kernels.expert_gather.ref import expert_gather_ref
 
 
-def gather(banks, mask: torch.Tensor, out,
+def gather(banks, mask: torch.Tensor, slots: torch.Tensor, out,
            counter: torch.Tensor | None = None) -> None:
     """Copy the rows of the experts set in ``mask`` ((E,) bool) from each
-    bank (E, ...) into its buffer in ``out`` (same shape and dtype);
-    other rows are left as they are.  ``counter`` (one int64 on the
-    buffers' device) gets the bytes copied added to it; the kernel needs
-    one, so a CUDA call without it gets a scratch counter."""
+    bank (E, ...) into its buffer of S rows in ``out`` (same dtype and
+    row shape): expert e's row into row ``slots[e]`` ((E,) int32 on the
+    buffers' device); other rows are left as they are.  ``counter`` (one
+    int64 on the buffers' device) gets the bytes copied added to it; the
+    kernel needs one, so a CUDA call without it gets a scratch
+    counter."""
     banks, out = list(banks), list(out)
     if not out:
         raise ValueError("expert gather: no banks")
     if out[0].device.type == "cpu":
-        expert_gather_ref(banks, mask, out, counter)
+        expert_gather_ref(banks, mask, slots, out, counter)
         return
     if counter is None:
         counter = torch.zeros(1, dtype=torch.int64, device=out[0].device)
-    _kernel.expert_gather(banks, mask, out, counter)
+    _kernel.expert_gather(banks, mask, slots, out, counter)

@@ -95,6 +95,11 @@ class BlockManager:
     def pages_for(self, tokens: int) -> int:
         return pages_for(tokens, self.page_size)
 
+    def can_fit(self, slot: int, tokens: int) -> bool:
+        """Would :meth:`ensure`'ing ``tokens`` for ``slot`` succeed now?"""
+        have = len(self.pages.get(slot, ()))
+        return self.pages_for(tokens) - have <= len(self._free)
+
     # ----- allocate / reclaim ----------------------------------------------
     def ensure(self, slot: int, tokens: int) -> list[int]:
         """Grow ``slot`` so positions ``[0, tokens)`` are mapped; returns
@@ -320,3 +325,15 @@ class BlockManager:
         (one per position per KV head per pool)."""
         return (2 * num_layers * self.page_size * kv_heads
                 * (head_dim * itemsize + scale_itemsize))
+
+    def fragmentation(self) -> float:
+        """Fraction of in-use page slots holding no live token (the tail
+        of partly filled last pages).  With prefix sharing the logical
+        token count can exceed the physical slots, so it is clamped at
+        0."""
+        in_use = self.pages_in_use * self.page_size
+        if not in_use:
+            return 0.0
+        live = sum(min(self.lens.get(s, 0), len(t) * self.page_size)
+                   for s, t in self.pages.items())
+        return max(0.0, 1.0 - live / in_use)

@@ -130,6 +130,10 @@ class MemoryLedger:
     def classes(self, tier: str) -> dict[str, int]:
         return dict(self._now.get(tier, {}))
 
+    def capacities(self, tier: str) -> dict[str, int]:
+        """Provisioned bytes of each tensor class in ``tier``."""
+        return dict(self._cap.get(tier, {}))
+
     def tiers(self) -> list[str]:
         """Every tier the ledger has seen, in hierarchy order."""
         names = set(self._now) | set(self._hwm) | set(self._cap)

@@ -370,20 +370,23 @@ class MemoryOrchestrator:
             self.ledger.record_capacity(tiers.LOCAL, "layer_weights", total)
         return placed
 
-    def gather_experts(self, banks: dict, ids: torch.Tensor) -> dict:
+    def gather_experts(self, banks: dict, ids: torch.Tensor
+                       ) -> tuple[dict, torch.Tensor | None]:
         """Routed-expert staging for :func:`repro_torch.models.moe.
-        moe_ffn_topk`: through the expert policy when one is planned
-        (banks at rest, routed rows paged in, residency recorded); the
-        banks themselves otherwise (already local)."""
+        moe_ffn_topk`: ``(staged banks, slot map)``, through the expert
+        policy when one is planned (banks at rest, routed rows packed
+        into min(N, E) + 1 rows, residency recorded); the banks
+        themselves and no slot map otherwise (already local)."""
         ep = self.expert_policy
         if ep is not None:
             return ep.gather(banks, ids)
-        return {k: banks[k] for k in ("wi", "wg", "wo")}
+        return {k: banks[k] for k in ("wi", "wg", "wo")}, None
 
     def place_kv_pool(self, cache: dict) -> dict:
-        """Residency for the serving KV cache, provisioned capacity
-        recorded (only live pages count as residency).  Device-resident
-        by default; under ``offload_kv`` the pools rest in the remote tier
+        """Residency for the serving KV cache (the page pools, or the
+        dense slab), provisioned capacity recorded (only live pages count
+        as residency; the server records a slab's whole bytes).
+        Device-resident by default; under ``offload_kv`` the pools rest in the remote tier
         (pinned host memory on the card) and a :class:`KVWindow` of
         ``1 + lookahead`` layer slices is allocated in device memory (the
         ledger's local ``kv_pool_window``).  An injected tier fault at
@@ -392,7 +395,7 @@ class MemoryOrchestrator:
         ``degraded["kv_pool"]``."""
         policy = self.policies["kv_pool"]
         nbytes = tree_bytes(cache)
-        device = cache["k_pages"].device
+        device = next(iter(cache.values())).device
         try:
             placed = policy.place(cache)
         except tiers.TierTransferError as e:

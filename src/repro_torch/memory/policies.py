@@ -23,6 +23,7 @@ justify a colder one).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any
 
 import torch
@@ -258,15 +259,19 @@ class TopKExpertPrefetch:
     On the card the banks rest in pinned host memory mapped into the
     device's address space (``cudaHostAlloc``),
     and :meth:`gather` marks the routed experts in an (E,) device mask
-    from which the expert-gather kernel copies just their rows into one
-    reused device buffer per bank shape (zeroed once, at allocation).
-    The ledger's local line is the reference's model, derived from the
-    shapes: ``min(ids.numel(), E)`` routed rows + 1 staging row per bank.
-    The port's staging buffers hold every row of a bank, one buffer per
-    bank shape shared by all layers: :meth:`staging_bytes` says what
-    they take.  The device counters ``counts[device, N]`` hold the bytes
-    the kernel copied, the experts the masks routed and the most routed
-    in one gather, for a run to hold together.
+    and numbers them by a prefix sum over it (the slot map, the spare
+    last slot for the rest), from which the expert-gather kernel packs
+    just their rows into staging buffers of ``min(N, E) + 1`` rows a
+    bank, N = ``ids.numel()``: the reference's model of its staging,
+    which its ledger line records from the shapes, is what the card
+    holds.  The buffers come from the caching allocator on each call
+    (stream-ordered, no sync) and die with the caller's last reference;
+    :meth:`staging_bytes` says what is alive, ``staging_peak`` the most
+    ever alive and ``live_at_gather[N]`` the least and the most alive
+    right after a gather of N rows.  The device counters
+    ``counts[device, N]`` hold the bytes the kernel copied, the experts
+    the masks routed and the most routed in one gather, for a run to
+    hold together.
     """
 
     num_experts: int
@@ -284,7 +289,9 @@ class TopKExpertPrefetch:
         self._cold_experts: set[int] = set()
         self._cold_cap = 0
         self._local_cap = 0
-        self._staging: dict = {}   # (key, device, shape, dtype) -> buffer
+        self._staging_live = 0     # bytes of staging buffers alive
+        self.staging_peak = 0
+        self.live_at_gather: dict[int, list[int]] = {}   # N -> [min, max]
         #: (device, routed rows N of a call) -> int64 (3,) on the device:
         #: [bytes the gather copied, experts the masks routed, the most
         #: experts routed in one gather]
@@ -382,27 +389,39 @@ class TopKExpertPrefetch:
         return total
 
     def staging_bytes(self) -> int:
-        """Bytes of the device staging buffers allocated so far (what the
-        port's gathers hold locally, beside the ledger's modeled line)."""
-        return tree_bytes(list(self._staging.values()))
+        """Bytes of the staging buffers alive now (what the gathers hold
+        locally, beside the ledger's line)."""
+        return self._staging_live
 
-    def _buffer(self, name: str, bank: torch.Tensor, device: torch.device
-                ) -> torch.Tensor:
-        key = (name, device, tuple(bank.shape), bank.dtype)
-        buf = self._staging.get(key)
-        if buf is None:
-            buf = torch.zeros(bank.shape, dtype=bank.dtype, device=device)
-            self._staging[key] = buf
+    def _release(self, nbytes: int) -> None:
+        self._staging_live -= nbytes
+
+    def _stage(self, bank: torch.Tensor, rows: int, device: torch.device
+               ) -> torch.Tensor:
+        """A staging buffer of ``rows`` rows of ``bank``'s, from the
+        caching allocator (uninitialised: rows no expert is packed into
+        multiply all-zero dispatch rows and are never read back), counted
+        alive until its last reference dies.  A captured decode graph
+        would need static buffers of the peak's rows here instead."""
+        buf = torch.empty((rows,) + tuple(bank.shape[1:]), dtype=bank.dtype,
+                          device=device)
+        nbytes = buf.numel() * buf.element_size()
+        self._staging_live += nbytes
+        self.staging_peak = max(self.staging_peak, self._staging_live)
+        weakref.finalize(buf, self._release, nbytes)
         return buf
 
-    def gather(self, banks: dict, ids: torch.Tensor) -> dict:
+    def gather(self, banks: dict, ids: torch.Tensor
+               ) -> tuple[dict, torch.Tensor]:
         """Page in the routed experts: ``ids`` (N,) expert indices
-        (duplicates fine) on the computing device.  Returns ``{key: (E,
-        ...) buffer}`` on that device whose rows of the experts in ``ids``
-        equal the banks' (other rows are stale: a caller reads only the
-        routed ones).  No host sync: the mask is built and read on the
-        device.  The ledger's local line is the reference's, recorded
-        from the shapes."""
+        (duplicates fine) on the computing device.  Returns ``({key: (S,
+        ...) buffer}, slots)`` on that device, S = min(N, E) + 1: routed
+        expert e's rows sit in row ``slots[e]`` ((E,) int32: the routed
+        experts numbered in expert order, every other expert on the spare
+        last row, which no expert is copied into).  No host sync: the
+        mask and the slot map are built and read on the device, and S is
+        known from N.  The ledger's local line is the reference's,
+        recorded from the shapes, and equals the buffers' bytes."""
         n = int(ids.shape[0])
         if self.ledger is not None:
             nb = self.resident_bytes(banks, n)
@@ -416,20 +435,26 @@ class TopKExpertPrefetch:
         src = [banks[k] for k in self.bank_keys]
         # the value as a device tensor: ``mask[ids] = True`` would copy
         # the Python scalar from the host and wait for it
-        mask = torch.zeros(src[0].shape[0], dtype=torch.bool, device=device)
+        e = src[0].shape[0]
+        mask = torch.zeros(e, dtype=torch.bool, device=device)
         mask.index_put_((ids,), torch.ones_like(ids, dtype=torch.bool))
+        rows = min(n, e) + 1
+        slots = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+        slots.masked_fill_(~mask, rows - 1)
         counts = self.counts.get((device, n))
         if counts is None:
             counts = torch.zeros(3, dtype=torch.int64, device=device)
             self.counts[device, n] = counts
-        out = [self._buffer(k, b, device)
-               for k, b in zip(self.bank_keys, src)]
-        gather_ops.gather(src, mask, out, counter=counts[0:1])
+        out = [self._stage(b, rows, device) for b in src]
+        live = self._staging_live
+        lo, hi = self.live_at_gather.get(n, (live, live))
+        self.live_at_gather[n] = [min(lo, live), max(hi, live)]
+        gather_ops.gather(src, mask, slots, out, counter=counts[0:1])
         routed = mask.sum()
         counts[1:2].add_(routed)
         torch.maximum(counts[2:3], routed, out=counts[2:3])
         self.gathers[n] = self.gathers.get(n, 0) + 1
-        return dict(zip(self.bank_keys, out))
+        return dict(zip(self.bank_keys, out)), slots
 
     def gather_stats(self) -> dict:
         """Since the last :meth:`reset_stats`, by the routed rows N of a
@@ -452,3 +477,5 @@ class TopKExpertPrefetch:
         for c in self.counts.values():
             c.zero_()
         self.gathers.clear()
+        self.live_at_gather.clear()
+        self.staging_peak = self._staging_live

@@ -29,7 +29,8 @@ class DecodeState:
     One instance covers the whole serving batch and every field is a
     tensor on the serving device, so a block of decode steps runs with no
     host round trip.  ``pages`` is the persistent ``(B, n_pages)`` int32
-    page table (column padding and idle slots map the null page 0);
+    page table (column padding and idle slots map the null page 0), None
+    over the dense slab;
     ``pos`` doubles as the per-slot ``seq_lens`` the page kernel masks
     against.  ``slot_keys`` holds each slot's request key
     (:mod:`repro_torch.prng`); the token a slot emits at sequence position
@@ -105,6 +106,8 @@ class ModelConfig:
 
     # numerics / system
     dtype: torch.dtype = torch.bfloat16
+    kv_quant: bool = False           # dense slab: int8 KV + per-token-per-head
+                                     # bf16 scales (not the pools' kv_dtype)
     kv_dtype: str | None = None      # paged-pool KV precision (None = dtype)
     page_size: int = 16              # tokens per KV page
     norm_eps: float = 1e-6

@@ -1,11 +1,12 @@
 """Shared neural layers for the dense decoder: RMSNorm, RoPE, GQA attention
-(prefill and paged decode), SwiGLU MLP, embeddings (counterpart of
-``repro.models.layers``).
+(prefill, paged decode and decode over the dense slab), SwiGLU MLP,
+embeddings (counterpart of ``repro.models.layers``).
 
 Attention entry points take and return ``(batch, seq, heads, head_dim)``
 tensors.  Prefill attention goes to the flash wrapper (the CUDA kernel K2
 on the card, the plain blocked online-softmax on the CPU); paged decode
-attention goes to the paged wrapper (K1, or its plain version).
+attention goes to the paged wrapper (K1, or its plain version); decode
+over the dense slab is plain torch, as the reference's is jnp.
 
 Prefill runs its row-wise work (norms, projections, RoPE, the MLP) in
 chunks of ``rows`` rows (the page size) via :func:`by_rows`.  A library
@@ -106,6 +107,12 @@ def kv_pool_quantize(x: torch.Tensor, qdtype: torch.dtype, qmax: float
     return torch.clamp(y, -qmax, qmax).to(qdtype), scale
 
 
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense slab's ``kv_quant``: x (..., hd) -> (int8 values, scale
+    (...,) bf16), per token and head."""
+    return kv_pool_quantize(x, torch.int8, 127.0)
+
+
 def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
                   ) -> torch.Tensor:
     return (q.float() * scale.float()[..., None]).to(dtype)
@@ -145,7 +152,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``extra_kv``: the CURRENT token's (k, v), each (B, Hkv, hd), attended
     in addition to the cache, whose positions are then masked strictly
     below ``cur_pos`` (the cache stays read-only inside the layer loop).
-    cur_pos: (B,) index of the token being generated.
+    cur_pos: (B,) index of the token being generated.  Scores,
+    probabilities and the sum over V stay in fp32 (the reference rounds
+    the probabilities to the cache's dtype for the TPU's bf16 matmul), as
+    K1 and its plain version keep them: over a bf16 slab and bf16 pools
+    the two reads then differ only in summation order.
     """
     b, hkv, sk, hd = k_cache.shape
     hq = q.shape[2]
@@ -164,13 +175,52 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     if extra_kv is not None:
         p_cache, p_self = p[..., :-1], p[..., -1]
-        o = torch.einsum("bkgn,bknd->bkgd",
-                         p_cache.to(v_cache.dtype).float(), v_cache.float())
+        o = torch.einsum("bkgn,bknd->bkgd", p_cache, v_cache.float())
         o = o + p_self[..., None] * extra_kv[1][:, :, None, :].float()
     else:
-        o = torch.einsum("bkgn,bknd->bkgd", p.to(v_cache.dtype).float(),
-                         v_cache.float())
+        o = torch.einsum("bkgn,bknd->bkgd", p, v_cache.float())
     return o.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def _decode_window_rotated(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cur_pos: torch.Tensor,
+                           window: int,
+                           extra_kv: tuple[torch.Tensor, torch.Tensor]
+                           | None = None) -> torch.Tensor:
+    """Single-token attention over a rolling (B, Hkv, W, hd) slab whose
+    slot n holds the largest written position p = n (mod W); keys were
+    roped at their absolute positions when written.  With ``extra_kv``
+    the slab is read-only: slot ``cur_pos % W`` still holds position
+    cur_pos - W, outside the window, and is masked; the current token's
+    (k, v) join as the extra column.  Probabilities stay fp32, as in
+    :func:`decode_attention`."""
+    b, hkv, w, hd = k_cache.shape
+    hq = q.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd).float()
+    s = torch.einsum("bkgd,bknd->bkgn", qg, k_cache.float()) / math.sqrt(hd)
+    slots = torch.arange(w, device=q.device)[None, :]
+    cur = cur_pos.long()[:, None]
+    if extra_kv is not None:
+        valid = (slots < cur) & (slots != cur % w)
+    else:
+        valid = slots <= cur
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    if extra_kv is not None:
+        k0, v0 = extra_kv
+        s_self = torch.einsum("bkgd,bkd->bkg", qg, k0.float()) / math.sqrt(hd)
+        s = torch.cat([s, s_self[..., None]], dim=-1)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgn,bknd->bkgd", p[..., :-1], v_cache.float())
+        o = o + p[..., -1][..., None] * v0[:, :, None, :].float()
+    else:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgn,bknd->bkgd", p, v_cache.float())
+    return o.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def to_cache_layout(k: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) attention layout -> (B, H, S, hd) slab layout."""
+    return k.transpose(1, 2)
 
 
 def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
@@ -244,6 +294,30 @@ def attn_prefill_prefix_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
     o = flash_attention(q, kf, vf, causal=True, window=cfg.sliding_window,
                         q_offset=prefix_len)
     return by_rows(lambda oc: _out_proj(p, oc), rows, o), (k, v)
+
+
+def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                cache_v: torch.Tensor, cur_pos: torch.Tensor,
+                cfg: ModelConfig):
+    """One-token self-attention over this layer's dense slab (B, Hkv, S,
+    hd), read-only: the current token's (k, v) are attended as the extra
+    column and returned for the batched write after the layer loop.  A
+    rolling slab (S <= W) reads through :func:`_decode_window_rotated`.
+    x: (B, 1, d).  Returns (out (B, 1, d), k0, v0 (B, Hkv, hd))."""
+    q, k, v = _project_qkv(p, x, x, cfg)
+    pos = cur_pos[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    k0 = k[:, 0].contiguous()
+    v0 = v[:, 0].contiguous()
+    w = cfg.sliding_window
+    if w > 0 and cache_k.shape[2] <= w:
+        o = _decode_window_rotated(q, cache_k, cache_v, cur_pos, w,
+                                   extra_kv=(k0, v0))
+    else:
+        o = decode_attention(q, cache_k, cache_v, cur_pos, window=w,
+                             extra_kv=(k0, v0))
+    return _out_proj(p, o), k0, v0
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,

@@ -17,14 +17,16 @@ Expert paging (``PagerPolicy.page_experts``): the banks rest in the
 remote tier (mapped pinned host memory on the card) and
 :func:`moe_ffn_topk` pages in only the routed experts.  Where the
 reference gathers one bank row per (token, choice), here the router's
-top-k marks the routed experts in an (E,) mask on the device and the
-expert-gather kernel copies just those experts' rows into one reused
-device buffer of the bank's shape (``mem.gather_experts``).  The expert
-GEMMs then run the same (E, C, d) dispatch as :func:`moe_ffn`: an
-unrouted expert's rows in the buffer are stale but multiply all-zero
-dispatch rows whose outputs are never gathered back, so expert-paged
-tokens equal resident ones by construction, only routed bytes cross the
-link, and the host never waits inside a layer.
+top-k marks the routed experts in an (E,) mask on the device, a prefix
+sum over it numbers them (the slot map), and the expert-gather kernel
+packs just those experts' rows into staging buffers of min(N, E) + 1
+rows (``mem.gather_experts``; N = tokens x top_k).  The dispatch maps
+each choice's expert through the slot map into an (S, C, d) queue;
+routing, capacity and keep are computed over the E experts exactly as
+resident, and a slot no expert was packed into multiplies all-zero
+dispatch rows whose outputs are never gathered back.  So only routed
+bytes cross the link, the staging the card holds is the reference's
+model of it, and the host never waits inside a layer.
 
 Expert parallelism over a mesh (the reference's ``moe_ffn_ep``) needs
 tensor parallelism and is not ported yet.
@@ -85,10 +87,13 @@ def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
     return top_g, top_i, keep, safe_pos, cap
 
 
-def dispatch(banks: dict, xt: torch.Tensor, routing) -> torch.Tensor:
-    """Scatter (T, d) tokens into (E, C, d) expert queues, run the SwiGLU
-    expert GEMMs against ``banks`` ((E, d, f) / (E, f, d)) and combine
+def dispatch(banks: dict, xt: torch.Tensor, routing,
+             slots: torch.Tensor | None = None) -> torch.Tensor:
+    """Scatter (T, d) tokens into (S, C, d) expert queues, run the SwiGLU
+    expert GEMMs against ``banks`` ((S, d, f) / (S, f, d)) and combine
     the k choices of each token in the activation dtype -> (T, d).
+    ``slots`` ((E,) int32) maps each expert to its row of packed banks;
+    without it the banks are the E experts' own.
 
     A dropped choice lands in slot ``cap - 1`` with a zeroed source, so
     the scatter ACCUMULATES (``index_put_(accumulate=True)``): assigning
@@ -98,6 +103,8 @@ def dispatch(banks: dict, xt: torch.Tensor, routing) -> torch.Tensor:
     k = top_i.shape[1]
     e = banks["wi"].shape[0]
     ei, pi = top_i.reshape(-1), safe_pos.reshape(-1)
+    if slots is not None:
+        ei = slots.long()[ei]
     src = xt.repeat_interleave(k, dim=0) * keep.reshape(-1, 1).to(xt.dtype)
     buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=xt.device)
     buf.index_put_((ei, pi), src, accumulate=True)
@@ -118,16 +125,17 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def moe_ffn_topk(p: dict, x: torch.Tensor, cfg: ModelConfig, mem
                  ) -> torch.Tensor:
     """The MoE FFN that pages in only the routed experts: routing as
-    :func:`moe_ffn`, then ``mem.gather_experts(p, ids)`` stages the
-    routed experts' rows of the banks at rest (the expert-gather kernel
-    on the card, reading a device-side mask; ``index_select`` on the
-    CPU) and the same (E, C, d) dispatch runs against the staged banks.
+    :func:`moe_ffn`, then ``mem.gather_experts(p, ids)`` packs the
+    routed experts' rows of the banks at rest into min(N, E) + 1 rows
+    (the expert-gather kernel on the card, reading a device-side mask
+    and slot map; ``index_select`` on the CPU) and the dispatch runs
+    against the packed banks through the slot map.
     x: (B, S, d) -> (B, S, d)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     routing = route(p["router"], xt, cfg)
-    staged = mem.gather_experts(p, routing[1].reshape(-1))
-    return dispatch(staged, xt, routing).reshape(b, s, d)
+    staged, slots = mem.gather_experts(p, routing[1].reshape(-1))
+    return dispatch(staged, xt, routing, slots).reshape(b, s, d)
 
 
 class MoELM(DenseLM):

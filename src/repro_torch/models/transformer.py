@@ -16,6 +16,15 @@ scatter after the layer loop, pools at rest in the remote tier
 orchestrator writes back.  With ``cfg.kv_dtype`` set the pools hold int8
 or fp8_e4m3 values beside ``(L, P, page, Hkv)`` bf16 scales; fp8 pools
 are written and gathered through their uint8 view on both devices.
+
+Models that the pools do not cover (a rolling window, ``cfg.kv_quant``)
+serve from the reference's dense per-slot cache instead: a head-major
+``(L, B, Hkv, S, hd)`` slab (S = min(max_seq, W) under a window, whose
+slots hold position p at p % W; ``kv_quant`` stores int8 values beside
+``(L, B, Hkv, S)`` bf16 scales), written by :meth:`DenseLM.prefill` and
+read by plain torch attention in :meth:`DenseLM.decode_step` with
+``pages=None``.  No kernel reads the slab: K1 reads pages only, and the
+prefill attention is K2 as on the paged path.
 """
 from __future__ import annotations
 
@@ -217,6 +226,16 @@ class DenseLM:
                                          kv_roundtrip=kv_roundtrip)
         return self._block_tail(lp, x, a, rows), kv
 
+    def block_decode(self, lp: dict, x: torch.Tensor, ck: torch.Tensor,
+                     cv: torch.Tensor, cur_pos: torch.Tensor):
+        """One decode token against this layer's (read-only) dense slab
+        (B, Hkv, S, hd); returns the current token's (k, v) for the
+        batched write after the layer loop."""
+        a, k0, v0 = L.attn_decode(
+            lp["attn"], L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps), ck, cv,
+            cur_pos, self.cfg)
+        return self._block_tail(lp, x, a), k0, v0
+
     def block_decode_paged(self, lp: dict, x: torch.Tensor, k_pages, v_pages,
                            pages, cur_pos, k_scales=None, v_scales=None):
         """One decode token against this layer's (read-only) page pool;
@@ -226,10 +245,124 @@ class DenseLM:
             v_pages, pages, cur_pos, self.cfg, k_scales, v_scales)
         return self._block_tail(lp, x, a), k0, v0
 
+    # ----- dense per-slot KV cache -------------------------------------------
+    def cache_seq(self, max_seq: int) -> int:
+        """Positions a slot's slab row holds: ``min(max_seq, W)`` under a
+        rolling window W, ``max_seq`` otherwise."""
+        w = self.cfg.sliding_window
+        return min(max_seq, w) if w > 0 else max_seq
+
+    def cache_shapes(self, batch: int, max_seq: int
+                     ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+        """``{leaf: (shape, dtype)}`` of :meth:`init_cache`: head-major
+        ``(L, B, Hkv, S, hd)`` k and v (the decode dots need no
+        transposed copy), int8 beside ``(L, B, Hkv, S)`` bf16 scales
+        under ``kv_quant``."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, cfg.padded_kv_heads,
+                 self.cache_seq(max_seq), cfg.head_dim)
+        if cfg.kv_quant:
+            return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                    "k_scale": (shape[:-1], torch.bfloat16),
+                    "v_scale": (shape[:-1], torch.bfloat16)}
+        return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+
+    def init_cache(self, batch: int, max_seq: int, *, device=None) -> dict:
+        """The dense slab, zeroed (:meth:`cache_shapes`)."""
+        dev = resolve_device(device)
+        return {name: torch.zeros(shape, dtype=dt, device=dev)
+                for name, (shape, dt) in self.cache_shapes(
+                    batch, max_seq).items()}
+
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
+                extra: dict | None = None):
+        """Process the prompt into the dense slab; returns (last-position
+        logits (B, 1, V), cache).
+
+        Each layer keeps the last ``cs`` keys of the prompt (cs the
+        slab's length); a rolling slab (cs == W) rotates them so that
+        position p lands in slot p % W.  They are written in place at
+        slots [0, n) of every row of ``cache`` (the server passes the
+        admitted slot's row, a view); ``kv_quant`` quantizes them, int8
+        with bf16 scales.  Row-wise work runs in page-size chunks like
+        :meth:`prefill_paged`, so the prompt's KV and logits are the
+        paged prefill's bits."""
+        cfg = self.cfg
+        x = L.embed_lookup(params["embed"], tokens)
+        if extra and "patches" in extra:
+            x = torch.cat([extra["patches"].to(x.dtype), x], dim=1)
+        seq = x.shape[1]
+        positions = torch.arange(seq, device=x.device)
+        cs = self.cache_seq(cache["k"].shape[3])
+        ks, vs = [], []
+        for lp in self.mem.layers(params["layers"]):
+            x, (k, v) = self.block_prefill(lp, x, positions, cfg.page_size)
+            ks.append(L.to_cache_layout(k[:, -cs:]))
+            vs.append(L.to_cache_layout(v[:, -cs:]))
+        k_new, v_new = torch.stack(ks), torch.stack(vs)
+        if cfg.sliding_window > 0 and cs == cfg.sliding_window:
+            # the last cs keys cover positions seq-cs .. seq-1: slot
+            # ((seq - cs) + i) % W = (seq % W + i) % W
+            shift = seq % cs
+            k_new = torch.roll(k_new, shift, dims=3)
+            v_new = torch.roll(v_new, shift, dims=3)
+        writes = {"k": k_new, "v": v_new}
+        if cfg.kv_quant:
+            (kq, ksc), (vq, vsc) = L.kv_quantize(k_new), L.kv_quantize(v_new)
+            writes = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+        n = k_new.shape[3]
+        for name, val in writes.items():
+            cache[name][:, :, :, :n] = val.to(cache[name].dtype)
+        return self._logits(params, x), cache
+
+    def _cache_slot(self, cache_seq: int, cur_pos: torch.Tensor
+                    ) -> torch.Tensor:
+        """The slab slot position ``cur_pos`` is written at: p % W in a
+        rolling slab, p otherwise."""
+        w = self.cfg.sliding_window
+        return (cur_pos % cache_seq) if (w > 0 and cache_seq <= w) \
+            else cur_pos
+
+    def _decode_scatter(self, params: dict, x: torch.Tensor, cache: dict,
+                        cur_pos: torch.Tensor):
+        """Dense decode: the slab is read-only inside the layer loop (a
+        ``kv_quant`` layer dequantized to fp32 for its read, as K1
+        dequantizes an int8 pool; the reference rounds it to the compute
+        dtype), and the new token's KV lands with ONE batched write per
+        leaf over every layer and slot after it.  A finished slot's
+        frozen position may sit at the slab's end (pos == max_seq); its
+        write is clamped onto the last slot of its own row, which is dead
+        until an admission rewrites the whole row."""
+        cfg = self.cfg
+        quant = cfg.kv_quant
+        ks, vs = [], []
+        for i, lp in enumerate(self.mem.layers(params["layers"])):
+            ck, cv = cache["k"][i], cache["v"][i]
+            if quant:
+                ck = L.kv_dequantize(ck, cache["k_scale"][i], torch.float32)
+                cv = L.kv_dequantize(cv, cache["v_scale"][i], torch.float32)
+            x, k0, v0 = self.block_decode(lp, x, ck, cv, cur_pos)
+            ks.append(k0)
+            vs.append(v0)
+        s = cache["k"].shape[3]
+        slot = self._cache_slot(s, cur_pos.long()).clamp(max=s - 1)
+        bidx = torch.arange(x.shape[0], device=x.device)
+        k_new, v_new = torch.stack(ks), torch.stack(vs)     # (L, B, Hkv, hd)
+        writes = {"k": k_new, "v": v_new}
+        if quant:
+            (kq, ksc), (vq, vsc) = L.kv_quantize(k_new), L.kv_quantize(v_new)
+            writes = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+        for name, val in writes.items():
+            # advanced indices on dims 1 and 3 lead: value (B, L, Hkv, ...)
+            cache[name][:, bidx, :, slot] = val.transpose(0, 1).to(
+                cache[name].dtype)
+        return x, cache
+
     # ----- block-pool paged KV cache ----------------------------------------
     def supports_paged_kv(self) -> bool:
-        """Block-pool KV covers full causal attention."""
-        return self.cfg.sliding_window == 0
+        """Block-pool KV covers full causal attention; rolling-window and
+        ``kv_quant`` caches keep the dense per-slot slab."""
+        return self.cfg.sliding_window == 0 and not self.cfg.kv_quant
 
     def init_paged_cache(self, num_pages: int, page_size: int | None = None,
                          *, device=None) -> dict:
@@ -238,7 +371,8 @@ class DenseLM:
         config adds ``k_scale``/``v_scale``, (L, P, page, Hkv) bf16."""
         cfg = self.cfg
         if not self.supports_paged_kv():
-            raise ValueError("paged KV cache requires sliding_window == 0")
+            raise ValueError("paged KV cache requires sliding_window == 0 "
+                             "and kv_quant == False")
         shape = (cfg.num_layers, num_pages, page_size or cfg.page_size,
                  cfg.padded_kv_heads, cfg.head_dim)
         dev = resolve_device(device)
@@ -354,11 +488,20 @@ class DenseLM:
                                          pages)
 
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
-                    cur_pos: torch.Tensor, pages: torch.Tensor):
+                    cur_pos: torch.Tensor, pages: torch.Tensor | None = None):
         """tokens: (B, 1); cur_pos: (B,) int32 absolute position being
-        written; pages: (B, n_pages) int32 block-pool page table."""
+        written; pages: (B, n_pages) int32 block-pool page table, None
+        for the dense slab.  The dense slab with ``offload_kv`` (the
+        reference's ``_decode_paged_cache``) is not ported: it raises."""
         x = L.embed_lookup(params["embed"], tokens)
-        x, cache = self._decode_pool(params, x, cache, cur_pos, pages)
+        if pages is not None:
+            x, cache = self._decode_pool(params, x, cache, cur_pos, pages)
+        elif self.cfg.pager.offload_kv:
+            raise NotImplementedError(
+                "offload_kv over the dense cache (the reference's "
+                "_decode_paged_cache) is not ported; serve paged KV")
+        else:
+            x, cache = self._decode_scatter(params, x, cache, cur_pos)
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         return L.lm_head(params["embed"], x, self.cfg), cache
 
@@ -426,7 +569,9 @@ def sample_tokens(logits: torch.Tensor, vocab: int,
 def decode_loop(model, params: dict, cache: dict, state: DecodeState, *,
                 num_steps: int, temperature: float = 0.0,
                 eos_id: int | None = None):
-    """Fused multi-step decode: ``num_steps`` tokens with no host sync.
+    """Fused multi-step decode: ``num_steps`` tokens with no host sync,
+    over the page pools (``state.pages`` set) or the dense slab
+    (``state.pages`` None).
 
     Per-slot ``active``/``remaining`` masks (and EOS) turn finished
     sequences into no-ops: their fed token and write position freeze, so
@@ -436,7 +581,7 @@ def decode_loop(model, params: dict, cache: dict, state: DecodeState, *,
     ``fold_in(state.slot_keys[slot], pos + 1)``.  Returns ``(tokens (B,
     num_steps), valid (B, num_steps), nonfinite (B, num_steps), state)``;
     ``nonfinite`` flags emitting slots whose logits held NaN/inf.  The
-    pools in ``cache`` are updated in place."""
+    pools or the slab in ``cache`` are updated in place."""
     if temperature > 0.0 and state.slot_keys is None:
         raise ValueError("sampling at temperature > 0 needs "
                          "DecodeState.slot_keys")

@@ -93,7 +93,18 @@ live batch — no batch restart.
   monolithic one: the reference's semantics, not a bit-identity
   contract.
 
-Left out of this port so far: tensor parallelism and the dense cache.
+* **The dense cache.**  ``paged=False`` (or ``None``, the default, for a
+  model the pools do not cover: a rolling window, ``cfg.kv_quant``)
+  serves from the reference's per-slot ``(L, B, Hkv, S, hd)`` slab,
+  resident at full size whatever the occupancy.  Admission zeroes the
+  slot's row of every cache leaf (the batch axis found per leaf, as the
+  reference's splice finds it) and prefills into it in place, in stream
+  order; a decode block needs no page table.  Paged only, as in the
+  reference: preemption, the prefix cache, ``prefill_async`` and
+  snapshots (the last two raise).
+
+Left out of this port so far: tensor parallelism, and ``offload_kv`` over
+the dense slab (the reference's ``_decode_paged_cache``; it raises).
 """
 from __future__ import annotations
 
@@ -107,7 +118,7 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.kernels import launch_counts
-from repro_torch.memory import MemoryOrchestrator, tiers
+from repro_torch.memory import MemoryOrchestrator, tiers, tree_bytes
 from repro_torch.memory.swap import PageSwapper, SwapHandle
 from repro_torch.models.base import DecodeState
 from repro_torch.models.transformer import decode_loop, sample_tokens
@@ -149,6 +160,20 @@ class _Preempted:
     stashed_block: int = 0           # stats["blocks"] at the swap-out
 
 
+def _batch_axis(big: tuple, small: tuple) -> int | None:
+    """The batch axis of a cache leaf: the unique axis where the batch
+    leaf's shape and a single request's differ (the reference's splice
+    rule, so recurrent state with batch leading splices too); None for
+    a batch-1 server, whose whole leaf is the slot's."""
+    if big == small:
+        return None
+    diff = [i for i, (b, s) in enumerate(zip(big, small)) if b != s]
+    if len(diff) != 1:
+        raise ValueError(f"cannot infer the batch axis of cache leaf {big} "
+                         f"from single-request leaf {small}")
+    return diff[0]
+
+
 def _bucket(n: int, quantum: int = 8) -> int:
     """Pad lengths to a power-of-two bucket (the reference's admission
     shapes; admission left-pads prompts to it)."""
@@ -159,7 +184,9 @@ def _bucket(n: int, quantum: int = 8) -> int:
 
 
 class BatchedServer:
-    """Continuous-batching inference server over a paged KV cache.
+    """Continuous-batching inference server over a paged KV cache, or the
+    dense slab (``paged``: None picks the slab when the model does not
+    support paged KV).
 
     ``submit()`` requests, then ``run_once()`` serves until every admitted
     request completes.  ``device`` defaults to the GPU and raises without
@@ -190,6 +217,7 @@ class BatchedServer:
     kv = None
     manager = None
     swapper = None
+    paged = True
     max_pending: int | None = None
     overload_factor: float | None = None
     handoff_lease_blocks: int = 64
@@ -208,10 +236,21 @@ class BatchedServer:
                  prefill_chunk_tokens: int | None = None,
                  max_pending: int | None = None,
                  overload_factor: float | None = None,
-                 handoff_lease_blocks: int = 64):
-        if not model.supports_paged_kv():
-            raise ValueError("the port serves the paged KV cache only; "
-                             "this model does not support it")
+                 handoff_lease_blocks: int = 64,
+                 paged: bool | None = None):
+        if paged is None:
+            paged = model.supports_paged_kv()
+        self.paged = bool(paged)
+        if self.paged and not model.supports_paged_kv():
+            raise ValueError("paged KV requires sliding_window == 0 and "
+                             "kv_quant == False; serve paged=False")
+        if prefill_async and not self.paged:
+            raise ValueError("prefill_async requires the paged KV cache "
+                             "(the engines hand off pool pages)")
+        if not self.paged and model.cfg.pager.offload_kv:
+            raise ValueError("offload_kv over the dense cache (the "
+                             "reference's _decode_paged_cache) is not "
+                             "ported; serve paged KV")
         self.device = resolve_device(device)
         leaf = params["ln_f"]
         if leaf.device.type != self.device.type:
@@ -227,9 +266,9 @@ class BatchedServer:
         self._base_key = prng.PRNGKey(seed, self.device)
         self.eos_id = eos_id
         self.max_inflight = 2 if pipeline else 1
-        self.prefix_cache = bool(prefix_cache)
+        self.prefix_cache = bool(prefix_cache) and self.paged
         self.audit_every_block = bool(audit)
-        self.preempt_enabled = bool(preempt)
+        self.preempt_enabled = bool(preempt) and self.paged
         self.preempt_policy = preempt_policy
         self.cold_park_after_blocks = cold_park_after_blocks
         self.max_pending = max_pending
@@ -240,32 +279,46 @@ class BatchedServer:
         self.mem: MemoryOrchestrator = model.mem
         cfg = model.cfg
         self.page_size = page_size or cfg.page_size
-        per_seq = -(-max_seq // self.page_size)
-        self.num_pages = num_pages or batch_size * per_seq + 1
-        # placed first: the block pool reports in the tier the placement
-        # settled on (remote under offload_kv, local after a degradation)
-        self.cache = self.mem.place_kv_pool(model.init_paged_cache(
-            self.num_pages, self.page_size, device=self.device))
-        self.kv = self.mem.block_pool(self.num_pages, self.page_size)
-        self.manager = self.kv.manager
-        self.kv.bind_kv_shape(
-            cfg.padded_kv_heads, cfg.head_dim,
-            cfg.kv_pool_dtype().itemsize, cfg.num_layers,
-            scale_itemsize=2 if cfg.kv_quantized else 0)
         self.transfer_monitor = StragglerMonitor(factor=3.0)
-        self.swapper = PageSwapper(ledger=self.mem.ledger,
-                                   retries=swap_retries,
-                                   timeout_s=swap_timeout_s,
-                                   monitor=self.transfer_monitor,
-                                   device=self.device)
+        if self.paged:
+            per_seq = -(-max_seq // self.page_size)
+            self.num_pages = num_pages or batch_size * per_seq + 1
+            # placed first: the block pool reports in the tier the
+            # placement settled on (remote under offload_kv, local after a
+            # degradation)
+            self.cache = self.mem.place_kv_pool(model.init_paged_cache(
+                self.num_pages, self.page_size, device=self.device))
+            self.kv = self.mem.block_pool(self.num_pages, self.page_size)
+            self.manager = self.kv.manager
+            self.kv.bind_kv_shape(
+                cfg.padded_kv_heads, cfg.head_dim,
+                cfg.kv_pool_dtype().itemsize, cfg.num_layers,
+                scale_itemsize=2 if cfg.kv_quantized else 0)
+            self.swapper = PageSwapper(ledger=self.mem.ledger,
+                                       retries=swap_retries,
+                                       timeout_s=swap_timeout_s,
+                                       monitor=self.transfer_monitor,
+                                       device=self.device)
+        else:
+            # the slab is resident at full size whatever the occupancy
+            # (live == capacity), in the kv_pool policy's tier
+            self.cache = self.mem.place_kv_pool(model.init_cache(
+                batch_size, max_seq, device=self.device))
+            self.mem.ledger.record(self.mem.policies["kv_pool"].tier,
+                                   "kv_pool", tree_bytes(self.cache))
+            single = model.cache_shapes(1, max_seq)
+            self._batch_axes = {
+                name: _batch_axis(tuple(leaf.shape), single[name][0])
+                for name, leaf in self.cache.items()}
         self._init_sched_state(batch_size)
         self._peak_pages = 0
         self.tiers_peak: dict | None = None
         self._table_w = 1
         self._narrow_blocks = 0
         self._mirror = np.zeros((batch_size, 1), np.int32)
-        self.state = DecodeState.init(batch_size, self.device,
-                                      pages=self._h2d(self._mirror))
+        self.state = DecodeState.init(
+            batch_size, self.device,
+            pages=self._h2d(self._mirror) if self.paged else None)
         self.slots: list[Request | None] = [None] * batch_size
         self._slot_pos = [0] * batch_size      # host mirror of state.pos
         self._launch_base = launch_counts()
@@ -362,11 +415,13 @@ class BatchedServer:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
                 f" exceeds max_seq={self.max_seq}")
-        worst = self._worst_pages(len(prompt), max_new_tokens)
-        if worst > self.manager.capacity:
-            raise ValueError(
-                f"request needs up to {worst} KV pages but the pool only "
-                f"has {self.manager.capacity}")
+        worst = 0
+        if self.paged:
+            worst = self._worst_pages(len(prompt), max_new_tokens)
+            if worst > self.manager.capacity:
+                raise ValueError(
+                    f"request needs up to {worst} KV pages but the pool "
+                    f"only has {self.manager.capacity}")
         self._uid += 1
         req = Request(self._uid, prompt, max_new_tokens=max_new_tokens)
         req.submitted_block = self.stats["blocks"]
@@ -412,7 +467,7 @@ class BatchedServer:
             if (self.max_pending is not None
                     and self._pending_count >= self.max_pending):
                 return f"pending requests at max_pending={self.max_pending}"
-            if self.overload_factor is not None:
+            if self.overload_factor is not None and self.paged:
                 projected = (sum(self._reserved.values())
                              + self._pending_pages + worst)
                 budget = self.overload_factor * self.manager.capacity
@@ -433,16 +488,18 @@ class BatchedServer:
             if not req._pending_counted:
                 req._pending_counted = True
                 self._pending_count += 1
-                self._pending_pages += self._worst_pages(
-                    len(req.prompt), req.max_new_tokens)
+                if self.paged:
+                    self._pending_pages += self._worst_pages(
+                        len(req.prompt), req.max_new_tokens)
 
     def _pending_remove(self, req: Request) -> None:
         with self._pending_lock:
             if req._pending_counted:
                 req._pending_counted = False
                 self._pending_count -= 1
-                self._pending_pages -= self._worst_pages(
-                    len(req.prompt), req.max_new_tokens)
+                if self.paged:
+                    self._pending_pages -= self._worst_pages(
+                        len(req.prompt), req.max_new_tokens)
 
     def _record_kv(self) -> None:
         """Push the pool's footprint into the ledger, when there is a pool
@@ -594,7 +651,10 @@ class BatchedServer:
         """New admissions neither reuse nor publish shared pages while
         victims wait swapped out (their resume must not contend with
         refcount-pinned pages) or worst-case reservations crowd the pool;
-        sharing is invisible in the tokens."""
+        sharing is invisible in the tokens.  The dense slab is never
+        under pressure."""
+        if not self.paged:
+            return False
         if self._preempted or self._pool_fault:
             return True
         return sum(self._reserved.values()) > 0.9 * self.manager.capacity
@@ -633,6 +693,18 @@ class BatchedServer:
         """The request's PRNG key, ``fold_in(PRNGKey(seed), uid)``."""
         return prng.fold_in(self._base_key, uid)
 
+    def _slot_row(self, slot: int) -> dict:
+        """``slot``'s row of every dense cache leaf, zeroed (the fresh
+        batch-1 cache the reference prefills and splices), as in-place
+        views: a prefill into them writes the live slab, in stream
+        order."""
+        row = {}
+        for name, leaf in self.cache.items():
+            ax = self._batch_axes[name]
+            view = leaf if ax is None else leaf.narrow(ax, slot, 1)
+            row[name] = view.zero_()
+        return row
+
     def _admit(self, req: Request, slot: int,
                finished: list[Request]) -> None:
         """Prefill ``req`` into ``slot`` of the live batch.  Prompts are
@@ -641,6 +713,56 @@ class BatchedServer:
         plen = self._admit_plen(len(req.prompt), req.max_new_tokens)
         toks = np.zeros((1, plen), np.int32)
         toks[0, plen - len(req.prompt):] = req.prompt
+        model, params = self.model, self.params
+        if self.paged:
+            logits = self._admit_paged(req, slot, toks, plen)
+        else:
+            self._note_prefill_dispatch(plen)
+            logits, _ = model.prefill(params, self._h2d(toks),
+                                      self._slot_row(slot))
+        # the first token lands at position plen: drawn under
+        # fold_in(req_key, plen), the total bucketed prompt length on the
+        # prefix path too, exactly as decode draws every later one
+        req_key = self._req_key(req.uid)
+        nxt = sample_tokens(logits, model.cfg.vocab, self.temperature,
+                            prng.fold_in(req_key, plen))         # (1, 1)
+        self._note_peak()
+        # splice the slot into the live state, in stream order behind any
+        # block in flight
+        st = self.state
+        active = nxt[0, 0] != (-1 if self.eos_id is None else self.eos_id)
+        st.tokens[slot] = nxt[0]
+        st.pos[slot] = plen
+        st.active[slot] = active & (req.max_new_tokens > 1)
+        st.remaining[slot] = req.max_new_tokens - 1
+        st.slot_keys[slot] = req_key
+        first, finite = torch.stack(
+            [nxt[0, 0], torch.isfinite(logits).all().long()]).tolist()
+        self.stats["nonfinite_logits"] += int(not finite)
+        self._slot_pos[slot] = plen
+        self._planned[slot] = 0
+        self._sched_counter += 1
+        self._last_sched[slot] = self._sched_counter
+        req.admitted_at_block = self.stats["blocks"]
+        req.output.append(first)
+        self._record_first_token(req)
+        self.stats["tokens"] += 1
+        self.stats["admitted"] += 1
+        if req.max_new_tokens <= 1 or (self.eos_id is not None
+                                       and first == self.eos_id):
+            if self.paged:
+                self.manager.free_slot(slot)       # done at admission
+                self._reserved.pop(slot, None)
+                self.kv.record()                   # the ledger tracks it
+            self._finalize(req, "completed", finished)
+            return
+        self.slots[slot] = req
+
+    def _admit_paged(self, req: Request, slot: int, toks: np.ndarray,
+                     plen: int) -> torch.Tensor:
+        """The paged half of :meth:`_admit`: reserve the request's worst
+        case, map its (possibly prefix-shared) pages and prefill into
+        them; returns the last position's logits."""
         self._reserved[slot] = self._worst_pages(len(req.prompt),
                                                  req.max_new_tokens)
         share = self.prefix_cache
@@ -666,46 +788,11 @@ class BatchedServer:
             logits, self.cache = model.prefill_paged(
                 params, self._h2d(toks), self.cache,
                 self._h2d(np.asarray([new_ids], np.int32)))
-        # the first token lands at position plen: drawn under
-        # fold_in(req_key, plen), the total bucketed prompt length on the
-        # prefix path too, exactly as decode draws every later one
-        req_key = self._req_key(req.uid)
-        nxt = sample_tokens(logits, model.cfg.vocab, self.temperature,
-                            prng.fold_in(req_key, plen))         # (1, 1)
         self.manager.note_tokens(slot, plen)
         if share:
             self._register_prefix(toks, plen, slot)
         self.kv.record()
-        self._note_peak()
-        # splice the slot into the live state, in stream order behind any
-        # block in flight
-        st = self.state
-        active = nxt[0, 0] != (-1 if self.eos_id is None else self.eos_id)
-        st.tokens[slot] = nxt[0]
-        st.pos[slot] = plen
-        st.active[slot] = active & (req.max_new_tokens > 1)
-        st.remaining[slot] = req.max_new_tokens - 1
-        st.slot_keys[slot] = req_key
-        first, finite = torch.stack(
-            [nxt[0, 0], torch.isfinite(logits).all().long()]).tolist()
-        self.stats["nonfinite_logits"] += int(not finite)
-        self._slot_pos[slot] = plen
-        self._planned[slot] = 0
-        self._sched_counter += 1
-        self._last_sched[slot] = self._sched_counter
-        req.admitted_at_block = self.stats["blocks"]
-        req.output.append(first)
-        self._record_first_token(req)
-        self.stats["tokens"] += 1
-        self.stats["admitted"] += 1
-        if req.max_new_tokens <= 1 or (self.eos_id is not None
-                                       and first == self.eos_id):
-            self.manager.free_slot(slot)       # done at admission
-            self._reserved.pop(slot, None)
-            self.kv.record()                   # the ledger tracks it
-            self._finalize(req, "completed", finished)
-            return
-        self.slots[slot] = req
+        return logits
 
     def _admit_from_queue(self, finished: list[Request],
                           allow_preempt: bool = False) -> None:
@@ -741,7 +828,7 @@ class BatchedServer:
                 except queue.Empty:
                     return
             req = self._backlog[0]
-            if not self._admission_pages_ready(req):
+            if self.paged and not self._admission_pages_ready(req):
                 if not (allow_preempt and self._try_preempt_for(req,
                                                                 finished)):
                     return            # blocked on pages, not on slots
@@ -956,7 +1043,8 @@ class BatchedServer:
         """Release slot ``i``'s pages and reservation and deactivate it on
         the device (preemption and shedding; nothing is in flight).  Its
         table row is zeroed by the next block's delta."""
-        self.manager.free_slot(i)
+        if self.paged:
+            self.manager.free_slot(i)
         self._reserved.pop(i, None)
         self.slots[i] = None
         self._planned[i] = 0
@@ -976,7 +1064,7 @@ class BatchedServer:
         self._evict_slot(i)
         req.error = self._error(req, reason, detail)
         self._finalize(req, "shed", finished)
-        self.kv.record()
+        self._record_kv()
 
     def _service_poison(self, finished: list[Request]) -> None:
         """Shed every slot whose harvest hit non-finite logits; the rest
@@ -1171,19 +1259,21 @@ class BatchedServer:
             if adv > 0:
                 advances[i] = (req, adv)
                 self._planned[i] += adv
-        self._fault_injection_tick()
-        try:
-            for i in advances:
-                self.manager.ensure(i, min(self._slot_pos[i]
-                                           + self._planned[i], self.max_seq))
-        except MemoryError:
-            for i, (req, adv) in advances.items():
-                self._planned[i] -= adv
-            self._pool_fault = True
-            return None
-        self._table_delta()
-        self.kv.record()
-        self._note_peak()
+        if self.paged:
+            self._fault_injection_tick()
+            try:
+                for i in advances:
+                    self.manager.ensure(i, min(self._slot_pos[i]
+                                               + self._planned[i],
+                                               self.max_seq))
+            except MemoryError:
+                for i, (req, adv) in advances.items():
+                    self._planned[i] -= adv
+                self._pool_fault = True
+                return None
+            self._table_delta()
+            self.kv.record()
+            self._note_peak()
         toks, valid, bad, self.state = decode_loop(
             self.model, self.params, self.cache, self.state,
             num_steps=self.block_size, temperature=self.temperature,
@@ -1228,7 +1318,8 @@ class BatchedServer:
                 emitted += 1
             self.stats["tokens"] += emitted
             self._slot_pos[i] += emitted
-            self.manager.note_tokens(i, self._slot_pos[i])
+            if self.paged:
+                self.manager.note_tokens(i, self._slot_pos[i])
             if poisoned:
                 # shed once the pipeline drained (run_once stalls on it),
                 # never under a block in flight
@@ -1240,17 +1331,22 @@ class BatchedServer:
                 self._finalize(req, "completed", finished)
                 self.slots[i] = None
                 self._planned[i] = 0
-                self.manager.free_slot(i)
+                if self.paged:
+                    self.manager.free_slot(i)
                 self._reserved.pop(i, None)
-        self.stats["kv_pages_in_use"] = self.manager.pages_in_use
-        self.stats["kv_pages_hwm"] = self.manager.hwm
-        self.kv.record()
-        self._cold_park_sweep()
+        if self.paged:
+            self.stats["kv_pages_in_use"] = self.manager.pages_in_use
+            self.stats["kv_pages_hwm"] = self.manager.hwm
+            self.kv.record()
+            self._cold_park_sweep()
 
     # ----- accounting --------------------------------------------------------
     def kv_bytes_in_use(self) -> int:
         """Live KV footprint: allocated pages only, dequant scales
-        included for a quantized pool."""
+        included for a quantized pool; the whole dense slab, resident
+        whatever the occupancy."""
+        if not self.paged:
+            return tree_bytes(self.cache)
         kp = self.cache["k_pages"]
         sc = self.cache.get("k_scale")
         per_page = self.manager.bytes_per_page(
@@ -1275,17 +1371,18 @@ class BatchedServer:
 
     def _note_peak(self) -> None:
         """Snapshot the ledger whenever pool occupancy reaches a new (or
-        equal) peak."""
-        if self.manager.pages_in_use >= self._peak_pages:
-            self._peak_pages = self.manager.pages_in_use
+        equal) peak (the dense slab's never moves: at every call)."""
+        in_use = self.manager.pages_in_use if self.paged else 0
+        if in_use >= self._peak_pages:
+            self._peak_pages = in_use
             self.tiers_peak = self.mem.ledger.snapshot()
 
     def _maybe_audit(self) -> None:
         """Debug mode: the allocator audit and the ledger cross-checks
         (:meth:`BlockPoolResidency.audit`: live pages, and the stash
         bytes against the swapped-out victims' stashes) after every
-        scheduling step."""
-        if self.audit_every_block:
+        scheduling step; the dense slab has no pool to audit."""
+        if self.audit_every_block and self.paged:
             self.kv.audit(swapper=self.swapper,
                           stashes=[ps.handle for ps in self._preempted])
             if self.prefill is not None:
@@ -1358,7 +1455,8 @@ class BatchedServer:
                 break
         if finished:
             self.stats["batches"] += 1
-        self.stats["swap_retries"] = self.swapper.retry_attempts
+        if self.swapper is not None:
+            self.stats["swap_retries"] = self.swapper.retry_attempts
         self.stats["slow_transfers"] = self.transfer_monitor.flags
         if self._ttft_samples:
             arr = np.asarray(self._ttft_samples, np.float64)
@@ -1391,7 +1489,10 @@ class BatchedServer:
         reclaimed first (a restart is a new lease epoch).  ``blocks``
         anchors the deadline clocks.  :meth:`restore` on a server of the
         same model, weights and seed takes it back.  Call between
-        ``run_once`` calls (nothing in flight)."""
+        ``run_once`` calls (nothing in flight).  Paged servers only: the
+        stash format is pages."""
+        if not self.paged:
+            raise ValueError("snapshot requires the paged server")
         self._drain_queue()
         self._lease_watchdog([], force=True)
         self.mem.settle_kv()
@@ -1439,6 +1540,8 @@ class BatchedServer:
         backlog.  Prefix pages come back private.  Deadlines are rebased
         onto this server's block clock, so each request keeps the
         time-to-live it had left (downtime does not run the clock)."""
+        if not self.paged:
+            raise ValueError("restore requires the paged server")
         if snap["seed"] != self.seed:
             raise ValueError(f"snapshot seed {snap['seed']} != server seed "
                              f"{self.seed} (tokens would diverge)")

@@ -69,7 +69,7 @@ def test_ops_on_the_cpu_take_the_plain_version_and_launch_nothing():
     bank = torch.arange(4 * 2 * 8, dtype=torch.float32).reshape(4, 2, 8)
     out = torch.zeros_like(bank)
     mask = torch.tensor([True, False, False, True])
-    ops.gather([bank], mask, [out])
+    ops.gather([bank], mask, torch.arange(4, dtype=torch.int32), [out])
     assert torch.equal(out[mask], bank[mask]) and (out[~mask] == 0).all()
     assert launches_after(before) == 0
 
@@ -89,7 +89,7 @@ def test_plain_gather_counts_the_routed_rows_bytes_in_every_dtype(dtype):
     mask = torch.zeros(6, dtype=torch.bool)
     mask[ids] = True
     counter = torch.zeros(1, dtype=torch.int64)
-    ops.gather(banks, mask, out, counter)
+    ops.gather(banks, mask, torch.arange(6, dtype=torch.int32), out, counter)
     for b, o in zip(banks, out):
         assert torch.equal(o[mask], b[mask]) and bool((o[~mask] == 7).all())
     row = sum(b[0].numel() * b.element_size() for b in banks)
@@ -113,38 +113,77 @@ def _layer_banks(seed: int, e=8, d=4, f=6):
     ([0, 1, 3, 4, 5, 6, 7], [2, 2]),
 ])
 def test_consecutive_gathers_copy_only_each_calls_experts(first, second):
-    """Two layers' gathers in a row through one policy (shared staging):
-    each counts only its own routed rows' bytes, its buffers equal the
-    plain version applied to the previous call's buffers (nothing of the
-    first layer's routing copies the second layer's rows), and the
-    routed rows equal the reference's."""
+    """Two layers' gathers in a row through one policy: each packs only
+    its own routed experts, in expert order, into the first rows of
+    fresh buffers of min(N, E) + 1 rows (the plain version through the
+    slot map gives the same rows), counts only its own routed rows'
+    bytes, and its routed rows equal the reference's; the first layer's
+    staging is gone once its caller drops it."""
     ep = TopKExpertPrefetch(num_experts=8, top_k=2)
     rp = RefPolicy(num_experts=8, top_k=2)
     layers = [_layer_banks(1), _layer_banks(2)]
     row = sum(v[0].nbytes for v in layers[0].values())
-    prev = None
     assert not set(first) & set(second) and len(first) != len(second)
     for ids, banks in zip((first, second), layers):
         tb = {k: torch.from_numpy(v) for k, v in banks.items()}
-        staged = ep.gather(tb, torch.tensor(ids))
-        want = [x.clone() for x in (prev or [torch.zeros_like(tb[k])
-                                              for k in ep.bank_keys])]
+        staged, slots = ep.gather(tb, torch.tensor(ids))
+        routed = sorted(set(ids))
+        rows_n = min(len(ids), 8) + 1
+        assert slots.dtype == torch.int32
+        assert slots[routed].tolist() == list(range(len(routed)))
+        assert set(slots.tolist()) - set(range(len(routed))) <= {rows_n - 1}
         mask = torch.zeros(8, dtype=torch.bool)
         mask[ids] = True
-        expert_gather_ref([tb[k] for k in ep.bank_keys], mask, want)
+        want = [torch.zeros((rows_n,) + tb[k].shape[1:])
+                for k in ep.bank_keys]
+        expert_gather_ref([tb[k] for k in ep.bank_keys], mask, slots, want)
         for k, w in zip(ep.bank_keys, want):
-            assert torch.equal(staged[k], w)
+            assert staged[k].shape == w.shape
+            assert torch.equal(staged[k][:len(routed)], w[:len(routed)])
+            assert torch.equal(staged[k][:len(routed)], tb[k][routed])
         rows = rp.gather({k: jnp.asarray(v) for k, v in banks.items()},
                          jnp.asarray(ids, jnp.int32))
         for k in ep.bank_keys:
-            np.testing.assert_array_equal(staged[k][ids].numpy(),
-                                          np.asarray(rows[k]))
+            np.testing.assert_array_equal(
+                staged[k][slots.long()[ids]].numpy(), np.asarray(rows[k]))
         stats = ep.gather_stats()[len(ids)]   # by N: the cases differ
-        assert stats["staged_bytes"] == len(set(ids)) * row
-        assert stats["routed_experts"] == len(set(ids))
-        prev = [staged[k].clone() for k in ep.bank_keys]
+        assert stats["staged_bytes"] == len(routed) * row
+        assert stats["routed_experts"] == len(routed)
+        assert ep.staging_bytes() == rows_n * row
+        del staged
+        assert ep.staging_bytes() == 0
     total = sum(r["staged_bytes"] for r in ep.gather_stats().values())
     assert total == (len(set(first)) + len(set(second))) * row
+
+
+@pytest.mark.parametrize("routed", [range(6), (), (0, 2, 5)],
+                         ids=["every", "none", "partial"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_gather_packs_routed_experts_at_their_slots(routed, dtype):
+    """The plain version with a slot map: every routed expert's rows land
+    at its slot of a buffer of min(N, E) + 1 rows, in expert order, the
+    spare last row and the unfilled ones untouched, the counter the
+    routed rows' bytes; every, no and partial routing."""
+    rng = np.random.RandomState(5)
+    dt = getattr(torch, dtype)
+    banks = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dt)
+             for s in ((6, 3, 4), (6, 5))]
+    mask = torch.zeros(6, dtype=torch.bool)
+    mask[list(routed)] = True
+    n_rows = min(len(routed) * 2, 6) + 1        # N = 2 choices a routed
+    slots = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    slots.masked_fill_(~mask, n_rows - 1)
+    out = [torch.full((n_rows,) + b.shape[1:], 7.0, dtype=dt)
+           for b in banks]
+    counter = torch.zeros(1, dtype=torch.int64)
+    ops.gather(banks, mask, slots, out, counter)
+    r = len(routed)
+    for b, o in zip(banks, out):
+        assert torch.equal(o[:r], b[list(routed)])
+        assert bool((o[r:] == 7).all())
+    row = sum(b[0].numel() * b.element_size() for b in banks)
+    assert int(counter) == r * row
+    assert launch_counts()["expert_gather"] == 0
 
 
 class _FakeHost:

@@ -208,8 +208,9 @@ def _ledger_view(led):
 
 def test_expert_gather_and_ledger_equal_reference():
     """Routing churn on unplaced banks: after every gather the ledger
-    equals the reference's byte for byte, and the staged rows of every
-    routed expert equal the bank's."""
+    equals the reference's byte for byte, the staged rows of every
+    routed expert (at its slot) equal the bank's, and the staging alive
+    is the ledger's local line: min(N, E) + 1 rows a bank."""
     banks = _banks()
     tb = {k: torch.from_numpy(v) for k, v in banks.items()}
     jb = {k: jnp.asarray(v) for k, v in banks.items()}
@@ -219,12 +220,16 @@ def test_expert_gather_and_ledger_equal_reference():
     rng = random.Random(3)
     for _ in range(12):
         ids = [rng.randrange(8) for _ in range(rng.randrange(1, 24))]
-        staged = ep.gather(tb, torch.tensor(ids))
+        staged, slots = ep.gather(tb, torch.tensor(ids))
         rows = rp.gather(jb, jnp.asarray(ids, jnp.int32))
         for k in ep.bank_keys:
-            np.testing.assert_array_equal(staged[k][ids].numpy(),
-                                          np.asarray(rows[k]))
+            assert staged[k].shape[0] == min(len(ids), 8) + 1
+            np.testing.assert_array_equal(
+                staged[k][slots.long()[ids]].numpy(), np.asarray(rows[k]))
         assert _ledger_view(mine) == _ledger_view(ref)
+        assert ep.staging_bytes() == mine.classes(LOCAL)["expert_weights"]
+        del staged
+        assert ep.staging_bytes() == 0
     assert ep.resident_bytes(tb, 5) == rp.resident_bytes(jb, 5)
 
 
@@ -325,7 +330,8 @@ def test_gather_ops_plain_version_copies_only_routed_rows():
     out = torch.full_like(bank, -1.0)
     mask = torch.tensor([False, True, False, False, True])
     counter = torch.zeros(1, dtype=torch.int64)
-    gather_ops.gather([bank], mask, [out], counter)
+    gather_ops.gather([bank], mask, torch.arange(5, dtype=torch.int32), [out],
+                      counter)
     assert torch.equal(out[mask], bank[mask])
     assert (out[~mask] == -1).all()
     assert int(counter) == 2 * 3 * 7 * 4
@@ -339,13 +345,14 @@ def test_gather_kernel_binding_refuses_what_it_cannot_take():
     from repro_torch.kernels.expert_gather import kernel as K
     bank = torch.zeros(4, 2, 8)
     mask = torch.ones(4, dtype=torch.bool)
+    slots = torch.arange(4, dtype=torch.int32)
     one = torch.zeros(1, dtype=torch.int64)
     with pytest.raises(ValueError, match="not a CUDA device"):
-        K.expert_gather([bank], mask, [bank.clone()], one)
+        K.expert_gather([bank], mask, slots, [bank.clone()], one)
     with pytest.raises(ValueError, match="banks into"):
-        K.expert_gather([bank] * 5, mask, [bank] * 5, one)
+        K.expert_gather([bank] * 5, mask, slots, [bank] * 5, one)
     with pytest.raises(ValueError, match="banks into"):
-        K.expert_gather([bank], mask, [], one)
+        K.expert_gather([bank], mask, slots, [], one)
     src = (Path(K.__file__).parents[1] / "csrc" / K.SOURCE).read_text()
     assert f"constexpr int MAX_BANKS = {K.MAX_BANKS};" in src
     assert K.launches.count == 0
@@ -494,10 +501,53 @@ def test_served_moe_matches_reference(served, arch, dtype, temperature):
         assert all(r["staged_bytes"] == r["routed_experts"] * row
                    and 1 <= r["max_routed"] <= min(n, cfg.padded_experts)
                    for n, r in stats.items())
-        # one staging buffer per bank shape, shared by every layer
-        assert ep.staging_bytes() == cfg.padded_experts * row
+        # packed staging: what was alive at every gather of N rows is the
+        # ledger's live line for N, min(N, E) + 1 rows a bank; the peak
+        # its capacity line; nothing outlives the run
+        assert ep.live_at_gather and all(
+            lo == hi == (min(n, cfg.padded_experts) + 1) * row
+            for n, (lo, hi) in ep.live_at_gather.items())
+        assert ep.staging_bytes() == 0
         led = paged.mem.ledger
+        assert ep.staging_peak == led.capacities(LOCAL)["expert_weights"]
         per_layer = led.classes(REMOTE)["expert_weights"] // cfg.num_layers
         rows = min(KW["batch_size"] * cfg.top_k, cfg.padded_experts) + 1
         assert led.classes(LOCAL)["expert_weights"] <= \
             rows / cfg.padded_experts * per_layer + 1
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_packed_staging_is_the_ledger_live_line(batch):
+    """F3: with 16 experts top-2, a decode step at batch 1 routes N = 2
+    rows and at batch 4 N = 8, an admission of an 8-token bucket N = 16.
+    At every gather the staging alive is min(N, E) + 1 rows of a layer's
+    banks, the reference's live line for that N, byte for byte; the
+    most ever alive is the capacity line; expert-paged tokens equal the
+    resident server's."""
+    cfg = config_from_reference(_cfg(num_experts=16))
+    pparams = moe.MoELM(cfg).init(0, device="cpu")
+    prompts = _prompts()
+    kw = dict(KW, batch_size=batch)
+    want = _serve(BatchedServer(moe.MoELM(cfg), pparams, device="cpu",
+                                **kw), prompts)
+    paged = moe.MoELM(cfg.with_pager(page_experts=True))
+    eparams = dict(pparams)
+    eparams["layers"] = paged.mem.place_layer_weights(pparams["layers"])
+    server = BatchedServer(paged, eparams, device="cpu", **kw)
+    assert _serve(server, prompts) == want
+    ep = paged.mem.expert_policy
+    banks = {k: v for k, v in pparams["layers"][0]["moe"].items()
+             if k != "router"}
+    decode, admit = batch * cfg.top_k, 8 * cfg.top_k
+    assert set(ep.live_at_gather) == {decode, admit}
+    for n, (lo, hi) in ep.live_at_gather.items():
+        assert lo == hi == ep.resident_bytes(banks, n)
+    row = ep.resident_bytes(banks, 0)
+    assert ep.resident_bytes(banks, decode) == (decode + 1) * row
+    assert ep.resident_bytes(banks, admit) == 17 * row
+    led = paged.mem.ledger
+    assert led.classes(LOCAL)["expert_weights"] == \
+        ep.resident_bytes(banks, decode)   # the last gather: a decode step
+    assert ep.staging_peak == led.capacities(LOCAL)["expert_weights"] == \
+        ep.resident_bytes(banks, admit)
+    assert ep.staging_bytes() == 0

@@ -228,3 +228,47 @@ def test_block_manager_audit_catches_corruption():
     assert m.lookup_prefix(b"k") is None and m.audit()["pages_in_use"] == 0
     with pytest.raises(MemoryError):
         m.ensure(2, 100)
+
+
+def test_block_manager_fragmentation_and_can_fit_equal_reference():
+    """The same allocation history through the port's and the
+    reference's BlockManager -- growth, written positions short of a
+    page, a prefix-shared page (logical tokens past the physical slots:
+    clamped at 0), frees and a pool run dry -- gives the same
+    fragmentation and can_fit answers at every step."""
+    from repro.kernels.paged_attention.ops import BlockManager as RefBM
+    from repro_torch.kernels.paged_attention.ops import BlockManager
+    mine, ref = BlockManager(num_pages=9, page_size=4), RefBM(9, 4)
+    probes = [(s, n) for s in (0, 1, 2, 5) for n in (0, 3, 4, 9, 17, 40)]
+
+    def same():
+        assert mine.fragmentation() == ref.fragmentation()
+        assert [mine.can_fit(s, n) for s, n in probes] == \
+            [ref.can_fit(s, n) for s, n in probes]
+        return mine.fragmentation()
+
+    assert same() == 0.0
+    steps = [("ensure", 0, 9), ("note", 0, 6), ("ensure", 1, 4),
+             ("note", 1, 1), ("adopt", 2, None), ("ensure", 2, 11),
+             ("note", 2, 11), ("note", 0, 9), ("ensure", 5, 4),
+             ("note", 5, 4), ("free", 1, None), ("ensure", 0, 12),
+             ("note", 0, 12), ("free", 0, None), ("free", 2, None),
+             ("free", 5, None)]
+    seen = []
+    for op, slot, n in steps:
+        for m in (mine, ref):
+            if op == "ensure":
+                m.ensure(slot, n)
+            elif op == "note":
+                m.note_tokens(slot, n)
+            elif op == "adopt":
+                m.adopt(slot, m.slot_pages(0)[:2])
+            else:
+                m.free_slot(slot)
+        seen.append(same())
+    assert max(seen) > 0.3 and seen[-1] == 0.0
+    # a pool run dry: no growth fits, a slot's own pages still do
+    mine.ensure(3, 32)
+    ref.ensure(3, 32)
+    same()
+    assert not mine.can_fit(4, 1) and mine.can_fit(3, 32)

@@ -107,6 +107,9 @@ def main() -> int:
                                            r.numel() * r.element_size(), 2)),
                "cudaHostRegister")     # 2: cudaHostRegisterMapped
         registered.append(r.copy_(b))
+    # the designs write expert e's rows into row e of buffers of the banks'
+    # shape: the sm kernel does so through the identity slot map
+    identity = torch.arange(e, dtype=torch.int32, device="cuda")
     out = [torch.empty(s, dtype=torch.bfloat16, device="cuda")
            for s in shapes]
     flat = tiers.tier_empty((nbytes,), torch.uint8, REMOTE, device="cuda")
@@ -122,7 +125,8 @@ def main() -> int:
         """name -> (a call, the int64 its byte count lands in)."""
         calls, words = {}, {n: torch.zeros(1, dtype=torch.int64,
                                            device="cuda") for n in DESIGNS}
-        calls["sm"] = lambda: K.expert_gather(banks, mask, out, words["sm"])
+        calls["sm"] = lambda: K.expert_gather(banks, mask, identity, out,
+                                              words["sm"])
         for name, fn in (("cond", lib.designs_cond_build),
                          ("launch", lib.designs_launch_build)):
             h = ctypes.c_void_p()
@@ -146,7 +150,7 @@ def main() -> int:
                          ("registered", registered)):
         calls, words = designs(banks)
         want = [torch.zeros_like(o) for o in out]
-        expert_gather_ref(banks, mask, want)
+        expert_gather_ref(banks, mask, identity, want)
         for name in DESIGNS[:-1]:
             for o in out:
                 o.zero_()
