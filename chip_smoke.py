@@ -24,18 +24,23 @@ default):
    minicpm-2b's 36 at d = 64 (timed, as G = 12 and 16 are), each
    element and each output row (against its largest value) within
    tolerance; K2 on the
-   route ``plan`` picks (wgmma for bf16, simt for fp32 and unaligned bf16
-   views) at d = 32, 64, 128 and 256, G = 1 (96/96 heads at d = 128,
+   route ``plan`` picks (wgmma for bf16, mma for fp32, for bf16 views
+   with a head stride TMA cannot describe -- every case again as such a
+   view -- and for G > 64) at d = 32, 64, 128 and 256, G = 1 (96/96
+   heads at d = 128,
    36/36 at d = 64, both also timed at an 8-token admission), windows
    (some skipping whole key
    tiles), kv_valid padding and Sq = Sk up to 2048, each element and each
    row (against its largest value) within tolerance, two launches giving
    the same bits, and suffix rows at q_offset 48, 200 and 130 (with and
-   without a window) bit-identical to the unshared rows; K3
+   without a window) bit-identical to the unshared rows (bf16 on wgmma,
+   fp32 on mma); K3
    (``ops.matmul``, each of its four routes as ``plan`` picks them:
    Qwen2.5-14B's up- and
-   down-projections at decode and prefill widths, an unaligned view, the
-   reference bench's fp32 shape, ragged shapes; two launches must give
+   down-projections at decode and prefill widths, an unaligned view of
+   each width, the reference bench's fp32 shape, ragged shapes, and the
+   realign route at every base offset of 0-7 elements of x and of w, at
+   odd and even row strides, with ragged K and N; two launches must give
    the same bits), K4 (``ops.accumulate``) and the expert gather (bit
    for bit against ``index_select`` on the host bank plus
    ``index_copy_``, packed into min(N, E) + 1 rows through the moe path's
@@ -105,7 +110,7 @@ default):
    after (K1 must run once per layer per decode step); each
    configuration is served again without prefix caching and once more
    with it, and all three runs must emit the same tokens; every prefill
-   must take K2's wgmma route (the parity phase's fp32 model its simt
+   must take K2's wgmma route (the parity phase's fp32 model its mma
    route);
    then, with the same weights moved to pinned host memory and paged back
    layer by layer by the Tensor Prefetcher (lookahead 1), bf16 greedy
@@ -220,6 +225,10 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # H100 SXM fp32 on the CUDA cores (no TF32)
+#: fp32-accurate products on the tensor cores: 3xTF32, three tf32 products
+#: (495 TFLOP/s dense) for each fp32 one -- the bound of K2's and K3's
+#: fp32 products; F32_FLOPS_PER_S stays for K4's fp32 adds
+TF32X3_FLOPS_PER_S = 495e12 / 3
 ROTATE = 16                      # input copies cycled past the L2 in timing
 BF16_TOL = 3e-2   # both versions accumulate in fp32 and round once to bf16:
                   # they may land one bf16 ulp apart (2^-7 |o| < 0.03 at |o| < 4)
@@ -494,8 +503,9 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None,
 #: and recurrentgemma-9b's 16/1 heads at d = 256 with windows and
 #: non-causal over kv_valid padding.  The windows of 100 (d = 128, also
 #: under a q_offset) and of 256 (d = 256, 2048 tokens) leave whole key
-#: tiles below the window of a query tile's first row: the wgmma route
-#: skips them
+#: tiles below the window of a query tile's first row: both routes skip
+#: them.  72 query heads on one kv head (G = 72 > 64) take the mma route
+#: in bf16 too
 FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 384, 384, 40, 8, 128, {}),
                (1, 2048, 2048, 40, 8, 128, {}),
@@ -513,7 +523,8 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 2048, 2048, 16, 1, 256, {"window": 256}),
                (1, 8, 8, 96, 96, 128, {}), (1, 384, 384, 96, 96, 128, {}),
                (1, 8, 8, 36, 36, 64, {}), (1, 64, 64, 36, 36, 64, {}),
-               (1, 50, 50, 36, 36, 64, {"window": 13}))
+               (1, 50, 50, 36, 36, 64, {"window": 13}),
+               (1, 40, 40, 72, 1, 64, {}))
 #: the prefix contract's cases: (Sq = Sk, q_offset, Hq, Hkv, d, window).
 #: At 130 a row sits at another place of its query tile than unshared
 #: (25 positions a tile at 40/8 heads, 4 at 16/1), and with a window of
@@ -531,17 +542,21 @@ ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
 #: route at Qwen2.5-14B's width over four prompt lengths, at
 #: granite-moe-3b-a800m's admission (8 tokens, 24/8 heads, d = 64), at
 #: MHA (G = 1) admissions of gpt3-175b (96/96, d = 128) and minicpm-2b
-#: (36/36, d = 64) and at d = 256; the simt route at the width of the
-#: parity phase's fp32 model
-FLASH_TIMED = (("wgmma", "bfloat16", 8, 40, 8, 128),
-               ("wgmma", "bfloat16", 8, 24, 8, 64),
-               ("wgmma", "bfloat16", 8, 96, 96, 128),
-               ("wgmma", "bfloat16", 8, 36, 36, 64),
-               ("wgmma", "bfloat16", 64, 40, 8, 128),
-               ("wgmma", "bfloat16", 384, 40, 8, 128),
-               ("wgmma", "bfloat16", 2048, 40, 8, 128),
-               ("wgmma", "bfloat16", 2048, 16, 1, 256),
-               ("simt", "float32", 384, 40, 8, 128))
+#: (36/36, d = 64) and at d = 256; the mma route in fp32 at the width of
+#: the parity phase's fp32 model (and of the dense phase's fp32 witness)
+#: at 384 and 2048 tokens, and in bf16 over a view of head stride d + 9
+#: (not TMA's); the last field is that padding
+FLASH_TIMED = (("wgmma", "bfloat16", 8, 40, 8, 128, 0),
+               ("wgmma", "bfloat16", 8, 24, 8, 64, 0),
+               ("wgmma", "bfloat16", 8, 96, 96, 128, 0),
+               ("wgmma", "bfloat16", 8, 36, 36, 64, 0),
+               ("wgmma", "bfloat16", 64, 40, 8, 128, 0),
+               ("wgmma", "bfloat16", 384, 40, 8, 128, 0),
+               ("wgmma", "bfloat16", 2048, 40, 8, 128, 0),
+               ("wgmma", "bfloat16", 2048, 16, 1, 256, 0),
+               ("mma", "float32", 384, 40, 8, 128, 0),
+               ("mma", "float32", 2048, 40, 8, 128, 0),
+               ("mma", "bfloat16", 384, 40, 8, 128, 9))
 
 
 def _flash_pairs(torch, sq, sk, causal=True, window=0, q_offset=None,
@@ -563,10 +578,11 @@ def check_flash(torch, card: str, results: dict) -> None:
     are small (~0.04 at 2048 keys), where an absolute bound alone would
     let a fault in a few key tiles pass.  The route each launch took (its
     launch count) must be the one ``plan`` gives: wgmma for bf16
-    (TMA-describable), simt for fp32 and for a bf16 view with a head
-    stride TMA cannot describe.  The prefix contract (``FLASH_PREFIX``):
-    rows attended as a suffix at a q_offset are bit-identical to the
-    unshared rows, on both routes.  Then the timed shapes."""
+    (TMA-describable, G <= 64), mma for fp32, for G > 64 and for bf16
+    views with a head stride TMA cannot describe (every case is run again
+    as such a view).  The prefix contract (``FLASH_PREFIX``): rows
+    attended as a suffix at a q_offset are bit-identical to the unshared
+    rows, bf16 on wgmma and fp32 on mma.  Then the timed shapes."""
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -593,12 +609,10 @@ def check_flash(torch, card: str, results: dict) -> None:
         return out, moved
 
     errs = {}
-    unaligned = ((1, 64, 64, 40, 8, 128, {}), (1, 50, 50, 16, 1, 256,
-                                                 {"window": 13}))
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         cases = [(c, 0) for c in FLASH_CASES]
         if dtype == torch.bfloat16:      # head stride d + 9: not TMA's
-            cases += [(c, 8 + 1) for c in unaligned]
+            cases += [(c, 8 + 1) for c in FLASH_CASES]
         for (b, sq, sk, hq, hkv, d, kw), pad in cases:
             q, k, v = inputs(b, sq, sk, hq, hkv, d, dtype, pad)
             want_route = K.plan(dtype, d, hq // hkv,
@@ -625,8 +639,8 @@ def check_flash(torch, card: str, results: dict) -> None:
                 raise AssertionError(f"K2 {name}: {err}, {rel} > {tol}")
             if not same:
                 raise AssertionError(f"K2 {name}: two launches differ")
-            if not kw and not pad:
-                key = (want_route, sq, hq, hkv, d)
+            if not kw:
+                key = (want_route, str(dtype)[6:], sq, hq, hkv, d, pad)
                 errs[key] = max(errs.get(key, 0.0), err)
     # the prefix contract: suffix rows with q_offset equal the full rows
     for dtype in (torch.bfloat16, torch.float32):
@@ -642,16 +656,17 @@ def check_flash(torch, card: str, results: dict) -> None:
                     f"unshared rows (Sq=Sk={sq} Hq={hq} Hkv={hkv} d={d} "
                     f"window={window})")
     log(f"K2 flash_attention: rows at a q_offset bit-identical to unshared "
-        f"rows, bf16 (wgmma) and fp32 (simt), at (Sq=Sk, q_offset, Hq, "
+        f"rows, bf16 (wgmma) and fp32 (mma), at (Sq=Sk, q_offset, Hq, "
         f"Hkv, d, window) in {FLASH_PREFIX}")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for route, dt, sq, hq, hkv, d in FLASH_TIMED:
+    for route, dt, sq, hq, hkv, d, pad in FLASH_TIMED:
         dtype = getattr(torch, dt)
         # at 2048 tokens a set is ~30 MB: four sets still rotate past L2
-        sets = [inputs(1, sq, sq, hq, hkv, d, dtype)
+        sets = [inputs(1, sq, sq, hq, hkv, d, dtype, pad)
                 for _ in range(ROTATE if sq < 2048 else 4)]
-        if K.plan(dtype, d, hq // hkv, dtype == torch.bfloat16) != route:
+        if K.plan(dtype, d, hq // hkv, dtype == torch.bfloat16
+                  and K.aligned(*sets[0])) != route:
             raise AssertionError(f"K2 timed {route}: plan disagrees")
         ms = time_ms(torch, lambda q, k, v: run(K.flash_attention, q, k, v),
                      sets)
@@ -667,16 +682,17 @@ def check_flash(torch, card: str, results: dict) -> None:
         nbytes = size * (2 * sq * hq * d + 2 * sq * hkv * d)  # q,out,k,v
         flops = 4 * d * hq * _flash_pairs(torch, sq, sq)      # causal pairs
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dt ==
-                           "bfloat16" else F32_FLOPS_PER_S)
-        shape = f"B=1 Sq=Sk={sq} Hq={hq} Hkv={hkv} d={d} causal {dt}"
+                           "bfloat16" else TF32X3_FLOPS_PER_S)
+        shape = (f"B=1 Sq=Sk={sq} Hq={hq} Hkv={hkv} d={d} causal {dt}"
+                 f"{f' head stride {sets[0][0].stride(2)}' if pad else ''}")
         log(f"K2 flash_attention_{route} {shape} [{card}]: kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound, "
             f"kernel / sdpa {ms / lib_ms:.2f}x")
         results.setdefault(f"flash_attention_{route}", []).append(dict(
-            shape=shape, instance=K.instance(d),
+            shape=shape, instance=K.instance(d, dtype),
             phase=ATTN_PHASE.get((hq, hkv, d), "serve"),
-            max_abs_err=errs[(route, sq, hq, hkv, d)], ms=ms,
+            max_abs_err=errs[(route, dt, sq, hq, hkv, d, pad)], ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
 
@@ -686,13 +702,14 @@ def check_flash(torch, card: str, results: dict) -> None:
 #: (13824 -> 5120) at decode batch 4 and at a 2048-token prefill, w ~
 #: randn / sqrt(K); (shape, dtype, w's row padding): a padded w is a view
 #: whose row stride TMA cannot describe, so the up-projection with it
-#: times the wmma route at Qwen width
+#: times the realign route at Qwen width, at prefill and at decode
 MATMUL_SHAPES = (((256, 512, 256), "float32", 0),
                  ((4, 5120, 13824), "bfloat16", 0),
                  ((4, 13824, 5120), "bfloat16", 0),
                  ((2048, 5120, 13824), "bfloat16", 0),
                  ((2048, 13824, 5120), "bfloat16", 0),
-                 ((2048, 5120, 13824), "bfloat16", 1))
+                 ((2048, 5120, 13824), "bfloat16", 1),
+                 ((4, 5120, 13824), "bfloat16", 1))
 #: ragged shapes, both dtypes: checked, not timed
 MATMUL_RAGGED = (((7, 513, 129), "float32", 0), ((7, 513, 129), "bfloat16", 0))
 #: K4's shapes: the reference bench's (benchmarks/kernels_bench.py:66), an
@@ -766,7 +783,7 @@ def check_matmul(torch, card: str, results: dict) -> None:
         size = 4 if dt == "float32" else 2
         nbytes = (m * k + k * n + m * n) * size
         b_ms, b_by = bound(nbytes, 2 * m * k * n,
-                           F32_FLOPS_PER_S if dt == "float32"
+                           TF32X3_FLOPS_PER_S if dt == "float32"
                            else BF16_FLOPS_PER_S)
         log(f"{tag} [{card}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
@@ -777,6 +794,62 @@ def check_matmul(torch, card: str, results: dict) -> None:
                   f"{f', w row stride {w.stride(0)}' if pad else ''}",
             max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+
+
+#: the realign route's views (M, K, N): K and N ragged, a prefill-width
+#: and a decode-width M; x and w each at every base offset of 0-7
+#: elements, at an odd and at an even row stride
+REALIGN_SHAPES = ((200, 77, 300), (3, 130, 261))
+
+
+def check_realign(torch) -> None:
+    """K3's realign route against its plain version on views whose bases
+    sit at every offset of 0-7 elements from a 16-byte boundary (x and w
+    independently), at odd and even row strides, ragged K and N: each
+    element within the reference's ragged tolerance (atol = rtol = 5e-2),
+    two launches the same bits, every launch on the realign route.  Each
+    view ends with its buffer (its last element is the buffer's)."""
+    from repro_torch.kernels.streamed_matmul import kernel as K
+    from repro_torch.kernels.streamed_matmul import ops
+    from repro_torch.kernels.streamed_matmul.ref import streamed_matmul_ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def view(rows, cols, off, odd, scale=1.0):
+        ld = cols + 3
+        ld += (ld % 2) != int(odd)
+        buf = (torch.randn(off + (rows - 1) * ld + cols, generator=gen,
+                           device="cuda") * scale).to(torch.bfloat16)
+        return buf.as_strided((rows, cols), (ld, 1), off)
+
+    worst, cases = 0.0, 0
+    for m, k, n in REALIGN_SHAPES:
+        for odd in (True, False):
+            for ox in range(8):
+                for ow in range(8):
+                    x = view(m, k, ox, odd)
+                    w = view(k, n, ow, odd, k ** -0.5)
+                    before = K.launches["realign"].count
+                    got, again = ops.matmul(x, w), ops.matmul(x, w)
+                    want = streamed_matmul_ref(x, w)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs()
+                    tag = (f"K3 streamed_matmul_realign ({m},{k})@({k},{n}) "
+                           f"x offset {ox} stride {x.stride(0)}, w offset "
+                           f"{ow} stride {w.stride(0)}")
+                    if K.launches["realign"].count != before + 2:
+                        raise AssertionError(f"{tag}: not the realign route")
+                    if not bool((err <= 5e-2 + 5e-2 * want.float().abs())
+                                .all()):
+                        raise AssertionError(f"{tag}: max_abs_err "
+                                             f"{err.max().item():.3e}")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{tag}: two launches differ")
+                    worst = max(worst, err.max().item())
+                    cases += 1
+    log(f"K3 streamed_matmul_realign: {cases} views at every base offset "
+        f"0-7 of x and w, odd and even row strides, shapes "
+        f"{REALIGN_SHAPES}: max_abs_err {worst:.3e} (atol=rtol=5e-2), two "
+        f"launches bit-identical")
 
 
 def sweep_matmul(torch, card: str) -> None:
@@ -1046,7 +1119,7 @@ def drive_ops(torch) -> dict:
     reaches them; in the reference only benchmarks/kernels_bench.py
     does).  Counts are reset just before and read just after; every call
     must launch the kernel of the route ``plan`` gives its shape once,
-    every K3 route must run, the ragged bf16 shape must take the wmma
+    every K3 route must run, the ragged bf16 shape must take the realign
     route, and nothing else may launch."""
     from collections import Counter
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1059,10 +1132,10 @@ def drive_ops(torch) -> dict:
         getattr(torch, dt)) for shape, dt in ACCUMULATE_SHAPES
         + ACCUMULATE_RAGGED]
     routes = [_route(torch, x, w) for x, w in mm]
-    if routes[-1] != "wmma" or set(routes) != {"wgmma", "splitk", "wmma",
-                                               "f32"}:
+    if routes[-1] != "realign" or set(routes) != {"wgmma", "splitk",
+                                                  "realign", "f32"}:
         raise AssertionError(f"K3 routes {routes}: the ragged bf16 shape "
-                             f"must take wmma and every route must run")
+                             f"must take realign and every route must run")
     torch.cuda.synchronize()
     reset_launch_counts()
     outs = [sm.matmul(x, w) for x, w in mm] + [wa.accumulate(s) for s in acc]
@@ -1111,7 +1184,7 @@ def check_parity(torch) -> dict:
     """Smoke-size fp32 model: the card (kernels) against the CPU (plain
     versions), same weights and prompts; greedy over bf16-width pools,
     and sampled at temperature 0.7 over int8 pools.  Its prefills must
-    take K2's simt route (fp32).  Returns the greedy card run's kernel
+    take K2's mma route (fp32).  Returns the greedy card run's kernel
     launches and, by template instantiation, ``instance_counts()``
     (counts reset just before the run, read just after)."""
     import dataclasses
@@ -1159,10 +1232,10 @@ def check_parity(torch) -> dict:
         if not (err <= tol and first8 and launches[kernel] > 0):
             raise AssertionError(f"card and CPU disagree on the smoke model "
                                  f"(kv_dtype={kv})")
-        if not (launches["flash_attention_simt"] > 0
+        if not (launches["flash_attention_mma"] > 0
                 and launches["flash_attention_wgmma"] == 0):
             raise AssertionError(f"fp32 smoke model: K2 launches "
-                                 f"{launches}, expected the simt route only")
+                                 f"{launches}, expected the mma route only")
     return greedy
 
 
@@ -1462,7 +1535,7 @@ def serve_paged(torch, card: str, model, params, work, kw,
     if launches["paged_attention"] != cfg.num_layers * st["steps"]:
         raise AssertionError(f"paged serve: {launches['paged_attention']} "
                              f"K1 launches for {st['steps']} decode steps")
-    if launches["flash_attention_simt"] or not launches[
+    if launches["flash_attention_mma"] or not launches[
             "flash_attention_wgmma"]:
         raise AssertionError(f"paged serve: K2 launches {launches}; every "
                              f"bf16 prefill must take the wgmma route")
@@ -1841,7 +1914,7 @@ def check_gpt3(torch, card: str, counts: Launches) -> None:
     pinned host memory and paged back by the Tensor Prefetcher, with the
     resident run's tokens.  Every run: K1 once a layer a decode step on
     its 8-row instantiation (G = 1, Hkv = 96), K2 once a layer an
-    admission on the wgmma route at d = 128, none on simt; paged, every
+    admission on the wgmma route at d = 128, none on mma; paged, every
     layer fetched once a step and once an admission.  Prints tok/s, ms a
     step and peak device memory beside each run's floor: a resident step
     reads every layer and the head from HBM (3.35 TB/s), a paged one the
@@ -2331,7 +2404,7 @@ class Launches:
             raise AssertionError(f"{self.phase} {tag}: {got[kernel]} K1 launches "
                                  f"for {st['steps']} decode steps")
         if (got["flash_attention_wgmma"] != cfg.num_layers * st["admitted"]
-                or got["flash_attention_simt"]):
+                or got["flash_attention_mma"]):
             raise AssertionError(f"{self.phase} {tag}: K2 launches {got} for "
                                  f"{st['admitted']} admissions")
         return tokens, secs, got
@@ -2739,7 +2812,7 @@ class DisaggRun:
             raise AssertionError(f"disagg {self.tag}: {got[kernel]} K1 "
                                  f"launches for {st['steps']} decode steps")
         if (got["flash_attention_wgmma"] != cfg.num_layers * prefills
-                or got["flash_attention_simt"]):
+                or got["flash_attention_mma"]):
             raise AssertionError(f"disagg {self.tag}: K2 launches {got} for "
                                  f"{prefills} prefill chunks / admissions")
         if checks and st["nonfinite_logits"]:
@@ -3204,6 +3277,7 @@ def main() -> int:
         check_flash(torch, card, results)
         check_gather(torch, card, results)
         check_matmul(torch, card, results)
+        check_realign(torch)
         check_accumulate(torch, card, results)
         ops_launches = drive_ops(torch)
     if "sweep" in phases:
@@ -3289,7 +3363,7 @@ def main() -> int:
                                   (eg_kernel, moe_path, moed)):
             for counter in mod.COUNTERS:
                 name = counter.name
-                if name == "flash_attention_simt":
+                if name == "flash_attention_mma":
                     path, counts = smoke, parity_launches
                 for row in results[name]:
                     mine = by_phase.get(row.get("phase"), (path, counts))

@@ -13,8 +13,8 @@
 // What bounds it on this card: 4 * Sq * Sk * D flops per query head (about
 // half of that under the causal mask) on 2 * Sk * D input bytes per KV
 // head.  Up to a few hundred tokens the bytes (and, below that, the launch)
-// bound it; past that the tensor-core rate, 989 TFLOP/s in bf16, which
-// only wgmma reaches.
+// bound it; past that the tensor cores: 989 TFLOP/s in bf16, which only
+// wgmma reaches, and for fp32-accurate products 3xTF32 at 495 / 3 = 165.
 //
 // Two routes, chosen by the wrapper's `plan` (kernel.py) from the dtype, D,
 // G and the alignment before launch -- never after a failure:
@@ -41,26 +41,43 @@
 //     Measured on the H100, the softmax's instructions, not the tensor
 //     cores or the K/V bytes, set the time past a few hundred tokens
 //     (PERF.md).
-//   * simt (fp32 -- held to 1e-4, which TF32 would break -- and bf16 views
-//     TMA cannot describe): the first version of this kernel.  One CTA of
-//     128 threads per (16-row query tile, batch * query head) streams 32-key
-//     K/V tiles through shared memory as fp32 and does both products with
-//     fmaf on the CUDA cores; P is rounded to the input type before the PV
-//     sum.  Dynamic shared memory (84 KB at D = 256).
+//   * mma (fp32; bf16 views TMA cannot describe; G > 64).  The same rows
+//     -- (position, head) pairs, here numbered across tiles so that any G
+//     fits -- in CTAs of 8 warps x 16 rows (2 warps for fp32 at D = 256),
+//     so a K/V tile is read once for all G heads.  K and V tiles of BK =
+//     64 keys at absolute positions go through a ring of 4 slots (2 for
+//     fp32 at D >= 128), one K or V tile a slot, by cp.async: 16 bytes where
+//     a row's address allows it, else 4 (any fp32 row, a bf16 row at an
+//     even element), else (a bf16 row at an odd element) the five aligned
+//     words that cover each 16 bytes, shifted in registers.  Rows are
+//     padded so that fragment loads are free of bank conflicts.  Both
+//     products are mma.sync on the tensor cores.  fp32 runs as 3xTF32
+//     (m16n8k8): each operand x is split into hi = tf32(x) and lo = tf32(x
+//     - hi) (cvt.rna's rounding) and hi hi + hi lo + lo hi accumulate in
+//     fp32, which keeps fp32's 1e-4 where one tf32 product misses it ~10x;
+//     Q is split once when it lands, K, V and P as they are read; P V
+//     permutes the keys of each block of 8 so that P's accumulator layout
+//     is the A operand as it stands.  bf16 runs m16n8k16 with ldmatrix (.trans for
+//     V) and P rounded to bf16 as above.  The softmax is the wgmma route's
+//     code; O stays in registers (D / 2 floats a thread).  Measured on the
+//     H100 (tools/kernel_variants.py, PERF.md), the products are ~8 % of
+//     the fp32 time: the splits (every warp splits every K and V element),
+//     the fragment loads and one CTA an SM (198 KB) set it; a bf16 view's
+//     odd rows wait on their register-staged copy.
 //
 // The prefix contract: a prefix-cached admission (q_offset > 0) gives the
 // same bits as an unshared one, port against port (the contract of
 // src/repro/models/layers.py:338).  Both routes keep it the same way:
 //   * KV tiles sit at fixed absolute positions 0, BK, 2 BK, ...;
 //   * keys are never split across CTAs; and
-//   * a row's result depends on nothing but that row: its MMA row (or its
-//     sequential dots), its own max and sum reductions in a fixed order,
-//     its own rescaling, and each of its unmasked scores rounded the same
+//   * a row's result depends on nothing but that row: its MMA row, its
+//     own max and sum reductions in a fixed order, its own rescaling,
+//     and each of its unmasked scores rounded the same
 //     way whether or not the tile crosses an edge of the query tile (whose
 //     rows, and so edges, move with q_offset).
 // Tiles past the causal frontier of the query tile's last row, or past
 // kv_valid, are skipped: for every row they would add exp(-1e30 - m) == 0
-// after its own diagonal, with alpha == 1.  The wgmma route also skips the
+// after its own diagonal, with alpha == 1.  Both routes also skip the
 // tiles wholly below the window of the tile's first row when no row of the
 // tile is wholly masked: for a row they are all-masked leading tiles, whose
 // sums the first live tile multiplies by alpha == 0.  So the bits do not
@@ -78,133 +95,572 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+using bf16 = __nv_bfloat16;
 
-// ------------------------------------------------------------------ simt
-namespace simt {
-constexpr int NT = 128;   // threads per CTA
-constexpr int BQ = 16;    // query rows per CTA
-constexpr int BK = 32;    // keys per tile (one warp lane each)
+// ------------------------------------------- the online softmax, both routes
+// Both routes hold S and O in the accumulator layout of a 16-row MMA tile
+// (mma.sync m16n8 blocks, and each warp's quarter of a wgmma m64 tile):
+// element 4 j + 2 h + e of a thread is row lane / 4 + 8 h, column 8 j +
+// 2 (lane % 4) + e.  So the softmax is one code for both.
+namespace softmax {
+constexpr int BK = 64;      // keys per tile: both routes' BK
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-// a probability as the PV product takes it: rounded to the input type
-__device__ __forceinline__ float round_as(float p, const float*) { return p; }
-__device__ __forceinline__ float round_as(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(p));
+// 2^x on the SFU, denormals flushed (what remains of a masked score,
+// 2^(-1e30 - m), is exactly 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)BQ * D + BK * (D + 1) + BK * D + BQ * BK + 3 * BQ);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// what masks a thread's two rows: their positions, the query tile's first
+// and last, and the launch's causal / window / kv_valid
+struct Mask {
+  int qpos0, qpos1, qp_first, qp_last, causal, window, kv_valid;
+};
+
+// The online softmax of the key tile at k0 over a thread's two rows
+// (accumulator layout): S (sc) becomes P in place, in fp32; m, l and the
+// rescale factor alpha of each row move on.  Masks are applied only on
+// tiles that cross a boundary, and they decide only which scores count:
+// every unmasked score is rounded the same way on every tile (the max of
+// the raw scores scaled once, exact since the scale is positive; p =
+// 2^(s * scale - m) with the scale and the subtraction in one fma), so a
+// row's bits do not depend on which tiles its query tile finds at an
+// edge.  A masked score gives p = 2^(-1e30 - m).  Max and sum of a row:
+// its 16 values here, then over the four threads that hold it, in a
+// fixed order.
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int k0,
+                                               const Mask& mk, int lane,
+                                               float scale_log2) {
+  const bool edge = k0 + BK > mk.kv_valid ||
+                    (mk.causal && k0 + BK - 1 > mk.qp_first) ||
+                    (mk.window > 0 && k0 <= mk.qp_last - mk.window);
+  float mx[2] = {NEG_INF, NEG_INF};
+  uint32_t ok_bits = 0xffffffffu;   // bit i: score i counts
+  if (edge) {
+    ok_bits = 0;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      const int kp = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int qp = h ? mk.qpos1 : mk.qpos0;
+      bool ok = kp < mk.kv_valid;
+      if (mk.causal) ok = ok && kp <= qp;
+      if (mk.window > 0) ok = ok && kp > qp - mk.window;
+      if (ok) {
+        ok_bits |= 1u << i;
+        mx[h] = fmaxf(mx[h], sc[i]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  }
+  // scaled once; a row half with no score that counts keeps -1e30
+  mx[0] = ok_bits & 0x33333333u ? mx[0] * scale_log2 : NEG_INF;
+  mx[1] = ok_bits & 0xccccccccu ? mx[1] * scale_log2 : NEG_INF;
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    alpha[h] = ex2(m[h] - m_new);
+    m[h] = m_new;
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float mi = m[(i >> 1) & 1];
+      sc[i] = ex2((ok_bits >> i) & 1 ? fmaf(sc[i], scale_log2, -mi)
+                                     : NEG_INF - mi);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      sc[i] = ex2(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sum[(i >> 1) & 1] += sc[i];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l[h] = l[h] * alpha[h] + sum[h];
+  }
+}
+
+// P in bf16 as wgmma's register A operand: the k16 slice kb is
+// accumulator columns 16 kb .. 16 kb + 15 in the same thread layout
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
+                                       const float (&sc)[BK / 2]) {
+#pragma unroll
+  for (int kb = 0; kb < BK / 16; ++kb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kb][r] = pack_bf16(sc[8 * kb + 2 * r], sc[8 * kb + 2 * r + 1]);
+}
+
+// O *= alpha row by row, skipped where every row of the warp keeps its
+// max (alpha == 1: the product would change no bit)
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+  if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+}  // namespace softmax
+
+// -------------------------------------------------------------------- mma
+namespace mma {
+using namespace softmax;
+constexpr int BK = 64;      // keys per tile (kernel.py's KEY_TILE["mma"])
+static_assert(BK == softmax::BK, "one key tile for the shared softmax");
+
+// The shared-memory plan of one launch shape.  Rows are padded so that
+// every fragment load is free of bank conflicts: fp32 rows of D + 4
+// floats put the 8 x 4 threads of a fragment on 32 distinct banks (row
+// stride 4 banks), bf16 rows of D + 8 halves give ldmatrix 8 rows on
+// distinct 16-byte bank groups.  Q is split once into tf32 hi and
+// lo halves (fp32); K and V tiles of BK keys go through a ring of SLOTS
+// slots, one K or V tile each.  Eight warps (128 rows) a CTA: with one
+// warp a sub-core every latency is exposed (four warps took 1.4-1.5x the
+// time on the H100: tools/kernel_variants.py, PERF.md), and eight share
+// each K/V tile.  fp32 at D = 128 holds two slots (198
+// KB); at D = 256 two warps (32 rows) and two slots (195 KB).
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
+struct Tile {
+  using Elem = T;
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int LD = F32 ? D + 4 : D + 8;   // row pitch, elements
+  static constexpr int WARPS = F32 && D == 256 ? 2 : 8;
+  static constexpr int ROWS = 16 * WARPS;
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int Q_ELEMS = (F32 ? 2 : 1) * ROWS * LD;   // fp32: hi, lo
+  static constexpr int SLOT = BK * LD;
+  static constexpr int SLOTS = F32 && D >= 128 ? 2 : 4;
+  static constexpr int SMEM = (int)sizeof(T) * (Q_ELEMS + SLOTS * SLOT);
+  static constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  static_assert(LD * sizeof(T) % 16 == 0, "16-byte aligned rows");
+  static_assert(SMEM <= 232448, "fits the SM's shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(dst), "r"(a),
+               "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// One 16-byte chunk of a row (8 bf16 or 4 fp32 elements at src) into the
+// 16-byte aligned dst, by the widest copy src's alignment allows: one
+// 16-byte cp.async, four 4-byte ones, or -- a bf16 row at an odd element
+// offset -- the five aligned words that cover it, read into registers and
+// shifted by one element.  Each word read holds an element of the chunk,
+// so no read leaves the operand's pages.
+__device__ __forceinline__ void copy16(uint32_t dst, const char* src) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if ((a & 15) == 0) {
+    cp_async16(dst, src);
+  } else if ((a & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cp_async4(dst + 4 * i, src + 4 * i);
+  } else {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a - 2);
+    uint32_t v[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) v[i] = __ldg(w + i);
+    st_shared16(dst, __funnelshift_r(v[0], v[1], 16),
+                __funnelshift_r(v[1], v[2], 16),
+                __funnelshift_r(v[2], v[3], 16),
+                __funnelshift_r(v[3], v[4], 16));
+  }
+}
+
+// rows [0, ROWS_) of a tile, row r at src(r) (null: zeros), into smem at
+// dst with the tile's pitch
+template <typename TL, int ROWS_, typename Src>
+__device__ __forceinline__ void load_rows(uint32_t dst, Src src, int tid) {
+  for (int i = tid; i < ROWS_ * TL::CPR; i += TL::NT) {
+    const int r = i / TL::CPR, c = i - r * TL::CPR;
+    const uint32_t d = dst + (r * TL::LD) * (int)sizeof(typename TL::Elem) +
+                       16 * c;
+    const char* s = src(r);
+    if (s)
+      copy16(d, s + 16 * c);
+    else
+      st_shared16(d, 0u, 0u, 0u, 0u);
+  }
+}
+
+// cvt.rna.tf32.f32 -- fp32 rounded to a 10-bit mantissa, to the nearest,
+// ties away from zero -- as two integer ops on the bits (add half of the
+// 13 dropped bits' weight to the magnitude, clear them): the same bits for
+// every finite x, on full-rate pipes; the conversion instruction (~1100 a
+// warp and key tile) made the fp32 route 13-16 % slower on the H100
+// (tools/kernel_variants.py, PERF.md)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each a tf32 value: hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// c += a b, tf32 operands.  3xTF32 runs three of these a product, small
+// terms first (lo hi, hi lo, then hi hi); only lo lo (2^-22 relative) is
+// dropped
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// S = Q K^T of one key tile for a warp's 16 rows.  fp32: 3xTF32 m16n8k8;
+// A = Q's hi and lo (split when Q was loaded) at (g, t) and (g, t + 4),
+// B = K's row g (a key) at d = t and t + 4, split here.  Each of the three
+// passes runs over all 8 key blocks before the next: 8 independent
+// accumulators between two dependent products.
+template <int D>
+__device__ __forceinline__ void tile_s(float (&sc)[BK / 2], const float* qh,
+                                       const float* ql, const float* ks,
+                                       int lane) {
+  using TL = Tile<float, D>;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int c = 8 * kk + t;
+    uint32_t ah[4], al[4];
+    ah[0] = __float_as_uint(qh[g * TL::LD + c]);
+    ah[1] = __float_as_uint(qh[(g + 8) * TL::LD + c]);
+    ah[2] = __float_as_uint(qh[g * TL::LD + c + 4]);
+    ah[3] = __float_as_uint(qh[(g + 8) * TL::LD + c + 4]);
+    al[0] = __float_as_uint(ql[g * TL::LD + c]);
+    al[1] = __float_as_uint(ql[(g + 8) * TL::LD + c]);
+    al[2] = __float_as_uint(ql[g * TL::LD + c + 4]);
+    al[3] = __float_as_uint(ql[(g + 8) * TL::LD + c + 4]);
+    uint32_t bh[BK / 8][2], bl[BK / 8][2];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float* kr = ks + (8 * j + g) * TL::LD + c;
+      split(kr[0], bh[j][0], bl[j][0]);
+      split(kr[4], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mma_tf32(sc + 4 * j, al, bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mma_tf32(sc + 4 * j, ah, bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mma_tf32(sc + 4 * j, ah, bh[j][0], bh[j][1]);
+  }
+}
+
+// bf16: m16n8k16, A = Q by ldmatrix, B = K (key-major rows) by ldmatrix,
+// two key blocks of 8 a load
+template <int D>
+__device__ __forceinline__ void tile_s(float (&sc)[BK / 2], uint32_t qs,
+                                       uint32_t ks, int lane) {
+  using TL = Tile<bf16, D>;
+  constexpr int RB = 2 * TL::LD;     // row bytes
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+  const uint32_t qa = qs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RB +
+                      16 * (lane >> 4);
+  const uint32_t ka = ks + ((lane & 7) + 8 * (lane >> 4)) * RB +
+                      16 * ((lane >> 3) & 1);
+#pragma unroll 2
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, qa + 32 * kk);
+#pragma unroll
+    for (int jj = 0; jj < BK / 16; ++jj) {
+      uint32_t b[4];
+      ldsm_x4(b, ka + 16 * jj * RB + 32 * kk);
+      mma_bf16(sc + 8 * jj, a, b[0], b[1]);
+      mma_bf16(sc + 8 * jj + 4, a, b[2], b[3]);
+    }
+  }
+}
+
+// O += P V of one key tile.  fp32: 3xTF32 with the key order permuted
+// inside each block of 8 so that P's accumulator layout is the A operand
+// as it stands: k index t is key 8 j + 2 t and k index t + 4 is key 8 j +
+// 2 t + 1, so a = (P(g, 2t), P(g+8, 2t), P(g, 2t+1), P(g+8, 2t+1)) = the
+// accumulator's (0, 2, 1, 3), and B reads V's rows 2 t and 2 t + 1 at
+// column g (bank 8 t + g: conflict-free).  P is split here, V as read,
+// eight d blocks at a time, each pass over the eight before the next.
+template <int D>
+__device__ __forceinline__ void tile_pv(float (&o)[D / 2],
+                                        const float (&sc)[BK / 2],
+                                        const float* vs, int lane) {
+  using TL = Tile<float, D>;
+  constexpr int NG = D / 8 < 8 ? D / 8 : 8;     // d blocks a group
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    uint32_t ph[4], pl[4];
+    split(sc[4 * j], ph[0], pl[0]);
+    split(sc[4 * j + 2], ph[1], pl[1]);
+    split(sc[4 * j + 1], ph[2], pl[2]);
+    split(sc[4 * j + 3], ph[3], pl[3]);
+    const float* v0 = vs + (8 * j + 2 * t) * TL::LD + g;
+#pragma unroll   // o's index: registers only under a full unroll
+    for (int n0 = 0; n0 < D / 8; n0 += NG) {
+      uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+      for (int n = 0; n < NG; ++n) {
+        split(v0[8 * (n0 + n)], bh[n][0], bl[n][0]);
+        split(v0[TL::LD + 8 * (n0 + n)], bh[n][1], bl[n][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+        mma_tf32(o + 4 * (n0 + n), pl, bh[n][0], bh[n][1]);
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+        mma_tf32(o + 4 * (n0 + n), ph, bl[n][0], bl[n][1]);
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+        mma_tf32(o + 4 * (n0 + n), ph, bh[n][0], bh[n][1]);
+    }
+  }
+}
+
+// bf16: P rounded to bf16 in registers (the accumulator layout of two key
+// blocks is m16n8k16's A operand), V by ldmatrix.trans (V is key-major:
+// the MN-major B operand), two d blocks of 8 a load
+template <int D>
+__device__ __forceinline__ void tile_pv(float (&o)[D / 2],
+                                        const float (&sc)[BK / 2],
+                                        uint32_t vs, int lane) {
+  using TL = Tile<bf16, D>;
+  constexpr int RB = 2 * TL::LD;
+  uint32_t pa[BK / 16][4];
+  pack_p(pa, sc);
+  const uint32_t va = vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RB +
+                      16 * (lane >> 4);
+#pragma unroll
+  for (int kb = 0; kb < BK / 16; ++kb) {
+#pragma unroll
+    for (int nn = 0; nn < D / 16; ++nn) {
+      uint32_t b[4];
+      ldsm_x4_t(b, va + 16 * kb * RB + 32 * nn);
+      mma_bf16(o + 8 * nn, pa[kb], b[0], b[1]);
+      mma_bf16(o + 8 * nn + 4, pa[kb], b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// grid: (query tiles, B * Hkv), the longest tiles (last under the causal
+// mask) first; WARPS warps of 16 rows each.  Row r of tile qt is the pair
+// f = qt * ROWS + r of the (position, head of the group) pairs, position
+// f / G, head hk * G + f % G: a K/V tile is read once for all G heads, and
+// any G fits (the pairs of one position may span two tiles).
+template <typename T, int D>
+__global__ void __launch_bounds__(Tile<T, D>::NT, 1) flash_mma_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out,  // out: (B, Sq, Hq, D)
-    int Sq, int Sk, int Hq, int Hkv,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    int causal, int window, int q_offset, int kv_valid, float scale) {
-  constexpr int ACC = BQ * D / NT;
-  extern __shared__ float smem[];
-  float(*qs)[D] = reinterpret_cast<float(*)[D]>(smem);
-  float(*ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem + BQ * D);
-  // padded rows above: conflict-free score dots
-  float(*vs)[D] = reinterpret_cast<float(*)[D]>(smem + BQ * D + BK * (D + 1));
-  float(*ss)[BK] = reinterpret_cast<float(*)[BK]>(
-      smem + BQ * D + BK * (D + 1) + BK * D);
-  float* m_s = smem + BQ * D + BK * (D + 1) + BK * D + BQ * BK;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+    int Sq, int Sk, int Hq, int Hkv, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, int causal, int window,
+    int q_offset, int kv_valid, float scale_log2) {
+  using TL = Tile<T, D>;
+  constexpr int SZ = (int)sizeof(T);
+  extern __shared__ __align__(16) uint8_t fa_smem[];
+  const uint32_t q_s = hopper::smem_u32(fa_smem);
+  const uint32_t kv_s = q_s + SZ * TL::Q_ELEMS;
 
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / Hq, h = blockIdx.y - b * Hq;
-  const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* qb = q + b * q_sb + h * q_sh;
+  const int G = Hq / Hkv;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y - b * Hkv;
+  const long long pairs = (long long)Sq * G;
+  const long long f0 = (long long)qt * TL::ROWS;
+  const int n_here = (int)min((long long)TL::ROWS, pairs - f0);
+  const int qp_first = q_offset + (int)(f0 / G);
+  const int qp_last = q_offset + (int)((f0 + n_here - 1) / G);
+  // the key tiles this query tile reads: [t_lo, t_hi) (the wgmma route's
+  // rule: the header's prefix contract)
+  int k_end = min(Sk, kv_valid);
+  if (causal) k_end = min(k_end, qp_last + 1);
+  const int t_hi = max((k_end + BK - 1) / BK, 1);
+  int t_lo = 0;
+  if (window > 0 && max(0, qp_last - window + 1) < kv_valid)
+    t_lo = min(max(0, qp_first - window + 1) / BK, t_hi - 1);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T* qb = q + b * q_sb + (long long)hk * G * q_sh;
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i - r * D, row = q0 + r;
-    qs[r][c] = row < Sq ? to_f(qb[row * q_ss + c]) : 0.f;
+  // Q: fp32 lands raw in the lo half and is split below; its own group
+  const uint32_t q_dst = TL::F32 ? q_s + SZ * TL::ROWS * TL::LD : q_s;
+  load_rows<TL, TL::ROWS>(q_dst, [&](int r) -> const char* {
+    const long long f = f0 + r;
+    if (r >= n_here) return nullptr;
+    const long long pos = f / G, gi = f - pos * G;
+    return reinterpret_cast<const char*>(qb + pos * q_ss + gi * q_sh);
+  }, tid);
+  cp_commit();
+  // the ring: item i is tile t_lo + i / 2, K for even i, V for odd, in slot
+  // i % SLOTS; one commit group an item (empty past the last)
+  const int items = 2 * (t_hi - t_lo);
+  auto load_item = [&](int i) {
+    if (i < items) {
+      const int k0 = (t_lo + i / 2) * BK;
+      const T* base = i & 1 ? vb : kb;
+      const long long ss = i & 1 ? v_ss : k_ss;
+      load_rows<TL, BK>(kv_s + SZ * (i % TL::SLOTS) * TL::SLOT,
+                        [&](int r) -> const char* {
+        return k0 + r < Sk ? reinterpret_cast<const char*>(
+                                 base + (long long)(k0 + r) * ss)
+                           : nullptr;
+      }, tid);
+    }
+    cp_commit();
+  };
+#pragma unroll 1
+  for (int i = 0; i < TL::SLOTS - 1; ++i) load_item(i);
+  if constexpr (TL::F32) {
+    cp_wait<TL::SLOTS - 1>();   // Q has landed
+    __syncthreads();
+    float* qh = reinterpret_cast<float*>(fa_smem);
+    float* ql = qh + TL::ROWS * TL::LD;
+    for (int i = tid; i < TL::ROWS * D; i += TL::NT) {
+      const int r = i / D, c = i - r * D;
+      uint32_t hi, lo;
+      split(ql[r * TL::LD + c], hi, lo);
+      qh[r * TL::LD + c] = __uint_as_float(hi);
+      ql[r * TL::LD + c] = __uint_as_float(lo);
+    }
   }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[ACC];
+
+  // this thread's two rows (accumulator layout)
+  int qpos[2];
+  bool live[2];
+  size_t orow[2];
 #pragma unroll
-  for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + (lane >> 2) + 8 * h;
+    const long long f = f0 + r;
+    const long long pos = f / G, gi = f - pos * G;
+    live[h] = r < n_here;
+    qpos[h] = q_offset + (int)pos;
+    orow[h] = live[h] ? (((size_t)b * Sq + pos) * Hq + (size_t)hk * G + gi) * D
+                      : 0;
+  }
+  const Mask mk{qpos[0], qpos[1], qp_first, qp_last, causal, window,
+                kv_valid};
+  float o[D / 2], sc[BK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
 
-  const int rows = min(BQ, Sq - q0);
-  int k_end = min(Sk, kv_valid);
-  if (causal) k_end = min(k_end, q_offset + q0 + rows);
-  const int n_tiles = max((k_end + BK - 1) / BK, 1);
-  __syncthreads();
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    for (int i = tid; i < BK * D; i += NT) {
-      const int t = i / D, c = i - t * D, kr = k0 + t;
-      const bool in = kr < Sk;
-      ks[t][c] = in ? to_f(kb[kr * k_ss + c]) : 0.f;
-      vs[t][c] = in ? to_f(vb[kr * v_ss + c]) : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < BQ * BK; i += NT) {
-      const int r = i / BK, t = i - r * BK;
-      float s = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < D; ++c) s = fmaf(qs[r][c], ks[t][c], s);
-      const int qp = q_offset + q0 + r, kp = k0 + t;
-      bool ok = kp < kv_valid;
-      if (causal) ok = ok && kp <= qp;
-      if (window > 0) ok = ok && kp > qp - window;
-      ss[r][t] = ok ? s * scale : NEG_INF;
-    }
-    __syncthreads();
-    // online softmax: one warp per query row, one lane per key
-    for (int r = warp; r < BQ; r += NT / 32) {
-      const float s = ss[r][lane];
-      float mx = s;
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p = expf(s - m_new);
-      float sum = p;
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      ss[r][lane] = round_as(p, q);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
+#pragma unroll 1
+  for (int i = 0; i < items; ++i) {
+    cp_wait<TL::SLOTS - 2>();   // item i has landed (this thread's copies)
+    __syncthreads();            // ... everyone's; slot i - 1 is free
+    load_item(i + TL::SLOTS - 1);
+    const uint32_t slot = kv_s + SZ * (i % TL::SLOTS) * TL::SLOT;
+    if (!(i & 1)) {
+      if constexpr (TL::F32) {
+        const float* qh = reinterpret_cast<const float*>(fa_smem) +
+                          16 * warp * TL::LD;
+        tile_s<D>(sc, qh, qh + TL::ROWS * TL::LD,
+                  reinterpret_cast<const float*>(fa_smem + (slot - q_s)),
+                  lane);
+      } else {
+        tile_s<D>(sc, q_s + SZ * 16 * warp * TL::LD, slot, lane);
       }
+      online_softmax(sc, m, l, alpha, (t_lo + i / 2) * BK, mk, lane,
+                     scale_log2);
+      rescale(o, alpha);
+    } else {
+      if constexpr (TL::F32)
+        tile_pv<D>(o, sc,
+                   reinterpret_cast<const float*>(fa_smem + (slot - q_s)),
+                   lane);
+      else
+        tile_pv<D>(o, sc, slot, lane);
     }
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < ACC; ++jj) {
-      const int e = tid + jj * NT, r = e / D, c = e - r * D;
-      float pv = 0.f;
-#pragma unroll 8
-      for (int t = 0; t < BK; ++t) pv = fmaf(ss[r][t], vs[t][c], pv);
-      acc[jj] = acc[jj] * a_s[r] + pv;
-    }
-    __syncthreads();
   }
 
+  // epilogue: O / l, rounded once to T
 #pragma unroll
-  for (int jj = 0; jj < ACC; ++jj) {
-    const int e = tid + jj * NT, r = e / D, c = e - r * D, row = q0 + r;
-    if (row < Sq)
-      store(out + (((size_t)b * Sq + row) * Hq + h) * D + c,
-            acc[jj] / fmaxf(l_s[r], 1e-30f));
+  for (int h = 0; h < 2; ++h) {
+    if (!live[h]) continue;
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    T* dst = out + orow[h] + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dst + 8 * j, o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
   }
 }
 
@@ -212,31 +668,34 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, const long long* st, int causal,
            int window, int q_offset, int kv_valid, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  using TL = Tile<T, D>;
+  const long long tiles =
+      ((long long)Sq * (Hq / Hkv) + TL::ROWS - 1) / TL::ROWS;
+  if (tiles > 0x7fffffffLL || (long long)B * Hkv > 65535)
+    return (int)cudaErrorInvalidValue;
   static bool attr = false;
-  if (smem > 48 * 1024 && !attr) {
+  if (!attr) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TL::SMEM);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  if ((long long)B * Hq > 65535) return (int)cudaErrorInvalidValue;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  dim3 grid((unsigned)tiles, B * Hkv);
+  flash_mma_kernel<T, D><<<grid, TL::NT, TL::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      window, q_offset, kv_valid, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
+      q_offset, kv_valid, scale_log2);
   return (int)cudaGetLastError();
 }
-}  // namespace simt
+}  // namespace mma
 
 // ----------------------------------------------------------------- wgmma
 namespace wg {
 using namespace hopper;
-using bf16 = __nv_bfloat16;
+using namespace softmax;
 constexpr int BK = 64;      // keys per tile (kernel.py's KEY_TILE)
 constexpr int ROWS = 64;    // rows of one consumer warpgroup (wgmma's M)
 constexpr int MAX_G = 64;   // a query tile holds at least one position
@@ -262,19 +721,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// 2^x on the SFU, denormals flushed (what remains of a masked score,
-// 2^(-1e30 - m), is exactly 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // accumulator operand lists, 16 registers at a time
@@ -378,98 +824,6 @@ __device__ __forceinline__ void issue_s(float (&acc)[BK / 2], uint32_t qa,
   }
 }
 
-// what masks a thread's two rows: their positions, the query tile's first
-// and last, and the launch's causal / window / kv_valid
-struct Mask {
-  int qpos0, qpos1, qp_first, qp_last, causal, window, kv_valid;
-};
-
-// The online softmax of the key tile at k0 over a thread's two rows
-// (accumulator layout): S (sc) becomes P in place, in fp32; m, l and the
-// rescale factor alpha of each row move on.  Masks are applied only on
-// tiles that cross a boundary, and they decide only which scores count:
-// every unmasked score is rounded the same way on every tile (the max of
-// the raw scores scaled once, exact since the scale is positive; p =
-// 2^(s * scale - m) with the scale and the subtraction in one fma), so a
-// row's bits do not depend on which tiles its query tile finds at an
-// edge.  A masked score gives p = 2^(-1e30 - m).  Max and sum of a row:
-// its 16 values here, then over the four threads that hold it, in a
-// fixed order.
-__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2],
-                                               float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2], int k0,
-                                               const Mask& mk, int lane,
-                                               float scale_log2) {
-  const bool edge = k0 + BK > mk.kv_valid ||
-                    (mk.causal && k0 + BK - 1 > mk.qp_first) ||
-                    (mk.window > 0 && k0 <= mk.qp_last - mk.window);
-  float mx[2] = {NEG_INF, NEG_INF};
-  uint32_t ok_bits = 0xffffffffu;   // bit i: score i counts
-  if (edge) {
-    ok_bits = 0;
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int h = (i >> 1) & 1;
-      const int kp = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-      const int qp = h ? mk.qpos1 : mk.qpos0;
-      bool ok = kp < mk.kv_valid;
-      if (mk.causal) ok = ok && kp <= qp;
-      if (mk.window > 0) ok = ok && kp > qp - mk.window;
-      if (ok) {
-        ok_bits |= 1u << i;
-        mx[h] = fmaxf(mx[h], sc[i]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-  }
-  // scaled once; a row half with no score that counts keeps -1e30
-  mx[0] = ok_bits & 0x33333333u ? mx[0] * scale_log2 : NEG_INF;
-  mx[1] = ok_bits & 0xccccccccu ? mx[1] * scale_log2 : NEG_INF;
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(m[h], mx[h]);
-    alpha[h] = ex2(m[h] - m_new);
-    m[h] = m_new;
-  }
-  if (edge) {
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const float mi = m[(i >> 1) & 1];
-      sc[i] = ex2((ok_bits >> i) & 1 ? fmaf(sc[i], scale_log2, -mi)
-                                     : NEG_INF - mi);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
-      sc[i] = ex2(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));
-  }
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) sum[(i >> 1) & 1] += sc[i];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-    l[h] = l[h] * alpha[h] + sum[h];
-  }
-}
-
-// P in bf16 as wgmma's register A operand: the k16 slice kb is
-// accumulator columns 16 kb .. 16 kb + 15 in the same thread layout
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4],
-                                       const float (&sc)[BK / 2]) {
-#pragma unroll
-  for (int kb = 0; kb < BK / 16; ++kb)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kb][r] = pack_bf16(sc[8 * kb + 2 * r], sc[8 * kb + 2 * r + 1]);
-}
-
 // O += P V of one key tile, issued (not committed): V is (keys, D)
 // row-major, so B is MN-major; 16 keys a step
 template <typename T, int N>
@@ -482,15 +836,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[N],
 #pragma unroll
   for (int kb = 0; kb < BK / 16; ++kb)
     wgmma_rs(o, pa[kb], db + ((kb * 16 * T::ROW_B) >> 4));
-}
-
-// O *= alpha row by row, skipped where every row of the warp keeps its
-// max (alpha == 1: the product would change no bit)
-template <int N>
-__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
-  if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
-#pragma unroll
-  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
 // grid: (query tiles, B * Hkv), the longest tiles (last under the causal
@@ -715,7 +1060,7 @@ int launch_nc(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// route: 0 = wgmma (bf16, TMA-describable), 1 = simt.  strides: (q_sb,
+// route: 0 = wgmma (bf16, TMA-describable), 1 = mma.  strides: (q_sb,
 // q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh) in elements; the last dim
 // is contiguous.  dtype: 0 = float32, 1 = bfloat16.  Returns
 // cudaGetLastError() after the launch (0 = launched) or an error code for
@@ -746,24 +1091,28 @@ extern "C" int flash_attention_launch(
     }
   }
   if (route != 1) return (int)cudaErrorInvalidValue;
-#define SIMT(T, DD)                                                         \
-  simt::launch<T, DD>(q, k, v, out, B, Sq, Sk, Hq, Hkv, st, causal, window, \
-                      q_offset, kv_valid, s)
+  // fp32 views are 4-byte aligned by construction, bf16 ones 2-byte
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & (dtype == 0 ? 3 : 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+#define MMA(T, DD)                                                         \
+  mma::launch<T, DD>(q, k, v, out, B, Sq, Sk, Hq, Hkv, st, causal, window, \
+                     q_offset, kv_valid, s)
   if (dtype == 0) {
     switch (D) {
-      case 32: return SIMT(float, 32);
-      case 64: return SIMT(float, 64);
-      case 128: return SIMT(float, 128);
-      case 256: return SIMT(float, 256);
+      case 32: return MMA(float, 32);
+      case 64: return MMA(float, 64);
+      case 128: return MMA(float, 128);
+      case 256: return MMA(float, 256);
     }
   } else if (dtype == 1) {
     switch (D) {
-      case 32: return SIMT(__nv_bfloat16, 32);
-      case 64: return SIMT(__nv_bfloat16, 64);
-      case 128: return SIMT(__nv_bfloat16, 128);
-      case 256: return SIMT(__nv_bfloat16, 256);
+      case 32: return MMA(bf16, 32);
+      case 64: return MMA(bf16, 64);
+      case 128: return MMA(bf16, 128);
+      case 256: return MMA(bf16, 256);
     }
   }
-#undef SIMT
+#undef MMA
   return (int)cudaErrorInvalidValue;
 }

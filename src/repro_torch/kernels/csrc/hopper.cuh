@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that stream tiles
-// with the Tensor Memory Accelerator and multiply them with wgmma:
-// mbarriers, TMA tile loads, shared-memory matrix descriptors and the
-// host-side tensor-map encoding.  Included by streamed_matmul.cu (K3) and
+// with the Tensor Memory Accelerator (or store them from registers) and
+// multiply them with wgmma: mbarriers, TMA tile loads, the async-proxy
+// fence, shared-memory matrix descriptors and the host-side tensor-map
+// encoding.  Included by streamed_matmul.cu (K3) and
 // flash_attention.cu (K2); build.py hashes it with every source that
 // includes it, so an edit here rebuilds both.
 #pragma once
@@ -46,6 +47,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                    bar),
                "r"(bytes)
                : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before the
+// async proxy's reads (wgmma operands stored by threads, not by TMA): each
+// writing thread runs it before it arrives on the barrier the readers wait
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // one tile of a 2-D tensor map into shared memory, completing on `bar`

@@ -13,7 +13,8 @@
 // What bounds it on this card: at decode widths (M <= 8) the weight bytes,
 // 2 * K * N at 3.35 TB/s; at prefill widths the tensor-core rate,
 // 2 * M * K * N at 989 TFLOP/s in bf16.  fp32 runs on the CUDA cores in
-// full fp32 (no TF32: the reference holds it to 2e-4), bound by 67 TFLOP/s.
+// full fp32 (no TF32: the reference holds it to 2e-4), at most 67 TFLOP/s;
+// fp32-accurate products could run at 3xTF32's 495 / 3 = 165.
 //
 // Four routes, chosen by the wrapper's `plan` (kernel.py) from the shape,
 // the dtype and the alignment alone -- never after a failure:
@@ -37,9 +38,30 @@
 //     fp32 scratch; the last CTA of a column tile (a counter behind
 //     __threadfence, reset by that CTA) sums them in split order and
 //     rounds once: two launches give the same bits.
-//   * wmma (bf16 that TMA cannot describe: ragged K or N, unaligned
-//     views): 128 x 128 tiles, 32-deep K slices, register double buffer,
-//     wmma 16x16x16 fragments -- the first version of this kernel.
+//   * realign (bf16 that TMA cannot describe: any base offset, any row
+//     stride, ragged K or N, any M): the wgmma route's consumers -- its
+//     128 x 256 tiles, wgmma m64n256k16 over 128-byte-swizzled stages,
+//     mbarrier ring and epilogue (single stores where N is odd) -- fed by
+//     a producer warpgroup in place of the TMA thread.  For each row of an
+//     A (128 x 64) or B (64 x 256) tile it copies the aligned 16-byte
+//     chunks that cover the row (cp.async, into a raw ring of 2 stages;
+//     only chunks that hold an element of the operand are read, so no
+//     read leaves its pages), then realigns: each output chunk from the
+//     words that hold it, shifted by the row's offset in its chunk (0-7
+//     elements, which changes from row to row at an odd stride but not
+//     from stage to stage, nor between rows 8 apart: a warp takes rows of
+//     one offset at a time and switches on it uniformly), zeroed past K,
+//     N and M, stored at its 128-byte-swizzle address; then every producer
+//     thread fences for the async proxy (wgmma's reads) and arrives on the
+//     stage's full barrier (a thread count, no transaction bytes).
+//     setmaxnreg caps the producer's registers.  What bounds it,
+//     measured on the H100 (tools/kernel_variants.py, PERF.md): the
+//     producer -- its raw copies with wgmma alone take 0.76 ms at
+//     (2048, 5120) @ (5120, 13824), 1.7x the wgmma route's time, and its
+//     realign adds as much again.  Loading the chunks into registers
+//     (ld.global.nc) held too few bytes in flight to keep up, and 1-D bulk
+//     copies, one a row, were slower (set aside while this route was
+//     written).
 //   * f32: 64 x 64 tiles, 4 x 4 outputs a thread, fmaf in K order; K split
 //     over CTAs as in splitk when the tiles alone would not fill the SMs.
 // No library GEMM (cuBLAS, CUTLASS device GEMMs) is called.
@@ -47,7 +69,6 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -55,7 +76,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 // The last CTA of a split group: every thread calls this after writing its
 // partial; it returns true in the one CTA that arrived last, which then
@@ -72,128 +92,6 @@ __device__ bool arrive_last(int* counter, int splits) {
   if (last) __threadfence();
   return last;
 }
-
-// ------------------------------------------------ wmma (bf16, unaligned)
-namespace wr {
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int NT = 256;                    // 8 warps: 2 (rows) x 4 (cols)
-constexpr int WM = 64, WN = 32;            // one warp's sub-tile
-constexpr int FM = WM / 16, FN = WN / 16;  // its 4 x 2 wmma fragments
-constexpr int LDA = BK + 8, LDB = BN + 8;  // padded rows, 16-byte aligned
-
-// 8 consecutive elements p[row * ld + col .. +8), zero outside
-// [0, rows) x [0, cols).  VEC: 16-byte aligned and cols % 8 == 0, so a
-// chunk is either wholly inside or wholly outside.
-template <bool VEC>
-__device__ __forceinline__ uint4 load8(const bf16* __restrict__ p, int row,
-                                       int col, int rows, int cols,
-                                       long long ld) {
-  if constexpr (VEC) {
-    if (row < rows && col < cols)
-      return *reinterpret_cast<const uint4*>(p + row * ld + col);
-    return make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    union {
-      uint4 v;
-      bf16 h[8];
-    } u;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      u.h[e] = (row < rows && col + e < cols) ? p[row * ld + col + e]
-                                              : __float2bfloat16(0.f);
-    return u.v;
-  }
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(NT) matmul_bf16_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w,
-    bf16* __restrict__ out, int M, int N, int K, long long ldx,
-    long long ldw) {
-  __shared__ __align__(128) bf16 As[2][BM][LDA];
-  __shared__ __align__(128) bf16 Bs[2][BK][LDB];
-  __shared__ __align__(128) float Cs[NT / 32][16][16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // each thread moves two 8-element chunks of each tile per K slice:
-  // A is BM x BK (4 chunks a row), B is BK x BN (16 chunks a row)
-  uint4 ra[2], rb[2];
-  auto gload = [&](int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tid + j * NT;
-      ra[j] = load8<VEC>(x, m0 + (c >> 2), k0 + (c & 3) * 8, M, K, ldx);
-      rb[j] = load8<VEC>(w, k0 + (c >> 4), n0 + (c & 15) * 8, K, N, ldw);
-    }
-  };
-  auto sstore = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tid + j * NT;
-      *reinterpret_cast<uint4*>(&As[buf][c >> 2][(c & 3) * 8]) = ra[j];
-      *reinterpret_cast<uint4*>(&Bs[buf][c >> 4][(c & 15) * 8]) = rb[j];
-    }
-  };
-
-  const int nk = (K + BK - 1) / BK;
-  gload(0);
-  sstore(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) gload(kt + 1);   // in flight while this slice computes
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], &As[buf][wm * WM + i * 16][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[buf][kk][wn * WN + j * 16], LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    // buf ^ 1 was last read in slice kt - 1, behind the barrier below
-    if (kt + 1 < nk) sstore(buf ^ 1);
-    __syncthreads();
-  }
-
-  // epilogue: each fragment through this warp's 16 x 16 fp32 staging
-  // tile, rounded once to bf16, masked at the ragged edges
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(&Cs[warp][0][0], acc[i][j], 16,
-                              wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15;
-        const int row = m0 + wm * WM + i * 16 + r;
-        const int col = n0 + wn * WN + j * 16 + c;
-        if (row < M && col < N)
-          out[(long long)row * N + col] = __float2bfloat16(Cs[warp][r][c]);
-      }
-      __syncwarp();
-    }
-}
-
-}  // namespace wr
 
 // ---------------------------------------------------------------- fp32
 namespace f32 {
@@ -516,6 +414,88 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// this CTA's output tile: a 1-D grid walked in groups of GROUP_M row
+// tiles, so that a wave of CTAs shares each weight tile in L2
+__device__ __forceinline__ void tile_of(int M, int N, int& tile_m,
+                                        int& tile_n) {
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int per_group = GROUP_M * tiles_n;
+  const int group = blockIdx.x / per_group, first_m = group * GROUP_M;
+  const int gsize = min(tiles_m - first_m, GROUP_M);
+  const int in_group = blockIdx.x - group * per_group;
+  tile_m = first_m + in_group % gsize;
+  tile_n = in_group / gsize;
+}
+
+// one consumer warpgroup (wgi 0 or 1: rows 64 wgi .. 64 wgi + 63 of the
+// tile): wgmma on the stages that have landed, each stage released to the
+// producer once the next one's products are issued; then the epilogue
+template <int NS>
+__device__ __forceinline__ void consume(uint32_t a0, uint32_t b0,
+                                        uint32_t full0, uint32_t empty0,
+                                        bf16* __restrict__ out, int M, int N,
+                                        int tile_m, int tile_n, int nk,
+                                        int wgi) {
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  const int lane = threadIdx.x & 31;
+  int s = 0, prev = 0;
+  uint32_t ph = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(full0 + 8 * s, ph);
+    // A: this warpgroup's 64 rows, K-major, SBO = 8 rows of 128 B;
+    // B: N-major, LBO = one 64-column chunk, SBO = 8 K rows
+    const uint64_t da =
+        sw128_desc(a0 + s * A_BYTES + wgi * 64 * 128, 16, 1024);
+    const uint64_t db = sw128_desc(b0 + s * B_BYTES, B_CHUNK, 1024);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n256k16(acc, da + 2 * kk,          // 32 B along K
+                       db + (16 * 128 >> 4) * kk);  // 16 K rows
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    fence_acc(acc);
+    // the previous stage's products are done: release its buffers
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(acc);
+    if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+    prev = s;
+    if (++s == NS) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc);
+
+  // epilogue: d[4j + 2h + e] is row (warp * 16 + lane / 4 + 8h), column
+  // (8j + 2 (lane % 4) + e) of this warpgroup's 64 x 256 block; pairs of
+  // columns where N is even, single ones where it is odd (ragged N)
+  const int warp = (threadIdx.x & 127) >> 5;
+  const int row0 = tile_m * BM + wgi * 64 + warp * 16 + (lane >> 2);
+  const int col0 = tile_n * BN + (lane & 3) * 2;
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = col0 + j * 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M || col >= N) continue;
+      bf16* dst = out + (size_t)row * N + col;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      } else {
+        dst[0] = __float2bfloat16(acc[4 * j + 2 * h]);
+        if (col + 1 < N) dst[1] = __float2bfloat16(acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 // grid: one CTA per 128 x 256 output tile (1-D, grouped by 16 row tiles);
 // 384 threads: warpgroups 0 and 1 consume (rows 0-63 and 64-127 of the
 // tile), warpgroup 2 produces.
@@ -530,13 +510,8 @@ __global__ void __launch_bounds__(NT, 1) matmul_kernel(
   const uint32_t b0 = a0 + STAGES * A_BYTES;
   const uint32_t full0 = a0 + STAGES * STAGE_BYTES;
   const uint32_t empty0 = full0 + STAGES * 8;
-
-  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
-  const int per_group = GROUP_M * tiles_n;
-  const int group = blockIdx.x / per_group, first_m = group * GROUP_M;
-  const int gsize = min(tiles_m - first_m, GROUP_M);
-  const int in_group = blockIdx.x - group * per_group;
-  const int tile_m = first_m + in_group % gsize, tile_n = in_group / gsize;
+  int tile_m, tile_n;
+  tile_of(M, N, tile_m, tile_n);
   const int nk = (K + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
@@ -571,62 +546,278 @@ __global__ void __launch_bounds__(NT, 1) matmul_kernel(
       }
     }
   } else {
-    // ---- consumers: wgmma on the stages that have landed
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    float acc[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    const int lane = threadIdx.x & 31;
-    int s = 0, prev = 0;
-    uint32_t ph = 0;
-    for (int kt = 0; kt < nk; ++kt) {
-      mbar_wait(full0 + 8 * s, ph);
-      // A: this warpgroup's 64 rows, K-major, SBO = 8 rows of 128 B;
-      // B: N-major, LBO = one 64-column chunk, SBO = 8 K rows
-      const uint64_t da =
-          sw128_desc(a0 + s * A_BYTES + wgi * 64 * 128, 16, 1024);
-      const uint64_t db = sw128_desc(b0 + s * B_BYTES, B_CHUNK, 1024);
-      fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n256k16(acc, da + 2 * kk,          // 32 B along K
-                         db + (16 * 128 >> 4) * kk);  // 16 K rows
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      fence_acc(acc);
-      // the previous stage's products are done: release its buffers
-      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-      fence_acc(acc);
-      if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
-      prev = s;
-      if (++s == STAGES) {
-        s = 0;
-        ph ^= 1;
-      }
-    }
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_acc(acc);
-
-    // epilogue: d[4j + 2h + e] is row (warp * 16 + lane / 4 + 8h), column
-    // (8j + 2 (lane % 4) + e) of this warpgroup's 64 x 256 block
-    const int warp = (threadIdx.x & 127) >> 5;
-    const int row0 = tile_m * BM + wgi * 64 + warp * 16 + (lane >> 2);
-    const int col0 = tile_n * BN + (lane & 3) * 2;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = col0 + j * 8;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 8 * h;
-        if (row < M && col < N)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      }
-    }
+    consume<STAGES>(a0, b0, full0, empty0, out, M, N, tile_m, tile_n, nk,
+                    wgi);
   }
 }
 
 }  // namespace wg
+
+// ------------------------------- realign (bf16 that TMA cannot describe)
+namespace ra {
+using namespace hopper;
+using wg::BM;
+using wg::BN;
+using wg::BK;
+using wg::A_BYTES;
+using wg::B_BYTES;
+using wg::B_CHUNK;
+using wg::NT;                              // 2 consumer + 1 producer warpgroup
+constexpr int SW = 2;                      // swizzled stages (wgmma's)
+constexpr int RAW = 2;                     // raw stages (cp.async)
+constexpr int RA_PITCH = 9 * 16;           // an A row's aligned chunks
+constexpr int RB_PITCH = 33 * 16;          // a B row's
+constexpr int RA_BYTES = BM * RA_PITCH;    // 18 KB
+constexpr int RAW_BYTES = RA_BYTES + BK * RB_PITCH;   // + 33 KB
+constexpr int SMEM = 1024 + SW * (A_BYTES + B_BYTES) + RAW * RAW_BYTES +
+                     8 * (2 * SW + RAW);
+static_assert(SMEM <= 232448, "fits the SM's shared memory");
+// registers a thread after setmaxnreg.  ptxas compiles the whole kernel
+// at the launch bound's 168 and a region after a setmaxnreg.dec at its
+// count: the consumers keep their 128 accumulators, and the producer's
+// fully unrolled loops fit 120 (at 88 they spill, and unrolled by 4 take
+// 1.18x the time; tools/kernel_variants.py, PERF.md)
+constexpr int PRODUCER_REGS = 120, CONSUMER_REGS = 192;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536,
+              "the register file");
+
+// the 16 bytes at byte `shift` (even, 0..14) of p[0 .. 32): the words
+// that hold them read with the widest loads their alignment allows (a
+// warp-uniform shift: no divergence), then one funnel shift
+__device__ __forceinline__ uint4 realign_at(const uint8_t* p, int shift) {
+  uint32_t w0, w1, w2, w3, w4;
+  switch (shift >> 2) {
+    case 0: {
+      const uint4 a = *reinterpret_cast<const uint4*>(p);
+      w0 = a.x, w1 = a.y, w2 = a.z, w3 = a.w;
+      w4 = *reinterpret_cast<const uint32_t*>(p + 16);
+      break;
+    }
+    case 1: {
+      const uint2 a = *reinterpret_cast<const uint2*>(p + 8);
+      const uint2 b = *reinterpret_cast<const uint2*>(p + 16);
+      w0 = *reinterpret_cast<const uint32_t*>(p + 4);
+      w1 = a.x, w2 = a.y, w3 = b.x, w4 = b.y;
+      break;
+    }
+    case 2: {
+      const uint2 a = *reinterpret_cast<const uint2*>(p + 8);
+      const uint4 b = *reinterpret_cast<const uint4*>(p + 16);
+      w0 = a.x, w1 = a.y, w2 = b.x, w3 = b.y, w4 = b.z;
+      break;
+    }
+    default: {
+      const uint4 b = *reinterpret_cast<const uint4*>(p + 16);
+      w0 = *reinterpret_cast<const uint32_t*>(p + 12);
+      w1 = b.x, w2 = b.y, w3 = b.z, w4 = b.w;
+    }
+  }
+  const uint32_t sh = (shift & 2) * 8;
+  return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                    __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+}
+
+// the first `keep` of 8 elements, the rest zeroed (past K, N or M)
+__device__ __forceinline__ uint4 head(uint4 v, int keep) {
+  if (keep >= 8) return v;
+  auto word = [keep](uint32_t u, int i) {
+    return 2 * i + 2 <= keep ? u : 2 * i + 1 == keep ? u & 0xffffu : 0u;
+  };
+  return make_uint4(word(v.x, 0), word(v.y, 1), word(v.z, 2), word(v.w, 3));
+}
+
+// 16 bytes from the aligned global chunk `a` into shared memory at dst,
+// if ok (a chunk that holds no element of the row is never read, so no
+// read leaves the operand's pages, whatever the view's offset and stride)
+__device__ __forceinline__ void cp16(uint32_t dst, uintptr_t a, bool ok) {
+  if (ok)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+                 "l"(a)
+                 : "memory");
+}
+
+// The producer warpgroup (warps pw = 0..3) over a tile's K loop.  Raw
+// stage kt % RAW gets, by 16-byte cp.async, the aligned chunks that cover
+// each row segment of the stage -- A rows of x (64 K elements: 9 chunks
+// at most), B rows of w (256 N elements: 33 at most) -- and each producer
+// thread arrives on the stage's mbarrier once its copies have landed
+// (cp.async.mbarrier.arrive.noinc).  Warp pw copies A rows 32 pw .. 32 pw
+// + 31, four at a time (lane c = lane % 8 of row 32 pw + 4 i + lane / 8:
+// chunk c; chunk 8 of row 32 pw + j by lane j), and B rows 16 pw .. 16 pw
+// + 15, one at a time (lane q: chunk q; chunk 32 by lane 0).  Output chunk
+// c of a row is bytes [s + 16 c, s + 16 c + 16) of its raw chunks, s the
+// row's offset in its first chunk, zeroed past K, N or M and stored at
+// its 128-byte-swizzle address (chunk c of 128-byte row r at c ^ (r % 8)):
+// the layout TMA gives the wgmma route.  s is the same at every stage (a
+// stage advances x's rows by 128 bytes and w's by 64 rows, 128 ldw bytes)
+// and for rows 8 apart (16 ldx bytes), so the realign is given rows of one
+// shift at a time: warp pw realigns the A rows r = 2 pw, 2 pw + 1 (mod 8),
+// four at a time (lane c of row r + 8 (4 j + lane / 8)), and B rows 16 pw
+// .. 16 pw + 15, one at a time (lane q: output chunk q), each by a
+// warp-uniform switch on the words that hold the chunk.  Shared memory is
+// read and written through plain pointers (the mbarrier waits and the
+// proxy fence order them), so the compiler may overlap one chunk's loads
+// with another's shifts.
+__device__ __forceinline__ void produce(
+    const bf16* __restrict__ x, const bf16* __restrict__ w, int M, int N,
+    int K, long long ldx, long long ldw, int m0, int n0, int nk,
+    uint8_t* base, uint32_t a0, uint32_t b0, uint32_t raw0, uint32_t full0,
+    uint32_t empty0, uint32_t rawbar0) {
+  const uint32_t s0 = smem_u32(base);
+  const int pw = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int c = lane & 7;
+  const int nn = min(BN, N - n0);
+  const uintptr_t xb = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t wb = reinterpret_cast<uintptr_t>(w) + 2 * (uintptr_t)n0;
+  const uintptr_t xstep = 8 * (uintptr_t)ldx;   // 4 rows of x, bytes
+  const uintptr_t wrow = 2 * (uintptr_t)ldw;
+  // the A rows this lane copies: 32 pw + 4 i + lane / 8 (row i at xa + i
+  // xstep) and, for chunk 8, 32 pw + lane (at xe)
+  const int ra = 32 * pw + (lane >> 3);
+  const uintptr_t xa = xb + 2 * (uintptr_t)((long long)(m0 + ra) * ldx);
+  const int a_rows = M - m0 - ra;               // rows i with 4 i < a_rows
+  const uintptr_t xe =
+      xb + 2 * (uintptr_t)((long long)(m0 + 32 * pw + lane) * ldx);
+  const bool e_live = m0 + 32 * pw + lane < M;
+  // the warp's B rows 16 pw + i, at wb + (64 kt + 16 pw + i) wrow
+  const uintptr_t wp = wb + (uintptr_t)(16 * pw) * wrow;
+  // offsets in the first chunk, the same for every lane: of the A rows
+  // 2 pw and 2 pw + 1 (mod 8) this warp realigns, and of its B rows (4
+  // bits each)
+  auto x_shift = [&](int r) {
+    return (int)((xb + 2 * (uintptr_t)((long long)(m0 + r) * ldx)) & 15);
+  };
+  const int a_sh0 = x_shift(2 * pw), a_sh1 = x_shift(2 * pw + 1);
+  uint64_t b_shift = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    b_shift |= (uint64_t)((wp + i * wrow) & 15) << (4 * i);
+
+  auto issue = [&](int kt) {   // raw stage kt % RAW: this warp's rows
+    const int k0 = kt * BK, r = kt % RAW;
+    const int ka = 2 * min(BK, K - k0);         // bytes of an A row segment
+    const uint32_t ra_s = raw0 + r * RAW_BYTES, rb_s = ra_s + RA_BYTES;
+    const uintptr_t xs = 128 * (uintptr_t)kt;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uintptr_t ad = xa + i * xstep + xs;
+      cp16(ra_s + (ra + 4 * i) * RA_PITCH + 16 * c,
+           (ad & ~uintptr_t(15)) + 16 * c,
+           4 * i < a_rows && 16 * c - (int)(ad & 15) < ka);
+    }
+    {
+      const uintptr_t ad = xe + xs;
+      cp16(ra_s + (32 * pw + lane) * RA_PITCH + 128,
+           (ad & ~uintptr_t(15)) + 128, e_live && 128 - (int)(ad & 15) < ka);
+    }
+    const uintptr_t wk = wp + (uintptr_t)(64 * kt) * wrow;
+    const int kb_rows = K - k0 - 16 * pw;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uintptr_t ad = wk + i * wrow;
+      const uintptr_t al = ad & ~uintptr_t(15);
+      const int sh = (int)(ad & 15);
+      const uint32_t dst = rb_s + (16 * pw + i) * RB_PITCH;
+      const bool live = i < kb_rows;
+      cp16(dst + 16 * lane, al + 16 * lane, live && 16 * lane - sh < 2 * nn);
+      if (lane == 0) cp16(dst + 512, al + 512, live && 512 - sh < 2 * nn);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                     rawbar0 + 8 * r)
+                 : "memory");
+  };
+#pragma unroll 1
+  for (int kt = 0; kt < RAW && kt < nk; ++kt) issue(kt);
+
+  int s = 0;
+  uint32_t ph = 0;
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK, r = kt % RAW;
+    const int ka = min(BK, K - k0);             // K elements of the stage
+    const int kb_rows = K - k0 - 16 * pw;       // B rows i < kb_rows live
+    const uint8_t* ra_p = base + (raw0 - s0) + r * RAW_BYTES;
+    const uint8_t* rb_p = ra_p + RA_BYTES;
+    uint8_t* a_p = base + (a0 - s0) + s * A_BYTES;
+    uint8_t* b_p = base + (b0 - s0) + s * B_BYTES;
+    mbar_wait(rawbar0 + 8 * r, (kt / RAW) & 1);
+    mbar_wait(empty0 + 8 * s, ph ^ 1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int rho = 2 * pw + (i & 1);
+      const int row = rho + 8 * (4 * (i >> 1) + (lane >> 3));
+      *reinterpret_cast<uint4*>(a_p + row * 128 + ((c ^ rho) << 4)) =
+          head(realign_at(ra_p + row * RA_PITCH + 16 * c,
+                          i & 1 ? a_sh1 : a_sh0),
+               (m0 + row < M ? ka : 0) - 8 * c);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int row = 16 * pw + i;
+      const int sh = (int)((b_shift >> (4 * i)) & 15);
+      *reinterpret_cast<uint4*>(b_p + (lane >> 3) * B_CHUNK + row * 128 +
+                                (((lane & 7) ^ (row & 7)) << 4)) =
+          head(realign_at(rb_p + row * RB_PITCH + 16 * lane, sh),
+               (i < kb_rows ? nn : 0) - 8 * lane);
+    }
+    fence_proxy_async();
+    mbar_arrive(full0 + 8 * s);
+    // every producer thread is done with raw stage r: refill it
+    asm volatile("bar.sync 1, 128;" ::: "memory");
+    if (kt + RAW < nk) issue(kt + RAW);
+    if (++s == SW) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+}
+
+// the wgmma route's consumers over SW swizzled stages, fed by a producer
+// warpgroup that realigns in place of the TMA thread: its 128 threads
+// arrive on a stage's full barrier once their chunks are stored and
+// fenced for the async proxy
+__global__ void __launch_bounds__(NT, 1) matmul_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w,
+    bf16* __restrict__ out, int M, int N, int K, long long ldx,
+    long long ldw) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // SW stages of A, of B (1024-aligned), the raw stages, the barriers
+  const uint32_t a0 = smem_u32(base);
+  const uint32_t b0 = a0 + SW * A_BYTES;
+  const uint32_t raw0 = b0 + SW * B_BYTES;
+  const uint32_t full0 = raw0 + RAW * RAW_BYTES;
+  const uint32_t empty0 = full0 + 8 * SW;
+  const uint32_t rawbar0 = empty0 + 8 * SW;
+  int tile_m, tile_n;
+  wg::tile_of(M, N, tile_m, tile_n);
+  const int nk = (K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SW; ++s) {
+      mbar_init(full0 + 8 * s, 128);  // every producer thread
+      mbar_init(empty0 + 8 * s, 8);   // one arrival per consumer warp
+    }
+    for (int r = 0; r < RAW; ++r) mbar_init(rawbar0 + 8 * r, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    produce(x, w, M, N, K, ldx, ldw, tile_m * BM, tile_n * BN, nk, base, a0,
+            b0, raw0, full0, empty0, rawbar0);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    wg::consume<SW>(a0, b0, full0, empty0, out, M, N, tile_m, tile_n, nk,
+                    wgi);
+  }
+}
+}  // namespace ra
+
 
 template <int MT>
 int launch_splitk(const bf16* x, const bf16* w, bf16* out, float* partial,
@@ -650,8 +841,8 @@ int launch_splitk(const bf16* x, const bf16* w, bf16* out, float* partial,
 
 }  // namespace
 
-// Route codes (kernel.py's ROUTES order): 0 = wgmma, 1 = splitk, 2 = wmma,
-// 3 = f32.  x: (M, K) with row stride ldx, w: (K, N) with row stride ldw,
+// Route codes (kernel.py's ROUTES order): 0 = wgmma, 1 = splitk, 2 =
+// realign, 3 = f32.  x: (M, K) with row stride ldx, w: (K, N) with row stride ldw,
 // both with a contiguous last dim; out: a contiguous (M, N) of x's dtype
 // (fp32 for f32, bf16 otherwise).  splits > 1 (splitk, f32): partial is an
 // fp32 (splits, M, N) scratch and counters one zeroed int per output tile
@@ -711,15 +902,23 @@ extern "C" int streamed_matmul_launch(const void* x, const void* w,
     return launch_splitk<8>(xb, wb, ob, pf, ct, M, N, K, ldx, ldw, kchunk,
                             splits, s);
   }
-  if (route == 2) {   // wmma
-    dim3 grid((N + wr::BN - 1) / wr::BN, (M + wr::BM - 1) / wr::BM);
-    if (grid.y > 65535 || splits != 1) return (int)cudaErrorInvalidValue;
-    if (aligned)
-      wr::matmul_bf16_kernel<true><<<grid, wr::NT, 0, s>>>(xb, wb, ob, M, N, K,
-                                                          ldx, ldw);
-    else
-      wr::matmul_bf16_kernel<false><<<grid, wr::NT, 0, s>>>(xb, wb, ob, M, N,
-                                                           K, ldx, ldw);
+  if (route == 2) {   // realign
+    const long long tiles = (long long)((M + wg::BM - 1) / wg::BM) *
+                            ((N + wg::BN - 1) / wg::BN);
+    if (tiles > 0x7fffffffLL || splits != 1 ||
+        ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) &
+         1))
+      return (int)cudaErrorInvalidValue;
+    static bool attr = false;
+    if (!attr) {
+      cudaError_t err = cudaFuncSetAttribute(
+          ra::matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          ra::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      attr = true;
+    }
+    ra::matmul_kernel<<<(unsigned)tiles, ra::NT, ra::SMEM, s>>>(
+        xb, wb, ob, M, N, K, ldx, ldw);
     return (int)cudaGetLastError();
   }
   if (route == 3) {   // f32

@@ -4,9 +4,12 @@ lives in ``ref.py`` and the device routing in ``ops.py``.
 
 Two routes, picked by :func:`plan` before launch from the dtype, the head
 dim, the group size and the alignment alone (never after a failure), each
-with its own launch count: ``wgmma`` (bf16 that TMA can describe: K/V
-tiles by TMA, both products on the tensor cores) and ``simt`` (fp32, and
-bf16 views TMA cannot describe: fp32 dots on the CUDA cores)."""
+with its own launch count: ``wgmma`` (bf16 that TMA can describe, G <= 64:
+K/V tiles by TMA, both products wgmma) and ``mma`` (fp32, bf16 views TMA
+cannot describe, and G > 64: K/V tiles by cp.async at the widest width
+each row's alignment allows, both products mma.sync on the tensor cores,
+fp32 as 3xTF32 -- hi/lo tf32 halves, three products -- which keeps fp32's
+1e-4).  Both read a K/V tile once for all G heads of a kv head."""
 from __future__ import annotations
 
 import ctypes
@@ -17,7 +20,7 @@ from repro_torch.kernels import build
 
 SOURCE = "flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention/kernel.py:73"
-ROUTES = ("wgmma", "simt")          # route codes 0, 1 of the C entry point
+ROUTES = ("wgmma", "mma")           # route codes 0, 1 of the C entry point
 launches = {r: build.LaunchCount(f"flash_attention_{r}") for r in ROUTES}
 COUNTERS = tuple(launches.values())
 
@@ -25,8 +28,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims both routes take (the ``switch``es of the source)
 HEAD_DIMS = (32, 64, 128, 256)
 #: keys per KV tile, a constant of each route (``BK`` in the source's
-#: ``wg`` and ``simt`` namespaces); tiles sit at absolute positions
-KEY_TILE = {"wgmma": 64, "simt": 32}
+#: ``wg`` and ``mma`` namespaces); tiles sit at absolute positions
+KEY_TILE = {"wgmma": 64, "mma": 64}
 #: the wgmma route's largest group Hq / Hkv (``MAX_G``: one position's
 #: heads fit the 64 rows of a warpgroup)
 MAX_G = 64
@@ -35,7 +38,7 @@ _fn = None
 
 def plan(dtype: torch.dtype, d: int, g: int, aligned: bool) -> str:
     """The route of a launch: ``wgmma`` for bf16 with TMA-describable
-    operands (``aligned``) and G <= 64, else ``simt``.  Raises ValueError
+    operands (``aligned``) and G <= 64, else ``mma``.  Raises ValueError
     for what neither route takes."""
     if dtype not in _DTYPES:
         raise ValueError(f"flash kernel: dtype {dtype} not supported")
@@ -43,13 +46,14 @@ def plan(dtype: torch.dtype, d: int, g: int, aligned: bool) -> str:
         raise ValueError(f"flash kernel: head_dim {d} not in {HEAD_DIMS}")
     if dtype == torch.bfloat16 and aligned and g <= MAX_G:
         return "wgmma"
-    return "simt"
+    return "mma"
 
 
-def instance(d: int) -> str:
+def instance(d: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The template instantiation a launch of head dim ``d`` runs, within
-    its route."""
-    return f"d={d}"
+    its route: ``d=<d>``, and ``d=<d> fp32`` for the mma route's fp32
+    template (a row of the kernels' JSON line reads its own)."""
+    return f"d={d}" + (" fp32" if dtype == torch.float32 else "")
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -112,7 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  q.dtype == torch.bfloat16 and aligned(q, k, v))
     if sq < 1 or sk < 1 or not 0 <= kv_valid <= sk:
         raise ValueError(f"flash kernel: Sq={sq} Sk={sk} kv_valid={kv_valid}")
-    if (b * hkv if route == "wgmma" else b * hq) > 65535:
+    if b * hkv > 65535:
         raise ValueError(f"flash kernel: B={b} x heads exceeds the grid")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*(tma_strides(q) + tma_strides(k)
@@ -123,5 +127,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      int(causal), int(window), int(q_offset), int(kv_valid),
                      _DTYPES[q.dtype], ROUTES.index(route), stream)
     build.check(rc, f"flash_attention_{route}")
-    launches[route].add(instance(d))
+    launches[route].add(instance(d, q.dtype))
     return out

@@ -13,8 +13,11 @@ the CPU tests cover the choice; each route has its own launch count:
   weight streaming over 256-column tiles with K split over CTAs until
   the grid fills one wave of resident CTAs; the fp32 partials are summed
   in split order by the last CTA of each tile;
-* ``wmma`` -- bf16 that TMA cannot describe (ragged K or N, unaligned
-  views): the wmma kernel of the first version;
+* ``realign`` -- bf16 that TMA cannot describe (any base offset, any row
+  stride, ragged K or N, any M): the wgmma route's tiles, ring and
+  consumers, fed by a producer warpgroup that loads the aligned 16-byte
+  chunks covering each row, shifts them into place and stores them at
+  their 128-byte-swizzle addresses;
 * ``f32`` -- fp32 on the CUDA cores, K split the same way when the 64 x
   64 tiles alone would leave SMs idle.
 """
@@ -29,7 +32,7 @@ from repro_torch.kernels import build
 
 SOURCE = "streamed_matmul.cu"
 REPLACES = "src/repro/kernels/streamed_matmul/kernel.py:37"
-ROUTES = ("wgmma", "splitk", "wmma", "f32")     # the C entry's route codes
+ROUTES = ("wgmma", "splitk", "realign", "f32")  # the C entry's route codes
 launches = {r: build.LaunchCount(f"streamed_matmul_{r}") for r in ROUTES}
 COUNTERS = tuple(launches.values())
 
@@ -42,7 +45,6 @@ SPLITK_N, SPLITK_KSTEP = 256, 64
 SPLITK_SMEM = 96 * 1024     # x's chunk (fp32) and the warps' sums
 SPLITK_RESIDENT = 2         # CTAs an SM holds (the kernel's launch bounds)
 WGMMA_M, WGMMA_N = 128, 256
-WMMA_TILE = 128
 F32_TILE, F32_MIN_KCHUNK, F32_KSTEP = 64, 32, 16
 MAX_X, MAX_YZ = 2 ** 31 - 1, 65535      # CUDA grid limits
 
@@ -121,8 +123,8 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype,
         raise ValueError(f"streamed matmul kernel: dtype {dtype}; takes "
                          f"fp32 or bf16")
     elif not is_aligned:
-        route = Route("wmma", (_cdiv(n, WMMA_TILE), _cdiv(m, WMMA_TILE), 1),
-                      1, k)
+        route = Route("realign",
+                      (_cdiv(m, WGMMA_M) * _cdiv(n, WGMMA_N), 1, 1), 1, k)
     elif m <= SPLITK_MAX_M:
         route = _plan_splitk(m, k, n)
     else:

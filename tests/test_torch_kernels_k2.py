@@ -107,6 +107,69 @@ def test_flash_plain_matches_model_layer_path_d256(sq, sk, q_offset, window,
     np.testing.assert_allclose(_f32(got), _f32(want), **tol)
 
 
+#: K2's fp32 tolerance on the card (``chip_smoke.py``'s ``F32_TOL``)
+F32_TOL = 1e-4
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: fp32 rounded to a 10-bit mantissa, to the
+    nearest, ties away from zero (on the magnitude bits; the sign stays)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_einsum(passes: int, einsum):
+    """A model of the mma route's fp32 products: one tf32 product (1), or
+    3xTF32 (3): hi = tf32(x), lo = tf32(x - hi) of each operand and lo hi
+    + hi lo + hi hi, summed in fp32."""
+    def product(eq, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        if passes == 1:
+            return einsum(eq, ah, bh)
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        return (einsum(eq, al, bh) + einsum(eq, ah, bl)
+                + einsum(eq, ah, bh))
+    return product
+
+
+@pytest.mark.parametrize("window", [0, 32], ids=["causal", "windowed"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_3xtf32_error_budget(d, window, monkeypatch):
+    """Why the mma route runs fp32 as three tf32 products: the plain
+    version with both of its products (S = Q K^T, O = P V) rounded as the
+    tensor cores round them stays within the card's fp32 tolerance of the
+    reference's Pallas kernel (interpret mode) with 3xTF32, and misses it
+    with one tf32 product.  q, k, v ~ randn, as on the card."""
+    rng = np.random.RandomState(d + window)
+    sq, hq, hkv = 128, 4, 2
+    q, k, v = (rng.randn(1, sq, h, d).astype(np.float32)
+               for h in (hq, hkv, hkv))
+    want = np.asarray(ref_fa.attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, bq=32, bk=32, interpret=True))
+    einsum = torch.einsum
+    err = {}
+    for passes in (1, 3):
+        monkeypatch.setattr(torch, "einsum", _tf32_einsum(passes, einsum))
+        got = fa.attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), causal=True, window=window)
+        monkeypatch.setattr(torch, "einsum", einsum)
+        err[passes] = float(np.abs(got.numpy() - want).max())
+    assert err[3] <= F32_TOL, err
+    assert err[1] > F32_TOL, err
+
+
+def test_tf32_model_rounds_to_nearest_ties_away():
+    """The model of ``cvt.rna``: 10 mantissa bits kept, the 13 dropped
+    rounded half away from zero, the sign left as it is."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 1.5 * ulp, 3.0, 0.0])
+    got = _tf32(x).tolist()
+    assert got == [one + ulp, -(one + ulp), one, one + 2 * ulp, 3.0, 0.0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q_offset,window", [(130, 40), (200, 64),
                                              (300, 100)])
@@ -133,21 +196,34 @@ def test_flash_plain_skipping_windowed_lead_tiles_keeps_bits(q_offset, window,
     assert torch.equal(full, part)
 
 
+def _source_bk(namespace: str) -> int:
+    """The first ``BK`` constant inside ``namespace`` of K2's source."""
+    src = (build.CSRC / fa_kernel.SOURCE).read_text()
+    body = src[src.index(f"namespace {namespace} {{"):]
+    return int(re.search(r"constexpr int BK = (\d+);", body).group(1))
+
+
 def test_flash_plain_key_tile_is_the_wgmma_routes():
     """The plain version's KV tiles are the wgmma route's: its default
     ``kv_block`` is ``KEY_TILE["wgmma"]``, the ``BK`` of the source's
-    ``wg`` namespace (and the simt route's is its own ``BK``)."""
+    ``wg`` namespace (and of the softmax both routes share)."""
     import inspect
     default = inspect.signature(fa_ref.flash_attention_ref).parameters[
         "kv_block"].default
     assert default == fa_kernel.KEY_TILE["wgmma"]
+    assert _source_bk("wg") == fa_kernel.KEY_TILE["wgmma"]
+    assert _source_bk("softmax") == fa_kernel.KEY_TILE["wgmma"]
     src = (build.CSRC / fa_kernel.SOURCE).read_text()
-    for ns, route in (("wg", "wgmma"), ("simt", "simt")):
-        body = src[src.index(f"namespace {ns} {{"):]
-        got = re.search(r"constexpr int BK = (\d+);", body).group(1)
-        assert int(got) == fa_kernel.KEY_TILE[route], ns
     assert int(re.search(r"constexpr int MAX_G = (\d+);", src).group(1)) \
         == fa_kernel.MAX_G
+
+
+def test_flash_key_tile_of_the_mma_route_is_its_bk():
+    """``KEY_TILE["mma"]`` is the ``BK`` of the source's ``mma``
+    namespace, and the plain version's tile: the mma route's bits on the
+    card are held to the plain version at the same absolute tiles."""
+    assert _source_bk("mma") == fa_kernel.KEY_TILE["mma"]
+    assert fa_kernel.KEY_TILE["mma"] == fa_kernel.KEY_TILE["wgmma"]
 
 
 def test_flash_head_dims_in_binding_equal_the_sources():
@@ -156,7 +232,7 @@ def test_flash_head_dims_in_binding_equal_the_sources():
     src = (build.CSRC / fa_kernel.SOURCE).read_text()
     entry = src[src.index('extern "C" int flash_attention_launch'):]
     switches = re.findall(r"switch \(D\) \{(.*?)\n    \}", entry, re.S)
-    assert len(switches) == 3             # wgmma, simt fp32, simt bf16
+    assert len(switches) == 3             # wgmma, mma fp32, mma bf16
     for body in switches:
         dims = tuple(int(x) for x in re.findall(r"case (\d+):", body))
         assert dims == fa_kernel.HEAD_DIMS
@@ -170,14 +246,16 @@ def test_flash_head_dims_in_binding_equal_the_sources():
 @pytest.mark.parametrize("g", [1, 5, 12, 16, 64])
 def test_flash_plan_routes(d, g):
     assert fa_kernel.plan(torch.bfloat16, d, g, True) == "wgmma"
-    assert fa_kernel.plan(torch.bfloat16, d, g, False) == "simt"
-    assert fa_kernel.plan(torch.float32, d, g, True) == "simt"
-    assert fa_kernel.plan(torch.float32, d, g, False) == "simt"
+    assert fa_kernel.plan(torch.bfloat16, d, g, False) == "mma"
+    assert fa_kernel.plan(torch.float32, d, g, True) == "mma"
+    assert fa_kernel.plan(torch.float32, d, g, False) == "mma"
 
 
 def test_flash_plan_past_the_wgmma_group_takes_simt():
-    assert fa_kernel.plan(torch.bfloat16, 128, fa_kernel.MAX_G + 1,
-                          True) == "simt"
+    """Past the wgmma route's group the mma route (which took over the
+    simt route's share) takes any G."""
+    for g in (fa_kernel.MAX_G + 1, 96, 128):
+        assert fa_kernel.plan(torch.bfloat16, 128, g, True) == "mma"
 
 
 @pytest.mark.parametrize("d", [16, 48, 96, 160, 512])
@@ -211,7 +289,7 @@ def test_flash_aligned_on_views():
 
 def test_flash_counters_one_per_route():
     assert [c.name for c in fa_kernel.COUNTERS] == [
-        "flash_attention_wgmma", "flash_attention_simt"]
+        "flash_attention_wgmma", "flash_attention_mma"]
     counts = launch_counts()
     for r in fa_kernel.ROUTES:
         assert f"flash_attention_{r}" in counts
@@ -222,8 +300,10 @@ def test_flash_instance_names_the_head_dim(d):
     """K2 counts its launches by head dim too (one instantiation each, per
     route), so a row of the kernels' JSON line reads its own count."""
     assert fa_kernel.instance(d) == f"d={d}"
+    assert fa_kernel.instance(d, torch.float32) == f"d={d} fp32"
     src = (build.CSRC / fa_kernel.SOURCE).read_text()
-    assert f"wg::launch_nc<{d}>" in src and f"SIMT(float, {d})" in src
+    assert f"wg::launch_nc<{d}>" in src and f"MMA(float, {d})" in src
+    assert f"MMA(bf16, {d})" in src
 
 
 def test_launch_count_by_instance_and_reset():

@@ -267,7 +267,8 @@ def _check_route(route, m, k, n, dtype, is_aligned):
     if dtype == torch.float32:
         assert route.name == "f32"
     elif not is_aligned:
-        assert route.name == "wmma"        # TMA cannot describe it
+        assert route.name == "realign"     # TMA cannot describe it
+        assert route.ctas == -(-m // 128) * -(-n // 256)
     elif m <= sm_kernel.SPLITK_MAX_M:
         assert route.name == "splitk"
         mt = sm_kernel.splitk_rows(m)
@@ -337,4 +338,4 @@ def test_aligned_reports_what_tma_can_describe(case):
     m, k = x.shape
     route = sm_kernel.plan(m, k, w.shape[1], torch.bfloat16,
                            sm_kernel.aligned(x, w))
-    assert route.name == ("wgmma" if want else "wmma")
+    assert route.name == ("wgmma" if want else "realign")
