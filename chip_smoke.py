@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--layers N]
-                          [--phases kernels,parity,moe,gpt3,serve,dense,
-                                    tiers,disagg]
+                          [--phases kernels,parity,moe,gpt3,families,
+                                    serve,dense,tiers,disagg]
 
-Phases (kernels, parity, moe, gpt3, serve, dense, tiers and disagg by
-default):
+Phases (kernels, parity, moe, gpt3, families, serve, dense, tiers and
+disagg by default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
@@ -30,7 +30,13 @@ default):
    heads at d = 128,
    36/36 at d = 64, both also timed at an 8-token admission), windows
    (some skipping whole key
-   tiles), kv_valid padding and Sq = Sk up to 2048, each element and each
+   tiles), kv_valid padding and Sq = Sk up to 2048, the families
+   phase's shapes (whisper-base's encoder at Sq = Sk = 1500 and its
+   cross-attention at Sq = 8, Sk = 1500, non-causal, and its causal
+   8-token self-attention, 8/8 heads at d = 64, batch 4;
+   recurrentgemma-9b's admission and 2100-token prompt, 16/1 at d = 256
+   under a window of 2048; all timed, SDPA given the window as a
+   boolean mask), each element and each
    row (against its largest value) within tolerance, two launches giving
    the same bits, and suffix rows at q_offset 48, 200 and 130 (with and
    without a window) bit-identical to the unshared rows (bf16 on wgmma,
@@ -64,7 +70,11 @@ default):
    minicpm-2b (G = 1 kept), starcoder2-15b and gpt3-175b (G = 1 kept)
    over pools and qwen2.5-14b with a window of 8 and with ``kv_quant``
    over the dense slab (first-8 tokens, logits within 1e-3; K1 never
-   over the slab);
+   over the slab), and the other families: recurrentgemma-9b reduced to
+   one (rec, rec, att) group and a tail of two rec blocks (window 8) and
+   xlstm-125m served over their slab (first-8 tokens, prefill logits
+   within 1e-3), whisper-base's ``prefill`` with frames and 7 greedy
+   decode steps (the tokens equal, prefill logits within 1e-3);
 4. ``moe``: serve granite-moe-3b-a800m at its published widths and full
    depth (32 layers, d 1536, 24/8 heads, 40 experts top-8 of d_ff 512,
    tp=1, random bf16 weights) on the serve phase's four 8-token prompts
@@ -101,6 +111,36 @@ default):
    an admission.  It prints the host's MemTotal, tok/s, ms a step and
    peak device memory beside the floors (a step's bytes over 3.35 TB/s
    resident, the layers over 64 GB/s paged);
+4c. ``families``: the hybrid, ssm and encdec families at full width,
+   tp=1, random weights from a seed, after the gpt3 phase and before the
+   Qwen weights exist, each freeing its weights when done.
+   recurrentgemma-9b at full depth (38 layers: 12 (rec, rec, att) groups
+   and 2 rec, d 4096, 16/1 heads, d_head 256, d_ff 12288, vocab 256000;
+   20.9 GB of bf16) through ``BatchedServer`` over its slab of recurrent
+   state and attention windows, on the serve phase's four 8-token
+   prompts (32 new tokens, batch 4, block 32, max_seq 384, seed 0):
+   greedy and at 0.7, K1 never, K2 12 times an admission (its att
+   layers) on wgmma at d = 256, the greedy tokens held to a model-level
+   ``prefill`` + ``decode_step`` loop at batch 1 (first-8 >= 0.75,
+   bit-equality logged); one 2100-token prompt at batch 1 (max_seq
+   2200, 16 new tokens: its 2048 window slots roll), held the same way;
+   then greedy with the 12 groups in pinned host memory, streamed a group
+   at a time by the Tensor Prefetcher (lookahead 1; tail, embedding and
+   head resident): the resident tokens, every group fetched once a step
+   and once an admission.  xlstm-125m (12 layers (m, m, m, s) x 3, d
+   768, 4 heads) through ``BatchedServer``: bf16 greedy and at 0.7 (no
+   kernel launches), then fp32 on the card and on the CPU (prefill
+   logits within 1e-3, first-8 equal).  whisper-base (6 + 6 layers, d
+   512, 8/8 heads, 1500 frames) at the model level, as in the reference
+   (no server path): seeded random frames (4, 1500, 512), ``prefill`` of
+   the four prompts and 31 greedy ``decode_step``s in bf16, K2 18 times
+   a prefill (6 encoder launches at Sq = Sk = 1500, 6 causal, 6 cross at
+   Sq = 8, Sk = 1500) on wgmma at d = 64 and none a step; fp32 card
+   against CPU on two prompts (prefill logits within 1e-3, first 8
+   tokens equal).  It prints ms a step, tok/s, peak device memory, a
+   slot's slab bytes (recurrent state beside the windows, against
+   Qwen2.5-14B's KV), the paged run's host-to-device rate beside its
+   PCIe floor, and the phase's time;
 5. ``serve``: serve Qwen2.5-14B at its published widths (tp=1, random bf16
    weights from a seeded torch.Generator, made once) through
    ``BatchedServer`` — four 8-token prompts plus a prefix-sharing pair, 64
@@ -164,8 +204,9 @@ default):
    and the offload run's tok/s, peak device memory and KV window bytes
    against the resident pool's bytes;
 7. ``disagg``: disaggregated prefill and the request lifecycle,
-   Qwen2.5-14B at full depth whatever ``--layers`` says (the weights of
-   the full-depth phases), on the serving benchmark's interference
+   Qwen2.5-14B at 24 of its 48 layers whatever ``--layers`` says (the
+   first half of the full-depth phases' weights: ``DISAGG_LAYERS``), on
+   the serving benchmark's interference
    traffic (batch 4, block 32, max_seq 384, page 16, seed 0: four 8-token
    prompts with 32, 64, 96 and 96 new tokens and two 128-token prompts
    with 8, admitted as slots free; ``prefill_chunk_tokens`` 32):
@@ -202,10 +243,11 @@ default):
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
 shape, ``tiers_launches``, ``disagg_launches``, ``moe_launches``,
-``gpt3_launches`` and ``dense_launches`` beside ``launches`` (a row at
-granite's shapes, and the gather's, reads ``launches`` from the moe
-phase, by route; a row at gpt3-175b's from the gpt3 phase; a shape no
-driven path runs, minicpm-2b's, reads 0);
+``gpt3_launches``, ``dense_launches`` and ``families_launches`` beside
+``launches`` (a row at granite's shapes, and the gather's, reads
+``launches`` from the moe phase, by route; a row at gpt3-175b's from the
+gpt3 phase; at whisper-base's or recurrentgemma-9b's from the families
+phase; a shape no driven path runs, minicpm-2b's, reads 0);
 the last is ``{"ok":
 true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
@@ -217,6 +259,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -505,7 +548,12 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None,
 #: under a q_offset) and of 256 (d = 256, 2048 tokens) leave whole key
 #: tiles below the window of a query tile's first row: both routes skip
 #: them.  72 query heads on one kv head (G = 72 > 64) take the mma route
-#: in bf16 too
+#: in bf16 too.  The families phase's shapes: whisper-base's encoder
+#: (non-causal, Sq = Sk = 1500 over 24 key tiles, the last cut at 1500 by
+#: kv_valid), its cross-attention (Sq = 8 against the 1500 frames) and
+#: causal self-attention (8/8 heads at d = 64, batch 4), and
+#: recurrentgemma-9b's admission and 2100-token prompt (16/1 heads at d =
+#: 256 under its window of 2048)
 FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 384, 384, 40, 8, 128, {}),
                (1, 2048, 2048, 40, 8, 128, {}),
@@ -524,7 +572,12 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 8, 8, 96, 96, 128, {}), (1, 384, 384, 96, 96, 128, {}),
                (1, 8, 8, 36, 36, 64, {}), (1, 64, 64, 36, 36, 64, {}),
                (1, 50, 50, 36, 36, 64, {"window": 13}),
-               (1, 40, 40, 72, 1, 64, {}))
+               (1, 40, 40, 72, 1, 64, {}),
+               (4, 1500, 1500, 8, 8, 64, {"causal": False}),
+               (4, 8, 1500, 8, 8, 64, {"causal": False}),
+               (4, 8, 8, 8, 8, 64, {}),
+               (1, 8, 8, 16, 1, 256, {"window": 2048}),
+               (1, 2100, 2100, 16, 1, 256, {"window": 2048}))
 #: the prefix contract's cases: (Sq = Sk, q_offset, Hq, Hkv, d, window).
 #: At 130 a row sits at another place of its query tile than unshared
 #: (25 positions a tile at 40/8 heads, 4 at 16/1), and with a window of
@@ -537,7 +590,8 @@ FLASH_PREFIX = ((64, 48, 40, 8, 128, 0), (384, 200, 40, 8, 128, 0),
 #: d): granite-moe-3b-a800m's (moe phase), gpt3-175b's MHA (gpt3 phase),
 #: minicpm-2b's MHA (no driven path: kernels phase only); else serve
 ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
-              (36, 36, 64): "kernels"}
+              (36, 36, 64): "kernels", (8, 8, 64): "families",
+              (16, 1, 256): "families"}
 #: K2's timed shapes (route, dtype, Sq = Sk, Hq, Hkv, d): the main path's
 #: route at Qwen2.5-14B's width over four prompt lengths, at
 #: granite-moe-3b-a800m's admission (8 tokens, 24/8 heads, d = 64), at
@@ -545,18 +599,30 @@ ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
 #: (36/36, d = 64) and at d = 256; the mma route in fp32 at the width of
 #: the parity phase's fp32 model (and of the dense phase's fp32 witness)
 #: at 384 and 2048 tokens, and in bf16 over a view of head stride d + 9
-#: (not TMA's); the last field is that padding
-FLASH_TIMED = (("wgmma", "bfloat16", 8, 40, 8, 128, 0),
-               ("wgmma", "bfloat16", 8, 24, 8, 64, 0),
-               ("wgmma", "bfloat16", 8, 96, 96, 128, 0),
-               ("wgmma", "bfloat16", 8, 36, 36, 64, 0),
-               ("wgmma", "bfloat16", 64, 40, 8, 128, 0),
-               ("wgmma", "bfloat16", 384, 40, 8, 128, 0),
-               ("wgmma", "bfloat16", 2048, 40, 8, 128, 0),
-               ("wgmma", "bfloat16", 2048, 16, 1, 256, 0),
-               ("mma", "float32", 384, 40, 8, 128, 0),
-               ("mma", "float32", 2048, 40, 8, 128, 0),
-               ("mma", "bfloat16", 384, 40, 8, 128, 9))
+#: (not TMA's; the field after d is that padding); the families phase's
+#: whisper-base encoder, cross- and self-attention and recurrentgemma-9b's
+#: admission and 2100-token prompt, at the batch and keywords its path
+#: gives them (the first and last fields)
+FLASH_TIMED = ((1, "wgmma", "bfloat16", 8, 8, 40, 8, 128, 0, {}),
+               (1, "wgmma", "bfloat16", 8, 8, 24, 8, 64, 0, {}),
+               (1, "wgmma", "bfloat16", 8, 8, 96, 96, 128, 0, {}),
+               (1, "wgmma", "bfloat16", 8, 8, 36, 36, 64, 0, {}),
+               (1, "wgmma", "bfloat16", 64, 64, 40, 8, 128, 0, {}),
+               (1, "wgmma", "bfloat16", 384, 384, 40, 8, 128, 0, {}),
+               (1, "wgmma", "bfloat16", 2048, 2048, 40, 8, 128, 0, {}),
+               (1, "wgmma", "bfloat16", 2048, 2048, 16, 1, 256, 0, {}),
+               (1, "mma", "float32", 384, 384, 40, 8, 128, 0, {}),
+               (1, "mma", "float32", 2048, 2048, 40, 8, 128, 0, {}),
+               (1, "mma", "bfloat16", 384, 384, 40, 8, 128, 9, {}),
+               (4, "wgmma", "bfloat16", 1500, 1500, 8, 8, 64, 0,
+                {"causal": False}),
+               (4, "wgmma", "bfloat16", 8, 1500, 8, 8, 64, 0,
+                {"causal": False}),
+               (4, "wgmma", "bfloat16", 8, 8, 8, 8, 64, 0, {}),
+               (1, "wgmma", "bfloat16", 8, 8, 16, 1, 256, 0,
+                {"window": 2048}),
+               (1, "wgmma", "bfloat16", 2100, 2100, 16, 1, 256, 0,
+                {"window": 2048}))
 
 
 def _flash_pairs(torch, sq, sk, causal=True, window=0, q_offset=None,
@@ -566,7 +632,8 @@ def _flash_pairs(torch, sq, sk, causal=True, window=0, q_offset=None,
     q_offset = sk - sq if q_offset is None else q_offset
     kv_valid = sk if kv_valid is None else kv_valid
     return int(_mask(q_offset + torch.arange(sq), torch.arange(sk),
-                     causal=causal, window=window, kv_valid=kv_valid).sum())
+                     causal=causal, window=window, kv_valid=kv_valid
+                     ).expand(sq, sk).sum())
 
 
 def check_flash(torch, card: str, results: dict) -> None:
@@ -639,9 +706,9 @@ def check_flash(torch, card: str, results: dict) -> None:
                 raise AssertionError(f"K2 {name}: {err}, {rel} > {tol}")
             if not same:
                 raise AssertionError(f"K2 {name}: two launches differ")
-            if not kw:
-                key = (want_route, str(dtype)[6:], sq, hq, hkv, d, pad)
-                errs[key] = max(errs.get(key, 0.0), err)
+            key = (b, want_route, str(dtype)[6:], sq, sk, hq, hkv, d, pad,
+                   tuple(sorted(kw.items())))
+            errs[key] = max(errs.get(key, 0.0), err)
     # the prefix contract: suffix rows with q_offset equal the full rows
     for dtype in (torch.bfloat16, torch.float32):
         for sq, off, hq, hkv, d, window in FLASH_PREFIX:
@@ -660,30 +727,45 @@ def check_flash(torch, card: str, results: dict) -> None:
         f"Hkv, d, window) in {FLASH_PREFIX}")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for route, dt, sq, hq, hkv, d, pad in FLASH_TIMED:
+    from repro_torch.kernels.flash_attention.ref import _mask
+    for b, route, dt, sq, sk, hq, hkv, d, pad, kw in FLASH_TIMED:
         dtype = getattr(torch, dt)
-        # at 2048 tokens a set is ~30 MB: four sets still rotate past L2
-        sets = [inputs(1, sq, sq, hq, hkv, d, dtype, pad)
-                for _ in range(ROTATE if sq < 2048 else 4)]
+        # a set of ~30 MB or more: four sets still rotate past L2
+        big = b * max(sq, sk) >= 2048
+        sets = [inputs(b, sq, sk, hq, hkv, d, dtype, pad)
+                for _ in range(4 if big else ROTATE)]
         if K.plan(dtype, d, hq // hkv, dtype == torch.bfloat16
                   and K.aligned(*sets[0])) != route:
             raise AssertionError(f"K2 timed {route}: plan disagrees")
-        ms = time_ms(torch, lambda q, k, v: run(K.flash_attention, q, k, v),
-                     sets)
+        ms = time_ms(torch, lambda q, k, v: run(K.flash_attention, q, k, v,
+                                                **kw), sets)
         plain_ms = time_ms(torch, lambda q, k, v: run(
-            flash_attention_ref, q, k, v), sets, iters=1 if sq >= 2048
+            flash_attention_ref, q, k, v, **kw), sets, iters=1 if big
             else 5, graph=False)
         lib_sets = [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(
             hq // hkv, dim=1), v.transpose(1, 2).repeat_interleave(
             hq // hkv, dim=1)) for q, k, v in sets]
-        lib_ms = time_ms(torch, lambda q, k, v: sdpa(q, k, v, is_causal=True),
-                         lib_sets)
+        causal = kw.get("causal", True)
+        if kw.get("window"):
+            # SDPA has no window: the same mask, given as a boolean tensor
+            mask = _mask(sk - sq + torch.arange(sq, device="cuda"),
+                         torch.arange(sk, device="cuda"), causal=causal,
+                         window=kw["window"], kv_valid=sk)
+            lib_ms = time_ms(torch, lambda q, k, v: sdpa(
+                q, k, v, attn_mask=mask), lib_sets)
+        else:
+            lib_ms = time_ms(torch, lambda q, k, v: sdpa(
+                q, k, v, is_causal=causal), lib_sets)
         size = sets[0][0].element_size()
-        nbytes = size * (2 * sq * hq * d + 2 * sq * hkv * d)  # q,out,k,v
-        flops = 4 * d * hq * _flash_pairs(torch, sq, sq)      # causal pairs
+        nbytes = size * b * (2 * sq * hq * d + 2 * sk * hkv * d)  # q,o,k,v
+        flops = 4 * d * hq * b * _flash_pairs(torch, sq, sk, **kw)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if dt ==
                            "bfloat16" else TF32X3_FLOPS_PER_S)
-        shape = (f"B=1 Sq=Sk={sq} Hq={hq} Hkv={hkv} d={d} causal {dt}"
+        seqs = f"Sq=Sk={sq}" if sq == sk else f"Sq={sq} Sk={sk}"
+        mode = "causal" if causal else "non-causal"
+        if kw.get("window"):
+            mode += f" window {kw['window']}"
+        shape = (f"B={b} {seqs} Hq={hq} Hkv={hkv} d={d} {mode} {dt}"
                  f"{f' head stride {sets[0][0].stride(2)}' if pad else ''}")
         log(f"K2 flash_attention_{route} {shape} [{card}]: kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
@@ -692,7 +774,8 @@ def check_flash(torch, card: str, results: dict) -> None:
         results.setdefault(f"flash_attention_{route}", []).append(dict(
             shape=shape, instance=K.instance(d, dtype),
             phase=ATTN_PHASE.get((hq, hkv, d), "serve"),
-            max_abs_err=errs[(route, dt, sq, hq, hkv, d, pad)], ms=ms,
+            max_abs_err=errs[(b, route, dt, sq, sk, hq, hkv, d, pad,
+                              tuple(sorted(kw.items())))], ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
 
@@ -1248,9 +1331,13 @@ def _to(tree, dev):
 
 
 def check_parity_families(torch) -> None:
-    """Smoke-size fp32 MoE (granite-moe-3b-a800m reduced: 4 experts, top-2)
-    and VLM (llava-next-34b reduced: 8 patches), the card against the CPU
-    with the same weights.  MoE: served greedy (the serve phase's
+    """Smoke-size fp32 MoE (granite-moe-3b-a800m reduced: 4 experts, top-2),
+    VLM (llava-next-34b reduced: 8 patches), hybrid (recurrentgemma-9b
+    reduced to 5 layers), xLSTM and whisper, the card against the CPU
+    with the same weights.  The hybrid and the xLSTM: served greedy over
+    their slab, the first 8 tokens and the prefill logits (1e-3);
+    whisper: ``prefill`` with frames and 7 greedy decode steps, the
+    tokens equal and the prefill logits within 1e-3.  MoE: served greedy (the serve phase's
     prompts), tokens' first 8 and the prefill logits (bound 1e-3) agree;
     served once more on the card with its banks in mapped pinned host
     memory (``page_experts``): the card's resident tokens, through the
@@ -1325,6 +1412,42 @@ def check_parity_families(torch) -> None:
         f"(bound 1e-3)")
     if not err <= 1e-3:
         raise AssertionError("smoke VLM: card and CPU disagree")
+    parity_patterned(torch, gen)
+
+
+def parity_patterned(torch, gen) -> None:
+    """The parity phase's hybrid (recurrentgemma-9b reduced to one group
+    and a tail of two rec blocks, window 8) and xLSTM, served over their
+    slab on the card and on the CPU (``_card_and_cpu``), and whisper at
+    the model level (it has no server path)."""
+    from repro_torch.configs import build_model, get_config
+    problems: list = []
+    kw = dict(batch_size=4, max_seq=128, block_size=8, seed=1)
+    for arch, over in (("recurrentgemma-9b", {"num_layers": 5}),
+                       ("xlstm-125m", {})):
+        cfg = get_config(arch).reduced(dtype=torch.float32, **over)
+        model = build_model(cfg)
+        _card_and_cpu(torch, model, model.init(0, device="cpu"),
+                      f"parity (smoke {arch})", kw,
+                      prompts(cfg.vocab, 3), problems, new=16)
+    cfg = get_config("whisper-base").reduced(dtype=torch.float32)
+    model = build_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen)
+    toks = torch.randint(1, cfg.vocab, (2, 12), generator=gen)
+    runs = {dev: _whisper_run(torch, model, prm, frames.to(dev),
+                              toks.to(dev), 8)
+            for dev, prm in (("cpu", cpu_params),
+                             ("cuda", _to(cpu_params, "cuda")))}
+    err = (runs["cpu"][1] - runs["cuda"][1]).abs().max().item()
+    log(f"parity (smoke fp32 whisper-base, 16 frames + 12 tokens, then 7 "
+        f"greedy decode steps, card vs CPU): prefill logits max_abs_err "
+        f"{err:.3e} (bound 1e-3), tokens equal: "
+        f"{runs['cpu'][0] == runs['cuda'][0]}")
+    if not (err <= 1e-3 and runs["cpu"][0] == runs["cuda"][0]):
+        problems.append("smoke whisper-base: card and CPU disagree")
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 #: the parity phase's dense models at smoke size, fp32: (arch, overrides
@@ -1981,6 +2104,464 @@ def check_gpt3(torch, card: str, counts: Launches) -> None:
     log("gpt3: every gate held")
 
 
+# ---------------------------------------------------------------------------
+# the hybrid, ssm and encdec families at full width
+# ---------------------------------------------------------------------------
+
+#: new tokens a request in the families phase: one decode block
+FAMILIES_NEW = 32
+#: recurrentgemma-9b's long prompt: past its 2048-slot window, batch 1
+LONG_PROMPT, LONG_MAX_SEQ, LONG_NEW = 2100, 2200, 16
+
+
+def _state_bytes(model, max_seq: int) -> dict:
+    """A slot's slab bytes by leaf name, summed over the layers."""
+    out: dict = {}
+    for leaves in model.cache_shapes(1, max_seq).values():
+        for name, (shape, dt) in leaves.items():
+            out[name] = out.get(name, 0) + dt.itemsize * math.prod(shape)
+    return out
+
+
+def _greedy_loop(torch, model, params, prompts_, new: int, max_seq: int):
+    """Model-level greedy generation of ``prompts_`` (equal lengths) as a
+    server batches them: each prompt's ``prefill`` into a fresh batch-1
+    slab, spliced into row b of a batch-B slab (the batch axis found per
+    leaf), then B-row ``decode_step``s feeding each token back.  Returns
+    (the tokens, a list a prompt; the logits of request 0's first decode
+    step at batch B and, from its own batch-1 slab, at batch 1)."""
+    from repro_torch.models.transformer import sample_tokens
+    vocab, b = model.cfg.vocab, len(prompts_)
+    cache = model.init_cache(b, max_seq, device="cuda")
+
+    def splice(big: dict, small: dict, row: int) -> None:
+        for name, leaf in big.items():
+            if isinstance(leaf, dict):
+                splice(leaf, small[name], row)
+                continue
+            diff = [i for i, (x, y) in enumerate(zip(leaf.shape,
+                                                     small[name].shape))
+                    if x != y]
+            leaf.copy_(small[name]) if not diff else leaf.narrow(
+                diff[0], row, 1).copy_(small[name])
+
+    firsts = []
+    for row, prompt in enumerate(prompts_):
+        small = model.init_cache(1, max_seq, device="cuda")
+        logits, small = model.prefill(
+            params, torch.from_numpy(prompt[None]).to("cuda"), small)
+        firsts.append(sample_tokens(logits, vocab))
+        splice(cache, small, row)
+        if row == 0:
+            first_slab = small
+    nxt = torch.cat(firsts)
+    out, s = [nxt], len(prompts_[0])
+    for i in range(new - 1):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        logits, cache = model.decode_step(params, nxt, cache, pos)
+        if i == 0:
+            at_b = logits[:1].float().cpu()
+            at_1 = model.decode_step(params, nxt[:1], first_slab,
+                                     pos[:1])[0].float().cpu()
+        nxt = sample_tokens(logits, vocab)
+        out.append(nxt)
+    return torch.cat(out, dim=1).tolist(), (at_b, at_1)
+
+
+def _hold_to_loop(tag: str, got: list, want: list, problems: list,
+                  bit_equal: bool) -> None:
+    """Server tokens against the model-level loop's: bit-equal when the
+    two batch alike, else the first-8 rule; the rate is logged."""
+    rate = _match_first8(got, want)
+    gate = "bit-equal" if bit_equal else f"first-8 >= {MATCH_FIRST8}"
+    log(f"families {tag}: server tokens against the model-level prefill + "
+        f"decode_step loop: first-8 match rate {rate:.3f}, bit-equal: "
+        f"{got == want} (gate: {gate})")
+    if (got != want) if bit_equal else rate < MATCH_FIRST8:
+        problems.append(f"{tag}: first-8 rate {rate:.3f} against the loop")
+
+
+def check_recurrentgemma(torch, card: str, counts: Launches,
+                         problems: list) -> None:
+    """recurrentgemma-9b at full width and depth (38 layers: 12 (rec,
+    rec, att) groups and 2 rec; d 4096, 16/1 heads, d_head 256, d_ff
+    12288, vocab 256000; tp=1, random bf16 weights) through
+    ``BatchedServer`` over its slab of recurrent state and windows, on
+    the serve phase's four 8-token prompts (32 new tokens, batch 4, block
+    32, max_seq 384, seed 0): greedy and at 0.7, K1 never, K2 12 times an
+    admission (its att layers) on wgmma at d = 256; the greedy tokens
+    held to the model-level loop at batch 1.  One 2100-token prompt at
+    batch 1 (max_seq 2200: its 2048 window slots roll), 16 new tokens,
+    held the same way.  Then greedy with the groups paged from pinned
+    host memory (lookahead 1; the tail, embedding and head resident):
+    the resident tokens, every group fetched once a step and once an
+    admission.  Frees its weights."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instance_counts
+    from repro_torch.memory import LOCAL, REMOTE
+    from repro_torch.models.hybrid import HybridLM
+    from repro_torch.runtime.serve import BatchedServer
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), tp=1)
+    t0 = time.perf_counter()
+    model = HybridLM(cfg)
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    groups, rest = _nbytes(params["groups"]), _nbytes(
+        {k: v for k, v in params.items() if k != "groups"})
+    att = model.n_groups * cfg.block_pattern.count("att") + \
+        model.tail.count("att")
+    state = _state_bytes(model, SERVE_KW["max_seq"])
+    rec = state["h"] + state["conv"]
+    dense_kv = 2 * 48 * 8 * 128 * 2 * SERVE_KW["max_seq"]
+    log(f"families recurrentgemma-9b [{card}]: {cfg.num_layers} layers = "
+        f"{model.n_groups} x {cfg.block_pattern} + tail {model.tail}, d "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_head "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; groups "
+        f"{groups} bytes, tail + embedding + head {rest}; init "
+        f"{time.perf_counter() - t0:.1f} s; a slot's slab at max_seq "
+        f"{SERVE_KW['max_seq']}: recurrent state {rec} bytes (h "
+        f"{state['h']}, conv {state['conv']}), attention windows "
+        f"{state['k'] + state['v']} ({att} layers x min(max_seq, "
+        f"{cfg.sliding_window}) slots), against {dense_kv} bytes of "
+        f"Qwen2.5-14B's KV at the same length; at a full window "
+        f"{sum(_state_bytes(model, cfg.sliding_window).values())} bytes")
+    work = prompts(cfg.vocab, 0)[:4]
+    resident = {}
+    for temperature in (0.0, 0.7):
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(model, params,
+                               **dict(SERVE_KW, temperature=temperature))
+        server.tag = tag = f"recurrentgemma-9b temperature={temperature}"
+        toks, secs, _ = counts.run(torch, server, work, FAMILIES_NEW,
+                                   attn_layers=att)
+        inst, st = instance_counts(), server.stats
+        tokens = sum(len(t) for t in toks)
+        log(f"families {tag} [{card}]: {tokens} tokens in {secs:.3f} s = "
+            f"{tokens / secs:.2f} tok/s ({1e3 * secs / st['steps']:.2f} ms a "
+            f"decode step, admissions included), steps {st['steps']}, "
+            f"admissions {st['admitted']}, slab {server.kv_bytes_capacity()}"
+            f" bytes, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K2 "
+            f"{inst['flash_attention_wgmma']}")
+        if inst["flash_attention_wgmma"] != {
+                f"d={cfg.head_dim}": att * st["admitted"]}:
+            problems.append(f"{tag}: K2 launches {inst}")
+        resident[temperature] = toks
+    # the server at batch 4 against the loop batched as it is; at batch 1
+    # (four requests in turn) against the loop at batch 1, the first-8
+    # rule; the batch-4 run against the batch-1 loop is logged with one
+    # decode step's logit gap between the two batchings (cuBLAS rounds a
+    # 4-row and a 1-row product apart, and random layers amplify it)
+    loop4, (at_4, at_1) = _greedy_loop(torch, model, params, work,
+                                       FAMILIES_NEW, SERVE_KW["max_seq"])
+    _hold_to_loop("recurrentgemma-9b greedy, batch 4", resident[0.0], loop4,
+                  problems, bit_equal=True)
+    loop1 = [_greedy_loop(torch, model, params, [p], FAMILIES_NEW,
+                          SERVE_KW["max_seq"])[0][0] for p in work]
+    server = BatchedServer(model, params, **dict(SERVE_KW, batch_size=1))
+    server.tag = "recurrentgemma-9b greedy, batch 1"
+    one, _, _ = counts.run(torch, server, work, FAMILIES_NEW,
+                           attn_layers=att)
+    _hold_to_loop("recurrentgemma-9b greedy, batch 1", one, loop1, problems,
+                  bit_equal=False)
+    log(f"families recurrentgemma-9b: the batch-4 run against the batch-1 "
+        f"loop: first-8 match rate {_match_first8(resident[0.0], loop1):.3f}"
+        f", bit-equal {resident[0.0] == loop1}; one decode step from the "
+        f"same slab, request 0's logits at batch 4 against batch 1: max "
+        f"|dlogit| {(at_4 - at_1).abs().max().item():.4g}")
+
+    long_prompt = np.random.RandomState(7).randint(
+        1, cfg.vocab, LONG_PROMPT).astype(np.int32)
+    server = BatchedServer(model, params, **dict(
+        SERVE_KW, batch_size=1, max_seq=LONG_MAX_SEQ))
+    server.tag = tag = f"recurrentgemma-9b {LONG_PROMPT}-token prompt"
+    torch.cuda.reset_peak_memory_stats()
+    toks, secs, _ = counts.run(torch, server, [long_prompt], LONG_NEW,
+                               attn_layers=att)
+    slab = server.cache["b2"]["k"]
+    cache = model.init_cache(1, LONG_MAX_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, torch.from_numpy(long_prompt[None]).to("cuda"),
+                  cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del cache
+    log(f"families {tag} [{card}]: batch 1, max_seq {LONG_MAX_SEQ}, "
+        f"{LONG_NEW} new tokens in {secs:.3f} s (the prefill included; "
+        f"one prefill alone {1e3 * prefill_s:.1f} ms), "
+        f"window slab {tuple(slab.shape)} (rolls: {slab.shape[3]} = "
+        f"{cfg.sliding_window} slots), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if slab.shape[3] != cfg.sliding_window:
+        problems.append(f"{tag}: the window slab has {slab.shape[3]} slots")
+    _hold_to_loop(tag, toks, _greedy_loop(
+        torch, model, params, [long_prompt], LONG_NEW, LONG_MAX_SEQ)[0],
+        problems, bit_equal=False)
+    del server, slab
+
+    paged = HybridLM(cfg.with_pager(enabled=True, lookahead=1))
+    mem = paged.mem
+    t0 = time.perf_counter()
+    params["groups"] = mem.place_layer_weights(params["groups"])
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    pf = mem.prefetcher
+    if pf is None or mem.degraded or not all(
+            p.buffer.is_pinned() for p in params["groups"].packed):
+        raise AssertionError(f"families: group placement {mem.describe()}")
+    led = mem.ledger
+    log(f"families recurrentgemma-9b paged [{card}]: placed "
+        f"{model.n_groups} groups in {place_s:.1f} s; ledger remote "
+        f"layer_weights {led.classes(REMOTE)['layer_weights']}, local "
+        f"layer_weights_window {led.classes(LOCAL)['layer_weights_window']}"
+        f" (2 groups); device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchedServer(paged, params, **dict(SERVE_KW, temperature=0.0))
+    server.tag = tag = "recurrentgemma-9b paged groups greedy"
+    fetches, fetched = pf.fetches, pf.fetched_bytes
+    toks, secs, _ = counts.run(torch, server, work, FAMILIES_NEW,
+                               attn_layers=att)
+    fetches, fetched = pf.fetches - fetches, pf.fetched_bytes - fetched
+    st = server.stats
+    floor = groups / PCIE_BYTES_PER_S
+    log(f"families {tag} [{card}]: {sum(len(t) for t in toks) / secs:.2f} "
+        f"tok/s, {secs / st['steps']:.3f} s a decode step (admissions "
+        f"included; floor {floor:.3f} s: {groups / 1e9:.2f} GB at 64 GB/s), "
+        f"group fetches {fetches} for {st['steps']} steps + "
+        f"{st['admitted']} admissions, {fetched} bytes host-to-device = "
+        f"{_gbps(fetched, secs)} GB/s over the run, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if toks != resident[0.0]:
+        problems.append(f"{tag}: tokens differ from the resident run's")
+    if fetches != model.n_groups * (st["steps"] + st["admitted"]):
+        problems.append(f"{tag}: {fetches} group fetches")
+    del server, params, paged, mem, pf
+    gc.collect()
+
+
+def _card_and_cpu(torch, model, cpu_params, tag: str, serve_kw: dict,
+                  work, problems: list, new: int = FAMILIES_NEW):
+    """fp32: the same weights served on the card and on the CPU (``new``
+    tokens a request), the first 8 tokens equal and a prompt's prefill
+    logits within 1e-3."""
+    from repro_torch.runtime.serve import BatchedServer
+    outs = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", _to(cpu_params,
+                                                          "cuda"))):
+        server = BatchedServer(model, params, device=dev, **serve_kw)
+        reqs = [server.submit(p, max_new_tokens=new) for p in work]
+        server.run_once()
+        outs[dev] = [r.output for r in reqs]
+        toks = torch.from_numpy(work[0][None]).to(dev)
+        logits, _ = model.prefill(params, toks, model.init_cache(
+            1, serve_kw["max_seq"], device=dev))
+        outs[dev + "_logits"] = logits.float().cpu()
+    err = (outs["cpu_logits"] - outs["cuda_logits"]).abs().max().item()
+    first8 = all(a[:8] == b[:8] for a, b in zip(outs["cpu"], outs["cuda"]))
+    log(f"{tag} fp32, card vs CPU: prefill logits max_abs_err "
+        f"{err:.3e} (bound 1e-3), first-8 tokens equal: {first8}")
+    if not (err <= 1e-3 and first8):
+        problems.append(f"{tag} fp32: card and CPU disagree")
+
+
+def check_xlstm(torch, card: str, counts: Launches, problems: list) -> None:
+    """xlstm-125m at full width (12 layers, (m, m, m, s) x 3, d 768, 4
+    heads, vocab 50304; tp=1) through ``BatchedServer`` over its slab of
+    fp32 recurrent state, on the serve phase's prompts (32 new tokens):
+    bf16 greedy and at 0.7, no kernel launched; then fp32 on the card
+    and on the CPU (``_card_and_cpu``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import XLSTM
+    from repro_torch.runtime.serve import BatchedServer
+    cfg = dataclasses.replace(get_config("xlstm-125m"), tp=1)
+    model = XLSTM(cfg)
+    params = model.init(0, device="cuda")
+    state = _state_bytes(model, SERVE_KW["max_seq"])
+    log(f"families xlstm-125m [{card}]: {cfg.num_layers} layers = "
+        f"{model.n_groups} x {cfg.block_pattern}, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads, vocab {cfg.vocab}, {_nbytes(params)} bytes "
+        f"of weights; a slot's state {sum(state.values())} bytes "
+        f"({state}), fp32, the same at any length (max_seq 384 and "
+        f"{sum(_state_bytes(model, 524288).values())} at 524288)")
+    work = prompts(cfg.vocab, 0)[:4]
+    for temperature in (0.0, 0.7):
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(model, params,
+                               **dict(SERVE_KW, temperature=temperature))
+        server.tag = tag = f"xlstm-125m temperature={temperature}"
+        toks, secs, got = counts.run(torch, server, work, FAMILIES_NEW,
+                                     attn_layers=0)
+        st = server.stats
+        log(f"families {tag} [{card}]: {sum(len(t) for t in toks) / secs:.2f}"
+            f" tok/s ({1e3 * secs / st['steps']:.2f} ms a decode step, "
+            f"admissions included), steps {st['steps']}, slab "
+            f"{server.kv_bytes_capacity()} bytes, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"{ {k: n for k, n in got.items() if n} }")
+        if any(got.values()):
+            problems.append(f"{tag}: kernels launched {got}")
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = XLSTM(f32)
+    _card_and_cpu(torch, model, model.init(0, device="cpu"),
+                  "families xlstm-125m", dict(SERVE_KW, temperature=0.0),
+                  work, problems)
+
+
+def _whisper_run(torch, model, params, frames, toks, new: int):
+    """``prefill`` of the prompts with the frames, then ``new - 1`` greedy
+    ``decode_step``s, kernel counts reset just before: (tokens (B, new),
+    prefill logits, prefill seconds, decode seconds, the run's launches,
+    by kernel and by instantiation)."""
+    from repro_torch.kernels import (instance_counts, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.models.transformer import sample_tokens
+    vocab, dev = model.cfg.vocab, frames.device
+    b, s = toks.shape
+    cache = model.init_cache(b, s + new, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, toks, cache,
+                                  extra={"frames": frames})
+    sync()
+    t1 = time.perf_counter()
+    first = logits.float().cpu()
+    nxt = sample_tokens(logits, vocab)
+    out = [nxt]
+    for i in range(new - 1):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        logits, cache = model.decode_step(params, nxt, cache, pos)
+        nxt = sample_tokens(logits, vocab)
+        out.append(nxt)
+    sync()
+    return (torch.cat(out, dim=1).tolist(), first, t1 - t0,
+            time.perf_counter() - t1, launch_counts(), instance_counts())
+
+
+def check_whisper(torch, card: str, counts: Launches, problems: list) -> None:
+    """whisper-base at full width (6 + 6 layers, d 512, 8/8 heads, d_head
+    64, d_ff 2048, vocab 51865, 1500 frames; tp=1) at the model level,
+    as the reference serves it (its server takes no frames): seeded
+    random frames (4, 1500, 512), ``prefill`` of the serve phase's four
+    8-token prompts, 32 greedy tokens.  bf16: K2 18 times a prefill on
+    wgmma at d = 64 (6 encoder launches at Sq = Sk = 1500, 6 causal
+    self-attention, 6 cross-attention at Sq = 8, Sk = 1500).  fp32 on
+    the card and on the CPU, two of the prompts: prefill logits within
+    1e-3 and the first 8 tokens equal."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.encdec import EncDecLM
+    cfg = dataclasses.replace(get_config("whisper-base"), tp=1)
+    model = EncDecLM(cfg)
+    params = model.init(0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    frames = torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda")
+    toks = torch.from_numpy(np.stack(prompts(cfg.vocab, 0)[:4])).to("cuda")
+    xkv = sum(dt.itemsize * math.prod(shape) for name, (shape, dt) in
+              model.cache_shapes(1, 8 + FAMILIES_NEW).items()
+              if name.startswith("x"))
+    torch.cuda.reset_peak_memory_stats()
+    out, _, pre_s, dec_s, got, insts = _whisper_run(
+        torch, model, params, frames.to(cfg.dtype), toks, FAMILIES_NEW)
+    counts.add(got, insts)
+    k2 = {k: n for k, n in got.items() if n}
+    inst = insts["flash_attention_wgmma"]
+    tokens = len(out) * (FAMILIES_NEW - 1)
+    log(f"families whisper-base bf16 [{card}]: prefill (encode "
+        f"{cfg.encoder_seq} frames x 4 + 8-token prompts) {1e3 * pre_s:.2f} ms, {FAMILIES_NEW - 1} "
+        f"decode steps {1e3 * dec_s / (FAMILIES_NEW - 1):.2f} ms a step = "
+        f"{tokens / dec_s:.2f} tok/s, cross KV {xkv} bytes a slot (written "
+        f"once, read every step), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{k2} by instantiation {inst}")
+    want = 2 * cfg.num_layers + cfg.num_encoder_layers
+    if (k2 != {"flash_attention_wgmma": want}
+            or inst != {f"d={cfg.head_dim}": want}):
+        problems.append(f"whisper-base: launches {k2} {inst}, expected "
+                        f"{want} a prefill on wgmma and none a step")
+    whisper_fp32(torch, dataclasses.replace(cfg, dtype=torch.float32),
+                 frames[:2].cpu(), toks[:2].cpu(), problems)
+
+
+def whisper_fp32(torch, cfg, frames, toks, problems: list) -> None:
+    """whisper-base in fp32, the card against the CPU with the same
+    weights, frames (B, 1500, d) and prompts: each of the 12 layers at
+    full width from the CPU's input to it (the encoder's over the 1500
+    frames, the decoder's over the prompt and the CPU's encoder output)
+    within 1e-3 of the CPU's output.  The whole model's prefill logits
+    and 8 greedy tokens are logged beside them: with the reference's
+    init scales (K and V drawn at 1/sqrt(Hkv), not 1/sqrt(d): a score's
+    std is ~8) the random model amplifies fp32 rounding ~1e6-fold
+    through its depth, so two correct fp32 runs part there (PERF.md, PR
+    23)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.encdec import EncDecLM
+    model = EncDecLM(cfg)
+    cpu = model.init(0, device="cpu")
+    card = _to(cpu, "cuda")
+    worst = 0.0
+
+    def held(want: torch.Tensor, got: torch.Tensor) -> None:
+        nonlocal worst
+        worst = max(worst, (want - got.cpu()).abs().max().item())
+
+    h, pos = frames.float(), torch.arange(frames.shape[1])
+    for lc, lg in zip(cpu["enc_layers"], card["enc_layers"]):
+        out = model.enc_block(lc, h, pos)
+        held(out, model.enc_block(lg, h.cuda(), pos.cuda()))
+        h = out
+    enc = L.rmsnorm(h, cpu["enc_ln"], cfg.norm_eps)
+    x, pos = L.embed_lookup(cpu["embed"], toks), torch.arange(toks.shape[1])
+    for lc, lg in zip(cpu["dec_layers"], card["dec_layers"]):
+        out = model.dec_block(lc, x, pos, enc)[0]
+        held(out, model.dec_block(lg, x.cuda(), pos.cuda(), enc.cuda())[0])
+        x = out
+    runs = {dev: _whisper_run(torch, model, prm, frames.to(dev),
+                              toks.to(dev), 8)
+            for dev, prm in (("cpu", cpu), ("cuda", card))}
+    err = (runs["cpu"][1] - runs["cuda"][1]).abs().max().item()
+    log(f"families whisper-base fp32, card vs CPU ({toks.shape[0]} "
+        f"prompts): every layer from the CPU's input, max_abs_err "
+        f"{worst:.3e} (bound 1e-3); the whole model, logged: prefill "
+        f"logits max_abs_err {err:.3e}, first-8 tokens equal "
+        f"{runs['cpu'][0] == runs['cuda'][0]}; card launches "
+        f"{ {k: n for k, n in runs['cuda'][4].items() if n} }")
+    if not worst <= 1e-3:
+        problems.append(f"whisper-base fp32: a layer {worst:.3e} from the "
+                        f"CPU's")
+
+
+def check_families(torch, card: str, counts: Launches) -> None:
+    """The ``families`` phase: recurrentgemma-9b, xlstm-125m and
+    whisper-base at full width (``check_recurrentgemma``,
+    ``check_xlstm``, ``check_whisper``), every gate checked before it
+    raises."""
+    problems: list = []
+    t0 = time.perf_counter()
+    for check in (check_recurrentgemma, check_xlstm, check_whisper):
+        t = time.perf_counter()
+        check(torch, card, counts, problems)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"families: {check.__name__} took "
+            f"{time.perf_counter() - t:.1f} s")
+    log(f"families: the phase took {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise AssertionError("families phase: " + "; ".join(problems))
+    log("families: every gate held")
+
+
 #: the dense phase's runs over the slab: (kv_quant, temperature)
 DENSE_RUNS = ((False, 0.0), (False, 0.7), (True, 0.0))
 #: the first-8 rule for tokens that need not be bit-equal: the first 8 tokens
@@ -2369,22 +2950,28 @@ class Launches:
         self.total: dict = {}
         self.by_instance: dict = {}
 
-    def run(self, torch, server, work, new: int = 64):
-        """Serve ``work`` once (``new`` new tokens each) and count: K1
-        once a layer a decode step (never over the dense slab), K2 once a
-        layer an admission on the wgmma route; returns (tokens, seconds,
-        this run's launches)."""
-        from repro_torch.kernels import (instance_counts, launch_counts,
-                                         reset_launch_counts)
-        reset_launch_counts()
-        reqs, secs = serve(server, work, new)
-        got, inst = launch_counts(), instance_counts()
+    def add(self, got: dict, inst: dict) -> None:
+        """Sum one run's launches, by kernel and by instantiation."""
         for k, n in got.items():
             self.total[k] = self.total.get(k, 0) + n
         for k, d in inst.items():
             mine = self.by_instance.setdefault(k, {})
             for i, n in d.items():
                 mine[i] = mine.get(i, 0) + n
+
+    def run(self, torch, server, work, new: int = 64,
+            attn_layers: int | None = None):
+        """Serve ``work`` once (``new`` new tokens each) and count: K1
+        once a layer a decode step (never over the dense slab), K2 once
+        an attention layer (``attn_layers``, default every layer) an
+        admission on the wgmma route; returns (tokens, seconds, this
+        run's launches)."""
+        from repro_torch.kernels import (instance_counts, launch_counts,
+                                         reset_launch_counts)
+        reset_launch_counts()
+        reqs, secs = serve(server, work, new)
+        got = launch_counts()
+        self.add(got, instance_counts())
         tokens = [r.output for r in reqs]
         tag = getattr(server, "tag", "")
         if any(len(t) != new for t in tokens) or any(r.error for r in reqs):
@@ -2403,7 +2990,9 @@ class Launches:
         elif got[kernel] != cfg.num_layers * st["steps"]:
             raise AssertionError(f"{self.phase} {tag}: {got[kernel]} K1 launches "
                                  f"for {st['steps']} decode steps")
-        if (got["flash_attention_wgmma"] != cfg.num_layers * st["admitted"]
+        if attn_layers is None:
+            attn_layers = cfg.num_layers
+        if (got["flash_attention_wgmma"] != attn_layers * st["admitted"]
                 or got["flash_attention_mma"]):
             raise AssertionError(f"{self.phase} {tag}: K2 launches {got} for "
                                  f"{st['admitted']} admissions")
@@ -2721,6 +3310,12 @@ def check_offload(torch, card: str, cfg, params, want: list,
 
 #: the disagg phase's prefill chunk (one block's worth of tokens)
 DISAGG_CHUNK = 32
+#: the disagg phase's depth: half of Qwen2.5-14B's 48 layers.  Every gate
+#: of the phase holds its runs against each other (monolithic against
+#: disaggregated, crashed against uncontended), so none needs full depth;
+#: with the families phase the default run reached 1057-1108 s of its
+#: 1200 s at 48 here, and this cut is the phase's host-bound steps halved
+DISAGG_LAYERS = 24
 #: the serving benchmark's interference traffic: four 8-token prompts
 #: with staggered budgets, so slots free at different blocks, and two
 #: 128-token prompts that arrive mid-stream as slots free
@@ -2913,13 +3508,14 @@ def stage_cost(torch, card: str, server, pages: int) -> None:
 
 
 def check_disagg(torch, card: str, cfg, params, served: dict | None) -> None:
-    """Disaggregated prefill and the request lifecycle at full depth: the
-    interference traffic monolithic and disaggregated (bf16 greedy and at
+    """Disaggregated prefill and the request lifecycle at ``cfg``'s depth
+    (``DISAGG_LAYERS`` in the default run): the interference traffic
+    monolithic and disaggregated (bf16 greedy and at
     0.7, int8 at 0.7, fp8 greedy), the serve phase's prefix pair through
     the engine, a chunk sweep with the long prompts arriving mid-stream,
     both engine crashes, a poisoned victim, a deadline, overload control
     and a snapshot taken mid-handoff.  ``served``: the serve phase's
-    tokens by (kv_dtype, temperature) when it ran at full depth."""
+    tokens by (kv_dtype, temperature) when it ran at ``cfg``'s depth."""
     import dataclasses
     from repro_torch.memory import REMOTE, FaultPlan, fault_plan
     from repro_torch.models.transformer import DenseLM
@@ -3229,12 +3825,12 @@ def main() -> int:
                     help="serving depth (Qwen2.5-14B has 48; cut only if "
                          "the time limit forces it)")
     ap.add_argument("--phases",
-                    default="kernels,parity,moe,gpt3,serve,dense,tiers,"
-                            "disagg",
-                    help="comma list of kernels, parity, moe, gpt3, serve, "
-                         "dense, tiers, disagg, profile (a traced serving "
-                         "run) and sweep (K3's routes over M); the last two "
-                         "are off by default")
+                    default="kernels,parity,moe,gpt3,families,serve,dense,"
+                            "tiers,disagg",
+                    help="comma list of kernels, parity, moe, gpt3, "
+                         "families, serve, dense, tiers, disagg, profile (a "
+                         "traced serving run) and sweep (K3's routes over "
+                         "M); the last two are off by default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -3264,6 +3860,14 @@ def main() -> int:
             log(f"  {src}: {line}")
 
     results: dict = {}
+    clock = [time.perf_counter()]
+
+    def took(phase: str) -> None:
+        """Log the seconds since the last phase ended."""
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     if "kernels" in phases:
         for kv in (None, "int8", "fp8_e4m3"):
             check_paged(torch, card, results, kv)
@@ -3280,13 +3884,16 @@ def main() -> int:
         check_realign(torch)
         check_accumulate(torch, card, results)
         ops_launches = drive_ops(torch)
+        took("kernels")
     if "sweep" in phases:
         sweep_matmul(torch, card)
+        took("sweep")
     parity_launches = None
     if "parity" in phases:
         parity_launches = check_parity(torch)
         check_parity_families(torch)
         check_parity_dense(torch)
+        took("parity")
     moe = None
     if "moe" in phases:
         # before the Qwen2.5-14B weights exist: its peak device memory is
@@ -3294,6 +3901,7 @@ def main() -> int:
         moe = Launches("moe")
         check_moe(torch, card, moe)
         torch.cuda.empty_cache()
+        took("moe")
     gpt3 = None
     if "gpt3" in phases:
         # also before the Qwen2.5-14B weights: 31.5 GB of its own
@@ -3301,11 +3909,21 @@ def main() -> int:
         check_gpt3(torch, card, gpt3)
         gc.collect()
         torch.cuda.empty_cache()
+        took("gpt3")
+    families = None
+    if "families" in phases:
+        # before the Qwen2.5-14B weights too: recurrentgemma-9b's 20.9 GB
+        families = Launches("families")
+        check_families(torch, card, families)
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("families")
     launches = tiers = served = dense = None
     if "serve" in phases:
         cfg, params = qwen_params(torch, args.layers)
         *launches, served = check_serve(torch, card, cfg, params,
                                         "profile" in phases)
+        took("serve")
     if phases & {"tiers", "disagg", "dense"}:
         # the full-depth phases share one set of weights: the serve
         # phase's when it ran at 48 layers
@@ -3317,16 +3935,25 @@ def main() -> int:
     if "tiers" in phases:
         tiers = Launches()
         resident = check_tiers(torch, card, cfg48, params48, tiers, full)
+        took("tiers")
     if "disagg" in phases:
-        check_disagg(torch, card, cfg48, params48, full)
+        import dataclasses
+        check_disagg(torch, card,
+                     dataclasses.replace(cfg48, num_layers=DISAGG_LAYERS),
+                     dict(params48, layers=params48["layers"][:DISAGG_LAYERS]),
+                     None)
+        took("disagg")
     if "dense" in phases:
         dense = Launches("dense")
         check_dense(torch, card, cfg48, params48, dense, full)
+        took("dense")
     if "serve" in phases:
         check_serve_paged(torch, card, cfg, params, served[None, 0.0],
                           "profile" in phases)
+        took("serve (paged weights)")
     if "tiers" in phases:
         check_offload(torch, card, cfg48, params48, resident, tiers)
+        took("tiers (offload_kv)")
 
     if results and launches is not None and parity_launches is not None:
         # a row's launches: its instantiation's (K1: query rows; K2: head
@@ -3345,8 +3972,8 @@ def main() -> int:
         def summed(run):
             return (run.total, run.by_instance) if run else ({}, {})
 
-        tiered, moed, gpt3d, densed = (summed(r) for r in
-                                       (tiers, moe, gpt3, dense))
+        tiered, moed, gpt3d, densed, familied = (
+            summed(r) for r in (tiers, moe, gpt3, dense, families))
         moe_path = ("BatchedServer, granite-moe-3b-a800m at full width, "
                     "greedy and sampled runs summed (moe phase)")
         # rows whose shape is another path's than their kernel's
@@ -3355,6 +3982,11 @@ def main() -> int:
             "gpt3": ("BatchedServer, gpt3-175b at full width (8 of 96 "
                      "layers), resident greedy and sampled runs summed "
                      "(gpt3 phase)", gpt3d),
+            "families": ("BatchedServer, recurrentgemma-9b at full width "
+                         "and depth (resident runs, the 2100-token prompt, "
+                         "paged groups), and whisper-base's bf16 prefill "
+                         "and decode at full width, summed (families "
+                         "phase)", familied),
             "kernels": ("kernels phase only", ({}, {}))}
         for mod, path, counts in ((pa_kernel, serving, launches),
                                   (fa_kernel, serving, launches),
@@ -3384,6 +4016,8 @@ def main() -> int:
                                                            row),
                                     "dense_launches": count(densed, name,
                                                             row),
+                                    "families_launches": count(
+                                        familied, name, row),
                                     **row})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

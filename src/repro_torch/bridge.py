@@ -84,24 +84,32 @@ def _tree(node, device):
     return to_tensor(node, device)
 
 
-def params_from_reference(tree: dict, device=None) -> dict:
-    """The reference ``DenseLM.init`` tree (or ``MoELM``'s / ``VLM``'s),
-    as numpy, -> the port's params: the stacked ``layers`` subtree is
-    unstacked along its leading L axis into a list of per-layer dicts
-    (an MoE layer's ``moe``: the fp32 router (d, E) and the banks (E, d,
-    f) / (E, f, d), each leaf bit for bit)."""
-    dev = resolve_device(device)
-    layers = tree["layers"]
+#: the reference's stacked subtrees (``repro.runtime.sharding.
+#: PAGEABLE_GROUPS``: what it pages to the remote tier), one entry a layer
+#: or group; the port keeps each as a list
+PAGEABLE_GROUPS = ("layers", "groups", "dec_layers", "enc_layers")
 
-    def num_layers(node) -> int:
-        return (num_layers(next(iter(node.values())))
+
+def params_from_reference(tree: dict, device=None) -> dict:
+    """A reference model's params (``DenseLM.init``'s tree, or
+    ``MoELM``'s, ``VLM``'s, ``GroupedLM``'s or ``EncDecLM``'s), as
+    numpy, -> the port's params: each stacked subtree of
+    :data:`PAGEABLE_GROUPS` is unstacked along its leading axis into a
+    list of per-layer (per-group) dicts; everything else -- the
+    embedding, norms, a ``GroupedLM``'s unstacked ``tail`` -- is copied
+    as it is.  Every leaf crosses bit for bit (an MoE layer's fp32 router
+    and its banks, the RG-LRU's fp32 ``lam``)."""
+    dev = resolve_device(device)
+
+    def count(node) -> int:
+        return (count(next(iter(node.values())))
                 if isinstance(node, dict) else node.shape[0])
 
-    def layer(node, i):
+    def entry(node, i):
         if isinstance(node, dict):
-            return {k: layer(v, i) for k, v in node.items()}
+            return {k: entry(v, i) for k, v in node.items()}
         return to_tensor(node[i], dev)
 
-    out = {k: _tree(v, dev) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [layer(layers, i) for i in range(num_layers(layers))]
-    return out
+    return {k: ([entry(v, i) for i in range(count(v))]
+                if k in PAGEABLE_GROUPS else _tree(v, dev))
+            for k, v in tree.items()}

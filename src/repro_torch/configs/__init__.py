@@ -1,10 +1,10 @@
 """Architecture registry: ``get_config(id)`` / ``build_model(cfg)`` /
 ``get_model(id)`` for the ported families.
 
-The reference registers ten architectures plus the paper's workloads;
-this port serves the dense decoder (paged or over the dense slab), MoE
-and VLM families.  Asking for an architecture that is not ported raises
-a clear error instead of handing out a config no model here can run.
+The reference's ten architectures plus the paper's workloads, every
+family of the reference: the dense decoder (paged or over the dense
+slab), MoE, VLM, the hybrid (RG-LRU and local attention), the ssm
+(xLSTM) and the encoder-decoder (whisper).
 """
 from __future__ import annotations
 
@@ -18,6 +18,9 @@ _MODULES = {
     "qwen3-14b": "qwen3_14b",
     "minicpm-2b": "minicpm_2b",
     "starcoder2-15b": "starcoder2_15b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-125m": "xlstm_125m",
+    "whisper-base": "whisper_base",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "llava-next-34b": "llava_next_34b",
@@ -27,16 +30,8 @@ _MODULES = {
     "qwen3-235b": "qwen3_235b",
 }
 
-#: architectures of the reference that are not ported yet: the hybrid,
-#: ssm and encdec families
-NOT_PORTED = ("recurrentgemma-9b", "xlstm-125m", "whisper-base")
-
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture '{arch_id}' is not ported to PyTorch yet; "
-            f"ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
@@ -44,8 +39,8 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig):
-    """The model class for a config's family: ``DenseLM``, ``MoELM`` or
-    ``VLM``; the reference's other families are not ported yet."""
+    """The model class for a config's family: ``DenseLM``, ``MoELM``,
+    ``VLM``, ``HybridLM``, ``XLSTM`` or ``EncDecLM``."""
     if cfg.family == "dense":
         from repro_torch.models.transformer import DenseLM
         return DenseLM(cfg)
@@ -55,8 +50,16 @@ def build_model(cfg: ModelConfig):
     if cfg.family == "moe":
         from repro_torch.models.moe import MoELM
         return MoELM(cfg)
-    raise NotImplementedError(
-        f"the {cfg.family!r} family is not ported to PyTorch yet")
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import HybridLM
+        return HybridLM(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm import XLSTM
+        return XLSTM(cfg)
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+        return EncDecLM(cfg)
+    raise ValueError(cfg.family)
 
 
 def get_model(arch_id: str, **overrides):
@@ -65,3 +68,8 @@ def get_model(arch_id: str, **overrides):
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return build_model(cfg), cfg
+
+
+#: the sub-quadratic families: O(1) recurrent state a slot (the hybrid's
+#: attention KV capped by its window)
+SUBQUADRATIC = {"recurrentgemma-9b", "xlstm-125m"}

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.memory import tiers
 from repro_torch.memory.accounting import (MemoryLedger, paged_window_bytes,
-                                           tree_bytes)
+                                           tree_bytes, tree_leaves)
 from repro_torch.memory.policies import (BlockPoolResidency,
                                          DoubleBufferPrefetch,
                                          OffloadBetweenSteps, PagedLayers,
@@ -384,8 +384,9 @@ class MemoryOrchestrator:
 
     def place_kv_pool(self, cache: dict) -> dict:
         """Residency for the serving KV cache (the page pools, or the
-        dense slab), provisioned capacity recorded (only live pages count
-        as residency; the server records a slab's whole bytes).
+        dense slab: a nested dict for a pattern model's recurrent state),
+        provisioned capacity recorded (only live pages count as
+        residency; the server records a slab's whole bytes).
         Device-resident by default; under ``offload_kv`` the pools rest in the remote tier
         (pinned host memory on the card) and a :class:`KVWindow` of
         ``1 + lookahead`` layer slices is allocated in device memory (the
@@ -395,7 +396,7 @@ class MemoryOrchestrator:
         ``degraded["kv_pool"]``."""
         policy = self.policies["kv_pool"]
         nbytes = tree_bytes(cache)
-        device = next(iter(cache.values())).device
+        device = next(tree_leaves(cache)).device
         try:
             placed = policy.place(cache)
         except tiers.TierTransferError as e:

@@ -77,7 +77,7 @@ class PagerPolicy:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's config fields that the ported families (dense,
-    MoE, VLM) read."""
+    MoE, VLM, hybrid, ssm, encdec) read."""
 
     name: str
     family: Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
@@ -100,6 +100,19 @@ class ModelConfig:
     num_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+
+    # hybrid (recurrentgemma): the block kinds of one group, e.g.
+    # ("rec", "rec", "att"), and the RG-LRU's causal conv width
+    block_pattern: tuple[str, ...] = ()
+    rglru_conv_width: int = 4
+
+    # ssm (xlstm): the mLSTM's up-projection and the sLSTM's post-MLP
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 4.0 / 3.0
+
+    # encdec (whisper): encoder depth and its precomputed frames (stub)
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500
 
     # vlm (llava): precomputed patch embeddings prepended (stub tower)
     num_patches: int = 576
@@ -177,11 +190,14 @@ class ModelConfig:
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
-        ``reduced`` for the dense, MoE and VLM families)."""
-        small = dict(num_layers=min(self.num_layers, 2), d_model=128,
+        ``reduced``): a patterned model keeps one group of at most three
+        kinds, with the rest of its pattern's length as the tail."""
+        small = dict(num_layers=min(self.num_layers,
+                                    len(self.block_pattern) or 2),
+                     d_model=128,
                      num_heads=4, num_kv_heads=min(self.num_kv_heads, 2) or 2,
                      d_ff=256 if self.d_ff else 0, vocab=512, head_dim=32,
-                     tp=1, num_patches=8,
+                     tp=1, encoder_seq=16, num_patches=8,
                      sliding_window=8 if self.sliding_window else 0)
         if self.num_experts:
             # high capacity factor => no token dropping at smoke scale
@@ -189,5 +205,9 @@ class ModelConfig:
             # shapes by design)
             small.update(num_experts=4, top_k=min(self.top_k, 2),
                          capacity_factor=8.0)
+        if self.block_pattern:
+            small.update(block_pattern=self.block_pattern[:3])
+        if self.num_encoder_layers:
+            small.update(num_encoder_layers=2)
         small.update(overrides)
         return dataclasses.replace(self, name=self.name + "-smoke", **small)

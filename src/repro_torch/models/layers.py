@@ -1,5 +1,6 @@
-"""Shared neural layers for the dense decoder: RMSNorm, RoPE, GQA attention
-(prefill, paged decode and decode over the dense slab), SwiGLU MLP,
+"""Shared neural layers: RMSNorm, RoPE, GQA attention (prefill, paged
+decode and decode over the dense slab; non-causal encoder attention and
+cross-attention for the encoder-decoder), SwiGLU and GELU MLPs,
 embeddings (counterpart of ``repro.models.layers``).
 
 Attention entry points take and return ``(batch, seq, heads, head_dim)``
@@ -253,6 +254,36 @@ def _out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
     return o.reshape(o.shape[0], o.shape[1], -1) @ p["wo"]
 
 
+def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, *, causal: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention, roped at ``positions`` (S,); causal
+    or not (the encoder), under the config's window.  Returns (B, S,
+    d)."""
+    q, k, v = _rope_qkv(p, x, positions, cfg)
+    o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    return _out_proj(p, o)
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The encoder output's cross-attention (k, v), each (B, S_enc, Hkv,
+    hd), unroped."""
+    b, s = enc_out.shape[:2]
+    hkv, hd = cfg.padded_kv_heads, cfg.head_dim
+    return ((enc_out @ p["wk"]).reshape(b, s, hkv, hd),
+            (enc_out @ p["wv"]).reshape(b, s, hkv, hd))
+
+
+def cross_attn_forward(p: dict, x: torch.Tensor,
+                       enc_kv: tuple[torch.Tensor, torch.Tensor],
+                       cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention over the encoder's precomputed (k, v): no
+    RoPE, no mask.  x: (B, S, d); returns (B, S, d)."""
+    b, s = x.shape[:2]
+    q = (x @ p["wq"]).reshape(b, s, cfg.padded_heads, cfg.head_dim)
+    o = flash_attention(q, *enc_kv, causal=False)
+    return _out_proj(p, o)
+
+
 def attn_prefill_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, *, rows: int = 0,
                     kv_roundtrip: bool = False):
@@ -372,6 +403,12 @@ def attn_decode_paged(p: dict, x: torch.Tensor, k_pages: torch.Tensor,
 def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     return h @ p["wo"]
+
+
+def mlp2_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The non-gated GELU MLP (whisper's); GELU's tanh form, as
+    ``jax.nn.gelu`` computes it by default."""
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
 
 
 def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
-from repro_torch.models.transformer import DenseLM, dense_init
+from repro_torch.models.transformer import DenseLM, attn_params, dense_init
 
 def capacity(tokens: int, num_experts: int, top_k: int, factor: float) -> int:
     c = int(math.ceil(tokens * top_k * factor / num_experts))
@@ -145,7 +145,7 @@ class MoELM(DenseLM):
         cfg = self.cfg
         dev, dt = gen.device, cfg.dtype
         return {
-            "attn": self._attn_params(gen),
+            "attn": attn_params(gen, cfg),
             "moe": moe_params(gen, cfg),
             "ln1": torch.ones(cfg.d_model, dtype=dt, device=dev),
             "ln2": torch.ones(cfg.d_model, dtype=dt, device=dev),

@@ -1,0 +1,224 @@
+"""xLSTM (counterpart of ``repro.models.ssm``): mLSTM and sLSTM blocks
+over the :class:`repro_torch.models.hybrid.GroupedLM` machinery.
+
+* **mLSTM**: a matrix memory C (hd x hd a head), exponential input gate,
+  sigmoid forget gate, log-domain stabilizer m:
+      C_t = f C_{t-1} + i v k^T,  n_t = f n_{t-1} + i k,
+      h_t = (C_t q) / max(|n_t . q|, 1).
+* **sLSTM**: scalar memory with exponential gating, normalizer and
+  stabilizer, per-head block-diagonal recurrent matrices; its gates read
+  h_{t-1}, so it scans step by step.
+
+Both recurrences scan one token at a time, as the reference's
+``lax.scan`` does (its chunk checkpointing only matters for training),
+in fp32, with the stabilizer starting at -1e30.  Their state is O(1) a
+slot whatever the length, fp32 whatever the model's dtype; decode is the
+sequence function over one token with the carried state.  ``d_ff`` is 0:
+each block carries its own projections.  No kernel runs here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models.base import ModelConfig
+from repro_torch.models.hybrid import BlockKinds, GroupedLM, write_state
+from repro_torch.models.transformer import dense_init
+
+#: the stabilizer's start: exp(m0 - anything finite) is exactly 0
+M0 = -1e30
+
+
+def mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(dp, nh, hd) of the mLSTM's inner space."""
+    nh = cfg.padded_heads
+    dp = int(cfg.d_model * cfg.mlstm_proj_factor)
+    dp = ((dp + nh - 1) // nh) * nh
+    return dp, nh, dp // nh
+
+
+def slstm_dims(cfg: ModelConfig) -> tuple[int, int]:
+    """(nh, hd) of the sLSTM (nh * hd == d_model)."""
+    nh = cfg.padded_heads
+    if cfg.d_model % nh:
+        raise ValueError(f"sLSTM: d_model {cfg.d_model} is not a multiple "
+                         f"of {nh} heads")
+    return nh, cfg.d_model // nh
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def mlstm_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, dt, dev = cfg.d_model, cfg.dtype, gen.device
+    dp, nh, _ = mlstm_dims(cfg)
+    return {
+        "ln": torch.ones(d, dtype=dt, device=dev),
+        "w_up": dense_init(gen, (d, 2 * dp), dt),
+        "w_q": dense_init(gen, (dp, dp), dt),
+        "w_k": dense_init(gen, (dp, dp), dt),
+        "w_v": dense_init(gen, (dp, dp), dt),
+        "w_i": dense_init(gen, (dp, nh), dt),
+        "b_i": torch.zeros(nh, dtype=torch.float32, device=dev),
+        "w_f": dense_init(gen, (dp, nh), dt),
+        "b_f": torch.full((nh,), 3.0, dtype=torch.float32, device=dev),
+        "gn": torch.ones(dp, dtype=dt, device=dev),
+        "w_down": dense_init(gen, (dp, d), dt),
+    }
+
+
+def mlstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              state: dict | None = None):
+    """The mLSTM over x (B, S, d), normed, from ``state`` ({C, n, m}, a
+    fresh one when None).  Returns (out (B, S, d), the new state)."""
+    dp, nh, hd = mlstm_dims(cfg)
+    b, s, _ = x.shape
+    z, gate = (x @ p["w_up"]).chunk(2, dim=-1)             # (B, S, dp) each
+    q = (z @ p["w_q"]).reshape(b, s, nh, hd) / math.sqrt(hd)
+    k = (z @ p["w_k"]).reshape(b, s, nh, hd) / math.sqrt(hd)
+    v = (z @ p["w_v"]).reshape(b, s, nh, hd)
+    log_i = (z @ p["w_i"]).float() + p["b_i"]              # (B, S, nh)
+    log_f = F.logsigmoid((z @ p["w_f"]).float() + p["b_f"])
+    if state is None:
+        c = x.new_zeros((b, nh, hd, hd), dtype=torch.float32)
+        n = x.new_zeros((b, nh, hd), dtype=torch.float32)
+        m = x.new_full((b, nh), M0, dtype=torch.float32)
+    else:
+        c, n, m = state["C"], state["n"], state["m"]
+    hs = []
+    for t in range(s):
+        qt, kt, vt = q[:, t].float(), k[:, t].float(), v[:, t].float()
+        li, lf = log_i[:, t], log_f[:, t]
+        m_new = torch.maximum(lf + m, li)
+        i_ = torch.exp(li - m_new)
+        f_ = torch.exp(lf + m - m_new)
+        c = (f_[..., None, None] * c
+             + i_[..., None, None] * (vt[..., :, None] * kt[..., None, :]))
+        n = f_[..., None] * n + i_[..., None] * kt
+        hq = torch.einsum("bhde,bhe->bhd", c, qt)
+        denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", n, qt).abs(), 1.0)
+        hs.append((hq / denom[..., None]).to(x.dtype))
+        m = m_new
+    hs = torch.stack(hs, dim=1).reshape(b, s, dp)
+    out = (L.rmsnorm(hs, p["gn"], 1e-6) * gate) @ p["w_down"]
+    return out, {"C": c, "n": n, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def slstm_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, dt, dev = cfg.d_model, cfg.dtype, gen.device
+    nh, hd = slstm_dims(cfg)
+    dp = max(64, int(round(d * cfg.slstm_proj_factor / 64)) * 64)
+    return {
+        "ln": torch.ones(d, dtype=dt, device=dev),
+        "w_in": dense_init(gen, (d, 4 * nh * hd), dt),
+        "r_z": dense_init(gen, (nh, hd, hd), dt),
+        "r_i": dense_init(gen, (nh, hd, hd), dt),
+        "r_f": dense_init(gen, (nh, hd, hd), dt),
+        "r_o": dense_init(gen, (nh, hd, hd), dt),
+        "b": torch.zeros((4, nh, hd), dtype=torch.float32, device=dev),
+        "gn": torch.ones(nh * hd, dtype=dt, device=dev),
+        "w_up": dense_init(gen, (nh * hd, dp), dt),
+        "w_down": dense_init(gen, (dp, d), dt),
+    }
+
+
+def slstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              state: dict | None = None):
+    """The sLSTM over x (B, S, d), normed, from ``state`` ({c, n, h, m},
+    a fresh one when None).  Returns (out (B, S, d), the new state)."""
+    nh, hd = slstm_dims(cfg)
+    b, s, _ = x.shape
+    zifo = (x @ p["w_in"]).reshape(b, s, 4, nh, hd)
+    if state is None:
+        c, n, h = (x.new_zeros((b, nh, hd), dtype=torch.float32)
+                   for _ in range(3))
+        m = x.new_full((b, nh, hd), M0, dtype=torch.float32)
+    else:
+        c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    bias = p["b"]
+    r_z, r_i, r_f, r_o = (p[f"r_{g}"].float() for g in "zifo")
+
+    def rec(h, r):      # (b, nh, hd) x (nh, hd, hd) -> (b, nh, hd)
+        return torch.einsum("bhd,hde->bhe", h, r)
+
+    hs = []
+    for t in range(s):
+        z_in, i_in, f_in, o_in = (zifo[:, t, j].float() + bias[j]
+                                  for j in range(4))
+        z = torch.tanh(z_in + rec(h, r_z))
+        log_i = i_in + rec(h, r_i)
+        log_f = F.logsigmoid(f_in + rec(h, r_f))
+        o = torch.sigmoid(o_in + rec(h, r_o))
+        m_new = torch.maximum(log_f + m, log_i)
+        i_ = torch.exp(log_i - m_new)
+        f_ = torch.exp(log_f + m - m_new)
+        c = f_ * c + i_ * z
+        n = f_ * n + i_
+        h = o * c / torch.clamp_min(n, 1.0)
+        m = m_new
+        hs.append(h)
+    hs = torch.stack(hs, dim=1).reshape(b, s, nh * hd).to(x.dtype)
+    hs = L.rmsnorm(hs, p["gn"], 1e-6)
+    out = F.gelu(hs @ p["w_up"], approximate="tanh") @ p["w_down"]
+    return out, {"c": c, "n": n, "h": h, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# Block kinds + model
+# ---------------------------------------------------------------------------
+
+class XLSTMKinds(BlockKinds):
+    """The "m" (mLSTM) and "s" (sLSTM) kinds: a residual around the
+    block, whose state is fp32."""
+
+    STATE_FILL = {"m": M0}
+    _SEQ = {"m": ("mlstm", mlstm_seq), "s": ("slstm", slstm_seq)}
+
+    def init_block(self, gen: torch.Generator, kind: str) -> dict:
+        if kind == "m":
+            return {"mlstm": mlstm_params(gen, self.cfg)}
+        if kind == "s":
+            return {"slstm": slstm_params(gen, self.cfg)}
+        return super().init_block(gen, kind)
+
+    def state_shapes(self, kind: str, batch: int, max_seq: int):
+        f32 = torch.float32
+        if kind == "m":
+            _, nh, hd = mlstm_dims(self.cfg)
+            return {"C": ((batch, nh, hd, hd), f32),
+                    "n": ((batch, nh, hd), f32), "m": ((batch, nh), f32)}
+        if kind == "s":
+            nh, hd = slstm_dims(self.cfg)
+            return {name: ((batch, nh, hd), f32) for name in "cnhm"}
+        return super().state_shapes(kind, batch, max_seq)
+
+    def _run(self, kind: str, p: dict, x: torch.Tensor, state: dict,
+             carried: bool) -> torch.Tensor:
+        name, seq = self._SEQ[kind]
+        o, new = seq(p[name], self._norm(x, p[name]["ln"]), self.cfg,
+                     state if carried else None)
+        write_state(state, new)
+        return x + o
+
+    def prefill(self, kind, p, x, positions, state):
+        if kind in self._SEQ:
+            return self._run(kind, p, x, state, carried=False)
+        return super().prefill(kind, p, x, positions, state)
+
+    def decode(self, kind, p, x, state, cur_pos):
+        if kind in self._SEQ:
+            return self._run(kind, p, x, state, carried=True), None
+        return super().decode(kind, p, x, state, cur_pos)
+
+
+class XLSTM(GroupedLM):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg, XLSTMKinds(cfg))

@@ -50,6 +50,66 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
     return (x * scale).to(dtype)
 
 
+def attn_params(gen: torch.Generator, cfg: ModelConfig, *,
+                cross: bool = False) -> dict:
+    """Attention weights at the reference's init scales: the true KV
+    heads replicated (or padded with fresh heads) to ``padded_kv_heads``,
+    padded query heads zeroed; biases (``qkv_bias``, never for ``cross``
+    attention) and qk norms as the config asks."""
+    d, hd, dt = cfg.d_model, cfg.head_dim, cfg.dtype
+    hq, hkv, hkv_true = (cfg.padded_heads, cfg.padded_kv_heads,
+                         cfg.num_kv_heads)
+    dev = gen.device
+    wq = dense_init(gen, (d, hq * hd), dt)
+    wk1 = dense_init(gen, (d, hkv_true, hd), dt)
+    wv1 = dense_init(gen, (d, hkv_true, hd), dt)
+    if hkv % hkv_true == 0:     # replicate the true KV heads
+        reps = hkv // hkv_true
+        wk = wk1.repeat(1, reps, 1).reshape(d, hkv * hd)
+        wv = wv1.repeat(1, reps, 1).reshape(d, hkv * hd)
+    else:                       # pad with fresh heads
+        extra = hkv - hkv_true
+        wk = torch.cat([wk1, dense_init(gen, (d, extra, hd), dt)],
+                       dim=1).reshape(d, hkv * hd)
+        wv = torch.cat([wv1, dense_init(gen, (d, extra, hd), dt)],
+                       dim=1).reshape(d, hkv * hd)
+    wo = dense_init(gen, (hq * hd, d), dt)
+    if hq > cfg.num_heads:
+        # zero the padded q-head slots so the padded model equals the
+        # true architecture (wo rows zeroed too keeps them inert)
+        mask = (torch.arange(hq, device=dev) < cfg.num_heads
+                ).repeat_interleave(hd).to(dt)
+        wq = wq * mask[None, :]
+        wo = wo * mask[:, None]
+    p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+    if cfg.qkv_bias and not cross:
+        p["bq"] = torch.zeros(hq * hd, dtype=dt, device=dev)
+        p["bk"] = torch.zeros(hkv * hd, dtype=dt, device=dev)
+        p["bv"] = torch.zeros(hkv * hd, dtype=dt, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dt, device=dev)
+        p["k_norm"] = torch.ones(hd, dtype=dt, device=dev)
+    return p
+
+
+def mlp_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The SwiGLU MLP's weights: wi, wg (d, d_ff) and wo (d_ff, d)."""
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype
+    return {"wi": dense_init(gen, (d, f), dt),
+            "wg": dense_init(gen, (d, f), dt),
+            "wo": dense_init(gen, (f, d), dt)}
+
+
+def embed_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The token embedding (scale 1) and, untied, the LM head."""
+    embed = {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                               cfg.dtype, scale=1.0)}
+    if not cfg.tie_embeddings:
+        embed["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                   cfg.dtype)
+    return embed
+
+
 def _scatter_pages(cache: dict, pages: torch.Tensor, k_new: torch.Tensor,
                    v_new: torch.Tensor, cfg: ModelConfig) -> dict:
     """Write (L, B, S, Hkv, hd) prompt KV into the page pools in place:
@@ -122,51 +182,12 @@ class DenseLM:
         self.mem = MemoryOrchestrator.plan(cfg)
 
     # ----- params -----------------------------------------------------------
-    def _attn_params(self, gen: torch.Generator) -> dict:
-        cfg = self.cfg
-        d, hd, dt = cfg.d_model, cfg.head_dim, cfg.dtype
-        hq, hkv, hkv_true = (cfg.padded_heads, cfg.padded_kv_heads,
-                             cfg.num_kv_heads)
-        dev = gen.device
-        wq = dense_init(gen, (d, hq * hd), dt)
-        wk1 = dense_init(gen, (d, hkv_true, hd), dt)
-        wv1 = dense_init(gen, (d, hkv_true, hd), dt)
-        if hkv % hkv_true == 0:     # replicate the true KV heads
-            reps = hkv // hkv_true
-            wk = wk1.repeat(1, reps, 1).reshape(d, hkv * hd)
-            wv = wv1.repeat(1, reps, 1).reshape(d, hkv * hd)
-        else:                       # pad with fresh heads
-            extra = hkv - hkv_true
-            wk = torch.cat([wk1, dense_init(gen, (d, extra, hd), dt)],
-                           dim=1).reshape(d, hkv * hd)
-            wv = torch.cat([wv1, dense_init(gen, (d, extra, hd), dt)],
-                           dim=1).reshape(d, hkv * hd)
-        wo = dense_init(gen, (hq * hd, d), dt)
-        if hq > cfg.num_heads:
-            # zero the padded q-head slots so the padded model equals the
-            # true architecture (wo rows zeroed too keeps them inert)
-            mask = (torch.arange(hq, device=dev) < cfg.num_heads
-                    ).repeat_interleave(hd).to(dt)
-            wq = wq * mask[None, :]
-            wo = wo * mask[:, None]
-        p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
-        if cfg.qkv_bias:
-            p["bq"] = torch.zeros(hq * hd, dtype=dt, device=dev)
-            p["bk"] = torch.zeros(hkv * hd, dtype=dt, device=dev)
-            p["bv"] = torch.zeros(hkv * hd, dtype=dt, device=dev)
-        if cfg.qk_norm:
-            p["q_norm"] = torch.ones(hd, dtype=dt, device=dev)
-            p["k_norm"] = torch.ones(hd, dtype=dt, device=dev)
-        return p
-
     def init_layer(self, gen: torch.Generator) -> dict:
         cfg = self.cfg
         dev, dt = gen.device, cfg.dtype
         return {
-            "attn": self._attn_params(gen),
-            "mlp": {"wi": dense_init(gen, (cfg.d_model, cfg.d_ff), dt),
-                    "wg": dense_init(gen, (cfg.d_model, cfg.d_ff), dt),
-                    "wo": dense_init(gen, (cfg.d_ff, cfg.d_model), dt)},
+            "attn": attn_params(gen, cfg),
+            "mlp": mlp_params(gen, cfg),
             "ln1": torch.ones(cfg.d_model, dtype=dt, device=dev),
             "ln2": torch.ones(cfg.d_model, dtype=dt, device=dev),
         }
@@ -177,12 +198,7 @@ class DenseLM:
         carry the reference's weights over with ``repro_torch.bridge``)."""
         cfg = self.cfg
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        embed = {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
-                                   cfg.dtype, scale=1.0)}
-        if not cfg.tie_embeddings:
-            embed["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
-                                       cfg.dtype)
-        return {"embed": embed,
+        return {"embed": embed_params(gen, cfg),
                 "layers": [self.init_layer(gen)
                            for _ in range(cfg.num_layers)],
                 "ln_f": torch.ones(cfg.d_model, dtype=cfg.dtype,

@@ -86,8 +86,10 @@ live batch — no batch restart.
 * **Model families.**  Any model of :func:`repro_torch.configs.
   build_model` serves: ``DenseLM``, ``MoELM`` (with ``page_experts`` its
   banks rest in the remote tier and only routed experts are paged in,
-  on the device, with no host sync) and ``VLM``, text-only as in the
-  reference (``submit`` takes no patches).  An MoE's capacity depends
+  on the device, with no host sync), ``VLM``, text-only as in the
+  reference (``submit`` takes no patches), and the pattern models
+  ``HybridLM`` and ``XLSTM`` over the dense slab.  ``EncDecLM`` has no
+  server path, as in the reference (``submit`` takes no frames).  An MoE's capacity depends
   on the tokens of a call, so its prefix-shared, chunked and
   disaggregated admissions may keep or drop other choices than a
   monolithic one: the reference's semantics, not a bit-identity
@@ -101,7 +103,9 @@ live batch — no batch restart.
   reference's splice finds it) and prefills into it in place, in stream
   order; a decode block needs no page table.  Paged only, as in the
   reference: preemption, the prefix cache, ``prefill_async`` and
-  snapshots (the last two raise).
+  snapshots (the last two raise).  A pattern model's cache
+  (``HybridLM``, ``XLSTM``) is a nested dict of recurrent state and
+  attention windows, stacked by group; the server walks its leaves.
 
 Left out of this port so far: tensor parallelism, and ``offload_kv`` over
 the dense slab (the reference's ``_decode_paged_cache``; it raises).
@@ -172,6 +176,16 @@ def _batch_axis(big: tuple, small: tuple) -> int | None:
         raise ValueError(f"cannot infer the batch axis of cache leaf {big} "
                          f"from single-request leaf {small}")
     return diff[0]
+
+
+def _leaves(tree: dict, path: tuple = ()):
+    """(path, leaf) of a nested dict's leaves: tensors, or a
+    ``cache_shapes`` entry's (shape, dtype)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
 
 
 def _bucket(n: int, quantum: int = 8) -> int:
@@ -306,10 +320,10 @@ class BatchedServer:
                 batch_size, max_seq, device=self.device))
             self.mem.ledger.record(self.mem.policies["kv_pool"].tier,
                                    "kv_pool", tree_bytes(self.cache))
-            single = model.cache_shapes(1, max_seq)
+            single = dict(_leaves(model.cache_shapes(1, max_seq)))
             self._batch_axes = {
-                name: _batch_axis(tuple(leaf.shape), single[name][0])
-                for name, leaf in self.cache.items()}
+                path: _batch_axis(tuple(leaf.shape), single[path][0])
+                for path, leaf in _leaves(self.cache)}
         self._init_sched_state(batch_size)
         self._peak_pages = 0
         self.tiers_peak: dict | None = None
@@ -694,16 +708,21 @@ class BatchedServer:
         return prng.fold_in(self._base_key, uid)
 
     def _slot_row(self, slot: int) -> dict:
-        """``slot``'s row of every dense cache leaf, zeroed (the fresh
-        batch-1 cache the reference prefills and splices), as in-place
-        views: a prefill into them writes the live slab, in stream
-        order."""
-        row = {}
-        for name, leaf in self.cache.items():
-            ax = self._batch_axes[name]
-            view = leaf if ax is None else leaf.narrow(ax, slot, 1)
-            row[name] = view.zero_()
-        return row
+        """``slot``'s row of every dense cache leaf, zeroed, in the
+        cache's nesting (the fresh batch-1 cache the reference prefills
+        and splices; the prefill writes every leaf), as in-place views: a
+        prefill into them writes the live slab, in stream order."""
+        def row(node: dict, path: tuple) -> dict:
+            out = {}
+            for name, leaf in node.items():
+                if isinstance(leaf, dict):
+                    out[name] = row(leaf, path + (name,))
+                    continue
+                ax = self._batch_axes[path + (name,)]
+                view = leaf if ax is None else leaf.narrow(ax, slot, 1)
+                out[name] = view.zero_()
+            return out
+        return row(self.cache, ())
 
     def _admit(self, req: Request, slot: int,
                finished: list[Request]) -> None:
@@ -1356,8 +1375,9 @@ class BatchedServer:
         return self.manager.pages_in_use * per_page
 
     def kv_bytes_capacity(self) -> int:
-        """Bytes of the whole provisioned cache (pools and scales)."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        """Bytes of the whole provisioned cache (pools and scales, or
+        the slab)."""
+        return tree_bytes(self.cache)
 
     def tier_stats(self) -> dict:
         """Per-tier residency snapshot of the shared ledger."""

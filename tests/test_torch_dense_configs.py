@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import _MODULES as REF_ARCHS  # noqa: E402
 from repro.configs import build_model, get_config  # noqa: E402
 from repro.runtime.serve import BatchedServer as RefServer  # noqa: E402
 from repro_torch import configs as port_configs  # noqa: E402
@@ -33,9 +34,6 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 #: arch -> overrides of ``reduced`` for its smoke model (G = 1 kept)
 ARCHS = {"qwen3-14b": {}, "minicpm-2b": {"num_kv_heads": 4},
          "starcoder2-15b": {}, "gpt3-175b": {"num_kv_heads": 4}}
-#: the reference's families the port does not serve yet
-UNPORTED = {"recurrentgemma-9b": "hybrid", "xlstm-125m": "ssm",
-            "whisper-base": "encdec"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,15 +115,14 @@ def test_smoke_model_matches_reference(arch):
     assert all(len(g) == 10 and g[:8] == w[:8] for g, w in zip(got, want))
 
 
-def test_not_ported_holds_only_the_three_other_families():
-    """Every dense config of the reference is ported; what is left is
-    the hybrid, ssm and encdec families, each refused by name."""
-    assert set(port_configs.NOT_PORTED) == set(UNPORTED)
-    for arch, family in UNPORTED.items():
-        assert get_config(arch).family == family
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_configs.get_config(arch)
-    from repro.configs import _MODULES as ref_modules
-    for arch in ref_modules:
-        if get_config(arch).family in ("dense", "moe", "vlm"):
-            assert port_configs.get_config(arch).name == arch
+@pytest.mark.parametrize("arch", sorted(REF_ARCHS))
+def test_every_reference_arch_resolves(arch):
+    """Every architecture of the reference's registry resolves in the
+    port, every family included: the config equals the reference's,
+    published and reduced, and ``build_model`` gives the class of the
+    reference's name."""
+    mine = port_configs.get_config(arch)
+    assert mine == config_from_reference(get_config(arch))
+    assert mine.reduced() == config_from_reference(get_config(arch).reduced())
+    assert type(port_configs.build_model(mine)).__name__ == type(
+        build_model(get_config(arch))).__name__

@@ -30,7 +30,8 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import build_model, get_config  # noqa: E402
+from repro.configs import (build_model, get_config,  # noqa: E402
+                           get_model)
 from repro.memory import TopKExpertPrefetch as RefPolicy  # noqa: E402
 from repro.memory import MemoryLedger as RefLedger  # noqa: E402
 from repro.models import moe as ref_moe  # noqa: E402
@@ -380,9 +381,16 @@ def test_get_config_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m",
                                   "whisper-base"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError):
-        port_configs.get_config(arch)
+def test_other_families_resolve_like_the_reference(arch):
+    """The hybrid, ssm and encdec families resolve at tp=1 as the MoE
+    family does: their reference class, their config, and the same
+    sub-quadratic set."""
+    from repro.configs import SUBQUADRATIC
+    model, cfg = port_configs.get_model(arch, tp=1)
+    ref_model, ref_cfg = get_model(arch, tp=1)
+    assert type(model).__name__ == type(ref_model).__name__
+    assert cfg == config_from_reference(ref_cfg) and cfg.tp == 1
+    assert (arch in port_configs.SUBQUADRATIC) == (arch in SUBQUADRATIC)
 
 
 def test_bridge_carries_moe_trees(granite):
