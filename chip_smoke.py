@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--layers N]
                           [--phases kernels,parity,moe,gpt3,families,
-                                    serve,dense,tiers,disagg]
+                                    train,serve,dense,tiers,disagg]
 
-Phases (kernels, parity, moe, gpt3, families, serve, dense, tiers and
-disagg by default):
+Phases (kernels, parity, moe, gpt3, families, train, serve, dense, tiers
+and disagg by default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
@@ -74,7 +74,12 @@ disagg by default):
    one (rec, rec, att) group and a tail of two rec blocks (window 8) and
    xlstm-125m served over their slab (first-8 tokens, prefill logits
    within 1e-3), whisper-base's ``prefill`` with frames and 7 greedy
-   decode steps (the tokens equal, prefill logits within 1e-3);
+   decode steps (the tokens equal, prefill logits within 1e-3); and the
+   training loss and gradients of one batch for each family's fp32 smoke
+   model (dense, MoE, VLM with patches, hybrid, xLSTM, whisper with
+   frames), the card against the CPU: the loss within 1e-4, every
+   gradient leaf within 1e-3 of its largest magnitude (floored at 1e-3
+   of the tree's largest), K2 on its mma route only;
 4. ``moe``: serve granite-moe-3b-a800m at its published widths and full
    depth (32 layers, d 1536, 24/8 heads, 40 experts top-8 of d_ff 512,
    tp=1, random bf16 weights) on the serve phase's four 8-token prompts
@@ -141,6 +146,33 @@ disagg by default):
    slot's slab bytes (recurrent state beside the windows, against
    Qwen2.5-14B's KV), the paged run's host-to-device rate beside its
    PCIe floor, and the phase's time;
+4d. ``train``: training, after the families phase and before the Qwen
+   weights exist.  Gate 1: the attention's gradients -- K2's forward under
+   autograd with the plain backward -- against torch autograd through
+   the plain version in fp32 on the same inputs, at minicpm-2b's
+   training shape (B 4, S 1024, 36/36 heads at d 64, causal), Qwen's GQA
+   (40/8 at d 128, S 1024), recurrentgemma-9b's windowed layer (B 1, S
+   2100, 16/1 at d 256, window 2048) and whisper-base's cross-attention
+   (B 4, Sq 64, Sk 1500, 8/8 at d 64, non-causal), in fp32 (1e-4) and
+   bf16 (3e-2): K2's output each element and each row against the row's
+   largest |plain|, dQ, dK and dV each element against its row's largest
+   |want|; K2's forward timed beside the plain forward and SDPA's (a kernels-JSON
+   row each), the plain backward beside SDPA's backward, and forward +
+   backward beside SDPA's.  Gate 2: minicpm-2b at full width, 2 of its 40
+   layers, fp32, a batch of 2 x 128 tokens: the loss (1e-4) and every
+   gradient leaf (1e-3 of its largest magnitude), the card against the
+   CPU.  Gate 4: minicpm-2b at full width, 4 of 40 layers, bf16, 5 steps
+   through ``FaultTolerantLoop`` (async checkpoints every 2 steps into a
+   temporary directory, one step raising at step 3): the final params
+   equal an uninterrupted run's bit for bit.  Gate 3: minicpm-2b at full
+   width and depth (40 layers, d 2304, 36/36 heads at d 64, d_ff 5760,
+   vocab 122753 tied; tp=1, random bf16 weights, fp32 moments), 6 steps
+   of ``make_train_step`` on one seeded ``SyntheticLM`` batch of 4 x 1024
+   tokens, accum_steps 2, WSD, remat on: every loss finite, the last
+   below the first, and K2 160 times a step on wgmma (40 layers x 2
+   microbatches x the forward and its remat recompute), counts reset
+   just before the run and read just after.  It prints ms a step (the
+   median of steps 2-6), tokens/s and peak device memory;
 5. ``serve``: serve Qwen2.5-14B at its published widths (tp=1, random bf16
    weights from a seeded torch.Generator, made once) through
    ``BatchedServer`` — four 8-token prompts plus a prefix-sharing pair, 64
@@ -189,8 +221,10 @@ disagg by default):
    to the cold tier (``cold_park_after_blocks=0``, the remote tier's
    high-water mark flat through every swap-out) and parked by age (1),
    bf16 greedy, every park promoted back, the same tokens; ``offload_kv``
+   at the first 24 of the 48 layers (``OFFLOAD_LAYERS``)
    -- the weights paged from pinned host memory and the KV pools at rest
-   there too, paged a layer at a time: the resident run's tokens, nothing
+   there too, paged a layer at a time: the tokens of a resident run at
+   that depth, nothing
    degraded, every layer's pool slice paged in and written back once a
    step and once an admission, timed against the same placed weights
    serving with the pools in device memory (paged, offload, offload,
@@ -231,7 +265,9 @@ disagg by default):
    two decode blocks on the card, TTFT p50/p99 in blocks, the stage time
    and bytes of a handoff (and of its host copy when a snapshot reads
    it) and the ledger's ``kv_handoff`` peak;
-8. ``profile`` (only when named in ``--phases``, with ``serve``): separate
+8. ``profile`` (only when named in ``--phases``): with ``train``, one more
+   training step of minicpm-2b traced (the device's busy share, device
+   time by kind of kernel and the top kernels); with ``serve``, separate
    traced serving runs (bf16 greedy, int8 at temperature 0.7, and bf16
    greedy with paged weights), printing device time by kernel and the
    device's busy share; for paged weights also the copy stream's busy
@@ -243,13 +279,14 @@ disagg by default):
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
 shape, ``tiers_launches``, ``disagg_launches``, ``moe_launches``,
-``gpt3_launches``, ``dense_launches`` and ``families_launches`` beside
-``launches`` (a row at granite's shapes, and the gather's, reads
-``launches`` from the moe phase, by route; a row at gpt3-175b's from the
-gpt3 phase; at whisper-base's or recurrentgemma-9b's from the families
-phase; a shape no driven path runs, minicpm-2b's, reads 0);
-the last is ``{"ok":
-true, "device": {...}}``.  Any
+``gpt3_launches``, ``dense_launches``, ``families_launches`` and
+``train_launches`` beside ``launches`` (a row at granite's shapes, and
+the gather's, reads ``launches`` from the moe phase, by route; a row at
+gpt3-175b's from the gpt3 phase; at whisper-base's or
+recurrentgemma-9b's from the families phase; at minicpm-2b's, and the
+train phase's rows at the training shapes, from the train phase's
+40-layer run; a row whose instantiation its path never launched reads
+0); the last is ``{"ok": true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
 It exits non-zero at once when no CUDA device is present.
 """
@@ -257,6 +294,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -553,7 +591,10 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None,
 #: kv_valid), its cross-attention (Sq = 8 against the 1500 frames) and
 #: causal self-attention (8/8 heads at d = 64, batch 4), and
 #: recurrentgemma-9b's admission and 2100-token prompt (16/1 heads at d =
-#: 256 under its window of 2048)
+#: 256 under its window of 2048).  The train phase's: minicpm-2b's
+#: training shape (batch 4, 1024 causal tokens, 36/36 heads at d = 64,
+#: 16 key tiles) and whisper-base's training cross-attention (64 queries
+#: against the 1500 frames)
 FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 384, 384, 40, 8, 128, {}),
                (1, 2048, 2048, 40, 8, 128, {}),
@@ -577,7 +618,9 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (4, 8, 1500, 8, 8, 64, {"causal": False}),
                (4, 8, 8, 8, 8, 64, {}),
                (1, 8, 8, 16, 1, 256, {"window": 2048}),
-               (1, 2100, 2100, 16, 1, 256, {"window": 2048}))
+               (1, 2100, 2100, 16, 1, 256, {"window": 2048}),
+               (4, 1024, 1024, 36, 36, 64, {}),
+               (4, 64, 1500, 8, 8, 64, {"causal": False}))
 #: the prefix contract's cases: (Sq = Sk, q_offset, Hq, Hkv, d, window).
 #: At 130 a row sits at another place of its query tile than unshared
 #: (25 positions a tile at 40/8 heads, 4 at 16/1), and with a window of
@@ -588,9 +631,10 @@ FLASH_PREFIX = ((64, 48, 40, 8, 128, 0), (384, 200, 40, 8, 128, 0),
                 (384, 130, 16, 1, 256, 100))
 #: the paths a K2 row's launches are read from, by attention (Hq, Hkv,
 #: d): granite-moe-3b-a800m's (moe phase), gpt3-175b's MHA (gpt3 phase),
-#: minicpm-2b's MHA (no driven path: kernels phase only); else serve
+#: minicpm-2b's MHA (its training, train phase), whisper-base's and
+#: recurrentgemma-9b's (families phase); else serve
 ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
-              (36, 36, 64): "kernels", (8, 8, 64): "families",
+              (36, 36, 64): "train", (8, 8, 64): "families",
               (16, 1, 256): "families"}
 #: K2's timed shapes (route, dtype, Sq = Sk, Hq, Hkv, d): the main path's
 #: route at Qwen2.5-14B's width over four prompt lengths, at
@@ -2562,6 +2606,521 @@ def check_families(torch, card: str, counts: Launches) -> None:
     log("families: every gate held")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+#: the train phase's attention-gradient shapes (gate 1): (model, B, Sq, Sk,
+#: Hq, Hkv, d, mask keywords) -- minicpm-2b's training microbatch shape,
+#: Qwen2.5-14B's GQA, recurrentgemma-9b's windowed layer over its 2100
+#: tokens and whisper-base's decoder cross-attention over the 1500 frames
+TRAIN_ATTN = (("minicpm-2b", 4, 1024, 1024, 36, 36, 64, {}),
+              ("qwen2.5-14b", 1, 1024, 1024, 40, 8, 128, {}),
+              ("recurrentgemma-9b", 1, 2100, 2100, 16, 1, 256,
+               {"window": 2048}),
+              ("whisper-base", 4, 64, 1500, 8, 8, 64, {"causal": False}))
+#: minicpm-2b's training run (gate 3): batch x tokens, microbatches, steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 1024, 2, 6
+#: the fault-tolerant run (gate 4): layers kept of 40, steps, the step
+#: that raises once, checkpoint period
+FT_LAYERS, FT_STEPS, FT_FAIL_AT, FT_EVERY = 4, 5, 3, 2
+#: card-against-CPU gradients: the loss within 1e-4, each leaf within 1e-3
+#: of its largest magnitude, floored at 1e-3 of the tree's largest (a
+#: leaf whose exact gradient is 0, the mLSTM input-gate bias, holds only
+#: rounding on both devices)
+GRAD_LOSS_TOL, GRAD_TOL = 1e-4, 1e-3
+
+
+def _row_errors(got, want) -> tuple[float, float]:
+    """(largest |got - want|, largest row error over the row's largest
+    |want|), rows along the last dim."""
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), (diff.amax(-1) / want.float().abs().amax(
+        -1).clamp_min(1e-30)).max().item()
+
+
+def train_attention_grads(torch, card: str, results: dict) -> list:
+    """Gate 1: K2 under autograd (``ops.attention``: K2's forward, the
+    plain backward) against torch autograd through the plain version in
+    fp32 on the same inputs, at ``TRAIN_ATTN``'s shapes, in fp32 (bound
+    1e-4) and bf16 (3e-2).  The forward's output is held as
+    ``check_flash`` holds K2: each element, and each output row within
+    the bound times its row's largest |plain|.  dQ, dK and dV are held
+    row by row: each element's error over its row's largest |want| (a
+    row: one position of one head), since their scale (4 to 8 at
+    minicpm-2b's shape) follows the inputs'; one K2 launch on the route
+    ``plan`` gives.  Then
+    the timings: K2's forward (graph replay) beside the plain forward and
+    SDPA's (a kernels-JSON row, phase "train"); the plain backward beside
+    SDPA's backward, and K2 + the plain backward beside SDPA's forward
+    and backward under autograd, from replayed graphs and eagerly.
+    Returns the problems found."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (
+        _mask, flash_attention_ref)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    problems = []
+    for arch, b, sq, sk, hq, hkv, d, kw in TRAIN_ATTN:
+        causal, window = kw.get("causal", True), kw.get("window", 0)
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            def inputs():
+                return [torch.randn(shape, generator=gen, device="cuda").to(
+                    dtype) for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                         (b, sk, hkv, d), (b, sq, hq, d))]
+            q, k, v, do = inputs()
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = launch_counts()
+            out = ops.attention(*leaves, **kw)
+            got = torch.autograd.grad(out, leaves, do)
+            moved = {n: c - before[n] for n, c in launch_counts().items()
+                     if c != before[n]}
+            route = K.plan(dtype, d, hq // hkv, dtype == torch.bfloat16
+                           and K.aligned(q, k, v))
+            ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+            ref_out = flash_attention_ref(*ref_leaves, **kw)
+            want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+            fwd_err, fwd_row = _row_errors(out, ref_out.detach())
+            errs = {n: _row_errors(g, w)
+                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            dt = str(dtype)[6:]
+            shape = (f"B={b} {f'Sq=Sk={sq}' if sq == sk else f'Sq={sq} Sk={sk}'}"
+                     f" Hq={hq} Hkv={hkv} d={d} "
+                     f"{'causal' if causal else 'non-causal'}"
+                     f"{f' window {window}' if window else ''} {dt}")
+            log(f"train attention grads ({arch}: {shape}): K2 forward + "
+                f"plain backward against autograd through the plain version "
+                f"in fp32: " + ", ".join(
+                    f"{n} max_abs_err {e:.3e} row {r:.3e}"
+                    for n, (e, r) in errs.items())
+                + f" (bound {tol:g} for each row); forward max_abs_err "
+                f"{fwd_err:.3e} row {fwd_row:.3e} (bound {tol:g} for both); "
+                f"launches {moved}")
+            if moved != {f"flash_attention_{route}": 1}:
+                problems.append(f"attention grads {arch} {dt}: launches "
+                                f"{moved}, expected one on {route}")
+            if not (fwd_err <= tol and fwd_row <= tol):
+                problems.append(f"attention forward {arch} {dt}: "
+                                f"{fwd_err}, row {fwd_row} over {tol}")
+            if not all(r <= tol for _, r in errs.values()):
+                problems.append(f"attention grads {arch} {dt}: rows {errs} "
+                                f"over {tol}")
+            del leaves, out, got, ref_leaves, ref_out, want
+
+            # timings: four input sets rotate past the L2
+            sets = [inputs() for _ in range(4)]
+            ms = time_ms(torch, lambda q, k, v, do: ops.attention(q, k, v,
+                                                                  **kw),
+                         sets)
+            plain_ms = time_ms(torch, lambda q, k, v, do: flash_attention_ref(
+                q, k, v, **kw), sets, iters=1, graph=False)
+            g = hq // hkv
+            lib = [[t.transpose(1, 2) if i in (0, 3) else
+                    t.transpose(1, 2).repeat_interleave(g, dim=1)
+                    for i, t in enumerate(s)] for s in sets]
+            mask = None
+            if window:
+                mask = _mask(sk - sq + torch.arange(sq, device="cuda"),
+                             torch.arange(sk, device="cuda"), causal=causal,
+                             window=window, kv_valid=sk)
+
+            def lib_fwd(q, k, v, do):
+                return (sdpa(q, k, v, attn_mask=mask) if mask is not None
+                        else sdpa(q, k, v, is_causal=causal))
+            lib_ms = time_ms(torch, lib_fwd, lib)
+            # device times from replayed graphs: the plain backward alone;
+            # K2 + the plain backward, and SDPA's forward and backward,
+            # under autograd (SDPA's backward: the difference with its
+            # forward); then the same two under autograd eagerly, the
+            # host's issue time included, as a training step pays it
+            bwd_ms = time_ms(torch, lambda q, k, v, do: flash_attention_bwd(
+                q, k, v, do, **kw), sets, iters=10)
+            grad_sets = [[t.requires_grad_() if i < 3 else t
+                          for i, t in enumerate(s)] for s in sets]
+            lib_grad = [[t.detach().requires_grad_() if i < 3 else t
+                         for i, t in enumerate(s)] for s in lib]
+
+            def fwd_bwd(attn, q, k, v, do):
+                torch.autograd.grad(attn(q, k, v, do), (q, k, v), do)
+
+            def ours(*t):
+                fwd_bwd(lambda q, k, v, do: ops.attention(q, k, v, **kw), *t)
+            fb_ms = time_ms(torch, ours, grad_sets, iters=10)
+            lib_fb_ms = time_ms(torch, lambda *t: fwd_bwd(lib_fwd, *t),
+                                lib_grad, iters=10)
+            lib_bwd_ms = lib_fb_ms - lib_ms
+            fb_eager_ms = time_ms(torch, ours, grad_sets, iters=10,
+                                  graph=False)
+            lib_fb_eager_ms = time_ms(torch, lambda *t: fwd_bwd(lib_fwd, *t),
+                                      lib_grad, iters=10, graph=False)
+            size = q.element_size()
+            pairs = hq * b * _flash_pairs(torch, sq, sk, **kw)
+            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+                else TF32X3_FLOPS_PER_S
+            nbytes = size * b * (2 * sq * hq * d + 2 * sk * hkv * d)
+            b_ms, b_by = bound(nbytes, 4 * d * pairs, peak)
+            # backward: q, do, dq and k, v, dk, dv once each; S recomputed,
+            # dP, dV, dQ, dK: 10 d operations a pair
+            bb_ms, bb_by = bound(size * b * (3 * sq * hq * d
+                                             + 4 * sk * hkv * d),
+                                 10 * d * pairs, peak)
+            log(f"train K2 flash_attention_{route} {shape} [{card}]: forward "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), "
+                f"{100 * b_ms / ms:.1f}% of the bound; plain backward "
+                f"{bwd_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms, bound "
+                f"{bb_ms:.6f} ms ({bb_by}), {100 * bb_ms / bwd_ms:.1f}% of "
+                f"the bound, plain / sdpa {bwd_ms / lib_bwd_ms:.2f}x; "
+                f"forward + backward {fb_ms:.4f} ms against sdpa's "
+                f"{lib_fb_ms:.4f} ms ({fb_ms / lib_fb_ms:.2f}x); eager, "
+                f"host included, {fb_eager_ms:.4f} against "
+                f"{lib_fb_eager_ms:.4f} ms")
+            results.setdefault(f"flash_attention_{route}", []).append(dict(
+                shape=f"{shape} ({arch} training)",
+                instance=K.instance(d, dtype), phase="train",
+                max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, plain_bwd_ms=bwd_ms,
+                library_bwd_ms=lib_bwd_ms, bwd_bound_ms=bb_ms,
+                fwd_bwd_ms=fb_ms, library_fwd_bwd_ms=lib_fb_ms,
+                fwd_bwd_eager_ms=fb_eager_ms,
+                library_fwd_bwd_eager_ms=lib_fb_eager_ms,
+                grad_max_abs_err={n: e for n, (e, _) in errs.items()},
+                grad_row_err={n: r for n, (_, r) in errs.items()}))
+            del sets, lib, grad_sets, lib_grad
+    return problems
+
+
+def _train_batch(torch, cfg, b: int, s: int, seed: int = 0) -> dict:
+    """A seeded ``SyntheticLM`` batch, with seeded patches (VLM) or frames
+    (encoder-decoder) where the family takes them."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    batch = SyntheticLM(DataConfig(batch=b, seq=s, vocab=cfg.vocab,
+                                   seed=seed)).batch_at(0)
+    rng = np.random.RandomState(seed)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.randn(b, cfg.num_patches,
+                                     cfg.d_model).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.randn(b, cfg.encoder_seq,
+                                    cfg.d_model).astype(np.float32)
+    return batch
+
+
+def grads_card_vs_cpu(torch, model, cpu_params, batch: dict, tag: str,
+                      problems: list) -> dict:
+    """The loss and every gradient leaf of one batch, the card against the
+    CPU with the same weights (``GRAD_LOSS_TOL``, ``GRAD_TOL``); returns
+    the card run's kernel launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import train
+    tcfg = train.TrainConfig()
+    out = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", _to(cpu_params,
+                                                          "cuda"))):
+        reset_launch_counts()
+        loss, grads = train.loss_and_grads(model, tcfg, params,
+                                           train.to_device(batch, dev))
+        out[dev] = (float(loss), [g.cpu() for g in grads])
+        launches = {k: n for k, n in launch_counts().items() if n}
+        del params, grads
+    (lc, gc_), (lg, gg) = out["cpu"], out["cuda"]
+    top = max(g.abs().max().item() for g in gc_)
+    worst = max((a - b).abs().max().item()
+                / max(a.abs().max().item(), 1e-3 * top)
+                for a, b in zip(gc_, gg))
+    log(f"{tag}, card vs CPU: loss {lg:.6f} against {lc:.6f} (|diff| "
+        f"{abs(lg - lc):.3e}, bound {GRAD_LOSS_TOL:g}); {len(gc_)} gradient "
+        f"leaves, the worst {worst:.3e} of its largest magnitude (bound "
+        f"{GRAD_TOL:g}); card launches {launches}")
+    if not (abs(lg - lc) <= GRAD_LOSS_TOL and worst <= GRAD_TOL):
+        problems.append(f"{tag}: card and CPU gradients disagree")
+    return launches
+
+
+#: the parity phase's training models: (arch, overrides of ``reduced``)
+PARITY_TRAIN = (("qwen2.5-14b", {}), ("granite-moe-3b-a800m", {}),
+                ("llava-next-34b", {}),
+                ("recurrentgemma-9b", {"num_layers": 5}),
+                ("xlstm-125m", {}), ("whisper-base", {}))
+
+
+def check_parity_train(torch) -> None:
+    """Every family's fp32 smoke model (dense, MoE, VLM, hybrid, ssm,
+    encoder-decoder): the loss and gradients of one batch (2 x 16 tokens,
+    with patches or frames) on the card against the CPU
+    (``grads_card_vs_cpu``); K2 on its mma route only (fp32), and twice
+    an attention layer (the forward and its recompute under remat)."""
+    from repro_torch.configs import build_model, get_config
+    problems: list = []
+    for arch, over in PARITY_TRAIN:
+        cfg = get_config(arch).reduced(dtype=torch.float32, **over)
+        model = build_model(cfg)
+        cpu_params = model.init(0, device="cpu")
+        got = grads_card_vs_cpu(torch, model, cpu_params,
+                                _train_batch(torch, cfg, 2, 16),
+                                f"parity train (smoke fp32 {arch})", problems)
+        if got.get("flash_attention_wgmma", 0):
+            problems.append(f"parity train {arch}: wgmma launched in fp32")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def minicpm_config(torch, layers: int, dtype):
+    """minicpm-2b at its published widths on one card (tp=1: 36/36 heads,
+    none padded), ``layers`` of its 40 deep."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("minicpm-2b"), tp=1,
+                               num_layers=layers, dtype=dtype)
+
+
+def train_fp32_card_vs_cpu(torch, problems: list) -> None:
+    """Gate 2: minicpm-2b at full width, 2 of its 40 layers, fp32, one
+    batch of 2 x 128 tokens: the loss and every gradient leaf, the card
+    against the CPU (``grads_card_vs_cpu``).  Two layers: the reference's
+    init gives scores a std of ~8 (sqrt(d / Hkv)), and depth amplifies
+    fp32 rounding past the bound (whisper-base, PERF.md)."""
+    from repro_torch.models.transformer import DenseLM
+    cfg = minicpm_config(torch, 2, torch.float32)
+    model = DenseLM(cfg)
+    cpu_params = model.init(0, device="cpu")
+    grads_card_vs_cpu(torch, model, cpu_params,
+                      _train_batch(torch, cfg, 2, 128),
+                      "train minicpm-2b fp32 (full width, 2 of 40 layers, "
+                      "2 x 128 tokens)", problems)
+    del cpu_params
+    gc.collect()
+
+
+def train_minicpm(torch, card: str, counts: Launches, problems: list,
+                  profiled: bool = False) -> None:
+    """Gate 3: minicpm-2b at full width and depth (40 layers, d 2304, 36/36
+    heads at d 64, d_ff 5760, vocab 122753 tied; tp=1, random bf16
+    weights, fp32 moments), ``TRAIN_STEPS`` steps of ``make_train_step``
+    on one seeded ``SyntheticLM`` batch of TRAIN_BATCH x TRAIN_SEQ tokens,
+    accum_steps=2, WSD, remat on: every loss finite and the last below
+    the first; K2 once a layer a microbatch forward and once more in its
+    remat recompute (wgmma only), every step.  Prints ms a step (median
+    of steps 2..6), tokens/s and peak device memory; with ``profiled``,
+    one more step traced (``profile_train_step``)."""
+    import statistics
+
+    from repro_torch.kernels import (instance_counts, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime import optim, train
+    cfg = minicpm_config(torch, 40, torch.bfloat16)
+    model = DenseLM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, device="cuda")
+    opt = optim.init_opt_state(params)
+    n_params = sum(p.numel() for p in _leaves(params))
+    tcfg = train.TrainConfig(adamw=optim.AdamWConfig(
+        lr=3e-3, schedule="wsd", warmup_steps=2, total_steps=TRAIN_STEPS,
+        decay_fraction=0.5), accum_steps=TRAIN_ACCUM)
+    step = train.make_train_step(model, tcfg)
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"train minicpm-2b [{card}]: {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads at d "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded "
+        f"{cfg.padded_vocab}) tied, {n_params} parameters in bf16, fp32 "
+        f"moments; batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, accum_steps "
+        f"{TRAIN_ACCUM}, WSD, remat on")
+    want = cfg.num_layers * TRAIN_ACCUM * 2    # forward + remat recompute
+    losses, secs, per_step = [], [], []
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss = float(m["loss"])        # waits for the step
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+        now = launch_counts()
+        per_step.append({n: now[n] - before[n] for n in now
+                         if now[n] != before[n]})
+        log(f"train minicpm-2b step {i}: loss {loss:.4f}, lr "
+            f"{float(m['lr']):.3e}, grad_norm {float(m['grad_norm']):.3f}, "
+            f"{1e3 * secs[-1]:.1f} ms, launches {per_step[-1]}")
+    counts.add(launch_counts(), instance_counts())
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(secs[1:])
+    log(f"train minicpm-2b [{card}]: {1e3 * med:.1f} ms a step (median of "
+        f"steps 2..{TRAIN_STEPS}; the first {1e3 * secs[0]:.1f} ms), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; losses {losses}; K2 launches a step "
+        f"{[s.get('flash_attention_wgmma', 0) for s in per_step]} "
+        f"(expected {want}: {cfg.num_layers} layers x {TRAIN_ACCUM} "
+        f"microbatches x 2, the forward and the remat recompute)")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        problems.append(f"train minicpm-2b: losses {losses} not finite and "
+                        f"falling")
+    if any(s != {"flash_attention_wgmma": want} for s in per_step):
+        problems.append(f"train minicpm-2b: launches a step {per_step}, "
+                        f"expected {want} on wgmma")
+    if profiled:
+        profile_train_step(torch, card, step, params, opt, batch)
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_fault_tolerant(torch, card: str, problems: list) -> None:
+    """Gate 4: minicpm-2b at full width, FT_LAYERS of its 40 layers, bf16:
+    FT_STEPS steps through ``FaultTolerantLoop`` (checkpoints every
+    FT_EVERY steps, saved asynchronously into a temporary directory) with
+    a step that raises once at FT_FAIL_AT, against the same steps run
+    without the loop: the loop restores the latest checkpoint, replays,
+    and its final params equal the uninterrupted run's bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime import optim, train
+    from repro_torch.runtime.ft import FaultTolerantLoop, FTConfig
+    cfg = minicpm_config(torch, FT_LAYERS, torch.bfloat16)
+    model = DenseLM(cfg)
+    step = train.make_train_step(model, train.TrainConfig(
+        adamw=optim.AdamWConfig(lr=3e-3, schedule="wsd", warmup_steps=1,
+                                total_steps=FT_STEPS), accum_steps=2))
+    data = SyntheticLM(DataConfig(batch=4, seq=256, vocab=cfg.vocab, seed=3))
+
+    def fresh():
+        params = model.init(0, device="cuda")
+        return params, optim.init_opt_state(params)
+
+    params, opt = fresh()
+    for i in range(FT_STEPS):
+        params, opt, _ = step(params, opt, data.batch_at(i))
+    want = [p.cpu() for p in _leaves(params)]
+    del params, opt
+    failures = {FT_FAIL_AT}
+
+    def step_fn(state, i):
+        if i in failures:
+            failures.clear()
+            raise RuntimeError(f"injected failure at step {i}")
+        p, o = state
+        p, o, m = step(p, o, data.batch_at(i))
+        return (p, o), m
+
+    root = tempfile.mkdtemp(prefix="train_ft_")
+    try:
+        free = shutil.disk_usage(root).free
+        loop = FaultTolerantLoop(FTConfig(ckpt_dir=root, ckpt_every=FT_EVERY,
+                                          keep=2, async_save=True), step_fn)
+        t0 = time.perf_counter()
+        (params, _), end = loop.run(fresh(), num_steps=FT_STEPS)
+        secs = time.perf_counter() - t0
+        saved = sorted(p.name for p in Path(root).iterdir())
+        nbytes = sum(f.stat().st_size for f in Path(root).rglob("*")
+                     if f.is_file())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    got = [p.cpu() for p in _leaves(params)]
+    same = all(torch.equal(a, b) for a, b in zip(want, got))
+    differ = [i for i, (a, b) in enumerate(zip(want, got))
+              if not torch.equal(a, b)]
+    log(f"train fault-tolerant loop [{card}]: minicpm-2b at full width, "
+        f"{FT_LAYERS} of 40 layers, bf16, {FT_STEPS} steps, checkpoints "
+        f"every {FT_EVERY} (async; {saved} kept, {nbytes} bytes, "
+        f"{free / 2**30:.1f} GiB free before), one failure at step "
+        f"{FT_FAIL_AT}: restarts {loop.restarts}, steps logged "
+        f"{[m['step'] for m in loop.metrics_log]}, ended at {end}, "
+        f"{secs:.1f} s; final params equal the uninterrupted run's bit for "
+        f"bit: {same} (leaves that differ: {differ})")
+    if not (same and loop.restarts == 1 and end == FT_STEPS):
+        problems.append("train fault-tolerant loop: the replay differs from "
+                        "the uninterrupted run")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: coarse kinds of device kernels in a traced training step, by name
+TRAIN_KERNEL_KINDS = (("K2", ("flash_wgmma_kernel", "flash_mma_kernel")),
+                      ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass",
+                                           "sm90_", "nvjet")),
+                      ("softmax / logsumexp", ("softmax", "logsumexp")),
+                      ("reductions", ("reduce",)),
+                      ("index / scatter", ("index", "scatter", "gather",
+                                           "embedding")),
+                      ("copies and casts", ("copy", "Memcpy", "Memset")),
+                      ("elementwise", ("elementwise", "vectorized",
+                                       "unrolled")))
+
+
+def profile_train_step(torch, card: str, step, params, opt, batch) -> None:
+    """One more training step under ``torch.profiler``: the device's busy
+    share of its wall time, device time by kind of kernel and the top
+    kernels by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        if dev > 0:
+            rows.append((dev, ev.key, ev.count))
+    busy = sum(r[0] for r in rows) / 1e6
+    kinds: dict = {}
+    for dev, key, _ in rows:
+        kind = next((k for k, subs in TRAIN_KERNEL_KINDS
+                     if any(s in key for s in subs)), "other")
+        kinds[kind] = kinds.get(kind, 0) + dev
+    log(f"profile train minicpm-2b step [{card}]: {secs:.3f} s wall (traced), "
+        f"device busy {busy:.3f} s ({100 * busy / secs:.1f}%); by kind: "
+        + ", ".join(f"{k} {v / 1e3:.1f} ms ({100 * v / 1e6 / busy:.1f}%)"
+                    for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    for dev, key, count in sorted(rows, reverse=True)[:14]:
+        log(f"  {dev / 1e3:10.2f} ms  {100 * dev / 1e6 / busy:5.1f}%  "
+            f"x{count:<6d} {key[:90]}")
+
+
+def check_train(torch, card: str, results: dict, counts: Launches,
+                profiled: bool = False) -> None:
+    """The ``train`` phase: gates 1-4 (``train_attention_grads``,
+    ``train_fp32_card_vs_cpu``, ``train_fault_tolerant``,
+    ``train_minicpm``, which traces one more step when ``profiled``),
+    every gate checked before it raises."""
+    t0 = time.perf_counter()
+    problems = train_attention_grads(torch, card, results)
+    log(f"train: train_attention_grads took {time.perf_counter() - t0:.1f} s")
+    for name, check in (
+            ("train_fp32_card_vs_cpu",
+             lambda: train_fp32_card_vs_cpu(torch, problems)),
+            ("train_fault_tolerant",
+             lambda: train_fault_tolerant(torch, card, problems)),
+            ("train_minicpm",
+             lambda: train_minicpm(torch, card, counts, problems,
+                                   profiled))):
+        t = time.perf_counter()
+        check()
+        log(f"train: {name} took {time.perf_counter() - t:.1f} s")
+    log(f"train: the phase took {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise AssertionError("train phase: " + "; ".join(problems))
+    log("train: every gate held")
+
+
 #: the dense phase's runs over the slab: (kv_quant, temperature)
 DENSE_RUNS = ((False, 0.0), (False, 0.7), (True, 0.0))
 #: the first-8 rule for tokens that need not be bit-equal: the first 8 tokens
@@ -3068,10 +3627,10 @@ def swap_cost(torch, card: str, page_bytes: int) -> None:
 
 
 def check_tiers(torch, card: str, cfg, params, counts: Launches,
-                served: dict | None) -> list:
+                served: dict | None) -> None:
     """Preemption over the three pool dtypes at both temperatures,
     preemption mid-decode (a stash of pages decode wrote) and cold
-    parking; returns the bf16 greedy uncontended tokens.  ``served``: the
+    parking.  ``served``: the
     serve phase's tokens by (kv_dtype, temperature) when it ran these
     settings at full depth (its first four requests are this phase's
     workload, in the same slots); else the uncontended runs are made
@@ -3115,7 +3674,6 @@ def check_tiers(torch, card: str, cfg, params, counts: Launches,
         if st["preemptions"] < 1 or st["resumes"] != st["preemptions"] \
                 or st["sheds"]:
             raise AssertionError(f"tiers {srv.tag}: {st}")
-    resident = uncontended[None, 0.0]
     # the pool runs dry after the first block: the victims have decoded
     # 32 tokens past their 8-token prompts, 3 pages each, which K1's
     # decode steps wrote
@@ -3156,7 +3714,7 @@ def check_tiers(torch, card: str, cfg, params, counts: Launches,
             f"{st['cold_promotes']}, remote hwm flat through each swap-out "
             f"{flat}")
         tier_report(srv, card)
-        if got != resident:
+        if got != uncontended[None, 0.0]:
             raise AssertionError(f"tiers {srv.tag}: tokens differ from the "
                                  f"uncontended run's")
         if (st["cold_parks"] < 1 or st["cold_promotes"] != st["cold_parks"]
@@ -3168,20 +3726,29 @@ def check_tiers(torch, card: str, cfg, params, counts: Launches,
     log("tiers: preempted (at admission and mid-decode) and cold-parked "
         "tokens equal the uncontended runs'; every victim resumed, every "
         "park promoted back")
-    return resident
 
 
-def check_offload(torch, card: str, cfg, params, want: list,
-                  counts: Launches) -> None:
-    """``offload_kv`` with paged weights, bf16 greedy: the resident run's
-    tokens, nothing degraded, every layer's pool slice paged in and
-    written back once a step and once an admission; then the same with
-    the pool run dry mid-decode (preemption swaps from pools at rest in
-    pinned host memory).  The offload's cost: the same weights, paged
-    the same way, serve the same four prompts with the pools in device
-    memory, interleaved with the offloaded runs (paged, offload, offload,
-    paged).  Consumes ``params["layers"]`` (re-made from the same seed if
-    an earlier run already moved them to the host)."""
+#: the offload_kv run's depth: the first half of Qwen2.5-14B's 48 layers.
+#: Its gates hold its runs to a resident run at the same depth.  At 48
+#: layers it took ~257 s of a ~1011 s default run on an H100 80GB HBM3 at
+#: 700 W (four timed runs bound by PCIe); with the train phase the run
+#: would pass ~1100 s of its 1200
+OFFLOAD_LAYERS = 24
+
+
+def check_offload(torch, card: str, cfg, params, counts: Launches) -> None:
+    """``offload_kv`` with paged weights, bf16 greedy, at ``cfg``'s depth
+    (the first ``cfg.num_layers`` of ``params["layers"]``): a resident
+    run first, then the same tokens with the weights paged and the KV
+    pools at rest in pinned host memory, nothing degraded, every layer's
+    pool slice paged in and written back once a step and once an
+    admission; then the same with the pool run dry mid-decode
+    (preemption swaps from pools at rest in pinned host memory).  The
+    offload's cost: the same weights, paged the same way, serve the same
+    four prompts with the pools in device memory, interleaved with the
+    offloaded runs (paged, offload, offload, paged).  Uses
+    ``params["layers"]`` (re-made from the same seed if an earlier run
+    already moved them to the host)."""
     import gc
     import statistics
     from repro_torch.memory import (LOCAL, FaultPlan, PagedLayers, PinLocal,
@@ -3192,13 +3759,19 @@ def check_offload(torch, card: str, cfg, params, want: list,
         params["layers"] = None
         gc.collect()
         params["layers"] = DenseLM(cfg).init(0, device="cuda")["layers"]
+    params = dict(params, layers=params["layers"][:cfg.num_layers])
+    work = prompts(cfg.vocab, 0)[:4]
+    srv = BatchedServer(DenseLM(cfg), params,
+                        **dict(SERVE_KW, temperature=0.0))
+    srv.tag = f"resident at {cfg.num_layers} layers (offload's reference)"
+    want, _, _ = counts.run(torch, srv, work)
+    del srv
     model = DenseLM(cfg.with_pager(enabled=True, lookahead=1,
                                    offload_kv=True))
     mem = model.mem
     params["layers"] = mem.place_layer_weights(params["layers"])
     gc.collect()
     torch.cuda.synchronize()
-    work = prompts(cfg.vocab, 0)[:4]
 
     def server(offload: bool, **kw):
         """A server on the placed weights; without ``offload`` its pools
@@ -3825,12 +4398,12 @@ def main() -> int:
                     help="serving depth (Qwen2.5-14B has 48; cut only if "
                          "the time limit forces it)")
     ap.add_argument("--phases",
-                    default="kernels,parity,moe,gpt3,families,serve,dense,"
-                            "tiers,disagg",
+                    default="kernels,parity,moe,gpt3,families,train,serve,"
+                            "dense,tiers,disagg",
                     help="comma list of kernels, parity, moe, gpt3, "
-                         "families, serve, dense, tiers, disagg, profile (a "
-                         "traced serving run) and sweep (K3's routes over "
-                         "M); the last two are off by default")
+                         "families, train, serve, dense, tiers, disagg, "
+                         "profile (a traced serving run) and sweep (K3's "
+                         "routes over M); the last two are off by default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -3893,6 +4466,7 @@ def main() -> int:
         parity_launches = check_parity(torch)
         check_parity_families(torch)
         check_parity_dense(torch)
+        check_parity_train(torch)
         took("parity")
     moe = None
     if "moe" in phases:
@@ -3918,6 +4492,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         took("families")
+    trained = None
+    if "train" in phases:
+        # before the Qwen2.5-14B weights too: minicpm-2b's training state
+        # (bf16 params and grads, fp32 moments and summed grads) is ~44 GB
+        trained = Launches("train")
+        check_train(torch, card, results, trained, "profile" in phases)
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("train")
     launches = tiers = served = dense = None
     if "serve" in phases:
         cfg, params = qwen_params(torch, args.layers)
@@ -3934,10 +4517,9 @@ def main() -> int:
             cfg48, params48, full = cfg, params, served
     if "tiers" in phases:
         tiers = Launches()
-        resident = check_tiers(torch, card, cfg48, params48, tiers, full)
+        check_tiers(torch, card, cfg48, params48, tiers, full)
         took("tiers")
     if "disagg" in phases:
-        import dataclasses
         check_disagg(torch, card,
                      dataclasses.replace(cfg48, num_layers=DISAGG_LAYERS),
                      dict(params48, layers=params48["layers"][:DISAGG_LAYERS]),
@@ -3952,7 +4534,8 @@ def main() -> int:
                           "profile" in phases)
         took("serve (paged weights)")
     if "tiers" in phases:
-        check_offload(torch, card, cfg48, params48, resident, tiers)
+        check_offload(torch, card, dataclasses.replace(
+            cfg48, num_layers=OFFLOAD_LAYERS), params48, tiers)
         took("tiers (offload_kv)")
 
     if results and launches is not None and parity_launches is not None:
@@ -3972,8 +4555,8 @@ def main() -> int:
         def summed(run):
             return (run.total, run.by_instance) if run else ({}, {})
 
-        tiered, moed, gpt3d, densed, familied = (
-            summed(r) for r in (tiers, moe, gpt3, dense, families))
+        tiered, moed, gpt3d, densed, familied, trainedd = (
+            summed(r) for r in (tiers, moe, gpt3, dense, families, trained))
         moe_path = ("BatchedServer, granite-moe-3b-a800m at full width, "
                     "greedy and sampled runs summed (moe phase)")
         # rows whose shape is another path's than their kernel's
@@ -3987,6 +4570,10 @@ def main() -> int:
                          "paged groups), and whisper-base's bf16 prefill "
                          "and decode at full width, summed (families "
                          "phase)", familied),
+            "train": ("make_train_step, minicpm-2b at full width and depth, "
+                      f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+                      "tokens in 2 microbatches, the forward and the remat "
+                      "recompute (train phase)", trainedd),
             "kernels": ("kernels phase only", ({}, {}))}
         for mod, path, counts in ((pa_kernel, serving, launches),
                                   (fa_kernel, serving, launches),
@@ -4005,6 +4592,8 @@ def main() -> int:
                                               f"csrc/{mod.SOURCE}",
                                     "replaces": mod.REPLACES,
                                     "path": mine[0] if n else
+                                    "gradient checks only (train phase)"
+                                    if row.get("phase") == "train" else
                                     "kernels phase only", "launches": n,
                                     "tiers_launches": count(tiered, name,
                                                             row),
@@ -4018,6 +4607,8 @@ def main() -> int:
                                                             row),
                                     "families_launches": count(
                                         familied, name, row),
+                                    "train_launches": count(trainedd, name,
+                                                            row),
                                     **row})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

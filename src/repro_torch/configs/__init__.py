@@ -13,6 +13,13 @@ import importlib
 
 from repro_torch.models.base import ModelConfig
 
+#: the reference's ten assigned architectures
+ARCH_IDS = (
+    "qwen2.5-14b", "qwen3-14b", "minicpm-2b", "starcoder2-15b",
+    "recurrentgemma-9b", "xlstm-125m", "whisper-base",
+    "moonshot-v1-16b-a3b", "granite-moe-3b-a800m", "llava-next-34b",
+)
+
 _MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen3-14b": "qwen3_14b",

@@ -1,6 +1,7 @@
 """minicpm-2b: 40L d=2304 36H (MHA kv=36, head_dim 64) d_ff=5760
-vocab=122753, tied embeddings [arXiv:2404.06395].  Its WSD training
-schedule waits for the port's training."""
+vocab=122753, tied embeddings [arXiv:2404.06395], trained with the
+WSD schedule (``repro_torch.runtime.optim``; nothing reads the constant
+below, as in the reference)."""
 from repro_torch.models.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -9,3 +10,5 @@ CONFIG = ModelConfig(
     d_ff=5760, vocab=122753, head_dim=64,
     tie_embeddings=True,
 )
+
+TRAIN_SCHEDULE = "wsd"

@@ -1,12 +1,41 @@
-"""The flash prefill wrapper: (B, S, H, d) API with GQA, for the model's
-prefill.  CPU tensors take the plain blocked online-softmax, CUDA tensors
-the hand-written kernel; there is no fallback from one to the other."""
+"""The flash attention wrapper: (B, S, H, d) API with GQA, for the model's
+prefill and training.  CPU tensors take the plain blocked online-softmax
+(differentiated by autograd), CUDA tensors the hand-written kernel; there
+is no fallback from one to the other.
+
+K2 launches through ctypes, so its output carries no autograd graph.
+When grad is enabled and an input requires it, the launch runs inside
+:class:`Attention`, whose backward is the plain
+:func:`backward.flash_attention_bwd`; otherwise (serving, under ``no_grad``)
+the kernel is called as it is."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
+from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
+
+
+class Attention(torch.autograd.Function):
+    """K2's forward under autograd: the forward is one K2 launch, the
+    backward :func:`backward.flash_attention_bwd` from the saved q, k and
+    v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_valid):
+        o = _kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, kv_valid=kv_valid)
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset,
+                        kv_valid=kv_valid)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, **ctx.mask)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -22,5 +51,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, kv_valid=kv_valid)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return Attention.apply(q, k, v, causal, window, q_offset, kv_valid)
     return _kernel.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_valid=kv_valid)

@@ -44,6 +44,18 @@ def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
         yield tree
 
 
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def tree_bytes(tree: Any) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 

@@ -77,7 +77,7 @@ class PagerPolicy:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's config fields that the ported families (dense,
-    MoE, VLM, hybrid, ssm, encdec) read."""
+    MoE, VLM, hybrid, ssm, encdec) read, for serving and training."""
 
     name: str
     family: Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
@@ -126,6 +126,9 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tp: int = DEFAULT_TP             # model-axis size the config targets
     pager: PagerPolicy = dataclasses.field(default_factory=PagerPolicy)
+    # training: recompute each layer (group) in the backward pass instead
+    # of keeping its activations
+    remat: bool = True
 
     # ---------- padded dims -------------------------------------------------
     @property

@@ -11,7 +11,8 @@ The cache is the reference's flat slab: self-attention ``k``, ``v`` (L,
 B, Hkv, max_seq, hd) and the cross-attention ``xk``, ``xv`` (L, B, Hkv,
 encoder_seq, hd), written once by :meth:`EncDecLM.prefill` and read by
 every decode step (FengHuang's case for the remote tier: written once,
-read every step).  Prefill attention -- the encoder's, the decoder's
+read every step).  :meth:`EncDecLM.forward_hidden` is the training
+forward.  Prefill attention -- the encoder's, the decoder's
 causal self-attention and its cross-attention -- is K2; decode's reads
 of both slabs are plain torch, as the reference's are jnp.  No server
 path exists, as in the reference (its dense admission passes no frames):
@@ -120,6 +121,33 @@ class EncDecLM:
         for lp in self.mem.layers(params["enc_layers"]):
             h = self.enc_block(lp, h, positions)
         return self._norm(h, params["enc_ln"])
+
+    def forward_hidden(self, params: dict, tokens: torch.Tensor,
+                       extra: dict | None = None) -> torch.Tensor:
+        """Training forward without the LM head: the encoder over
+        ``extra["frames"]`` (B, encoder_seq, d), then each decoder layer
+        with its cross (k, v) computed inside it, so that under
+        ``cfg.remat`` the layer -- cross projections included -- is
+        recomputed in the backward pass.  Gradients reach the encoder
+        through the cross-attention's dK and dV.  Returns the
+        final-normed decoder hidden states (B, S, d)."""
+        cfg = self.cfg
+        enc_out = self.encode(params, extra["frames"])
+        x = L.embed_lookup(params["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+
+        def layer(lp: dict, h: torch.Tensor, enc: torch.Tensor):
+            return self.dec_block(lp, h, positions, enc)[0]
+
+        for lp in self.mem.layers(params["dec_layers"]):
+            x = L.checkpointed(layer, cfg.remat, lp, x, enc_out)
+        return self._norm(x, params["ln_f"])
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                extra: dict | None = None) -> torch.Tensor:
+        """Training/eval forward -> decoder logits (B, S, V)."""
+        return L.lm_head(params["embed"],
+                         self.forward_hidden(params, tokens, extra), self.cfg)
 
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
                 extra: dict | None = None):

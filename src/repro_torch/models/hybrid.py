@@ -9,7 +9,9 @@ unit: ``params["groups"]`` is a list of per-group dicts ``{"b0": ...,
 Prefetcher streams one group at a time when they rest in the remote
 tier).  The layers left over are the tail, ``params["tail"] = {"t0": ...}``,
 resident with the embedding and the head (recurrentgemma-9b: 38 = 12 x
-(rec, rec, att) + 2 x rec).
+(rec, rec, att) + 2 x rec).  Training (:meth:`GroupedLM.forward_hidden`)
+recomputes each group in the backward pass under ``cfg.remat``, as the
+reference's scan body does; the tail runs as it is.
 
 The cache is the reference's nested dict: ``cache["b<i>"]`` holds the
 state of pattern position i stacked over the groups, (G, B, ...), and
@@ -19,8 +21,9 @@ last W - 1 inputs, both in the model's dtype); the "att" kind a (B, Hkv,
 min(max_seq, W), hd) window whose slot n holds the largest position p =
 n (mod W), read by the dense slab's plain decode attention.  Prefill and
 decode write every leaf in place, so the views of a server's slot row
-stay the live slab.  No kernel runs in the recurrences; the "att"
-kind's prefill attention is K2.
+stay the live slab.  No kernel runs in the recurrences (the RG-LRU's
+doubling scan is plain torch, differentiated by autograd); the "att"
+kind's prefill and training attention is K2.
 """
 from __future__ import annotations
 
@@ -181,6 +184,17 @@ class BlockKinds:
     def _mlp_tail(self, p: dict, h: torch.Tensor) -> torch.Tensor:
         return h + L.mlp_forward(p["mlp"], self._norm(h, p["ln2"]))
 
+    def train(self, kind: str, p: dict, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+        """The block over a whole training sequence (no state)."""
+        if kind == "att":
+            return self._mlp_tail(p, x + L.attn_forward(
+                p["attn"], self._norm(x, p["ln1"]), positions, self.cfg))
+        if kind == "rec":
+            o, _ = rglru_seq(p["rglru"], self._norm(x, p["rglru"]["ln"]))
+            return self._mlp_tail(p, x + o)
+        raise ValueError(kind)
+
     def prefill(self, kind: str, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, state: dict) -> torch.Tensor:
         """The block over the prompt; its state written into ``state``
@@ -320,6 +334,32 @@ class GroupedLM:
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(x[:, -1:], params["ln_f"], self.cfg.norm_eps)
         return L.lm_head(params["embed"], x, self.cfg)
+
+    def forward_hidden(self, params: dict, tokens: torch.Tensor,
+                       extra: dict | None = None) -> torch.Tensor:
+        """Full-sequence training forward without the LM head: each group
+        (recomputed in the backward pass under ``cfg.remat``), then the
+        tail's blocks; returns the final-normed hidden states."""
+        cfg = self.cfg
+        x = L.embed_lookup(params["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+
+        def group(gp: dict, h: torch.Tensor) -> torch.Tensor:
+            for i, kind in enumerate(cfg.block_pattern):
+                h = self.kinds.train(kind, gp[f"b{i}"], h, positions)
+            return h
+
+        for gp in self.mem.layers(params["groups"]):
+            x = L.checkpointed(group, cfg.remat, gp, x)
+        for i, kind in enumerate(self.tail):
+            x = self.kinds.train(kind, params["tail"][f"t{i}"], x, positions)
+        return L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                extra: dict | None = None) -> torch.Tensor:
+        """Training/eval forward over a full sequence -> logits (B, S, V)."""
+        return L.lm_head(params["embed"],
+                         self.forward_hidden(params, tokens, extra), self.cfg)
 
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
                 extra: dict | None = None):

@@ -4,8 +4,9 @@ cross-attention for the encoder-decoder), SwiGLU and GELU MLPs,
 embeddings (counterpart of ``repro.models.layers``).
 
 Attention entry points take and return ``(batch, seq, heads, head_dim)``
-tensors.  Prefill attention goes to the flash wrapper (the CUDA kernel K2
-on the card, the plain blocked online-softmax on the CPU); paged decode
+tensors.  Prefill and training attention go to the flash wrapper (the
+CUDA kernel K2 on the card, under autograd with a plain backward when
+training; the plain blocked online-softmax on the CPU); paged decode
 attention goes to the paged wrapper (K1, or its plain version); decode
 over the dense slab is plain torch, as the reference's is jnp.
 
@@ -24,6 +25,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -43,6 +45,17 @@ def by_rows(fn: Callable, rows: int, *xs: torch.Tensor):
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
     return torch.cat(outs, dim=1)
+
+
+def checkpointed(fn: Callable, on: bool, *args):
+    """``fn(*args)``; with ``on`` and grad enabled, under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are not
+    kept but recomputed in the backward pass (the reference's
+    ``jax.checkpoint``, its ``remat``)."""
+    if on and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

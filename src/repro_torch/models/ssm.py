@@ -10,8 +10,9 @@ over the :class:`repro_torch.models.hybrid.GroupedLM` machinery.
   h_{t-1}, so it scans step by step.
 
 Both recurrences scan one token at a time, as the reference's
-``lax.scan`` does (its chunk checkpointing only matters for training),
-in fp32, with the stabilizer starting at -1e30.  Their state is O(1) a
+``lax.scan`` does, in fp32, with the stabilizer starting at -1e30;
+training checkpoints every 128 steps (:func:`chunked_time_scan`).
+Their state is O(1) a
 slot whatever the length, fp32 whatever the model's dtype; decode is the
 sequence function over one token with the carried state.  ``d_ff`` is 0:
 each block carries its own projections.  No kernel runs here.
@@ -22,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
@@ -30,6 +32,37 @@ from repro_torch.models.transformer import dense_init
 
 #: the stabilizer's start: exp(m0 - anything finite) is exactly 0
 M0 = -1e30
+#: time steps a training checkpoint covers (the reference's TIME_CHUNK)
+TIME_CHUNK = 128
+
+
+def chunked_time_scan(step, carry: tuple, length: int, grad: bool):
+    """``carry, y = step(carry, t)`` for t = 0 .. length - 1; returns
+    (the last carry, [y_t]).  With ``grad`` (the step's tensors require
+    it) and grad enabled, and ``length`` a multiple of
+    ``min(TIME_CHUNK, length)``, each chunk of steps runs under a
+    checkpoint: only the carries at chunk boundaries are kept, and a
+    chunk's steps are recomputed in the backward pass (the reference's
+    nested scan with ``jax.checkpoint``); any other length runs
+    unchunked, as in the reference.  The steps and their order are the
+    same either way."""
+    chunk = min(TIME_CHUNK, length)
+
+    def run(t0: int, t1: int, *c):
+        ys = []
+        for t in range(t0, t1):
+            c, y = step(c, t)
+            ys.append(y)
+        return c, ys
+
+    if not (grad and torch.is_grad_enabled()) or length % chunk:
+        return run(0, length, *carry)
+    ys = []
+    for t0 in range(0, length, chunk):
+        carry, part = torch.utils.checkpoint.checkpoint(
+            run, t0, t0 + chunk, *carry, use_reentrant=False)
+        ys += part
+    return carry, ys
 
 
 def mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -89,8 +122,9 @@ def mlstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         m = x.new_full((b, nh), M0, dtype=torch.float32)
     else:
         c, n, m = state["C"], state["n"], state["m"]
-    hs = []
-    for t in range(s):
+
+    def step(carry, t):
+        c, n, m = carry
         qt, kt, vt = q[:, t].float(), k[:, t].float(), v[:, t].float()
         li, lf = log_i[:, t], log_f[:, t]
         m_new = torch.maximum(lf + m, li)
@@ -101,8 +135,9 @@ def mlstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         n = f_[..., None] * n + i_[..., None] * kt
         hq = torch.einsum("bhde,bhe->bhd", c, qt)
         denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", n, qt).abs(), 1.0)
-        hs.append((hq / denom[..., None]).to(x.dtype))
-        m = m_new
+        return (c, n, m_new), (hq / denom[..., None]).to(x.dtype)
+
+    (c, n, m), hs = chunked_time_scan(step, (c, n, m), s, q.requires_grad)
     hs = torch.stack(hs, dim=1).reshape(b, s, dp)
     out = (L.rmsnorm(hs, p["gn"], 1e-6) * gate) @ p["w_down"]
     return out, {"C": c, "n": n, "m": m}
@@ -149,8 +184,8 @@ def slstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     def rec(h, r):      # (b, nh, hd) x (nh, hd, hd) -> (b, nh, hd)
         return torch.einsum("bhd,hde->bhe", h, r)
 
-    hs = []
-    for t in range(s):
+    def step(carry, t):
+        c, n, h, m = carry
         z_in, i_in, f_in, o_in = (zifo[:, t, j].float() + bias[j]
                                   for j in range(4))
         z = torch.tanh(z_in + rec(h, r_z))
@@ -163,8 +198,11 @@ def slstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         c = f_ * c + i_ * z
         n = f_ * n + i_
         h = o * c / torch.clamp_min(n, 1.0)
-        m = m_new
-        hs.append(h)
+        return (c, n, h, m_new), h
+
+    (c, n, h, m), hs = chunked_time_scan(
+        step, (c, n, h, m), s,
+        any(t.requires_grad for t in (zifo, r_z, r_i, r_f, r_o)))
     hs = torch.stack(hs, dim=1).reshape(b, s, nh * hd).to(x.dtype)
     hs = L.rmsnorm(hs, p["gn"], 1e-6)
     out = F.gelu(hs @ p["w_up"], approximate="tanh") @ p["w_down"]
@@ -207,6 +245,12 @@ class XLSTMKinds(BlockKinds):
                      state if carried else None)
         write_state(state, new)
         return x + o
+
+    def train(self, kind, p, x, positions):
+        if kind in self._SEQ:
+            name, seq = self._SEQ[kind]
+            return x + seq(p[name], self._norm(x, p[name]["ln"]), self.cfg)[0]
+        return super().train(kind, p, x, positions)
 
     def prefill(self, kind, p, x, positions, state):
         if kind in self._SEQ:

@@ -1,6 +1,7 @@
 """Dense decoder-only transformer over a block-pool paged KV cache
-(counterpart of ``repro.models.transformer`` for the serving path); the
-MoE and VLM families subclass it (``ffn`` is the MoE's hook).
+(counterpart of ``repro.models.transformer``: serving, and the training
+forward ``forward_hidden`` / ``forward``); the MoE and VLM families
+subclass it (``ffn`` is the MoE's hook).
 
 Parameters are plain nested dicts of tensors, as in the reference, with
 the reference's stacked L axis unstacked into a list of per-layer dicts;
@@ -221,6 +222,14 @@ class DenseLM:
                        rows, h)
         return h + self.ffn(lp, hn, rows)
 
+    def block_train(self, lp: dict, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+        """One layer over a whole training sequence."""
+        eps = self.cfg.norm_eps
+        h = x + L.attn_forward(lp["attn"], L.rmsnorm(x, lp["ln1"], eps),
+                               positions, self.cfg)
+        return h + self.ffn(lp, L.rmsnorm(h, lp["ln2"], eps))
+
     def block_prefill(self, lp: dict, x: torch.Tensor,
                       positions: torch.Tensor, rows: int = 0,
                       kv_roundtrip: bool = False):
@@ -260,6 +269,28 @@ class DenseLM:
             lp["attn"], L.rmsnorm(x, lp["ln1"], self.cfg.norm_eps), k_pages,
             v_pages, pages, cur_pos, self.cfg, k_scales, v_scales)
         return self._block_tail(lp, x, a), k0, v0
+
+    # ----- training forward ---------------------------------------------------
+    def forward_hidden(self, params: dict, tokens: torch.Tensor,
+                       extra: dict | None = None) -> torch.Tensor:
+        """Full-sequence forward without the LM head (the chunked loss's
+        path): VLM patches (``extra["patches"]``, (B, P, d)) prepended;
+        with ``cfg.remat`` each layer is recomputed in the backward pass.
+        Returns the final-normed hidden states (B, P + S, d)."""
+        cfg = self.cfg
+        x = L.embed_lookup(params["embed"], tokens)
+        if extra and "patches" in extra:
+            x = torch.cat([extra["patches"].to(x.dtype), x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for lp in self.mem.layers(params["layers"]):
+            x = L.checkpointed(self.block_train, cfg.remat, lp, x, positions)
+        return L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                extra: dict | None = None) -> torch.Tensor:
+        """Training/eval forward over a full sequence -> logits (B, S, V)."""
+        return L.lm_head(params["embed"],
+                         self.forward_hidden(params, tokens, extra), self.cfg)
 
     # ----- dense per-slot KV cache -------------------------------------------
     def cache_seq(self, max_seq: int) -> int:

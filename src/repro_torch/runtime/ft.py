@@ -1,31 +1,52 @@
-"""Fault tolerance for serving (counterpart of ``repro.runtime.ft``):
-straggler detection for tier transfers, and checkpoint/restart of a
-server's in-flight state.
+"""Fault tolerance (counterpart of ``repro.runtime.ft``): the
+checkpointed training loop with restart on failure, straggler detection,
+and checkpoint/restart of a server's in-flight state.
 
+* :class:`FaultTolerantLoop` -- runs a step function over a state tree
+  (params, optimizer state, ...), saving a checkpoint every
+  ``ckpt_every`` steps (:mod:`repro_torch.runtime.checkpoint`); when a
+  step raises, it restores the latest checkpoint and replays from there
+  (deterministic data makes the replay exact), and after
+  ``max_restarts`` failures in a row it calls ``on_degrade``.
 * :class:`StragglerMonitor` -- flags a duration far above the median of
-  the recent ones; the server wires one into its
-  :class:`repro_torch.memory.swap.PageSwapper`, so slow KV transfers are
-  counted (``stats["slow_transfers"]``).
+  the recent ones; the loop watches its steps with one, and the server
+  wires one into its :class:`repro_torch.memory.swap.PageSwapper`, so
+  slow KV transfers are counted (``stats["slow_transfers"]``).
 * :func:`snapshot_server` / :func:`restore_server` -- capture and
   rehydrate every in-flight sequence (``BatchedServer.snapshot`` /
   ``restore``); :func:`save_server_snapshot` /
   :func:`load_server_snapshot` persist one as ``arrays.npz`` plus
   ``manifest.json``, written atomically through a temporary directory
   and a rename.
-
-The reference's ``FaultTolerantLoop`` belongs to training, which the
-port does not have yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-import shutil
+import logging
+import os
+import tempfile
+import time
 from pathlib import Path
+from typing import Any, Callable
 
 import numpy as np
-import torch
 
 from repro_torch.memory import swap
+from repro_torch.runtime import checkpoint
+
+log = logging.getLogger("repro_torch.ft")
+
+
+@dataclasses.dataclass
+class FTConfig:
+    ckpt_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ckpt_every: int = 10
+    keep: int = 3
+    max_restarts: int = 3
+    straggler_factor: float = 3.0   # a step over factor x the median: flag
+    async_save: bool = True
 
 
 class StragglerMonitor:
@@ -51,6 +72,92 @@ class StragglerMonitor:
         return is_straggler
 
 
+class FaultTolerantLoop:
+    """Run ``step_fn(state, step) -> (state, metrics)`` with
+    checkpoint/restart.
+
+    Every ``ckpt_every`` steps the state is saved (asynchronously with
+    ``async_save``: the host copy is taken at once, the files written
+    behind the next steps).  When ``step_fn`` raises, the loop waits for
+    any save in flight, restores the latest checkpoint into the state's
+    structure and replays from its step.  After ``max_restarts``
+    consecutive failures it calls ``on_degrade`` (the elastic-scaling
+    hook), whose return value is the new state; without one it
+    re-raises."""
+
+    def __init__(self, cfg: FTConfig, step_fn: Callable[[Any, int], Any],
+                 *, on_degrade: Callable[[], Any] | None = None):
+        self.cfg = cfg
+        self.step_fn = step_fn
+        self.on_degrade = on_degrade
+        self.monitor = StragglerMonitor(cfg.straggler_factor)
+        self.restarts = 0
+        self.metrics_log: list[dict] = []
+
+    def run(self, state: Any, *, start_step: int = 0,
+            num_steps: int = 100) -> tuple[Any, int]:
+        step = start_step
+        consecutive_failures = 0
+        pending_save = None
+        while step < start_step + num_steps:
+            t0 = time.monotonic()
+            try:
+                state, metrics = self.step_fn(state, step)
+            except Exception as e:  # noqa: BLE001 - the loop's purpose
+                log.warning("step %d failed: %r", step, e)
+                self.restarts += 1
+                consecutive_failures += 1
+                if consecutive_failures > self.cfg.max_restarts:
+                    if self.on_degrade is not None:
+                        log.warning("degrading after %d failures",
+                                    consecutive_failures)
+                        state = self.on_degrade()
+                        consecutive_failures = 0
+                        continue
+                    raise
+                if pending_save is not None:
+                    pending_save.join()
+                    pending_save = None
+                try:
+                    state, step = checkpoint.restore(self.cfg.ckpt_dir,
+                                                     state)
+                    log.warning("restored checkpoint at step %d", step)
+                except FileNotFoundError:
+                    log.warning("no checkpoint; retrying step %d", step)
+                continue
+            consecutive_failures = 0
+            dt = time.monotonic() - t0
+            if self.monitor.observe(dt):
+                log.warning("straggler step %d: %.3fs", step, dt)
+            self.metrics_log.append({"step": step, "dt": dt,
+                                     **scalarize(metrics)})
+            step += 1
+            if step % self.cfg.ckpt_every == 0:
+                if pending_save is not None:
+                    pending_save.join()
+                if self.cfg.async_save:
+                    pending_save = checkpoint.save_async(
+                        self.cfg.ckpt_dir, step, state, keep=self.cfg.keep)
+                else:
+                    checkpoint.save(self.cfg.ckpt_dir, step, state,
+                                    keep=self.cfg.keep)
+        if pending_save is not None:
+            pending_save.join()
+        return state, step
+
+
+def scalarize(metrics: dict) -> dict:
+    """The metrics that convert to a Python float, converted (a device
+    tensor's conversion waits for it)."""
+    out = {}
+    for k, v in metrics.items():
+        try:
+            out[k] = float(v)
+        except (TypeError, ValueError, RuntimeError):
+            pass
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Serving checkpoint/restart
 # ---------------------------------------------------------------------------
@@ -73,25 +180,10 @@ def restore_server(server, snap: dict) -> None:
     server.restore(snap)
 
 
-def _storage(t: torch.Tensor) -> np.ndarray:
-    """A host tensor as numpy bytes (bf16 and fp8 have no numpy dtype)."""
-    return t.detach().cpu().contiguous().view(torch.uint8).numpy()
-
-
-def _unstorage(a: np.ndarray, dtype_name: str) -> torch.Tensor:
-    dtype = getattr(torch, dtype_name.removeprefix("torch."))
-    return torch.from_numpy(np.array(a, copy=True)).view(dtype)
-
-
 def save_server_snapshot(path, snap: dict) -> Path:
     """Persist a server snapshot to ``<path>/`` (``arrays.npz`` +
-    ``manifest.json``), atomically: written into a temporary sibling
-    directory, which then replaces ``path``."""
-    path = Path(path)
-    tmp = path.parent / f".tmp_{path.name}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
+    ``manifest.json``), atomically (:func:`checkpoint.write_atomic`): KV
+    arrays in :func:`checkpoint.encode`'s form."""
     arrays: dict = {}
     seqs = []
     for i, s in enumerate(snap["sequences"]):
@@ -111,16 +203,11 @@ def save_server_snapshot(path, snap: dict) -> Path:
                 if pool not in s:
                     continue
                 entry[f"{pool}_dtype"] = str(s[pool].dtype)
-                arrays[f"seq{i}_{pool}"] = _storage(s[pool])
+                arrays[f"seq{i}_{pool}"] = checkpoint.encode(s[pool])
         seqs.append(entry)
-    np.savez(tmp / "arrays.npz", **arrays)
     manifest = {k: snap[k] for k in snap if k != "sequences"}
     manifest["sequences"] = seqs
-    (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
-    if path.exists():
-        shutil.rmtree(path)
-    tmp.rename(path)
-    return path
+    return checkpoint.write_atomic(Path(path), arrays, manifest)
 
 
 def load_server_snapshot(path) -> dict:
@@ -136,7 +223,7 @@ def load_server_snapshot(path) -> dict:
             if s["pos"]:
                 for pool in POOLS:
                     if f"{pool}_dtype" in s:
-                        s[pool] = _unstorage(data[f"seq{i}_{pool}"],
-                                             s.pop(f"{pool}_dtype"))
+                        s[pool] = checkpoint.decode(
+                            data[f"seq{i}_{pool}"], s.pop(f"{pool}_dtype"))
             snap["sequences"].append(s)
     return snap

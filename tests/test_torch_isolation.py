@@ -1,7 +1,8 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or anything of the JAX
-package ``repro`` (the port keeps its own copies of what it needs).  Only
-the tests import both."""
+"""The port stands alone: no file of ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's examples (``examples/*_torch.py``)
+imports ``jax``, ``jaxlib``, ``ml_dtypes`` or anything of the JAX package
+``repro`` (the port keeps its own copies of what it needs).  Only the
+tests import both."""
 import ast
 from pathlib import Path
 
@@ -10,9 +11,9 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -35,6 +36,8 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/runtime/serve.py" in names
     assert "src/repro_torch/kernels/paged_attention/kernel.py" in names
+    assert {"examples/quickstart_torch.py",
+            "examples/train_minicpm_torch.py"} <= names
     assert len(names) > 15
 
 
@@ -49,5 +52,6 @@ def test_scanner_catches_forbidden_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.models import base\n"
                      "import importlib\nimportlib.import_module('jaxlib')\n"
-                     "import repro_torch\n")
-    assert _imported_roots(probe) & FORBIDDEN == {"jax", "repro", "jaxlib"}
+                     "import repro_torch\nimport ml_dtypes\n")
+    assert _imported_roots(probe) & FORBIDDEN == {"jax", "repro", "jaxlib",
+                                                  "ml_dtypes"}
