@@ -132,15 +132,24 @@ and disagg by default):
    then greedy with the 12 groups in pinned host memory, streamed a group
    at a time by the Tensor Prefetcher (lookahead 1; tail, embedding and
    head resident): the resident tokens, every group fetched once a step
-   and once an admission.  xlstm-125m (12 layers (m, m, m, s) x 3, d
-   768, 4 heads) through ``BatchedServer``: bf16 greedy and at 0.7 (no
-   kernel launches), then fp32 on the card and on the CPU (prefill
-   logits within 1e-3, first-8 equal).  whisper-base (6 + 6 layers, d
+   and once an admission; then ``offload_kv`` on the same placed groups
+   (16 new tokens, block 16): the group caches at rest in pinned host
+   memory, paged a group at a time beside the weights, the resident
+   run's first 16 tokens bit for bit, 12 group slices paged in and
+   written back a decode step (``offload_gates``).  xlstm-125m (12
+   layers (m, m, m, s) x 3, d 768, 4 heads) through ``BatchedServer``:
+   bf16 greedy and at 0.7 (no kernel launches), each again with
+   ``offload_kv`` and paged groups under the same gates, then fp32 on
+   the card and on the CPU (prefill logits within 1e-3, first-8
+   equal).  whisper-base (6 + 6 layers, d
    512, 8/8 heads, 1500 frames) at the model level, as in the reference
    (no server path): seeded random frames (4, 1500, 512), ``prefill`` of
    the four prompts and 31 greedy ``decode_step``s in bf16, K2 18 times
    a prefill (6 encoder launches at Sq = Sk = 1500, 6 causal, 6 cross at
-   Sq = 8, Sk = 1500) on wgmma at d = 64 and none a step; fp32 card
+   Sq = 8, Sk = 1500) on wgmma at d = 64 and none a step, then the same
+   with ``offload_kv`` and the decoder's layers paged (the self and
+   cross KV at rest in pinned host memory, the prefill one window pass,
+   the cross KV never written back; the resident tokens); fp32 card
    against CPU on two prompts (prefill logits within 1e-3, first 8
    tokens equal).  It prints ms a step, tok/s, peak device memory, a
    slot's slab bytes (recurrent state beside the windows, against
@@ -206,7 +215,16 @@ and disagg by default):
    its plain version by depth in bf16 and fp32 (a rounding gap shrinks
    with the unit); timed in turns with a paged bf16 run, it prints ms a
    step, tok/s, the slab's bytes beside the paged pool's peak bytes and
-   its fragmentation one block in, and peak device memory;
+   its fragmentation one block in, and peak device memory.  Then
+   ``offload_kv`` over the slab with paged weights at the first 24
+   layers (``check_dense_offload``; 8 new tokens, block 8): bf16 and
+   ``kv_quant``, greedy and at 0.7, each the resident slab's tokens at
+   that depth bit for bit, the slab's leaves in pinned host memory and
+   none on the card, 24 slices paged in and written back a decode step,
+   K1 never, K2 once a layer an admission; timed in turns with the same
+   paged weights serving the slab from device memory, it prints ms a
+   step, peak device memory, the slab at rest beside the window and the
+   link's rates;
 6. ``tiers``: KV across the memory tiers, Qwen2.5-14B at full depth
    whatever ``--layers`` says, on the serve phase's four 8-token prompts
    (64 new tokens, block 32, max_seq 384, page 16, seed 0):
@@ -221,7 +239,7 @@ and disagg by default):
    to the cold tier (``cold_park_after_blocks=0``, the remote tier's
    high-water mark flat through every swap-out) and parked by age (1),
    bf16 greedy, every park promoted back, the same tokens; ``offload_kv``
-   at the first 24 of the 48 layers (``OFFLOAD_LAYERS``)
+   at the first 12 of the 48 layers (``OFFLOAD_LAYERS``)
    -- the weights paged from pinned host memory and the KV pools at rest
    there too, paged a layer at a time: the tokens of a resident run at
    that depth, nothing
@@ -238,8 +256,8 @@ and disagg by default):
    and the offload run's tok/s, peak device memory and KV window bytes
    against the resident pool's bytes;
 7. ``disagg``: disaggregated prefill and the request lifecycle,
-   Qwen2.5-14B at 24 of its 48 layers whatever ``--layers`` says (the
-   first half of the full-depth phases' weights: ``DISAGG_LAYERS``), on
+   Qwen2.5-14B at 12 of its 48 layers whatever ``--layers`` says (the
+   first quarter of the full-depth phases' weights: ``DISAGG_LAYERS``), on
    the serving benchmark's interference
    traffic (batch 4, block 32, max_seq 384, page 16, seed 0: four 8-token
    prompts with 32, 64, 96 and 96 new tokens and two 128-token prompts
@@ -2060,10 +2078,10 @@ GPT3_LAYERS = 8
 GPT3_NEW = 32
 
 
-def host_mem_total() -> str:
-    """The host's ``MemTotal`` (``/proc/meminfo``), as the kernel says it."""
+def host_mem(field: str = "MemTotal") -> str:
+    """A ``/proc/meminfo`` field of the host, as the kernel says it."""
     for line in Path("/proc/meminfo").read_text().splitlines():
-        if line.startswith("MemTotal:"):
+        if line.startswith(field + ":"):
             return line.split(":", 1)[1].strip()
     return "unknown"
 
@@ -2106,7 +2124,7 @@ def check_gpt3(torch, card: str, counts: Launches) -> None:
         f"REDUCED depth: {cfg.num_layers} of {full.num_layers} layers, "
         f"{layer} bytes a layer, {layers} in all, embedding {embed} and "
         f"head {head} (the full model {full.num_layers * layer + embed + head}"
-        f" bytes); host MemTotal {host_mem_total()}; init "
+        f" bytes); host MemTotal {host_mem()}; init "
         f"{time.perf_counter() - t0:.1f} s")
     work = prompts(cfg.vocab, 0)[:4]
     L = cfg.num_layers
@@ -2245,7 +2263,7 @@ def check_recurrentgemma(torch, card: str, counts: Launches,
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import instance_counts
-    from repro_torch.memory import LOCAL, REMOTE
+    from repro_torch.memory import LOCAL, REMOTE, PinLocal
     from repro_torch.models.hybrid import HybridLM
     from repro_torch.runtime.serve import BatchedServer
     cfg = dataclasses.replace(get_config("recurrentgemma-9b"), tp=1)
@@ -2347,7 +2365,12 @@ def check_recurrentgemma(torch, card: str, counts: Launches,
         problems, bit_equal=False)
     del server, slab
 
-    paged = HybridLM(cfg.with_pager(enabled=True, lookahead=1))
+    # offload_kv planned from the start: the paged-groups run below keeps
+    # its slab in device memory (the kv_pool policy PinLocal while it
+    # places it), the offload run that follows rests it in pinned host
+    # memory on the same placed groups
+    paged = HybridLM(cfg.with_pager(enabled=True, lookahead=1,
+                                    offload_kv=True))
     mem = paged.mem
     t0 = time.perf_counter()
     params["groups"] = mem.place_layer_weights(params["groups"])
@@ -2365,7 +2388,12 @@ def check_recurrentgemma(torch, card: str, counts: Launches,
         f" (2 groups); device memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
-    server = BatchedServer(paged, params, **dict(SERVE_KW, temperature=0.0))
+    policy, mem.policies["kv_pool"] = mem.policies["kv_pool"], PinLocal()
+    try:
+        server = BatchedServer(paged, params,
+                               **dict(SERVE_KW, temperature=0.0))
+    finally:
+        mem.policies["kv_pool"] = policy
     server.tag = tag = "recurrentgemma-9b paged groups greedy"
     fetches, fetched = pf.fetches, pf.fetched_bytes
     toks, secs, _ = counts.run(torch, server, work, FAMILIES_NEW,
@@ -2376,6 +2404,7 @@ def check_recurrentgemma(torch, card: str, counts: Launches,
     log(f"families {tag} [{card}]: {sum(len(t) for t in toks) / secs:.2f} "
         f"tok/s, {secs / st['steps']:.3f} s a decode step (admissions "
         f"included; floor {floor:.3f} s: {groups / 1e9:.2f} GB at 64 GB/s), "
+        f"{1e3 * secs / (st['steps'] + st['admitted']):.2f} ms a pass, "
         f"group fetches {fetches} for {st['steps']} steps + "
         f"{st['admitted']} admissions, {fetched} bytes host-to-device = "
         f"{_gbps(fetched, secs)} GB/s over the run, max_memory_allocated "
@@ -2384,8 +2413,60 @@ def check_recurrentgemma(torch, card: str, counts: Launches,
         problems.append(f"{tag}: tokens differ from the resident run's")
     if fetches != model.n_groups * (st["steps"] + st["admitted"]):
         problems.append(f"{tag}: {fetches} group fetches")
-    del server, params, paged, mem, pf
+    del server
+    offload_serve(torch, card, counts, paged, params, work,
+                  {0.0: resident[0.0]}, problems, FAMILIES_OFFLOAD_NEW,
+                  attn_layers=att)
+    del params, paged, mem, pf
     gc.collect()
+
+
+#: new tokens a request of recurrentgemma-9b's offload_kv run (its
+#: groups paged at 0.33 s a step): the first 16 of the resident run's 32
+FAMILIES_OFFLOAD_NEW = 16
+
+
+def offload_serve(torch, card: str, counts: Launches, model, params, work,
+                  want: dict, problems: list, new: int = FAMILIES_NEW,
+                  attn_layers: int = 0) -> None:
+    """A pattern model planned with ``offload_kv`` (its groups placed
+    by ``model.mem``) served at each temperature of ``want``: its group
+    caches at rest in pinned host memory (``offload_gates``: a group's
+    slices paged in and written back once a decode step, the tail in
+    device memory), the resident slab run's first ``new`` tokens bit for
+    bit (``want``: temperature -> tokens)."""
+    from repro_torch.memory import LOCAL, REMOTE
+    from repro_torch.runtime.serve import BatchedServer
+    mem = model.mem
+    for temperature, tokens in want.items():
+        server = BatchedServer(model, params, **dict(
+            SERVE_KW, block_size=min(new, SERVE_KW["block_size"]),
+            temperature=temperature))
+        server.tag = tag = (f"{model.cfg.name} offload_kv, paged groups, "
+                            f"temperature={temperature}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        toks, secs, _ = counts.run(torch, server, work, new,
+                                   attn_layers=attn_layers)
+        st, win = server.stats, mem.kv_window
+        passes = st["steps"] + st["admitted"]
+        log(f"families {tag} [{card}]: {1e3 * secs / st['steps']:.2f} ms a "
+            f"decode step (admissions included), {1e3 * secs / passes:.2f} "
+            f"ms a pass (steps {st['steps']} + admissions "
+            f"{st['admitted']}); group caches at rest "
+            f"{kv_tier_bytes(server, REMOTE)} bytes (pinned host), device "
+            f"{kv_tier_bytes(server, LOCAL)} (window {win.window_bytes} + "
+            f"tail); KV slices paged in {win.fetches}, written back "
+            f"{win.writebacks}; {_gbps(2 * win.fetches * win.slot_bytes, secs)}"
+            f" GB/s of KV both ways over the run; peak device memory "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+            f"above the {base / 2**30:.2f} GiB held before the run")
+        offload_gates(tag, mem, server.cache, model.n_groups * st["steps"],
+                      problems)
+        if toks != [t[:new] for t in tokens]:
+            problems.append(f"{tag}: tokens differ from the resident "
+                            f"slab's")
 
 
 def _card_and_cpu(torch, model, cpu_params, tag: str, serve_kw: dict,
@@ -2435,6 +2516,7 @@ def check_xlstm(torch, card: str, counts: Launches, problems: list) -> None:
         f"({state}), fp32, the same at any length (max_seq 384 and "
         f"{sum(_state_bytes(model, 524288).values())} at 524288)")
     work = prompts(cfg.vocab, 0)[:4]
+    resident = {}
     for temperature in (0.0, 0.7):
         torch.cuda.reset_peak_memory_stats()
         server = BatchedServer(model, params,
@@ -2451,6 +2533,14 @@ def check_xlstm(torch, card: str, counts: Launches, problems: list) -> None:
             f"{ {k: n for k, n in got.items() if n} }")
         if any(got.values()):
             problems.append(f"{tag}: kernels launched {got}")
+        resident[temperature] = toks
+    offload = XLSTM(cfg.with_pager(enabled=True, lookahead=1,
+                                   offload_kv=True))
+    placed = dict(params, groups=offload.mem.place_layer_weights(
+        params["groups"]))
+    offload_serve(torch, card, counts, offload, placed, work, resident,
+                  problems)
+    del placed, offload
     f32 = dataclasses.replace(cfg, dtype=torch.float32)
     model = XLSTM(f32)
     _card_and_cpu(torch, model, model.init(0, device="cpu"),
@@ -2462,13 +2552,14 @@ def _whisper_run(torch, model, params, frames, toks, new: int):
     """``prefill`` of the prompts with the frames, then ``new - 1`` greedy
     ``decode_step``s, kernel counts reset just before: (tokens (B, new),
     prefill logits, prefill seconds, decode seconds, the run's launches,
-    by kernel and by instantiation)."""
+    by kernel and by instantiation, the cache).  A model planned with
+    ``offload_kv`` places its cache in the remote tier first."""
     from repro_torch.kernels import (instance_counts, launch_counts,
                                      reset_launch_counts)
     from repro_torch.models.transformer import sample_tokens
     vocab, dev = model.cfg.vocab, frames.device
     b, s = toks.shape
-    cache = model.init_cache(b, s + new, device=dev)
+    cache = model.mem.place_kv_pool(model.init_cache(b, s + new, device=dev))
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     reset_launch_counts()
     sync()
@@ -2487,7 +2578,8 @@ def _whisper_run(torch, model, params, frames, toks, new: int):
         out.append(nxt)
     sync()
     return (torch.cat(out, dim=1).tolist(), first, t1 - t0,
-            time.perf_counter() - t1, launch_counts(), instance_counts())
+            time.perf_counter() - t1, launch_counts(), instance_counts(),
+            cache)
 
 
 def check_whisper(torch, card: str, counts: Launches, problems: list) -> None:
@@ -2516,7 +2608,7 @@ def check_whisper(torch, card: str, counts: Launches, problems: list) -> None:
               model.cache_shapes(1, 8 + FAMILIES_NEW).items()
               if name.startswith("x"))
     torch.cuda.reset_peak_memory_stats()
-    out, _, pre_s, dec_s, got, insts = _whisper_run(
+    out, _, pre_s, dec_s, got, insts, _ = _whisper_run(
         torch, model, params, frames.to(cfg.dtype), toks, FAMILIES_NEW)
     counts.add(got, insts)
     k2 = {k: n for k, n in got.items() if n}
@@ -2534,6 +2626,37 @@ def check_whisper(torch, card: str, counts: Launches, problems: list) -> None:
             or inst != {f"d={cfg.head_dim}": want}):
         problems.append(f"whisper-base: launches {k2} {inst}, expected "
                         f"{want} a prefill on wgmma and none a step")
+    # offload_kv with the decoder's layers paged: the self and cross KV
+    # at rest in pinned host memory, written by the prefill through the
+    # window (one pass), read a layer at a time every step
+    offload = EncDecLM(cfg.with_pager(enabled=True, lookahead=1,
+                                      offload_kv=True))
+    placed = dict(params, dec_layers=offload.mem.place_layer_weights(
+        params["dec_layers"]))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    toks_off, _, pre_s, dec_s, got, insts, cache = _whisper_run(
+        torch, offload, placed, frames.to(cfg.dtype), toks, FAMILIES_NEW)
+    counts.add(got, insts)
+    win = offload.mem.kv_window
+    tag = "whisper-base bf16 offload_kv, paged decoder layers"
+    log(f"families {tag} [{card}]: prefill {1e3 * pre_s:.2f} ms, "
+        f"{1e3 * dec_s / (FAMILIES_NEW - 1):.2f} ms a decode step; KV at "
+        f"rest {win.at_rest_bytes} bytes (pinned host), window "
+        f"{win.window_bytes}; slices paged in {win.fetches}, written back "
+        f"{win.writebacks} (the cross KV never written back by decode); "
+        f"peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above "
+        f"the {base / 2**30:.2f} GiB held before the run; launches "
+        f"{ {k: n for k, n in got.items() if n} }")
+    offload_gates(tag, offload.mem, cache, cfg.num_layers * FAMILIES_NEW,
+                  problems)
+    if toks_off != out:
+        problems.append(f"{tag}: tokens differ from the resident run's")
+    if {k: n for k, n in got.items() if n} != {"flash_attention_wgmma": want}:
+        problems.append(f"{tag}: launches {got}")
+    del placed, offload, cache, win
     whisper_fp32(torch, dataclasses.replace(cfg, dtype=torch.float32),
                  frames[:2].cpu(), toks[:2].cpu(), problems)
 
@@ -3483,10 +3606,172 @@ def check_dense(torch, card: str, cfg, params, counts: Launches,
         + ", ".join(f"{k} {[round(1e3 * v, 2) for v in vs]}"
                     for k, vs in timing.items()))
     gc.collect()
+    problems += check_dense_offload(torch, card, cfg, params, counts)
+    gc.collect()
     problems += check_rounding_witness(torch, card, cfg, params, work)
     if problems:
         raise AssertionError("dense phase: " + "; ".join(problems))
     log("dense: every gate held")
+
+
+#: the dense phase's offload_kv runs: the first 24 of the 48 layers, 8
+#: new tokens a request in one block of 8 steps (a block runs all its
+#: steps; the tokens were cut from 16 to keep the default run's time,
+#: before any depth)
+DENSE_OFFLOAD_LAYERS = 24
+DENSE_OFFLOAD_NEW = 8
+OFFLOAD_KW = dict(SERVE_KW, block_size=DENSE_OFFLOAD_NEW)
+#: (kv_quant, temperature) of its runs
+DENSE_OFFLOAD_RUNS = ((False, 0.0), (False, 0.7), (True, 0.0), (True, 0.7))
+
+
+def kv_tier_bytes(server, tier: str) -> int:
+    """The ledger's KV lines in ``tier``: under ``offload_kv`` the cache
+    at rest (remote ``kv_pool``), the window and a pattern model's tail
+    (local ``kv_pool_window`` and ``kv_pool``)."""
+    by = server.tier_stats()[tier]["by_class"]
+    return by.get("kv_pool", 0) + by.get("kv_pool_window", 0)
+
+
+def offload_gates(tag: str, mem, cache: dict, passes: int,
+                  problems: list) -> None:
+    """``offload_kv``'s gates on a run over a slab at rest: nothing
+    degraded, the cache's stacked leaves the KV window's, each in pinned
+    host memory and none on the device, and ``passes`` layer (group)
+    slices paged in and as many written back (the window is the run's
+    own: one per server or model-level cache)."""
+    win = mem.kv_window
+    if mem.degraded or win is None or not mem.kv_offloaded(cache):
+        problems.append(f"{tag}: not offloaded ({mem.describe()})")
+        return
+    bad = [p for p, t in win.leaves if t.is_cuda or not t.is_pinned()]
+    if bad:
+        problems.append(f"{tag}: slab leaves {bad} not in pinned host "
+                        f"memory")
+    if not win.fetches == win.writebacks == passes:
+        problems.append(f"{tag}: {win.fetches} slices paged in, "
+                        f"{win.writebacks} written back, expected {passes}")
+
+
+def check_dense_offload(torch, card: str, cfg, params,
+                        counts: Launches) -> list:
+    """Qwen2.5-14B over the dense slab with ``offload_kv`` and paged
+    weights, at the first ``DENSE_OFFLOAD_LAYERS`` of ``params``' layers,
+    on the serve phase's four prompts (``DENSE_OFFLOAD_NEW`` new tokens,
+    batch 4, one block, max_seq 384): bf16 and ``kv_quant``, greedy and at
+    0.7.  Each against the resident slab's run at the same depth (resident
+    weights, the slab in device memory): the same tokens, bit for bit;
+    the slab's leaves in pinned host memory and none on the device; the
+    window's slices paged in and written back ``layers x steps`` times
+    (an admission prefills a staged device row); K1 never, K2 once a
+    layer an admission (``Launches.run``).  Timed in turns with the
+    same placed weights serving the slab from device memory (paged bf16
+    greedy first and last).  Prints ms a step, peak device memory above
+    what the run started with, the slab's bytes at rest beside the
+    window's, and the link's rates.  Returns the problems."""
+    import dataclasses
+    import statistics
+    from repro_torch.memory import LOCAL, REMOTE, PinLocal
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    depth, new = DENSE_OFFLOAD_LAYERS, DENSE_OFFLOAD_NEW
+    cfg = dataclasses.replace(cfg, num_layers=depth)
+    params = dict(params, layers=params["layers"][:depth])
+    work = prompts(cfg.vocab, 0)[:4]
+    problems, want = [], {}
+    for quant, temperature in DENSE_OFFLOAD_RUNS:
+        server = BatchedServer(
+            DenseLM(dataclasses.replace(cfg, kv_quant=quant)), params,
+            paged=False, **dict(OFFLOAD_KW, temperature=temperature))
+        server.tag = tag = (f"resident slab at {depth} layers kv_quant="
+                            f"{quant} temperature={temperature}")
+        want[quant, temperature], secs, _ = counts.run(torch, server, work,
+                                                       new)
+        log(f"dense offload_kv: {tag} [{card}]: "
+            f"{1e3 * secs / server.stats['steps']:.2f} ms a decode step "
+            f"(admissions included)")
+    del server
+    pcfg = cfg.with_pager(enabled=True, lookahead=1, offload_kv=True)
+    model = DenseLM(pcfg)
+    mem = model.mem
+    t0 = time.perf_counter()
+    placed = dict(params, layers=mem.place_layer_weights(params["layers"]))
+    torch.cuda.synchronize()
+    log(f"dense offload_kv: placed {depth} layers ({placed['layers'].nbytes}"
+        f" bytes) in pinned host memory in {time.perf_counter() - t0:.1f} s;"
+        f" host MemAvailable {host_mem('MemAvailable')}")
+    # one orchestrator (its placed weights and prefetcher) for both slabs
+    models = {False: model, True: DenseLM(dataclasses.replace(
+        pcfg, kv_quant=True))}
+    models[True].mem = mem
+    pf = mem.prefetcher
+    timing: dict = {}
+
+    def run(quant: bool, temperature: float, offload: bool) -> None:
+        policy = mem.policies["kv_pool"]
+        if not offload:
+            mem.policies["kv_pool"] = PinLocal()
+        try:
+            srv = BatchedServer(models[quant], placed, paged=False,
+                                **dict(OFFLOAD_KW, temperature=temperature))
+        finally:
+            mem.policies["kv_pool"] = policy
+        srv.tag = tag = " ".join([
+            "offload_kv" if offload else "paged weights, slab in device "
+            "memory", f"kv_quant={quant} temperature={temperature}"])
+        if not offload and not all(t.is_cuda for t in _leaves(srv.cache)):
+            problems.append(f"{tag}: the slab left the device")
+        f0, b0 = pf.fetches, pf.fetched_bytes
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        toks, secs, _ = counts.run(torch, srv, work, new)
+        st = srv.stats
+        ms = 1e3 * secs / st["steps"]
+        timing.setdefault(tag, []).append(round(ms, 2))
+        fetches, weights = pf.fetches - f0, pf.fetched_bytes - b0
+        line = (f"dense {tag} [{card}]: {ms:.2f} ms a decode step "
+                f"(admissions included), {sum(map(len, toks)) / secs:.2f} "
+                f"tok/s, steps {st['steps']}, admissions {st['admitted']}, "
+                f"weight fetches {fetches} ({weights} bytes), peak device "
+                f"memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f}"
+                f" GiB above the {base / 2**30:.2f} GiB held before the run")
+        if offload:
+            win = mem.kv_window
+            kv_in = win.fetches * win.slot_bytes
+            kv_out = win.writebacks * win.slot_bytes
+            line += (f"; slab at rest {kv_tier_bytes(srv, REMOTE)} bytes "
+                     f"(pinned host), KV window {win.window_bytes} bytes "
+                     f"(ledger local {kv_tier_bytes(srv, LOCAL)}); KV slices "
+                     f"paged in {win.fetches}, written back "
+                     f"{win.writebacks}; host-to-device "
+                     f"{_gbps(weights + kv_in, secs)} GB/s over the run "
+                     f"({weights} weight + {kv_in} KV bytes), "
+                     f"device-to-host {_gbps(kv_out, secs)} GB/s ({kv_out} "
+                     f"KV bytes)")
+            offload_gates(tag, mem, srv.cache, depth * st["steps"],
+                          problems)
+        log(line)
+        if toks != want[quant, temperature]:
+            problems.append(f"{tag}: tokens differ from the resident "
+                            f"slab's")
+        if fetches != depth * (st["steps"] + st["admitted"]):
+            problems.append(f"{tag}: {fetches} weight fetches")
+
+    run(False, 0.0, offload=False)
+    for quant, temperature in DENSE_OFFLOAD_RUNS:
+        run(quant, temperature, offload=True)
+    run(False, 0.0, offload=False)
+    paged = timing.pop("paged weights, slab in device memory kv_quant="
+                       "False temperature=0.0")
+    off = timing["offload_kv kv_quant=False temperature=0.0"][0]
+    log(f"dense offload_kv cost [{card}]: ms a decode step, paged weights "
+        f"with the slab in device memory {paged} (first and last), "
+        f"offload_kv {timing}; bf16 greedy "
+        f"{100 * (off / statistics.mean(paged) - 1):+.2f}% against the "
+        f"paged mean")
+    del placed, models, model, mem, pf
+    return problems
 
 
 # ---------------------------------------------------------------------------
@@ -3728,12 +4013,13 @@ def check_tiers(torch, card: str, cfg, params, counts: Launches,
         "park promoted back")
 
 
-#: the offload_kv run's depth: the first half of Qwen2.5-14B's 48 layers.
-#: Its gates hold its runs to a resident run at the same depth.  At 48
-#: layers it took ~257 s of a ~1011 s default run on an H100 80GB HBM3 at
-#: 700 W (four timed runs bound by PCIe); with the train phase the run
-#: would pass ~1100 s of its 1200
-OFFLOAD_LAYERS = 24
+#: the offload_kv run's depth: the first quarter of Qwen2.5-14B's 48
+#: layers.  Its gates hold its runs to a resident run at the same depth.
+#: At 48 layers it took ~257 s of a ~1011 s default run on an H100 80GB
+#: HBM3 at 700 W (four timed runs bound by PCIe); at 24, 122-145 s, and
+#: with the dense phase's offload_kv runs a slow card's default run passed
+#: 1200 s (see ``DISAGG_LAYERS``)
+OFFLOAD_LAYERS = 12
 
 
 def check_offload(torch, card: str, cfg, params, counts: Launches) -> None:
@@ -3883,12 +4169,15 @@ def check_offload(torch, card: str, cfg, params, counts: Launches) -> None:
 
 #: the disagg phase's prefill chunk (one block's worth of tokens)
 DISAGG_CHUNK = 32
-#: the disagg phase's depth: half of Qwen2.5-14B's 48 layers.  Every gate
-#: of the phase holds its runs against each other (monolithic against
-#: disaggregated, crashed against uncontended), so none needs full depth;
-#: with the families phase the default run reached 1057-1108 s of its
-#: 1200 s at 48 here, and this cut is the phase's host-bound steps halved
-DISAGG_LAYERS = 24
+#: the disagg phase's depth: a quarter of Qwen2.5-14B's 48 layers.  Every
+#: gate of the phase holds its runs against each other (monolithic against
+#: disaggregated, crashed against uncontended) and scales its counts by
+#: the depth, so none needs full depth.  With the families phase the
+#: default run reached 1057-1108 s of its 1200 s at 48 here; at 24, with
+#: the dense phase's offload_kv runs, an H100 80GB HBM3 at 700 W whose
+#: host-bound steps ran ~1.3x slower than another's took ~1262 s (116 s
+#: here), so the phase's host-bound steps are halved again
+DISAGG_LAYERS = 12
 #: the serving benchmark's interference traffic: four 8-token prompts
 #: with staggered budgets, so slots free at different blocks, and two
 #: 128-token prompts that arrive mid-stream as slots free
@@ -4436,9 +4725,12 @@ def main() -> int:
     clock = [time.perf_counter()]
 
     def took(phase: str) -> None:
-        """Log the seconds since the last phase ended."""
+        """Log the seconds since the last phase ended, and the host's
+        available memory and the card's allocated memory after it."""
         now = time.perf_counter()
-        log(f"phase {phase}: {now - clock[0]:.1f} s")
+        log(f"phase {phase}: {now - clock[0]:.1f} s; host MemAvailable "
+            f"{host_mem('MemAvailable')}, device memory allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         clock[0] = now
 
     if "kernels" in phases:

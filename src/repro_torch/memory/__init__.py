@@ -11,8 +11,8 @@ the card (counterpart of ``repro.memory``).
 * :mod:`repro_torch.memory.orchestrator` -- :class:`MemoryOrchestrator`,
   the :class:`TensorPrefetcher` that pages layer weights from pinned
   host memory on a copy stream, the :class:`KVWindow` that pages
-  offloaded KV pools beside them, and the expert gather
-  (``gather_experts``) that pages in routed MoE experts.
+  offloaded KV (the pools, or the dense slab) beside them, and the
+  expert gather (``gather_experts``) that pages in routed MoE experts.
 * :mod:`repro_torch.memory.swap` -- the :class:`PageSwapper` behind
   preemption and cold parking.
 * :mod:`repro_torch.memory.accounting` -- the per-tier ledger and the

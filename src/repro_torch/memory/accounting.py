@@ -177,6 +177,10 @@ class MemoryLedger:
         edge["count"] += 1
         return dt
 
+    def transferred_bytes(self, src: str, dst: str) -> int:
+        """Bytes charged so far across ``src -> dst``."""
+        return self._xfer.get((src, dst), {}).get("bytes", 0)
+
     def transfers(self) -> dict:
         """``{"src->dst": {bytes, modeled_s, count}}``."""
         return {f"{s}->{d}": {"bytes": v["bytes"],

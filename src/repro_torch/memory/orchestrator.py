@@ -12,12 +12,14 @@ and makes the compute stream wait on a layer's copy only when the loop
 reaches that layer.  Device residency is ``1 + lookahead`` layers of
 weights instead of all of them.
 
-Under ``offload_kv`` the KV pools rest in the remote tier too, and
-:class:`KVWindow` is the reference's ``paged_scan_cache``: each layer's
-pool slice is paged in before its attention and written back whole after
-it, on the prefetcher's copy stream, with the same lookahead and event
-discipline.  The model's loops take (layer weights, layer pools) pairs
-from :meth:`MemoryOrchestrator.layers_kv`.
+Under ``offload_kv`` the KV cache rests in the remote tier too -- the
+page pools, or the dense slab and a pattern model's stacked state --
+and :class:`KVWindow` is the reference's ``paged_scan_cache`` (and its
+``paged_scan(page_xs=True)``): each layer's slice is paged in before its
+attention and written back whole after it, on the prefetcher's copy
+stream, with the same lookahead and event discipline.  The model's loops
+take (layer weights, layer KV) pairs from
+:meth:`MemoryOrchestrator.layers_kv`.
 
 :class:`MemoryOrchestrator` is the subsystem's front door, as in the
 reference: ``MemoryOrchestrator.plan(cfg)`` resolves the policy matrix
@@ -36,15 +38,12 @@ import torch
 
 from repro_torch.memory import tiers
 from repro_torch.memory.accounting import (MemoryLedger, paged_window_bytes,
-                                           tree_bytes, tree_leaves)
+                                           tree_bytes, tree_leaves, tree_map)
 from repro_torch.memory.policies import (BlockPoolResidency,
                                          DoubleBufferPrefetch,
                                          OffloadBetweenSteps, PagedLayers,
                                          PagerConfig, PinLocal,
                                          TopKExpertPrefetch, merge)
-
-#: the cache leaves that are KV pools, each stacked (L, ...) by layer
-POOL_KEYS = ("k_pages", "v_pages", "k_scale", "v_scale")
 
 
 class TensorPrefetcher:
@@ -124,37 +123,52 @@ class TensorPrefetcher:
 
 
 class KVWindow:
-    """Pages KV pools at rest in the remote tier through ``1 + lookahead``
-    per-layer device slots (the reference's ``paged_scan_cache``).
+    """Pages a KV cache at rest in the remote tier through ``1 +
+    lookahead`` per-layer device slots (the reference's
+    ``paged_scan_cache``, and ``paged_scan(page_xs=True)`` for the
+    dense slab and a pattern model's stacked state).
 
-    ``pools`` are the (L, ...) host tensors at rest (pinned on the card);
-    :meth:`stream` yields layer i's slices, ``{name: (...) view}``, from
-    window slot ``i % (1 + lookahead)``.  Layer i + lookahead is paged in
-    before layer i is yielded; when the loop moves past layer i, the slot
-    is written back whole (the step's in-place KV writes included) behind
-    an event the compute stream recorded after layer i, and the next
-    layer for that slot is paged in behind the write-back on the same copy
-    stream.  After the last layer the compute stream waits on the final
-    write-back, so anything that waits for the compute stream (a block's
-    harvest) sees the pools at rest complete.  On the CPU the copies are
-    host copies.  ``fetches`` / ``writebacks`` count layer slices moved
-    each way."""
+    ``cache`` is a nested dict of host tensors at rest (pinned on the
+    card), each stacked on axis 0 by layer, or by group for a pattern
+    model: the page pools, the dense slab, the group caches.
+    :meth:`stream` yields layer i's slices, a dict of the same nesting,
+    from window slot ``i % (1 + lookahead)``.  Layer i + lookahead is
+    paged in before layer i is yielded; when the loop moves past layer
+    i, the slot is written back whole (the step's in-place writes
+    included) behind an event the compute stream recorded after layer
+    i, and the next layer for that slot is paged in behind the
+    write-back on the same copy stream.  After the last layer the compute
+    stream waits on the final write-back, so anything that waits for the
+    compute stream (a block's harvest) sees the cache at rest complete.
+    On the CPU the copies are host copies.  ``fetches`` / ``writebacks``
+    count layer slices moved each way."""
 
-    def __init__(self, pools: dict[str, torch.Tensor], lookahead: int,
-                 device: torch.device, copy_stream=None):
+    def __init__(self, cache: dict, lookahead: int, device: torch.device,
+                 copy_stream=None):
         if lookahead < 0:
             raise ValueError(f"lookahead must be >= 0, got {lookahead}")
-        self.pools = pools
-        self.lookahead = lookahead
+        self.cache = cache
         self.device = torch.device(device)
-        self.window = [{k: torch.empty(p.shape[1:], dtype=p.dtype,
-                                       device=self.device)
-                        for k, p in pools.items()}
-                       for _ in range(1 + lookahead)]
+        self.leaves = list(tiers._flatten(cache))
+        if self.device.type == "cuda":
+            # no quiet fallback: a slice at rest anywhere but pinned host
+            # memory would make the window a resident run in disguise
+            bad = [p for p, x in self.leaves
+                   if x.is_cuda or not x.is_pinned()]
+            if bad:
+                raise ValueError(f"KV at rest must be pinned host memory: "
+                                 f"{bad}")
+        self.num_layers = self.leaves[0][1].shape[0]
+        if any(x.shape[0] != self.num_layers for _, x in self.leaves):
+            raise ValueError("KV leaves must stack the same number of "
+                             "layers on axis 0")
+        self.lookahead = lookahead
+        self.window = [tree_map(lambda x: torch.empty(
+            x.shape[1:], dtype=x.dtype, device=self.device), cache)
+            for _ in range(1 + lookahead)]
         if self.device.type == "cuda" and copy_stream is None:
             copy_stream = torch.cuda.Stream(self.device)
         self.copy_stream = copy_stream
-        self.num_layers = next(iter(pools.values())).shape[0]
         self.fetches = 0
         self.writebacks = 0
 
@@ -167,30 +181,47 @@ class KVWindow:
         """Device bytes the window holds."""
         return len(self.window) * self.slot_bytes
 
-    def holds(self, cache: dict) -> bool:
-        """Whether ``cache``'s pools are the ones at rest here."""
-        return all(cache.get(k) is p for k, p in self.pools.items())
+    @property
+    def at_rest_bytes(self) -> int:
+        """Bytes the cache holds in the remote tier."""
+        return tree_bytes(self.cache)
 
-    def stream(self) -> Iterator[dict]:
+    def holds(self, cache: dict) -> bool:
+        """Whether ``cache``'s leaves are the ones at rest here."""
+        def get(path):
+            node = cache
+            for k in path:
+                if not isinstance(node, dict) or k not in node:
+                    return None
+                node = node[k]
+            return node
+        return all(get(p) is x for p, x in self.leaves)
+
+    def stream(self, read_only: tuple[str, ...] = ()) -> Iterator[dict]:
+        """Layer slices in layer order, through the window; the
+        top-level entries in ``read_only`` (whisper's cross KV while it
+        decodes) are paged in but never written back."""
         n, ahead, width = self.num_layers, self.lookahead, len(self.window)
         copy = self.copy_stream
         if copy is not None:
             compute = torch.cuda.current_stream(self.device)
             copy.wait_event(compute.record_event())
             ready: dict[int, torch.cuda.Event] = {}
+        slots = [list(tiers._flatten(w)) for w in self.window]
+        back = [path[0] not in read_only for path, _ in self.leaves]
 
-        def move(dst: dict, src: dict) -> None:
+        def move(pairs) -> None:
             if copy is None:
-                for k in self.pools:
-                    tiers.copy_bytes(dst[k], src[k])
+                for dst, src in pairs:
+                    tiers.copy_bytes(dst, src)
                 return
             with torch.cuda.stream(copy):
-                for k in self.pools:
-                    tiers.copy_bytes(dst[k], src[k], non_blocking=True)
+                for dst, src in pairs:
+                    tiers.copy_bytes(dst, src, non_blocking=True)
 
         def page_in(j: int) -> None:
-            move(self.window[j % width], {k: p[j] for k, p in
-                                          self.pools.items()})
+            move((d, x[j]) for (_, d), (_, x) in zip(slots[j % width],
+                                                     self.leaves))
             if copy is not None:
                 ready[j] = copy.record_event()
             self.fetches += 1
@@ -198,8 +229,8 @@ class KVWindow:
         def write_back(i: int) -> None:
             if copy is not None:
                 copy.wait_event(compute.record_event())
-            move({k: p[i] for k, p in self.pools.items()},
-                 self.window[i % width])
+            move((x[i], d) for (_, d), (_, x), b in zip(
+                slots[i % width], self.leaves, back) if b)
             self.writebacks += 1
 
         for j in range(min(ahead, n)):
@@ -387,13 +418,17 @@ class MemoryOrchestrator:
         dense slab: a nested dict for a pattern model's recurrent state),
         provisioned capacity recorded (only live pages count as
         residency; the server records a slab's whole bytes).
-        Device-resident by default; under ``offload_kv`` the pools rest in the remote tier
-        (pinned host memory on the card) and a :class:`KVWindow` of
-        ``1 + lookahead`` layer slices is allocated in device memory (the
-        ledger's local ``kv_pool_window``).  An injected tier fault at
-        placement degrades to local residency: the pools stay where they
-        are, offload is switched off and the reason is recorded in
-        ``degraded["kv_pool"]``."""
+        Device-resident by default.  Under ``offload_kv`` what the layer
+        loops read a layer at a time rests in the remote tier (pinned
+        host memory on the card; :meth:`OffloadBetweenSteps.at_rest`) and
+        a :class:`KVWindow` of ``1 + lookahead`` layer slices is
+        allocated in device memory: the ledger records those bytes under
+        remote ``kv_pool`` with their placement transfer, the window
+        under local ``kv_pool_window``, and the leaves that stay (a
+        pattern model's tail) under local ``kv_pool``.  An injected tier
+        fault at placement degrades to local residency: the cache stays
+        where it is, offload is switched off and the reason is recorded
+        in ``degraded["kv_pool"]``."""
         policy = self.policies["kv_pool"]
         nbytes = tree_bytes(cache)
         device = next(tree_leaves(cache)).device
@@ -406,13 +441,18 @@ class MemoryOrchestrator:
             self.policies["kv_pool"] = policy
             self.config = dataclasses.replace(self.config, offload_kv=False)
             placed = policy.place(cache)
-        self.ledger.record_capacity(policy.tier, "kv_pool", nbytes)
         if policy.tier == tiers.LOCAL:
+            self.ledger.record_capacity(policy.tier, "kv_pool", nbytes)
             return placed
-        self.ledger.charge_transfer(tiers.LOCAL, policy.tier, nbytes)
+        at_rest = policy.at_rest(placed)
+        moved = tree_bytes(at_rest)
+        self.ledger.record_capacity(policy.tier, "kv_pool", moved)
+        if nbytes > moved:
+            self.ledger.record_capacity(tiers.LOCAL, "kv_pool",
+                                        nbytes - moved)
+        self.ledger.charge_transfer(tiers.LOCAL, policy.tier, moved)
         self.kv_window = KVWindow(
-            {k: placed[k] for k in POOL_KEYS if k in placed},
-            self.config.lookahead, device,
+            at_rest, self.config.lookahead, device,
             self.prefetcher.copy_stream if self.prefetcher else None)
         window = self.kv_window.window_bytes
         self.ledger.record(tiers.LOCAL, "kv_pool_window", window)
@@ -438,8 +478,8 @@ class MemoryOrchestrator:
                            **kwargs)
 
     def kv_offloaded(self, cache: dict) -> bool:
-        """Whether ``cache``'s pools rest in the remote tier (placed by
-        this orchestrator's :meth:`place_kv_pool`)."""
+        """Whether ``cache``'s stacked leaves rest in the remote tier
+        (placed by this orchestrator's :meth:`place_kv_pool`)."""
         return self.kv_window is not None and self.kv_window.holds(cache)
 
     def settle_kv(self) -> None:
@@ -462,19 +502,22 @@ class MemoryOrchestrator:
                              "by another orchestrator")
         return iter(layers)
 
-    def layers_kv(self, layers: list, cache: dict
+    def layers_kv(self, layers: list, cache: dict,
+                  read_only: tuple[str, ...] = ()
                   ) -> Iterator[tuple[dict, dict]]:
-        """The model's layer loop with each layer's KV pools: (layer
-        weights, ``{pool name: layer i's slice}``).  Pools at rest in the
-        remote tier come through the :class:`KVWindow` (device slots, in
-        place writes written back); resident pools are sliced in place."""
+        """The model's layer loop with each layer's KV: (layer weights,
+        layer i's slice of ``cache``, a nested dict of tensors stacked on
+        axis 0 by layer: the page pools, the dense slab, a pattern
+        model's group caches).  A cache at rest in the remote tier comes
+        through the :class:`KVWindow` (device slots, in-place writes
+        written back, the entries in ``read_only`` not); a resident one
+        is sliced in place."""
         weights = self.layers(layers)
         if not self.kv_offloaded(cache):
-            names = [k for k in POOL_KEYS if k in cache]
             for i, lp in enumerate(weights):
-                yield lp, {k: cache[k][i] for k in names}
+                yield lp, tree_map(lambda x: x[i], cache)
             return
-        kv = self.kv_window.stream()
+        kv = self.kv_window.stream(read_only)
         for lp in weights:
             yield lp, next(kv)
         for _ in kv:        # runs the last layer's write-back

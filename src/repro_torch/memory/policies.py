@@ -6,7 +6,8 @@ tensor class lives at rest and how it is placed there.
   remote tier (pinned host memory), streamed through a (1 + lookahead)
   layer window in device memory by the Tensor Prefetcher
   (:class:`repro_torch.memory.orchestrator.TensorPrefetcher`).
-* :class:`OffloadBetweenSteps` -- ``offload_kv``: the KV pools at rest
+* :class:`OffloadBetweenSteps` -- ``offload_kv``: the KV cache (page
+  pools, or the dense slab and a pattern model's group caches) at rest
   in the remote tier between steps, paged through device memory one
   layer at a time by the orchestrator's KV window.
 * :class:`BlockPoolResidency` -- the block-pool paged KV cache: wraps
@@ -32,7 +33,7 @@ from repro_torch.kernels.paged_attention.ops import (BlockManager,
                                                      BlockPoolAuditError)
 from repro_torch.memory import tiers
 from repro_torch.memory.accounting import (MemoryLedger, tree_bytes,
-                                           tree_leaves)
+                                           tree_leaves, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +42,9 @@ class PagerConfig:
 
     enabled      -- page per-layer weights through the remote tier.
     lookahead    -- layers fetched ahead of the one computing (paper w=1).
-    offload_kv   -- with ``enabled``: the KV pools at rest in the remote
-                    tier, paged through a per-layer window.
+    offload_kv   -- with ``enabled``: the KV cache (page pools or the
+                    dense slab) at rest in the remote tier, paged
+                    through a per-layer window.
     page_experts -- MoE expert paging: banks at rest in the remote tier,
                     routed rows paged in (a no-op without experts, as in
                     the reference).
@@ -128,26 +130,49 @@ class DoubleBufferPrefetch:
         return self.tier
 
 
+def is_group_cache(key: str) -> bool:
+    """Whether a pattern model's cache entry ``key`` is a group cache: a
+    dict ``b<i>`` of state stacked over the groups (pattern position i),
+    which decode reads a group at a time; the tail's ``t<i>`` are not."""
+    return key.startswith("b") and key[1:].isdigit()
+
+
 @dataclasses.dataclass(frozen=True)
 class OffloadBetweenSteps:
-    """KV pools at rest in the remote tier between steps; each layer's
-    pool slice is paged through device memory by the orchestrator's
-    :class:`repro_torch.memory.orchestrator.KVWindow`.  Only
-    ``pool_keys`` move; any other leaf stays where it is."""
+    """The KV cache at rest in the remote tier between steps; each
+    layer's slice is paged through device memory by the orchestrator's
+    :class:`repro_torch.memory.orchestrator.KVWindow`.
 
-    pool_keys: tuple[str, ...] = ("k_pages", "v_pages", "k_scale", "v_scale")
+    What moves is what a layer loop reads a layer (or a group) at a
+    time, stacked on axis 0: the page pools, the dense slab's ``k``,
+    ``v`` (and ``kv_quant``'s ``k_scale``, ``v_scale``), whisper's cross
+    KV ``xk``, ``xv`` (``pool_keys``), and a pattern model's group
+    caches (:func:`is_group_cache`).  Any other leaf stays where it is: a
+    pattern model's tail caches ``t<i>``, which no layer loop reads."""
+
+    pool_keys: tuple[str, ...] = ("k_pages", "v_pages", "k_scale", "v_scale",
+                                  "k", "v", "xk", "xv")
     tier: str = tiers.REMOTE
     # a pool untouched for this many steps belongs in the cold tier
     cold_after_idle_steps: int = 64
 
+    def moves(self, key: str, value: Any) -> bool:
+        """Whether the top-level cache entry ``key`` rests remote."""
+        if isinstance(value, dict):
+            return is_group_cache(key)
+        return key in self.pool_keys
+
+    def at_rest(self, tree: dict) -> dict:
+        """The entries of ``tree`` this policy moves."""
+        return {k: v for k, v in tree.items() if self.moves(k, v)}
+
     def place(self, tree: dict) -> dict:
-        """Copy the pool leaves into the remote tier (pinned host memory
-        when they are on a CUDA device); one fault-injection checkpoint
-        for the whole placement."""
-        tiers.check_transfer("host_put", tree_bytes(
-            [v for k, v in tree.items() if k in self.pool_keys]))
-        return {k: (tiers.to_tier(v, self.tier) if k in self.pool_keys
-                    else v) for k, v in tree.items()}
+        """Copy the moving leaves into the remote tier (pinned host
+        memory when they are on a CUDA device); one fault-injection
+        checkpoint for the whole placement."""
+        tiers.check_transfer("host_put", tree_bytes(self.at_rest(tree)))
+        return {k: (tree_map(lambda x: tiers.to_tier(x, self.tier), v)
+                    if self.moves(k, v) else v) for k, v in tree.items()}
 
     def pick_tier(self, access_stats: dict | None = None) -> str:
         """A pool idle for ``cold_after_idle_steps`` steps demotes to

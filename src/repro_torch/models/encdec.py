@@ -11,9 +11,13 @@ The cache is the reference's flat slab: self-attention ``k``, ``v`` (L,
 B, Hkv, max_seq, hd) and the cross-attention ``xk``, ``xv`` (L, B, Hkv,
 encoder_seq, hd), written once by :meth:`EncDecLM.prefill` and read by
 every decode step (FengHuang's case for the remote tier: written once,
-read every step).  :meth:`EncDecLM.forward_hidden` is the training
-forward.  Prefill attention -- the encoder's, the decoder's
-causal self-attention and its cross-attention -- is K2; decode's reads
+read every step).  Under ``offload_kv`` both rest in the remote tier
+(``self.mem.place_kv_pool``) and prefill and decode page each layer's
+slices through the orchestrator's KV window (the reference's
+``page_xs``); decode never writes the cross KV back.
+:meth:`EncDecLM.forward_hidden` is the training forward.  Prefill
+attention -- the encoder's, the decoder's causal self-attention and its
+cross-attention -- is K2; decode's reads
 of both slabs are plain torch, as the reference's are jnp.  No server
 path exists, as in the reference (its dense admission passes no frames):
 the model's entry points are the interface.
@@ -153,19 +157,20 @@ class EncDecLM:
                 extra: dict | None = None):
         """Encode ``extra["frames"]`` and prefill the prompt tokens (B, S):
         the prompt's self-attention KV lands at slots [0, S) of ``k``,
-        ``v`` and the encoder's cross KV in ``xk``, ``xv``, in place.
-        Returns (last-position logits (B, 1, V), cache)."""
+        ``v`` and the encoder's cross KV in ``xk``, ``xv``, in place (a
+        cache at rest in the remote tier through the KV window, a layer
+        at a time).  Returns (last-position logits (B, 1, V), cache)."""
         cfg = self.cfg
         enc_out = self.encode(params, extra["frames"])
         x = L.embed_lookup(params["embed"], tokens)
         seq = x.shape[1]
         positions = torch.arange(seq, device=x.device)
-        for i, lp in enumerate(self.mem.layers(params["dec_layers"])):
+        for lp, kv in self.mem.layers_kv(params["dec_layers"], cache):
             x, (k, v), enc_kv = self.dec_block(lp, x, positions, enc_out)
             for name, val in (("k", k), ("v", v)):
-                cache[name][i, :, :, :seq] = L.to_cache_layout(val)
+                kv[name][:, :, :seq] = L.to_cache_layout(val)
             for name, val in zip(("xk", "xv"), enc_kv):
-                cache[name][i] = L.to_cache_layout(val)
+                kv[name].copy_(L.to_cache_layout(val))
         x = self._norm(x[:, -1:], params["ln_f"])
         return L.lm_head(params["embed"], x, cfg), cache
 
@@ -175,7 +180,11 @@ class EncDecLM:
         layer: causal self-attention over its slab (read-only, the
         token's (k, v) as the extra column), one query against all of
         the encoder's cross KV, the MLP; the token's KV lands after the
-        layer loop in one write per leaf.  ``pages`` must be None."""
+        layer loop in one write per leaf.  A cache at rest in the remote
+        tier (``offload_kv``) comes through the KV window a layer at a
+        time instead, the token written into the slot before it is
+        written back and the cross KV, which decode only reads, never
+        written back.  ``pages`` must be None."""
         if pages is not None:
             raise ValueError("EncDecLM keeps no paged KV; decode over its "
                              "slab (pages=None)")
@@ -185,26 +194,33 @@ class EncDecLM:
         hq, hd = cfg.padded_heads, cfg.head_dim
         enc_last = torch.full((b,), cache["xk"].shape[3] - 1,
                               dtype=torch.int32, device=x.device)
-        ks, vs = [], []
-        for i, lp in enumerate(self.mem.layers(params["dec_layers"])):
-            a, k0, v0 = L.attn_decode(lp["attn"], self._norm(x, lp["ln1"]),
-                                      cache["k"][i], cache["v"][i], cur_pos,
-                                      cfg)
-            x = x + a
-            qh = (self._norm(x, lp["lnx"]) @ lp["xattn"]["wq"]).reshape(
-                b, 1, hq, hd)
-            o = L.decode_attention(qh, cache["xk"][i], cache["xv"][i],
-                                   enc_last)
-            x = x + o.reshape(b, 1, -1) @ lp["xattn"]["wo"]
-            x = x + L.mlp2_forward(lp["mlp"], self._norm(x, lp["ln2"]))
-            ks.append(k0)
-            vs.append(v0)
         s = cache["k"].shape[3]
         slot = cur_pos.long().clamp(max=s - 1)
         bidx = torch.arange(b, device=x.device)
-        for name, val in (("k", ks), ("v", vs)):
-            # advanced indices on dims 1 and 3 lead: value (B, L, Hkv, hd)
-            cache[name][:, bidx, :, slot] = torch.stack(val).transpose(
-                0, 1).to(cache[name].dtype)
+        offloaded = self.mem.kv_offloaded(cache)
+        ks, vs = [], []
+        for lp, kv in self.mem.layers_kv(params["dec_layers"], cache,
+                                         read_only=("xk", "xv")):
+            a, k0, v0 = L.attn_decode(lp["attn"], self._norm(x, lp["ln1"]),
+                                      kv["k"], kv["v"], cur_pos, cfg)
+            x = x + a
+            qh = (self._norm(x, lp["lnx"]) @ lp["xattn"]["wq"]).reshape(
+                b, 1, hq, hd)
+            o = L.decode_attention(qh, kv["xk"], kv["xv"], enc_last)
+            x = x + o.reshape(b, 1, -1) @ lp["xattn"]["wo"]
+            x = x + L.mlp2_forward(lp["mlp"], self._norm(x, lp["ln2"]))
+            if offloaded:
+                # advanced indices on dims 0 and 2: value (B, Hkv, hd)
+                kv["k"][bidx, :, slot] = k0.to(kv["k"].dtype)
+                kv["v"][bidx, :, slot] = v0.to(kv["v"].dtype)
+            else:
+                ks.append(k0)
+                vs.append(v0)
+        if not offloaded:
+            for name, val in (("k", ks), ("v", vs)):
+                # advanced indices on dims 1 and 3 lead: value (B, L, Hkv,
+                # hd)
+                cache[name][:, bidx, :, slot] = torch.stack(val).transpose(
+                    0, 1).to(cache[name].dtype)
         x = self._norm(x, params["ln_f"])
         return L.lm_head(params["embed"], x, cfg), cache

@@ -21,9 +21,12 @@ last W - 1 inputs, both in the model's dtype); the "att" kind a (B, Hkv,
 min(max_seq, W), hd) window whose slot n holds the largest position p =
 n (mod W), read by the dense slab's plain decode attention.  Prefill and
 decode write every leaf in place, so the views of a server's slot row
-stay the live slab.  No kernel runs in the recurrences (the RG-LRU's
-doubling scan is plain torch, differentiated by autograd); the "att"
-kind's prefill and training attention is K2.
+stay the live slab.  Under ``offload_kv`` the group caches rest in the
+remote tier and decode takes each group's state from the KV window
+beside its weights (the reference's ``page_xs``); the tail stays local.
+No kernel runs in the recurrences (the RG-LRU's doubling scan is plain
+torch, differentiated by autograd); the "att" kind's prefill and
+training attention is K2.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.memory import MemoryOrchestrator
+from repro_torch.memory.policies import is_group_cache
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.transformer import (attn_params, dense_init,
@@ -318,15 +322,20 @@ class GroupedLM:
                 for key, leaves in self.cache_shapes(batch, max_seq).items()}
 
     # ----- passes -------------------------------------------------------------
+    def _group_caches(self, cache: dict) -> dict:
+        """The group-stacked entries ``b<i>`` of ``cache``."""
+        return {k: v for k, v in cache.items() if is_group_cache(k)}
+
     def _blocks(self, params: dict, cache: dict):
         """(kind, block params, cache key, state views) in layer order:
-        each group's blocks (weights from the orchestrator: streamed
-        when paged), then the tail's."""
-        for g, gp in enumerate(self.mem.layers(params["groups"])):
+        each group's blocks (weights and state from the orchestrator's
+        KV loop: slices of a resident cache, the KV window's slot for
+        one at rest), then the tail's."""
+        for gp, slot in self.mem.layers_kv(params["groups"],
+                                           self._group_caches(cache)):
             for i, kind in enumerate(self.cfg.block_pattern):
                 key = f"b{i}"
-                yield kind, gp[key], key, {n: t[g] for n, t in
-                                           cache[key].items()}
+                yield kind, gp[key], key, slot[key]
         for i, kind in enumerate(self.tail):
             key = f"t{i}"
             yield kind, params["tail"][key], key, cache[key]
@@ -376,19 +385,31 @@ class GroupedLM:
         """tokens: (B, 1); cur_pos: (B,) position being written.  The
         windows are read-only inside the layer loop; the token's (k, v)
         land after it, one write per pattern position over every group
-        (and one per tail block).  ``pages`` must be None: there is no
-        paged KV."""
+        (and one per tail block).  Group caches at rest in the remote
+        tier (``offload_kv``) come through the KV window beside each
+        group's weights instead: recurrent state is updated in the slot
+        and each window's token written there, before the slot is
+        written back.  The tail stays local.  ``pages`` must be None:
+        there is no paged KV."""
         if pages is not None:
             raise ValueError(f"{type(self).__name__} keeps no paged KV; "
                              f"decode over its slab (pages=None)")
         x = L.embed_lookup(params["embed"], tokens)
+        offloaded = self.mem.kv_offloaded(self._group_caches(cache))
         updates: dict[str, list] = {}
         for kind, p, key, state in self._blocks(params, cache):
             x, upd = self.kinds.decode(kind, p, x, state, cur_pos)
-            if upd is not None:
+            if upd is None:
+                continue
+            if offloaded and is_group_cache(key):
+                # the slot is written back when the loop moves on
+                self.kinds.apply_token_update(
+                    {n: t[None] for n, t in state.items()},
+                    upd[0][None], upd[1][None], cur_pos)
+            else:
                 updates.setdefault(key, []).append(upd)
         for key, ups in updates.items():
-            stacked = (cache[key] if key.startswith("b")
+            stacked = (cache[key] if is_group_cache(key)
                        else {n: t[None] for n, t in cache[key].items()})
             self.kinds.apply_token_update(
                 stacked, torch.stack([k for k, _ in ups]),

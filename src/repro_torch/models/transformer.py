@@ -24,8 +24,13 @@ serve from the reference's dense per-slot cache instead: a head-major
 slots hold position p at p % W; ``kv_quant`` stores int8 values beside
 ``(L, B, Hkv, S)`` bf16 scales), written by :meth:`DenseLM.prefill` and
 read by plain torch attention in :meth:`DenseLM.decode_step` with
-``pages=None``.  No kernel reads the slab: K1 reads pages only, and the
-prefill attention is K2 as on the paged path.
+``pages=None``.  Under ``offload_kv`` the slab rests in the remote tier
+(``self.mem.place_kv_pool``: pinned host memory on the card) and decode
+pages each layer's slice through the orchestrator's KV window, writing
+the token into the slot before it is written back (the reference's
+``_decode_paged_cache``); the server prefills an admission into a
+staged device copy of the slot's row.  No kernel reads the slab: K1
+reads pages only, and the prefill attention is K2 as on the paged path.
 """
 from __future__ import annotations
 
@@ -376,33 +381,47 @@ class DenseLM:
         ``kv_quant`` layer dequantized to fp32 for its read, as K1
         dequantizes an int8 pool; the reference rounds it to the compute
         dtype), and the new token's KV lands with ONE batched write per
-        leaf over every layer and slot after it.  A finished slot's
-        frozen position may sit at the slab's end (pos == max_seq); its
-        write is clamped onto the last slot of its own row, which is dead
-        until an admission rewrites the whole row."""
-        cfg = self.cfg
-        quant = cfg.kv_quant
-        ks, vs = [], []
-        for i, lp in enumerate(self.mem.layers(params["layers"])):
-            ck, cv = cache["k"][i], cache["v"][i]
-            if quant:
-                ck = L.kv_dequantize(ck, cache["k_scale"][i], torch.float32)
-                cv = L.kv_dequantize(cv, cache["v_scale"][i], torch.float32)
-            x, k0, v0 = self.block_decode(lp, x, ck, cv, cur_pos)
-            ks.append(k0)
-            vs.append(v0)
+        leaf over every layer and slot after it.  A slab at rest in the
+        remote tier (``offload_kv``) takes each layer's write inside the
+        loop instead, in the layer's KV window slot after the attention
+        read, before the orchestrator writes the slot back (the
+        reference's ``_decode_paged_cache``): a batched write after the
+        loop would land in host memory.  A finished slot's frozen
+        position may sit at the slab's end (pos == max_seq); its write is
+        clamped onto the last slot of its own row, which is dead until an
+        admission rewrites the whole row."""
+        quant = self.cfg.kv_quant
+        offloaded = self.mem.kv_offloaded(cache)
         s = cache["k"].shape[3]
         slot = self._cache_slot(s, cur_pos.long()).clamp(max=s - 1)
         bidx = torch.arange(x.shape[0], device=x.device)
-        k_new, v_new = torch.stack(ks), torch.stack(vs)     # (L, B, Hkv, hd)
-        writes = {"k": k_new, "v": v_new}
-        if quant:
+
+        def writes(k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
+            if not quant:
+                return {"k": k_new, "v": v_new}
             (kq, ksc), (vq, vsc) = L.kv_quantize(k_new), L.kv_quantize(v_new)
-            writes = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
-        for name, val in writes.items():
-            # advanced indices on dims 1 and 3 lead: value (B, L, Hkv, ...)
-            cache[name][:, bidx, :, slot] = val.transpose(0, 1).to(
-                cache[name].dtype)
+            return {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+
+        ks, vs = [], []
+        for lp, kv in self.mem.layers_kv(params["layers"], cache):
+            ck, cv = kv["k"], kv["v"]
+            if quant:
+                ck = L.kv_dequantize(ck, kv["k_scale"], torch.float32)
+                cv = L.kv_dequantize(cv, kv["v_scale"], torch.float32)
+            x, k0, v0 = self.block_decode(lp, x, ck, cv, cur_pos)
+            if offloaded:
+                for name, val in writes(k0, v0).items():
+                    # advanced indices on dims 0 and 2: value (B, Hkv, ...)
+                    kv[name][bidx, :, slot] = val.to(kv[name].dtype)
+            else:
+                ks.append(k0)
+                vs.append(v0)
+        if not offloaded:
+            for name, val in writes(torch.stack(ks), torch.stack(vs)).items():
+                # advanced indices on dims 1 and 3 lead: value (B, L, Hkv,
+                # ...)
+                cache[name][:, bidx, :, slot] = val.transpose(0, 1).to(
+                    cache[name].dtype)
         return x, cache
 
     # ----- block-pool paged KV cache ----------------------------------------
@@ -538,15 +557,13 @@ class DenseLM:
                     cur_pos: torch.Tensor, pages: torch.Tensor | None = None):
         """tokens: (B, 1); cur_pos: (B,) int32 absolute position being
         written; pages: (B, n_pages) int32 block-pool page table, None
-        for the dense slab.  The dense slab with ``offload_kv`` (the
-        reference's ``_decode_paged_cache``) is not ported: it raises."""
+        for the dense slab (:meth:`_decode_scatter`; a slab at rest in
+        the remote tier under ``offload_kv``, placed by
+        ``self.mem.place_kv_pool``, is paged through the KV window: the
+        reference's ``_decode_paged_cache``)."""
         x = L.embed_lookup(params["embed"], tokens)
         if pages is not None:
             x, cache = self._decode_pool(params, x, cache, cur_pos, pages)
-        elif self.cfg.pager.offload_kv:
-            raise NotImplementedError(
-                "offload_kv over the dense cache (the reference's "
-                "_decode_paged_cache) is not ported; serve paged KV")
         else:
             x, cache = self._decode_scatter(params, x, cache, cur_pos)
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)

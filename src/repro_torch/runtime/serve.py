@@ -106,9 +106,13 @@ live batch — no batch restart.
   snapshots (the last two raise).  A pattern model's cache
   (``HybridLM``, ``XLSTM``) is a nested dict of recurrent state and
   attention windows, stacked by group; the server walks its leaves.
+  Under ``offload_kv`` the slab (a pattern model's group caches; its
+  tail stays local) rests in the remote tier and decode pages it
+  through the KV window a layer at a time; an admission prefills into a
+  zeroed device copy of the slot's row, copied into the slab at rest in
+  stream order, so nothing computes on host memory.
 
-Left out of this port so far: tensor parallelism, and ``offload_kv`` over
-the dense slab (the reference's ``_decode_paged_cache``; it raises).
+Left out of this port so far: tensor parallelism.
 """
 from __future__ import annotations
 
@@ -261,10 +265,6 @@ class BatchedServer:
         if prefill_async and not self.paged:
             raise ValueError("prefill_async requires the paged KV cache "
                              "(the engines hand off pool pages)")
-        if not self.paged and model.cfg.pager.offload_kv:
-            raise ValueError("offload_kv over the dense cache (the "
-                             "reference's _decode_paged_cache) is not "
-                             "ported; serve paged KV")
         self.device = resolve_device(device)
         leaf = params["ln_f"]
         if leaf.device.type != self.device.type:
@@ -315,11 +315,19 @@ class BatchedServer:
                                        device=self.device)
         else:
             # the slab is resident at full size whatever the occupancy
-            # (live == capacity), in the kv_pool policy's tier
+            # (live == capacity): what rests remote under offload_kv in
+            # the remote tier, the rest (a pattern model's tail) local
             self.cache = self.mem.place_kv_pool(model.init_cache(
                 batch_size, max_seq, device=self.device))
-            self.mem.ledger.record(self.mem.policies["kv_pool"].tier,
-                                   "kv_pool", tree_bytes(self.cache))
+            remote = (self.mem.kv_window.at_rest_bytes
+                      if self.mem.kv_offloaded(self.cache) else 0)
+            local = tree_bytes(self.cache) - remote
+            for tier, nbytes in ((tiers.REMOTE, remote),
+                                 (tiers.LOCAL, local)):
+                if nbytes:
+                    self.mem.ledger.record(tier, "kv_pool", nbytes)
+                else:
+                    self.mem.ledger.release(tier, "kv_pool")
             single = dict(_leaves(model.cache_shapes(1, max_seq)))
             self._batch_axes = {
                 path: _batch_axis(tuple(leaf.shape), single[path][0])
@@ -724,6 +732,36 @@ class BatchedServer:
             return out
         return row(self.cache, ())
 
+    def _zeros_row(self) -> dict:
+        """A zeroed device copy of one slot's row of the slab, in the
+        cache's nesting: the staging an admission prefills into when the
+        slab rests in the remote tier."""
+        def zeros(node: dict) -> dict:
+            return {k: zeros(v) if isinstance(v, dict) else torch.zeros(
+                v[0], dtype=v[1], device=self.device)
+                for k, v in node.items()}
+        return zeros(self.model.cache_shapes(1, self.max_seq))
+
+    def _store_row(self, slot: int, row: dict) -> None:
+        """Copy a staged row (:meth:`_zeros_row`, prefilled) into
+        ``slot``'s row of the slab, in stream order.  A stacked leaf's
+        row is copied a layer at a time: each copy is one contiguous
+        block, so a copy into pinned host memory stays asynchronous."""
+        for path, leaf in _leaves(self.cache):
+            src = row
+            for k in path:
+                src = src[k]
+            ax = self._batch_axes[path]
+            if ax is None:
+                pairs = [(leaf, src)]
+            elif ax == 1:
+                pairs = [(leaf[i].narrow(0, slot, 1), src[i])
+                         for i in range(leaf.shape[0])]
+            else:
+                pairs = [(leaf.narrow(ax, slot, 1), src)]
+            for dst, val in pairs:
+                dst.copy_(val, non_blocking=True)
+
     def _admit(self, req: Request, slot: int,
                finished: list[Request]) -> None:
         """Prefill ``req`` into ``slot`` of the live batch.  Prompts are
@@ -737,8 +775,11 @@ class BatchedServer:
             logits = self._admit_paged(req, slot, toks, plen)
         else:
             self._note_prefill_dispatch(plen)
-            logits, _ = model.prefill(params, self._h2d(toks),
-                                      self._slot_row(slot))
+            staged = self.mem.kv_offloaded(self.cache)
+            row = self._zeros_row() if staged else self._slot_row(slot)
+            logits, _ = model.prefill(params, self._h2d(toks), row)
+            if staged:
+                self._store_row(slot, row)
         # the first token lands at position plen: drawn under
         # fold_in(req_key, plen), the total bucketed prompt length on the
         # prefix path too, exactly as decode draws every later one
@@ -1362,8 +1403,10 @@ class BatchedServer:
     # ----- accounting --------------------------------------------------------
     def kv_bytes_in_use(self) -> int:
         """Live KV footprint: allocated pages only, dequant scales
-        included for a quantized pool; the whole dense slab, resident
-        whatever the occupancy."""
+        included for a quantized pool; the whole dense slab whatever the
+        occupancy (which tier holds it: :meth:`tier_stats`, where under
+        ``offload_kv`` the cache at rest is remote ``kv_pool`` and the
+        KV window local ``kv_pool_window``)."""
         if not self.paged:
             return tree_bytes(self.cache)
         kp = self.cache["k_pages"]

@@ -232,7 +232,9 @@ def test_paged_none_picks_the_slab(models, kind, temperature):
 def test_dense_server_refusals(models):
     """The reference's refusals: ``prefill_async`` needs pool pages, a
     snapshot (and a restore) the paged server; paged=True needs a model
-    with paged KV; and ``offload_kv`` over the slab is not ported."""
+    with paged KV.  ``offload_kv`` over the slab is served, not refused:
+    the slab rests in the remote tier (``tests/test_torch_slab_offload.py``
+    holds its tokens)."""
     _, _, port, pparams = models[0, False]
     window = models[8, False][2]
     with pytest.raises(ValueError, match="prefill_async requires"):
@@ -247,9 +249,9 @@ def test_dense_server_refusals(models):
         BatchedServer(window, pparams, paged=True, device="cpu")
     with pytest.raises(ValueError, match="paged KV cache requires"):
         window.init_paged_cache(4, device="cpu")
-    offload = DenseLM(port.cfg.with_pager(offload_kv=True))
-    with pytest.raises(ValueError, match="offload_kv over the dense"):
-        BatchedServer(offload, pparams, paged=False, device="cpu")
+    offload = DenseLM(port.cfg.with_pager(enabled=True, offload_kv=True))
+    server = BatchedServer(offload, pparams, paged=False, device="cpu")
+    assert not server.paged and offload.mem.kv_offloaded(server.cache)
 
 
 @pytest.mark.parametrize("kind", [(0, False), (0, True)],

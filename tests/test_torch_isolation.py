@@ -37,7 +37,12 @@ def test_port_files_exist():
     assert "src/repro_torch/runtime/serve.py" in names
     assert "src/repro_torch/kernels/paged_attention/kernel.py" in names
     assert {"examples/quickstart_torch.py",
-            "examples/train_minicpm_torch.py"} <= names
+            "examples/train_minicpm_torch.py",
+            "examples/serve_fenghuang_torch.py",
+            "examples/paper_figures_torch.py"} <= names
+    assert {f"src/repro_torch/core/{m}.py" for m in (
+        "__init__", "hw", "latency", "analysis", "graphs", "simulator")
+    } <= names
     assert len(names) > 15
 
 
