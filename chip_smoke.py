@@ -193,10 +193,11 @@ and disagg by default):
    with it, and all three runs must emit the same tokens; every prefill
    must take K2's wgmma route (the parity phase's fp32 model its mma
    route);
-   then, with the same weights moved to pinned host memory and paged back
-   layer by layer by the Tensor Prefetcher (lookahead 1), bf16 greedy
-   once more: the same tokens as the resident run, K1 once a layer a
-   step, every layer fetched once a step and once an admission; it prints
+   then, with the first 24 of the same weights (``SERVE_PAGED_LAYERS``)
+   moved to pinned host memory and paged back layer by layer by the
+   Tensor Prefetcher (lookahead 1), bf16 greedy once more: the same
+   tokens as a resident run at that depth, K1 once a layer a step, every
+   layer fetched once a step and once an admission; it prints
    tok/s, peak device memory, the ledger's window beside two layers'
    bytes, the pinned bytes and the host-to-device rate;
 5b. ``dense``: Qwen2.5-14B at full width and depth (the serve phase's
@@ -216,11 +217,11 @@ and disagg by default):
    with the unit); timed in turns with a paged bf16 run, it prints ms a
    step, tok/s, the slab's bytes beside the paged pool's peak bytes and
    its fragmentation one block in, and peak device memory.  Then
-   ``offload_kv`` over the slab with paged weights at the first 24
+   ``offload_kv`` over the slab with paged weights at the first 12
    layers (``check_dense_offload``; 8 new tokens, block 8): bf16 and
    ``kv_quant``, greedy and at 0.7, each the resident slab's tokens at
    that depth bit for bit, the slab's leaves in pinned host memory and
-   none on the card, 24 slices paged in and written back a decode step,
+   none on the card, 12 slices paged in and written back a decode step,
    K1 never, K2 once a layer an admission; timed in turns with the same
    paged weights serving the slab from device memory, it prints ms a
    step, peak device memory, the slab at rest beside the window and the
@@ -294,11 +295,37 @@ and disagg by default):
    side over M = 1 .. 64 at Qwen2.5-14B's MLP shapes, where the planner's
    ``SPLITK_MAX_M`` comes from.
 
+Every resident server decodes through ``make_decode_loop``'s graph
+route: one CUDA graph of ``block_size`` steps captured at a key's second
+block and replayed after (``repro_torch.runtime.decode_graph``); each
+served run's captures stay within its page-table widths (one over the
+slab) and its blocks are counted once, replayed or eager
+(``capture_bound``), and launch counts include replays.  The moe, gpt3,
+families, serve and dense phases also run the decode block on both
+routes from one prefilled state (``graph_vs_eager``: four 24-token
+prompts, three blocks of 8 steps -- the graph route's warm-up, its
+capture and a replay -- a padded page-table delta before the second over
+pools): granite-moe-3b-a800m resident, gpt3-175b, recurrentgemma-9b,
+xlstm-125m, whisper-base (with its frames), Qwen2.5-14B over bf16, int8
+and fp8_e4m3 pools and over the slab (bf16 and ``kv_quant``), greedy and
+at 0.7: tokens, valid and poison masks, the final state and every cache
+leaf bit-equal, one capture and two replays, the launches of both routes
+equal.  The serve phase ends its resident runs with the steady-state
+run (``check_steady``: Qwen2.5-14B bf16 greedy, batch 4, block 32, page
+16, max_seq 1024, 520-token prompts, 480 new tokens: 15 blocks in one
+table width) on both routes, the same tokens, the graph route capturing
+once and replaying 14 blocks, printing ms a step, tok/s, captures and
+their seconds, the graph pool's bytes and peak device memory; with
+``profile`` it also traces one replayed block of a warmed graph-route
+server and prints the device's busy share.
+
 The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
 shape, ``tiers_launches``, ``disagg_launches``, ``moe_launches``,
-``gpt3_launches``, ``dense_launches``, ``families_launches`` and
-``train_launches`` beside ``launches`` (a row at granite's shapes, and
+``gpt3_launches``, ``dense_launches``, ``families_launches``,
+``train_launches``, ``graph_launches`` (the steady-state graph run's)
+and ``graph_replayed_launches`` (those its replays made) beside
+``launches`` (a row at granite's shapes, and
 the gather's, reads ``launches`` from the moe phase, by route; a row at
 gpt3-175b's from the gpt3 phase; at whisper-base's or
 recurrentgemma-9b's from the families phase; at minicpm-2b's, and the
@@ -1632,7 +1659,18 @@ def check_serve(torch, card: str, cfg, params, profile: bool):
                                  f"not 130/256 of bf16's {per_page[None]}")
     log(f"serve: KV bytes per page bf16 {per_page[None]}, int8 "
         f"{per_page['int8']}, fp8_e4m3 {per_page['fp8_e4m3']} (130/256)")
+    problems = []
+    for kv, temperature in SERVE_RUNS:
+        problems += graph_vs_eager(
+            torch, card, f"Qwen2.5-14B pools kv_dtype={kv} "
+                         f"temperature={temperature}",
+            DenseLM(dataclasses.replace(cfg, kv_dtype=kv)), params,
+            temperature=temperature)
+    if problems:
+        raise AssertionError("serve phase: " + "; ".join(problems))
+    check_steady(torch, card, cfg, params)
     if profile:
+        profile_graph(torch, card, cfg, params)
         for kv, temperature in ((None, 0.0), ("int8", 0.7)):
             profile_serve(torch, DenseLM(dataclasses.replace(
                 cfg, kv_dtype=kv)), params,
@@ -1640,12 +1678,31 @@ def check_serve(torch, card: str, cfg, params, profile: bool):
     return launches, instances, tokens
 
 
-def check_serve_paged(torch, card: str, cfg, params, want,
-                      profile: bool) -> None:
-    """The serve phase's last run: bf16 greedy with the weights paged from
-    pinned host memory (consumes ``params["layers"]``)."""
+#: the serve phase's paged-weights run: the first 24 of the 48 layers
+#: (cut from 48 to keep the default run inside its time; the step is the
+#: link's, ~0.65 s a step at 48 layers on an H100 80GB HBM3 at 700 W)
+SERVE_PAGED_LAYERS = 24
+
+
+def check_serve_paged(torch, card: str, cfg, params, profile: bool) -> None:
+    """The serve phase's last run: bf16 greedy with the first
+    ``SERVE_PAGED_LAYERS`` layers paged from pinned host memory, held to
+    a resident run at that depth (consumes ``params["layers"]``)."""
     from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
     work = prompts(cfg.vocab, 0)
+    depth = min(cfg.num_layers, SERVE_PAGED_LAYERS)
+    cfg = dataclasses.replace(cfg, num_layers=depth)
+    params["layers"] = params["layers"][:depth]
+    if depth < 48:
+        log(f"DEPTH CUT: the paged-weights run serves {depth} of "
+            f"Qwen2.5-14B's 48 layers")
+    want, secs = serve(BatchedServer(DenseLM(cfg), params,
+                                     **dict(SERVE_KW, temperature=0.0)),
+                       work, 64)
+    want = [r.output for r in want]
+    log(f"paged serve: the resident reference at {depth} layers took "
+        f"{secs:.3f} s")
     model = DenseLM(cfg.with_pager(enabled=True, lookahead=1))
     serve_paged(torch, card, model, params, work,
                 dict(SERVE_KW, temperature=0.0), want)
@@ -1755,9 +1812,12 @@ def serve_config(torch, card: str, model, params, work, kw) -> dict:
     server.manager.ensure(0, 1)
     per_page = server.kv_bytes_in_use() // server.manager.pages_in_use
     server.manager.free_slot(0)
+    capture_bound(server, f"serve {tag}")
     log(f"serve {tag} [{card}]: {tokens} tokens in {secs:.3f} s = "
         f"{tokens / secs:.1f} tok/s ({1e3 * secs / st['steps']:.2f} ms per "
-        f"decode step, admissions included), steps {st['steps']}, prefix "
+        f"decode step, admissions included; route {server.route}: "
+        f"{st['graph_blocks']} of {st['blocks']} blocks replayed, "
+        f"{st['compiles']} captures), steps {st['steps']}, prefix "
         f"hits {st['prefix_hits']} ({st['prefix_shared_pages']} pages), "
         f"kv_bytes_in_use/page {per_page}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
@@ -1796,6 +1856,330 @@ def serve_config(torch, card: str, model, params, work, kw) -> dict:
     return {"launches": {k: launches[k] for k in mine},
             "instances": {k: instances[k] for k in mine},
             "bytes_per_page": per_page, "tokens": [r.output for r in reqs]}
+
+
+# ---------------------------------------------------------------------------
+# the decode block as one CUDA graph
+# ---------------------------------------------------------------------------
+
+#: graph against eager: blocks of GRAPH_BLOCK steps from one prefilled
+#: state of four GRAPH_PROMPT-token prompts; the first block of the graph
+#: route runs eagerly (its warm-up), the second is captured and replayed,
+#: the third replays
+GRAPH_BLOCK = 4
+GRAPH_BLOCKS = 3
+GRAPH_PROMPT = 24
+#: the budgets of the four slots: two drain inside the compared blocks
+GRAPH_BUDGETS = (GRAPH_BLOCK * GRAPH_BLOCKS, GRAPH_BLOCK * GRAPH_BLOCKS, 7, 3)
+
+
+def _tree_clone(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(torch, v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _bits(torch, t):
+    """A tensor's bytes, for bit-equality of any dtype (fp8 included)."""
+    return t.contiguous().view(torch.uint8)
+
+
+def capture_bound(server, tag: str) -> None:
+    """A server's captures stay within its page-table widths (one over
+    the slab) x its one temperature mode, and every block it dispatched
+    ran once, as a replay or eagerly; the route is the one its
+    placement gives."""
+    from repro_torch.runtime.decode_graph import choose_route
+    st = server.stats
+    bound = len(server._tables) if server.paged else 1
+    want = choose_route(server.model, server.device)[0]
+    if (st["compiles"] > bound or server.route != want
+            or st["graph_blocks"] + st["eager_blocks"] != st["blocks"]):
+        raise AssertionError(f"{tag}: route {server.route} (placement "
+                             f"gives {want}), captures {st['compiles']} "
+                             f"(bound {bound}), blocks {st['blocks']} = "
+                             f"graph {st['graph_blocks']} + eager "
+                             f"{st['eager_blocks']}?")
+
+
+def graph_vs_eager(torch, card: str, tag: str, model, params, *,
+                   temperature: float = 0.0, extra: dict | None = None,
+                   paged: bool | None = None) -> list:
+    """The decode block on both routes of ``make_decode_loop``, each on
+    its own copy of one prefilled state (four GRAPH_PROMPT-token prompts,
+    ``paged``: over the page pools, else the slab; ``extra`` the
+    prefill's frames): GRAPH_BLOCKS blocks of GRAPH_BLOCK steps, a padded
+    page-table delta before the second over pools.  Tokens, valid,
+    poison, the final state and every cache leaf must be bit-equal, the
+    graph route must capture once and replay twice, and each kernel's
+    launches must equal the eager route's (K1 once a layer a step over
+    pools, replays counted).  Logs each route's ms a step for the last
+    block (a replay on the graph route).  Returns the problems found."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.base import DecodeState
+    from repro_torch.runtime.serve import make_decode_loop
+    cfg = model.cfg
+    paged = model.supports_paged_kv() if paged is None else paged
+    batch, steps = len(GRAPH_BUDGETS), GRAPH_BLOCK * GRAPH_BLOCKS
+    total = GRAPH_PROMPT + steps
+    rng = np.random.RandomState(17)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab, (
+        batch, GRAPH_PROMPT)).astype(np.int32)).cuda()
+    table = delta = None
+    if paged:
+        page = cfg.page_size
+        per = -(-total // page)                  # pages a slot in all
+        width = 1 << (per - 1).bit_length()      # the bucketed width
+        pids = np.arange(1, batch * per + 1, dtype=np.int32).reshape(
+            batch, per)
+        pre = -(-(GRAPH_PROMPT + GRAPH_BLOCK) // page)
+        host = np.zeros((batch, width), np.int32)
+        host[:, :pre] = pids[:, :pre]
+        table = torch.from_numpy(host).cuda()
+        cache = model.init_paged_cache(batch * per + 1, device="cuda")
+        logits, cache = model.prefill_paged(
+            params, toks, cache, table[:, :-(-GRAPH_PROMPT // page)]
+            .contiguous())
+        # the rest of each slot's pages, and two padding entries (an
+        # out-of-range column) that the scatter must drop
+        rows, cols = np.nonzero(np.broadcast_to(np.arange(width) < per,
+                                                (batch, width)))
+        keep = cols >= pre
+        d = np.stack([np.r_[rows[keep], 0, 1], np.r_[cols[keep], width,
+                                                       width + 3],
+                      np.r_[pids[rows[keep], cols[keep]], 7, 7]]
+                     ).astype(np.int32)
+        delta = tuple(torch.from_numpy(d).cuda())
+    else:
+        cache = model.init_cache(batch, total + 8, device="cuda")
+        logits, cache = model.prefill(params, toks, cache, extra)
+    base = prng.PRNGKey(0, "cuda")
+    state = DecodeState(
+        tokens=logits.float().argmax(-1),
+        pos=torch.full((batch,), GRAPH_PROMPT, dtype=torch.int32,
+                       device="cuda"),
+        active=torch.ones(batch, dtype=torch.bool, device="cuda"),
+        remaining=torch.tensor(GRAPH_BUDGETS, dtype=torch.int32,
+                               device="cuda"),
+        pages=table,
+        slot_keys=torch.stack([prng.fold_in(base, u) for u in range(batch)]))
+    runs = {}
+    for graph in (True, False):
+        c = _tree_clone(torch, cache)
+        st = DecodeState(**{k: None if v is None else v.clone()
+                            for k, v in vars(state).items()})
+        loop = make_decode_loop(model, block_size=GRAPH_BLOCK,
+                                temperature=temperature,
+                                detect_nonfinite=True, graph=graph)
+        outs = []
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for i in range(GRAPH_BLOCKS):
+            t0 = time.perf_counter()
+            got = loop(params, c, st, delta if i == 1 else None)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if got[3] is not c or got[4] is not st:
+                raise AssertionError(f"graph {tag}: the loop did not "
+                                     f"return its donated inputs")
+            # a graph's outputs live in its pool until its next replay
+            outs.append([t.clone() for t in got[:3]])
+        runs[graph] = (outs, c, st, launch_counts(), loop.blocks, secs)
+    problems = []
+    (g_outs, g_cache, g_st, g_n, g_blocks, g_s), \
+        (e_outs, e_cache, e_st, e_n, e_blocks, e_s) = runs[True], runs[False]
+    if (g_blocks.route, g_blocks.captures, g_blocks.replays,
+            g_blocks.eager) != ("graph", 1, GRAPH_BLOCKS - 1, 1):
+        problems.append(f"{tag}: graph route {g_blocks.route} captured "
+                        f"{g_blocks.captures}, replayed {g_blocks.replays}, "
+                        f"eager {g_blocks.eager}")
+    for i, (g, e) in enumerate(zip(g_outs, e_outs)):
+        for name, a, b in zip(("tokens", "valid", "poison"), g, e):
+            if not torch.equal(a, b):
+                problems.append(f"{tag}: block {i} {name} differ")
+    if any(o[2].any() for o in e_outs):
+        problems.append(f"{tag}: non-finite logits")
+    for name in ("tokens", "pos", "active", "remaining", "pages",
+                 "slot_keys"):
+        a, b = getattr(g_st, name), getattr(e_st, name)
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            problems.append(f"{tag}: final state {name} differs")
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + (k,))
+            else:
+                yield "/".join(path + (k,)), v
+    e_leaves = dict(leaves(e_cache))
+    for name, a in leaves(g_cache):
+        if not torch.equal(_bits(torch, a), _bits(torch, e_leaves[name])):
+            problems.append(f"{tag}: cache leaf {name} differs")
+    want_k1 = cfg.num_layers * steps if paged else 0
+    k1 = sum(n for k, n in g_n.items() if k.startswith("paged_attention"))
+    if g_n != e_n or k1 != want_k1:
+        problems.append(f"{tag}: launches graph { {k: n for k, n in g_n.items() if n} } "
+                        f"eager { {k: n for k, n in e_n.items() if n} }, "
+                        f"K1 {k1} for {want_k1}")
+    emitted = int(e_outs[-1][1].sum())
+    log(f"graph {tag} [{card}]: {GRAPH_BLOCKS} blocks of {GRAPH_BLOCK} "
+        f"steps, graph vs eager bit-equal" if not problems else
+        f"graph {tag} [{card}]: PROBLEMS {problems}")
+    log(f"graph {tag}: capture {g_blocks.capture_seconds:.3f} s, pool "
+        f"{g_blocks.pool_bytes} bytes; last block (graph: a replay) "
+        f"{1e3 * g_s / GRAPH_BLOCK:.3f} ms a step, eager "
+        f"{1e3 * e_s / GRAPH_BLOCK:.3f} ms a step ({emitted} tokens "
+        f"emitted in it); launches {({k: n for k, n in g_n.items() if n})}")
+    return problems
+
+
+#: the steady-state served run: Qwen2.5-14B resident, bf16 greedy; its
+#: 520-token prompts and 480 new tokens keep the page table in one width
+#: bucket (64 pages) for all 15 decode blocks
+STEADY_KW = dict(batch_size=4, max_seq=1024, block_size=32, page_size=16,
+                 seed=0, temperature=0.0)
+STEADY_PROMPT = 520
+STEADY_NEW = 480
+#: the steady-state graph run's launches (kernel -> n; kernel ->
+#: {instantiation -> n}) and those of them its replays made, for the
+#: kernels line
+GRAPH_RUN: dict = {}
+
+
+def check_steady(torch, card: str, cfg, params) -> None:
+    """The steady-state served run on both routes (``graph=True``, then
+    ``graph=False``): the same tokens; the graph route captures once (one
+    width bucket x one temperature mode), replays 14 blocks and runs one
+    eagerly; K1 once a layer a step on both, replays counted.  Prints ms
+    a step (admissions included), tok/s, captures and their seconds, the
+    graph pool's bytes and peak device memory for each."""
+    import numpy as np
+    from repro_torch.kernels import (instance_counts, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    rng = np.random.RandomState(3)
+    work = [rng.randint(1, cfg.vocab, STEADY_PROMPT).astype(np.int32)
+            for _ in range(STEADY_KW["batch_size"])]
+    blocks = -(-(STEADY_NEW - 1) // STEADY_KW["block_size"])
+    out = {}
+    for graph in (True, False):
+        model = DenseLM(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchedServer(model, params, graph=graph, **STEADY_KW)
+        reset_launch_counts()
+        reqs = [server.submit(p, max_new_tokens=STEADY_NEW) for p in work]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the admissions and the first two blocks (the graph route's
+        # warm-up and capture), then the 13 blocks of steady decode
+        server.run_once(max_blocks=2)
+        torch.cuda.synchronize()
+        t1, head = time.perf_counter(), server.stats["steps"]
+        server.run_once()
+        torch.cuda.synchronize()
+        secs, decode_s = time.perf_counter() - t0, time.perf_counter() - t1
+        n, st, b = launch_counts(), server.stats, server._loop.blocks
+        tokens = sum(len(r.output) for r in reqs)
+        route = server.route
+        tail = st["steps"] - head
+        log(f"steady {route} [{card}]: {tokens} tokens in {secs:.3f} s = "
+            f"{tokens / secs:.2f} tok/s ({1e3 * secs / st['steps']:.3f} ms "
+            f"a decode step, 4 admissions of {STEADY_PROMPT} tokens "
+            f"included); blocks 3-{st['blocks']}: {tail} steps in "
+            f"{decode_s:.3f} s = {1e3 * decode_s / tail:.3f} ms a step, "
+            f"{4 * tail / decode_s:.2f} tok/s; steps {st['steps']}, blocks "
+            f"{st['blocks']} "
+            f"(graph {st['graph_blocks']}, eager {st['eager_blocks']}), "
+            f"captures {st['compiles']} in {b.capture_seconds:.3f} s, "
+            f"graph pool {b.pool_bytes} bytes, table widths "
+            f"{sorted(server._tables)}, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, K1 "
+            f"{n['paged_attention']}")
+        if any(len(r.output) != STEADY_NEW or r.error for r in reqs):
+            raise AssertionError(f"steady {route}: a request did not emit "
+                                 f"its {STEADY_NEW} tokens")
+        if n["paged_attention"] != cfg.num_layers * st["steps"]:
+            raise AssertionError(f"steady {route}: {n['paged_attention']} "
+                                 f"K1 launches for {st['steps']} steps")
+        want = ((1, blocks - 1, 1) if graph else (0, 0, blocks))
+        got = (st["compiles"], st["graph_blocks"], st["eager_blocks"])
+        if route != ("graph" if graph else "eager") or got != want or \
+                st["table_rebuilds"] != 1:
+            raise AssertionError(f"steady {route}: (captures, graph blocks, "
+                                 f"eager blocks) {got}, want {want}; table "
+                                 f"rebuilds {st['table_rebuilds']}")
+        out[graph] = ([r.output for r in reqs], decode_s / tail)
+        if graph:
+            GRAPH_RUN.update(total=n, by_instance=instance_counts(),
+                             replayed=dict(b.replayed))
+        del server
+    if out[True][0] != out[False][0]:
+        raise AssertionError("steady: the graph route's tokens differ from "
+                             "the eager route's")
+    log(f"steady [{card}]: tokens equal on both routes; blocks 3-15, graph "
+        f"{1e3 * out[True][1]:.3f} ms a step against eager "
+        f"{1e3 * out[False][1]:.3f} ms ({out[False][1] / out[True][1]:.2f}x)")
+
+
+def profile_graph(torch, card: str, cfg, params) -> None:
+    """A traced graph-route block: the steady-state server warmed by one
+    run of 64 new tokens (its warm-up block and its capture), then four
+    new requests of the same shape admitted untraced and one block of
+    decode traced, a replay: the device's busy share of the block's wall
+    time, and device time by kernel.  (Tracing the admissions too makes
+    ~10^6 events, which the profiler takes minutes to sum.)"""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    rng = np.random.RandomState(4)
+    server = BatchedServer(DenseLM(cfg), params, **STEADY_KW)
+    work = [rng.randint(1, cfg.vocab, STEADY_PROMPT).astype(np.int32)
+            for _ in range(2 * STEADY_KW["batch_size"])]
+    serve(server, work[:4], 64)
+    reqs = [server.submit(p, max_new_tokens=64) for p in work[4:]]
+    server.run_once(max_blocks=0)             # the admissions, untraced
+    before = dict(server.stats)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.run_once(max_blocks=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    server.run_once()
+    st = server.stats
+    steps = st["steps"] - before["steps"]
+    if (st["compiles"] != before["compiles"] or st["graph_blocks"]
+            != before["graph_blocks"] + 2 or any(len(r.output) != 64
+                                                 for r in reqs)):
+        raise AssertionError(f"profile graph: the traced block was not a "
+                             f"replay: {before} -> {st}")
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        if dev > 0:
+            rows.append((dev, ev.key, ev.count))
+    busy = sum(r[0] for r in rows) / 1e6
+    traced = STEADY_KW["block_size"]
+    log(f"profile graph route [{card}]: one replayed block of {traced} "
+        f"decode steps ({STEADY_PROMPT}-token prompts, batch 4) in "
+        f"{secs:.3f} s wall ({1e3 * secs / traced:.3f} ms a step, traced); "
+        f"device busy {busy:.3f} s ({100 * busy / secs:.1f}%); the run's "
+        f"{steps} steps untraced otherwise")
+    for dev, key, count in sorted(rows, reverse=True)[:14]:
+        log(f"  {dev / 1e3:10.2f} ms  {100 * dev / 1e6 / busy:5.1f}%  "
+            f"x{count:<6d} {key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1938,6 +2322,8 @@ def check_moe(torch, card: str, counts: Launches) -> None:
         if got["expert_gather"]:
             problems.append(f"{tag}: {got['expert_gather']} expert gathers")
         resident[kv, temperature] = toks
+    problems += graph_vs_eager(torch, card, "granite-moe-3b-a800m resident",
+                               MoELM(cfg), params)
 
     def staging_gates(model, tag, b):
         """F3: the staging alive at each gather of a decode step (N = b
@@ -2152,6 +2538,8 @@ def check_gpt3(torch, card: str, counts: Launches) -> None:
                 != {"d=128": L * st["admitted"]}):
             problems.append(f"{tag}: launches {inst}")
         resident[temperature] = toks
+    problems += graph_vs_eager(torch, card, "gpt3-175b resident", model,
+                               params)
     run = serve_paged(torch, card, DenseLM(cfg.with_pager(enabled=True,
                                                           lookahead=1)),
                       params, work, dict(SERVE_KW, temperature=0.0),
@@ -2312,6 +2700,8 @@ def check_recurrentgemma(torch, card: str, counts: Launches,
                 f"d={cfg.head_dim}": att * st["admitted"]}:
             problems.append(f"{tag}: K2 launches {inst}")
         resident[temperature] = toks
+    problems += graph_vs_eager(torch, card, "recurrentgemma-9b", model,
+                               params)
     # the server at batch 4 against the loop batched as it is; at batch 1
     # (four requests in turn) against the loop at batch 1, the first-8
     # rule; the batch-4 run against the batch-1 loop is logged with one
@@ -2534,6 +2924,7 @@ def check_xlstm(torch, card: str, counts: Launches, problems: list) -> None:
         if any(got.values()):
             problems.append(f"{tag}: kernels launched {got}")
         resident[temperature] = toks
+    problems += graph_vs_eager(torch, card, "xlstm-125m", model, params)
     offload = XLSTM(cfg.with_pager(enabled=True, lookahead=1,
                                    offload_kv=True))
     placed = dict(params, groups=offload.mem.place_layer_weights(
@@ -2626,6 +3017,8 @@ def check_whisper(torch, card: str, counts: Launches, problems: list) -> None:
             or inst != {f"d={cfg.head_dim}": want}):
         problems.append(f"whisper-base: launches {k2} {inst}, expected "
                         f"{want} a prefill on wgmma and none a step")
+    problems += graph_vs_eager(torch, card, "whisper-base", model, params,
+                               extra={"frames": frames.to(cfg.dtype)})
     # offload_kv with the decoder's layers paged: the self and cross KV
     # at rest in pinned host memory, written by the prefill through the
     # window (one pass), read a layer at a time every step
@@ -3599,6 +3992,13 @@ def check_dense(torch, card: str, cfg, params, counts: Launches,
     if firsts[0] != firsts[1]:
         problems.append(f"kv_quant: first tokens {firsts[1]}, the bf16 "
                         f"slab's {firsts[0]}")
+    for quant in (False, True):
+        for temperature in (0.0, 0.7):
+            problems += graph_vs_eager(
+                torch, card, f"Qwen2.5-14B slab kv_quant={quant} "
+                             f"temperature={temperature}",
+                DenseLM(dataclasses.replace(cfg, kv_quant=quant)), params,
+                temperature=temperature, paged=False)
     problems += check_quant_prefill(torch, cfg, params, prompt)
     del server, model
     paged_run(None, 0.0, "paged bf16 greedy")
@@ -3614,11 +4014,11 @@ def check_dense(torch, card: str, cfg, params, counts: Launches,
     log("dense: every gate held")
 
 
-#: the dense phase's offload_kv runs: the first 24 of the 48 layers, 8
+#: the dense phase's offload_kv runs: the first 12 of the 48 layers, 8
 #: new tokens a request in one block of 8 steps (a block runs all its
-#: steps; the tokens were cut from 16 to keep the default run's time,
-#: before any depth)
-DENSE_OFFLOAD_LAYERS = 24
+#: steps; the tokens were cut from 16, then the depth from 24 to 12 when
+#: the graph checks joined the default run, to keep its time)
+DENSE_OFFLOAD_LAYERS = 12
 DENSE_OFFLOAD_NEW = 8
 OFFLOAD_KW = dict(SERVE_KW, block_size=DENSE_OFFLOAD_NEW)
 #: (kv_quant, temperature) of its runs
@@ -3840,6 +4240,7 @@ class Launches:
                 or got["flash_attention_mma"]):
             raise AssertionError(f"{self.phase} {tag}: K2 launches {got} for "
                                  f"{st['admitted']} admissions")
+        capture_bound(server, f"{self.phase} {tag}")
         return tokens, secs, got
 
 
@@ -4822,8 +5223,7 @@ def main() -> int:
         check_dense(torch, card, cfg48, params48, dense, full)
         took("dense")
     if "serve" in phases:
-        check_serve_paged(torch, card, cfg, params, served[None, 0.0],
-                          "profile" in phases)
+        check_serve_paged(torch, card, cfg, params, "profile" in phases)
         took("serve (paged weights)")
     if "tiers" in phases:
         check_offload(torch, card, dataclasses.replace(
@@ -4879,6 +5279,11 @@ def main() -> int:
                 for row in results[name]:
                     mine = by_phase.get(row.get("phase"), (path, counts))
                     n = count(mine[1], name, row)
+                    # the steady-state graph run serves the serve path's
+                    # shapes only
+                    graphed = 0 if row.get("phase") else count(
+                        (GRAPH_RUN.get("total", {}),
+                         GRAPH_RUN.get("by_instance", {})), name, row)
                     kernels.append({"name": name, "route": "cuda",
                                     "source": f"src/repro_torch/kernels/"
                                               f"csrc/{mod.SOURCE}",
@@ -4901,6 +5306,10 @@ def main() -> int:
                                         familied, name, row),
                                     "train_launches": count(trainedd, name,
                                                             row),
+                                    "graph_launches": graphed,
+                                    "graph_replayed_launches": (
+                                        GRAPH_RUN.get("replayed", {})
+                                        .get(name, 0) if graphed else 0),
                                     **row})
         log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ first use, never at import: this module imports nothing that needs a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,12 +33,15 @@ _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _counters: dict = {}                # device -> zeroed int32 counters
 reports: dict[str, str] = {}        # source name -> nvcc/ptxas output
+_tally: "LaunchTally | None" = None   # the open capture's tally
 
 
 class LaunchCount:
     """A kernel's launch count: a plain integer that the kernel's launch
     function, and nothing else, adds one to; where one kernel has several
-    template instantiations, ``by_instance`` also counts each."""
+    template instantiations, ``by_instance`` also counts each.  While a
+    CUDA graph capture holds a :func:`launch_tally` open, a launch goes
+    into the tally instead, and each replay of the graph adds it."""
 
     def __init__(self, name: str):
         self.name = name
@@ -46,8 +50,47 @@ class LaunchCount:
 
     def add(self, instance: str) -> None:
         """One launch of the instantiation ``instance``."""
-        self.count += 1
-        self.by_instance[instance] = self.by_instance.get(instance, 0) + 1
+        if _tally is not None:
+            _tally.add(self, instance)
+            return
+        self.bump(instance, 1)
+
+    def bump(self, instance: str, n: int) -> None:
+        self.count += n
+        self.by_instance[instance] = self.by_instance.get(instance, 0) + n
+
+
+class LaunchTally:
+    """The launches a CUDA graph captured, by kernel and instantiation: a
+    capture records them without running them, so every replay of the
+    graph adds them to the counts (:meth:`replay`)."""
+
+    def __init__(self):
+        self.launches: dict[tuple[LaunchCount, str], int] = {}
+
+    def add(self, counter: LaunchCount, instance: str) -> None:
+        key = (counter, instance)
+        self.launches[key] = self.launches.get(key, 0) + 1
+
+    def replay(self) -> None:
+        """One replay of the graph: each captured launch counts once."""
+        for (counter, instance), n in self.launches.items():
+            counter.bump(instance, n)
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Open a :class:`LaunchTally` for a capture: launches inside the
+    ``with`` go into it, not into their counts (one capture at a time)."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("a launch tally is already open: one capture "
+                           "at a time")
+    _tally = tally = LaunchTally()
+    try:
+        yield tally
+    finally:
+        _tally = None
 
 
 def _nvcc() -> str:
@@ -138,10 +181,16 @@ def counters(device, n: int):
     """``n`` zeroed int32 split counters on ``device``.  A kernel that sums
     split partials in its last CTA counts arrivals in them and leaves each
     one zero again, so one buffer serves every launch on a stream; it
-    grows (zeroed anew) when a launch needs more."""
+    grows (zeroed anew) when a launch needs more.  A CUDA graph capture
+    sizes it first (a buffer allocated inside one would live in the
+    graph's pool): growing it while a capture is open raises."""
     import torch
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
+        if (torch.device(device).type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(f"split counters for {n} launches must be "
+                               f"sized before a CUDA graph capture")
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _counters[device] = buf
     return buf

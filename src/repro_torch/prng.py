@@ -105,8 +105,10 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
     bits = random_bits(key, shape)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # filled on the device: a tensor made from host data would be a
+    # host-to-device copy, which a CUDA graph capture refuses
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

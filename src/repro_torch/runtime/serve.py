@@ -3,16 +3,26 @@ block-pool paged KV cache (counterpart of ``repro.runtime.serve``'s
 paged core).
 
 The decode hot path issues ``block_size`` decode steps per block with no
-host sync inside (:func:`repro_torch.models.transformer.decode_loop`);
-the host syncs once per block to harvest its tokens.  Between blocks,
+host sync inside (:func:`make_decode_loop`); the host syncs once per
+block to harvest its tokens.  Between blocks,
 finished slots are recycled and queued requests are admitted into the
 live batch — no batch restart.
 
+* **One CUDA graph a block.**  On a card with the weights and KV
+  resident, a decode block is one captured CUDA graph of ``block_size``
+  steps over the server's own buffers (the route is chosen once from the
+  model's placement, or by ``graph=``; weights paged from the remote
+  tier, ``offload_kv`` and expert paging decode eagerly, op by op;
+  :mod:`repro_torch.runtime.decode_graph`).  A graph is captured at the
+  second block of its key (the buffers' identity) and replayed after:
+  ``stats["compiles"]`` counts captures, ``stats["graph_blocks"]`` the
+  blocks replayed, ``stats["eager_blocks"]`` the rest.
 * **Device-resident page table.**  The (B, n_pages) table persists in
   ``DecodeState.pages``; the host keeps a byte-exact mirror and applies
-  only the per-block delta in place.  The width is power-of-two
-  bucketed; growth rebuilds the table at once, a shrink waits out
-  ``SHRINK_PATIENCE`` blocks.
+  only the per-block delta, scattered in place before the block.  The
+  width is power-of-two bucketed, one table buffer a width allocated
+  once; growth rebuilds the table at once (copied into its width's
+  buffer), a shrink waits out ``SHRINK_PATIENCE`` blocks.
 * **Two blocks in flight.**  Work on the device is queued in stream
   order, so block N+1 is issued before block N's harvest; each block's
   tokens are copied to pinned host memory behind an event, and the
@@ -118,8 +128,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import queue
 import threading
+from typing import Callable
 
 import numpy as np
 import torch
@@ -129,8 +141,14 @@ from repro_torch.kernels import launch_counts
 from repro_torch.memory import MemoryOrchestrator, tiers, tree_bytes
 from repro_torch.memory.swap import PageSwapper, SwapHandle
 from repro_torch.models.base import DecodeState
-from repro_torch.models.transformer import decode_loop, sample_tokens
+from repro_torch.models.transformer import sample_tokens
+from repro_torch.runtime.decode_graph import GRAPH, DecodeLoop, choose_route
 from repro_torch.runtime.ft import POOLS, StragglerMonitor
+
+log = logging.getLogger(__name__)
+
+# one logits -> token step, under the reference's name
+sample = sample_tokens
 
 
 @dataclasses.dataclass
@@ -192,6 +210,52 @@ def _leaves(tree: dict, path: tuple = ()):
             yield path + (k,), v
 
 
+def make_prefill_step(model) -> Callable:
+    """``prefill_step(params, tokens, cache, extra=None) -> (logits,
+    cache)``: the model's prefill, as the reference's."""
+    def prefill_step(params, tokens, cache, extra=None):
+        logits, cache = model.prefill(params, tokens, cache, extra)
+        return logits, cache
+    return prefill_step
+
+
+def make_serve_step(model, *, temperature: float = 0.0) -> Callable:
+    """One decode step: ``(params, tokens (B, 1), cache, cur_pos, key) ->
+    (next_tokens (B, 1), logits, cache)``, sampled under the one (2,)
+    ``key`` at ``temperature`` (greedy at 0).  The per-token baseline."""
+    vocab = model.cfg.vocab
+
+    def serve_step(params, tokens, cache, cur_pos, key):
+        logits, cache = model.decode_step(params, tokens, cache, cur_pos)
+        nxt = sample(logits, vocab, temperature, key)
+        return nxt, logits, cache
+    return serve_step
+
+
+def make_decode_loop(model, *, block_size: int, temperature: float = 0.0,
+                     eos_id: int | None = None, donate: bool = True,
+                     detect_nonfinite: bool = False,
+                     graph: bool | None = None) -> DecodeLoop:
+    """The fused decode block, ``loop(params, cache, state, delta=None)``
+    -> ``(tokens, valid, cache, state)``, or ``(tokens, valid, poison,
+    cache, state)`` with ``detect_nonfinite`` (the per-slot mask of
+    emitting slots whose logits held NaN/inf), as the reference's.
+
+    ``delta`` is a ``(slots, cols, pids)`` int32 triple applied to
+    ``state.pages`` with one scatter before the block; padding entries
+    carry an out-of-range column and are dropped.  With ``donate`` the
+    cache and the state are updated in place and returned (the
+    reference's donation).  On a CUDA device with the weights and KV
+    resident the block is one CUDA graph of ``block_size`` steps,
+    captured at a key's second block and replayed after; elsewhere, and
+    on the CPU, the plain eager loop (``graph``: None picks by placement
+    at the first call, True insists, False asks for the eager loop).  See
+    :mod:`repro_torch.runtime.decode_graph`."""
+    return DecodeLoop(model, block_size=block_size, temperature=temperature,
+                      eos_id=eos_id, donate=donate,
+                      detect_nonfinite=detect_nonfinite, graph=graph)
+
+
 def _bucket(n: int, quantum: int = 8) -> int:
     """Pad lengths to a power-of-two bucket (the reference's admission
     shapes; admission left-pads prompts to it)."""
@@ -208,7 +272,10 @@ class BatchedServer:
 
     ``submit()`` requests, then ``run_once()`` serves until every admitted
     request completes.  ``device`` defaults to the GPU and raises without
-    one; pass ``device="cpu"`` for the plain PyTorch path.
+    one; pass ``device="cpu"`` for the plain PyTorch path.  ``graph``
+    (None: by placement) picks the decode block's route on the card: a
+    CUDA graph a block (True; raises on the CPU and under paging) or op
+    by op (False).
 
     ``num_pages`` below the batch's worst case oversubscribes the pool and
     engages preemption (``preempt``, default on; ``preempt_policy``
@@ -255,7 +322,7 @@ class BatchedServer:
                  max_pending: int | None = None,
                  overload_factor: float | None = None,
                  handoff_lease_blocks: int = 64,
-                 paged: bool | None = None):
+                 paged: bool | None = None, graph: bool | None = None):
         if paged is None:
             paged = model.supports_paged_kv()
         self.paged = bool(paged)
@@ -338,13 +405,25 @@ class BatchedServer:
         self._table_w = 1
         self._narrow_blocks = 0
         self._mirror = np.zeros((batch_size, 1), np.int32)
+        # one page-table buffer a bucketed width, allocated once: a
+        # rebuild is copied into its width's buffer, so the decode
+        # graph's inputs stay the same buffers
+        self._tables: dict[int, torch.Tensor] = {}
         self.state = DecodeState.init(
             batch_size, self.device,
-            pages=self._h2d(self._mirror) if self.paged else None)
+            pages=self._table(1, self._mirror) if self.paged else None)
         self.slots: list[Request | None] = [None] * batch_size
         self._slot_pos = [0] * batch_size      # host mirror of state.pos
         self._launch_base = launch_counts()
         self.stats["kernel_launches"] = dict.fromkeys(self._launch_base, 0)
+        # the reference's make_decode_loop, built once (its :451); the
+        # route is chosen here, before the first block, from placement
+        self.route, why = choose_route(model, self.device, graph)
+        log.info("decode route %s (%s)", self.route, why)
+        self._loop = make_decode_loop(
+            model, block_size=block_size, temperature=temperature,
+            eos_id=eos_id, detect_nonfinite=True,
+            graph=self.route == GRAPH)
         if prefill_async:
             from repro_torch.runtime.prefill import PrefillEngine
             self.prefill = PrefillEngine(self,
@@ -397,16 +476,33 @@ class BatchedServer:
                       "rejected": 0, "expired": 0, "poison_sheds": 0,
                       "engine_crashes": 0, "lease_reclaims": 0,
                       "crash_requeues": 0, "e2e_p50_blocks": 0.0,
-                      "e2e_p99_blocks": 0.0, "kernel_launches": {}}
+                      "e2e_p99_blocks": 0.0, "compiles": 0,
+                      "graph_blocks": 0, "eager_blocks": 0,
+                      "kernel_launches": {}}
 
     # ----- host <-> device ---------------------------------------------------
-    def _h2d(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without draining the device queue
-        (a pageable copy would synchronize the stream)."""
+    def _h2d(self, a: np.ndarray, out: torch.Tensor | None = None
+             ) -> torch.Tensor:
+        """Host array -> device tensor (``out``, in place, when given)
+        without draining the device queue (a pageable copy would
+        synchronize the stream)."""
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type == "cpu":
-            return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
+            return t.clone() if out is None else out.copy_(t)
+        t = t.pin_memory()
+        if out is None:
+            return t.to(self.device, non_blocking=True)
+        return out.copy_(t, non_blocking=True)
+
+    def _table(self, width: int, table: np.ndarray) -> torch.Tensor:
+        """The page-table buffer of ``width`` columns, allocated at the
+        width's first use, holding ``table`` (copied in stream order)."""
+        buf = self._tables.get(width)
+        if buf is None:
+            buf = torch.empty((self.batch, width), dtype=torch.int32,
+                              device=self.device)
+            self._tables[width] = buf
+        return self._h2d(table, out=buf)
 
     def _d2h_async(self, *ts: torch.Tensor):
         """Start device -> host copies; returns (host tensors, event)."""
@@ -1276,11 +1372,14 @@ class BatchedServer:
             self._ttft_samples.append(req.first_token_block
                                       - req.submitted_block)
 
-    def _table_delta(self) -> None:
-        """Bring the device page table up to the manager's tables: in
-        place by the changed entries, or rebuilt whole when the bucketed
-        width changes.  Evicted slots' rows are zeroed (re-pointing a dead
-        slot's frozen-position writes at the null page)."""
+    def _table_delta(self):
+        """Bring the device page table up to the manager's tables: the
+        changed entries as a ``(slots, cols, pids)`` delta of device
+        tensors for the decode loop to scatter (None when nothing
+        changed), or rebuilt whole into its width's buffer when the
+        bucketed width changes.  Evicted slots' rows are zeroed
+        (re-pointing a dead slot's frozen-position writes at the null
+        page)."""
         w_need = _bucket(max(self.manager.max_slot_pages(), 1), 1)
         if w_need < self._table_w:
             self._narrow_blocks += 1
@@ -1293,17 +1392,18 @@ class BatchedServer:
             self._table_w = w_need
             self._narrow_blocks = 0
             self._mirror = desired
-            self.state = dataclasses.replace(self.state,
-                                             pages=self._h2d(desired))
+            self.state = dataclasses.replace(
+                self.state, pages=self._table(w_need, desired))
             self.stats["table_rebuilds"] += 1
-            return
+            return None
         rows, cols = np.nonzero(desired != self._mirror)
         self._mirror = desired
         self.stats["table_delta_entries"] += len(rows)
-        if len(rows):
-            delta = self._h2d(np.stack([rows, cols, desired[rows, cols]]
-                                       ).astype(np.int64))
-            self.state.pages[delta[0], delta[1]] = delta[2].to(torch.int32)
+        if not len(rows):
+            return None
+        delta = self._h2d(np.stack([rows, cols, desired[rows, cols]]
+                                   ).astype(np.int32))
+        return delta[0], delta[1], delta[2]
 
     def _dispatch_block(self):
         """Issue ONE decode block without waiting for earlier ones.  Page
@@ -1331,13 +1431,17 @@ class BatchedServer:
                     self._planned[i] -= adv
                 self._pool_fault = True
                 return None
-            self._table_delta()
+            delta = self._table_delta()
             self.kv.record()
             self._note_peak()
-        toks, valid, bad, self.state = decode_loop(
-            self.model, self.params, self.cache, self.state,
-            num_steps=self.block_size, temperature=self.temperature,
-            eos_id=self.eos_id)
+        else:
+            delta = None
+        toks, valid, bad, _, _ = self._loop(self.params, self.cache,
+                                            self.state, delta)
+        blocks = self._loop.blocks
+        self.stats["compiles"] = blocks.captures
+        self.stats["graph_blocks"] = blocks.replays
+        self.stats["eager_blocks"] = blocks.eager
         host, event = self._d2h_async(toks, valid, bad)
         self._fold_stall()
         self.stats["dispatches"] += 1
