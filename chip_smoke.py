@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--layers N]
                           [--phases kernels,parity,moe,gpt3,families,
-                                    train,serve,dense,tiers,disagg]
+                                    train,tp,serve,dense,tiers,disagg]
 
-Phases (kernels, parity, moe, gpt3, families, train, serve, dense, tiers
-and disagg by default):
+Phases (kernels, parity, moe, gpt3, families, train, tp, serve, dense,
+tiers and disagg by default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
@@ -182,8 +182,37 @@ and disagg by default):
    microbatches x the forward and its remat recompute), counts reset
    just before the run and read just after.  It prints ms a step (the
    median of steps 2-6), tokens/s and peak device memory;
-5. ``serve``: serve Qwen2.5-14B at its published widths (tp=1, random bf16
-   weights from a seeded torch.Generator, made once) through
+4e. ``tp``: tensor-parallel serving on the one card, after the train
+   phase and before the serve phase's weights exist.  Qwen2.5-14B at
+   full width and 12 of its 48 layers (``TP_LAYERS``; random bf16
+   weights from a seed, tp=1 config), bf16 pools, the serve phase's four
+   8-token prompts (64 new tokens, batch 4, block 32, max_seq 384, page
+   16): served by this process (eager: a sharded server decodes
+   eagerly), then by m = 2 and m = 4 ranks (``repro_torch.launch.mesh.
+   spawn``; the kernels built before, the ranks only load them) over one
+   CUDA region the ranks share by IPC (``SharedRegionTransport``: each
+   collective writes a slot, synchronises the stream, passes a gloo
+   barrier and reads; K4 accumulates the embedding's all-reduce),
+   ``BatchedServer(mesh=make_serving_mesh(model=m))`` on each rank over
+   the weights this process shares by IPC (each rank copies its shard).
+   Gates on every rank: K4 launched, K1 once a layer a step, K2 on
+   wgmma, pool bytes x m = one card's, ``model_shards`` and the ledger's
+   ``shards`` = m, the eager route, the embedding bit-equal; the greedy
+   tokens bit-equal to one card's, or else the fp32 witness (the same
+   weights in fp32, 16 new tokens, served by one card and by the ranks:
+   the first-8 rule and the prompts' last-position logits within 1e-2).
+   It prints per rank the ms a step, the share of the step spent in the
+   completion notice, peak device memory, the collectives and bytes on
+   the ``"model"`` axis, each layer's max |d| against one card's in bf16
+   and in fp32, and whether layer 0's column-sharded products equal the
+   full product's columns (``tp_products``).  Every rank runs on the same
+   card, so no NCCL path (``ProcessGroupTransport`` on cards of their
+   own) is exercised here;
+5. ``serve``: serve Qwen2.5-14B at its published widths and 12 of its 48
+   layers (``SERVE_LAYERS``, ``--layers``: the depth of the serve, dense,
+   tiers and disagg phases, cut to keep the default run inside its time;
+   tp=1, random bf16 weights from a seeded torch.Generator, made once
+   and shared by those phases) through
    ``BatchedServer`` — four 8-token prompts plus a prefix-sharing pair, 64
    new tokens each, block 32, max_seq 384, page 16 — over bf16, int8 and
    fp8_e4m3 pools, each greedy and at temperature 0.7 (seed 0), with
@@ -193,19 +222,19 @@ and disagg by default):
    with it, and all three runs must emit the same tokens; every prefill
    must take K2's wgmma route (the parity phase's fp32 model its mma
    route);
-   then, with the first 24 of the same weights (``SERVE_PAGED_LAYERS``)
-   moved to pinned host memory and paged back layer by layer by the
+   then, with the first 24 (at most) of the same weights
+   (``SERVE_PAGED_LAYERS``) moved to pinned host memory and paged back layer by layer by the
    Tensor Prefetcher (lookahead 1), bf16 greedy once more: the same
    tokens as a resident run at that depth, K1 once a layer a step, every
    layer fetched once a step and once an admission; it prints
    tok/s, peak device memory, the ledger's window beside two layers'
    bytes, the pinned bytes and the host-to-device rate;
-5b. ``dense``: Qwen2.5-14B at full width and depth (the serve phase's
-   weights) over the dense per-slot slab, ``BatchedServer(paged=False)``,
+5b. ``dense``: Qwen2.5-14B at full width and the serve phase's depth
+   (its weights) over the dense per-slot slab, ``BatchedServer(paged=False)``,
    on the serve phase's four prompts (64 new tokens): bf16 greedy and at
    0.7, ``kv_quant`` greedy; K1 never launches, K2 once a layer an
-   admission.  K1 and its plain version round differently, and 48
-   random layers amplify that past the first-8 rule (0.5 in bf16), so
+   admission.  K1 and its plain version round differently, and random
+   layers amplify that past the first-8 rule (0.5 in bf16 at 48), so
    the slab is held: in bf16 and int8 to the paged runs read through
    K1's plain version, whose arithmetic its read shares (first-8 match
    rate >= 0.75; one decode step from the same stored KV within a max
@@ -218,7 +247,7 @@ and disagg by default):
    step, tok/s, the slab's bytes beside the paged pool's peak bytes and
    its fragmentation one block in, and peak device memory.  Then
    ``offload_kv`` over the slab with paged weights at the first 12
-   layers (``check_dense_offload``; 8 new tokens, block 8): bf16 and
+   layers (at most) (``check_dense_offload``; 8 new tokens, block 8): bf16 and
    ``kv_quant``, greedy and at 0.7, each the resident slab's tokens at
    that depth bit for bit, the slab's leaves in pinned host memory and
    none on the card, 12 slices paged in and written back a decode step,
@@ -226,13 +255,13 @@ and disagg by default):
    paged weights serving the slab from device memory, it prints ms a
    step, peak device memory, the slab at rest beside the window and the
    link's rates;
-6. ``tiers``: KV across the memory tiers, Qwen2.5-14B at full depth
-   whatever ``--layers`` says, on the serve phase's four 8-token prompts
+6. ``tiers``: KV across the memory tiers, Qwen2.5-14B at the serve
+   phase's depth (its weights), on the serve phase's four 8-token prompts
    (64 new tokens, block 32, max_seq 384, page 16, seed 0):
    preemption -- a pool of 13 pages (12 usable against four requests of
    5 worst-case pages) over bf16, int8 and fp8_e4m3 pools, greedy and at
    temperature 0.7: the tokens must equal an uncontended run's (the
-   serve phase's, when it ran at full depth), at least one preemption,
+   serve phase's, when it ran), at least one preemption,
    every victim resumed; preemption mid-decode -- the pool run dry after
    the first block (``FaultPlan(exhaust_at_block=1)``), bf16 greedy and
    fp8_e4m3 at 0.7: victims stash 3 pages each that decode wrote, the
@@ -240,7 +269,7 @@ and disagg by default):
    to the cold tier (``cold_park_after_blocks=0``, the remote tier's
    high-water mark flat through every swap-out) and parked by age (1),
    bf16 greedy, every park promoted back, the same tokens; ``offload_kv``
-   at the first 12 of the 48 layers (``OFFLOAD_LAYERS``)
+   at the first 12 layers at most (``OFFLOAD_LAYERS``)
    -- the weights paged from pinned host memory and the KV pools at rest
    there too, paged a layer at a time: the tokens of a resident run at
    that depth, nothing
@@ -257,8 +286,8 @@ and disagg by default):
    and the offload run's tok/s, peak device memory and KV window bytes
    against the resident pool's bytes;
 7. ``disagg``: disaggregated prefill and the request lifecycle,
-   Qwen2.5-14B at 12 of its 48 layers whatever ``--layers`` says (the
-   first quarter of the full-depth phases' weights: ``DISAGG_LAYERS``), on
+   Qwen2.5-14B at 12 of its 48 layers at most (the first layers of the
+   serving phases' weights: ``DISAGG_LAYERS``), on
    the serving benchmark's interference
    traffic (batch 4, block 32, max_seq 384, page 16, seed 0: four 8-token
    prompts with 32, 64, 96 and 96 new tokens and two 128-token prompts
@@ -323,7 +352,9 @@ The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
 shape, ``tiers_launches``, ``disagg_launches``, ``moe_launches``,
 ``gpt3_launches``, ``dense_launches``, ``families_launches``,
-``train_launches``, ``graph_launches`` (the steady-state graph run's)
+``train_launches``, ``tp_launches`` (the tp phase's ranks, both meshes
+summed, beside ``tp_path``), ``graph_launches`` (the steady-state graph
+run's)
 and ``graph_replayed_launches`` (those its replays made) beside
 ``launches`` (a row at granite's shapes, and
 the gather's, reads ``launches`` from the moe phase, by route; a row at
@@ -1625,6 +1656,14 @@ def qwen_params(torch, layers: int):
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, params
 
+
+#: the depth of the serve, dense, tiers and disagg phases, which share one
+#: set of Qwen2.5-14B weights: 12 of its 48 layers.  At 48 the default run
+#: took 945-998 s on an H100 80GB HBM3 at 700 W (the serve phase 206-233
+#: s, dense ~103, tiers ~144 with offload_kv) and passed 1200 s on a card
+#: whose host-bound steps run ~1.3x slower; their eager steps are
+#: host-bound, so their time follows the depth
+SERVE_LAYERS = 12
 
 #: the serving runs' server settings (the BENCH_serve.json workload's)
 SERVE_KW = dict(batch_size=4, max_seq=384, block_size=32, page_size=16,
@@ -3650,8 +3689,9 @@ DENSE_RUNS = ((False, 0.0), (False, 0.7), (True, 0.0))
 #: pools), reads 0.66
 MATCH_FIRST8 = 0.75
 LOGIT_BOUND = 1e-2
-#: depths of the rounding witness's one-step sweep (of 48)
-WITNESS_DEPTHS = (1, 4, 16, 48)
+#: depths of the rounding witness's one-step sweep below the phase's own
+#: depth, which always ends it
+WITNESS_DEPTHS = (1, 4, 16)
 
 
 def _match_first8(got, want) -> float:
@@ -3716,13 +3756,13 @@ def _convert_params(torch, tree, dtype) -> None:
 
 def check_rounding_witness(torch, card: str, cfg, params, work) -> list:
     """Why K1 and its plain version part at full width: each rounds once
-    in its own order, and 48 layers of random weights amplify the
+    in its own order, and layers of random weights amplify the
     difference, or K1 errs.  (1) One decode step from the same stored KV
     (a prompt prefilled into pools), K1 against its plain version, at
     ``WITNESS_DEPTHS`` in bf16, then with the same weights in fp32
     (activations and pools: a rounding unit 2^16 times finer): a
     rounding difference shrinks with the unit, a fault does not.  (2) At
-    full depth in fp32, the issue's contract against K1 itself: the slab
+    the phase's depth in fp32, the slab contract against K1 itself: the slab
     holding the pools' values takes one step within ``LOGIT_BOUND`` of
     K1's, and greedy runs over the slab and through K1's plain version
     agree with the K1 run under the first-8 rule (>= 0.75).  The
@@ -3736,9 +3776,11 @@ def check_rounding_witness(torch, card: str, cfg, params, work) -> list:
     table = torch.tensor([[1, 2, 3]], dtype=torch.int32, device="cuda")
     n = prompt.shape[1]
     problems, gaps, last = [], {}, {}
+    depths = tuple(d for d in WITNESS_DEPTHS if d < cfg.num_layers) + (
+        cfg.num_layers,)
 
     def sweep(dtype):
-        for depth in WITNESS_DEPTHS:
+        for depth in depths:
             c = dataclasses.replace(cfg, num_layers=depth, dtype=dtype)
             p = dict(params, layers=params["layers"][:depth])
             pool = DenseLM(c)
@@ -3755,7 +3797,7 @@ def check_rounding_witness(torch, card: str, cfg, params, work) -> list:
             f"against its plain version, max |dlogit| by depth, "
             f"{str(dtype)[6:]} weights, activations and pools [{card}]: "
             + ", ".join(f"{d} layers {gaps[dtype, d]:.3e}"
-                        for d in WITNESS_DEPTHS))
+                        for d in depths))
 
     t0 = time.perf_counter()
     sweep(torch.bfloat16)
@@ -3769,11 +3811,11 @@ def check_rounding_witness(torch, card: str, cfg, params, work) -> list:
         slab = _slab_from_pools(torch, last["pools"], table, False)
         mine = _one_step(torch, DenseLM(c32), params, slab, fed, n)
         slab_gap = (mine - last["k1"]).abs().max().item()
-        k1_gap = gaps[torch.float32, WITNESS_DEPTHS[-1]]
+        k1_gap = gaps[torch.float32, depths[-1]]
         del slab, last["pools"]
         ratios = [f"{d} layers {gaps[torch.float32, d] / b:.2e}"
                   if (b := gaps[torch.bfloat16, d]) else
-                  f"{d} layers - (bf16 0)" for d in WITNESS_DEPTHS]
+                  f"{d} layers - (bf16 0)" for d in depths]
         log(f"dense witness: fp32 over bf16 gap by depth: "
             + ", ".join(ratios)
             + f"; fp32 at {c32.num_layers} layers, one step from the pools' "
@@ -3846,7 +3888,7 @@ def check_quant_prefill(torch, cfg, params, prompt) -> list:
 
 def check_dense(torch, card: str, cfg, params, counts: Launches,
                 served: dict | None) -> None:
-    """Qwen2.5-14B at full width and depth (the serve phase's weights)
+    """Qwen2.5-14B at full width and the serve phase's depth (its weights)
     served over the dense per-slot slab (``paged=False``) on the serve
     phase's four 8-token prompts (64 new tokens, batch 4, block 32,
     max_seq 384, seed 0): bf16 greedy and at 0.7, and ``kv_quant`` (int8
@@ -3873,7 +3915,7 @@ def check_dense(torch, card: str, cfg, params, counts: Launches,
     run: the reference's dense prefill attends the unquantized KV where
     an int8 pool's attends its round trip.  Reported beside them: each
     slab run against the K1 run of its pool precision (the serve phase's
-    when it ran at full depth).  Timed in turns with a paged bf16 greedy
+    when it ran).  Timed in turns with a paged bf16 greedy
     run (paged, slab runs, paged); prints ms a step, tok/s, the slab's
     bytes beside the paged pool's peak bytes and its ``fragmentation()``
     one block into the run, and peak device memory."""
@@ -4318,7 +4360,7 @@ def check_tiers(torch, card: str, cfg, params, counts: Launches,
     preemption mid-decode (a stash of pages decode wrote) and cold
     parking.  ``served``: the
     serve phase's tokens by (kv_dtype, temperature) when it ran these
-    settings at full depth (its first four requests are this phase's
+    settings at this depth (its first four requests are this phase's
     workload, in the same slots); else the uncontended runs are made
     here."""
     import dataclasses
@@ -5071,6 +5113,293 @@ def _overlap(a, b) -> float:
     return total
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving over a mesh (the tp phase)
+# ---------------------------------------------------------------------------
+
+#: the tp phase: Qwen2.5-14B at full width and the first 12 of its 48
+#: layers, served by one process and by m = 2 and 4 ranks on the one card
+TP_LAYERS = 12
+TP_SHARDS = (2, 4)
+TP_NEW = 64
+#: the fp32 witness's new tokens (the first-8 rule reads 8)
+TP_WITNESS_NEW = 16
+#: bytes of each half of the shared region (a collective's payload times
+#: the ranks must fit: the largest, a decode step's logits at m = 4, is
+#: 4 x 304,128 B)
+TP_REGION = 16 << 20
+#: seconds the ranks of one mesh may take, their start included (a mesh
+#: took 11-25 s on an H100 80GB HBM3 at 700 W): past it the ranks are
+#: stopped and the phase fails, well inside the run's 1200 s
+TP_TIMEOUT = 180
+#: the paged bf16 bound the logits are held to when the tokens are not
+#: bit-equal (atol, rtol), beside the first-8 rule
+TP_LOGIT_ATOL, TP_LOGIT_RTOL = 0.1, 0.02
+TP_PATH = ("BatchedServer(mesh=make_serving_mesh(model=m)), m = 2 and 4 "
+           "ranks on one card over one shared region, Qwen2.5-14B at 12 of "
+           "48 layers, greedy, summed over ranks and both meshes (tp phase)")
+
+
+def tp_hidden(torch, model, params, toks):
+    """Each layer's output and the last position's logits for one batch
+    of prompts through the model's blocks (the prefill's arithmetic,
+    page-size row chunks), over the mesh the model is bound to."""
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.sharding import activate_mesh
+    with torch.no_grad(), activate_mesh(model.mem.mesh):
+        x = L.embed_lookup(params["embed"], toks)
+        pos = torch.arange(toks.shape[1], device=toks.device)
+        outs = [x.cpu()]
+        for lp in params["layers"]:
+            x, _ = model.block_prefill(lp, x, pos, model.cfg.page_size)
+            outs.append(x.cpu())
+        logits = model._logits(params, x).float().cpu()
+    return outs, logits
+
+
+def _tp_serve(torch, cfg, params, work, new: int, mesh=None) -> dict:
+    """Serve ``work`` (``new`` tokens each, greedy, the serving settings)
+    with the counts and the mesh's tally reset just before; the tokens,
+    the run's numbers, and ``tp_hidden`` of the prompts."""
+    from repro_torch.kernels import (instance_counts, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.memory import tiers, tree_bytes
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import BatchedServer
+    model = DenseLM(cfg)
+    server = BatchedServer(model, params, mesh=mesh,
+                           graph=False if mesh is None else None,
+                           **SERVE_KW)
+    t = mesh.transport("model") if mesh is not None else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    if t is not None:
+        t.reset_tally()
+    reqs, secs = serve(server, work, new)
+    out = {"tokens": [r.output for r in reqs],
+           "errors": [r.error for r in reqs], "secs": secs,
+           "steps": server.stats["steps"],
+           "model_shards": server.stats["model_shards"],
+           "route": server.route, "launches": launch_counts(),
+           "instances": instance_counts(),
+           "tally": ({k: dict(v) for k, v in t.tally.items()}
+                     if t is not None else {}),
+           "wait_s": t.wait_s if t is not None else 0.0,
+           "peak": torch.cuda.max_memory_allocated(),
+           "kv_capacity": server.mem.ledger.capacities(tiers.LOCAL)
+           .get("kv_pool", 0), "cache_bytes": tree_bytes(server.cache),
+           "shards": server.tier_stats()[tiers.LOCAL]["shards"],
+           "params_bytes": tree_bytes(server.params)}
+    toks = torch.as_tensor([list(p) for p in work], device="cuda")
+    out["hidden"], out["logits"] = tp_hidden(torch, model, server.params,
+                                             toks)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(cfg, params, cfg32, params32, work: list) -> dict:
+    """One rank of the tp phase (``launch.mesh.spawn``'s target): loads
+    the kernels the parent built (builds nothing), then serves ``work``
+    over the world's mesh on the shared region in bf16 (``TP_NEW``
+    tokens) and, the bf16 shard freed, the fp32 witness
+    (``TP_WITNESS_NEW``).  ``params`` and ``params32`` arrive as CUDA IPC
+    handles on the parent's full trees; each server copies this rank's
+    shard."""
+    import torch
+    from repro_torch.kernels import _kernel_modules, build
+    from repro_torch.launch.mesh import make_serving_mesh, world
+    build.require_built([m.SOURCE for m in _kernel_modules()])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serving_mesh(model=world().size, transport="shared")
+    out = _tp_serve(torch, cfg, params, work, TP_NEW, mesh)
+    del params
+    out["fp32"] = _tp_serve(torch, cfg32, params32, work, TP_WITNESS_NEW,
+                            mesh)
+    out["rank"] = mesh.rank
+    return out
+
+
+def tp_products(torch, card: str, params, rows: tuple = (4, 8)) -> None:
+    """Why sharded bf16 serving parts from one card's: layer 0's
+    column-sharded products (q, k, v, gate, up) and the LM head, at the
+    decode step's 4 rows and an 8-token admission's, each shard's product
+    against the full product's columns: the share of elements that
+    differ, under cuBLAS's defaults and with reduced-precision split-K
+    reductions off."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lp = params["layers"][0]
+    ws = {"wq": lp["attn"]["wq"], "wk": lp["attn"]["wk"],
+          "wv": lp["attn"]["wv"], "wg": lp["mlp"]["wg"],
+          "wi": lp["mlp"]["wi"], "head": params["embed"]["head"]}
+    flag = torch.backends.cuda.matmul
+    for reduced in (True, False):
+        keep = flag.allow_bf16_reduced_precision_reduction
+        flag.allow_bf16_reduced_precision_reduction = reduced
+        try:
+            parts = []
+            for m_rows in rows:
+                x = torch.randn(m_rows, ws["wq"].shape[0], generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                for name, w in ws.items():
+                    full = x @ w
+                    for m in TP_SHARDS:
+                        c = w.shape[1] // m
+                        diff = sum(int((x @ w[:, r * c:(r + 1) * c]
+                                        .contiguous() != full[:, r * c:(
+                                            r + 1) * c]).sum())
+                                   for r in range(m))
+                        parts.append(f"{name} M={m_rows} m={m} "
+                                     f"{diff / full.numel():.3f}")
+        finally:
+            flag.allow_bf16_reduced_precision_reduction = keep
+        log(f"tp products [{card}], share of a shard's elements that "
+            f"differ from the full product's columns (bf16, "
+            f"allow_bf16_reduced_precision_reduction={reduced}): "
+            + ", ".join(parts))
+
+
+def _tp_layers(torch, got, want) -> str:
+    """Each layer output's max |d| and share of differing elements, the
+    embedding first."""
+    return ", ".join(
+        f"{'emb' if i == 0 else i - 1} {(a.float() - b.float()).abs().max().item():.3g}"
+        f"/{(a != b).float().mean().item():.3f}"
+        for i, (a, b) in enumerate(zip(got, want)))
+
+
+def check_tp(torch, card: str, counts: "Launches") -> None:
+    """The tp phase: Qwen2.5-14B at full width and ``TP_LAYERS`` layers,
+    bf16 pools, the serving workload's four 8-token prompts (``TP_NEW``
+    new tokens), served by this process (eager: the baseline of a
+    sharded server, which decodes eagerly) and then by m = 2 and m = 4
+    ranks on this card over one shared region (``SharedRegionTransport``;
+    K4 the accumulate of the embedding's all-reduce).
+
+    Gates: K4, K1 (once a layer a step) and K2 on every rank, per-rank
+    pool bytes = single / m, ``model_shards`` and the ledger's shards m,
+    the eager route, the embedding bit-equal on every rank; the tokens
+    bit-equal to the single server's, or else the fp32 witness: the same
+    weights in fp32 (a rounding unit 2^16 times finer), sharded against
+    one card, held to the first-8 rule and the last position's logits
+    within ``LOGIT_BOUND`` (a rounding difference shrinks with the unit,
+    a fault does not).  The bf16 logits against the paged bf16 bound
+    (``TP_LOGIT_ATOL`` / ``TP_LOGIT_RTOL``) and first-8, each layer's
+    max |d|, and whether layer 0's sharded products equal the full
+    product's columns are printed (``tp_products``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.memory import tree_bytes
+    from repro_torch.memory.accounting import tree_map
+    from repro_torch.models.transformer import DenseLM
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), tp=1,
+                              num_layers=TP_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    log(f"tp: DEPTH CUT: Qwen2.5-14B at full width and {TP_LAYERS} of 48 "
+        f"layers")
+    before = torch.cuda.memory_allocated()
+    params = DenseLM(cfg).init(0, device="cuda")
+    work = prompts(cfg.vocab, 0)[:4]
+    one = _tp_serve(torch, cfg, params, work, TP_NEW)
+    counts.add(one["launches"], one["instances"])
+    log(f"tp m=1 [{card}]: {1e3 * one['secs'] / one['steps']:.2f} ms a "
+        f"step eager ({one['steps']} steps, admissions included, route "
+        f"{one['route']}), peak device memory {one['peak'] / 2**30:.2f} "
+        f"GiB, params {tree_bytes(params) / 2**30:.2f} GiB, kv_pool "
+        f"{one['kv_capacity']} B, K1 {one['launches']['paged_attention']}, "
+        f"K4 {one['launches']['write_accumulate']}")
+    tp_products(torch, card, params)
+    params32 = tree_map(lambda t: t.float(), params)
+    one32 = _tp_serve(torch, cfg32, params32, work, TP_WITNESS_NEW)
+    problems = []
+    for m in TP_SHARDS:
+        t0 = time.perf_counter()
+        ranks = spawn(tp_rank, m, cfg, params, cfg32, params32, work,
+                      device="cuda", region_bytes=TP_REGION,
+                      timeout=TP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            counts.add(r["launches"], r["instances"])
+            tag = f"tp m={m} rank {r['rank']}"
+            share = r["wait_s"] / r["secs"]
+            moved = {k: (v["transfers"], v["bytes"])
+                     for k, v in r["tally"].items() if v["transfers"]}
+            log(f"{tag} [{card}]: {1e3 * r['secs'] / r['steps']:.2f} ms a "
+                f"step ({r['steps']} steps, admissions included, route "
+                f"{r['route']}), the completion notice (stream sync + gloo "
+                f"barrier) {100 * share:.1f} % of it, peak device memory "
+                f"{r['peak'] / 2**30:.2f} GiB (params "
+                f"{r['params_bytes'] / 2**30:.2f} GiB), kv_pool "
+                f"{r['kv_capacity']} B, collectives on 'model' (transfers, "
+                f"bytes): {moved}, K1 {r['launches']['paged_attention']}, "
+                f"K2 {r['launches']['flash_attention_wgmma']}, K4 "
+                f"{r['launches']['write_accumulate']}")
+            if any(r["errors"]) or any(len(t) != TP_NEW for t in r["tokens"]):
+                problems.append(f"{tag}: a request did not emit its "
+                                f"{TP_NEW} tokens: {r['errors']}")
+            if r["model_shards"] != m or r["shards"] != m:
+                problems.append(f"{tag}: model_shards {r['model_shards']}, "
+                                f"ledger shards {r['shards']}")
+            if r["route"] != "eager":
+                problems.append(f"{tag}: route {r['route']}")
+            if r["launches"]["write_accumulate"] < 1:
+                problems.append(f"{tag}: K4 never launched")
+            if r["launches"]["paged_attention"] != TP_LAYERS * r["steps"]:
+                problems.append(f"{tag}: K1 {r['launches']['paged_attention']}"
+                                f" for {r['steps']} steps, not one a layer")
+            if r["launches"]["flash_attention_wgmma"] < 1:
+                problems.append(f"{tag}: K2 never launched on wgmma")
+            if r["kv_capacity"] * m != one["kv_capacity"] or \
+                    r["cache_bytes"] * m != one["cache_bytes"]:
+                problems.append(f"{tag}: kv_pool {r['kv_capacity']} B "
+                                f"(cache {r['cache_bytes']}) x {m} != "
+                                f"{one['kv_capacity']}")
+            if not torch.equal(r["hidden"][0], one["hidden"][0]):
+                problems.append(f"{tag}: the embedding (K4's all-reduce of "
+                                f"one row and zeros) is not one card's")
+            dl = (r["logits"] - one["logits"]).abs()
+            over = (dl - TP_LOGIT_RTOL * one["logits"].abs()).max().item()
+            f8 = _match_first8(r["tokens"], one["tokens"])
+            log(f"{tag}: bf16 layer outputs against one card's, max |d| / "
+                f"share differing: {_tp_layers(torch, r['hidden'], one['hidden'])}"
+                f"; last-position logits max |d| {dl.max().item():.4g} "
+                f"({'within' if over <= TP_LOGIT_ATOL else 'beyond'} the "
+                f"bf16 bound), first-8 {f8:.3f}")
+            w32 = r["fp32"]
+            d32 = (w32["logits"] - one32["logits"]).abs().max().item()
+            f8_32 = _match_first8(w32["tokens"], one32["tokens"])
+            log(f"{tag}: fp32 witness: layer outputs "
+                f"{_tp_layers(torch, w32['hidden'], one32['hidden'])}; "
+                f"last-position logits max |d| {d32:.4g}, tokens "
+                f"{'bit-equal' if w32['tokens'] == one32['tokens'] else 'not bit-equal'}"
+                f", first-8 {f8_32:.3f}")
+            if r["tokens"] == one["tokens"]:
+                log(f"{tag}: bf16 tokens bit-equal to one card's")
+                continue
+            log(f"{tag}: bf16 tokens NOT bit-equal to one card's: held to "
+                f"the fp32 witness")
+            if f8_32 < MATCH_FIRST8 or d32 > LOGIT_BOUND:
+                problems.append(f"{tag}: the fp32 witness parts from one "
+                                f"card's: first-8 {f8_32:.3f}, logits "
+                                f"{d32:.4g} (bound {LOGIT_BOUND})")
+        log(f"tp m={m}: {wall:.1f} s with the ranks' start")
+    # the weights the ranks shared by IPC come back once every rank let go
+    del params, params32, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - before
+    log(f"tp: device memory still allocated after the phase "
+        f"{left / 2**30:.2f} GiB")
+    if left > 1 << 30:
+        problems.append(f"{left / 2**30:.2f} GiB still allocated after the "
+                        f"ranks exited (memory shared by IPC not released)")
+    if problems:
+        raise AssertionError("tp phase: " + "; ".join(problems))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5084,14 +5413,15 @@ def _leaves(tree):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=48,
-                    help="serving depth (Qwen2.5-14B has 48; cut only if "
-                         "the time limit forces it)")
+    ap.add_argument("--layers", type=int, default=SERVE_LAYERS,
+                    help="depth of the serve, dense, tiers and disagg "
+                         "phases (Qwen2.5-14B has 48; the default run "
+                         f"serves {SERVE_LAYERS} to stay inside its time)")
     ap.add_argument("--phases",
-                    default="kernels,parity,moe,gpt3,families,train,serve,"
-                            "dense,tiers,disagg",
+                    default="kernels,parity,moe,gpt3,families,train,tp,"
+                            "serve,dense,tiers,disagg",
                     help="comma list of kernels, parity, moe, gpt3, "
-                         "families, train, serve, dense, tiers, disagg, "
+                         "families, train, tp, serve, dense, tiers, disagg, "
                          "profile (a traced serving run) and sweep (K3's "
                          "routes over M); the last two are off by default")
     args = ap.parse_args()
@@ -5115,7 +5445,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
     reports = build_all()
     log(f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
     for src, rep in reports.items():
@@ -5194,42 +5524,48 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         took("train")
+    tp = None
+    if "tp" in phases:
+        # before the Qwen2.5-14B weights of the serve phase: the ranks'
+        # shards and this process's 12 layers share the card
+        tp = Launches("tp")
+        check_tp(torch, card, tp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("tp")
     launches = tiers = served = dense = None
-    if "serve" in phases:
+    if phases & {"serve", "tiers", "disagg", "dense"}:
+        # one set of weights, --layers deep, for the serving phases
         cfg, params = qwen_params(torch, args.layers)
+    if "serve" in phases:
         *launches, served = check_serve(torch, card, cfg, params,
                                         "profile" in phases)
         took("serve")
-    if phases & {"tiers", "disagg", "dense"}:
-        # the full-depth phases share one set of weights: the serve
-        # phase's when it ran at 48 layers
-        if "serve" not in phases or cfg.num_layers != 48:
-            cfg48, params48 = qwen_params(torch, 48)
-            full = None
-        else:
-            cfg48, params48, full = cfg, params, served
     if "tiers" in phases:
         tiers = Launches()
-        check_tiers(torch, card, cfg48, params48, tiers, full)
+        check_tiers(torch, card, cfg, params, tiers, served)
         took("tiers")
     if "disagg" in phases:
+        depth = min(cfg.num_layers, DISAGG_LAYERS)
         check_disagg(torch, card,
-                     dataclasses.replace(cfg48, num_layers=DISAGG_LAYERS),
-                     dict(params48, layers=params48["layers"][:DISAGG_LAYERS]),
-                     None)
+                     dataclasses.replace(cfg, num_layers=depth),
+                     dict(params, layers=params["layers"][:depth]), None)
         took("disagg")
     if "dense" in phases:
         dense = Launches("dense")
-        check_dense(torch, card, cfg48, params48, dense, full)
+        check_dense(torch, card, cfg, params, dense, served)
         took("dense")
     if "serve" in phases:
         check_serve_paged(torch, card, cfg, params, "profile" in phases)
         took("serve (paged weights)")
     if "tiers" in phases:
         check_offload(torch, card, dataclasses.replace(
-            cfg48, num_layers=OFFLOAD_LAYERS), params48, tiers)
+            cfg, num_layers=min(cfg.num_layers, OFFLOAD_LAYERS)), params,
+            tiers)
         took("tiers (offload_kv)")
 
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s from the build "
+        f"to the last phase's end")
     if results and launches is not None and parity_launches is not None:
         # a row's launches: its instantiation's (K1: query rows; K2: head
         # dim) where the kernel names them, in the run of the row's path;
@@ -5247,8 +5583,9 @@ def main() -> int:
         def summed(run):
             return (run.total, run.by_instance) if run else ({}, {})
 
-        tiered, moed, gpt3d, densed, familied, trainedd = (
-            summed(r) for r in (tiers, moe, gpt3, dense, families, trained))
+        tiered, moed, gpt3d, densed, familied, trainedd, tpd = (
+            summed(r) for r in (tiers, moe, gpt3, dense, families, trained,
+                                tp))
         moe_path = ("BatchedServer, granite-moe-3b-a800m at full width, "
                     "greedy and sampled runs summed (moe phase)")
         # rows whose shape is another path's than their kernel's
@@ -5306,6 +5643,8 @@ def main() -> int:
                                         familied, name, row),
                                     "train_launches": count(trainedd, name,
                                                             row),
+                                    "tp_launches": count(tpd, name, row),
+                                    "tp_path": TP_PATH,
                                     "graph_launches": graphed,
                                     "graph_replayed_launches": (
                                         GRAPH_RUN.get("replayed", {})

@@ -167,6 +167,16 @@ def build(sources: list[str]) -> dict[str, str]:
         return {src: reports[src] for src in sources}
 
 
+def require_built(sources: list[str]) -> None:
+    """Raise unless every source's library is already built: for
+    processes that must only load what another built (the ranks of a
+    mesh on one card)."""
+    missing = [s for s in sources if not _target(s).exists()]
+    if missing:
+        raise RuntimeError(f"kernels not built: {missing} (build them "
+                           f"before starting the ranks)")
+
+
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if needed."""
     lib = _loaded.get(source)

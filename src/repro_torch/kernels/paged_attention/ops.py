@@ -19,7 +19,20 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.paged_attention import kernel as _kernel
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                     gather_scales,
+                                                     paged_attention_ref)
+from repro_torch.launch.mesh import P
+
+# the "model"-axis layouts of the pools and of their per-sequence views
+# (KV heads sharded; the page table replicated)
+POOL_SPEC = P(None, None, "model", None)                 # (P, page, Hkv, hd)
+STACKED_POOL_SPEC = P(None, None, None, "model", None)   # (L, P, ...)
+SCALE_SPEC = P(None, None, "model")                      # (P, page, Hkv)
+STACKED_SCALE_SPEC = P(None, None, None, "model")        # (L, P, page, Hkv)
+GATHERED_KV_SPEC = P(None, "model", None, None)          # (B, Hkv, n*pg, hd)
+GATHERED_SCALE_SPEC = P(None, "model", None)             # (B, Hkv, n*pg)
+PAGE_TABLE_SPEC = P()                                    # replicated
 
 
 def attend(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -36,6 +49,32 @@ def attend(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     return _kernel.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                                    extra_kv=extra_kv, k_scales=k_scales,
                                    v_scales=v_scales)
+
+
+def gather_pages_sharded(pages: torch.Tensor, page_table: torch.Tensor,
+                         mesh=None) -> torch.Tensor:
+    """:func:`gather_pages` of this rank's KV heads: the gather indexes
+    only the (replicated) page axis, so a rank reads just its head slice
+    of each page and no KV crosses ranks on the decode read.  ``pages``
+    holds every head (P, page, Hkv, d); ``mesh`` defaults to the ambient
+    mesh, and without one this is :func:`gather_pages`.  A rank's own
+    pools hold its heads already, and K1 reads them as they are."""
+    from repro_torch.runtime.sharding import ambient_mesh, shard_slice
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is not None:
+        pages = shard_slice(pages, POOL_SPEC, mesh)
+    return gather_pages(pages, page_table)
+
+
+def gather_scales_sharded(scales: torch.Tensor, page_table: torch.Tensor,
+                          mesh=None) -> torch.Tensor:
+    """:func:`gather_scales` of this rank's KV heads, as
+    :func:`gather_pages_sharded`."""
+    from repro_torch.runtime.sharding import ambient_mesh, shard_slice
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is not None:
+        scales = shard_slice(scales, SCALE_SPEC, mesh)
+    return gather_scales(scales, page_table)
 
 
 def pages_for(tokens: int, page_size: int) -> int:

@@ -1,0 +1,324 @@
+"""Serving meshes and the processes behind them (counterpart of
+``repro.launch.mesh``).
+
+The reference lays a ``("data", "model")`` mesh over the devices of one
+JAX process.  Here each mesh position is a process of its own: a *rank*,
+holding its shard of the model, started by :func:`spawn`.  A
+:class:`Mesh` is one rank's view of the mesh: the axis sizes, this
+rank's index and coordinates, and one transport an axis of more than one
+rank (:mod:`repro_torch.runtime.transport`) that the TAB collectives
+(:mod:`repro_torch.core.tab`) run over.
+
+:func:`spawn` starts the ranks with ``torch.multiprocessing``'s
+``spawn`` context, joins them in a ``gloo`` process group over a
+``file://`` store in a temporary directory (no network: gloo's pairs
+connect on the loopback device), and, for the shared-region transport,
+hands every rank one region of memory that the parent allocates and
+keeps alive until the ranks exit: shared host memory for CPU ranks, one
+CUDA allocation passed to the ranks by IPC for ranks on a card.  Inside
+a rank, :func:`make_serving_mesh` builds the mesh over that world.
+Outside one, a mesh of more than one rank is *abstract*: it carries the
+axis sizes (a server checks a config against them) and no transport.
+"""
+from __future__ import annotations
+
+import gc
+import math
+import os
+import pickle
+import queue as _queue
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable
+
+import torch
+
+#: bytes of one half of the shared region :func:`spawn` allocates by
+#: default (each collective's payload times the ranks must fit a half)
+REGION_BYTES = 1 << 22
+
+
+class P(tuple):
+    """A partition spec (``jax.sharding.PartitionSpec``): one entry a
+    tensor dim, each None (the whole dim on every rank), a mesh axis name
+    (the dim split over that axis) or a tuple of axis names (split over
+    their product)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+class Mesh:
+    """One rank's view of a mesh: ``shape`` (axis -> size, in
+    ``axis_names`` order), ``rank`` and its ``coords`` (row-major: the
+    last axis varies fastest, as ``jax.make_mesh`` lays devices out), and
+    the transport of each axis with more than one rank.  Without
+    transports a mesh of several ranks is abstract: its sizes can be
+    checked, its axes carry no collective."""
+
+    def __init__(self, axis_sizes: dict[str, int], *, rank: int = 0,
+                 transports: dict[str, Any] | None = None):
+        self.axis_names = tuple(axis_sizes)
+        self.shape = {k: int(v) for k, v in axis_sizes.items()}
+        if any(v < 1 for v in self.shape.values()):
+            raise ValueError(f"mesh axes must be positive: {self.shape}")
+        self.size = math.prod(self.shape.values())
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        coords, r = {}, rank
+        for name in reversed(self.axis_names):
+            coords[name] = r % self.shape[name]
+            r //= self.shape[name]
+        self.coords = {n: coords[n] for n in self.axis_names}
+        self._transports = dict(transports or {})
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+    @property
+    def bound(self) -> bool:
+        """Whether every axis of more than one rank has a transport."""
+        return all(n in self._transports for n, s in self.shape.items()
+                   if s > 1)
+
+    def axis_size(self, name: str) -> int:
+        return self.shape.get(name, 1)
+
+    def axis_index(self, name: str) -> int:
+        return self.coords.get(name, 0)
+
+    def transport(self, name: str):
+        """The transport the collectives of axis ``name`` run over: an
+        identity for an axis of one rank (or one the mesh lacks)."""
+        from repro_torch.runtime.transport import SelfTransport
+        if self.axis_size(name) == 1:
+            return SelfTransport(name)
+        t = self._transports.get(name)
+        if t is None:
+            raise RuntimeError(
+                f"{self!r} has no transport for axis {name!r}: a mesh of "
+                f"several ranks runs in the processes launch.mesh.spawn "
+                f"starts (make_serving_mesh inside a rank)")
+        return t
+
+    def transports(self) -> dict:
+        """Axis -> its transport, for the axes of more than one rank."""
+        return dict(self._transports)
+
+
+# ---------------------------------------------------------------------------
+# The world of ranks a spawned process belongs to
+# ---------------------------------------------------------------------------
+
+class World:
+    """The ranks :func:`spawn` started, as one of them sees them: its
+    rank, their number and the shared region (None when the parent
+    allocated none).  The region's half
+    alternates with every shared-region collective of this rank, whatever
+    transport issued it, so every rank walks the halves in step."""
+
+    def __init__(self, rank: int, size: int, region: torch.Tensor | None):
+        self.rank = rank
+        self.size = size
+        self.region = region
+        self._phase = 0
+        self._cache: dict = {}
+
+    def next_half(self) -> int:
+        half = self._phase
+        self._phase ^= 1
+        return half
+
+    def transport(self, kind: str, axis: str):
+        """This rank's transport of ``kind`` (``"shared"``: the TAB's
+        shared region; ``"group"``: the process group) for ``axis``, one
+        instance a (kind, axis)."""
+        from repro_torch.runtime import transport as tr
+        key = (kind, axis)
+        if key not in self._cache:
+            if kind == "shared":
+                self._cache[key] = tr.SharedRegionTransport(self, axis)
+            elif kind == "group":
+                self._cache[key] = tr.ProcessGroupTransport(self, axis)
+            else:
+                raise ValueError(f"transport kind {kind!r}: 'shared' or "
+                                 f"'group'")
+        return self._cache[key]
+
+
+_WORLD: World | None = None
+
+
+def world() -> World | None:
+    """The world this process is a rank of (None outside :func:`spawn`)."""
+    return _WORLD
+
+
+def _mesh(sizes: dict[str, int], transport: str) -> Mesh:
+    n = math.prod(sizes.values())
+    w = _WORLD
+    if n == 1:
+        return Mesh(sizes)
+    if w is None:
+        return Mesh(sizes)                       # abstract
+    if w.size != n:
+        raise ValueError(f"a mesh of {n} ranks {sizes} in a world of "
+                         f"{w.size}")
+    live = [a for a, s in sizes.items() if s > 1]
+    if len(live) > 1:
+        raise NotImplementedError(
+            f"mesh {sizes}: collectives over an axis that spans part of "
+            f"the world (data > 1 and model > 1) are not wired yet")
+    return Mesh(sizes, rank=w.rank,
+                transports={live[0]: w.transport(transport, live[0])})
+
+
+def make_smoke_mesh() -> Mesh:
+    """The one-rank mesh."""
+    return Mesh({"data": 1, "model": 1})
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *,
+                   transport: str = "shared") -> Mesh:
+    """A ``(data, model)`` mesh over this process's world of ranks
+    (abstract outside one); ``transport`` picks the TAB's shared region
+    (``"shared"``) or the process group (``"group"``)."""
+    return _mesh({"data": data, "model": model}, transport)
+
+
+def make_serving_mesh(model: int = 1, data: int = 1, *,
+                      transport: str = "shared") -> Mesh:
+    """Tensor-parallel serving mesh: ``model`` shards of the weights and
+    KV heads, ``data`` replicas.  ``model=1`` is the degenerate mesh."""
+    return make_host_mesh(data=data, model=model, transport=transport)
+
+
+def serving_model_shards(max_shards: int, *heads: int,
+                         ranks: int | None = None) -> int:
+    """Largest tensor-parallel degree <= ``max_shards`` and the ranks
+    available (``ranks``, default this process's world, 1 outside one)
+    that divides every padded head count in ``heads``."""
+    avail = ranks if ranks is not None else (
+        _WORLD.size if _WORLD is not None else 1)
+    limit = max(1, min(max_shards, avail))
+    for m in range(limit, 0, -1):
+        if all(h % m == 0 for h in heads):
+            return m
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# Starting the ranks
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank: int, size: int, store: str, device: str,
+               threads: int | None, inbox, out) -> None:
+    import torch.distributed as dist
+    global _WORLD
+    # gloo's pairs connect on the loopback device: the ranks share a host
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=size, rank=rank)
+        # the work comes through a queue, not the process's arguments,
+        # which live as long as the process: shared tensors dropped here
+        # are released to the parent (CUDA IPC memory stays held in the
+        # parent until every rank released it)
+        fn, args, region = inbox.get()
+        _WORLD = World(rank, size, region)
+        # pickled by value: a tensor shared by handle would die with this
+        # process before the parent reads it
+        result = pickle.dumps(fn(*args))
+        fn = args = region = _WORLD = None
+        gc.collect()
+        dist.barrier()
+        out.put((rank, True, result))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        _WORLD = None
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn: Callable, nprocs: int, *args, device: str = "cpu",
+          region_bytes: int | None = REGION_BYTES,
+          threads: int | None = None, timeout: float = 600.0) -> list:
+    """Run ``fn(*args)`` in ``nprocs`` new processes, the ranks of one
+    world, and return their results in rank order.
+
+    ``fn`` must be importable by name (a module-level function) and its
+    arguments and result picklable; CUDA tensors among the arguments
+    reach the ranks as IPC handles on the same memory (the parent keeps
+    them alive, and takes back what the ranks released once they
+    exited).  ``region_bytes`` sizes each half of the shared region (None:
+    no region, only the process-group transport); the region lives on
+    ``device``.  ``threads`` caps each rank's intra-op threads.  Raises
+    with the rank's traceback if any rank fails, and after ``timeout``
+    seconds; every process is gone when it returns."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    region = None
+    if region_bytes:
+        region = torch.zeros(2 * region_bytes, dtype=torch.uint8,
+                             device=device)
+        if region.device.type == "cpu":
+            region.share_memory_()
+    out = ctx.Queue()
+    inboxes = [ctx.Queue() for _ in range(nprocs)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, nprocs, os.path.join(tmp, "store"), device,
+                               threads, inboxes[r], out), daemon=True)
+             for r in range(nprocs)]
+    results: dict[int, Any] = {}
+    try:
+        for p, inbox in zip(procs, inboxes):
+            p.start()
+            inbox.put((fn, args, region))
+        deadline = time.monotonic() + timeout
+        while len(results) < nprocs:
+            try:
+                rank, ok, value = out.get(timeout=1.0)
+            except _queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and not p.is_alive()]
+                if dead:
+                    raise RuntimeError(
+                        f"rank(s) {dead} exited with codes "
+                        f"{[procs[r].exitcode for r in dead]} and no result")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"ranks still running after "
+                                       f"{timeout} s")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {nprocs} failed:\n"
+                                   f"{value}")
+            results[rank] = pickle.loads(value)
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        for q in (out, *inboxes):
+            q.close()
+        del region
+        if torch.device(device).type == "cuda":
+            torch.cuda.ipc_collect()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [results[r] for r in range(nprocs)]

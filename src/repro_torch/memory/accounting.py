@@ -108,15 +108,21 @@ class MemoryLedger:
     (residency is state, not a counter); per-tier totals and high-water
     marks follow.  Provisioned capacity (``record_capacity``) is kept
     apart, so a pre-allocated slab is never counted twice: a block pool's
-    capacity is the slab, its residency the live pages.  The bytes are
-    per card (``shards`` = 1 in :meth:`snapshot`: the port serves on one
-    card, the reference may shard a model)."""
+    capacity is the slab, its residency the live pages.
+
+    Under tensor-parallel serving the ledger accounts **per shard**: the
+    bytes ONE rank holds (total / model shards for heads- or
+    column-sharded classes), so ``capacity_reduction`` over ledger
+    numbers stays comparable to the per-GPU simulator.  ``shards``
+    (stamped by ``MemoryOrchestrator.bind_mesh``) says how many
+    model-axis shards the per-shard numbers multiply out to."""
 
     def __init__(self) -> None:
         self._now: dict[str, dict[str, int]] = {}
         self._hwm: dict[str, int] = {}
         self._cap: dict[str, dict[str, int]] = {}
         self._xfer: dict[tuple[str, str], dict] = {}
+        self.shards = 1          # model-axis shards the bytes are "per"
 
     def record(self, tier: str, tensor_class: str, nbytes: int) -> None:
         self._now.setdefault(tier, {})[tensor_class] = int(nbytes)
@@ -190,10 +196,11 @@ class MemoryLedger:
 
     def snapshot(self) -> dict:
         """Per-tier view: in-use, high-water and capacity bytes, and the
-        bytes of each tensor class."""
+        bytes of each tensor class; byte values are per model-axis shard
+        (``shards`` > 1 under tensor-parallel serving)."""
         return {t: {"in_use_bytes": self.in_use(t),
                     "hwm_bytes": self.hwm(t),
                     "capacity_bytes": self.capacity(t),
-                    "shards": 1,
+                    "shards": self.shards,
                     "by_class": self.classes(t)}
                 for t in self.tiers()}

@@ -269,6 +269,8 @@ class MemoryOrchestrator:
         # tensor class -> reason, when a tier fault forced a documented
         # degradation to local residency
         self.degraded: dict[str, str] = {}
+        self.mesh = None
+        self.model_shards = 1
 
     @classmethod
     def plan(cls, model_config: Any = None) -> "MemoryOrchestrator":
@@ -301,6 +303,37 @@ class MemoryOrchestrator:
     @property
     def expert_policy(self) -> TopKExpertPrefetch | None:
         return self.policies.get("expert_weights")
+
+    # ----- mesh awareness ---------------------------------------------------
+    def bind_mesh(self, mesh) -> "MemoryOrchestrator":
+        """Make the orchestrator mesh-aware: the model's entry points then
+        run over ``mesh`` (its ``"model"`` axis shards heads, columns and
+        the vocab), its caches hold this rank's KV heads, and the ledger
+        switches to per-shard accounting (the bytes ONE rank holds).
+        ``bind_mesh(None)`` returns to one card."""
+        self.mesh = mesh
+        self.model_shards = 1 if mesh is None else mesh.axis_size("model")
+        self.ledger.shards = self.model_shards
+        return self
+
+    def place_params(self, params: dict, spec_tree: dict) -> dict:
+        """Mesh-aware whole-model placement: this rank's slice of every
+        leaf under ``spec_tree`` (:func:`repro_torch.runtime.sharding.
+        shard_tree`; the pageable groups in the remote tier when paging is
+        enabled), with both tiers' per-shard residency in the ledger."""
+        from repro_torch.runtime.sharding import PAGEABLE_GROUPS, shard_tree
+        if self.mesh is None:
+            raise ValueError("no mesh bound; call bind_mesh first")
+        placed = shard_tree(params, spec_tree, self.mesh,
+                            pageable_remote=self.config.enabled)
+        remote = sum(tree_bytes(v) for k, v in placed.items()
+                     if self.config.enabled and k in PAGEABLE_GROUPS)
+        local = tree_bytes(placed) - remote
+        for tier, nbytes in ((tiers.REMOTE, remote), (tiers.LOCAL, local)):
+            if nbytes:
+                self.ledger.record(tier, "params", nbytes)
+                self.ledger.record_capacity(tier, "params", nbytes)
+        return placed
 
     # ----- placement --------------------------------------------------------
     def place(self, tensor_class: str, tree: dict,

@@ -191,6 +191,34 @@ class ModelConfig:
             raise ValueError("kv_qmax is only defined for quantized KV")
         return self.KV_DTYPES[self.kv_dtype][1]
 
+    def assert_mesh_compatible(self, axis_sizes: dict) -> None:
+        """Fail fast when a serving mesh cannot shard this config.
+
+        The ``"model"`` axis shards attention heads, KV heads (and hence
+        the page pools' head axis), the MLP hidden dim and the padded
+        vocab; any non-divisible dimension would silently fall back to
+        replication mid-model, so reject the mesh up front instead.
+        """
+        m = int(axis_sizes.get("model", 1))
+        if m <= 1:
+            return
+        if self.num_experts:
+            raise ValueError(
+                f"config {self.name} cannot shard over model={m}: "
+                f"expert-parallel serving of MoE banks is not wired yet "
+                f"(the all-gather-TP determinism contract does not cover "
+                f"the expert combine; see ROADMAP open items)")
+        bad = {name: v for name, v in (
+            ("padded_heads", self.padded_heads),
+            ("padded_kv_heads", self.padded_kv_heads),
+            ("padded_vocab", self.padded_vocab),
+            ("d_ff", self.d_ff),
+        ) if v and v % m}
+        if bad:
+            raise ValueError(
+                f"config {self.name} cannot shard over model={m}: "
+                f"non-divisible dims {bad}")
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
         ``reduced``): a patterned model keeps one group of at most three

@@ -10,6 +10,19 @@ training; the plain blocked online-softmax on the CPU); paged decode
 attention goes to the paged wrapper (K1, or its plain version); decode
 over the dense slab is plain torch, as the reference's is jnp.
 
+Tensor-parallel serving (all-gather TP, the reference's contract): over
+an ambient mesh (:func:`repro_torch.runtime.sharding.activate_mesh`) a
+rank holds its ``"model"`` shard of the QKV projections and their biases
+(by head), of gate/up (by column), of the embedding (by vocab row) and
+of the LM head (by vocab column), and the whole of both output
+projections.  Heads arrive sharded, so attention runs on the rank's
+heads (:func:`_heads_sharded` checks the shape); activations are
+all-gathered before each output projection (:func:`_tp_gathered`), so
+every projection is the single-card dot; the embedding lookup is masked
+to the rank's rows and summed by ``tab_allreduce`` (K4 over one non-zero
+term and zeros: exact), and the logits are all-gathered before sampling.
+Without a mesh all of it is the identity.
+
 Prefill runs its row-wise work (norms, projections, RoPE, the MLP) in
 chunks of ``rows`` rows (the page size) via :func:`by_rows`.  A library
 matmul or reduction may pick another summation order for another number
@@ -29,9 +42,84 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.launch.mesh import P
 from repro_torch.models.base import ModelConfig
+from repro_torch.runtime import sharding
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel boundaries and specs
+# ---------------------------------------------------------------------------
+
+def attn_specs(cfg: ModelConfig, *, cross: bool = False,
+               stacked: bool = False) -> dict:
+    """The attention weights' ``"model"`` layout: QKV by head (columns),
+    the output projection by its contraction rows (training's layout;
+    serving replicates it).  ``stacked`` adds a leading layer axis (the
+    port's layers are a list: unstacked)."""
+    lead = (None,) if stacked else ()
+
+    def mk(*dims):
+        return P(*lead, *dims)
+    p = {"wq": mk(None, "model"), "wk": mk(None, "model"),
+         "wv": mk(None, "model"), "wo": mk("model", None)}
+    if cfg.qkv_bias and not cross:
+        p.update(bq=mk("model"), bk=mk("model"), bv=mk("model"))
+    if cfg.qk_norm:
+        p.update(q_norm=mk(None), k_norm=mk(None))
+    return p
+
+
+def mlp_specs(stacked: bool = False) -> dict:
+    lead = (None,) if stacked else ()
+    return {"wi": P(*lead, None, "model"), "wg": P(*lead, None, "model"),
+            "wo": P(*lead, "model", None)}
+
+
+def mlp2_specs(stacked: bool = False) -> dict:
+    lead = (None,) if stacked else ()
+    return {"wi": P(*lead, None, "model"), "wo": P(*lead, "model", None)}
+
+
+def embed_specs(cfg: ModelConfig) -> dict:
+    p = {"tok": P("model", None)}
+    if not cfg.tie_embeddings:
+        p["head"] = P(None, "model")
+    return p
+
+
+def local_heads(cfg: ModelConfig) -> tuple[int, int]:
+    """(query heads, KV heads) this rank holds: the padded counts over
+    the ambient mesh's ``"model"`` axis."""
+    m = sharding.model_shards()
+    return cfg.padded_heads // m, cfg.padded_kv_heads // m
+
+
+def _heads_sharded(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """The attention boundary: (B, S, H, hd) tensors arrive with this
+    rank's heads already (the projections are column-sharded), so this
+    checks the head count and moves nothing."""
+    if t.shape[2] != heads:
+        raise ValueError(f"{t.shape[2]} heads where this rank holds "
+                         f"{heads} (model shards: {sharding.model_shards()})")
+    return t
+
+
+def _tp_gathered(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The all-gather TP boundary of serving: every rank's slice of ``t``
+    along ``dim`` (sharded heads, the MLP's hidden columns, the vocab),
+    gathered by ``tab_allgather`` over the ambient mesh's ``"model"``
+    axis before a projection against a replicated weight (or sampling).
+    A gather is pure data movement and the dot after it is the
+    single-card dot, so sharded serving is bit-identical by construction.
+    Without a mesh, the identity."""
+    mesh = sharding.ambient_mesh()
+    if mesh is None or mesh.axis_size("model") == 1:
+        return t
+    from repro_torch.core.tab import tab_allgather
+    return tab_allgather(t, "model", axis=dim % t.dim(), mesh=mesh)
 
 
 def by_rows(fn: Callable, rows: int, *xs: torch.Tensor):
@@ -241,15 +329,15 @@ def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
                  cfg: ModelConfig):
     b, s = x.shape[:2]
     skv = x_kv.shape[1]
-    hq, hkv, hd = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim
+    (hq, hkv), hd = local_heads(cfg), cfg.head_dim
     q = x @ p["wq"]
     k = x_kv @ p["wk"]
     v = x_kv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, skv, hkv, hd)
-    v = v.reshape(b, skv, hkv, hd)
+    q = _heads_sharded(q.reshape(b, s, hq, hd), hq)
+    k = _heads_sharded(k.reshape(b, skv, hkv, hd), hkv)
+    v = _heads_sharded(v.reshape(b, skv, hkv, hd), hkv)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -264,6 +352,9 @@ def _rope_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
+    """(B, S, heads, hd) -> (B, S, d): the rank's heads gathered, then
+    the (replicated) output projection."""
+    o = _tp_gathered(o, 2)
     return o.reshape(o.shape[0], o.shape[1], -1) @ p["wo"]
 
 
@@ -281,7 +372,7 @@ def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
     """The encoder output's cross-attention (k, v), each (B, S_enc, Hkv,
     hd), unroped."""
     b, s = enc_out.shape[:2]
-    hkv, hd = cfg.padded_kv_heads, cfg.head_dim
+    hkv, hd = local_heads(cfg)[1], cfg.head_dim
     return ((enc_out @ p["wk"]).reshape(b, s, hkv, hd),
             (enc_out @ p["wv"]).reshape(b, s, hkv, hd))
 
@@ -292,7 +383,7 @@ def cross_attn_forward(p: dict, x: torch.Tensor,
     """Decoder cross-attention over the encoder's precomputed (k, v): no
     RoPE, no mask.  x: (B, S, d); returns (B, S, d)."""
     b, s = x.shape[:2]
-    q = (x @ p["wq"]).reshape(b, s, cfg.padded_heads, cfg.head_dim)
+    q = (x @ p["wq"]).reshape(b, s, local_heads(cfg)[0], cfg.head_dim)
     o = flash_attention(q, *enc_kv, causal=False)
     return _out_proj(p, o)
 
@@ -414,8 +505,10 @@ def attn_decode_paged(p: dict, x: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; over a mesh the rank's hidden columns are gathered before
+    the (replicated) down projection."""
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    return _tp_gathered(h, -1) @ p["wo"]
 
 
 def mlp2_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -425,10 +518,24 @@ def mlp2_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+    """Token embeddings.  Over a mesh the table is sharded by vocab row:
+    each rank looks up the tokens in its rows, zeros elsewhere, and
+    ``tab_allreduce`` sums the ranks' rows (exact: one non-zero term)."""
+    tok = p["tok"]
+    mesh = sharding.ambient_mesh()
+    if mesh is None or mesh.axis_size("model") == 1:
+        return tok[tokens.long()]
+    from repro_torch.core.tab import tab_allreduce
+    rows = tok.shape[0]
+    local = tokens.long() - mesh.axis_index("model") * rows
+    inside = (local >= 0) & (local < rows)
+    x = tok[local.clamp(0, rows - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return tab_allreduce(x, "model", mesh=mesh)
 
 
 def lm_head(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits; over a mesh the rank's vocab columns, all-gathered."""
     if cfg.tie_embeddings:
-        return x @ p["tok"].T
-    return x @ p["head"]
+        return _tp_gathered(x @ p["tok"].T, -1)
+    return _tp_gathered(x @ p["head"], -1)

@@ -28,8 +28,12 @@ dispatch rows whose outputs are never gathered back.  So only routed
 bytes cross the link, the staging the card holds is the reference's
 model of it, and the host never waits inside a layer.
 
-Expert parallelism over a mesh (the reference's ``moe_ffn_ep``) needs
-tensor parallelism and is not ported yet.
+Expert parallelism over a mesh (:func:`moe_ffn_ep`, the reference's
+``shard_map`` EP): each rank routes its slice of the sequence, ships its
+per-expert queues to the experts' owners by ``tab_all_to_all`` (the
+paper's Fig 3.6 AllToAll), runs its own experts' GEMMs and brings the
+outputs back the same way.  Serving an MoE over a mesh stays refused,
+as in the reference (``ModelConfig.assert_mesh_compatible``).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import P
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.transformer import DenseLM, attn_params, dense_init
@@ -55,6 +60,13 @@ def moe_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "wg": dense_init(gen, (e, d, f), cfg.dtype),
         "wo": dense_init(gen, (e, f, d), cfg.dtype),
     }
+
+
+def moe_specs() -> dict:
+    """The expert banks sharded by expert over ``"model"``; the router
+    whole on every rank."""
+    return {"router": P(None, None), "wi": P("model", None, None),
+            "wg": P("model", None, None), "wo": P("model", None, None)}
 
 
 def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig):
@@ -98,20 +110,42 @@ def dispatch(banks: dict, xt: torch.Tensor, routing,
     A dropped choice lands in slot ``cap - 1`` with a zeroed source, so
     the scatter ACCUMULATES (``index_put_(accumulate=True)``): assigning
     would overwrite the token kept in that slot."""
-    top_g, top_i, keep, safe_pos, cap = routing
+    e = banks["wi"].shape[0]
+    buf, ei, pi = _queues(xt, routing, e, slots)
+    return _combine(_experts(banks, buf), ei, pi, routing)
+
+
+def _queues(xt: torch.Tensor, routing, e: int,
+            slots: torch.Tensor | None = None):
+    """(T, d) tokens scattered into (e, C, d) expert queues; returns the
+    queues and each choice's (queue, position) indices."""
+    top_i, keep, safe_pos, cap = routing[1:]
     t, d = xt.shape
     k = top_i.shape[1]
-    e = banks["wi"].shape[0]
     ei, pi = top_i.reshape(-1), safe_pos.reshape(-1)
     if slots is not None:
         ei = slots.long()[ei]
     src = xt.repeat_interleave(k, dim=0) * keep.reshape(-1, 1).to(xt.dtype)
     buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=xt.device)
     buf.index_put_((ei, pi), src, accumulate=True)
+    return buf, ei, pi
+
+
+def _experts(banks: dict, buf: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU expert GEMMs over (E, C, d) queues."""
     h = F.silu(torch.bmm(buf, banks["wg"])) * torch.bmm(buf, banks["wi"])
-    out_e = torch.bmm(h, banks["wo"])                          # (E, C, d)
+    return torch.bmm(h, banks["wo"])                           # (E, C, d)
+
+
+def _combine(out_e: torch.Tensor, ei: torch.Tensor, pi: torch.Tensor,
+             routing) -> torch.Tensor:
+    """Each choice's expert output gathered back and the k choices of a
+    token combined, gate-weighted, in the activation dtype -> (T, d)."""
+    top_g, top_i, keep = routing[:3]
+    t, k = top_i.shape
+    d = out_e.shape[-1]
     gathered = out_e[ei, pi]                                   # (T*k, d)
-    w = (top_g.reshape(-1) * keep.reshape(-1)).to(xt.dtype)
+    w = (top_g.reshape(-1) * keep.reshape(-1)).to(out_e.dtype)
     return (gathered * w[:, None]).reshape(t, k, d).sum(dim=1)
 
 
@@ -138,8 +172,47 @@ def moe_ffn_topk(p: dict, x: torch.Tensor, cfg: ModelConfig, mem
     return dispatch(staged, xt, routing, slots).reshape(b, s, d)
 
 
+def _moe_ep_available(cfg: ModelConfig, s: int, mesh=None) -> bool:
+    """Whether :func:`moe_ffn_ep` can run: a mesh (default the ambient
+    one) whose ``"model"`` axis has several ranks and divides both the
+    sequence slice count ``s`` and the padded experts."""
+    from repro_torch.runtime.sharding import ambient_mesh
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is None:
+        return False
+    tp = mesh.axis_size("model")
+    return tp > 1 and s % tp == 0 and cfg.padded_experts % tp == 0
+
+
+def moe_ffn_ep(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+               mesh=None) -> torch.Tensor:
+    """Expert-parallel MoE over the ``"model"`` axis of ``mesh`` (default
+    the ambient mesh).  x: (B, S_local, d), this rank's slice of the
+    sequence; ``p``: the router whole and this rank's E/tp experts of each
+    bank (:func:`moe_specs`).  The rank routes its tokens, scatters them
+    into (E, C, d) queues (C from its own token count), sends queue block
+    j to rank j by ``tab_all_to_all`` ((E/tp, tp C, d) arrive: its
+    experts' queues from every rank), runs its experts, sends the outputs
+    back the same way ((E, C, d): its own tokens' outputs) and combines
+    them locally.  Returns (B, S_local, d)."""
+    from repro_torch.core.tab import tab_all_to_all
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    routing = route(p["router"], xt, cfg)
+    buf, ei, pi = _queues(xt, routing, cfg.padded_experts)
+    buf = tab_all_to_all(buf, "model", split_axis=0, concat_axis=1,
+                         mesh=mesh)                     # (E/tp, tp C, d)
+    out_e = tab_all_to_all(_experts(p, buf), "model", split_axis=1,
+                           concat_axis=0, mesh=mesh)    # (E, C, d)
+    return _combine(out_e, ei, pi, routing).reshape(b, s, d)
+
+
 class MoELM(DenseLM):
     """DenseLM with the FFN swapped for a top-k expert bank."""
+
+    def layer_specs(self) -> dict:
+        return {"attn": L.attn_specs(self.cfg), "moe": moe_specs(),
+                "ln1": P(None), "ln2": P(None)}
 
     def init_layer(self, gen: torch.Generator) -> dict:
         cfg = self.cfg

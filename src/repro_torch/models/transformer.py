@@ -31,18 +31,31 @@ the token into the slot before it is written back (the reference's
 ``_decode_paged_cache``); the server prefills an admission into a
 staged device copy of the slot's row.  No kernel reads the slab: K1
 reads pages only, and the prefill attention is K2 as on the paged path.
+
+Over a mesh (the server binds one to the model's orchestrator) each rank
+is a process holding its shard: the serving entry points (prefill,
+decode) run on the rank's heads, over the ambient mesh
+(:func:`repro_torch.runtime.sharding.activate_mesh`), and the caches hold
+the rank's KV heads (:attr:`DenseLM.kv_heads`); ``serving_param_specs``,
+``cache_specs`` and ``paged_cache_specs`` are the layouts
+(:mod:`repro_torch.models.layers` has the TP boundaries).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from repro_torch import prng, resolve_device
+from repro_torch.kernels.paged_attention.ops import (STACKED_POOL_SPEC,
+                                                     STACKED_SCALE_SPEC)
 from repro_torch.kernels.paged_attention.ref import byte_view, take_pages
+from repro_torch.launch.mesh import P
 from repro_torch.memory import MemoryOrchestrator
 from repro_torch.models import layers as L
 from repro_torch.models.base import DecodeState, ModelConfig
+from repro_torch.runtime.sharding import BATCH_AXES, activate_mesh
 
 
 def dense_init(gen: torch.Generator, shape: tuple[int, ...],
@@ -180,12 +193,83 @@ def _write_tokens(pools: dict, pids: torch.Tensor, slots: torch.Tensor,
         byte_view(pool)[:, pids, slots] = byte_view(new.to(pool.dtype))
 
 
+def on_mesh(fn):
+    """Run a model entry point over the mesh its orchestrator is bound
+    to (``self.mem.mesh``; nothing without one)."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with activate_mesh(self.mem.mesh):
+            return fn(self, *args, **kwargs)
+    return run
+
+
 class DenseLM:
     """Decoder-only LM served over a paged KV cache."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.mem = MemoryOrchestrator.plan(cfg)
+
+    @property
+    def kv_heads(self) -> int:
+        """KV heads this rank's caches hold: the padded count over the
+        bound mesh's ``"model"`` shards."""
+        return self.cfg.padded_kv_heads // self.mem.model_shards
+
+    # ----- layouts over a mesh ----------------------------------------------
+    def layer_specs(self) -> dict:
+        return {"attn": L.attn_specs(self.cfg), "mlp": L.mlp_specs(),
+                "ln1": P(None), "ln2": P(None)}
+
+    def param_specs(self) -> dict:
+        """Every leaf's ``"model"`` layout (training's: the output
+        projections contraction-sharded)."""
+        return {"embed": L.embed_specs(self.cfg),
+                "layers": [self.layer_specs()
+                           for _ in range(self.cfg.num_layers)],
+                "ln_f": P(None)}
+
+    def serving_param_specs(self) -> dict:
+        """``param_specs`` with the contraction-sharded output projections
+        (``wo`` of attention and the MLP) replicated: the serving blocks
+        all-gather their activations before these dots
+        (:func:`repro_torch.models.layers._tp_gathered`), so the
+        full-width projection is the single-card dot.  Everything else
+        (QKV, gate/up, embedding, LM head) keeps its model-axis shard."""
+        def fix(node):
+            if isinstance(node, list):
+                return [fix(v) for v in node]
+            out = {}
+            for k, v in node.items():
+                if k == "wo" and isinstance(v, P):
+                    out[k] = P(*(None,) * len(v))
+                elif isinstance(v, P):
+                    out[k] = v
+                elif k == "moe":
+                    # expert banks are expert-axis sharded, not
+                    # contraction-sharded
+                    out[k] = v
+                else:
+                    out[k] = fix(v)
+            return out
+        return fix(self.param_specs())
+
+    def cache_specs(self) -> dict:
+        """The dense slab's layout: (L, B, Hkv, S, hd) by KV head."""
+        spec = P(None, BATCH_AXES, "model", None, None)
+        if self.cfg.kv_quant:
+            sc = P(None, BATCH_AXES, "model", None)
+            return {"k": spec, "v": spec, "k_scale": sc, "v_scale": sc}
+        return {"k": spec, "v": spec}
+
+    def paged_cache_specs(self) -> dict:
+        """The page pools' layout: (L, P, page, Hkv, hd) by KV head, the
+        scales with their pools."""
+        specs = {"k_pages": STACKED_POOL_SPEC, "v_pages": STACKED_POOL_SPEC}
+        if self.cfg.kv_quantized:
+            specs.update(k_scale=STACKED_SCALE_SPEC,
+                         v_scale=STACKED_SCALE_SPEC)
+        return specs
 
     # ----- params -----------------------------------------------------------
     def init_layer(self, gen: torch.Generator) -> dict:
@@ -311,7 +395,7 @@ class DenseLM:
         transposed copy), int8 beside ``(L, B, Hkv, S)`` bf16 scales
         under ``kv_quant``."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.padded_kv_heads,
+        shape = (cfg.num_layers, batch, self.kv_heads,
                  self.cache_seq(max_seq), cfg.head_dim)
         if cfg.kv_quant:
             return {"k": (shape, torch.int8), "v": (shape, torch.int8),
@@ -326,6 +410,7 @@ class DenseLM:
                 for name, (shape, dt) in self.cache_shapes(
                     batch, max_seq).items()}
 
+    @on_mesh
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
                 extra: dict | None = None):
         """Process the prompt into the dense slab; returns (last-position
@@ -440,7 +525,7 @@ class DenseLM:
             raise ValueError("paged KV cache requires sliding_window == 0 "
                              "and kv_quant == False")
         shape = (cfg.num_layers, num_pages, page_size or cfg.page_size,
-                 cfg.padded_kv_heads, cfg.head_dim)
+                 self.kv_heads, cfg.head_dim)
         dev = resolve_device(device)
         dt = cfg.kv_pool_dtype()
         cache = {"k_pages": torch.zeros(shape, dtype=dt, device=dev),
@@ -455,6 +540,7 @@ class DenseLM:
         x = L.rmsnorm(x[:, -1:], params["ln_f"], self.cfg.norm_eps)
         return L.lm_head(params["embed"], x, self.cfg)
 
+    @on_mesh
     def prefill_paged(self, params: dict, tokens: torch.Tensor, cache: dict,
                       pages: torch.Tensor, extra: dict | None = None):
         """Prefill the prompt straight into freshly allocated pages.
@@ -487,6 +573,7 @@ class DenseLM:
                                    torch.stack(vs), self.cfg)
         return self._logits(params, x), cache
 
+    @on_mesh
     def prefill_paged_prefix(self, params: dict, tokens: torch.Tensor,
                              cache: dict, prefix_pages: torch.Tensor,
                              pages: torch.Tensor):
@@ -507,7 +594,7 @@ class DenseLM:
         page = cache["k_pages"].shape[2]
         prefix_len = prefix_pages.shape[1] * page
         positions = prefix_len + torch.arange(seq, device=x.device)
-        hkv, hd = cfg.padded_kv_heads, cfg.head_dim
+        hkv, hd = cache["k_pages"].shape[3:]
         quant = cfg.kv_quantized
         offloaded = self.mem.kv_offloaded(cache)
 
@@ -553,6 +640,7 @@ class DenseLM:
         return self.prefill_paged_prefix(params, tokens, cache, done_pages,
                                          pages)
 
+    @on_mesh
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
                     cur_pos: torch.Tensor, pages: torch.Tensor | None = None):
         """tokens: (B, 1); cur_pos: (B,) int32 absolute position being

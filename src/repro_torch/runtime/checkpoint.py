@@ -13,9 +13,10 @@ too.
 :func:`save_async` copies the tree to host memory on the calling thread
 (training updates its params in place right after) and writes it on a
 worker thread.  :func:`restore` loads into the structure of a template
-tree, onto ``device`` (default: each template leaf's device).  Restoring
-onto a mesh (the reference's elastic restore) waits for tensor
-parallelism.
+tree, onto ``device`` (default: each template leaf's device); with
+``mesh`` and ``specs`` it loads a full checkpoint into this rank's
+shards (the reference's elastic restore: the mesh that saved need not be
+the mesh that restores).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.memory.accounting import tree_map
+from repro_torch.memory.accounting import tree_leaves, tree_map
 
 SEP = "/"
 #: dtypes numpy has no counterpart of: stored as the unsigned integers
@@ -135,10 +136,13 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 
 
 def restore(ckpt_dir: str | Path, template: Any, *, step: int | None = None,
-            device=None) -> tuple[Any, int]:
+            device=None, mesh=None, specs: Any = None) -> tuple[Any, int]:
     """Load step ``step`` (default the latest) into the structure of
-    ``template``; each leaf lands on ``device``, or on its template
-    leaf's device.  Returns (tree, step)."""
+    ``template`` (full shapes); each leaf lands on ``device``, or on its
+    template leaf's device.  With ``mesh`` and ``specs`` (a spec tree of
+    the template's structure) each leaf is this rank's slice under its
+    spec (:func:`repro_torch.runtime.sharding.shard_tree`): a full
+    checkpoint restored onto any mesh.  Returns (tree, step)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -153,7 +157,16 @@ def restore(ckpt_dir: str | Path, template: Any, *, step: int | None = None,
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{tuple(t.shape)} vs {tuple(leaf.shape)}")
-            out.append(t.to(leaf.dtype).to(device if device is not None
-                                           else leaf.device))
+            t = t.to(leaf.dtype)
+            out.append(t if mesh is not None else t.to(
+                device if device is not None else leaf.device))
     it = iter(out)
-    return tree_map(lambda _: next(it), template), step
+    tree = tree_map(lambda _: next(it), template)
+    if mesh is not None:
+        from repro_torch.runtime.sharding import shard_tree
+        if specs is None:
+            raise ValueError("restoring onto a mesh needs the spec tree")
+        dev = device if device is not None else next(
+            tree_leaves(template)).device
+        tree = shard_tree(tree, specs, mesh, device=dev)
+    return tree, step

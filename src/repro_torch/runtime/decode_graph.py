@@ -68,14 +68,24 @@ _PAGED = (("layer_weights", "weights paged from the remote tier"),
 _ADVANCED = ("tokens", "pos", "active", "remaining")
 
 
-def eager_reasons(model) -> list[str]:
-    """Why ``model``'s decode block cannot be captured: the tensor classes
-    its orchestrator's policies place outside local memory (the policy
+def paged_classes(model) -> list[str]:
+    """The tensor classes ``model``'s orchestrator's policies place
+    outside local memory, each as what its paging means (the policy
     matrix is the placement plan; a fault at placement resets the class
     to local residency)."""
     policies = model.mem.policies
     return [why for cls, why in _PAGED
             if cls in policies and policies[cls].tier != tiers.LOCAL]
+
+
+def eager_reasons(model) -> list[str]:
+    """Why ``model``'s decode block cannot be captured: the paged classes
+    (:func:`paged_classes`), and a bound mesh of several ranks (each
+    collective passes a host barrier, which a graph cannot hold)."""
+    reasons = paged_classes(model)
+    if model.mem.model_shards > 1:
+        reasons.append("a mesh (each collective passes a host barrier)")
+    return reasons
 
 
 def choose_route(model, device, graph: bool | None = None

@@ -122,7 +122,22 @@ live batch — no batch restart.
   zeroed device copy of the slot's row, copied into the slab at rest in
   stream order, so nothing computes on host memory.
 
-Left out of this port so far: tensor parallelism.
+* **Tensor parallelism.**  ``mesh=`` (a
+  :func:`repro_torch.launch.mesh.make_serving_mesh` inside each rank that
+  :func:`repro_torch.launch.mesh.spawn` starts) serves all-gather TP over
+  the ``"model"`` axis, as the reference: this rank's shard of the
+  weights (``DenseLM.serving_param_specs``: QKV and gate/up by column,
+  embedding and LM head by vocab, both output projections whole), the
+  rank's KV heads in the pools or the slab, replicated host state (every
+  rank gets the same requests and makes the same decisions).  Each
+  collective is a TAB collective over the mesh's transport (the shared
+  region: K4 is the embedding's accumulate), so tokens are bit-identical
+  to one card's wherever the shards' products are.  The mesh is checked
+  before it is bound; a sharded server decodes eagerly (a host barrier
+  cannot sit inside a CUDA graph); ``stats["model_shards"]``, and the
+  ledger counts one rank's bytes (``shards``).  Not wired yet over a
+  mesh: data > 1, paged weights, ``offload_kv``, expert paging, MoE and
+  ``prefill_async``.
 """
 from __future__ import annotations
 
@@ -142,7 +157,8 @@ from repro_torch.memory import MemoryOrchestrator, tiers, tree_bytes
 from repro_torch.memory.swap import PageSwapper, SwapHandle
 from repro_torch.models.base import DecodeState
 from repro_torch.models.transformer import sample_tokens
-from repro_torch.runtime.decode_graph import GRAPH, DecodeLoop, choose_route
+from repro_torch.runtime.decode_graph import (GRAPH, DecodeLoop, choose_route,
+                                              paged_classes)
 from repro_torch.runtime.ft import POOLS, StragglerMonitor
 
 log = logging.getLogger(__name__)
@@ -256,6 +272,41 @@ def make_decode_loop(model, *, block_size: int, temperature: float = 0.0,
                       detect_nonfinite=detect_nonfinite, graph=graph)
 
 
+def _check_mesh(model, mesh, prefill_async: bool):
+    """Validate a serving mesh BEFORE the server binds it (a rejected mesh
+    must leave the model's orchestrator unbound): the config must shard
+    over it (``assert_mesh_compatible``), the family must have the
+    all-gather-TP placement (``serving_param_specs``), and a mesh of
+    several ranks must be this rank's (with transports), over the
+    ``"model"`` axis only, with the weights and KV resident and
+    monolithic admission."""
+    if mesh is None:
+        return None
+    from repro_torch.runtime.sharding import mesh_axis_sizes
+    model.cfg.assert_mesh_compatible(mesh_axis_sizes(mesh))
+    if getattr(model, "serving_param_specs", None) is None:
+        raise ValueError(
+            f"{type(model).__name__} does not expose serving_param_specs; "
+            f"its family is not wired for the all-gather-TP serving "
+            f"placement, and serving it over a mesh would emit silently "
+            f"diverging tokens (partial-sum rounding)")
+    if mesh.size == 1:
+        return mesh
+    if not mesh.bound:
+        raise ValueError(f"{mesh!r} has no transports: serve it in the "
+                         f"ranks repro_torch.launch.mesh.spawn starts")
+    if mesh.axis_size("data") > 1:
+        raise ValueError(f"{mesh!r}: serving over data > 1 (batch-sharded "
+                         f"replicas) is not wired yet")
+    paged = paged_classes(model)
+    if paged:
+        raise ValueError(f"serving over a mesh with {', '.join(paged)} is "
+                         f"not wired yet")
+    if prefill_async:
+        raise ValueError("prefill_async over a mesh is not wired yet")
+    return mesh
+
+
 def _bucket(n: int, quantum: int = 8) -> int:
     """Pad lengths to a power-of-two bucket (the reference's admission
     shapes; admission left-pads prompts to it)."""
@@ -322,7 +373,8 @@ class BatchedServer:
                  max_pending: int | None = None,
                  overload_factor: float | None = None,
                  handoff_lease_blocks: int = 64,
-                 paged: bool | None = None, graph: bool | None = None):
+                 paged: bool | None = None, graph: bool | None = None,
+                 mesh=None):
         if paged is None:
             paged = model.supports_paged_kv()
         self.paged = bool(paged)
@@ -355,79 +407,92 @@ class BatchedServer:
         self.max_pending = max_pending
         self.overload_factor = overload_factor
         self.handoff_lease_blocks = handoff_lease_blocks
-        # the model's orchestrator: one ledger for its weights and this
-        # server's KV pool
-        self.mem: MemoryOrchestrator = model.mem
-        cfg = model.cfg
-        self.page_size = page_size or cfg.page_size
-        self.transfer_monitor = StragglerMonitor(factor=3.0)
-        if self.paged:
-            per_seq = -(-max_seq // self.page_size)
-            self.num_pages = num_pages or batch_size * per_seq + 1
-            # placed first: the block pool reports in the tier the
-            # placement settled on (remote under offload_kv, local after a
-            # degradation)
-            self.cache = self.mem.place_kv_pool(model.init_paged_cache(
-                self.num_pages, self.page_size, device=self.device))
-            self.kv = self.mem.block_pool(self.num_pages, self.page_size)
-            self.manager = self.kv.manager
-            self.kv.bind_kv_shape(
-                cfg.padded_kv_heads, cfg.head_dim,
-                cfg.kv_pool_dtype().itemsize, cfg.num_layers,
-                scale_itemsize=2 if cfg.kv_quantized else 0)
-            self.swapper = PageSwapper(ledger=self.mem.ledger,
-                                       retries=swap_retries,
-                                       timeout_s=swap_timeout_s,
-                                       monitor=self.transfer_monitor,
-                                       device=self.device)
-        else:
-            # the slab is resident at full size whatever the occupancy
-            # (live == capacity): what rests remote under offload_kv in
-            # the remote tier, the rest (a pattern model's tail) local
-            self.cache = self.mem.place_kv_pool(model.init_cache(
-                batch_size, max_seq, device=self.device))
-            remote = (self.mem.kv_window.at_rest_bytes
-                      if self.mem.kv_offloaded(self.cache) else 0)
-            local = tree_bytes(self.cache) - remote
-            for tier, nbytes in ((tiers.REMOTE, remote),
-                                 (tiers.LOCAL, local)):
-                if nbytes:
-                    self.mem.ledger.record(tier, "kv_pool", nbytes)
-                else:
-                    self.mem.ledger.release(tier, "kv_pool")
-            single = dict(_leaves(model.cache_shapes(1, max_seq)))
-            self._batch_axes = {
-                path: _batch_axis(tuple(leaf.shape), single[path][0])
-                for path, leaf in _leaves(self.cache)}
-        self._init_sched_state(batch_size)
-        self._peak_pages = 0
-        self.tiers_peak: dict | None = None
-        self._table_w = 1
-        self._narrow_blocks = 0
-        self._mirror = np.zeros((batch_size, 1), np.int32)
-        # one page-table buffer a bucketed width, allocated once: a
-        # rebuild is copied into its width's buffer, so the decode
-        # graph's inputs stay the same buffers
-        self._tables: dict[int, torch.Tensor] = {}
-        self.state = DecodeState.init(
-            batch_size, self.device,
-            pages=self._table(1, self._mirror) if self.paged else None)
-        self.slots: list[Request | None] = [None] * batch_size
-        self._slot_pos = [0] * batch_size      # host mirror of state.pos
-        self._launch_base = launch_counts()
-        self.stats["kernel_launches"] = dict.fromkeys(self._launch_base, 0)
-        # the reference's make_decode_loop, built once (its :451); the
-        # route is chosen here, before the first block, from placement
-        self.route, why = choose_route(model, self.device, graph)
-        log.info("decode route %s (%s)", self.route, why)
-        self._loop = make_decode_loop(
-            model, block_size=block_size, temperature=temperature,
-            eos_id=eos_id, detect_nonfinite=True,
-            graph=self.route == GRAPH)
-        if prefill_async:
-            from repro_torch.runtime.prefill import PrefillEngine
-            self.prefill = PrefillEngine(self,
-                                         chunk_tokens=prefill_chunk_tokens)
+        self.mesh = _check_mesh(model, mesh, prefill_async)
+        model.mem.bind_mesh(mesh)
+        try:
+            # the model's orchestrator: one ledger for its weights and this
+            # server's KV pool
+            self.mem: MemoryOrchestrator = model.mem
+            cfg = model.cfg
+            if mesh is not None:
+                # all-gather TP: the output projections replicated, the
+                # rest sharded over "model" (DenseLM.serving_param_specs)
+                self.params = self.mem.place_params(
+                    params, model.serving_param_specs())
+            self.page_size = page_size or cfg.page_size
+            self.transfer_monitor = StragglerMonitor(factor=3.0)
+            if self.paged:
+                per_seq = -(-max_seq // self.page_size)
+                self.num_pages = num_pages or batch_size * per_seq + 1
+                # placed first: the block pool reports in the tier the
+                # placement settled on (remote under offload_kv, local after a
+                # degradation)
+                self.cache = self.mem.place_kv_pool(model.init_paged_cache(
+                    self.num_pages, self.page_size, device=self.device))
+                self.kv = self.mem.block_pool(self.num_pages, self.page_size)
+                self.manager = self.kv.manager
+                self.kv.bind_kv_shape(
+                    model.kv_heads, cfg.head_dim,
+                    cfg.kv_pool_dtype().itemsize, cfg.num_layers,
+                    scale_itemsize=2 if cfg.kv_quantized else 0)
+                self.swapper = PageSwapper(ledger=self.mem.ledger,
+                                           retries=swap_retries,
+                                           timeout_s=swap_timeout_s,
+                                           monitor=self.transfer_monitor,
+                                           device=self.device)
+            else:
+                # the slab is resident at full size whatever the occupancy
+                # (live == capacity): what rests remote under offload_kv in
+                # the remote tier, the rest (a pattern model's tail) local
+                self.cache = self.mem.place_kv_pool(model.init_cache(
+                    batch_size, max_seq, device=self.device))
+                remote = (self.mem.kv_window.at_rest_bytes
+                          if self.mem.kv_offloaded(self.cache) else 0)
+                local = tree_bytes(self.cache) - remote
+                for tier, nbytes in ((tiers.REMOTE, remote),
+                                     (tiers.LOCAL, local)):
+                    if nbytes:
+                        self.mem.ledger.record(tier, "kv_pool", nbytes)
+                    else:
+                        self.mem.ledger.release(tier, "kv_pool")
+                single = dict(_leaves(model.cache_shapes(1, max_seq)))
+                self._batch_axes = {
+                    path: _batch_axis(tuple(leaf.shape), single[path][0])
+                    for path, leaf in _leaves(self.cache)}
+            self._init_sched_state(batch_size)
+            self._peak_pages = 0
+            self.tiers_peak: dict | None = None
+            self._table_w = 1
+            self._narrow_blocks = 0
+            self._mirror = np.zeros((batch_size, 1), np.int32)
+            # one page-table buffer a bucketed width, allocated once: a
+            # rebuild is copied into its width's buffer, so the decode
+            # graph's inputs stay the same buffers
+            self._tables: dict[int, torch.Tensor] = {}
+            self.state = DecodeState.init(
+                batch_size, self.device,
+                pages=self._table(1, self._mirror) if self.paged else None)
+            self.slots: list[Request | None] = [None] * batch_size
+            self._slot_pos = [0] * batch_size      # host mirror of state.pos
+            self._launch_base = launch_counts()
+            self.stats["kernel_launches"] = dict.fromkeys(self._launch_base, 0)
+            # the reference's make_decode_loop, built once (its :451); the
+            # route is chosen here, before the first block, from placement
+            self.route, why = choose_route(model, self.device, graph)
+            log.info("decode route %s (%s)", self.route, why)
+            self._loop = make_decode_loop(
+                model, block_size=block_size, temperature=temperature,
+                eos_id=eos_id, detect_nonfinite=True,
+                graph=self.route == GRAPH)
+            if prefill_async:
+                from repro_torch.runtime.prefill import PrefillEngine
+                self.prefill = PrefillEngine(self,
+                                             chunk_tokens=prefill_chunk_tokens)
+        except BaseException:
+            # a construction that fails after the bind must not leave the
+            # model's shared orchestrator in sharded mode
+            model.mem.bind_mesh(None)
+            raise
 
     def _init_sched_state(self, batch_size: int) -> None:
         """The scheduler's host state: queues, reservations, lifecycle
@@ -478,7 +543,9 @@ class BatchedServer:
                       "crash_requeues": 0, "e2e_p50_blocks": 0.0,
                       "e2e_p99_blocks": 0.0, "compiles": 0,
                       "graph_blocks": 0, "eager_blocks": 0,
-                      "kernel_launches": {}}
+                      "kernel_launches": {},
+                      "model_shards": getattr(getattr(self, "mem", None),
+                                              "model_shards", 1)}
 
     # ----- host <-> device ---------------------------------------------------
     def _h2d(self, a: np.ndarray, out: torch.Tensor | None = None

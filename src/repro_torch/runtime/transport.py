@@ -1,0 +1,311 @@
+"""The transports that the TAB collectives run over, one interface, two
+implementations (the port's side of the reference's ``lax`` collectives,
+which XLA lowers onto the TPU's links).
+
+* :class:`SharedRegionTransport` is the FengHuang TAB itself (§3.3): one
+  region of memory that every rank of the axis writes into and reads
+  from.  A collective writes this rank's contribution into its slot of
+  one half of the region, synchronises its stream (the write has
+  landed), passes a ``gloo`` CPU barrier (the TAB's completion notice)
+  and reads.  All-reduce and reduce-scatter accumulate the N slots with
+  K4 (:func:`repro_torch.kernels.write_accumulate.ops.accumulate`) in
+  slot order, so the sum is deterministic and equal on every rank; on
+  the CPU K4's plain version does it.  The two halves alternate: a rank
+  writes a half again only after a later barrier, which every rank
+  passes only once it read the half before.  ``ppermute`` writes into
+  the target's slot.
+* :class:`ProcessGroupTransport` runs the same interface over
+  ``torch.distributed``: ``gloo`` between CPU ranks; where every rank
+  has a card of its own, NCCL runs the same code.  Data movement goes as
+  bytes (any dtype, bit for bit); its reductions gather and accumulate
+  with K4 in rank order too, so both transports reduce alike.
+
+Every collective is tallied by kind on its transport: ``transfers`` (one
+a collective step), the ``writes`` and ``reads`` this rank made, and the
+payload ``bytes`` it wrote; ``wait_s`` is the time spent in the
+completion notice (stream synchronisation and barrier).  A TAB
+collective is one write and one read a rank; the ring baselines of
+:mod:`repro_torch.core.tab` are 2(N-1) ``ppermute`` transfers.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all",
+         "ppermute")
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as a flat uint8 view."""
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _chunks(x: torch.Tensor, n: int, dim: int) -> list[torch.Tensor]:
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {n} equal chunks")
+    return list(torch.chunk(x, n, dim=dim))
+
+
+def _accumulate(stack: torch.Tensor) -> torch.Tensor:
+    from repro_torch.kernels.write_accumulate import ops
+    return ops.accumulate(stack)
+
+
+def _ring_source(perm, rank: int) -> int | None:
+    src = [s for s, d in perm if d == rank]
+    if len(src) > 1:
+        raise ValueError(f"ppermute: several sources target rank {rank}")
+    return src[0] if src else None
+
+
+class Transport:
+    """The collectives of one mesh axis as one rank issues them.  Every
+    rank of the axis must issue the same collectives, in the same order,
+    with tensors of the same shape and dtype."""
+
+    def __init__(self, axis: str, rank: int, size: int):
+        self.axis = axis
+        self.rank = rank
+        self.size = size
+        self.reset_tally()
+
+    def reset_tally(self) -> None:
+        self.tally = {k: {"transfers": 0, "writes": 0, "reads": 0,
+                          "bytes": 0} for k in KINDS}
+        self.wait_s = 0.0
+
+    def _count(self, kind: str, nbytes: int, writes: int = 1,
+               reads: int = 1) -> None:
+        t = self.tally[kind]
+        t["transfers"] += 1
+        t["writes"] += writes
+        t["reads"] += reads
+        t["bytes"] += writes * nbytes
+
+    def bytes_moved(self) -> int:
+        return sum(t["bytes"] for t in self.tally.values())
+
+    # the interface: tiled, as the reference's ``lax`` collectives
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+        raise NotImplementedError
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x`` (fp32 accumulation in rank
+        order, the input dtype)."""
+        raise NotImplementedError
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the sum of every rank's x."""
+        raise NotImplementedError
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int = 0,
+                   concat_dim: int = 0) -> torch.Tensor:
+        """Chunk j of ``x`` along ``split_dim`` goes to rank j; the chunks
+        received are concatenated along ``concat_dim`` in rank order."""
+        raise NotImplementedError
+
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """``x`` sent along ``perm`` ((source, target) pairs); what this
+        rank receives, zeros if no source targets it."""
+        raise NotImplementedError
+
+    def barrier(self) -> None:
+        raise NotImplementedError
+
+
+class SelfTransport(Transport):
+    """The collectives of an axis of one rank: identities, untallied."""
+
+    def __init__(self, axis: str):
+        super().__init__(axis, 0, 1)
+
+    def all_gather(self, x, dim=0):
+        return x
+
+    def all_reduce(self, x):
+        return x
+
+    def reduce_scatter(self, x, dim=0):
+        return x
+
+    def all_to_all(self, x, split_dim=0, concat_dim=0):
+        return x
+
+    def ppermute(self, x, perm):
+        return x if _ring_source(perm, 0) == 0 else torch.zeros_like(x)
+
+    def barrier(self) -> None:
+        pass
+
+
+class SharedRegionTransport(Transport):
+    """The TAB: collectives through one shared region (see the module
+    docstring).  ``world.region`` holds two halves; a collective of an
+    n-byte contribution uses slots ``[i n, (i + 1) n)`` of one half, so
+    ``size * n`` must fit in a half."""
+
+    def __init__(self, world, axis: str):
+        if world.region is None:
+            raise ValueError("the world has no shared region (spawn with "
+                             "region_bytes)")
+        super().__init__(axis, world.rank, world.size)
+        self.world = world
+        self.region = world.region
+        self.half = self.region.numel() // 2
+        self.device = self.region.device
+
+    def _write(self, x: torch.Tensor, slot: int | None) -> tuple[int, int]:
+        """Write ``x``'s bytes into ``slot`` of the next half (nothing
+        when ``slot`` is None), then pass the completion notice.  Returns
+        (the half's offset, the contribution's bytes)."""
+        if x.device != self.device:
+            raise ValueError(f"a {x.device} tensor on a region on "
+                             f"{self.device}")
+        n = x.numel() * x.element_size()
+        if n * self.size > self.half:
+            raise ValueError(f"a collective of {self.size} x {n} bytes does "
+                             f"not fit a half of the shared region "
+                             f"({self.half} bytes)")
+        base = self.world.next_half() * self.half
+        if slot is not None:
+            self.region[base + slot * n: base + (slot + 1) * n].copy_(
+                _bytes(x))
+        self.barrier()
+        return base, n
+
+    def _slots(self, base: int, n: int, x: torch.Tensor) -> torch.Tensor:
+        """The half's N contributions as an (N, *x.shape) view."""
+        return self.region[base: base + self.size * n].view(x.dtype).view(
+            (self.size,) + tuple(x.shape))
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        dist.barrier()
+        self.wait_s += time.perf_counter() - t0
+
+    def all_gather(self, x, dim=0):
+        base, n = self._write(x, self.rank)
+        out = torch.cat(list(self._slots(base, n, x).unbind(0)), dim=dim)
+        self._count("all_gather", n)
+        return out
+
+    def all_reduce(self, x):
+        base, n = self._write(x, self.rank)
+        out = _accumulate(self._slots(base, n, x))
+        self._count("all_reduce", n)
+        return out
+
+    def reduce_scatter(self, x, dim=0):
+        base, n = self._write(x, self.rank)
+        slots = self._slots(base, n, x)
+        mine = _chunks(slots, self.size, dim + 1)[self.rank]
+        out = _accumulate(mine)
+        self._count("reduce_scatter", n)
+        return out
+
+    def all_to_all(self, x, split_dim=0, concat_dim=0):
+        base, n = self._write(x, self.rank)
+        slots = self._slots(base, n, x)
+        got = [_chunks(s, self.size, split_dim)[self.rank]
+               for s in slots.unbind(0)]
+        out = torch.cat(got, dim=concat_dim)
+        self._count("all_to_all", n)
+        return out
+
+    def ppermute(self, x, perm):
+        perm = [(int(s), int(d)) for s, d in perm]
+        dst = [d for s, d in perm if s == self.rank]
+        src = _ring_source(perm, self.rank)
+        base, n = self._write(x, dst[0] if dst else None)
+        if src is None:
+            out = torch.zeros_like(x)
+        else:
+            out = self._slots(base, n, x)[self.rank].clone()
+        self._count("ppermute", n, writes=len(dst[:1]),
+                    reads=int(src is not None))
+        return out
+
+
+class ProcessGroupTransport(Transport):
+    """The interface over ``torch.distributed``'s default process group
+    (gloo between CPU ranks; NCCL where every rank has a card)."""
+
+    def __init__(self, world, axis: str):
+        super().__init__(axis, world.rank, world.size)
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        dist.barrier()
+        self.wait_s += time.perf_counter() - t0
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, *x.shape): every rank's ``x``, moved as bytes."""
+        import torch.distributed as dist
+        b = _bytes(x)
+        out = torch.empty((self.size, b.numel()), dtype=torch.uint8,
+                          device=x.device)
+        t0 = time.perf_counter()
+        dist.all_gather(list(out.unbind(0)), b)
+        self.wait_s += time.perf_counter() - t0
+        return out.view(x.dtype).view((self.size,) + tuple(x.shape))
+
+    def all_gather(self, x, dim=0):
+        out = torch.cat(list(self._gather(x).unbind(0)), dim=dim)
+        self._count("all_gather", x.numel() * x.element_size())
+        return out
+
+    def all_reduce(self, x):
+        out = _accumulate(self._gather(x))
+        self._count("all_reduce", x.numel() * x.element_size())
+        return out
+
+    def reduce_scatter(self, x, dim=0):
+        mine = _chunks(self._gather(x), self.size, dim + 1)[self.rank]
+        out = _accumulate(mine)
+        self._count("reduce_scatter", x.numel() * x.element_size())
+        return out
+
+    def all_to_all(self, x, split_dim=0, concat_dim=0):
+        import torch.distributed as dist
+        chunks = _chunks(x, self.size, split_dim)
+        send = torch.stack([_bytes(c) for c in chunks])
+        recv = torch.empty_like(send)
+        t0 = time.perf_counter()
+        dist.all_to_all_single(recv, send)
+        self.wait_s += time.perf_counter() - t0
+        shape = tuple(chunks[0].shape)
+        got = [r.view(x.dtype).view(shape) for r in recv.unbind(0)]
+        out = torch.cat(got, dim=concat_dim)
+        self._count("all_to_all", x.numel() * x.element_size())
+        return out
+
+    def ppermute(self, x, perm):
+        import torch.distributed as dist
+        perm = [(int(s), int(d)) for s, d in perm]
+        dst = [d for s, d in perm if s == self.rank]
+        src = _ring_source(perm, self.rank)
+        b = _bytes(x)
+        recv = torch.empty_like(b)
+        ops = []
+        if dst:
+            ops.append(dist.P2POp(dist.isend, b, dst[0]))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, recv, src))
+        t0 = time.perf_counter()
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        self.wait_s += time.perf_counter() - t0
+        out = (recv.view(x.dtype).view(x.shape).clone() if src is not None
+               else torch.zeros_like(x))
+        self._count("ppermute", x.numel() * x.element_size(),
+                    writes=len(dst[:1]), reads=int(src is not None))
+        return out

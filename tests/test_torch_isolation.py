@@ -44,6 +44,22 @@ def test_port_files_exist():
         "__init__", "hw", "latency", "analysis", "graphs", "simulator")
     } <= names
     assert len(names) > 15
+    # tensor-parallel serving: the mesh, the transports, the TAB, sharding
+    assert {"src/repro_torch/launch/__init__.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/runtime/transport.py",
+            "src/repro_torch/runtime/sharding.py",
+            "src/repro_torch/core/tab.py"} <= names
+
+
+def test_chip_smoke_rank_entry_point_is_scanned():
+    """The tp phase's ranks run ``chip_smoke.tp_rank`` (started by
+    ``repro_torch.launch.mesh.spawn``): a function of ``chip_smoke.py``
+    itself, so the scan above covers what the ranks import."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"tp_rank", "check_tp"} <= names
+    assert ROOT / "chip_smoke.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES,
