@@ -205,9 +205,26 @@ tiers and disagg by default):
    completion notice, peak device memory, the collectives and bytes on
    the ``"model"`` axis, each layer's max |d| against one card's in bf16
    and in fp32, and whether layer 0's column-sharded products equal the
-   full product's columns (``tp_products``).  Every rank runs on the same
-   card, so no NCCL path (``ProcessGroupTransport`` on cards of their
-   own) is exercised here;
+   full product's columns (``tp_products``).  The m = 2 ranks then serve
+   the memory tiers and the request lifecycle (``TP_RUNS``), each run
+   held to the same mesh's resident monolithic run: paged weights (each
+   rank packs its 4.47 GB shard of the 12 layers into pinned host memory
+   and pages it through its own Tensor Prefetcher), ``offload_kv`` over
+   the pools and over the slab (16 new tokens, blocks of 16), preemption
+   and cold parking at 0.7 over a pool of 7 pages (32 tokens), and
+   disaggregated prefill (chunks of 16: the 40-token prompt pair in four
+   chunks; 16 tokens), every run in blocks of 16.  Gates on every rank: tokens bit-
+   equal to the resident run's (or, where bf16 parts, the fp32 witness
+   of both runs bit-equal), K1 once a layer a step over pools, K2 and K4
+   launched, nothing degraded, weight fetches = layers x passes and the
+   ledger's remote ``layer_weights`` = the rank's shard, the KV window's
+   moves, preemptions resumed, parks promoted, stash and handoff bytes
+   whole pages of the rank's KV heads.  It prints per run ms a step,
+   the notice's share, peak device memory (the rank's own allocations),
+   pinned bytes, the weights' copy rate, stash and handoff bytes and the
+   host's MemAvailable.  Every rank runs on the same card, so no NCCL
+   path (``ProcessGroupTransport`` on cards of their own) is exercised
+   here;
 5. ``serve``: serve Qwen2.5-14B at its published widths and 12 of its 48
    layers (``SERVE_LAYERS``, ``--layers``: the depth of the serve, dense,
    tiers and disagg phases, cut to keep the default run inside its time;
@@ -352,8 +369,10 @@ The second-to-last line of standard output is a JSON object with each
 kernel's numbers, one entry per kernel (variant or route) and timed
 shape, ``tiers_launches``, ``disagg_launches``, ``moe_launches``,
 ``gpt3_launches``, ``dense_launches``, ``families_launches``,
-``train_launches``, ``tp_launches`` (the tp phase's ranks, both meshes
-summed, beside ``tp_path``), ``graph_launches`` (the steady-state graph
+``train_launches``, ``tp_launches`` (the tp phase's: a row at a rank's
+shapes, K1 at Hkv 4 and 2, K2 at 20/4 and 10/2 heads, K4 at (2, 4, 5120)
+and (4, 4, 5120), reads its mesh's ranks, summed; the others the
+one-process run; beside ``tp_path``), ``graph_launches`` (the steady-state graph
 run's)
 and ``graph_replayed_launches`` (those its replays made) beside
 ``launches`` (a row at granite's shapes, and
@@ -481,12 +500,16 @@ def bound(nbytes: float, flops: float,
 #: and the serving run's (lengths of its four 8-token prompts a few blocks
 #: into decode); both over a 24-page table, as the serve phase's
 K1_LENS = ([0, 71, 135, 383], [8, 40, 72, 72])
-#: K1's groups past 8 query rows a kv head (Hkv, G, d, timed):
-#: starcoder2-15b's 48/4 heads, qwen3-235b's 64/4 and recurrentgemma-9b's
-#: 16/1 at d = 256 (the 16-row instantiation), over bf16 and int8 pools
+#: K1's groups past 8 query rows a kv head (Hkv, G, d, timed, the path
+#: its rows read launches from): starcoder2-15b's 48/4 heads, qwen3-235b's
+#: 64/4 and recurrentgemma-9b's 16/1 at d = 256 (the 16-row
+#: instantiation), over bf16 and int8 pools; the MHA models'; and the tp
+#: phase's ranks' Qwen2.5-14B heads, 4 and 2 of its 8 KV heads a rank at
+#: m = 2 and 4
 K1_GROUPS = ((4, 12, 128, True, "serve"), (4, 16, 128, True, "serve"),
              (1, 16, 256, False, "serve"), (36, 1, 64, True, "kernels"),
-             (96, 1, 128, True, "gpt3"))
+             (96, 1, 128, True, "gpt3"), (4, 5, 128, True, "tp2"),
+             (2, 5, 128, True, "tp4"))
 
 
 def check_paged(torch, card: str, results: dict, kv: str | None = None,
@@ -696,7 +719,10 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 8, 8, 16, 1, 256, {"window": 2048}),
                (1, 2100, 2100, 16, 1, 256, {"window": 2048}),
                (4, 1024, 1024, 36, 36, 64, {}),
-               (4, 64, 1500, 8, 8, 64, {"causal": False}))
+               (4, 64, 1500, 8, 8, 64, {"causal": False}),
+               (1, 8, 8, 20, 4, 128, {}), (1, 8, 8, 10, 2, 128, {}),
+               (1, 16, 64, 20, 4, 128, {"q_offset": 48}),
+               (1, 16, 64, 10, 2, 128, {"q_offset": 48}))
 #: the prefix contract's cases: (Sq = Sk, q_offset, Hq, Hkv, d, window).
 #: At 130 a row sits at another place of its query tile than unshared
 #: (25 positions a tile at 40/8 heads, 4 at 16/1), and with a window of
@@ -711,7 +737,8 @@ FLASH_PREFIX = ((64, 48, 40, 8, 128, 0), (384, 200, 40, 8, 128, 0),
 #: recurrentgemma-9b's (families phase); else serve
 ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
               (36, 36, 64): "train", (8, 8, 64): "families",
-              (16, 1, 256): "families"}
+              (16, 1, 256): "families", (20, 4, 128): "tp2",
+              (10, 2, 128): "tp4"}
 #: K2's timed shapes (route, dtype, Sq = Sk, Hq, Hkv, d): the main path's
 #: route at Qwen2.5-14B's width over four prompt lengths, at
 #: granite-moe-3b-a800m's admission (8 tokens, 24/8 heads, d = 64), at
@@ -742,7 +769,9 @@ FLASH_TIMED = ((1, "wgmma", "bfloat16", 8, 8, 40, 8, 128, 0, {}),
                (1, "wgmma", "bfloat16", 8, 8, 16, 1, 256, 0,
                 {"window": 2048}),
                (1, "wgmma", "bfloat16", 2100, 2100, 16, 1, 256, 0,
-                {"window": 2048}))
+                {"window": 2048}),
+               (1, "wgmma", "bfloat16", 8, 8, 20, 4, 128, 0, {}),
+               (1, "wgmma", "bfloat16", 8, 8, 10, 2, 128, 0, {}))
 
 
 def _flash_pairs(torch, sq, sk, causal=True, window=0, q_offset=None,
@@ -916,9 +945,13 @@ MATMUL_SHAPES = (((256, 512, 256), "float32", 0),
 #: ragged shapes, both dtypes: checked, not timed
 MATMUL_RAGGED = (((7, 513, 129), "float32", 0), ((7, 513, 129), "bfloat16", 0))
 #: K4's shapes: the reference bench's (benchmarks/kernels_bench.py:66), an
-#: 8-way TAB all-reduce of a Qwen2.5-14B 2048-token activation, and a
-#: ragged trailing shape (checked, not timed)
-ACCUMULATE_SHAPES = (((8, 64, 512), "float32"), ((8, 2048, 5120), "bfloat16"))
+#: 8-way TAB all-reduce of a Qwen2.5-14B 2048-token activation, the tp
+#: phase's decode-step all-reduce of the embedding at m = 2 and 4 ranks
+#: (``ACCUMULATE_PHASE``), and a ragged trailing shape (checked, not
+#: timed)
+ACCUMULATE_SHAPES = (((8, 64, 512), "float32"), ((8, 2048, 5120), "bfloat16"),
+                     ((2, 4, 5120), "bfloat16"), ((4, 4, 5120), "bfloat16"))
+ACCUMULATE_PHASE = {(2, 4, 5120): "tp2", (4, 4, 5120): "tp4"}
 ACCUMULATE_RAGGED = (((5, 3, 7, 11), "float32"),)
 
 
@@ -1138,7 +1171,8 @@ def check_accumulate(torch, card: str, results: dict) -> None:
         results.setdefault("write_accumulate", []).append(dict(
             shape=f"{shape} {dt}", max_abs_err=err.max().item(), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms))
+            library_ms=lib_ms, **({"phase": ACCUMULATE_PHASE[shape]}
+                                  if shape in ACCUMULATE_PHASE else {})))
 
 
 #: the expert gather's main-path shape: granite-moe-3b-a800m's three banks
@@ -5132,12 +5166,25 @@ TP_REGION = 16 << 20
 #: took 11-25 s on an H100 80GB HBM3 at 700 W): past it the ranks are
 #: stopped and the phase fails, well inside the run's 1200 s
 TP_TIMEOUT = 180
+#: more seconds for the m = 2 ranks' ``TP_RUNS``
+TP_LIFECYCLE_S = 240
 #: the paged bf16 bound the logits are held to when the tokens are not
 #: bit-equal (atol, rtol), beside the first-8 rule
 TP_LOGIT_ATOL, TP_LOGIT_RTOL = 0.1, 0.02
-TP_PATH = ("BatchedServer(mesh=make_serving_mesh(model=m)), m = 2 and 4 "
-           "ranks on one card over one shared region, Qwen2.5-14B at 12 of "
-           "48 layers, greedy, summed over ranks and both meshes (tp phase)")
+#: the runs each kernel row's ``tp_launches`` sums, by mesh size (a row
+#: at a rank's shapes, phase "tp2" or "tp4", reads its mesh's; the
+#: others the one-process run's)
+TP_PATH = {
+    1: "BatchedServer, one process, Qwen2.5-14B at 12 of 48 layers, greedy, "
+       "eager (tp phase)",
+    2: "BatchedServer(mesh=make_serving_mesh(model=2)), 2 ranks on one card "
+       "over one shared region, Qwen2.5-14B at 12 of 48 layers: the greedy "
+       "run and TP_RUNS (paged weights, offload_kv over the pools and the "
+       "slab, preemption and cold parking at 0.7, disaggregated prefill), "
+       "both ranks summed (tp phase)",
+    4: "BatchedServer(mesh=make_serving_mesh(model=4)), 4 ranks on one card "
+       "over one shared region, Qwen2.5-14B at 12 of 48 layers, greedy, the "
+       "ranks summed (tp phase)"}
 
 
 def tp_hidden(torch, model, params, toks):
@@ -5157,19 +5204,24 @@ def tp_hidden(torch, model, params, toks):
     return outs, logits
 
 
-def _tp_serve(torch, cfg, params, work, new: int, mesh=None) -> dict:
-    """Serve ``work`` (``new`` tokens each, greedy, the serving settings)
-    with the counts and the mesh's tally reset just before; the tokens,
-    the run's numbers, and ``tp_hidden`` of the prompts."""
+def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
+              hidden: bool = True, **kw) -> dict:
+    """Serve ``work`` (``new`` tokens each, greedy unless ``kw`` says
+    otherwise: the serving settings, updated by ``kw``) with the counts
+    and the mesh's tally reset just before; the tokens, the run's
+    numbers (the memory tiers' and the lifecycle's too), and with
+    ``hidden`` ``tp_hidden`` of the prompts."""
     from repro_torch.kernels import (instance_counts, launch_counts,
                                      reset_launch_counts)
     from repro_torch.memory import tiers, tree_bytes
     from repro_torch.models.transformer import DenseLM
     from repro_torch.runtime.serve import BatchedServer
     model = DenseLM(cfg)
+    host_before = host_mem("MemAvailable")
     server = BatchedServer(model, params, mesh=mesh,
                            graph=False if mesh is None else None,
-                           **SERVE_KW)
+                           **dict(SERVE_KW, **kw))
+    host_placed = host_mem("MemAvailable")
     t = mesh.transport("model") if mesh is not None else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5177,10 +5229,12 @@ def _tp_serve(torch, cfg, params, work, new: int, mesh=None) -> dict:
     if t is not None:
         t.reset_tally()
     reqs, secs = serve(server, work, new)
+    mem, st = server.mem, server.stats
+    pf, win = mem.prefetcher, mem.kv_window
     out = {"tokens": [r.output for r in reqs],
            "errors": [r.error for r in reqs], "secs": secs,
-           "steps": server.stats["steps"],
-           "model_shards": server.stats["model_shards"],
+           "steps": st["steps"],
+           "model_shards": st["model_shards"],
            "route": server.route, "launches": launch_counts(),
            "instances": instance_counts(),
            "tally": ({k: dict(v) for k, v in t.tally.items()}
@@ -5190,24 +5244,110 @@ def _tp_serve(torch, cfg, params, work, new: int, mesh=None) -> dict:
            "kv_capacity": server.mem.ledger.capacities(tiers.LOCAL)
            .get("kv_pool", 0), "cache_bytes": tree_bytes(server.cache),
            "shards": server.tier_stats()[tiers.LOCAL]["shards"],
-           "params_bytes": tree_bytes(server.params)}
-    toks = torch.as_tensor([list(p) for p in work], device="cuda")
-    out["hidden"], out["logits"] = tp_hidden(torch, model, server.params,
-                                             toks)
-    del server
+           "params_bytes": tree_bytes(server.params),
+           "stats": {k: v for k, v in st.items()
+                     if isinstance(v, (int, float))},
+           "degraded": dict(mem.degraded),
+           "ledger": {tier: mem.ledger.capacities(tier)
+                      for tier in mem.ledger.tiers()},
+           "fetches": pf.fetches if pf is not None else 0,
+           "fetched_bytes": pf.fetched_bytes if pf is not None else 0,
+           "pinned_weights": pf.layers.nbytes if pf is not None else 0,
+           "window": (win.fetches, win.writebacks) if win is not None
+           else None,
+           "kv_at_rest": win.at_rest_bytes if win is not None else 0,
+           "swap": {k: dict(v) for k, v in server.swapper.timings.items()}
+           if server.swapper is not None else {},
+           "handoff": {k: dict(v) for k, v in
+                       server.prefill.staging.timings.items()}
+           if server.prefill is not None else {},
+           "host": (host_before, host_placed, host_mem("MemAvailable"))}
+    if hidden:
+        toks = torch.as_tensor([list(p) for p in work], device="cuda")
+        out["hidden"], out["logits"] = tp_hidden(torch, model,
+                                                 server.params, toks)
+    del server, mem, pf, win, model
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def tp_rank(cfg, params, cfg32, params32, work: list) -> dict:
+#: the tp phase's runs of the memory tiers and the request lifecycle over
+#: the m = 2 mesh (each rank pins its shard of the layers, 4.47 GB at 12
+#: layers, for the paged weights): (name, the config's pager, server
+#: keywords, prompts (the serve phase's first four 8-token ones, or six
+#: with its 40-token prefix pair), new tokens, the uncontended resident
+#: monolithic run of the same mesh its tokens are held to).  Every run
+#: decodes in blocks of 16.  The tiers' runs stream the weights over
+#: PCIe every step, so they make 16 tokens; preemption and cold parking
+#: make 32 (3 worst-case pages a request) in a pool of 7 pages, so two
+#: requests decode at once and the backlog head preempts; the
+#: disaggregated run prefills the 40-token prompts (64 with the bucket)
+#: in four chunks, at q_offset 16, 32 and 48
+TP_TIER_NEW = 16
+TP_LIFE_NEW = 32
+TP_POOL = 7
+TP_CHUNK = 16
+_TIER_KW = dict(block_size=TP_TIER_NEW)
+TP_RUNS = (
+    ("resident", None, _TIER_KW, 4, TP_TIER_NEW, None),
+    ("paged weights", dict(enabled=True, lookahead=1), _TIER_KW, 4,
+     TP_TIER_NEW, "resident"),
+    ("offload_kv pools", dict(enabled=True, offload_kv=True), _TIER_KW, 4,
+     TP_TIER_NEW, "resident"),
+    ("resident slab", None, dict(_TIER_KW, paged=False), 4, TP_TIER_NEW,
+     None),
+    ("offload_kv slab", dict(enabled=True, offload_kv=True),
+     dict(_TIER_KW, paged=False), 4, TP_TIER_NEW, "resident slab"),
+    ("resident 0.7", None, dict(_TIER_KW, temperature=0.7), 4, TP_LIFE_NEW,
+     None),
+    ("preempt 0.7", None, dict(_TIER_KW, temperature=0.7,
+                               num_pages=TP_POOL), 4, TP_LIFE_NEW,
+     "resident 0.7"),
+    ("cold park 0.7", None, dict(_TIER_KW, temperature=0.7,
+                                 num_pages=TP_POOL,
+                                 cold_park_after_blocks=0), 4, TP_LIFE_NEW,
+     "resident 0.7"),
+    ("monolithic", None, _TIER_KW, 6, TP_TIER_NEW, None),
+    ("disaggregated", None, dict(_TIER_KW, prefill_async=True,
+                                 prefill_chunk_tokens=TP_CHUNK), 6,
+     TP_TIER_NEW, "monolithic"))
+
+
+def tp_lifecycle(torch, cfg, params, cfg32, params32, mesh) -> dict:
+    """The m = 2 ranks' runs of ``TP_RUNS`` on this rank, each with the
+    counts reset just before it.  A run whose bf16 tokens part from its
+    resident run's is served again, with that run, from the same weights
+    in fp32 (the witness: ``witness`` holds both runs' tokens)."""
+    runs: dict = {}
+    for name, pager, kw, n, new, base in TP_RUNS:
+        work = prompts(cfg.vocab, 0)[:n]
+        pick = (lambda c: c if pager is None else c.with_pager(**pager))
+        runs[name] = _tp_serve(torch, pick(cfg), params, work, new, mesh,
+                               hidden=False, **kw)
+        if base is None or runs[name]["tokens"] == runs[base]["tokens"]:
+            continue
+        _, bpager, bkw, _, _, _ = next(r for r in TP_RUNS if r[0] == base)
+        pick32 = (lambda c: c if bpager is None else c.with_pager(**bpager))
+        want = _tp_serve(torch, pick32(cfg32), params32, work, new, mesh,
+                         hidden=False, **bkw)
+        got = _tp_serve(torch, pick(cfg32), params32, work, new, mesh,
+                        hidden=False, **kw)
+        runs[name]["witness"] = (got["tokens"], want["tokens"])
+    return runs
+
+
+def tp_rank(cfg, params, cfg32, params32, work: list,
+            lifecycle: bool) -> dict:
     """One rank of the tp phase (``launch.mesh.spawn``'s target): loads
     the kernels the parent built (builds nothing), then serves ``work``
     over the world's mesh on the shared region in bf16 (``TP_NEW``
-    tokens) and, the bf16 shard freed, the fp32 witness
-    (``TP_WITNESS_NEW``).  ``params`` and ``params32`` arrive as CUDA IPC
-    handles on the parent's full trees; each server copies this rank's
-    shard."""
+    tokens), with ``lifecycle`` the runs of the memory tiers and the
+    request lifecycle (``tp_lifecycle``) and, the bf16 shard freed, the
+    fp32 witness (``TP_WITNESS_NEW``).  ``params`` and ``params32``
+    arrive as CUDA IPC handles on the parent's full trees; each server
+    copies this rank's shard (a paging server packs it into pinned host
+    memory)."""
     import torch
     from repro_torch.kernels import _kernel_modules, build
     from repro_torch.launch.mesh import make_serving_mesh, world
@@ -5215,6 +5355,9 @@ def tp_rank(cfg, params, cfg32, params32, work: list) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_serving_mesh(model=world().size, transport="shared")
     out = _tp_serve(torch, cfg, params, work, TP_NEW, mesh)
+    if lifecycle:
+        out["lifecycle"] = tp_lifecycle(torch, cfg, params, cfg32, params32,
+                                        mesh)
     del params
     out["fp32"] = _tp_serve(torch, cfg32, params32, work, TP_WITNESS_NEW,
                             mesh)
@@ -5261,6 +5404,117 @@ def tp_products(torch, card: str, params, rows: tuple = (4, 8)) -> None:
             + ", ".join(parts))
 
 
+def _shard_bytes(tree, specs, m: int) -> int:
+    """One rank's bytes of ``tree`` over m model shards: a leaf whose spec
+    names ``"model"`` is split m ways, the others whole."""
+    from repro_torch.runtime.sharding import _map_specs
+    sizes: list = []
+    _map_specs(lambda _, spec, x: sizes.append(
+        x.numel() * x.element_size() // (m if "model" in spec else 1)),
+        specs, tree)
+    return sum(sizes)
+
+
+def check_tp_lifecycle(torch, card: str, cfg, params, r: dict, m: int,
+                       problems: list) -> None:
+    """Log and gate one rank's ``tp_lifecycle`` runs: each run's tokens
+    bit-equal to its resident run's (or its fp32 witness's), K1 once a
+    layer a step over pools (never over the slab), K2 and K4 launched,
+    nothing degraded; the paged weights' fetches (layers x passes) and
+    remote bytes (this rank's shard), the KV window's moves, the stashes
+    and handoffs in whole pages of this rank's KV heads."""
+    from repro_torch.memory import tiers
+    from repro_torch.models.transformer import DenseLM
+    layers = cfg.num_layers
+    shard = _shard_bytes(params["layers"],
+                         DenseLM(cfg).serving_param_specs()["layers"], m)
+    page_bytes = (2 * layers * SERVE_KW["page_size"]
+                  * (cfg.num_kv_heads // m) * cfg.head_dim * 2)
+    runs = r["lifecycle"]
+    for name, pager, kw, n, new, base in TP_RUNS:
+        run = runs[name]
+        st, la = run["stats"], run["launches"]
+        tag = f"tp m={m} rank {r['rank']} {name}"
+        moved = {k: v["bytes"] for k, v in {**run["swap"],
+                                            **run["handoff"]}.items()}
+        log(f"{tag} [{card}]: {1e3 * run['secs'] / run['steps']:.2f} ms a "
+            f"step ({run['steps']} steps, {st['admitted']} admissions, "
+            f"{new} new tokens), the notice {100 * run['wait_s'] / run['secs']:.1f}"
+            f" % of it, peak device memory {run['peak'] / 2**30:.2f} GiB "
+            f"(this rank's own allocations: the weights this process "
+            f"shares by IPC are not among them), pinned weights "
+            f"{run['pinned_weights']} B, KV at rest {run['kv_at_rest']} B, "
+            f"weights paged in {run['fetched_bytes']} B = "
+            f"{run['fetched_bytes'] / run['secs'] / 1e9:.2f} GB/s over the "
+            f"run, KV window (fetches, write-backs) {run['window']}, "
+            f"preemptions {st['preemptions']} ({st['preempted_pages']} "
+            f"pages), resumes {st['resumes']}, cold parks "
+            f"{st['cold_parks']}, promotes {st['cold_promotes']}, chunks "
+            f"{st['prefill_chunks']}, handoffs {st['handoffs']}, stash and "
+            f"handoff bytes by transfer {moved}, K1 "
+            f"{la['paged_attention']}, K2 {la['flash_attention_wgmma']}, K4 "
+            f"{la['write_accumulate']}; host MemAvailable before the "
+            f"server, placed, after {run['host']}")
+        if any(run["errors"]) or any(len(t) != new for t in run["tokens"]):
+            problems.append(f"{tag}: a request did not emit its {new} "
+                            f"tokens: {run['errors']}")
+        if run["degraded"] or run["route"] != "eager" or \
+                run["model_shards"] != m:
+            problems.append(f"{tag}: degraded {run['degraded']}, route "
+                            f"{run['route']}, shards {run['model_shards']}")
+        if base is not None and run["tokens"] != runs[base]["tokens"]:
+            got, want = run.get("witness", (None, ()))
+            log(f"{tag}: bf16 tokens NOT bit-equal to the {base} run's; "
+                f"the fp32 witness "
+                f"{'bit-equal' if got == want else 'NOT bit-equal'}")
+            if got != want:
+                problems.append(f"{tag}: tokens and the fp32 witness part "
+                                f"from the {base} run's")
+        elif base is not None:
+            log(f"{tag}: bf16 tokens bit-equal to the {base} run's")
+        slab = kw.get("paged") is False
+        if la["paged_attention"] != (0 if slab else layers * run["steps"]):
+            problems.append(f"{tag}: K1 {la['paged_attention']} for "
+                            f"{run['steps']} steps")
+        if la["flash_attention_wgmma"] < 1 or la["write_accumulate"] < 1:
+            problems.append(f"{tag}: K2 or K4 never launched")
+        if pager is not None:
+            remote = run["ledger"].get(tiers.REMOTE, {})
+            if run["fetches"] != layers * (run["steps"] + st["admitted"]) \
+                    or remote.get("layer_weights") != shard:
+                problems.append(f"{tag}: {run['fetches']} weight fetches, "
+                                f"remote layer_weights "
+                                f"{remote.get('layer_weights')} B (this "
+                                f"rank's shard: {shard} B)")
+        if pager is not None and pager.get("offload_kv"):
+            passes = run["steps"] + (0 if slab else st["admitted"])
+            if run["window"] != (layers * passes, layers * passes):
+                problems.append(f"{tag}: KV window {run['window']} for "
+                                f"{passes} passes")
+        if kw.get("num_pages"):
+            swapped = run["swap"].get("kv_swap_out", {}).get("bytes", 0)
+            if (st["preemptions"] < 1 or st["resumes"] != st["preemptions"]
+                    or st["sheds"]
+                    or swapped != st["preempted_pages"] * page_bytes):
+                problems.append(f"{tag}: {st['preemptions']} preemptions, "
+                                f"{st['resumes']} resumes, {st['sheds']} "
+                                f"sheds, {swapped} B stashed for "
+                                f"{st['preempted_pages']} pages of "
+                                f"{page_bytes} B")
+        if "cold_park_after_blocks" in kw and not (
+                st["cold_parks"] >= 1
+                and st["cold_promotes"] == st["cold_parks"]):
+            problems.append(f"{tag}: {st['cold_parks']} parks, "
+                            f"{st['cold_promotes']} promotes")
+        if kw.get("prefill_async"):
+            staged = run["handoff"].get("kv_swap_out", {}).get("bytes", 0)
+            if (st["handoffs"] < 2 or st["prefill_chunks"] <= st["handoffs"]
+                    or not staged or staged % page_bytes):
+                problems.append(f"{tag}: {st['handoffs']} handoffs, "
+                                f"{st['prefill_chunks']} chunks, {staged} B "
+                                f"staged (pages of {page_bytes} B)")
+
+
 def _tp_layers(torch, got, want) -> str:
     """Each layer output's max |d| and share of differing elements, the
     embedding first."""
@@ -5270,7 +5524,7 @@ def _tp_layers(torch, got, want) -> str:
         for i, (a, b) in enumerate(zip(got, want)))
 
 
-def check_tp(torch, card: str, counts: "Launches") -> None:
+def check_tp(torch, card: str, counts: dict) -> None:
     """The tp phase: Qwen2.5-14B at full width and ``TP_LAYERS`` layers,
     bf16 pools, the serving workload's four 8-token prompts (``TP_NEW``
     new tokens), served by this process (eager: the baseline of a
@@ -5288,7 +5542,9 @@ def check_tp(torch, card: str, counts: "Launches") -> None:
     a fault does not).  The bf16 logits against the paged bf16 bound
     (``TP_LOGIT_ATOL`` / ``TP_LOGIT_RTOL``) and first-8, each layer's
     max |d|, and whether layer 0's sharded products equal the full
-    product's columns are printed (``tp_products``)."""
+    product's columns are printed (``tp_products``).  The m = 2 ranks also
+    serve ``TP_RUNS`` (``check_tp_lifecycle``).  ``counts``: m -> the
+    launches of its runs (m = 1: this process's)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn
@@ -5304,7 +5560,7 @@ def check_tp(torch, card: str, counts: "Launches") -> None:
     params = DenseLM(cfg).init(0, device="cuda")
     work = prompts(cfg.vocab, 0)[:4]
     one = _tp_serve(torch, cfg, params, work, TP_NEW)
-    counts.add(one["launches"], one["instances"])
+    counts[1].add(one["launches"], one["instances"])
     log(f"tp m=1 [{card}]: {1e3 * one['secs'] / one['steps']:.2f} ms a "
         f"step eager ({one['steps']} steps, admissions included, route "
         f"{one['route']}), peak device memory {one['peak'] / 2**30:.2f} "
@@ -5318,11 +5574,15 @@ def check_tp(torch, card: str, counts: "Launches") -> None:
     for m in TP_SHARDS:
         t0 = time.perf_counter()
         ranks = spawn(tp_rank, m, cfg, params, cfg32, params32, work,
-                      device="cuda", region_bytes=TP_REGION,
-                      timeout=TP_TIMEOUT)
+                      m == 2, device="cuda", region_bytes=TP_REGION,
+                      timeout=TP_TIMEOUT + (TP_LIFECYCLE_S if m == 2 else 0))
         wall = time.perf_counter() - t0
         for r in ranks:
-            counts.add(r["launches"], r["instances"])
+            counts[m].add(r["launches"], r["instances"])
+            for run in r.get("lifecycle", {}).values():
+                counts[m].add(run["launches"], run["instances"])
+            if "lifecycle" in r:
+                check_tp_lifecycle(torch, card, cfg, params, r, m, problems)
             tag = f"tp m={m} rank {r['rank']}"
             share = r["wait_s"] / r["secs"]
             moved = {k: (v["transfers"], v["bytes"])
@@ -5528,7 +5788,7 @@ def main() -> int:
     if "tp" in phases:
         # before the Qwen2.5-14B weights of the serve phase: the ranks'
         # shards and this process's 12 layers share the card
-        tp = Launches("tp")
+        tp = {m: Launches(f"tp m={m}") for m in (1, *TP_SHARDS)}
         check_tp(torch, card, tp)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5583,9 +5843,14 @@ def main() -> int:
         def summed(run):
             return (run.total, run.by_instance) if run else ({}, {})
 
-        tiered, moed, gpt3d, densed, familied, trainedd, tpd = (
-            summed(r) for r in (tiers, moe, gpt3, dense, families, trained,
-                                tp))
+        def tp_mesh(row) -> int:
+            """The mesh size whose tp runs a row's tp_launches read."""
+            phase = row.get("phase", "")
+            return int(phase[2:]) if phase.startswith("tp") else 1
+
+        tiered, moed, gpt3d, densed, familied, trainedd = (
+            summed(r) for r in (tiers, moe, gpt3, dense, families, trained))
+        tpd = {m: summed(tp[m] if tp else None) for m in (1, *TP_SHARDS)}
         moe_path = ("BatchedServer, granite-moe-3b-a800m at full width, "
                     "greedy and sampled runs summed (moe phase)")
         # rows whose shape is another path's than their kernel's
@@ -5603,7 +5868,8 @@ def main() -> int:
                       f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
                       "tokens in 2 microbatches, the forward and the remat "
                       "recompute (train phase)", trainedd),
-            "kernels": ("kernels phase only", ({}, {}))}
+            "kernels": ("kernels phase only", ({}, {})),
+            **{f"tp{m}": (TP_PATH[m], tpd[m]) for m in TP_SHARDS}}
         for mod, path, counts in ((pa_kernel, serving, launches),
                                   (fa_kernel, serving, launches),
                                   (sm_kernel, wrappers, (ops_launches, {})),
@@ -5643,8 +5909,9 @@ def main() -> int:
                                         familied, name, row),
                                     "train_launches": count(trainedd, name,
                                                             row),
-                                    "tp_launches": count(tpd, name, row),
-                                    "tp_path": TP_PATH,
+                                    "tp_launches": count(tpd[tp_mesh(row)],
+                                                         name, row),
+                                    "tp_path": TP_PATH[tp_mesh(row)],
                                     "graph_launches": graphed,
                                     "graph_replayed_launches": (
                                         GRAPH_RUN.get("replayed", {})

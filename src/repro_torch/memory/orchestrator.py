@@ -21,6 +21,12 @@ stream, with the same lookahead and event discipline.  The model's loops
 take (layer weights, layer KV) pairs from
 :meth:`MemoryOrchestrator.layers_kv`.
 
+Over a mesh of ranks (:meth:`MemoryOrchestrator.bind_mesh`) each rank
+places, pages and records only its own shard: ``place_params`` packs the
+rank's slice of each layer into the remote tier for its own prefetcher,
+the caches it is handed hold its KV heads, and a placement fault on any
+rank degrades every rank alike (:meth:`MemoryOrchestrator.agree`).
+
 :class:`MemoryOrchestrator` is the subsystem's front door, as in the
 reference: ``MemoryOrchestrator.plan(cfg)`` resolves the policy matrix
 from the config's pager policy; the instance owns placement
@@ -316,24 +322,57 @@ class MemoryOrchestrator:
         self.ledger.shards = self.model_shards
         return self
 
+    def vote(self, value: int) -> int:
+        """The largest ``value`` any rank of the bound mesh's ``"model"``
+        axis passed (``value`` itself on one card or an abstract mesh;
+        :meth:`repro_torch.runtime.transport.Transport.vote`)."""
+        mesh = self.mesh
+        if mesh is None or mesh.axis_size("model") == 1 or not mesh.bound:
+            return int(value)
+        return mesh.transport("model").vote(value)
+
+    def agree(self, ok: bool) -> bool:
+        """Whether every rank passed ``ok`` true.  Over a mesh each rank
+        schedules from replicated host state, so a decision made from
+        what one rank alone saw (a placement's or a tier transfer's
+        outcome or its time, an injected fault) is agreed before it is
+        acted on: a rank that degraded or shed alone would leave its
+        peers waiting in the next collective."""
+        return not self.vote(int(not ok))
+
     def place_params(self, params: dict, spec_tree: dict) -> dict:
         """Mesh-aware whole-model placement: this rank's slice of every
         leaf under ``spec_tree`` (:func:`repro_torch.runtime.sharding.
-        shard_tree`; the pageable groups in the remote tier when paging is
-        enabled), with both tiers' per-shard residency in the ledger."""
-        from repro_torch.runtime.sharding import PAGEABLE_GROUPS, shard_tree
+        shard_tree`), recorded per shard.  With paging enabled the
+        pageable groups' slices go through :meth:`place_layer_weights`,
+        straight from the full leaves into the remote tier (one packed
+        buffer a layer, the window sized to this rank's shard), and are
+        recorded there once, as ``layer_weights``; the rest is local
+        ``params``."""
+        from repro_torch.runtime.sharding import (PAGEABLE_GROUPS,
+                                                  shard_tree, shard_views)
         if self.mesh is None:
             raise ValueError("no mesh bound; call bind_mesh first")
-        placed = shard_tree(params, spec_tree, self.mesh,
-                            pageable_remote=self.config.enabled)
-        remote = sum(tree_bytes(v) for k, v in placed.items()
-                     if self.config.enabled and k in PAGEABLE_GROUPS)
-        local = tree_bytes(placed) - remote
-        for tier, nbytes in ((tiers.REMOTE, remote), (tiers.LOCAL, local)):
-            if nbytes:
-                self.ledger.record(tier, "params", nbytes)
-                self.ledger.record_capacity(tier, "params", nbytes)
-        return placed
+        paged = [k for k in params
+                 if self.config.enabled and k in PAGEABLE_GROUPS]
+        if len(paged) > 1:
+            raise ValueError(f"one pageable group a model: {paged}")
+        rest = {k: v for k, v in params.items() if k not in paged}
+        placed = shard_tree(rest, {k: spec_tree[k] for k in rest},
+                            self.mesh)
+        local = tree_bytes(placed)
+        if local:
+            self.ledger.record(tiers.LOCAL, "params", local)
+            self.ledger.record_capacity(tiers.LOCAL, "params", local)
+        for k in paged:
+            group = self.place_layer_weights(
+                shard_views(params[k], spec_tree[k], self.mesh))
+            if not isinstance(group, PagedLayers):
+                # degraded to local residency: contiguous copies of the
+                # slices on the device, as without paging
+                group = shard_tree(params[k], spec_tree[k], self.mesh)
+            placed[k] = group
+        return {k: placed[k] for k in params}
 
     # ----- placement --------------------------------------------------------
     def place(self, tensor_class: str, tree: dict,
@@ -392,6 +431,7 @@ class MemoryOrchestrator:
         wp = self.policies["layer_weights"]
         ep = self.expert_policy
         expert_bytes = 0
+        fault = None
         try:
             if ep is None:
                 placed = wp.place(layers)
@@ -407,8 +447,12 @@ class MemoryOrchestrator:
                           if paged is not None
                           else [merge(r, b) for r, b in zip(rest, banks)])
         except tiers.TierTransferError as e:
+            fault = e
+        # over a mesh every rank degrades when any rank's placement failed
+        if not self.agree(fault is None):
             self.degraded["layer_weights"] = (
-                f"remote paging -> local residency ({e})")
+                f"remote paging -> local residency "
+                f"({fault or 'the placement failed on another rank'})")
             wp = PinLocal()
             self.policies["layer_weights"] = wp
             self.config = dataclasses.replace(self.config, enabled=False)
@@ -465,11 +509,16 @@ class MemoryOrchestrator:
         policy = self.policies["kv_pool"]
         nbytes = tree_bytes(cache)
         device = next(tree_leaves(cache)).device
+        fault = None
         try:
             placed = policy.place(cache)
         except tiers.TierTransferError as e:
+            fault = e
+        # over a mesh every rank degrades when any rank's placement failed
+        if not self.agree(fault is None):
             self.degraded["kv_pool"] = (
-                f"remote offload -> local residency ({e})")
+                f"remote offload -> local residency "
+                f"({fault or 'the placement failed on another rank'})")
             policy = PinLocal()
             self.policies["kv_pool"] = policy
             self.config = dataclasses.replace(self.config, offload_kv=False)

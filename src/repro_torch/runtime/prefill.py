@@ -34,7 +34,10 @@ Determinism: the first token is drawn under ``fold_in(req_key, plen)``,
 as monolithic admission draws it, and adoption installs ``req_key`` at
 ``pos = plen``, as a resume does, so disaggregated tokens equal the
 monolithic server's at any temperature, prefix-shared and over int8/fp8
-pools too.
+pools too.  Over a mesh every rank runs the same engine on its own KV
+heads (a handoff stages the rank's heads' pages); an injected engine
+crash or a staging failure on any rank is agreed by every rank
+(``MemoryOrchestrator.agree``), so the engines stay in step.
 
 Fairness: a prefill reserves its worst-case page count when it starts,
 and starts are strictly FIFO.  A later short prompt may complete first,
@@ -190,9 +193,10 @@ class PrefillEngine:
             return False
         srv = self.srv
         plan = tiers.active_fault_plan()
-        if plan is not None and plan.take_prefill_crash():
-            # the crash lands where the chunk would have: the prefills'
-            # pages are garbage either way
+        crash = plan is not None and plan.take_prefill_crash()
+        if not srv.mem.agree(not crash):
+            # the crash (on any rank) lands where the chunk would have:
+            # the prefills' pages are garbage either way
             self.crash()
             return True
         inf = self.inflight[self._rr % len(self.inflight)]
@@ -243,14 +247,21 @@ class PrefillEngine:
             srv._register_prefix(inf.toks, inf.plen, inf.slot)
         pids = srv.manager.slot_pages(inf.slot)
         srv.mem.settle_kv()
+        handle = fault = None
         try:
             handle = self.staging.swap_out(srv.cache, pids, defer=True)
         except tiers.TierTransferError as e:
-            # the handoff could not be staged: shed the request with a
-            # structured error (both engines go on)
+            fault = e
+        if not srv.mem.agree(fault is None):
+            # the handoff could not be staged (on every rank alike): shed
+            # the request with a structured error (both engines go on)
+            if handle is not None:
+                self.staging.release(handle)
             srv.manager.free_slot(inf.slot)
             srv._reserved.pop(inf.slot, None)
-            req.error = srv._error(req, "handoff_stage_failed", str(e))
+            req.error = srv._error(req, "handoff_stage_failed",
+                                   str(fault or "the staging failed on "
+                                       "another rank of the mesh"))
             srv._finalize(req, "shed", finished)
             srv.kv.record()
             return

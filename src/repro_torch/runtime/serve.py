@@ -135,9 +135,19 @@ live batch — no batch restart.
   to one card's wherever the shards' products are.  The mesh is checked
   before it is bound; a sharded server decodes eagerly (a host barrier
   cannot sit inside a CUDA graph); ``stats["model_shards"]``, and the
-  ledger counts one rank's bytes (``shards``).  Not wired yet over a
-  mesh: data > 1, paged weights, ``offload_kv``, expert paging, MoE and
-  ``prefill_async``.
+  ledger counts one rank's bytes (``shards``).  The memory tiers and the
+  request lifecycle run over the mesh too: with the pager on, each rank
+  pages its shard of the layer weights from the remote tier through its
+  own Tensor Prefetcher (the server places it:
+  ``MemoryOrchestrator.place_params``), ``offload_kv`` rests its KV heads
+  in the remote tier, and preemption, cold parking and
+  ``prefill_async``'s handoffs stash and stage its heads' pages.  A
+  decision made from what one rank alone saw (a tier transfer's outcome
+  or its time, an injected fault, a placement fault) is agreed by every
+  rank before it is acted on (:meth:`MemoryOrchestrator.vote` over the
+  mesh's transport), so every rank sheds, parks or degrades alike and
+  issues the same collectives after.  Not wired yet over a mesh: data >
+  1 and MoE (expert paging with it).
 """
 from __future__ import annotations
 
@@ -157,14 +167,16 @@ from repro_torch.memory import MemoryOrchestrator, tiers, tree_bytes
 from repro_torch.memory.swap import PageSwapper, SwapHandle
 from repro_torch.models.base import DecodeState
 from repro_torch.models.transformer import sample_tokens
-from repro_torch.runtime.decode_graph import (GRAPH, DecodeLoop, choose_route,
-                                              paged_classes)
+from repro_torch.runtime.decode_graph import GRAPH, DecodeLoop, choose_route
 from repro_torch.runtime.ft import POOLS, StragglerMonitor
 
 log = logging.getLogger(__name__)
 
 # one logits -> token step, under the reference's name
 sample = sample_tokens
+
+#: the error a rank records when a transfer failed on another rank only
+_PEER_FAULT = "the transfer failed on another rank of the mesh"
 
 
 @dataclasses.dataclass
@@ -272,14 +284,13 @@ def make_decode_loop(model, *, block_size: int, temperature: float = 0.0,
                       detect_nonfinite=detect_nonfinite, graph=graph)
 
 
-def _check_mesh(model, mesh, prefill_async: bool):
+def _check_mesh(model, mesh):
     """Validate a serving mesh BEFORE the server binds it (a rejected mesh
     must leave the model's orchestrator unbound): the config must shard
-    over it (``assert_mesh_compatible``), the family must have the
-    all-gather-TP placement (``serving_param_specs``), and a mesh of
-    several ranks must be this rank's (with transports), over the
-    ``"model"`` axis only, with the weights and KV resident and
-    monolithic admission."""
+    over it (``assert_mesh_compatible``: MoE banks are refused there),
+    the family must have the all-gather-TP placement
+    (``serving_param_specs``), and a mesh of several ranks must be this
+    rank's (with transports), over the ``"model"`` axis only."""
     if mesh is None:
         return None
     from repro_torch.runtime.sharding import mesh_axis_sizes
@@ -298,12 +309,6 @@ def _check_mesh(model, mesh, prefill_async: bool):
     if mesh.axis_size("data") > 1:
         raise ValueError(f"{mesh!r}: serving over data > 1 (batch-sharded "
                          f"replicas) is not wired yet")
-    paged = paged_classes(model)
-    if paged:
-        raise ValueError(f"serving over a mesh with {', '.join(paged)} is "
-                         f"not wired yet")
-    if prefill_async:
-        raise ValueError("prefill_async over a mesh is not wired yet")
     return mesh
 
 
@@ -407,7 +412,7 @@ class BatchedServer:
         self.max_pending = max_pending
         self.overload_factor = overload_factor
         self.handoff_lease_blocks = handoff_lease_blocks
-        self.mesh = _check_mesh(model, mesh, prefill_async)
+        self.mesh = _check_mesh(model, mesh)
         model.mem.bind_mesh(mesh)
         try:
             # the model's orchestrator: one ledger for its weights and this
@@ -416,7 +421,9 @@ class BatchedServer:
             cfg = model.cfg
             if mesh is not None:
                 # all-gather TP: the output projections replicated, the
-                # rest sharded over "model" (DenseLM.serving_param_specs)
+                # rest sharded over "model" (DenseLM.serving_param_specs);
+                # with the pager on, this rank's layer shards go to the
+                # remote tier behind its own Tensor Prefetcher
                 self.params = self.mem.place_params(
                     params, model.serving_param_specs())
             self.page_size = page_size or cfg.page_size
@@ -1118,10 +1125,13 @@ class BatchedServer:
         decode state as a resume at ``pos = plen``, in stream order behind
         any block in flight.  No prefill, no KV copy."""
         plan = tiers.active_fault_plan()
-        if plan is not None and plan.take_adopt_crash(self.stats["blocks"]):
-            # injected decode-engine crash mid-adoption: the pages stay in
-            # the registry under the handoff's lease (another engine could
-            # still adopt them) until the watchdog reclaims and retries
+        crash = plan is not None and plan.take_adopt_crash(
+            self.stats["blocks"])
+        if not self.mem.agree(not crash):
+            # injected decode-engine crash mid-adoption (on any rank): the
+            # pages stay in the registry under the handoff's lease
+            # (another engine could still adopt them) until the watchdog
+            # reclaims and retries
             self._orphan_handoffs.append(h)
             self.stats["engine_crashes"] += 1
             return
@@ -1230,11 +1240,16 @@ class BatchedServer:
         tier = (tiers.COLD if self.cold_park_after_blocks == 0
                 else tiers.REMOTE)
         self.mem.settle_kv()
+        handle = fault = None
         try:
             handle = self.swapper.swap_out(self.cache, pids, tier=tier)
         except tiers.TierTransferError as e:
+            fault = e
+        if not self.mem.agree(fault is None):
+            if handle is not None:
+                self.swapper.release(handle)
             self._shed(i, finished, reason="preempt_swap_failed",
-                       detail=str(e))
+                       detail=str(fault or _PEER_FAULT))
             return
         if tier == tiers.COLD:
             self.stats["cold_parks"] += 1
@@ -1259,8 +1274,16 @@ class BatchedServer:
                 try:
                     self.swapper.park(ps.handle)
                 except tiers.TierTransferError:
-                    continue
-                self.stats["cold_parks"] += 1
+                    pass
+                if self.mem.agree(ps.handle.tier == tiers.COLD):
+                    self.stats["cold_parks"] += 1
+                elif ps.handle.tier == tiers.COLD:
+                    # parked here but not on another rank: back to
+                    # remote, so every rank's stash sits in one tier
+                    try:
+                        self.swapper.promote(ps.handle)
+                    except tiers.TierTransferError:
+                        pass
 
     def _evict_slot(self, i: int) -> None:
         """Release slot ``i``'s pages and reservation and deactivate it on
@@ -1333,6 +1356,7 @@ class BatchedServer:
             self.manager.free_slot(slot)
             self._reserved.pop(slot, None)
             return False
+        fault = None
         try:
             if ps.handle.tier != tiers.REMOTE:
                 # the hierarchy is a path: cold -> remote, then remote ->
@@ -1342,10 +1366,12 @@ class BatchedServer:
             self.mem.settle_kv()
             self.cache = self.swapper.swap_in(self.cache, new_ids, ps.handle)
         except tiers.TierTransferError as e:
+            fault = e
+        if not self.mem.agree(fault is None):
             self.manager.free_slot(slot)
             self._reserved.pop(slot, None)
             self._shed_preempted(ps, finished, reason="resume_swap_failed",
-                                 detail=str(e))
+                                 detail=str(fault or _PEER_FAULT))
             return True
         self.manager.note_tokens(slot, ps.pos)
         st = self.state
@@ -1374,13 +1400,17 @@ class BatchedServer:
                 and self.stats["blocks"] >= self._fault_release_block):
             self.manager.free_slot(self._fault_slot)
             self._fault_release_block = None
-        if plan is None or not plan.take_pool_exhaustion(
-                self.stats["blocks"]):
+        exhaust = plan is not None and plan.take_pool_exhaustion(
+            self.stats["blocks"])
+        # the window, as any rank's plan armed it (a vote of 0: none did)
+        vote = self.mem.vote(plan.exhaust_blocks + 1 if exhaust else 0)
+        if not vote:
             return
+        window = vote - 1
         steal = self.manager.free_pages * self.page_size
         if steal:
             self.manager.ensure(self._fault_slot, steal)
-        self._fault_release_block = self.stats["blocks"] + plan.exhaust_blocks
+        self._fault_release_block = self.stats["blocks"] + window
         self.stats["pool_faults"] += 1
 
     def _recover_pool_fault(self, finished: list[Request]) -> None:

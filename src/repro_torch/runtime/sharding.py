@@ -7,8 +7,9 @@ logical axes ``"model"`` and ``BATCH_AXES`` (``("pod", "data")``);
 reference turns a spec tree into ``NamedSharding``s that XLA places,
 :func:`shard_tree` takes the full tree and gives back this rank's slice
 of each leaf, placed in a memory tier's memory
-(:mod:`repro_torch.memory.tiers`): local for ordinary params, remote for
-the pageable groups when asked.  A spec of all None (:func:`replicated`)
+(:mod:`repro_torch.memory.tiers`); with the pager on, the orchestrator
+packs the pageable groups' slices (:func:`shard_views`) into the remote
+tier itself.  A spec of all None (:func:`replicated`)
 is the whole leaf on every rank.
 
 The model's tensor-parallel boundaries (``layers._tp_gathered``, the
@@ -103,24 +104,31 @@ def shard_slice(x: torch.Tensor, spec: P, mesh: Mesh) -> torch.Tensor:
     return x
 
 
+def shard_views(tree: Any, specs: Any, mesh: Mesh) -> Any:
+    """This rank's slice of every leaf of ``tree`` under ``specs``, as
+    views of the full leaves (nothing copied): what
+    :meth:`repro_torch.memory.MemoryOrchestrator.place_layer_weights`
+    packs into the remote tier, a layer at a time, when a mesh pages
+    its weights."""
+    return _map_specs(lambda _, spec, x: shard_slice(x, spec, mesh), specs,
+                      tree)
+
+
 def shard_tree(tree: Any, specs: Any, mesh: Mesh, tier: str = tiers.LOCAL,
-               *, pageable_remote: bool = False,
-               device: str | torch.device | None = None) -> Any:
+               *, device: str | torch.device | None = None) -> Any:
     """This rank's slice of every leaf of ``tree`` under ``specs`` (a tree
     of the same structure), as new tensors in ``tier``'s memory for data
     that computes on ``device`` (default: where each leaf lives): a
     contiguous copy on the device for the local tier, a host copy for
     the remote and cold tiers (:func:`repro_torch.memory.tiers.to_tier`).
-    With ``pageable_remote`` the subtrees under ``PAGEABLE_GROUPS`` go to
-    the remote tier and everything else to ``tier``."""
+    Paged weights are placed by the orchestrator instead
+    (:func:`shard_views`)."""
     def place(path, spec, x):
         dev = torch.device(device) if device is not None else x.device
-        where = (tiers.REMOTE if pageable_remote and path
-                 and path[0] in PAGEABLE_GROUPS else tier)
         s = shard_slice(x, spec, mesh)
-        if where == tiers.LOCAL:
+        if tier == tiers.LOCAL:
             return s.to(dev, copy=True).contiguous()
-        return tiers.to_tier(s, where, device=dev)
+        return tiers.to_tier(s, tier, device=dev)
     return _map_specs(place, specs, tree)
 
 

@@ -20,6 +20,10 @@ which XLA lowers onto the TPU's links).
   bytes (any dtype, bit for bit); its reductions gather and accumulate
   with K4 in rank order too, so both transports reduce alike.
 
+``vote`` is the agreement the server and the orchestrator take their
+rank-local decisions through: the largest of the ranks' values, by one
+all-gather (tallied as one).
+
 Every collective is tallied by kind on its transport: ``transfers`` (one
 a collective step), the ``writes`` and ``reads`` this rank made, and the
 payload ``bytes`` it wrote; ``wait_s`` is the time spent in the
@@ -116,6 +120,19 @@ class Transport:
     def barrier(self) -> None:
         raise NotImplementedError
 
+    #: where :meth:`vote` puts its value (a shared region's device)
+    flag_device = torch.device("cpu")
+
+    def vote(self, value: int) -> int:
+        """The largest ``value`` any rank of the axis passed: one
+        all-gather of an int32 a rank.  A decision made from what only
+        this rank saw (a transfer's outcome or its time, an injected
+        fault) goes through it, so every rank takes it alike and issues
+        the same collectives after it."""
+        v = torch.tensor([int(value)], dtype=torch.int32,
+                         device=self.flag_device)
+        return int(self.all_gather(v).max())
+
 
 class SelfTransport(Transport):
     """The collectives of an axis of one rank: identities, untallied."""
@@ -141,6 +158,9 @@ class SelfTransport(Transport):
     def barrier(self) -> None:
         pass
 
+    def vote(self, value: int) -> int:
+        return int(value)
+
 
 class SharedRegionTransport(Transport):
     """The TAB: collectives through one shared region (see the module
@@ -156,7 +176,7 @@ class SharedRegionTransport(Transport):
         self.world = world
         self.region = world.region
         self.half = self.region.numel() // 2
-        self.device = self.region.device
+        self.device = self.flag_device = self.region.device
 
     def _write(self, x: torch.Tensor, slot: int | None) -> tuple[int, int]:
         """Write ``x``'s bytes into ``slot`` of the next half (nothing

@@ -138,10 +138,18 @@ def test_pageable_groups_only_go_remote():
     mem = MemoryOrchestrator.plan(cfg).bind_mesh(mesh)
     placed = mem.place_params(tree, SPECS)
     # this rank's bytes: half of each layer's w, each ln whole, half the
-    # embedding, ln_f whole (fp32)
-    assert mem.ledger.classes(tiers.REMOTE)["params"] == 2 * (6 * 2 + 6) * 4
-    assert mem.ledger.classes(tiers.LOCAL)["params"] == (4 * 6 + 6) * 4
+    # embedding, ln_f whole (fp32); the layers recorded once, as the
+    # remote layer_weights the rank's Tensor Prefetcher pages
+    assert mem.ledger.classes(tiers.REMOTE) == {
+        "layer_weights": 2 * (6 * 2 + 6) * 4}
+    assert mem.ledger.classes(tiers.LOCAL) == {
+        "params": (4 * 6 + 6) * 4,
+        "layer_weights_window": 2 * (6 * 2 + 6) * 4}
     assert tree_bytes(placed) == 2 * (6 * 2 + 6) * 4 + (4 * 6 + 6) * 4
+    assert placed["layers"] is mem.prefetcher.layers
+    half = [lp["w"] for lp in mem.layers(placed["layers"])]
+    assert all(torch.equal(w, lp["w"][:, :2])
+               for w, lp in zip(half, tree["layers"]))
     off = MemoryOrchestrator.plan(get_config("qwen2.5-14b").reduced())
     off.bind_mesh(mesh).place_params(tree, SPECS)
     assert "params" not in off.ledger.classes(tiers.REMOTE)
@@ -214,12 +222,14 @@ def test_server_rejects_a_mesh_before_binding():
     with pytest.raises(ValueError, match="no transports"):
         _server(model, params, make_serving_mesh(model=2))
     assert model.mem.mesh is None
-    # paging is not wired under a mesh yet
-    paged = DenseLM(cfg.with_pager(enabled=True))
-    mesh = Mesh({"data": 1, "model": 2}, transports={"model": object()})
-    with pytest.raises(ValueError, match="not wired"):
+    # batch-sharded replicas are not wired under a mesh yet, paged or not
+    # (paging and prefill_async over the "model" axis are:
+    # tests/test_torch_sharded_tiers.py, test_torch_sharded_lifecycle.py)
+    paged = DenseLM(cfg.with_pager(enabled=True, offload_kv=True))
+    mesh = Mesh({"data": 2, "model": 1}, transports={"data": object()})
+    with pytest.raises(ValueError, match="data > 1"):
         _server(paged, params, mesh)
-    with pytest.raises(ValueError, match="prefill_async"):
+    with pytest.raises(ValueError, match="data > 1"):
         _server(model, params, mesh, prefill_async=True)
     assert model.mem.mesh is None and paged.mem.mesh is None
 
