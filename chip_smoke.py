@@ -222,8 +222,27 @@ tiers and disagg by default):
    whole pages of the rank's KV heads.  It prints per run ms a step,
    the notice's share, peak device memory (the rank's own allocations),
    pinned bytes, the weights' copy rate, stash and handoff bytes and the
-   host's MemAvailable.  Every rank runs on the same card, so no NCCL
-   path (``ProcessGroupTransport`` on cards of their own) is exercised
+   host's MemAvailable.  Row-parallel TP (``BatchedServer(...,
+   deterministic=False)``: every output projection by its contraction
+   rows, the ranks' partial products summed by K4 on the shared region,
+   on every layer): the m = 2 and m = 4 ranks also serve the greedy run
+   that way (and its fp32 witness), the m = 2 ranks the runs of
+   ``TP_ROWPAR_RUNS`` (resident twice, paged weights, ``offload_kv``
+   pools, disaggregated against monolithic), each held bit for bit to
+   the same mesh's resident run, the greedy run to one card by the first-8
+   rule (first-8 >= 0.75 and the logits within atol 0.1, rtol 0.02) or
+   else its fp32 witness; gates: K4 at least 2 x layers + 1 a step, each
+   rank's weight bytes its ``param_specs`` shard (the all-gather runs':
+   their ``serving_param_specs`` shard), each rank's K4 against its
+   plain version at the largest partial it summed.  Then one spawn of 2
+   ranks serves recurrentgemma-9b (its first pattern period and tail: 5
+   of 38 layers, tp=2 so its one KV head is replicated to each rank),
+   xlstm-125m and whisper-base (with its frames) row-parallel over the
+   slab, in turn, 4 prompts of 8 tokens, 16 greedy tokens, against
+   this process's one-card runs (bf16 by the first-8 rule, whisper's logits
+   within its F4 bound 0.25, or else the fp32 witness), with the same
+   gates.  Every rank runs on the same card, so no NCCL path
+   (``ProcessGroupTransport`` on cards of their own) is exercised
    here;
 5. ``serve``: serve Qwen2.5-14B at its published widths and 12 of its 48
    layers (``SERVE_LAYERS``, ``--layers``: the depth of the serve, dense,
@@ -286,7 +305,7 @@ tiers and disagg by default):
    to the cold tier (``cold_park_after_blocks=0``, the remote tier's
    high-water mark flat through every swap-out) and parked by age (1),
    bf16 greedy, every park promoted back, the same tokens; ``offload_kv``
-   at the first 12 layers at most (``OFFLOAD_LAYERS``)
+   at the first 6 layers at most (``OFFLOAD_LAYERS``)
    -- the weights paged from pinned host memory and the KV pools at rest
    there too, paged a layer at a time: the tokens of a resident run at
    that depth, nothing
@@ -370,9 +389,12 @@ kernel's numbers, one entry per kernel (variant or route) and timed
 shape, ``tiers_launches``, ``disagg_launches``, ``moe_launches``,
 ``gpt3_launches``, ``dense_launches``, ``families_launches``,
 ``train_launches``, ``tp_launches`` (the tp phase's: a row at a rank's
-shapes, K1 at Hkv 4 and 2, K2 at 20/4 and 10/2 heads, K4 at (2, 4, 5120)
-and (4, 4, 5120), reads its mesh's ranks, summed; the others the
-one-process run; beside ``tp_path``), ``graph_launches`` (the steady-state graph
+shapes, K1 at Hkv 4 and 2, K2 at 20/4 and 10/2 heads, K4 at (2, 4, 5120),
+(2, 64, 5120), (4, 4, 5120) and (4, 8, 5120), reads its mesh's ranks,
+summed, both modes; a row at the family spawn's rank shapes, K2 at 8/1
+heads d 256 and 4/4 d 64, K4 at recurrentgemma-9b's, xlstm-125m's and
+whisper-base's partials, reads that spawn's ranks as ``launches`` too;
+the others the one-process run; beside ``tp_path``), ``graph_launches`` (the steady-state graph
 run's)
 and ``graph_replayed_launches`` (those its replays made) beside
 ``launches`` (a row at granite's shapes, and
@@ -690,7 +712,10 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None,
 #: kv_valid), its cross-attention (Sq = 8 against the 1500 frames) and
 #: causal self-attention (8/8 heads at d = 64, batch 4), and
 #: recurrentgemma-9b's admission and 2100-token prompt (16/1 heads at d =
-#: 256 under its window of 2048).  The train phase's: minicpm-2b's
+#: 256 under its window of 2048).  The tp phase's family spawn's, a
+#: rank's at m = 2: recurrentgemma-9b's admission (8/1 heads at d = 256)
+#: and whisper-base's encoder, cross- and self-attention (4/4 heads at d =
+#: 64, one request an admission).  The train phase's: minicpm-2b's
 #: training shape (batch 4, 1024 causal tokens, 36/36 heads at d = 64,
 #: 16 key tiles) and whisper-base's training cross-attention (64 queries
 #: against the 1500 frames)
@@ -722,7 +747,11 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (4, 64, 1500, 8, 8, 64, {"causal": False}),
                (1, 8, 8, 20, 4, 128, {}), (1, 8, 8, 10, 2, 128, {}),
                (1, 16, 64, 20, 4, 128, {"q_offset": 48}),
-               (1, 16, 64, 10, 2, 128, {"q_offset": 48}))
+               (1, 16, 64, 10, 2, 128, {"q_offset": 48}),
+               (1, 8, 8, 8, 1, 256, {"window": 2048}),
+               (1, 1500, 1500, 4, 4, 64, {"causal": False}),
+               (1, 8, 1500, 4, 4, 64, {"causal": False}),
+               (1, 8, 8, 4, 4, 64, {}))
 #: the prefix contract's cases: (Sq = Sk, q_offset, Hq, Hkv, d, window).
 #: At 130 a row sits at another place of its query tile than unshared
 #: (25 positions a tile at 40/8 heads, 4 at 16/1), and with a window of
@@ -734,11 +763,14 @@ FLASH_PREFIX = ((64, 48, 40, 8, 128, 0), (384, 200, 40, 8, 128, 0),
 #: the paths a K2 row's launches are read from, by attention (Hq, Hkv,
 #: d): granite-moe-3b-a800m's (moe phase), gpt3-175b's MHA (gpt3 phase),
 #: minicpm-2b's MHA (its training, train phase), whisper-base's and
-#: recurrentgemma-9b's (families phase); else serve
+#: recurrentgemma-9b's (families phase), a rank's of Qwen2.5-14B at m = 2
+#: and 4 (tp phase, its mesh) and of whisper-base and recurrentgemma-9b
+#: at m = 2 (tp phase, the family spawn); else serve
 ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
               (36, 36, 64): "train", (8, 8, 64): "families",
               (16, 1, 256): "families", (20, 4, 128): "tp2",
-              (10, 2, 128): "tp4"}
+              (10, 2, 128): "tp4", (8, 1, 256): "tpfam",
+              (4, 4, 64): "tpfam"}
 #: K2's timed shapes (route, dtype, Sq = Sk, Hq, Hkv, d): the main path's
 #: route at Qwen2.5-14B's width over four prompt lengths, at
 #: granite-moe-3b-a800m's admission (8 tokens, 24/8 heads, d = 64), at
@@ -748,8 +780,9 @@ ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
 #: at 384 and 2048 tokens, and in bf16 over a view of head stride d + 9
 #: (not TMA's; the field after d is that padding); the families phase's
 #: whisper-base encoder, cross- and self-attention and recurrentgemma-9b's
-#: admission and 2100-token prompt, at the batch and keywords its path
-#: gives them (the first and last fields)
+#: admission and 2100-token prompt, and the tp phase's rank shapes (its
+#: family spawn's too), at the batch and keywords its path gives them
+#: (the first and last fields)
 FLASH_TIMED = ((1, "wgmma", "bfloat16", 8, 8, 40, 8, 128, 0, {}),
                (1, "wgmma", "bfloat16", 8, 8, 24, 8, 64, 0, {}),
                (1, "wgmma", "bfloat16", 8, 8, 96, 96, 128, 0, {}),
@@ -771,7 +804,14 @@ FLASH_TIMED = ((1, "wgmma", "bfloat16", 8, 8, 40, 8, 128, 0, {}),
                (1, "wgmma", "bfloat16", 2100, 2100, 16, 1, 256, 0,
                 {"window": 2048}),
                (1, "wgmma", "bfloat16", 8, 8, 20, 4, 128, 0, {}),
-               (1, "wgmma", "bfloat16", 8, 8, 10, 2, 128, 0, {}))
+               (1, "wgmma", "bfloat16", 8, 8, 10, 2, 128, 0, {}),
+               (1, "wgmma", "bfloat16", 8, 8, 8, 1, 256, 0,
+                {"window": 2048}),
+               (1, "wgmma", "bfloat16", 1500, 1500, 4, 4, 64, 0,
+                {"causal": False}),
+               (1, "wgmma", "bfloat16", 8, 1500, 4, 4, 64, 0,
+                {"causal": False}),
+               (1, "wgmma", "bfloat16", 8, 8, 4, 4, 64, 0, {}))
 
 
 def _flash_pairs(torch, sq, sk, causal=True, window=0, q_offset=None,
@@ -946,12 +986,26 @@ MATMUL_SHAPES = (((256, 512, 256), "float32", 0),
 MATMUL_RAGGED = (((7, 513, 129), "float32", 0), ((7, 513, 129), "bfloat16", 0))
 #: K4's shapes: the reference bench's (benchmarks/kernels_bench.py:66), an
 #: 8-way TAB all-reduce of a Qwen2.5-14B 2048-token activation, the tp
-#: phase's decode-step all-reduce of the embedding at m = 2 and 4 ranks
-#: (``ACCUMULATE_PHASE``), and a ragged trailing shape (checked, not
-#: timed)
+#: phase's decode-step all-reduce (the embedding's, and every row-parallel
+#: projection's partials) at m = 2 and 4 ranks and its largest prefill
+#: partial (a 64-token admission at m = 2, 8 tokens at m = 4), the family
+#: spawn's row-parallel partials at m = 2: a decode step's 4 rows of
+#: recurrentgemma-9b, xlstm-125m (d = 768) and whisper-base, and the
+#: largest each sums: an 8-token admission (recurrentgemma-9b; the
+#: sLSTM's up projection, 1024 wide, for xlstm-125m) and whisper's
+#: encoder, 1500 frames (``ACCUMULATE_PHASE``); and a ragged trailing
+#: shape (checked, not timed)
 ACCUMULATE_SHAPES = (((8, 64, 512), "float32"), ((8, 2048, 5120), "bfloat16"),
-                     ((2, 4, 5120), "bfloat16"), ((4, 4, 5120), "bfloat16"))
-ACCUMULATE_PHASE = {(2, 4, 5120): "tp2", (4, 4, 5120): "tp4"}
+                     ((2, 4, 5120), "bfloat16"), ((4, 4, 5120), "bfloat16"),
+                     ((2, 64, 5120), "bfloat16"), ((4, 8, 5120), "bfloat16"),
+                     ((2, 4, 4096), "bfloat16"), ((2, 8, 4096), "bfloat16"),
+                     ((2, 4, 768), "bfloat16"), ((2, 8, 1024), "bfloat16"),
+                     ((2, 4, 512), "bfloat16"), ((2, 1500, 512), "bfloat16"))
+ACCUMULATE_PHASE = {(2, 4, 5120): "tp2", (4, 4, 5120): "tp4",
+                    (2, 64, 5120): "tp2", (4, 8, 5120): "tp4",
+                    **dict.fromkeys(((2, 4, 4096), (2, 8, 4096), (2, 4, 768),
+                                     (2, 8, 1024), (2, 4, 512),
+                                     (2, 1500, 512)), "tpfam")}
 ACCUMULATE_RAGGED = (((5, 3, 7, 11), "float32"),)
 
 
@@ -4495,8 +4549,9 @@ def check_tiers(torch, card: str, cfg, params, counts: Launches,
 #: At 48 layers it took ~257 s of a ~1011 s default run on an H100 80GB
 #: HBM3 at 700 W (four timed runs bound by PCIe); at 24, 122-145 s, and
 #: with the dense phase's offload_kv runs a slow card's default run passed
-#: 1200 s (see ``DISAGG_LAYERS``)
-OFFLOAD_LAYERS = 12
+#: 1200 s (see ``DISAGG_LAYERS``); 68.1 s at 12; 6 since the tp phase's
+#: row-parallel runs and family spawn (~100 s more)
+OFFLOAD_LAYERS = 6
 
 
 def check_offload(torch, card: str, cfg, params, counts: Launches) -> None:
@@ -5180,11 +5235,18 @@ TP_PATH = {
     2: "BatchedServer(mesh=make_serving_mesh(model=2)), 2 ranks on one card "
        "over one shared region, Qwen2.5-14B at 12 of 48 layers: the greedy "
        "run and TP_RUNS (paged weights, offload_kv over the pools and the "
-       "slab, preemption and cold parking at 0.7, disaggregated prefill), "
-       "both ranks summed (tp phase)",
+       "slab, preemption and cold parking at 0.7, disaggregated prefill) "
+       "all-gather, the greedy run and TP_ROWPAR_RUNS (resident twice, "
+       "paged weights, offload_kv pools, disaggregated and monolithic) "
+       "row-parallel (deterministic=False), both ranks summed (tp phase)",
     4: "BatchedServer(mesh=make_serving_mesh(model=4)), 4 ranks on one card "
-       "over one shared region, Qwen2.5-14B at 12 of 48 layers, greedy, the "
-       "ranks summed (tp phase)"}
+       "over one shared region, Qwen2.5-14B at 12 of 48 layers, greedy, "
+       "all-gather and row-parallel, the ranks summed (tp phase)",
+    "fam": "BatchedServer(mesh=make_serving_mesh(model=2), "
+           "deterministic=False), 2 ranks on one card over one shared "
+           "region, over the slab: recurrentgemma-9b at 5 of 38 layers, "
+           "xlstm-125m and whisper-base (with frames), greedy, both ranks "
+           "summed (tp phase, family spawn)"}
 
 
 def tp_hidden(torch, model, params, toks):
@@ -5193,7 +5255,8 @@ def tp_hidden(torch, model, params, toks):
     page-size row chunks), over the mesh the model is bound to."""
     from repro_torch.models import layers as L
     from repro_torch.runtime.sharding import activate_mesh
-    with torch.no_grad(), activate_mesh(model.mem.mesh):
+    with torch.no_grad(), activate_mesh(model.mem.mesh,
+                                        row_parallel=model.mem.row_parallel):
         x = L.embed_lookup(params["embed"], toks)
         pos = torch.arange(toks.shape[1], device=toks.device)
         outs = [x.cpu()]
@@ -5204,13 +5267,51 @@ def tp_hidden(torch, model, params, toks):
     return outs, logits
 
 
+@contextlib.contextmanager
+def largest_partial(t, seen: list):
+    """Note in ``seen`` the shape of the largest tensor this rank passes
+    to ``t.all_reduce`` (a row-parallel projection's partial product or
+    the embedding's rows) while the ``with`` lasts."""
+    if t is None:
+        yield
+        return
+    call = t.all_reduce
+
+    def noted(x):
+        if not seen or x.numel() > math.prod(seen[0]):
+            seen[:] = [tuple(x.shape)]
+        return call(x)
+    t.all_reduce = noted
+    try:
+        yield
+    finally:
+        del t.all_reduce
+
+
+def k4_at(torch, shape: tuple, m: int) -> tuple:
+    """K4 against its plain version over m random bf16 partials of
+    ``shape``: (max |d|, within one bf16 ulp of the plain sum)."""
+    from repro_torch.kernels.write_accumulate import ops
+    from repro_torch.kernels.write_accumulate.ref import write_accumulate_ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((m,) + tuple(shape), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got, want = ops.accumulate(x).float(), write_accumulate_ref(x).float()
+    err = (got - want).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    return err.max().item(), bool((err <= ulp).all())
+
+
 def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
               hidden: bool = True, **kw) -> dict:
     """Serve ``work`` (``new`` tokens each, greedy unless ``kw`` says
-    otherwise: the serving settings, updated by ``kw``) with the counts
-    and the mesh's tally reset just before; the tokens, the run's
-    numbers (the memory tiers' and the lifecycle's too), and with
-    ``hidden`` ``tp_hidden`` of the prompts."""
+    otherwise: the serving settings, updated by ``kw``, ``deterministic``
+    among them) with the counts and the mesh's tally reset just before;
+    the tokens, the run's numbers (the memory tiers' and the lifecycle's
+    too), the largest partial this rank summed and K4 against its plain
+    version there (after the counts are read), and with ``hidden``
+    ``tp_hidden`` of the prompts."""
     from repro_torch.kernels import (instance_counts, launch_counts,
                                      reset_launch_counts)
     from repro_torch.memory import tiers, tree_bytes
@@ -5228,7 +5329,9 @@ def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
     reset_launch_counts()
     if t is not None:
         t.reset_tally()
-    reqs, secs = serve(server, work, new)
+    seen: list = []
+    with largest_partial(t, seen):
+        reqs, secs = serve(server, work, new)
     mem, st = server.mem, server.stats
     pf, win = mem.prefetcher, mem.kv_window
     out = {"tokens": [r.output for r in reqs],
@@ -5261,7 +5364,11 @@ def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
            "handoff": {k: dict(v) for k, v in
                        server.prefill.staging.timings.items()}
            if server.prefill is not None else {},
-           "host": (host_before, host_placed, host_mem("MemAvailable"))}
+           "host": (host_before, host_placed, host_mem("MemAvailable")),
+           "deterministic": st["deterministic"],
+           "largest": seen[0] if seen else None}
+    if seen:
+        out["k4_largest"] = k4_at(torch, seen[0], mesh.axis_size("model"))
     if hidden:
         toks = torch.as_tensor([list(p) for p in work], device="cuda")
         out["hidden"], out["logits"] = tp_hidden(torch, model,
@@ -5312,22 +5419,41 @@ TP_RUNS = (
     ("disaggregated", None, dict(_TIER_KW, prefill_async=True,
                                  prefill_chunk_tokens=TP_CHUNK), 6,
      TP_TIER_NEW, "monolithic"))
+#: the m = 2 ranks' row-parallel runs (``deterministic=False``), laid out
+#: as ``TP_RUNS``: the resident run twice (single-run determinism), paged
+#: weights (each rank pages its ``param_specs`` shard, the output
+#: projections by their rows: 3.30 GB at 12 layers) and offload_kv pools
+#: against it, disaggregated prefill against the monolithic run
+_ROWPAR = dict(_TIER_KW, deterministic=False)
+TP_ROWPAR_RUNS = (
+    ("resident", None, _ROWPAR, 4, TP_TIER_NEW, None),
+    ("resident again", None, _ROWPAR, 4, TP_TIER_NEW, "resident"),
+    ("paged weights", dict(enabled=True, lookahead=1), _ROWPAR, 4,
+     TP_TIER_NEW, "resident"),
+    ("offload_kv pools", dict(enabled=True, offload_kv=True), _ROWPAR, 4,
+     TP_TIER_NEW, "resident"),
+    ("monolithic", None, _ROWPAR, 6, TP_TIER_NEW, None),
+    ("disaggregated", None, dict(_ROWPAR, prefill_async=True,
+                                 prefill_chunk_tokens=TP_CHUNK), 6,
+     TP_TIER_NEW, "monolithic"))
 
 
-def tp_lifecycle(torch, cfg, params, cfg32, params32, mesh) -> dict:
-    """The m = 2 ranks' runs of ``TP_RUNS`` on this rank, each with the
-    counts reset just before it.  A run whose bf16 tokens part from its
-    resident run's is served again, with that run, from the same weights
-    in fp32 (the witness: ``witness`` holds both runs' tokens)."""
+def tp_lifecycle(torch, cfg, params, cfg32, params32, mesh,
+                 table: tuple = TP_RUNS) -> dict:
+    """The m = 2 ranks' runs of ``table`` (``TP_RUNS``, or
+    ``TP_ROWPAR_RUNS``) on this rank, each with the counts reset just
+    before it.  A run whose bf16 tokens part from its resident run's is
+    served again, with that run, from the same weights in fp32 (the
+    witness: ``witness`` holds both runs' tokens)."""
     runs: dict = {}
-    for name, pager, kw, n, new, base in TP_RUNS:
+    for name, pager, kw, n, new, base in table:
         work = prompts(cfg.vocab, 0)[:n]
         pick = (lambda c: c if pager is None else c.with_pager(**pager))
         runs[name] = _tp_serve(torch, pick(cfg), params, work, new, mesh,
                                hidden=False, **kw)
         if base is None or runs[name]["tokens"] == runs[base]["tokens"]:
             continue
-        _, bpager, bkw, _, _, _ = next(r for r in TP_RUNS if r[0] == base)
+        _, bpager, bkw, _, _, _ = next(r for r in table if r[0] == base)
         pick32 = (lambda c: c if bpager is None else c.with_pager(**bpager))
         want = _tp_serve(torch, pick32(cfg32), params32, work, new, mesh,
                          hidden=False, **bkw)
@@ -5342,9 +5468,10 @@ def tp_rank(cfg, params, cfg32, params32, work: list,
     """One rank of the tp phase (``launch.mesh.spawn``'s target): loads
     the kernels the parent built (builds nothing), then serves ``work``
     over the world's mesh on the shared region in bf16 (``TP_NEW``
-    tokens), with ``lifecycle`` the runs of the memory tiers and the
-    request lifecycle (``tp_lifecycle``) and, the bf16 shard freed, the
-    fp32 witness (``TP_WITNESS_NEW``).  ``params`` and ``params32``
+    tokens), all-gather and row-parallel, with ``lifecycle`` the runs of
+    the memory tiers and the request lifecycle in both modes
+    (``tp_lifecycle``: ``TP_RUNS``, ``TP_ROWPAR_RUNS``) and, the bf16
+    shard freed, the fp32 witnesses of both modes (``TP_WITNESS_NEW``).  ``params`` and ``params32``
     arrive as CUDA IPC handles on the parent's full trees; each server
     copies this rank's shard (a paging server packs it into pinned host
     memory)."""
@@ -5355,12 +5482,18 @@ def tp_rank(cfg, params, cfg32, params32, work: list,
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_serving_mesh(model=world().size, transport="shared")
     out = _tp_serve(torch, cfg, params, work, TP_NEW, mesh)
+    out["rowpar"] = _tp_serve(torch, cfg, params, work, TP_NEW, mesh,
+                              deterministic=False)
     if lifecycle:
         out["lifecycle"] = tp_lifecycle(torch, cfg, params, cfg32, params32,
                                         mesh)
+        out["rowpar_lifecycle"] = tp_lifecycle(
+            torch, cfg, params, cfg32, params32, mesh, TP_ROWPAR_RUNS)
     del params
     out["fp32"] = _tp_serve(torch, cfg32, params32, work, TP_WITNESS_NEW,
                             mesh)
+    out["rowpar_fp32"] = _tp_serve(torch, cfg32, params32, work,
+                                   TP_WITNESS_NEW, mesh, deterministic=False)
     out["rank"] = mesh.rank
     return out
 
@@ -5416,25 +5549,30 @@ def _shard_bytes(tree, specs, m: int) -> int:
 
 
 def check_tp_lifecycle(torch, card: str, cfg, params, r: dict, m: int,
-                       problems: list) -> None:
-    """Log and gate one rank's ``tp_lifecycle`` runs: each run's tokens
-    bit-equal to its resident run's (or its fp32 witness's), K1 once a
-    layer a step over pools (never over the slab), K2 and K4 launched,
-    nothing degraded; the paged weights' fetches (layers x passes) and
-    remote bytes (this rank's shard), the KV window's moves, the stashes
-    and handoffs in whole pages of this rank's KV heads."""
+                       problems: list, rowpar: bool = False) -> None:
+    """Log and gate one rank's ``tp_lifecycle`` runs (``rowpar``: of
+    ``TP_ROWPAR_RUNS``, else of ``TP_RUNS``): each run's tokens bit-equal
+    to its resident run's (or its fp32 witness's), K1 once a layer a step
+    over pools (never over the slab), K2 and K4 launched (row-parallel: K4
+    at least 2 x layers + 1 a step), nothing degraded; the paged weights'
+    fetches (layers x passes) and remote bytes (this rank's shard under
+    the mode's specs), the KV window's moves, the stashes and handoffs in
+    whole pages of this rank's KV heads."""
     from repro_torch.memory import tiers
     from repro_torch.models.transformer import DenseLM
     layers = cfg.num_layers
-    shard = _shard_bytes(params["layers"],
-                         DenseLM(cfg).serving_param_specs()["layers"], m)
+    model = DenseLM(cfg)
+    specs = model.param_specs() if rowpar else model.serving_param_specs()
+    shard = _shard_bytes(params["layers"], specs["layers"], m)
     page_bytes = (2 * layers * SERVE_KW["page_size"]
                   * (cfg.num_kv_heads // m) * cfg.head_dim * 2)
-    runs = r["lifecycle"]
-    for name, pager, kw, n, new, base in TP_RUNS:
+    runs = r["rowpar_lifecycle" if rowpar else "lifecycle"]
+    for name, pager, kw, n, new, base in (TP_ROWPAR_RUNS if rowpar
+                                          else TP_RUNS):
         run = runs[name]
         st, la = run["stats"], run["launches"]
-        tag = f"tp m={m} rank {r['rank']} {name}"
+        tag = (f"tp m={m} rank {r['rank']} "
+               f"{'row-parallel ' if rowpar else ''}{name}")
         moved = {k: v["bytes"] for k, v in {**run["swap"],
                                             **run["handoff"]}.items()}
         log(f"{tag} [{card}]: {1e3 * run['secs'] / run['steps']:.2f} ms a "
@@ -5478,6 +5616,14 @@ def check_tp_lifecycle(torch, card: str, cfg, params, r: dict, m: int,
                             f"{run['steps']} steps")
         if la["flash_attention_wgmma"] < 1 or la["write_accumulate"] < 1:
             problems.append(f"{tag}: K2 or K4 never launched")
+        if rowpar and (la["write_accumulate"] < (2 * layers + 1) * run["steps"]
+                       or run["deterministic"]
+                       or not run.get("k4_largest", (0, False))[1]):
+            problems.append(f"{tag}: K4 {la['write_accumulate']} for "
+                            f"{run['steps']} steps, deterministic "
+                            f"{run['deterministic']}, K4 at the largest "
+                            f"partial {run['largest']}: "
+                            f"{run.get('k4_largest')}")
         if pager is not None:
             remote = run["ledger"].get(tiers.REMOTE, {})
             if run["fetches"] != layers * (run["steps"] + st["admitted"]) \
@@ -5513,6 +5659,300 @@ def check_tp_lifecycle(torch, card: str, cfg, params, r: dict, m: int,
                 problems.append(f"{tag}: {st['handoffs']} handoffs, "
                                 f"{st['prefill_chunks']} chunks, {staged} B "
                                 f"staged (pages of {page_bytes} B)")
+
+
+def _cross_placement(tag: str, got: dict, want: dict, got32: dict,
+                     want32: dict, problems: list,
+                     atol: float = TP_LOGIT_ATOL) -> None:
+    """Hold a sharded bf16 run to one card's by the first-8 rule (first-8 >=
+    ``MATCH_FIRST8`` and the last position's logits within ``atol`` +
+    ``TP_LOGIT_RTOL`` |logit|), or else its fp32 witness to one card's
+    (first-8, the logits within ``LOGIT_BOUND``)."""
+    dl = (got["logits"] - want["logits"]).abs()
+    over = (dl - TP_LOGIT_RTOL * want["logits"].abs()).max().item()
+    f8 = _match_first8(got["tokens"], want["tokens"])
+    d32 = (got32["logits"] - want32["logits"]).abs().max().item()
+    f8_32 = _match_first8(got32["tokens"], want32["tokens"])
+    bf16_ok = f8 >= MATCH_FIRST8 and over <= atol
+    log(f"{tag}: against one card, bf16 last-position logits max |d| "
+        f"{dl.max().item():.4g} ({'within' if over <= atol else 'beyond'} "
+        f"atol {atol:g} + rtol {TP_LOGIT_RTOL:g}), first-8 {f8:.3f}, tokens "
+        f"{'bit-equal' if got['tokens'] == want['tokens'] else 'not bit-equal'}"
+        f"; fp32 witness logits max |d| {d32:.4g}, first-8 {f8_32:.3f}: "
+        f"{'the first-8 rule held in bf16' if bf16_ok else 'held to the fp32 witness'}")
+    if not bf16_ok and (f8_32 < MATCH_FIRST8 or d32 > LOGIT_BOUND):
+        problems.append(f"{tag}: bf16 and the fp32 witness part from one "
+                        f"card's: first-8 {f8:.3f} / {f8_32:.3f}, logits "
+                        f"{over:.4g} / {d32:.4g}")
+
+
+def check_tp_rowpar(torch, card: str, cfg, params, r: dict, m: int,
+                    one: dict, one32: dict, problems: list) -> None:
+    """Log and gate one rank's row-parallel greedy run (``rowpar``) beside
+    its all-gather run: ms a step and the notice's share in both modes,
+    weight bytes in both modes (each its specs' shard), K4 at least 2 x
+    layers + 1 a step, K1 once a layer a step, K2 launched, the eager
+    route, K4 against its plain version at the largest partial summed;
+    against one card by the first-8 rule or the fp32 witness."""
+    from repro_torch.memory import tree_bytes
+    from repro_torch.models.transformer import DenseLM
+    model = DenseLM(cfg)
+    row, layers = r["rowpar"], cfg.num_layers
+    tag = f"tp m={m} rank {r['rank']} row-parallel"
+    la = row["launches"]
+    want_row = _shard_bytes(params, model.param_specs(), m)
+    want_gather = _shard_bytes(params, model.serving_param_specs(), m)
+    moved = {k: (v["transfers"], v["bytes"])
+             for k, v in row["tally"].items() if v["transfers"]}
+    log(f"{tag} [{card}]: {1e3 * row['secs'] / row['steps']:.2f} ms a step "
+        f"({row['steps']} steps, admissions included; all-gather "
+        f"{1e3 * r['secs'] / r['steps']:.2f}), the notice "
+        f"{100 * row['wait_s'] / row['secs']:.1f} % of it (all-gather "
+        f"{100 * r['wait_s'] / r['secs']:.1f} %), weight bytes "
+        f"{row['params_bytes']} (all-gather {r['params_bytes']}, one card "
+        f"{tree_bytes(params)}; the layers' "
+        f"{_shard_bytes(params['layers'], model.param_specs()['layers'], m)}"
+        f" vs "
+        f"{_shard_bytes(params['layers'], model.serving_param_specs()['layers'], m)}"
+        f"), peak device memory {row['peak'] / 2**30:.2f} GiB, collectives "
+        f"on 'model' (transfers, bytes): {moved}, K1 "
+        f"{la['paged_attention']}, K2 {la['flash_attention_wgmma']}, K4 "
+        f"{la['write_accumulate']}; the largest partial {row['largest']}: K4 "
+        f"against its plain version max |d| {row['k4_largest'][0]:.3g}")
+    if any(row["errors"]) or any(len(t) != TP_NEW for t in row["tokens"]):
+        problems.append(f"{tag}: a request did not emit its {TP_NEW} "
+                        f"tokens: {row['errors']}")
+    if (row["model_shards"] != m or row["route"] != "eager"
+            or row["deterministic"]):
+        problems.append(f"{tag}: shards {row['model_shards']}, route "
+                        f"{row['route']}, deterministic "
+                        f"{row['deterministic']}")
+    if (la["write_accumulate"] < (2 * layers + 1) * row["steps"]
+            or la["paged_attention"] != layers * row["steps"]
+            or la["flash_attention_wgmma"] < 1):
+        problems.append(f"{tag}: K4 {la['write_accumulate']}, K1 "
+                        f"{la['paged_attention']}, K2 "
+                        f"{la['flash_attention_wgmma']} for {row['steps']} "
+                        f"steps")
+    if row["params_bytes"] != want_row or r["params_bytes"] != want_gather:
+        problems.append(f"{tag}: weight bytes {row['params_bytes']} / "
+                        f"{r['params_bytes']}, the specs' shards {want_row} "
+                        f"/ {want_gather}")
+    if not row["k4_largest"][1]:
+        problems.append(f"{tag}: K4 parts from its plain version at "
+                        f"{row['largest']}: {row['k4_largest']}")
+    _cross_placement(tag, row, one, r["rowpar_fp32"], one32, problems)
+
+
+#: the tp phase's family spawn, row-parallel on 2 ranks over the slab:
+#: (architecture, config overrides, all-reduces a decode step -- one a
+#: row-parallel projection and the embedding's --, K2 launches an
+#: admission).  recurrentgemma-9b is cut to its first pattern period and
+#: its tail (5 of 38 layers: rec, rec, att + rec, rec), tp=2 so that its
+#: one KV head is replicated to each rank; xlstm-125m (12 blocks, one
+#: partial each) and whisper-base (3 partials a decoder layer; its
+#: encoder's 6 and decoder's 12 attentions an admission) at full depth,
+#: tp=1
+TP_FAMILIES = (("recurrentgemma-9b", dict(num_layers=5, tp=2), 11, 1),
+               ("xlstm-125m", dict(tp=1), 13, 0),
+               ("whisper-base", dict(tp=1), 19, 18))
+TP_FAMILY_NEW = 16
+TP_FAMILY_KW = dict(batch_size=4, max_seq=64, block_size=16, paged=False)
+#: whisper-base's bf16 logit bound against one card (F4, ROADMAP)
+WHISPER_LOGIT_ATOL = 0.25
+#: seconds the family spawn's ranks may take, their start included
+TP_FAMILY_S = 300
+
+
+def _family_work(cfg):
+    """The serve phase's four 8-token prompts and, for the
+    encoder-decoder, a request's seeded random frames (1, 1500, d)."""
+    import numpy as np
+    work = prompts(cfg.vocab, 0)[:4]
+    if cfg.family != "encdec":
+        return work, None
+    rng = np.random.RandomState(5)
+    return work, [rng.randn(1, cfg.encoder_seq, cfg.d_model).astype(
+        np.float32) for _ in work]
+
+
+def _family_serve(torch, cfg, params, work, frames, new: int, mesh=None,
+                  **kw) -> dict:
+    """Serve ``work`` over the slab (``TP_FAMILY_KW``, updated by ``kw``)
+    with the counts and the mesh's tally reset just before; the run's
+    tokens and numbers, K4 against its plain version at the largest
+    partial summed, and (after the counts are read) the prompts' last
+    position's logits from one prefill at the model level."""
+    import numpy as np
+    from repro_torch.configs import build_model
+    from repro_torch.kernels import (instance_counts, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.memory import tree_bytes
+    from repro_torch.runtime.serve import BatchedServer
+    model = build_model(cfg)
+    server = BatchedServer(model, params, mesh=mesh,
+                           graph=False if mesh is None else None,
+                           **dict(TP_FAMILY_KW, **kw))
+    t = mesh.transport("model") if mesh is not None else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    if t is not None:
+        t.reset_tally()
+    seen: list = []
+    with largest_partial(t, seen):
+        reqs = [server.submit(p, max_new_tokens=new,
+                              extra=None if frames is None
+                              else {"frames": frames[i]})
+                for i, p in enumerate(work)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.run_once()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    st = server.stats
+    out = {"tokens": [r.output for r in reqs],
+           "errors": [r.error for r in reqs], "secs": secs,
+           "steps": st["steps"], "admitted": st["admitted"],
+           "route": server.route, "launches": launch_counts(),
+           "instances": instance_counts(),
+           "tally": ({k: dict(v) for k, v in t.tally.items()}
+                     if t is not None else {}),
+           "wait_s": t.wait_s if t is not None else 0.0,
+           "params_bytes": tree_bytes(server.params),
+           "model_shards": st["model_shards"],
+           "deterministic": st["deterministic"],
+           "peak": torch.cuda.max_memory_allocated(),
+           "largest": seen[0] if seen else None}
+    if seen:
+        out["k4_largest"] = k4_at(torch, seen[0], mesh.axis_size("model"))
+    toks = torch.as_tensor(np.stack(work), device="cuda")
+    extra = (None if frames is None else
+             {"frames": torch.from_numpy(np.concatenate(frames)).to("cuda")})
+    with torch.no_grad():
+        logits, _ = model.prefill(server.params, toks, model.init_cache(
+            len(work), 16, device="cuda"), extra)
+    out["logits"] = logits.float().cpu()
+    del server, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_family_rank(fams: list) -> dict:
+    """One rank of the family spawn: loads the kernels the parent built,
+    then serves each family of ``fams`` in turn row-parallel over the
+    world's mesh on the shared region, in bf16 (``TP_FAMILY_NEW`` tokens)
+    and its fp32 witness (``TP_WITNESS_NEW``), from the parent's weights
+    shared by IPC (each server copies this rank's ``param_specs``
+    shard)."""
+    import torch
+    from repro_torch.kernels import _kernel_modules, build
+    from repro_torch.launch.mesh import make_serving_mesh, world
+    build.require_built([m.SOURCE for m in _kernel_modules()])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serving_mesh(model=world().size, transport="shared")
+    out = {"rank": mesh.rank}
+    for name, cfg, params, cfg32, params32, work, frames in fams:
+        out[name] = _family_serve(torch, cfg, params, work, frames,
+                                  TP_FAMILY_NEW, mesh, deterministic=False)
+        out[name]["fp32"] = _family_serve(torch, cfg32, params32, work,
+                                          frames, TP_WITNESS_NEW, mesh,
+                                          deterministic=False)
+    return out
+
+
+def check_tp_families(torch, card: str, counts: Launches,
+                      problems: list) -> None:
+    """recurrentgemma-9b (5 of 38 layers), xlstm-125m and whisper-base at
+    full width, bf16 from seeded random weights, served by this process
+    (eager) and row-parallel by 2 ranks over one shared region
+    (``TP_FAMILIES``), each with its fp32 witness.  Gates on every rank:
+    the tokens emitted and equal on both ranks, the eager route, K4 at
+    least the family's all-reduces a step x steps, K2 at the family's
+    launches an admission, the rank's weight bytes its ``param_specs``
+    shard, K4 against its plain version at the largest partial; against
+    one card by the first-8 rule (whisper's logits within its F4 bound) or
+    else the fp32 witness."""
+    import dataclasses
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.memory import tree_bytes
+    from repro_torch.memory.accounting import tree_map
+    fams, ones, rules = [], {}, {}
+    for name, over, reduces, k2 in TP_FAMILIES:
+        full = get_config(name)
+        cfg = dataclasses.replace(full, **over)
+        if cfg.num_layers < full.num_layers:
+            log(f"tp: DEPTH CUT: {name} at full width and {cfg.num_layers} "
+                f"of {full.num_layers} layers")
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params = build_model(cfg).init(0, device="cuda")
+        params32 = tree_map(lambda t: t.float(), params)
+        work, frames = _family_work(cfg)
+        ones[name] = (_family_serve(torch, cfg, params, work, frames,
+                                    TP_FAMILY_NEW),
+                      _family_serve(torch, cfg32, params32, work, frames,
+                                    TP_WITNESS_NEW))
+        rules[name] = (reduces, k2, build_model(cfg).param_specs())
+        fams.append((name, cfg, params, cfg32, params32, work, frames))
+    t0 = time.perf_counter()
+    ranks = spawn(tp_family_rank, 2, fams, device="cuda",
+                  region_bytes=TP_REGION, timeout=TP_FAMILY_S)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        for name, cfg, params, *_ in fams:
+            run, (one, one32) = r[name], ones[name]
+            reduces, k2, specs = rules[name]
+            counts.add(run["launches"], run["instances"])
+            la, tag = run["launches"], f"tp family {name} m=2 rank {r['rank']}"
+            want_bytes = _shard_bytes(params, specs, 2)
+            moved = {k: (v["transfers"], v["bytes"])
+                     for k, v in run["tally"].items() if v["transfers"]}
+            log(f"{tag} row-parallel [{card}]: "
+                f"{1e3 * run['secs'] / run['steps']:.2f} ms a step "
+                f"({run['steps']} steps, admissions included; one card "
+                f"{1e3 * one['secs'] / one['steps']:.2f}), the notice "
+                f"{100 * run['wait_s'] / run['secs']:.1f} % of it, weight "
+                f"bytes {run['params_bytes']} (one card "
+                f"{tree_bytes(params)}), peak device memory "
+                f"{run['peak'] / 2**30:.2f} GiB, collectives on 'model' "
+                f"(transfers, bytes): {moved}, K2 "
+                f"{la['flash_attention_wgmma']}, K4 {la['write_accumulate']};"
+                f" the largest partial {run['largest']}: K4 against its "
+                f"plain version max |d| {run['k4_largest'][0]:.3g}")
+            if any(run["errors"]) or any(len(t) != TP_FAMILY_NEW
+                                         for t in run["tokens"]):
+                problems.append(f"{tag}: a request did not emit its "
+                                f"{TP_FAMILY_NEW} tokens: {run['errors']}")
+            if (run["route"] != "eager" or run["model_shards"] != 2
+                    or run["deterministic"]):
+                problems.append(f"{tag}: route {run['route']}, shards "
+                                f"{run['model_shards']}, deterministic "
+                                f"{run['deterministic']}")
+            if (la["write_accumulate"] < reduces * run["steps"]
+                    or la["flash_attention_wgmma"] != k2 * run["admitted"]
+                    or la["flash_attention_mma"]):
+                problems.append(f"{tag}: K4 {la['write_accumulate']} for "
+                                f"{run['steps']} steps (>= {reduces} a "
+                                f"step), K2 {la} for {run['admitted']} "
+                                f"admissions ({k2} each)")
+            if run["params_bytes"] != want_bytes:
+                problems.append(f"{tag}: weight bytes {run['params_bytes']}"
+                                f", its param_specs shard {want_bytes}")
+            if not run["k4_largest"][1]:
+                problems.append(f"{tag}: K4 parts from its plain version at "
+                                f"{run['largest']}: {run['k4_largest']}")
+            _cross_placement(tag, run, one, run["fp32"], one32, problems,
+                             atol=WHISPER_LOGIT_ATOL
+                             if name == "whisper-base" else TP_LOGIT_ATOL)
+    for name, *_ in fams:
+        if ranks[0][name]["tokens"] != ranks[1][name]["tokens"]:
+            problems.append(f"tp family {name}: the ranks' tokens differ")
+    log(f"tp families m=2: {wall:.1f} s with the ranks' start")
+    del fams, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _tp_layers(torch, got, want) -> str:
@@ -5581,8 +6021,15 @@ def check_tp(torch, card: str, counts: dict) -> None:
             counts[m].add(r["launches"], r["instances"])
             for run in r.get("lifecycle", {}).values():
                 counts[m].add(run["launches"], run["instances"])
+            for run in r.get("rowpar_lifecycle", {}).values():
+                counts[m].add(run["launches"], run["instances"])
+            counts[m].add(r["rowpar"]["launches"], r["rowpar"]["instances"])
             if "lifecycle" in r:
                 check_tp_lifecycle(torch, card, cfg, params, r, m, problems)
+                check_tp_lifecycle(torch, card, cfg, params, r, m, problems,
+                                   rowpar=True)
+            check_tp_rowpar(torch, card, cfg, params, r, m, one, one32,
+                            problems)
             tag = f"tp m={m} rank {r['rank']}"
             share = r["wait_s"] / r["secs"]
             moved = {k: (v["transfers"], v["bytes"])
@@ -5645,11 +6092,16 @@ def check_tp(torch, card: str, counts: dict) -> None:
                 problems.append(f"{tag}: the fp32 witness parts from one "
                                 f"card's: first-8 {f8_32:.3f}, logits "
                                 f"{d32:.4g} (bound {LOGIT_BOUND})")
+        if any(r["rowpar"]["tokens"] != ranks[0]["rowpar"]["tokens"]
+               for r in ranks):
+            problems.append(f"tp m={m}: the ranks' row-parallel tokens "
+                            f"differ")
         log(f"tp m={m}: {wall:.1f} s with the ranks' start")
     # the weights the ranks shared by IPC come back once every rank let go
     del params, params32, ranks
     gc.collect()
     torch.cuda.empty_cache()
+    check_tp_families(torch, card, counts["fam"], problems)
     left = torch.cuda.memory_allocated() - before
     log(f"tp: device memory still allocated after the phase "
         f"{left / 2**30:.2f} GiB")
@@ -5788,7 +6240,7 @@ def main() -> int:
     if "tp" in phases:
         # before the Qwen2.5-14B weights of the serve phase: the ranks'
         # shards and this process's 12 layers share the card
-        tp = {m: Launches(f"tp m={m}") for m in (1, *TP_SHARDS)}
+        tp = {m: Launches(f"tp m={m}") for m in (1, *TP_SHARDS, "fam")}
         check_tp(torch, card, tp)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5843,14 +6295,18 @@ def main() -> int:
         def summed(run):
             return (run.total, run.by_instance) if run else ({}, {})
 
-        def tp_mesh(row) -> int:
-            """The mesh size whose tp runs a row's tp_launches read."""
+        def tp_mesh(row):
+            """The mesh (its size, or "fam": the family spawn) whose tp
+            runs a row's tp_launches read."""
             phase = row.get("phase", "")
+            if phase == "tpfam":
+                return "fam"
             return int(phase[2:]) if phase.startswith("tp") else 1
 
         tiered, moed, gpt3d, densed, familied, trainedd = (
             summed(r) for r in (tiers, moe, gpt3, dense, families, trained))
-        tpd = {m: summed(tp[m] if tp else None) for m in (1, *TP_SHARDS)}
+        tpd = {m: summed(tp[m] if tp else None)
+               for m in (1, *TP_SHARDS, "fam")}
         moe_path = ("BatchedServer, granite-moe-3b-a800m at full width, "
                     "greedy and sampled runs summed (moe phase)")
         # rows whose shape is another path's than their kernel's
@@ -5869,7 +6325,8 @@ def main() -> int:
                       "tokens in 2 microbatches, the forward and the remat "
                       "recompute (train phase)", trainedd),
             "kernels": ("kernels phase only", ({}, {})),
-            **{f"tp{m}": (TP_PATH[m], tpd[m]) for m in TP_SHARDS}}
+            **{f"tp{m}": (TP_PATH[m], tpd[m]) for m in TP_SHARDS},
+            "tpfam": (TP_PATH["fam"], tpd["fam"])}
         for mod, path, counts in ((pa_kernel, serving, launches),
                                   (fa_kernel, serving, launches),
                                   (sm_kernel, wrappers, (ops_launches, {})),

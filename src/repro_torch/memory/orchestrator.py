@@ -277,6 +277,7 @@ class MemoryOrchestrator:
         self.degraded: dict[str, str] = {}
         self.mesh = None
         self.model_shards = 1
+        self.row_parallel = False
 
     @classmethod
     def plan(cls, model_config: Any = None) -> "MemoryOrchestrator":
@@ -311,14 +312,18 @@ class MemoryOrchestrator:
         return self.policies.get("expert_weights")
 
     # ----- mesh awareness ---------------------------------------------------
-    def bind_mesh(self, mesh) -> "MemoryOrchestrator":
+    def bind_mesh(self, mesh, *, row_parallel: bool = False
+                  ) -> "MemoryOrchestrator":
         """Make the orchestrator mesh-aware: the model's entry points then
         run over ``mesh`` (its ``"model"`` axis shards heads, columns and
-        the vocab), its caches hold this rank's KV heads, and the ledger
-        switches to per-shard accounting (the bytes ONE rank holds).
+        the vocab) in the TP mode ``row_parallel`` names (the output
+        projections' partial products summed; all-gather TP without it),
+        its caches hold this rank's KV heads, and the ledger switches to
+        per-shard accounting (the bytes ONE rank holds).
         ``bind_mesh(None)`` returns to one card."""
         self.mesh = mesh
         self.model_shards = 1 if mesh is None else mesh.axis_size("model")
+        self.row_parallel = bool(row_parallel) and mesh is not None
         self.ledger.shards = self.model_shards
         return self
 

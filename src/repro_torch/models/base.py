@@ -196,8 +196,11 @@ class ModelConfig:
 
         The ``"model"`` axis shards attention heads, KV heads (and hence
         the page pools' head axis), the MLP hidden dim and the padded
-        vocab; any non-divisible dimension would silently fall back to
-        replication mid-model, so reject the mesh up front instead.
+        vocab, and what the families' specs shard: the RG-LRU's width
+        (``d_model``, its channels and state), the mLSTM's inner width
+        and heads, the sLSTM's heads; any non-divisible dimension would
+        silently fall back to replication mid-model, so reject the mesh
+        up front instead.
         """
         m = int(axis_sizes.get("model", 1))
         if m <= 1:
@@ -208,12 +211,19 @@ class ModelConfig:
                 f"expert-parallel serving of MoE banks is not wired yet "
                 f"(the all-gather-TP determinism contract does not cover "
                 f"the expert combine; see ROADMAP open items)")
-        bad = {name: v for name, v in (
-            ("padded_heads", self.padded_heads),
-            ("padded_kv_heads", self.padded_kv_heads),
-            ("padded_vocab", self.padded_vocab),
-            ("d_ff", self.d_ff),
-        ) if v and v % m}
+        dims = [("padded_heads", self.padded_heads),
+                ("padded_kv_heads", self.padded_kv_heads),
+                ("padded_vocab", self.padded_vocab),
+                ("d_ff", self.d_ff)]
+        if "rec" in self.block_pattern:
+            dims.append(("rglru_width", self.d_model))
+        if "m" in self.block_pattern:
+            nh = self.padded_heads
+            dp = pad_to(int(self.d_model * self.mlstm_proj_factor), nh)
+            dims += [("mlstm_inner", dp), ("mlstm_heads", nh)]
+        if "s" in self.block_pattern:
+            dims.append(("slstm_heads", self.padded_heads))
+        bad = {name: v for name, v in dims if v and v % m}
         if bad:
             raise ValueError(
                 f"config {self.name} cannot shard over model={m}: "

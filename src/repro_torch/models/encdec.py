@@ -18,20 +18,29 @@ slices through the orchestrator's KV window (the reference's
 :meth:`EncDecLM.forward_hidden` is the training forward.  Prefill
 attention -- the encoder's, the decoder's causal self-attention and its
 cross-attention -- is K2; decode's reads
-of both slabs are plain torch, as the reference's are jnp.  No server
-path exists, as in the reference (its dense admission passes no frames):
-the model's entry points are the interface.
+of both slabs are plain torch, as the reference's are jnp.  The
+server's dense admission passes a request's frames
+(``BatchedServer.submit(..., extra={"frames": ...})``); the model's
+entry points are the interface too.
+
+Over a mesh (row-parallel TP only: :meth:`EncDecLM.param_specs`, the
+reference's) each rank runs its heads of the encoder's and the
+decoder's self- and cross-attention and its columns of the GELU MLPs,
+and holds its KV heads of ``k``, ``v``, ``xk`` and ``xv``; every output
+projection is row-parallel (``layers.tp_reduce``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import P
 from repro_torch.memory import MemoryOrchestrator
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.transformer import (attn_params, dense_init,
-                                            embed_params)
+                                            embed_params, on_mesh)
+from repro_torch.runtime.sharding import BATCH_AXES
 
 
 def mlp2_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -73,6 +82,38 @@ class EncDecLM:
             "ln_f": self._norms(gen, "ln_f")["ln_f"],
         }
 
+    # ----- layouts over a mesh ------------------------------------------------
+    def param_specs(self) -> dict:
+        """Every leaf's ``"model"`` layout (the reference's, unstacked):
+        attention by head with ``wo`` by its contraction rows, the GELU
+        MLPs by column with ``wo`` by rows.  No all-gather placement
+        (``serving_param_specs``): over a mesh it serves row-parallel
+        only."""
+        cfg = self.cfg
+        norms = dict.fromkeys(("ln1", "ln2"), P(None))
+        return {
+            "embed": L.embed_specs(cfg),
+            "enc_layers": [{"attn": L.attn_specs(cfg),
+                            "mlp": L.mlp2_specs(), **norms}
+                           for _ in range(cfg.num_encoder_layers)],
+            "enc_ln": P(None),
+            "dec_layers": [{"attn": L.attn_specs(cfg),
+                            "xattn": L.attn_specs(cfg, cross=True),
+                            "mlp": L.mlp2_specs(), "lnx": P(None), **norms}
+                           for _ in range(cfg.num_layers)],
+            "ln_f": P(None)}
+
+    def cache_specs(self) -> dict:
+        """The slabs' layout: (L, B, Hkv, S, hd) by KV head, the cross KV
+        too."""
+        spec = P(None, BATCH_AXES, "model", None, None)
+        return dict.fromkeys(("k", "v", "xk", "xv"), spec)
+
+    @property
+    def kv_heads(self) -> int:
+        """KV heads this rank's slabs hold."""
+        return self.cfg.padded_kv_heads // self.mem.model_shards
+
     # ----- cache --------------------------------------------------------------
     def supports_paged_kv(self) -> bool:
         return False
@@ -80,8 +121,7 @@ class EncDecLM:
     def cache_shapes(self, batch: int, max_seq: int
                      ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         cfg = self.cfg
-        kv = (cfg.num_layers, batch, cfg.padded_kv_heads, max_seq,
-              cfg.head_dim)
+        kv = (cfg.num_layers, batch, self.kv_heads, max_seq, cfg.head_dim)
         xkv = kv[:3] + (cfg.encoder_seq, cfg.head_dim)
         return {"k": (kv, cfg.dtype), "v": (kv, cfg.dtype),
                 "xk": (xkv, cfg.dtype), "xv": (xkv, cfg.dtype)}
@@ -153,6 +193,7 @@ class EncDecLM:
         return L.lm_head(params["embed"],
                          self.forward_hidden(params, tokens, extra), self.cfg)
 
+    @on_mesh
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
                 extra: dict | None = None):
         """Encode ``extra["frames"]`` and prefill the prompt tokens (B, S):
@@ -174,6 +215,7 @@ class EncDecLM:
         x = self._norm(x[:, -1:], params["ln_f"])
         return L.lm_head(params["embed"], x, cfg), cache
 
+    @on_mesh
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
                     cur_pos: torch.Tensor, pages: torch.Tensor | None = None):
         """tokens: (B, 1); cur_pos: (B,) position being written.  Each
@@ -191,7 +233,7 @@ class EncDecLM:
         cfg = self.cfg
         x = L.embed_lookup(params["embed"], tokens)
         b = x.shape[0]
-        hq, hd = cfg.padded_heads, cfg.head_dim
+        hq, hd = L.local_heads(cfg)[0], cfg.head_dim
         enc_last = torch.full((b,), cache["xk"].shape[3] - 1,
                               dtype=torch.int32, device=x.device)
         s = cache["k"].shape[3]
@@ -207,7 +249,7 @@ class EncDecLM:
             qh = (self._norm(x, lp["lnx"]) @ lp["xattn"]["wq"]).reshape(
                 b, 1, hq, hd)
             o = L.decode_attention(qh, kv["xk"], kv["xv"], enc_last)
-            x = x + o.reshape(b, 1, -1) @ lp["xattn"]["wo"]
+            x = x + L._out_proj(lp["xattn"], o)
             x = x + L.mlp2_forward(lp["mlp"], self._norm(x, lp["ln2"]))
             if offloaded:
                 # advanced indices on dims 0 and 2: value (B, Hkv, hd)

@@ -27,6 +27,16 @@ beside its weights (the reference's ``page_xs``); the tail stays local.
 No kernel runs in the recurrences (the RG-LRU's doubling scan is plain
 torch, differentiated by autograd); the "att" kind's prefill and
 training attention is K2.
+
+Over a mesh (row-parallel TP, the reference's ``param_specs``:
+:meth:`GroupedLM.param_specs`, :meth:`GroupedLM.cache_specs`) each rank
+holds its ``"model"`` slice of the RG-LRU's channels -- the x and y
+branches, the conv, the gates' columns, Λ, and the state ``h`` and
+``conv`` -- and its heads of the local attention and its window.  The
+collectives that the reference's GSPMD inserts are placed here: the
+conv output ``u`` is gathered before the gates (each reads every
+channel), and ``w_out``, like every output projection, is row-parallel
+(``layers.tp_reduce``).
 """
 from __future__ import annotations
 
@@ -34,12 +44,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import P
 from repro_torch.memory import MemoryOrchestrator
 from repro_torch.memory.policies import is_group_cache
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.transformer import (attn_params, dense_init,
-                                            embed_params, mlp_params)
+                                            embed_params, mlp_params,
+                                            on_mesh)
+from repro_torch.runtime.sharding import BATCH_AXES
 
 RGLRU_C = 8.0
 
@@ -67,12 +80,26 @@ def rglru_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def rglru_specs() -> dict:
+    """The RG-LRU's ``"model"`` layout (unstacked): the channels of the x
+    and y branches, the conv, the gates' columns and Λ; ``w_out`` by its
+    contraction rows."""
+    return {"ln": P(None), "w_x": P(None, "model"), "w_y": P(None, "model"),
+            "conv_w": P(None, "model"), "conv_b": P("model"),
+            "w_a": P(None, "model"), "b_a": P("model"),
+            "w_i": P(None, "model"), "b_i": P("model"), "lam": P("model"),
+            "w_out": P("model", None)}
+
+
 def _rglru_gates(p: dict, u: torch.Tensor):
-    """u: (..., d) conv output.  Returns (a, beta * i * u), fp32, from
-    fp32 gate weights (no reduced-precision product)."""
+    """u: (..., d) conv output (this rank's channels over a mesh).
+    Returns (a, beta * i * u), fp32, from fp32 gate weights (no
+    reduced-precision product); the gates read every rank's channels of
+    ``u`` (gathered), their columns are the rank's."""
     u32 = u.float()
-    r = torch.sigmoid(u32 @ p["w_a"].float() + p["b_a"].float())
-    i = torch.sigmoid(u32 @ p["w_i"].float() + p["b_i"].float())
+    ug = L._tp_gathered(u, -1).float()
+    r = torch.sigmoid(ug @ p["w_a"].float() + p["b_a"].float())
+    i = torch.sigmoid(ug @ p["w_i"].float() + p["b_i"].float())
     log_a = -RGLRU_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-9))
@@ -120,7 +147,7 @@ def rglru_seq(p: dict, x: torch.Tensor, h0: torch.Tensor | None = None):
         b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]],
                       dim=1)
     h = linear_scan(a, b).to(x.dtype)
-    out = (h * gate) @ p["w_out"]
+    out = L.tp_reduce((h * gate) @ p["w_out"])
     return out, (h[:, -1], conv_state)
 
 
@@ -133,7 +160,7 @@ def rglru_step(p: dict, x: torch.Tensor, h: torch.Tensor,
     u, conv_state = _causal_conv(p, xb, conv_state)
     a, b = _rglru_gates(p, u[:, 0])                         # (B, d)
     h = (a * h.float() + b).to(x.dtype)
-    out = (h[:, None] * gate) @ p["w_out"]
+    out = L.tp_reduce((h[:, None] * gate) @ p["w_out"])
     return out, h, conv_state
 
 
@@ -155,6 +182,34 @@ class BlockKinds:
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
+        # the model's orchestrator (its bound mesh shards the state)
+        self.mem: MemoryOrchestrator | None = None
+
+    @property
+    def shards(self) -> int:
+        """The ``"model"`` shards of the bound mesh (1 without one)."""
+        return self.mem.model_shards if self.mem is not None else 1
+
+    def block_specs(self, kind: str) -> dict:
+        """One block's ``"model"`` layout (unstacked)."""
+        if kind == "att":
+            return {"attn": L.attn_specs(self.cfg), "mlp": L.mlp_specs(),
+                    "ln1": P(None), "ln2": P(None)}
+        if kind == "rec":
+            return {"rglru": rglru_specs(), "mlp": L.mlp_specs(),
+                    "ln2": P(None)}
+        raise ValueError(kind)
+
+    def state_specs(self, kind: str) -> dict:
+        """One block's state layout, batch-leading (unstacked): the
+        window by KV head, the RG-LRU's state by channel."""
+        if kind == "att":
+            s = P(BATCH_AXES, "model", None, None)
+            return {"k": s, "v": s}
+        if kind == "rec":
+            return {"h": P(BATCH_AXES, "model"),
+                    "conv": P(BATCH_AXES, None, "model")}
+        raise ValueError(kind)
 
     def init_block(self, gen: torch.Generator, kind: str) -> dict:
         cfg = self.cfg
@@ -169,15 +224,17 @@ class BlockKinds:
 
     def state_shapes(self, kind: str, batch: int, max_seq: int
                      ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-        """``{leaf: (shape, dtype)}`` of one block's state."""
+        """``{leaf: (shape, dtype)}`` of one block's state (this rank's
+        slice over a mesh: :meth:`state_specs`)."""
         cfg = self.cfg
         if kind == "att":
             w = cfg.sliding_window
             s = min(max_seq, w) if w else max_seq
-            shape = (batch, cfg.padded_kv_heads, s, cfg.head_dim)
+            shape = (batch, cfg.padded_kv_heads // self.shards, s,
+                     cfg.head_dim)
             return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
         if kind == "rec":
-            d = cfg.d_model
+            d = cfg.d_model // self.shards
             return {"h": ((batch, d), cfg.dtype),
                     "conv": ((batch, cfg.rglru_conv_width - 1, d), cfg.dtype)}
         raise ValueError(kind)
@@ -272,6 +329,7 @@ class GroupedLM:
         self.cfg = cfg
         self.mem = MemoryOrchestrator.plan(cfg)
         self.kinds = kinds or BlockKinds(cfg)
+        self.kinds.mem = self.mem
         plen = len(cfg.block_pattern)
         if not plen:
             raise ValueError("GroupedLM needs cfg.block_pattern")
@@ -295,6 +353,37 @@ class GroupedLM:
             params["tail"] = {f"t{i}": self.kinds.init_block(gen, kind)
                               for i, kind in enumerate(self.tail)}
         return params
+
+    # ----- layouts over a mesh ------------------------------------------------
+    def param_specs(self) -> dict:
+        """Every leaf's ``"model"`` layout (the reference's: the groups'
+        blocks, and the tail's, whose leading layer axis the port's
+        unstacked lists never had; every output projection row-parallel).
+        A grouped family has no all-gather placement
+        (``serving_param_specs``): it serves over a mesh row-parallel
+        only."""
+        cfg = self.cfg
+        specs = {"embed": L.embed_specs(cfg),
+                 "groups": [{f"b{i}": self.kinds.block_specs(kind)
+                             for i, kind in enumerate(cfg.block_pattern)}
+                            for _ in range(self.n_groups)],
+                 "ln_f": P(None)}
+        if self.tail:
+            specs["tail"] = {f"t{i}": self.kinds.block_specs(kind)
+                             for i, kind in enumerate(self.tail)}
+        return specs
+
+    def cache_specs(self) -> dict:
+        """The cache's layout, the tree of :meth:`init_cache`: pattern
+        positions stacked over the groups (a leading None), the tail's
+        blocks as they are."""
+        out = {}
+        for i, kind in enumerate(self.cfg.block_pattern):
+            out[f"b{i}"] = {k: P(None, *v) for k, v in
+                            self.kinds.state_specs(kind).items()}
+        for i, kind in enumerate(self.tail):
+            out[f"t{i}"] = self.kinds.state_specs(kind)
+        return out
 
     # ----- cache --------------------------------------------------------------
     def supports_paged_kv(self) -> bool:
@@ -370,6 +459,7 @@ class GroupedLM:
         return L.lm_head(params["embed"],
                          self.forward_hidden(params, tokens, extra), self.cfg)
 
+    @on_mesh
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
                 extra: dict | None = None):
         """Process the prompt, writing every state leaf of ``cache`` in
@@ -380,6 +470,7 @@ class GroupedLM:
             x = self.kinds.prefill(kind, p, x, positions, state)
         return self._logits(params, x), cache
 
+    @on_mesh
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict,
                     cur_pos: torch.Tensor, pages: torch.Tensor | None = None):
         """tokens: (B, 1); cur_pos: (B,) position being written.  The

@@ -10,17 +10,27 @@ training; the plain blocked online-softmax on the CPU); paged decode
 attention goes to the paged wrapper (K1, or its plain version); decode
 over the dense slab is plain torch, as the reference's is jnp.
 
-Tensor-parallel serving (all-gather TP, the reference's contract): over
-an ambient mesh (:func:`repro_torch.runtime.sharding.activate_mesh`) a
-rank holds its ``"model"`` shard of the QKV projections and their biases
-(by head), of gate/up (by column), of the embedding (by vocab row) and
-of the LM head (by vocab column), and the whole of both output
-projections.  Heads arrive sharded, so attention runs on the rank's
-heads (:func:`_heads_sharded` checks the shape); activations are
-all-gathered before each output projection (:func:`_tp_gathered`), so
-every projection is the single-card dot; the embedding lookup is masked
-to the rank's rows and summed by ``tab_allreduce`` (K4 over one non-zero
-term and zeros: exact), and the logits are all-gathered before sampling.
+Tensor-parallel serving: over an ambient mesh
+(:func:`repro_torch.runtime.sharding.activate_mesh`) a rank holds its
+``"model"`` shard of the QKV projections and their biases (by head), of
+gate/up (by column), of the embedding (by vocab row) and of the LM head
+(by vocab column).  Heads arrive sharded, so attention runs on the
+rank's heads (:func:`_heads_sharded` checks the shape); the embedding
+lookup is masked to the rank's rows and summed by ``tab_allreduce`` (K4
+over one non-zero term and zeros: exact), and the logits are
+all-gathered before sampling.  The output projections (attention's
+``wo``, the MLPs' down projections) take one of two modes, which the
+ambient mesh carries:
+
+* all-gather TP (the reference's ``deterministic=True``): the rank holds
+  them whole and the activations are all-gathered before each
+  (:func:`_tp_gathered`), so every projection is the single-card dot;
+* row-parallel TP (``deterministic=False``): the rank holds their
+  contraction rows (``param_specs``), multiplies its own slice of the
+  activations, and :func:`tp_reduce` sums the ranks' partial products
+  with ``tab_allreduce`` (on the shared region: K4 in slot order), so
+  a run is deterministic but rounds otherwise than one card.
+
 Without a mesh all of it is the identity.
 
 Prefill runs its row-wise work (norms, projections, RoPE, the MLP) in
@@ -56,9 +66,10 @@ NEG_INF = -1e30
 def attn_specs(cfg: ModelConfig, *, cross: bool = False,
                stacked: bool = False) -> dict:
     """The attention weights' ``"model"`` layout: QKV by head (columns),
-    the output projection by its contraction rows (training's layout;
-    serving replicates it).  ``stacked`` adds a leading layer axis (the
-    port's layers are a list: unstacked)."""
+    the output projection by its contraction rows (training's and
+    row-parallel serving's layout; all-gather serving replicates it).
+    ``stacked`` adds a leading layer axis (the port's layers are a list:
+    unstacked)."""
     lead = (None,) if stacked else ()
 
     def mk(*dims):
@@ -122,6 +133,38 @@ def _tp_gathered(t: torch.Tensor, dim: int) -> torch.Tensor:
     return tab_allgather(t, "model", axis=dim % t.dim(), mesh=mesh)
 
 
+def tp_reduce(t: torch.Tensor) -> torch.Tensor:
+    """The row-parallel TP boundary of serving: this rank's partial
+    product against its contraction rows of an output projection,
+    summed over the ambient mesh's ``"model"`` axis by ``tab_allreduce``
+    (fp32 accumulation in rank order, in ``t``'s dtype).  The identity
+    without a mesh and under all-gather TP, where each rank's product
+    is already the whole one."""
+    mesh = sharding.ambient_mesh()
+    if (mesh is None or mesh.axis_size("model") == 1
+            or not sharding.row_parallel()):
+        return t
+    from repro_torch.core.tab import tab_allreduce
+    return tab_allreduce(t, "model", mesh=mesh)
+
+
+def local_slice(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's contiguous slice of ``t`` along ``dim`` over the
+    ambient mesh's ``"model"`` axis (the columns a ``P(..., "model")``
+    weight gives it); the whole of ``t`` without a mesh."""
+    m = sharding.model_shards()
+    if m == 1:
+        return t
+    n = t.shape[dim] // m
+    return t.narrow(dim, sharding.ambient_mesh().axis_index("model") * n, n)
+
+
+def _contraction_input(t: torch.Tensor) -> torch.Tensor:
+    """What an output projection multiplies: the rank's own columns
+    under row-parallel TP, every rank's gathered under all-gather TP."""
+    return t if sharding.row_parallel() else _tp_gathered(t, -1)
+
+
 def by_rows(fn: Callable, rows: int, *xs: torch.Tensor):
     """Apply ``fn`` to aligned chunks of ``rows`` rows (dim 1) of ``xs``
     and concatenate its output(s) along dim 1; ``rows <= 0`` applies it
@@ -155,6 +198,20 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def rmsnorm_sharded(x: torch.Tensor, scale: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` of a tensor whose last dim (and ``scale``) is this
+    rank's slice over the ambient mesh: the statistic is taken over
+    every rank's columns (gathered), so each element is the one-card
+    norm's, bit for bit.  Plain :func:`rmsnorm` without a mesh."""
+    if sharding.model_shards() == 1:
+        return rmsnorm(x, scale, eps)
+    full = _tp_gathered(x, -1).float()
+    var = full.square().mean(dim=-1, keepdim=True)
+    out = x.float() * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
 
 
@@ -351,11 +408,19 @@ def _rope_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _out_partial(p: dict, o: torch.Tensor) -> torch.Tensor:
+    """(B, S, heads, hd) -> (B, S, d): the output projection of the
+    rank's heads (all-gather TP: every rank's heads gathered, against
+    the replicated ``wo``, the whole product; row-parallel TP: the
+    rank's heads against its rows of ``wo``, a partial product)."""
+    o = o.reshape(o.shape[0], o.shape[1], -1)
+    return _contraction_input(o) @ p["wo"]
+
+
 def _out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
-    """(B, S, heads, hd) -> (B, S, d): the rank's heads gathered, then
-    the (replicated) output projection."""
-    o = _tp_gathered(o, 2)
-    return o.reshape(o.shape[0], o.shape[1], -1) @ p["wo"]
+    """(B, S, heads, hd) -> (B, S, d): :func:`_out_partial`, the ranks'
+    partial products summed under row-parallel TP."""
+    return tp_reduce(_out_partial(p, o))
 
 
 def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -401,7 +466,7 @@ def attn_prefill_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       positions[None, :])
     ka, va = _kv_roundtripped(k, v, cfg) if kv_roundtrip else (k, v)
     o = flash_attention(q, ka, va, causal=True, window=cfg.sliding_window)
-    return by_rows(lambda oc: _out_proj(p, oc), rows, o), (k, v)
+    return tp_reduce(by_rows(lambda oc: _out_partial(p, oc), rows, o)), (k, v)
 
 
 def attn_prefill_prefix_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -428,7 +493,7 @@ def attn_prefill_prefix_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
     vf = torch.cat([v_prefix.to(v.dtype), va], dim=1)
     o = flash_attention(q, kf, vf, causal=True, window=cfg.sliding_window,
                         q_offset=prefix_len)
-    return by_rows(lambda oc: _out_proj(p, oc), rows, o), (k, v)
+    return tp_reduce(by_rows(lambda oc: _out_partial(p, oc), rows, o)), (k, v)
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
@@ -504,17 +569,30 @@ def attn_decode_paged(p: dict, x: torch.Tensor, k_pages: torch.Tensor,
 # MLP / embeddings
 # ---------------------------------------------------------------------------
 
-def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU; over a mesh the rank's hidden columns are gathered before
-    the (replicated) down projection."""
+def mlp_partial(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU before the ranks' sum: over a mesh the rank's hidden
+    columns go into the down projection as :func:`_out_partial`'s heads
+    do (gathered against the whole ``wo``, or alone against its rows)."""
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return _tp_gathered(h, -1) @ p["wo"]
+    return _contraction_input(h) @ p["wo"]
+
+
+def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU (:func:`mlp_partial`, summed under row-parallel TP)."""
+    return tp_reduce(mlp_partial(p, x))
+
+
+def mlp2_partial(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The non-gated GELU MLP (whisper's) before the ranks' sum; GELU's
+    tanh form, as ``jax.nn.gelu`` computes it by default."""
+    h = F.gelu(x @ p["wi"], approximate="tanh")
+    return _contraction_input(h) @ p["wo"]
 
 
 def mlp2_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The non-gated GELU MLP (whisper's); GELU's tanh form, as
-    ``jax.nn.gelu`` computes it by default."""
-    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    """The GELU MLP (:func:`mlp2_partial`, summed under row-parallel
+    TP)."""
+    return tp_reduce(mlp2_partial(p, x))
 
 
 def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:

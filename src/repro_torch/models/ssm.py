@@ -16,6 +16,22 @@ Their state is O(1) a
 slot whatever the length, fp32 whatever the model's dtype; decode is the
 sequence function over one token with the carried state.  ``d_ff`` is 0:
 each block carries its own projections.  No kernel runs here.
+
+Over a mesh (row-parallel TP, the reference's specs: ``mlstm_specs``,
+``slstm_specs``, :meth:`XLSTMKinds.state_specs`) each rank runs its
+heads: their columns of the q/k/v and gate projections, their recurrent
+matrices, norm scales and fp32 state.  The collectives that the
+reference's GSPMD inserts are placed here:
+
+* mLSTM: the up projection (sharded by column over both of its halves)
+  is gathered before the head projections read it; the head norm's
+  statistic spans every head (:func:`layers.rmsnorm_sharded`); the
+  down projection is row-parallel (``layers.tp_reduce``).
+* sLSTM: the input projection's columns (sharded across the four
+  gates) are gathered and the rank takes its heads of each gate; after
+  the norm, the up projection is sharded by its input rows, so its
+  product is a partial sum (``tp_reduce``) before the GELU; the down
+  projection is replicated.
 """
 from __future__ import annotations
 
@@ -25,10 +41,12 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.launch.mesh import P
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.hybrid import BlockKinds, GroupedLM, write_state
 from repro_torch.models.transformer import dense_init
+from repro_torch.runtime.sharding import BATCH_AXES, model_shards
 
 #: the stabilizer's start: exp(m0 - anything finite) is exactly 0
 M0 = -1e30
@@ -104,13 +122,27 @@ def mlstm_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def mlstm_specs() -> dict:
+    """The mLSTM's ``"model"`` layout (unstacked): columns (heads) of
+    every projection into the inner space, the gates and the norm; the
+    down projection by its contraction rows."""
+    return {"ln": P(None), "w_up": P(None, "model"), "w_q": P(None, "model"),
+            "w_k": P(None, "model"), "w_v": P(None, "model"),
+            "w_i": P(None, "model"), "b_i": P("model"),
+            "w_f": P(None, "model"), "b_f": P("model"), "gn": P("model"),
+            "w_down": P("model", None)}
+
+
 def mlstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
               state: dict | None = None):
     """The mLSTM over x (B, S, d), normed, from ``state`` ({C, n, m}, a
-    fresh one when None).  Returns (out (B, S, d), the new state)."""
+    fresh one when None; this rank's heads over a mesh).  Returns (out
+    (B, S, d), the new state)."""
     dp, nh, hd = mlstm_dims(cfg)
+    nh //= model_shards()
     b, s, _ = x.shape
-    z, gate = (x @ p["w_up"]).chunk(2, dim=-1)             # (B, S, dp) each
+    up = L._tp_gathered(x @ p["w_up"], -1)                  # (B, S, 2 dp)
+    z, gate = up.chunk(2, dim=-1)                           # (B, S, dp) each
     q = (z @ p["w_q"]).reshape(b, s, nh, hd) / math.sqrt(hd)
     k = (z @ p["w_k"]).reshape(b, s, nh, hd) / math.sqrt(hd)
     v = (z @ p["w_v"]).reshape(b, s, nh, hd)
@@ -138,8 +170,9 @@ def mlstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         return (c, n, m_new), (hq / denom[..., None]).to(x.dtype)
 
     (c, n, m), hs = chunked_time_scan(step, (c, n, m), s, q.requires_grad)
-    hs = torch.stack(hs, dim=1).reshape(b, s, dp)
-    out = (L.rmsnorm(hs, p["gn"], 1e-6) * gate) @ p["w_down"]
+    hs = torch.stack(hs, dim=1).reshape(b, s, nh * hd)
+    hs = L.rmsnorm_sharded(hs, p["gn"], 1e-6) * L.local_slice(gate)
+    out = L.tp_reduce(hs @ p["w_down"])
     return out, {"C": c, "n": n, "m": m}
 
 
@@ -165,13 +198,28 @@ def slstm_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def slstm_specs() -> dict:
+    """The sLSTM's ``"model"`` layout (unstacked): the input projection
+    by column, the recurrent matrices, biases and norm by head, the up
+    projection by its input rows (a partial sum), the down projection
+    whole."""
+    return {"ln": P(None), "w_in": P(None, "model"),
+            "r_z": P("model", None, None), "r_i": P("model", None, None),
+            "r_f": P("model", None, None), "r_o": P("model", None, None),
+            "b": P(None, "model", None), "gn": P("model"),
+            "w_up": P("model", None), "w_down": P(None, None)}
+
+
 def slstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
               state: dict | None = None):
     """The sLSTM over x (B, S, d), normed, from ``state`` ({c, n, h, m},
-    a fresh one when None).  Returns (out (B, S, d), the new state)."""
+    a fresh one when None; this rank's heads over a mesh).  Returns (out
+    (B, S, d), the new state)."""
     nh, hd = slstm_dims(cfg)
     b, s, _ = x.shape
-    zifo = (x @ p["w_in"]).reshape(b, s, 4, nh, hd)
+    zifo = L._tp_gathered(x @ p["w_in"], -1).reshape(b, s, 4, nh, hd)
+    zifo = L.local_slice(zifo, 3)
+    nh = zifo.shape[3]
     if state is None:
         c, n, h = (x.new_zeros((b, nh, hd), dtype=torch.float32)
                    for _ in range(3))
@@ -204,8 +252,9 @@ def slstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         step, (c, n, h, m), s,
         any(t.requires_grad for t in (zifo, r_z, r_i, r_f, r_o)))
     hs = torch.stack(hs, dim=1).reshape(b, s, nh * hd).to(x.dtype)
-    hs = L.rmsnorm(hs, p["gn"], 1e-6)
-    out = F.gelu(hs @ p["w_up"], approximate="tanh") @ p["w_down"]
+    hs = L.rmsnorm_sharded(hs, p["gn"], 1e-6)
+    out = F.gelu(L.tp_reduce(hs @ p["w_up"]), approximate="tanh") \
+        @ p["w_down"]
     return out, {"c": c, "n": n, "h": h, "m": m}
 
 
@@ -227,15 +276,34 @@ class XLSTMKinds(BlockKinds):
             return {"slstm": slstm_params(gen, self.cfg)}
         return super().init_block(gen, kind)
 
+    def block_specs(self, kind: str) -> dict:
+        if kind == "m":
+            return {"mlstm": mlstm_specs()}
+        if kind == "s":
+            return {"slstm": slstm_specs()}
+        return super().block_specs(kind)
+
+    def state_specs(self, kind: str) -> dict:
+        """The fp32 states by head, batch-leading (unstacked)."""
+        if kind == "m":
+            return {"C": P(BATCH_AXES, "model", None, None),
+                    "n": P(BATCH_AXES, "model", None),
+                    "m": P(BATCH_AXES, "model")}
+        if kind == "s":
+            return dict.fromkeys("cnhm", P(BATCH_AXES, "model", None))
+        return super().state_specs(kind)
+
     def state_shapes(self, kind: str, batch: int, max_seq: int):
         f32 = torch.float32
         if kind == "m":
             _, nh, hd = mlstm_dims(self.cfg)
+            nh //= self.shards
             return {"C": ((batch, nh, hd, hd), f32),
                     "n": ((batch, nh, hd), f32), "m": ((batch, nh), f32)}
         if kind == "s":
             nh, hd = slstm_dims(self.cfg)
-            return {name: ((batch, nh, hd), f32) for name in "cnhm"}
+            return {name: ((batch, nh // self.shards, hd), f32)
+                    for name in "cnhm"}
         return super().state_shapes(kind, batch, max_seq)
 
     def _run(self, kind: str, p: dict, x: torch.Tensor, state: dict,

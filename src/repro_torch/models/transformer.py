@@ -36,9 +36,10 @@ Over a mesh (the server binds one to the model's orchestrator) each rank
 is a process holding its shard: the serving entry points (prefill,
 decode) run on the rank's heads, over the ambient mesh
 (:func:`repro_torch.runtime.sharding.activate_mesh`), and the caches hold
-the rank's KV heads (:attr:`DenseLM.kv_heads`); ``serving_param_specs``,
-``cache_specs`` and ``paged_cache_specs`` are the layouts
-(:mod:`repro_torch.models.layers` has the TP boundaries).
+the rank's KV heads (:attr:`DenseLM.kv_heads`); ``serving_param_specs``
+(all-gather TP) or ``param_specs`` (row-parallel TP), ``cache_specs``
+and ``paged_cache_specs`` are the layouts (:mod:`repro_torch.models.
+layers` has the TP boundaries).
 """
 from __future__ import annotations
 
@@ -195,10 +196,12 @@ def _write_tokens(pools: dict, pids: torch.Tensor, slots: torch.Tensor,
 
 def on_mesh(fn):
     """Run a model entry point over the mesh its orchestrator is bound
-    to (``self.mem.mesh``; nothing without one)."""
+    to (``self.mem.mesh``; nothing without one), in the TP mode it was
+    bound with (``self.mem.row_parallel``)."""
     @functools.wraps(fn)
     def run(self, *args, **kwargs):
-        with activate_mesh(self.mem.mesh):
+        with activate_mesh(self.mem.mesh,
+                           row_parallel=self.mem.row_parallel):
             return fn(self, *args, **kwargs)
     return run
 
@@ -222,8 +225,8 @@ class DenseLM:
                 "ln1": P(None), "ln2": P(None)}
 
     def param_specs(self) -> dict:
-        """Every leaf's ``"model"`` layout (training's: the output
-        projections contraction-sharded)."""
+        """Every leaf's ``"model"`` layout (training's and row-parallel
+        serving's: the output projections contraction-sharded)."""
         return {"embed": L.embed_specs(self.cfg),
                 "layers": [self.layer_specs()
                            for _ in range(self.cfg.num_layers)],
@@ -297,9 +300,11 @@ class DenseLM:
     # ----- blocks ------------------------------------------------------------
     def ffn(self, lp: dict, x: torch.Tensor, rows: int = 0) -> torch.Tensor:
         """The block's feed-forward (the reference's ``ffn`` hook): the
-        SwiGLU MLP, in ``rows``-row chunks (:func:`L.by_rows`).  Families
-        with another FFN (MoE) override it."""
-        return L.by_rows(lambda xc: L.mlp_forward(lp["mlp"], xc), rows, x)
+        SwiGLU MLP, in ``rows``-row chunks (:func:`L.by_rows`), the
+        chunks' partial products summed at once under row-parallel TP.
+        Families with another FFN (MoE) override it."""
+        return L.tp_reduce(
+            L.by_rows(lambda xc: L.mlp_partial(lp["mlp"], xc), rows, x))
 
     def _block_tail(self, lp: dict, x: torch.Tensor, a: torch.Tensor,
                     rows: int = 0) -> torch.Tensor:

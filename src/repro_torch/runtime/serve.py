@@ -98,8 +98,9 @@ live batch — no batch restart.
   banks rest in the remote tier and only routed experts are paged in,
   on the device, with no host sync), ``VLM``, text-only as in the
   reference (``submit`` takes no patches), and the pattern models
-  ``HybridLM`` and ``XLSTM`` over the dense slab.  ``EncDecLM`` has no
-  server path, as in the reference (``submit`` takes no frames).  An MoE's capacity depends
+  ``HybridLM`` and ``XLSTM`` over the dense slab.  ``EncDecLM`` over the
+  dense slab too, its frames passed with each request (``submit(...,
+  extra=)``: the reference's server takes none).  An MoE's capacity depends
   on the tokens of a call, so its prefix-shared, chunked and
   disaggregated admissions may keep or drop other choices than a
   monolithic one: the reference's semantics, not a bit-identity
@@ -148,6 +149,31 @@ live batch — no batch restart.
   mesh's transport), so every rank sheds, parks or degrades alike and
   issues the same collectives after.  Not wired yet over a mesh: data >
   1 and MoE (expert paging with it).
+
+  ``deterministic=False`` (the reference's opt-out) serves row-parallel
+  TP instead: the reference's training layout (``model.param_specs``:
+  QKV, gate/up and the recurrent input branches by column, every output
+  or down projection by its contraction rows), each rank's partial
+  product summed by ``tab_allreduce`` over the mesh's transport -- on
+  the shared region K4 accumulates the ranks' partials in slot order, on
+  every layer.  A rank holds no replicated output projection (less
+  weight memory a rank), and a run is deterministic (two runs, or the
+  two transports, give the same bits), but each rank's partial rounds
+  on its own, so tokens may part from one card's: cross-placement
+  bit-identity is what it trades away.  The placement-only contracts
+  (paged weights, ``offload_kv``, preemption, cold parking,
+  disaggregated prefill against resident monolithic runs of the same
+  mesh and mode) hold bit for bit.  It also opens mesh serving to the
+  families with no all-gather placement: ``HybridLM``, ``XLSTM`` and
+  ``EncDecLM``, resident over the slab (their memory tiers under a mesh
+  are refused).  Without a mesh, or on a mesh of one rank, it serves as
+  ``True`` does; ``stats["deterministic"]`` records the mode.
+
+* **Requests with inputs beside the prompt.**  ``submit(..., extra=)``
+  hands a request's model inputs to its dense admission
+  (``model.prefill(..., extra)``): an ``EncDecLM``'s ``{"frames": (1,
+  encoder_seq, d)}``, which is how the encoder-decoder is served.  The
+  pools' admissions take none (raises).
 """
 from __future__ import annotations
 
@@ -194,6 +220,9 @@ class Request:
     deadline_blocks: int | None = None
     # "completed" | "shed" | "rejected" | "expired" (None = in flight)
     outcome: str | None = None
+    # model inputs beside the prompt for the dense admission's prefill
+    # (an encoder-decoder's {"frames": (1, encoder_seq, d)}); None: none
+    extra: dict | None = None
     # why the server ended the request instead of completing it:
     # {"reason", "detail", "uid", "tokens_emitted"}; None on completion
     error: dict | None = None
@@ -284,32 +313,49 @@ def make_decode_loop(model, *, block_size: int, temperature: float = 0.0,
                       detect_nonfinite=detect_nonfinite, graph=graph)
 
 
-def _check_mesh(model, mesh):
+def _check_mesh(model, mesh, deterministic: bool = True):
     """Validate a serving mesh BEFORE the server binds it (a rejected mesh
     must leave the model's orchestrator unbound): the config must shard
     over it (``assert_mesh_compatible``: MoE banks are refused there),
-    the family must have the all-gather-TP placement
-    (``serving_param_specs``), and a mesh of several ranks must be this
-    rank's (with transports), over the ``"model"`` axis only."""
+    the family must have the placement of the mode (all-gather TP:
+    ``serving_param_specs``; row-parallel TP, ``deterministic=False``:
+    ``param_specs``), a grouped or encoder-decoder family under
+    row-parallel TP must not page (its memory tiers under a mesh are not
+    wired), and a mesh of several ranks must be this rank's (with
+    transports), over the ``"model"`` axis only.  Returns the mesh and
+    the spec tree its placement shards by."""
     if mesh is None:
-        return None
+        return None, None
     from repro_torch.runtime.sharding import mesh_axis_sizes
     model.cfg.assert_mesh_compatible(mesh_axis_sizes(mesh))
-    if getattr(model, "serving_param_specs", None) is None:
+    spec_fn = (getattr(model, "serving_param_specs", None) if deterministic
+               else model.param_specs)
+    if spec_fn is None:
         raise ValueError(
             f"{type(model).__name__} does not expose serving_param_specs; "
             f"its family is not wired for the all-gather-TP serving "
             f"placement, and serving it over a mesh would emit silently "
-            f"diverging tokens (partial-sum rounding)")
+            f"diverging tokens (partial-sum rounding); "
+            f"BatchedServer(..., deterministic=False) serves it "
+            f"row-parallel (param_specs), deterministic within a run")
     if mesh.size == 1:
-        return mesh
+        return mesh, spec_fn()
+    pager = model.cfg.pager
+    if (not deterministic and model.cfg.family in ("hybrid", "ssm", "encdec")
+            and (pager.enabled or pager.offload_kv)):
+        raise ValueError(
+            f"{type(model).__name__} under row-parallel TP with the pager "
+            f"on (enabled={pager.enabled}, offload_kv={pager.offload_kv}): "
+            f"the memory tiers of the grouped and encoder-decoder families "
+            f"over a mesh are not wired yet (ROADMAP, Queue 1 item 3); "
+            f"serve them resident")
     if not mesh.bound:
         raise ValueError(f"{mesh!r} has no transports: serve it in the "
                          f"ranks repro_torch.launch.mesh.spawn starts")
     if mesh.axis_size("data") > 1:
         raise ValueError(f"{mesh!r}: serving over data > 1 (batch-sharded "
                          f"replicas) is not wired yet")
-    return mesh
+    return mesh, spec_fn()
 
 
 def _bucket(n: int, quantum: int = 8) -> int:
@@ -345,7 +391,11 @@ class BatchedServer:
     handoffs; ``max_pending`` caps queued requests and ``overload_factor``
     the projected worst-case page demand (x the pool), beyond which
     ``submit`` rejects; ``handoff_lease_blocks`` is how long a staged
-    handoff stays adoptable before the watchdog reclaims it."""
+    handoff stays adoptable before the watchdog reclaims it.
+
+    ``mesh`` serves tensor-parallel over its ``"model"`` axis:
+    all-gather TP by default, row-parallel TP with ``deterministic=False``
+    (see the module docstring)."""
 
     # blocks a narrower bucketed table width must persist before the
     # table shrinks (growth is immediate: an unmapped page would corrupt
@@ -379,7 +429,7 @@ class BatchedServer:
                  overload_factor: float | None = None,
                  handoff_lease_blocks: int = 64,
                  paged: bool | None = None, graph: bool | None = None,
-                 mesh=None):
+                 mesh=None, deterministic: bool = True):
         if paged is None:
             paged = model.supports_paged_kv()
         self.paged = bool(paged)
@@ -412,8 +462,9 @@ class BatchedServer:
         self.max_pending = max_pending
         self.overload_factor = overload_factor
         self.handoff_lease_blocks = handoff_lease_blocks
-        self.mesh = _check_mesh(model, mesh)
-        model.mem.bind_mesh(mesh)
+        self.deterministic = bool(deterministic)
+        self.mesh, specs = _check_mesh(model, mesh, self.deterministic)
+        model.mem.bind_mesh(mesh, row_parallel=not self.deterministic)
         try:
             # the model's orchestrator: one ledger for its weights and this
             # server's KV pool
@@ -421,11 +472,12 @@ class BatchedServer:
             cfg = model.cfg
             if mesh is not None:
                 # all-gather TP: the output projections replicated, the
-                # rest sharded over "model" (DenseLM.serving_param_specs);
-                # with the pager on, this rank's layer shards go to the
-                # remote tier behind its own Tensor Prefetcher
-                self.params = self.mem.place_params(
-                    params, model.serving_param_specs())
+                # rest sharded over "model" (serving_param_specs);
+                # row-parallel TP: every leaf by param_specs, the output
+                # projections by their contraction rows.  With the pager
+                # on, this rank's layer shards go to the remote tier
+                # behind its own Tensor Prefetcher
+                self.params = self.mem.place_params(params, specs)
             self.page_size = page_size or cfg.page_size
             self.transfer_monitor = StragglerMonitor(factor=3.0)
             if self.paged:
@@ -552,7 +604,9 @@ class BatchedServer:
                       "graph_blocks": 0, "eager_blocks": 0,
                       "kernel_launches": {},
                       "model_shards": getattr(getattr(self, "mem", None),
-                                              "model_shards", 1)}
+                                              "model_shards", 1),
+                      "deterministic": getattr(self, "deterministic",
+                                               True)}
 
     # ----- host <-> device ---------------------------------------------------
     def _h2d(self, a: np.ndarray, out: torch.Tensor | None = None
@@ -590,11 +644,15 @@ class BatchedServer:
 
     # ----- request intake ----------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32, *,
-               deadline_blocks: int | None = None) -> Request:
+               deadline_blocks: int | None = None,
+               extra: dict | None = None) -> Request:
         """Enqueue a request; oversized work raises here, in the caller's
         frame.  ``deadline_blocks``: the request is cancelled
         (``outcome == "expired"``) once that many decode blocks pass
-        without its completion.  Under overload control (``max_pending``,
+        without its completion.  ``extra``: the request's model inputs
+        beside the prompt, host arrays with a leading batch of 1 (an
+        encoder-decoder's ``{"frames": ...}``), for the dense slab's
+        admission only.  Under overload control (``max_pending``,
         ``overload_factor``) a request the server cannot credibly serve
         comes back at once, ``done`` set, ``outcome == "rejected"`` and a
         structured ``error``, instead of joining an unbounded queue."""
@@ -603,6 +661,9 @@ class BatchedServer:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if extra is not None and self.paged:
+            raise ValueError("extra model inputs are admitted over the "
+                             "dense slab only (paged=False)")
         if len(prompt) + max(max_new_tokens - 1, 0) > self.max_seq:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens})"
@@ -615,7 +676,8 @@ class BatchedServer:
                     f"request needs up to {worst} KV pages but the pool "
                     f"only has {self.manager.capacity}")
         self._uid += 1
-        req = Request(self._uid, prompt, max_new_tokens=max_new_tokens)
+        req = Request(self._uid, prompt, max_new_tokens=max_new_tokens,
+                      extra=extra)
         req.submitted_block = self.stats["blocks"]
         req.deadline_blocks = deadline_blocks
         overload = self._admission_gate(req, worst)
@@ -947,7 +1009,10 @@ class BatchedServer:
             self._note_prefill_dispatch(plen)
             staged = self.mem.kv_offloaded(self.cache)
             row = self._zeros_row() if staged else self._slot_row(slot)
-            logits, _ = model.prefill(params, self._h2d(toks), row)
+            extra = (None if req.extra is None else
+                     {k: self._h2d(np.asarray(v)) for k, v in
+                      req.extra.items()})
+            logits, _ = model.prefill(params, self._h2d(toks), row, extra)
             if staged:
                 self._store_row(slot, row)
         # the first token lands at position plen: drawn under

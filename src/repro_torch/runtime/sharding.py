@@ -12,11 +12,13 @@ packs the pageable groups' slices (:func:`shard_views`) into the remote
 tier itself.  A spec of all None (:func:`replicated`)
 is the whole leaf on every rank.
 
-The model's tensor-parallel boundaries (``layers._tp_gathered``, the
-vocab-sharded embedding) run over the *ambient* mesh: the one
-:func:`activate_mesh` makes current for the extent of a call (a model
-whose orchestrator is bound to a mesh enters it in each of its entry
-points).  Outside one they are no-ops.
+The model's tensor-parallel boundaries (``layers._tp_gathered``,
+``layers.tp_reduce``, the vocab-sharded embedding) run over the
+*ambient* mesh: the one :func:`activate_mesh` makes current for the
+extent of a call (a model whose orchestrator is bound to a mesh enters
+it in each of its entry points), with the serving mode it carries:
+all-gather TP (the default) or row-parallel TP (``row_parallel``, the
+reference's ``deterministic=False``).  Outside one they are no-ops.
 
 Where the reference parses XLA's HLO for the bytes of each collective
 (``collective_bytes_by_axis``), the port's transports tally what they
@@ -159,7 +161,7 @@ def batch_spec(mesh: Mesh, *trailing) -> P:
 
 def replicated(mesh: Mesh | None = None) -> P:
     """The spec of a leaf every rank holds whole (decode state, page
-    tables, norms, the output projections of serving)."""
+    tables, norms, the output projections of all-gather serving)."""
     return P()
 
 
@@ -180,21 +182,34 @@ def ambient_mesh() -> Mesh | None:
     return getattr(_STATE, "mesh", None)
 
 
+def row_parallel() -> bool:
+    """Whether the ambient mesh serves row-parallel TP: the output
+    projections hold their contraction rows and each rank's partial
+    product is summed (``layers.tp_reduce``).  False without a mesh."""
+    return ambient_mesh() is not None and getattr(_STATE, "row_parallel",
+                                                  False)
+
+
 @contextlib.contextmanager
-def activate_mesh(mesh: Mesh | None):
-    """Make ``mesh`` ambient for the extent of the ``with``; None (or a
-    mesh of one rank) leaves the ambient mesh as it is."""
+def activate_mesh(mesh: Mesh | None, *, row_parallel: bool = False):
+    """Make ``mesh`` ambient for the extent of the ``with``, in the mode
+    ``row_parallel`` names (the placement decides it: ``param_specs``
+    for row-parallel TP, ``serving_param_specs`` for all-gather TP);
+    None (or a mesh of one rank) leaves the ambient mesh as it is."""
     if mesh is None or mesh.size == 1:
         yield
         return
     prev = ambient_mesh()
-    if prev is not None and prev is not mesh:
-        raise RuntimeError(f"{mesh!r} activated inside {prev!r}")
-    _STATE.mesh = mesh
+    prev_mode = getattr(_STATE, "row_parallel", False)
+    if prev is not None and (prev is not mesh or prev_mode != row_parallel):
+        raise RuntimeError(f"{mesh!r} (row_parallel={row_parallel}) "
+                           f"activated inside {prev!r} (row_parallel="
+                           f"{prev_mode})")
+    _STATE.mesh, _STATE.row_parallel = mesh, bool(row_parallel)
     try:
         yield
     finally:
-        _STATE.mesh = prev
+        _STATE.mesh, _STATE.row_parallel = prev, prev_mode
 
 
 def model_shards(mesh: Mesh | None = None) -> int:

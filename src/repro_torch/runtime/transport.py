@@ -165,8 +165,12 @@ class SelfTransport(Transport):
 class SharedRegionTransport(Transport):
     """The TAB: collectives through one shared region (see the module
     docstring).  ``world.region`` holds two halves; a collective of an
-    n-byte contribution uses slots ``[i n, (i + 1) n)`` of one half, so
-    ``size * n`` must fit in a half."""
+    n-byte contribution uses slots ``[i n, (i + 1) n)`` of one half.  A
+    contribution whose ``size * n`` bytes do not fit a half goes in
+    rounds (:meth:`_rounds`), each a write, a notice and a read of one
+    half, tallied as one transfer: the gathers move bytes and the
+    accumulate is elementwise, so the result is the one-round result,
+    bit for bit."""
 
     def __init__(self, world, axis: str):
         if world.region is None:
@@ -202,6 +206,32 @@ class SharedRegionTransport(Transport):
         return self.region[base: base + self.size * n].view(x.dtype).view(
             (self.size,) + tuple(x.shape))
 
+    def _fits(self, x: torch.Tensor) -> bool:
+        return x.numel() * x.element_size() * self.size <= self.half
+
+    def _rounds(self, x: torch.Tensor, kind: str, reduce: bool
+                ) -> torch.Tensor:
+        """A contribution too large for a half, in rounds of the most
+        whole elements whose N slots fit one: (N, *x.shape), every
+        rank's ``x`` (``reduce`` False: their bytes, gathered), or the
+        accumulated sum (``reduce``: K4 over each round's slots)."""
+        flat = x.contiguous().reshape(-1)
+        per = self.half // (self.size * x.element_size())
+        if per < 1:
+            raise ValueError(f"an element of {x.element_size()} bytes from "
+                             f"{self.size} ranks does not fit a half of the "
+                             f"shared region ({self.half} bytes)")
+        parts = []
+        for i in range(0, flat.numel(), per):
+            piece = flat[i: i + per]
+            base, n = self._write(piece, self.rank)
+            slots = self._slots(base, n, piece)
+            parts.append(_accumulate(slots) if reduce else slots.clone())
+            self._count(kind, n)
+        out = torch.cat(parts, dim=-1)
+        return (out.view(x.shape) if reduce
+                else out.view((self.size,) + tuple(x.shape)))
+
     def barrier(self) -> None:
         import torch.distributed as dist
         t0 = time.perf_counter()
@@ -211,18 +241,27 @@ class SharedRegionTransport(Transport):
         self.wait_s += time.perf_counter() - t0
 
     def all_gather(self, x, dim=0):
+        if not self._fits(x):
+            slots = self._rounds(x, "all_gather", reduce=False)
+            return torch.cat(list(slots.unbind(0)), dim=dim)
         base, n = self._write(x, self.rank)
         out = torch.cat(list(self._slots(base, n, x).unbind(0)), dim=dim)
         self._count("all_gather", n)
         return out
 
     def all_reduce(self, x):
+        if not self._fits(x):
+            return self._rounds(x, "all_reduce", reduce=True)
         base, n = self._write(x, self.rank)
         out = _accumulate(self._slots(base, n, x))
         self._count("all_reduce", n)
         return out
 
     def reduce_scatter(self, x, dim=0):
+        if not self._fits(x):
+            # this rank's chunk of the elementwise sum of the whole
+            whole = self._rounds(x, "reduce_scatter", reduce=True)
+            return _chunks(whole, self.size, dim)[self.rank].contiguous()
         base, n = self._write(x, self.rank)
         slots = self._slots(base, n, x)
         mine = _chunks(slots, self.size, dim + 1)[self.rank]
