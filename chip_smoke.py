@@ -119,13 +119,14 @@ tiers and disagg by default):
 4c. ``families``: the hybrid, ssm and encdec families at full width,
    tp=1, random weights from a seed, after the gpt3 phase and before the
    Qwen weights exist, each freeing its weights when done.
-   recurrentgemma-9b at full depth (38 layers: 12 (rec, rec, att) groups
-   and 2 rec, d 4096, 16/1 heads, d_head 256, d_ff 12288, vocab 256000;
-   20.9 GB of bf16) through ``BatchedServer`` over its slab of recurrent
+   recurrentgemma-9b at full width and 14 of its 38 layers
+   (``FAMILIES_RG_LAYERS``: 4 (rec, rec, att) groups and its 2-rec tail,
+   of 12 groups; d 4096, 16/1 heads, d_head 256, d_ff 12288, vocab
+   256000) through ``BatchedServer`` over its slab of recurrent
    state and attention windows, on the serve phase's four 8-token
    prompts (32 new tokens, batch 4, block 32, max_seq 384, seed 0):
-   greedy and at 0.7, K1 never, K2 12 times an admission (its att
-   layers) on wgmma at d = 256, the greedy tokens held to a model-level
+   greedy and at 0.7, K1 never, K2 once an att layer an admission on
+   wgmma at d = 256, the greedy tokens held to a model-level
    ``prefill`` + ``decode_step`` loop at batch 1 (first-8 >= 0.75,
    bit-equality logged); one 2100-token prompt at batch 1 (max_seq
    2200, 16 new tokens: its 2048 window slots roll), held the same way;
@@ -186,29 +187,40 @@ tiers and disagg by default):
    phase and before the serve phase's weights exist.  Qwen2.5-14B at
    full width and 12 of its 48 layers (``TP_LAYERS``; random bf16
    weights from a seed, tp=1 config), bf16 pools, the serve phase's four
-   8-token prompts (64 new tokens, batch 4, block 32, max_seq 384, page
-   16): served by this process (eager: a sharded server decodes
-   eagerly), then by m = 2 and m = 4 ranks (``repro_torch.launch.mesh.
-   spawn``; the kernels built before, the ranks only load them) over one
-   CUDA region the ranks share by IPC (``SharedRegionTransport``: each
-   collective writes a slot, synchronises the stream, passes a gloo
-   barrier and reads; K4 accumulates the embedding's all-reduce),
-   ``BatchedServer(mesh=make_serving_mesh(model=m))`` on each rank over
-   the weights this process shares by IPC (each rank copies its shard).
-   Gates on every rank: K4 launched, K1 once a layer a step, K2 on
-   wgmma, pool bytes x m = one card's, ``model_shards`` and the ledger's
-   ``shards`` = m, the eager route, the embedding bit-equal; the greedy
-   tokens bit-equal to one card's, or else the fp32 witness (the same
-   weights in fp32, 16 new tokens, served by one card and by the ranks:
-   the first-8 rule and the prompts' last-position logits within 1e-2).
-   It prints per rank the ms a step, the share of the step spent in the
-   completion notice, peak device memory, the collectives and bytes on
-   the ``"model"`` axis, each layer's max |d| against one card's in bf16
-   and in fp32, and whether layer 0's column-sharded products equal the
-   full product's columns (``tp_products``).  The m = 2 ranks then serve
-   the memory tiers and the request lifecycle (``TP_RUNS``), each run
-   held to the same mesh's resident monolithic run: paged weights (each
-   rank packs its 4.47 GB shard of the 12 layers into pinned host memory
+   8-token prompts (24 new tokens, batch 4, blocks of 8, max_seq 384,
+   page 16): served by this process (eager), then by m = 2 and m = 4 ranks
+   (``repro_torch.launch.mesh.spawn``; the kernels built before, the
+   ranks only load them) over one CUDA region the ranks share by IPC
+   (``SharedRegionTransport``), ``BatchedServer(mesh=
+   make_serving_mesh(model=m))`` on each rank over the weights this
+   process shares by IPC (each rank copies its shard): over the
+   region's flags notice (the default: every collective one launch of
+   the TAB's collective, which writes the slot, publishes the rank's
+   arrival, waits for its peers' in device memory and sums or gathers;
+   the decode blocks captured and replayed as CUDA graphs), and again
+   over its barrier notice (a stream sync and a gloo barrier a
+   collective, K4 the accumulate; eager), whose bf16 tokens the flags'
+   must equal bit for bit.  After each flags run every rank replays its
+   last captured block and runs one block eagerly over the same
+   buffers, timed, and rank 0 traces one more replay (the TAB kernel's
+   share of the block's device time, ``tp_replay``).  Gates on every
+   rank: the TAB's sums launched (replays counted), K1 once a layer a
+   step, K2 on wgmma, pool bytes x m = one card's, ``model_shards`` and
+   the ledger's ``shards`` = m, the graph route over the flags (a block
+   replayed) and the eager route over the barrier, the embedding
+   bit-equal; the greedy tokens bit-equal to one card's, or else the
+   fp32 witness (the same weights in fp32, 16 new tokens, served by one
+   card and by the ranks: the first-8 rule and the prompts'
+   last-position logits within 1e-2).  It prints per rank the ms a step
+   over both notices, the barrier's share in its notice, peak device
+   memory, the collectives and bytes on the ``"model"`` axis issued
+   from Python, each layer's max |d| against one card's in bf16 and in
+   fp32, and whether layer 0's column-sharded products equal the full
+   product's columns (``tp_products``).  The m = 2 ranks then serve
+   the memory tiers and the request lifecycle (``TP_RUNS``, at the first
+   6 of the 12 layers: ``TP_LIFE_LAYERS``), each run held to the same
+   mesh's resident monolithic run: paged weights (each rank packs its
+   2.23 GB shard of the 6 layers into pinned host memory
    and pages it through its own Tensor Prefetcher), ``offload_kv`` over
    the pools and over the slab (16 new tokens, blocks of 16), preemption
    and cold parking at 0.7 over a pool of 7 pages (32 tokens), and
@@ -216,35 +228,50 @@ tiers and disagg by default):
    chunks; 16 tokens), every run in blocks of 16.  Gates on every rank: tokens bit-
    equal to the resident run's (or, where bf16 parts, the fp32 witness
    of both runs bit-equal), K1 once a layer a step over pools, K2 and K4
-   launched, nothing degraded, weight fetches = layers x passes and the
-   ledger's remote ``layer_weights`` = the rank's shard, the KV window's
+   launched (the TAB's collective), nothing degraded, the graph route
+   unless the run pages (then eager), weight fetches = layers x passes
+   and the ledger's remote ``layer_weights`` = the rank's shard, the KV
+   window's
    moves, preemptions resumed, parks promoted, stash and handoff bytes
    whole pages of the rank's KV heads.  It prints per run ms a step,
    the notice's share, peak device memory (the rank's own allocations),
    pinned bytes, the weights' copy rate, stash and handoff bytes and the
    host's MemAvailable.  Row-parallel TP (``BatchedServer(...,
    deterministic=False)``: every output projection by its contraction
-   rows, the ranks' partial products summed by K4 on the shared region,
-   on every layer): the m = 2 and m = 4 ranks also serve the greedy run
-   that way (and its fp32 witness), the m = 2 ranks the runs of
+   rows, the ranks' partial products summed by the TAB's collective on
+   the shared region, on every layer): the m = 2 and m = 4 ranks also
+   serve the greedy run that way over both notices (and its fp32
+   witness), the m = 2 ranks the runs of
    ``TP_ROWPAR_RUNS`` (resident twice, paged weights, ``offload_kv``
    pools, disaggregated against monolithic), each held bit for bit to
    the same mesh's resident run, the greedy run to one card by the first-8
    rule (first-8 >= 0.75 and the logits within atol 0.1, rtol 0.02) or
-   else its fp32 witness; gates: K4 at least 2 x layers + 1 a step, each
-   rank's weight bytes its ``param_specs`` shard (the all-gather runs':
-   their ``serving_param_specs`` shard), each rank's K4 against its
-   plain version at the largest partial it summed.  Then one spawn of 2
+   else its fp32 witness; gates: the TAB's sums at least 2 x layers + 1
+   a step, each rank's weight bytes its ``param_specs`` shard (the
+   all-gather runs': their ``serving_param_specs`` shard), the flags'
+   tokens bit-equal to the barrier's.  Then one spawn of 2
    ranks serves recurrentgemma-9b (its first pattern period and tail: 5
    of 38 layers, tp=2 so its one KV head is replicated to each rank),
    xlstm-125m and whisper-base (with its frames) row-parallel over the
-   slab, in turn, 4 prompts of 8 tokens, 16 greedy tokens, against
+   slab, in turn, 4 prompts of 8 tokens, 16 greedy tokens in blocks of
+   8 (the second block replayed), against
    this process's one-card runs (bf16 by the first-8 rule, whisper's logits
    within its F4 bound 0.25, or else the fp32 witness), with the same
-   gates.  Every rank runs on the same card, so no NCCL path
+   gates, on the graph route.  Last, the TAB's collective against its
+   plain version (the same protocol in one thread a rank over host
+   memory; ``check_tab_kernel``) in this process, m simulated ranks on
+   m streams at once, at ``TAB_SHAPES`` (each mesh's decode all-reduce,
+   largest partial and logits gather) and at the largest all-reduce and
+   all-gather each mesh and family issued: a gather bit-equal, a sum
+   within one bf16 ulp; timed (a round of the m kernels from a replayed
+   graph), beside its plain version and ``torch.sum`` / ``torch.stack``.
+   ``--phases notice`` runs only those checks at ``TAB_SHAPES`` and the
+   notice probe (``tab_probe``: a (4, 5120) all-reduce timed across the
+   ranks eager over the flags, replayed from a graph of 26, and over the
+   barrier).  Every rank runs on the same card, so no NCCL path
    (``ProcessGroupTransport`` on cards of their own) is exercised
    here;
-5. ``serve``: serve Qwen2.5-14B at its published widths and 12 of its 48
+5. ``serve``: serve Qwen2.5-14B at its published widths and 8 of its 48
    layers (``SERVE_LAYERS``, ``--layers``: the depth of the serve, dense,
    tiers and disagg phases, cut to keep the default run inside its time;
    tp=1, random bf16 weights from a seeded torch.Generator, made once
@@ -282,8 +309,9 @@ tiers and disagg by default):
    with the unit); timed in turns with a paged bf16 run, it prints ms a
    step, tok/s, the slab's bytes beside the paged pool's peak bytes and
    its fragmentation one block in, and peak device memory.  Then
-   ``offload_kv`` over the slab with paged weights at the first 12
-   layers (at most) (``check_dense_offload``; 8 new tokens, block 8): bf16 and
+   ``offload_kv`` over the slab with paged weights at the first 6
+   layers (``DENSE_OFFLOAD_LAYERS``; ``check_dense_offload``; 8 new
+   tokens, block 8): bf16 and
    ``kv_quant``, greedy and at 0.7, each the resident slab's tokens at
    that depth bit for bit, the slab's leaves in pinned host memory and
    none on the card, 12 slices paged in and written back a decode step,
@@ -322,8 +350,8 @@ tiers and disagg by default):
    and the offload run's tok/s, peak device memory and KV window bytes
    against the resident pool's bytes;
 7. ``disagg``: disaggregated prefill and the request lifecycle,
-   Qwen2.5-14B at 12 of its 48 layers at most (the first layers of the
-   serving phases' weights: ``DISAGG_LAYERS``), on
+   Qwen2.5-14B at 6 of its 48 layers (the first layers of the serving
+   phases' weights: ``DISAGG_LAYERS``), on
    the serving benchmark's interference
    traffic (batch 4, block 32, max_seq 384, page 16, seed 0: four 8-token
    prompts with 32, 64, 96 and 96 new tokens and two 128-token prompts
@@ -1746,12 +1774,14 @@ def qwen_params(torch, layers: int):
 
 
 #: the depth of the serve, dense, tiers and disagg phases, which share one
-#: set of Qwen2.5-14B weights: 12 of its 48 layers.  At 48 the default run
+#: set of Qwen2.5-14B weights: 8 of its 48 layers.  At 48 the default run
 #: took 945-998 s on an H100 80GB HBM3 at 700 W (the serve phase 206-233
 #: s, dense ~103, tiers ~144 with offload_kv) and passed 1200 s on a card
 #: whose host-bound steps run ~1.3x slower; their eager steps are
-#: host-bound, so their time follows the depth
-SERVE_LAYERS = 12
+#: host-bound, so their time follows the depth.  12 from PR 27; 8 since
+#: the tp phase took both notices (a card ~1.45x slower than PR 29's ran
+#: the default run past 1040 s of phases at 12)
+SERVE_LAYERS = 8
 
 #: the serving runs' server settings (the BENCH_serve.json workload's)
 SERVE_KW = dict(batch_size=4, max_seq=384, block_size=32, page_size=16,
@@ -2758,15 +2788,23 @@ def _hold_to_loop(tag: str, got: list, want: list, problems: list,
         problems.append(f"{tag}: first-8 rate {rate:.3f} against the loop")
 
 
+#: the families phase's recurrentgemma-9b depth: 4 of its 12 (rec, rec,
+#: att) groups and its tail (its gates scale with the groups); cut from
+#: 38 when the tp phase took both notices and a card ~1.45x slower in
+#: every phase ran the default run past 1040 s of phases
+FAMILIES_RG_LAYERS = 14
+
+
 def check_recurrentgemma(torch, card: str, counts: Launches,
                          problems: list) -> None:
-    """recurrentgemma-9b at full width and depth (38 layers: 12 (rec,
-    rec, att) groups and 2 rec; d 4096, 16/1 heads, d_head 256, d_ff
-    12288, vocab 256000; tp=1, random bf16 weights) through
+    """recurrentgemma-9b at full width and ``FAMILIES_RG_LAYERS`` of its
+    38 layers (4 of its 12 (rec, rec, att) groups and its 2-rec tail; d
+    4096, 16/1 heads, d_head 256, d_ff 12288, vocab 256000; tp=1, random
+    bf16 weights) through
     ``BatchedServer`` over its slab of recurrent state and windows, on
     the serve phase's four 8-token prompts (32 new tokens, batch 4, block
-    32, max_seq 384, seed 0): greedy and at 0.7, K1 never, K2 12 times an
-    admission (its att layers) on wgmma at d = 256; the greedy tokens
+    32, max_seq 384, seed 0): greedy and at 0.7, K1 never, K2 once an att
+    layer an admission on wgmma at d = 256; the greedy tokens
     held to the model-level loop at batch 1.  One 2100-token prompt at
     batch 1 (max_seq 2200: its 2048 window slots roll), 16 new tokens,
     held the same way.  Then greedy with the groups paged from pinned
@@ -2781,7 +2819,10 @@ def check_recurrentgemma(torch, card: str, counts: Launches,
     from repro_torch.memory import LOCAL, REMOTE, PinLocal
     from repro_torch.models.hybrid import HybridLM
     from repro_torch.runtime.serve import BatchedServer
-    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), tp=1)
+    full = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(full, tp=1, num_layers=FAMILIES_RG_LAYERS)
+    log(f"families: DEPTH CUT: recurrentgemma-9b at full width and "
+        f"{cfg.num_layers} of {full.num_layers} layers")
     t0 = time.perf_counter()
     model = HybridLM(cfg)
     params = model.init(0, device="cuda")
@@ -4144,11 +4185,12 @@ def check_dense(torch, card: str, cfg, params, counts: Launches,
     log("dense: every gate held")
 
 
-#: the dense phase's offload_kv runs: the first 12 of the 48 layers, 8
+#: the dense phase's offload_kv runs: the first 6 of the 48 layers, 8
 #: new tokens a request in one block of 8 steps (a block runs all its
 #: steps; the tokens were cut from 16, then the depth from 24 to 12 when
-#: the graph checks joined the default run, to keep its time)
-DENSE_OFFLOAD_LAYERS = 12
+#: the graph checks joined the default run, and to 6 when the tp phase
+#: took both notices, to keep its time)
+DENSE_OFFLOAD_LAYERS = 6
 DENSE_OFFLOAD_NEW = 8
 OFFLOAD_KW = dict(SERVE_KW, block_size=DENSE_OFFLOAD_NEW)
 #: (kv_quant, temperature) of its runs
@@ -4701,15 +4743,17 @@ def check_offload(torch, card: str, cfg, params, counts: Launches) -> None:
 
 #: the disagg phase's prefill chunk (one block's worth of tokens)
 DISAGG_CHUNK = 32
-#: the disagg phase's depth: a quarter of Qwen2.5-14B's 48 layers.  Every
+#: the disagg phase's depth: an eighth of Qwen2.5-14B's 48 layers.  Every
 #: gate of the phase holds its runs against each other (monolithic against
 #: disaggregated, crashed against uncontended) and scales its counts by
 #: the depth, so none needs full depth.  With the families phase the
 #: default run reached 1057-1108 s of its 1200 s at 48 here; at 24, with
 #: the dense phase's offload_kv runs, an H100 80GB HBM3 at 700 W whose
 #: host-bound steps ran ~1.3x slower than another's took ~1262 s (116 s
-#: here), so the phase's host-bound steps are halved again
-DISAGG_LAYERS = 12
+#: here), so the phase's host-bound steps were halved again (12), and
+#: halved once more (6) when the tp phase took both notices and a card
+#: ~1.35x slower ran the default run in 1070 s of phases
+DISAGG_LAYERS = 6
 #: the serving benchmark's interference traffic: four 8-token prompts
 #: with staggered budgets, so slots free at different blocks, and two
 #: 128-token prompts that arrive mid-stream as slots free
@@ -5210,7 +5254,11 @@ def _overlap(a, b) -> float:
 #: layers, served by one process and by m = 2 and 4 ranks on the one card
 TP_LAYERS = 12
 TP_SHARDS = (2, 4)
-TP_NEW = 64
+TP_NEW = 24
+#: the greedy runs' blocks: three of 8, whose page tables are 1, 2 and 2
+#: pages wide, so on the graph route the third block is captured and
+#: replayed (a key's first block runs eagerly)
+TP_BLOCK = 8
 #: the fp32 witness's new tokens (the first-8 rule reads 8)
 TP_WITNESS_NEW = 16
 #: bytes of each half of the shared region (a collective's payload times
@@ -5233,20 +5281,26 @@ TP_PATH = {
     1: "BatchedServer, one process, Qwen2.5-14B at 12 of 48 layers, greedy, "
        "eager (tp phase)",
     2: "BatchedServer(mesh=make_serving_mesh(model=2)), 2 ranks on one card "
-       "over one shared region, Qwen2.5-14B at 12 of 48 layers: the greedy "
-       "run and TP_RUNS (paged weights, offload_kv over the pools and the "
-       "slab, preemption and cold parking at 0.7, disaggregated prefill) "
-       "all-gather, the greedy run and TP_ROWPAR_RUNS (resident twice, "
-       "paged weights, offload_kv pools, disaggregated and monolithic) "
-       "row-parallel (deterministic=False), both ranks summed (tp phase)",
+       "over one shared region, Qwen2.5-14B at 12 of 48 layers (TP_RUNS "
+       "and TP_ROWPAR_RUNS at 6): the greedy "
+       "run over the flags notice (graph route, replays counted) and over "
+       "the barrier (eager), and TP_RUNS (paged weights, offload_kv over "
+       "the pools and the slab, preemption and cold parking at 0.7, "
+       "disaggregated prefill) all-gather, the same two greedy runs and "
+       "TP_ROWPAR_RUNS (resident twice, paged weights, offload_kv pools, "
+       "disaggregated and monolithic) row-parallel (deterministic=False), "
+       "both ranks summed (tp phase)",
     4: "BatchedServer(mesh=make_serving_mesh(model=4)), 4 ranks on one card "
        "over one shared region, Qwen2.5-14B at 12 of 48 layers, greedy, "
-       "all-gather and row-parallel, the ranks summed (tp phase)",
+       "all-gather and row-parallel, each over the flags notice (graph "
+       "route, replays counted) and over the barrier (eager), the ranks "
+       "summed (tp phase)",
     "fam": "BatchedServer(mesh=make_serving_mesh(model=2), "
            "deterministic=False), 2 ranks on one card over one shared "
-           "region, over the slab: recurrentgemma-9b at 5 of 38 layers, "
-           "xlstm-125m and whisper-base (with frames), greedy, both ranks "
-           "summed (tp phase, family spawn)"}
+           "region's flags notice (graph route), over the slab: "
+           "recurrentgemma-9b at 5 of 38 layers, xlstm-125m and "
+           "whisper-base (with frames), greedy, both ranks summed (tp "
+           "phase, family spawn)"}
 
 
 def tp_hidden(torch, model, params, toks):
@@ -5268,50 +5322,334 @@ def tp_hidden(torch, model, params, toks):
 
 
 @contextlib.contextmanager
-def largest_partial(t, seen: list):
+def largest_collectives(t, seen: dict):
     """Note in ``seen`` the shape of the largest tensor this rank passes
     to ``t.all_reduce`` (a row-parallel projection's partial product or
-    the embedding's rows) while the ``with`` lasts."""
+    the embedding's rows) and to ``t.all_gather`` (the logits) while the
+    ``with`` lasts.  Python sees the eager blocks' and the admissions'
+    collectives; a graph's replays call no Python (their launches are
+    counted through the launch tally)."""
     if t is None:
         yield
         return
-    call = t.all_reduce
+    calls = {k: getattr(t, k) for k in ("all_reduce", "all_gather")}
 
-    def noted(x):
-        if not seen or x.numel() > math.prod(seen[0]):
-            seen[:] = [tuple(x.shape)]
-        return call(x)
-    t.all_reduce = noted
+    def noted(kind):
+        def call(x, *a):
+            if kind not in seen or x.numel() > math.prod(seen[kind]):
+                seen[kind] = tuple(x.shape)
+            return calls[kind](x, *a)
+        return call
+    for kind in calls:
+        setattr(t, kind, noted(kind))
     try:
         yield
     finally:
-        del t.all_reduce
+        for kind in calls:
+            delattr(t, kind)
 
 
-def k4_at(torch, shape: tuple, m: int) -> tuple:
-    """K4 against its plain version over m random bf16 partials of
-    ``shape``: (max |d|, within one bf16 ulp of the plain sum)."""
+def tp_replay(torch, server, rank: int) -> dict:
+    """After a served run on the graph route, on every rank in step: the
+    server's last captured block replayed once, then one block run
+    eagerly over the same buffers (its collectives the same kernels,
+    issued from the host), each timed (ms a step: this rank's wall, the
+    waits for its peers in it); then one more replay, traced on rank 0:
+    the TAB kernel's device time (its spin in it) against the block's
+    device time and wall.  Nothing is counted on a path."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    blocks = server._loop.blocks
+    if blocks is None or not blocks.graphs:
+        return {}
+    replay, _ = list(blocks.graphs.values())[-1]
+    steps = blocks.block_size
+    out = {"steps": steps}
+    for name, fn in (("replay", replay), ("eager", lambda: blocks.block(
+            server.params, server.cache, server.state))):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / steps
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank != 0:
+        replay()
+        torch.cuda.synchronize()
+        return out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = tab = calls = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0))
+        busy += dev
+        if "tab_sum_kernel" in ev.key or "tab_gather_kernel" in ev.key:
+            tab += dev
+            calls += ev.count
+    out.update(wall_ms=1e3 * wall, busy_ms=busy / 1e3, tab_ms=tab / 1e3,
+               tab_calls=calls)
+    return out
+
+
+#: the TAB's collective (K4 redesigned, ``csrc/write_accumulate.cu``)
+#: against its plain version at the tp phase's served shapes, bf16: each
+#: mesh's decode all-reduce (one token a slot, batch 4), its largest
+#: partial (row-parallel: an admission's 64-row prefill at m = 2, an
+#: 8-token one at m = 4) and a decode step's gather of the logits (the
+#: vocab's 152,064 columns split m ways): (label, ranks, shape, gather)
+TAB_SHAPES = (("decode all-reduce", 2, (4, 5120), False),
+              ("decode all-reduce", 4, (4, 5120), False),
+              ("largest partial", 2, (64, 5120), False),
+              ("largest partial", 4, (8, 5120), False),
+              ("logits gather", 2, (4, 76032), True),
+              ("logits gather", 4, (4, 38016), True))
+#: the collectives' watchdog in the smoke (s): far past any wait a
+#: healthy run has, well inside a phase's time
+TAB_TIMEOUT_S = 60.0
+#: the probe: eager collectives timed a rank, and a decode step's 26
+#: collectives captured into one graph, replayed TAB_PROBE_REPLAYS times
+TAB_PROBE_ITERS = 200
+TAB_PROBE_GRAPH = 26
+TAB_PROBE_REPLAYS = 8
+
+
+def _tab_round(torch, streams, xs, data, flags, gather: bool) -> list:
+    """One collective of len(xs) ranks in this process: rank r's kernel
+    on ``streams[r]``, all issued together (their 32 CTAs each fit the
+    card at once), joined back into the current stream."""
     from repro_torch.kernels.write_accumulate import ops
-    from repro_torch.kernels.write_accumulate.ref import write_accumulate_ref
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn((m,) + tuple(shape), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    got, want = ops.accumulate(x).float(), write_accumulate_ref(x).float()
-    err = (got - want).abs()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        want.abs().clamp_min(2.0 ** -126))) - 7)
-    return err.max().item(), bool((err <= ulp).all())
+    cur = torch.cuda.current_stream()
+    outs = []
+    for r, s in enumerate(streams):
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            outs.append(ops.collective(xs[r], data, flags, rank=r,
+                                       size=len(xs), gather=gather,
+                                       timeout_s=TAB_TIMEOUT_S))
+    for s in streams:
+        cur.wait_stream(s)
+    return outs
+
+
+def _tab_plain(torch, xs, gather: bool) -> list:
+    """The plain version of one collective: every rank a thread over one
+    region and flag area in host memory, the same protocol."""
+    import threading
+    from repro_torch.kernels.write_accumulate import ops
+    n = len(xs)
+    stride = ops.slot_stride(xs[0].numel() * xs[0].element_size())
+    data = torch.zeros(2 * n * stride, dtype=torch.uint8)
+    flags = torch.zeros(ops.flag_words(n), dtype=torch.int64)
+    outs, errors = [None] * n, []
+
+    def rank(r):
+        try:
+            outs[r] = ops.collective(xs[r].cpu(), data, flags, rank=r,
+                                     size=n, gather=gather,
+                                     timeout_s=TAB_TIMEOUT_S)
+        except Exception as e:       # re-raised below, in this thread
+            errors.append(e)
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return outs
+
+
+def check_tab_kernel(torch, card: str, results: dict, cases) -> None:
+    """The TAB's collective against its plain version, in this process:
+    at each case (label, ranks n, shape, gather, phase), n simulated
+    ranks over one device region, their kernels on n streams at once,
+    against the plain protocol in n threads over host memory: a gather
+    bit-equal, a sum within one bf16 ulp (both sum in fp32 in slot order
+    and round once), bit-equality logged.  Then timed: a round of the n
+    kernels replayed from a CUDA graph (device time), the plain version's
+    round eager, and ``torch.sum`` over the stacked (n, ...) slots (a
+    sum) or ``torch.stack`` of the n contributions (a gather) as the
+    library call.  Bound: n ranks x (the slot written + n slots read +
+    the output written) at 3.35 TB/s, against the sum's fp32 adds at 67
+    TFLOP/s.  Launches made here are not counted on any path."""
+    from repro_torch.kernels.write_accumulate import ops
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    done = set()
+    for label, n, shape, gather, phase in cases:
+        if (n, math.prod(shape), gather) in done:
+            continue
+        done.add((n, math.prod(shape), gather))
+        stride = ops.slot_stride(math.prod(shape) * 2)
+        data = torch.zeros(2 * n * stride, dtype=torch.uint8, device="cuda")
+        flags = torch.zeros(ops.flag_words(n), dtype=torch.int64,
+                            device="cuda")
+        streams = [torch.cuda.Stream() for _ in range(n)]
+
+        def inputs():
+            return [torch.randn(shape, generator=gen, device="cuda")
+                    .to(torch.bfloat16) for _ in range(n)]
+        xs = inputs()
+        got = [o.float().cpu() for o in _tab_round(torch, streams, xs, data,
+                                                   flags, gather)]
+        torch.cuda.synchronize()
+        words = flags[n * ops.FLAG_CTAS:].tolist()
+        want = [o.float() for o in _tab_plain(torch, xs, gather)]
+        tag = (f"TAB collective {label} m={n} ({n}, "
+               f"{', '.join(map(str, shape))}) bf16 "
+               f"{'gather' if gather else 'sum'}")
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        if gather:
+            ok = same
+        else:
+            ok = all(bool(((a - b).abs() <= torch.exp2(torch.floor(
+                torch.log2(b.abs().clamp_min(2.0 ** -126))) - 7)).all())
+                for a, b in zip(got, want))
+        ok = ok and all(torch.equal(a, got[0]) for a in got) and not any(
+            words)
+        log(f"{tag}: max_abs_err {err:.3e} against the plain protocol "
+            f"({'bit-equal' if same else 'not bit-equal'}; "
+            f"{'exact' if gather else 'within one bf16 ulp'} required), "
+            f"every rank's output equal, error words {words}")
+        if not ok:
+            raise AssertionError(f"{tag}: parts from its plain version "
+                                 f"or between ranks")
+        sets = [(inputs(),) for _ in range(ROTATE)]
+        ms = time_ms(torch, lambda v: _tab_round(torch, streams, v, data,
+                                                 flags, gather), sets)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            _tab_plain(torch, xs, gather)
+        plain_ms = 1e3 * (time.perf_counter() - t0) / 3
+        if gather:
+            lib_ms = time_ms(torch, lambda v: torch.stack(v), sets)
+        else:
+            stacks = [(torch.stack(v),) for (v,) in sets]
+            lib_ms = time_ms(torch, lambda s: torch.sum(
+                s, 0, dtype=torch.float32).to(s.dtype), stacks)
+        nbytes = math.prod(shape) * 2
+        out_bytes = n * nbytes if gather else nbytes
+        b_ms, b_by = bound(n * (nbytes + n * nbytes + out_bytes),
+                           0 if gather else n * (n - 1) * math.prod(shape),
+                           F32_FLOPS_PER_S)
+        if flags[n * ops.FLAG_CTAS:].any():
+            raise AssertionError(f"{tag}: the watchdog fired while timed")
+        log(f"{tag} [{card}]: a round of {n} kernels {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {'torch.stack' if gather else 'torch.sum'} "
+            f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        results.setdefault("tab_collective", []).append(dict(
+            shape=tag.removeprefix("TAB collective "), max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, phase=phase))
+        del data, flags, streams, sets
+        torch.cuda.empty_cache()
+
+
+def tab_probe(torch, mesh, barrier_mesh) -> dict:
+    """The completion notice across this world's ranks (every rank runs
+    it): ms a collective of a (4, 5120) bf16 all-reduce, eager over the
+    flags, the flags' collectives captured into one CUDA graph of a
+    decode step's ``TAB_PROBE_GRAPH`` and replayed, and eager over the
+    barrier.  The graph's launches go to a tally of their own (not
+    counted on any path)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import build
+    gen = torch.Generator(device="cuda").manual_seed(11 + mesh.rank)
+    x = torch.randn((4, 5120), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = {"rank": mesh.rank}
+
+    def timed(fn, calls: int) -> float:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / calls
+
+    for name, m in (("flags", mesh), ("barrier", barrier_mesh)):
+        t = m.transport("model")
+        iters = TAB_PROBE_ITERS if name == "flags" else TAB_PROBE_ITERS // 4
+        for _ in range(4):
+            t.all_reduce(x)
+        out[name] = timed(lambda: [t.all_reduce(x) for _ in range(iters)],
+                          iters)
+    t = mesh.transport("model")
+    g = torch.cuda.CUDAGraph()
+    for _ in range(2):                  # the warm-up a capture needs
+        t.all_reduce(x)
+    torch.cuda.synchronize()
+    with build.launch_tally(), torch.cuda.graph(g):
+        for _ in range(TAB_PROBE_GRAPH):
+            y = t.all_reduce(x)
+    out["graph"] = timed(lambda: [g.replay() for _ in
+                                  range(TAB_PROBE_REPLAYS)],
+                         TAB_PROBE_REPLAYS * TAB_PROBE_GRAPH)
+    out["sum"] = y.float().cpu()
+    t.check()
+    del g
+    return out
+
+
+def tab_probe_rank() -> dict:
+    """A rank of the notice phase: loads the kernels the parent built,
+    then ``tab_probe`` over the world's mesh (flags and barrier)."""
+    import torch
+    from repro_torch.kernels import _kernel_modules, build
+    from repro_torch.launch.mesh import make_serving_mesh, world
+    build.require_built([m.SOURCE for m in _kernel_modules()])
+    n = world().size
+    return tab_probe(torch, make_serving_mesh(model=n),
+                     make_serving_mesh(model=n, notice="barrier"))
+
+
+def log_probe(card: str, m: int, probes: list) -> None:
+    """Log the notice probe of a mesh's ranks and hold their sums
+    equal."""
+    for p in probes:
+        log(f"notice probe m={m} rank {p['rank']} [{card}]: ms a (4, 5120) "
+            f"bf16 all-reduce: flags eager {p['flags']:.4f}, flags replayed "
+            f"from one graph of {TAB_PROBE_GRAPH} {p['graph']:.4f}, barrier "
+            f"eager {p['barrier']:.4f}")
+    if any(not p["sum"].equal(probes[0]["sum"]) for p in probes):
+        raise AssertionError(f"notice probe m={m}: the ranks' sums differ")
+
+
+def check_notice(torch, card: str, results: dict) -> None:
+    """The notice phase (off by default): the TAB's collective against
+    its plain version at ``TAB_SHAPES`` in this process, then the probe
+    on m = 2 and 4 ranks of this card."""
+    from repro_torch.launch.mesh import spawn
+    check_tab_kernel(torch, card, results, [
+        (label, n, shape, gather, f"tp{n}")
+        for label, n, shape, gather in TAB_SHAPES])
+    for m in TP_SHARDS:
+        t0 = time.perf_counter()
+        probes = spawn(tab_probe_rank, m, device="cuda", timeout=TP_TIMEOUT)
+        log_probe(card, m, probes)
+        log(f"notice m={m}: {time.perf_counter() - t0:.1f} s with the "
+            f"ranks' start")
 
 
 def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
-              hidden: bool = True, **kw) -> dict:
+              hidden: bool = True, replay: bool = False, **kw) -> dict:
     """Serve ``work`` (``new`` tokens each, greedy unless ``kw`` says
     otherwise: the serving settings, updated by ``kw``, ``deterministic``
     among them) with the counts and the mesh's tally reset just before;
     the tokens, the run's numbers (the memory tiers' and the lifecycle's
-    too), the largest partial this rank summed and K4 against its plain
-    version there (after the counts are read), and with ``hidden``
-    ``tp_hidden`` of the prompts."""
+    too), the largest all-reduce and all-gather this rank issued from
+    Python, with ``replay`` ``tp_replay`` (after the counts are read),
+    and with ``hidden`` ``tp_hidden`` of the prompts."""
     from repro_torch.kernels import (instance_counts, launch_counts,
                                      reset_launch_counts)
     from repro_torch.memory import tiers, tree_bytes
@@ -5329,8 +5667,8 @@ def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
     reset_launch_counts()
     if t is not None:
         t.reset_tally()
-    seen: list = []
-    with largest_partial(t, seen):
+    seen: dict = {}
+    with largest_collectives(t, seen):
         reqs, secs = serve(server, work, new)
     mem, st = server.mem, server.stats
     pf, win = mem.prefetcher, mem.kv_window
@@ -5366,9 +5704,10 @@ def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
            if server.prefill is not None else {},
            "host": (host_before, host_placed, host_mem("MemAvailable")),
            "deterministic": st["deterministic"],
-           "largest": seen[0] if seen else None}
-    if seen:
-        out["k4_largest"] = k4_at(torch, seen[0], mesh.axis_size("model"))
+           "largest": seen.get("all_reduce"),
+           "largest_gather": seen.get("all_gather")}
+    if replay:
+        out["replay"] = tp_replay(torch, server, mesh.rank)
     if hidden:
         toks = torch.as_tensor([list(p) for p in work], device="cuda")
         out["hidden"], out["logits"] = tp_hidden(torch, model,
@@ -5381,7 +5720,8 @@ def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
 
 #: the tp phase's runs of the memory tiers and the request lifecycle over
 #: the m = 2 mesh (each rank pins its shard of the layers, 4.47 GB at 12
-#: layers, for the paged weights): (name, the config's pager, server
+#: layers, 2.23 GB at ``TP_LIFE_LAYERS``, for the paged weights): (name,
+#: the config's pager, server
 #: keywords, prompts (the serve phase's first four 8-token ones, or six
 #: with its 40-token prefix pair), new tokens, the uncontended resident
 #: monolithic run of the same mesh its tokens are held to).  Every run
@@ -5393,6 +5733,10 @@ def _tp_serve(torch, cfg, params, work, new: int, mesh=None, *,
 #: in four chunks, at q_offset 16, 32 and 48
 TP_TIER_NEW = 16
 TP_LIFE_NEW = 32
+#: the depth of those runs: the first 6 of the tp phase's 12 layers (each
+#: run is held to a resident run at the same depth; cut from 12 when the
+#: greedy runs took both notices)
+TP_LIFE_LAYERS = 6
 TP_POOL = 7
 TP_CHUNK = 16
 _TIER_KW = dict(block_size=TP_TIER_NEW)
@@ -5438,6 +5782,12 @@ TP_ROWPAR_RUNS = (
      TP_TIER_NEW, "monolithic"))
 
 
+def _cut(cfg, params, layers: int) -> tuple:
+    """``cfg`` and ``params`` cut to their first ``layers`` layers."""
+    return (dataclasses.replace(cfg, num_layers=layers),
+            dict(params, layers=params["layers"][:layers]))
+
+
 def tp_lifecycle(torch, cfg, params, cfg32, params32, mesh,
                  table: tuple = TP_RUNS) -> dict:
     """The m = 2 ranks' runs of ``table`` (``TP_RUNS``, or
@@ -5468,32 +5818,46 @@ def tp_rank(cfg, params, cfg32, params32, work: list,
     """One rank of the tp phase (``launch.mesh.spawn``'s target): loads
     the kernels the parent built (builds nothing), then serves ``work``
     over the world's mesh on the shared region in bf16 (``TP_NEW``
-    tokens), all-gather and row-parallel, with ``lifecycle`` the runs of
-    the memory tiers and the request lifecycle in both modes
-    (``tp_lifecycle``: ``TP_RUNS``, ``TP_ROWPAR_RUNS``) and, the bf16
-    shard freed, the fp32 witnesses of both modes (``TP_WITNESS_NEW``).  ``params`` and ``params32``
-    arrive as CUDA IPC handles on the parent's full trees; each server
-    copies this rank's shard (a paging server packs it into pinned host
-    memory)."""
+    tokens), all-gather and row-parallel, each over the flags notice
+    (the graph route, ``tp_replay`` after it) and over the barrier (the
+    eager route: the bits the flags' runs are held to); with
+    ``lifecycle`` the runs of the memory tiers and
+    the request lifecycle in both modes (``tp_lifecycle``: ``TP_RUNS``,
+    ``TP_ROWPAR_RUNS``, over the flags) and, the bf16 shard freed, the
+    fp32 witnesses of both modes (``TP_WITNESS_NEW``).  ``params`` and
+    ``params32`` arrive as CUDA IPC handles on the parent's full trees;
+    each server copies this rank's shard (a paging server packs it into
+    pinned host memory)."""
     import torch
     from repro_torch.kernels import _kernel_modules, build
     from repro_torch.launch.mesh import make_serving_mesh, world
     build.require_built([m.SOURCE for m in _kernel_modules()])
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_serving_mesh(model=world().size, transport="shared")
-    out = _tp_serve(torch, cfg, params, work, TP_NEW, mesh)
+    barrier = make_serving_mesh(model=world().size, notice="barrier")
+    greedy = dict(block_size=TP_BLOCK)
+    out = _tp_serve(torch, cfg, params, work, TP_NEW, mesh, replay=True,
+                    **greedy)
+    out["barrier"] = _tp_serve(torch, cfg, params, work, TP_NEW, barrier,
+                               hidden=False, **greedy)
     out["rowpar"] = _tp_serve(torch, cfg, params, work, TP_NEW, mesh,
-                              deterministic=False)
+                              deterministic=False, replay=True, **greedy)
+    out["rowpar_barrier"] = _tp_serve(torch, cfg, params, work, TP_NEW,
+                                      barrier, hidden=False,
+                                      deterministic=False, **greedy)
     if lifecycle:
-        out["lifecycle"] = tp_lifecycle(torch, cfg, params, cfg32, params32,
-                                        mesh)
-        out["rowpar_lifecycle"] = tp_lifecycle(
-            torch, cfg, params, cfg32, params32, mesh, TP_ROWPAR_RUNS)
+        life = (*_cut(cfg, params, TP_LIFE_LAYERS),
+                *_cut(cfg32, params32, TP_LIFE_LAYERS))
+        out["lifecycle"] = tp_lifecycle(torch, *life, mesh)
+        out["rowpar_lifecycle"] = tp_lifecycle(torch, *life, mesh,
+                                               TP_ROWPAR_RUNS)
+        del life
     del params
     out["fp32"] = _tp_serve(torch, cfg32, params32, work, TP_WITNESS_NEW,
-                            mesh)
+                            mesh, **greedy)
     out["rowpar_fp32"] = _tp_serve(torch, cfg32, params32, work,
-                                   TP_WITNESS_NEW, mesh, deterministic=False)
+                                   TP_WITNESS_NEW, mesh, deterministic=False,
+                                   **greedy)
     out["rank"] = mesh.rank
     return out
 
@@ -5553,8 +5917,10 @@ def check_tp_lifecycle(torch, card: str, cfg, params, r: dict, m: int,
     """Log and gate one rank's ``tp_lifecycle`` runs (``rowpar``: of
     ``TP_ROWPAR_RUNS``, else of ``TP_RUNS``): each run's tokens bit-equal
     to its resident run's (or its fp32 witness's), K1 once a layer a step
-    over pools (never over the slab), K2 and K4 launched (row-parallel: K4
-    at least 2 x layers + 1 a step), nothing degraded; the paged weights'
+    over pools (never over the slab), K2 and the TAB's collective
+    launched (row-parallel: its sums at least 2 x layers + 1 a step),
+    nothing degraded, the graph route unless the run pages (then
+    eager); the paged weights'
     fetches (layers x passes) and remote bytes (this rank's shard under
     the mode's specs), the KV window's moves, the stashes and handoffs in
     whole pages of this rank's KV heads."""
@@ -5577,8 +5943,8 @@ def check_tp_lifecycle(torch, card: str, cfg, params, r: dict, m: int,
                                             **run["handoff"]}.items()}
         log(f"{tag} [{card}]: {1e3 * run['secs'] / run['steps']:.2f} ms a "
             f"step ({run['steps']} steps, {st['admitted']} admissions, "
-            f"{new} new tokens), the notice {100 * run['wait_s'] / run['secs']:.1f}"
-            f" % of it, peak device memory {run['peak'] / 2**30:.2f} GiB "
+            f"{new} new tokens, route {run['route']}), peak device memory "
+            f"{run['peak'] / 2**30:.2f} GiB "
             f"(this rank's own allocations: the weights this process "
             f"shares by IPC are not among them), pinned weights "
             f"{run['pinned_weights']} B, KV at rest {run['kv_at_rest']} B, "
@@ -5590,13 +5956,15 @@ def check_tp_lifecycle(torch, card: str, cfg, params, r: dict, m: int,
             f"{st['cold_parks']}, promotes {st['cold_promotes']}, chunks "
             f"{st['prefill_chunks']}, handoffs {st['handoffs']}, stash and "
             f"handoff bytes by transfer {moved}, K1 "
-            f"{la['paged_attention']}, K2 {la['flash_attention_wgmma']}, K4 "
-            f"{la['write_accumulate']}; host MemAvailable before the "
-            f"server, placed, after {run['host']}")
+            f"{la['paged_attention']}, K2 {la['flash_attention_wgmma']}, "
+            f"the TAB's collective {run['instances']['tab_collective']}; "
+            f"host MemAvailable before the server, placed, after "
+            f"{run['host']}")
         if any(run["errors"]) or any(len(t) != new for t in run["tokens"]):
             problems.append(f"{tag}: a request did not emit its {new} "
                             f"tokens: {run['errors']}")
-        if run["degraded"] or run["route"] != "eager" or \
+        route = "eager" if pager is not None else "graph"
+        if run["degraded"] or run["route"] != route or \
                 run["model_shards"] != m:
             problems.append(f"{tag}: degraded {run['degraded']}, route "
                             f"{run['route']}, shards {run['model_shards']}")
@@ -5614,16 +5982,14 @@ def check_tp_lifecycle(torch, card: str, cfg, params, r: dict, m: int,
         if la["paged_attention"] != (0 if slab else layers * run["steps"]):
             problems.append(f"{tag}: K1 {la['paged_attention']} for "
                             f"{run['steps']} steps")
-        if la["flash_attention_wgmma"] < 1 or la["write_accumulate"] < 1:
-            problems.append(f"{tag}: K2 or K4 never launched")
-        if rowpar and (la["write_accumulate"] < (2 * layers + 1) * run["steps"]
-                       or run["deterministic"]
-                       or not run.get("k4_largest", (0, False))[1]):
-            problems.append(f"{tag}: K4 {la['write_accumulate']} for "
+        sums = run["instances"]["tab_collective"].get("sum", 0)
+        if la["flash_attention_wgmma"] < 1 or sums < 1:
+            problems.append(f"{tag}: K2 or the TAB's sum never launched")
+        if rowpar and (sums < (2 * layers + 1) * run["steps"]
+                       or run["deterministic"]):
+            problems.append(f"{tag}: the TAB's sums {sums} for "
                             f"{run['steps']} steps, deterministic "
-                            f"{run['deterministic']}, K4 at the largest "
-                            f"partial {run['largest']}: "
-                            f"{run.get('k4_largest')}")
+                            f"{run['deterministic']}")
         if pager is not None:
             remote = run["ledger"].get(tiers.REMOTE, {})
             if run["fetches"] != layers * (run["steps"] + st["admitted"]) \
@@ -5689,11 +6055,12 @@ def _cross_placement(tag: str, got: dict, want: dict, got32: dict,
 def check_tp_rowpar(torch, card: str, cfg, params, r: dict, m: int,
                     one: dict, one32: dict, problems: list) -> None:
     """Log and gate one rank's row-parallel greedy run (``rowpar``) beside
-    its all-gather run: ms a step and the notice's share in both modes,
-    weight bytes in both modes (each its specs' shard), K4 at least 2 x
-    layers + 1 a step, K1 once a layer a step, K2 launched, the eager
-    route, K4 against its plain version at the largest partial summed;
-    against one card by the first-8 rule or the fp32 witness."""
+    its all-gather run: ms a step in both modes over the flags (the graph
+    route) and over the barrier (eager), weight bytes in both modes (each
+    its specs' shard), the TAB's sums at least 2 x layers + 1 a step, K1
+    once a layer a step, K2 launched, the graph route, the bf16 tokens
+    bit-equal to the barrier run's; against one card by the first-8 rule
+    or the fp32 witness."""
     from repro_torch.memory import tree_bytes
     from repro_torch.models.transformer import DenseLM
     model = DenseLM(cfg)
@@ -5704,33 +6071,40 @@ def check_tp_rowpar(torch, card: str, cfg, params, r: dict, m: int,
     want_gather = _shard_bytes(params, model.serving_param_specs(), m)
     moved = {k: (v["transfers"], v["bytes"])
              for k, v in row["tally"].items() if v["transfers"]}
+    bar = r["rowpar_barrier"]
     log(f"{tag} [{card}]: {1e3 * row['secs'] / row['steps']:.2f} ms a step "
-        f"({row['steps']} steps, admissions included; all-gather "
-        f"{1e3 * r['secs'] / r['steps']:.2f}), the notice "
-        f"{100 * row['wait_s'] / row['secs']:.1f} % of it (all-gather "
-        f"{100 * r['wait_s'] / r['secs']:.1f} %), weight bytes "
+        f"over the flags, route {row['route']} ({row['steps']} steps, "
+        f"admissions included; all-gather "
+        f"{1e3 * r['secs'] / r['steps']:.2f}); over the barrier, route "
+        f"{bar['route']}, {1e3 * bar['secs'] / bar['steps']:.2f} ms, the "
+        f"notice {100 * bar['wait_s'] / bar['secs']:.1f} % of it; weight "
+        f"bytes "
         f"{row['params_bytes']} (all-gather {r['params_bytes']}, one card "
         f"{tree_bytes(params)}; the layers' "
         f"{_shard_bytes(params['layers'], model.param_specs()['layers'], m)}"
         f" vs "
         f"{_shard_bytes(params['layers'], model.serving_param_specs()['layers'], m)}"
         f"), peak device memory {row['peak'] / 2**30:.2f} GiB, collectives "
-        f"on 'model' (transfers, bytes): {moved}, K1 "
-        f"{la['paged_attention']}, K2 {la['flash_attention_wgmma']}, K4 "
-        f"{la['write_accumulate']}; the largest partial {row['largest']}: K4 "
-        f"against its plain version max |d| {row['k4_largest'][0]:.3g}")
+        f"on 'model' (transfers, bytes) from Python: {moved}, K1 "
+        f"{la['paged_attention']}, K2 {la['flash_attention_wgmma']}, the "
+        f"TAB's collective {row['instances']['tab_collective']}; the "
+        f"largest partial {row['largest']}")
     if any(row["errors"]) or any(len(t) != TP_NEW for t in row["tokens"]):
         problems.append(f"{tag}: a request did not emit its {TP_NEW} "
                         f"tokens: {row['errors']}")
-    if (row["model_shards"] != m or row["route"] != "eager"
-            or row["deterministic"]):
+    if (row["model_shards"] != m or row["route"] != "graph"
+            or bar["route"] != "eager" or row["deterministic"]):
         problems.append(f"{tag}: shards {row['model_shards']}, route "
-                        f"{row['route']}, deterministic "
-                        f"{row['deterministic']}")
-    if (la["write_accumulate"] < (2 * layers + 1) * row["steps"]
+                        f"{row['route']} (barrier {bar['route']}), "
+                        f"deterministic {row['deterministic']}")
+    if row["tokens"] != bar["tokens"]:
+        problems.append(f"{tag}: bf16 tokens over the flags (graph) part "
+                        f"from the barrier run's (eager)")
+    sums = row["instances"]["tab_collective"].get("sum", 0)
+    if (sums < (2 * layers + 1) * row["steps"]
             or la["paged_attention"] != layers * row["steps"]
             or la["flash_attention_wgmma"] < 1):
-        problems.append(f"{tag}: K4 {la['write_accumulate']}, K1 "
+        problems.append(f"{tag}: the TAB's sums {sums}, K1 "
                         f"{la['paged_attention']}, K2 "
                         f"{la['flash_attention_wgmma']} for {row['steps']} "
                         f"steps")
@@ -5738,9 +6112,6 @@ def check_tp_rowpar(torch, card: str, cfg, params, r: dict, m: int,
         problems.append(f"{tag}: weight bytes {row['params_bytes']} / "
                         f"{r['params_bytes']}, the specs' shards {want_row} "
                         f"/ {want_gather}")
-    if not row["k4_largest"][1]:
-        problems.append(f"{tag}: K4 parts from its plain version at "
-                        f"{row['largest']}: {row['k4_largest']}")
     _cross_placement(tag, row, one, r["rowpar_fp32"], one32, problems)
 
 
@@ -5757,7 +6128,9 @@ TP_FAMILIES = (("recurrentgemma-9b", dict(num_layers=5, tp=2), 11, 1),
                ("xlstm-125m", dict(tp=1), 13, 0),
                ("whisper-base", dict(tp=1), 19, 18))
 TP_FAMILY_NEW = 16
-TP_FAMILY_KW = dict(batch_size=4, max_seq=64, block_size=16, paged=False)
+#: blocks of 8: over the slab a block's inputs keep one key, so the
+#: second block is captured and replayed
+TP_FAMILY_KW = dict(batch_size=4, max_seq=64, block_size=8, paged=False)
 #: whisper-base's bf16 logit bound against one card (F4, ROADMAP)
 WHISPER_LOGIT_ATOL = 0.25
 #: seconds the family spawn's ranks may take, their start included
@@ -5780,9 +6153,9 @@ def _family_serve(torch, cfg, params, work, frames, new: int, mesh=None,
                   **kw) -> dict:
     """Serve ``work`` over the slab (``TP_FAMILY_KW``, updated by ``kw``)
     with the counts and the mesh's tally reset just before; the run's
-    tokens and numbers, K4 against its plain version at the largest
-    partial summed, and (after the counts are read) the prompts' last
-    position's logits from one prefill at the model level."""
+    tokens and numbers, the largest partial summed from Python, and
+    (after the counts are read) the prompts' last position's logits from
+    one prefill at the model level."""
     import numpy as np
     from repro_torch.configs import build_model
     from repro_torch.kernels import (instance_counts, launch_counts,
@@ -5799,8 +6172,8 @@ def _family_serve(torch, cfg, params, work, frames, new: int, mesh=None,
     reset_launch_counts()
     if t is not None:
         t.reset_tally()
-    seen: list = []
-    with largest_partial(t, seen):
+    seen: dict = {}
+    with largest_collectives(t, seen):
         reqs = [server.submit(p, max_new_tokens=new,
                               extra=None if frames is None
                               else {"frames": frames[i]})
@@ -5814,7 +6187,8 @@ def _family_serve(torch, cfg, params, work, frames, new: int, mesh=None,
     out = {"tokens": [r.output for r in reqs],
            "errors": [r.error for r in reqs], "secs": secs,
            "steps": st["steps"], "admitted": st["admitted"],
-           "route": server.route, "launches": launch_counts(),
+           "route": server.route, "graph_blocks": st["graph_blocks"],
+           "launches": launch_counts(),
            "instances": instance_counts(),
            "tally": ({k: dict(v) for k, v in t.tally.items()}
                      if t is not None else {}),
@@ -5823,9 +6197,7 @@ def _family_serve(torch, cfg, params, work, frames, new: int, mesh=None,
            "model_shards": st["model_shards"],
            "deterministic": st["deterministic"],
            "peak": torch.cuda.max_memory_allocated(),
-           "largest": seen[0] if seen else None}
-    if seen:
-        out["k4_largest"] = k4_at(torch, seen[0], mesh.axis_size("model"))
+           "largest": seen.get("all_reduce")}
     toks = torch.as_tensor(np.stack(work), device="cuda")
     extra = (None if frames is None else
              {"frames": torch.from_numpy(np.concatenate(frames)).to("cuda")})
@@ -5863,23 +6235,24 @@ def tp_family_rank(fams: list) -> dict:
 
 
 def check_tp_families(torch, card: str, counts: Launches,
-                      problems: list) -> None:
+                      problems: list) -> list:
     """recurrentgemma-9b (5 of 38 layers), xlstm-125m and whisper-base at
     full width, bf16 from seeded random weights, served by this process
-    (eager) and row-parallel by 2 ranks over one shared region
+    (eager) and row-parallel by 2 ranks over one shared region's flags
     (``TP_FAMILIES``), each with its fp32 witness.  Gates on every rank:
-    the tokens emitted and equal on both ranks, the eager route, K4 at
-    least the family's all-reduces a step x steps, K2 at the family's
-    launches an admission, the rank's weight bytes its ``param_specs``
-    shard, K4 against its plain version at the largest partial; against
-    one card by the first-8 rule (whisper's logits within its F4 bound) or
-    else the fp32 witness."""
+    the tokens emitted and equal on both ranks, the graph route, the
+    TAB's sums at least the family's all-reduces a step x steps, K2 at
+    the family's launches an admission, the rank's weight bytes its
+    ``param_specs`` shard; against one card by the first-8 rule
+    (whisper's logits within its F4 bound) or else the fp32 witness.
+    Returns the TAB's cases at each family's largest partial (for
+    ``check_tab_kernel``)."""
     import dataclasses
     from repro_torch.configs import build_model, get_config
     from repro_torch.launch.mesh import spawn
     from repro_torch.memory import tree_bytes
     from repro_torch.memory.accounting import tree_map
-    fams, ones, rules = [], {}, {}
+    fams, ones, rules, cases = [], {}, {}, []
     for name, over, reduces, k2 in TP_FAMILIES:
         full = get_config(name)
         cfg = dataclasses.replace(full, **over)
@@ -5911,38 +6284,41 @@ def check_tp_families(torch, card: str, counts: Launches,
                      for k, v in run["tally"].items() if v["transfers"]}
             log(f"{tag} row-parallel [{card}]: "
                 f"{1e3 * run['secs'] / run['steps']:.2f} ms a step "
-                f"({run['steps']} steps, admissions included; one card "
-                f"{1e3 * one['secs'] / one['steps']:.2f}), the notice "
-                f"{100 * run['wait_s'] / run['secs']:.1f} % of it, weight "
+                f"({run['steps']} steps, admissions included, route "
+                f"{run['route']}, {run['graph_blocks']} blocks replayed; "
+                f"one card "
+                f"{1e3 * one['secs'] / one['steps']:.2f}), weight "
                 f"bytes {run['params_bytes']} (one card "
                 f"{tree_bytes(params)}), peak device memory "
                 f"{run['peak'] / 2**30:.2f} GiB, collectives on 'model' "
-                f"(transfers, bytes): {moved}, K2 "
-                f"{la['flash_attention_wgmma']}, K4 {la['write_accumulate']};"
-                f" the largest partial {run['largest']}: K4 against its "
-                f"plain version max |d| {run['k4_largest'][0]:.3g}")
+                f"(transfers, bytes) from Python: {moved}, K2 "
+                f"{la['flash_attention_wgmma']}, the TAB's collective "
+                f"{run['instances']['tab_collective']}; the largest "
+                f"partial {run['largest']}")
             if any(run["errors"]) or any(len(t) != TP_FAMILY_NEW
                                          for t in run["tokens"]):
                 problems.append(f"{tag}: a request did not emit its "
                                 f"{TP_FAMILY_NEW} tokens: {run['errors']}")
-            if (run["route"] != "eager" or run["model_shards"] != 2
-                    or run["deterministic"]):
-                problems.append(f"{tag}: route {run['route']}, shards "
+            if (run["route"] != "graph" or run["graph_blocks"] < 1
+                    or run["model_shards"] != 2 or run["deterministic"]):
+                problems.append(f"{tag}: route {run['route']} "
+                                f"({run['graph_blocks']} blocks replayed), shards "
                                 f"{run['model_shards']}, deterministic "
                                 f"{run['deterministic']}")
-            if (la["write_accumulate"] < reduces * run["steps"]
+            sums = run["instances"]["tab_collective"].get("sum", 0)
+            if (sums < reduces * run["steps"]
                     or la["flash_attention_wgmma"] != k2 * run["admitted"]
                     or la["flash_attention_mma"]):
-                problems.append(f"{tag}: K4 {la['write_accumulate']} for "
+                problems.append(f"{tag}: the TAB's sums {sums} for "
                                 f"{run['steps']} steps (>= {reduces} a "
                                 f"step), K2 {la} for {run['admitted']} "
                                 f"admissions ({k2} each)")
             if run["params_bytes"] != want_bytes:
                 problems.append(f"{tag}: weight bytes {run['params_bytes']}"
                                 f", its param_specs shard {want_bytes}")
-            if not run["k4_largest"][1]:
-                problems.append(f"{tag}: K4 parts from its plain version at "
-                                f"{run['largest']}: {run['k4_largest']}")
+            if run["largest"] is not None:
+                cases.append((f"{name}'s largest partial", 2,
+                              run["largest"], False, "tpfam"))
             _cross_placement(tag, run, one, run["fp32"], one32, problems,
                              atol=WHISPER_LOGIT_ATOL
                              if name == "whisper-base" else TP_LOGIT_ATOL)
@@ -5953,6 +6329,7 @@ def check_tp_families(torch, card: str, counts: Launches,
     del fams, ranks
     gc.collect()
     torch.cuda.empty_cache()
+    return cases
 
 
 def _tp_layers(torch, got, want) -> str:
@@ -5964,17 +6341,21 @@ def _tp_layers(torch, got, want) -> str:
         for i, (a, b) in enumerate(zip(got, want)))
 
 
-def check_tp(torch, card: str, counts: dict) -> None:
+def check_tp(torch, card: str, counts: dict, results: dict) -> None:
     """The tp phase: Qwen2.5-14B at full width and ``TP_LAYERS`` layers,
     bf16 pools, the serving workload's four 8-token prompts (``TP_NEW``
-    new tokens), served by this process (eager: the baseline of a
-    sharded server, which decodes eagerly) and then by m = 2 and m = 4
-    ranks on this card over one shared region (``SharedRegionTransport``;
-    K4 the accumulate of the embedding's all-reduce).
+    new tokens), served by this process (eager) and then by m = 2 and
+    m = 4 ranks on this card over one shared region
+    (``SharedRegionTransport``): over its flags notice, every collective
+    one launch of the TAB's collective and the decode blocks replayed as
+    CUDA graphs, and over its barrier notice, eagerly (K4 the
+    accumulate).
 
-    Gates: K4, K1 (once a layer a step) and K2 on every rank, per-rank
-    pool bytes = single / m, ``model_shards`` and the ledger's shards m,
-    the eager route, the embedding bit-equal on every rank; the tokens
+    Gates: the TAB's sums, K1 (once a layer a step, replays counted) and
+    K2 on every rank, per-rank pool bytes = single / m, ``model_shards``
+    and the ledger's shards m, the graph route over the flags and the
+    eager route over the barrier, the flags' bf16 tokens bit-equal to the
+    barrier's, the embedding bit-equal on every rank; the tokens
     bit-equal to the single server's, or else the fp32 witness: the same
     weights in fp32 (a rounding unit 2^16 times finer), sharded against
     one card, held to the first-8 rule and the last position's logits
@@ -5983,7 +6364,10 @@ def check_tp(torch, card: str, counts: dict) -> None:
     (``TP_LOGIT_ATOL`` / ``TP_LOGIT_RTOL``) and first-8, each layer's
     max |d|, and whether layer 0's sharded products equal the full
     product's columns are printed (``tp_products``).  The m = 2 ranks also
-    serve ``TP_RUNS`` (``check_tp_lifecycle``).  ``counts``: m -> the
+    serve ``TP_RUNS`` (``check_tp_lifecycle``).  Then the TAB's
+    collective against its plain version at ``TAB_SHAPES`` and at the
+    largest all-reduce and all-gather each mesh issued
+    (``check_tab_kernel``: rows of ``results``).  ``counts``: m -> the
     launches of its runs (m = 1: this process's)."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -5995,11 +6379,11 @@ def check_tp(torch, card: str, counts: dict) -> None:
                               num_layers=TP_LAYERS)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     log(f"tp: DEPTH CUT: Qwen2.5-14B at full width and {TP_LAYERS} of 48 "
-        f"layers")
+        f"layers; TP_RUNS and TP_ROWPAR_RUNS at {TP_LIFE_LAYERS}")
     before = torch.cuda.memory_allocated()
     params = DenseLM(cfg).init(0, device="cuda")
     work = prompts(cfg.vocab, 0)[:4]
-    one = _tp_serve(torch, cfg, params, work, TP_NEW)
+    one = _tp_serve(torch, cfg, params, work, TP_NEW, block_size=TP_BLOCK)
     counts[1].add(one["launches"], one["instances"])
     log(f"tp m=1 [{card}]: {1e3 * one['secs'] / one['steps']:.2f} ms a "
         f"step eager ({one['steps']} steps, admissions included, route "
@@ -6009,8 +6393,11 @@ def check_tp(torch, card: str, counts: dict) -> None:
         f"K4 {one['launches']['write_accumulate']}")
     tp_products(torch, card, params)
     params32 = tree_map(lambda t: t.float(), params)
-    one32 = _tp_serve(torch, cfg32, params32, work, TP_WITNESS_NEW)
+    one32 = _tp_serve(torch, cfg32, params32, work, TP_WITNESS_NEW,
+                      block_size=TP_BLOCK)
     problems = []
+    cases = [(label, n, shape, gather, f"tp{n}")
+             for label, n, shape, gather in TAB_SHAPES]
     for m in TP_SHARDS:
         t0 = time.perf_counter()
         ranks = spawn(tp_rank, m, cfg, params, cfg32, params32, work,
@@ -6018,6 +6405,15 @@ def check_tp(torch, card: str, counts: dict) -> None:
                       timeout=TP_TIMEOUT + (TP_LIFECYCLE_S if m == 2 else 0))
         wall = time.perf_counter() - t0
         for r in ranks:
+            for run in (r["barrier"], r["rowpar_barrier"]):
+                counts[m].add(run["launches"], run["instances"])
+            for key, gather in (("largest", False),
+                                ("largest_gather", True)):
+                for run in (r, r["rowpar"]):
+                    if run[key] is not None:
+                        cases.append((f"the ranks' largest "
+                                      f"{'gather' if gather else 'all-reduce'}",
+                                      m, run[key], gather, f"tp{m}"))
             counts[m].add(r["launches"], r["instances"])
             for run in r.get("lifecycle", {}).values():
                 counts[m].add(run["launches"], run["instances"])
@@ -6025,35 +6421,70 @@ def check_tp(torch, card: str, counts: dict) -> None:
                 counts[m].add(run["launches"], run["instances"])
             counts[m].add(r["rowpar"]["launches"], r["rowpar"]["instances"])
             if "lifecycle" in r:
-                check_tp_lifecycle(torch, card, cfg, params, r, m, problems)
-                check_tp_lifecycle(torch, card, cfg, params, r, m, problems,
-                                   rowpar=True)
+                for rowpar in (False, True):
+                    check_tp_lifecycle(torch, card,
+                                       *_cut(cfg, params, TP_LIFE_LAYERS),
+                                       r, m, problems, rowpar=rowpar)
             check_tp_rowpar(torch, card, cfg, params, r, m, one, one32,
                             problems)
             tag = f"tp m={m} rank {r['rank']}"
-            share = r["wait_s"] / r["secs"]
+            bar = r["barrier"]
             moved = {k: (v["transfers"], v["bytes"])
                      for k, v in r["tally"].items() if v["transfers"]}
             log(f"{tag} [{card}]: {1e3 * r['secs'] / r['steps']:.2f} ms a "
-                f"step ({r['steps']} steps, admissions included, route "
-                f"{r['route']}), the completion notice (stream sync + gloo "
-                f"barrier) {100 * share:.1f} % of it, peak device memory "
+                f"step over the flags ({r['steps']} steps, admissions "
+                f"included, route {r['route']}: {r['stats']['graph_blocks']}"
+                f" blocks replayed, {r['stats']['eager_blocks']} eager); "
+                f"over the barrier {1e3 * bar['secs'] / bar['steps']:.2f} ms"
+                f" (route {bar['route']}), the completion notice (stream "
+                f"sync + gloo barrier) {100 * bar['wait_s'] / bar['secs']:.1f}"
+                f" % of it; peak device memory "
                 f"{r['peak'] / 2**30:.2f} GiB (params "
                 f"{r['params_bytes'] / 2**30:.2f} GiB), kv_pool "
                 f"{r['kv_capacity']} B, collectives on 'model' (transfers, "
-                f"bytes): {moved}, K1 {r['launches']['paged_attention']}, "
-                f"K2 {r['launches']['flash_attention_wgmma']}, K4 "
-                f"{r['launches']['write_accumulate']}")
+                f"bytes) from Python: {moved}, K1 "
+                f"{r['launches']['paged_attention']}, K2 "
+                f"{r['launches']['flash_attention_wgmma']}, the TAB's "
+                f"collective {r['instances']['tab_collective']} (barrier: K4 "
+                f"{bar['launches']['write_accumulate']})")
+            for mode, run in (("all-gather", r), ("row-parallel",
+                                                  r["rowpar"])):
+                rp = run.get("replay", {})
+                if not rp:
+                    problems.append(f"{tag} {mode}: no block was captured")
+                    continue
+                log(f"{tag} {mode} [{card}]: a block of {rp['steps']} steps "
+                    f"replayed {rp['replay']:.2f} ms a step, run "
+                    f"eagerly over the flags {rp['eager']:.2f} ms a step"
+                    + ("" if "tab_ms" not in rp else
+                       f"; traced replay {rp['wall_ms']:.2f} ms wall, device "
+                       f"busy {rp['busy_ms']:.2f} ms "
+                       f"({100 * rp['busy_ms'] / rp['wall_ms']:.1f} %), the "
+                       f"TAB's collective {rp['tab_ms']:.2f} ms of it "
+                       f"({100 * rp['tab_ms'] / rp['busy_ms']:.1f} %, "
+                       f"{rp['tab_calls']} launches, "
+                       f"{rp['tab_ms'] / max(rp['tab_calls'], 1):.4f} ms "
+                       f"each)"))
             if any(r["errors"]) or any(len(t) != TP_NEW for t in r["tokens"]):
                 problems.append(f"{tag}: a request did not emit its "
                                 f"{TP_NEW} tokens: {r['errors']}")
             if r["model_shards"] != m or r["shards"] != m:
                 problems.append(f"{tag}: model_shards {r['model_shards']}, "
                                 f"ledger shards {r['shards']}")
-            if r["route"] != "eager":
-                problems.append(f"{tag}: route {r['route']}")
-            if r["launches"]["write_accumulate"] < 1:
-                problems.append(f"{tag}: K4 never launched")
+            if r["route"] != "graph" or bar["route"] != "eager" or \
+                    r["stats"]["graph_blocks"] < 1:
+                problems.append(f"{tag}: route {r['route']} "
+                                f"({r['stats']['graph_blocks']} blocks "
+                                f"replayed), barrier {bar['route']}")
+            if r["tokens"] != bar["tokens"]:
+                problems.append(f"{tag}: bf16 tokens over the flags (graph)"
+                                f" part from the barrier run's (eager)")
+            if r["instances"]["tab_collective"].get("sum", 0) < r["steps"] \
+                    or bar["launches"]["write_accumulate"] < 1:
+                problems.append(f"{tag}: the TAB's sums "
+                                f"{r['instances']['tab_collective']}, the "
+                                f"barrier's K4 "
+                                f"{bar['launches']['write_accumulate']}")
             if r["launches"]["paged_attention"] != TP_LAYERS * r["steps"]:
                 problems.append(f"{tag}: K1 {r['launches']['paged_attention']}"
                                 f" for {r['steps']} steps, not one a layer")
@@ -6101,7 +6532,8 @@ def check_tp(torch, card: str, counts: dict) -> None:
     del params, params32, ranks
     gc.collect()
     torch.cuda.empty_cache()
-    check_tp_families(torch, card, counts["fam"], problems)
+    cases += check_tp_families(torch, card, counts["fam"], problems)
+    check_tab_kernel(torch, card, results, cases)
     left = torch.cuda.memory_allocated() - before
     log(f"tp: device memory still allocated after the phase "
         f"{left / 2**30:.2f} GiB")
@@ -6134,8 +6566,11 @@ def main() -> int:
                             "serve,dense,tiers,disagg",
                     help="comma list of kernels, parity, moe, gpt3, "
                          "families, train, tp, serve, dense, tiers, disagg, "
-                         "profile (a traced serving run) and sweep (K3's "
-                         "routes over M); the last two are off by default")
+                         "profile (a traced serving run), sweep (K3's "
+                         "routes over M) and notice (the TAB's collective "
+                         "against its plain version and its notice timed "
+                         "across ranks); the last three are off by "
+                         "default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -6196,6 +6631,9 @@ def main() -> int:
     if "sweep" in phases:
         sweep_matmul(torch, card)
         took("sweep")
+    if "notice" in phases:
+        check_notice(torch, card, results)
+        took("notice")
     parity_launches = None
     if "parity" in phases:
         parity_launches = check_parity(torch)
@@ -6241,7 +6679,7 @@ def main() -> int:
         # before the Qwen2.5-14B weights of the serve phase: the ranks'
         # shards and this process's 12 layers share the card
         tp = {m: Launches(f"tp m={m}") for m in (1, *TP_SHARDS, "fam")}
-        check_tp(torch, card, tp)
+        check_tp(torch, card, tp, results)
         gc.collect()
         torch.cuda.empty_cache()
         took("tp")
@@ -6336,7 +6774,7 @@ def main() -> int:
                 name = counter.name
                 if name == "flash_attention_mma":
                     path, counts = smoke, parity_launches
-                for row in results[name]:
+                for row in results.get(name, []):
                     mine = by_phase.get(row.get("phase"), (path, counts))
                     n = count(mine[1], name, row)
                     # the steady-state graph run serves the serve path's

@@ -6,8 +6,14 @@ shared-memory traffic: each xPU write-accumulates its contribution into
 a striped shared buffer (one transfer), the TAB notifies completion, and
 consumers read.  The port runs that schedule for real: an axis's
 :class:`repro_torch.runtime.transport.SharedRegionTransport` is one
-region every rank writes its slot of, a barrier is the completion
-notice, and K4 is the accumulate (:mod:`repro_torch.runtime.transport`).
+region every rank writes its slot of, and by default one kernel a
+collective on the rank's stream writes the slot, gives the completion
+notice in the region's flag area on the device (publishing the rank's
+arrival and waiting for its peers') and accumulates or gathers the
+slots -- K4 redesigned for the card, so a decode block's collectives
+can sit inside a CUDA graph, as the reference's sit inside its jitted
+scan.  ``notice="barrier"`` keeps the host barrier and K4 as the plain
+version (:mod:`repro_torch.runtime.transport`).
 
 * ``tab_*``: one-shot collectives, one write and one read a rank.
 * ``ring_*``: the paper's NVLink baseline as explicit ``ppermute`` rings,

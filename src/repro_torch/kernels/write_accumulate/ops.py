@@ -1,14 +1,15 @@
-"""The write-accumulate wrapper (counterpart of
-``repro.kernels.write_accumulate.ops``): any trailing shape, flattened
-for the kernel and restored after.  CPU tensors take the plain version,
-CUDA tensors the hand-written kernel; there is no fallback from one to
-the other."""
+"""The write-accumulate wrappers (counterpart of
+``repro.kernels.write_accumulate.ops``): K4's ``accumulate`` and the
+TAB's ``collective``.  CPU tensors take the plain versions, CUDA tensors
+the hand-written kernels; there is no fallback from one to the other."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.write_accumulate import kernel as _kernel
-from repro_torch.kernels.write_accumulate.ref import write_accumulate_ref
+from repro_torch.kernels.write_accumulate.kernel import FLAG_CTAS, GATHER, SUM
+from repro_torch.kernels.write_accumulate.ref import (tab_collective_ref,
+                                                      write_accumulate_ref)
 
 
 def accumulate(shards: torch.Tensor, *, block: int = 512) -> torch.Tensor:
@@ -27,3 +28,40 @@ def accumulate(shards: torch.Tensor, *, block: int = 512) -> torch.Tensor:
         return write_accumulate_ref(shards)
     flat = shards.reshape(shards.shape[0], -1).contiguous()
     return _kernel.write_accumulate(flat).reshape(shards.shape[1:])
+
+
+def flag_words(size: int) -> int:
+    """int64 words of the flag area of ``size`` ranks: an arrival word a
+    (rank, CTA) and an error word a rank."""
+    return size * (FLAG_CTAS + 1)
+
+
+def slot_stride(nbytes: int) -> int:
+    """Bytes of a slot holding an ``nbytes`` contribution: rounded up to
+    16, so that every slot takes 16-byte stores and loads."""
+    return -(-nbytes // 16) * 16
+
+
+def collective(x: torch.Tensor, data: torch.Tensor, flags: torch.Tensor, *,
+               rank: int, size: int, gather: bool,
+               timeout_s: float) -> torch.Tensor:
+    """One TAB collective of this rank (``csrc/write_accumulate.cu``'s
+    protocol): ``x`` into its slot of the next half of ``data``, the
+    completion notice in ``flags``, then the read -- ``gather``: (size,
+    *x.shape), every rank's ``x`` in rank order; else the fp32 sum in
+    rank order, x's shape and dtype.  Every rank of the world calls it in
+    the same order with the same shape and dtype."""
+    x = x.contiguous()
+    nbytes = x.numel() * x.element_size()
+    if nbytes == 0:
+        raise ValueError("a TAB collective of an empty tensor")
+    mode = GATHER if gather else SUM
+    kw = dict(rank=rank, size=size, stride=slot_stride(nbytes), mode=mode,
+              timeout_s=timeout_s)
+    if x.device.type == "cpu":
+        out = tab_collective_ref(x, data, flags, **kw)
+    else:
+        out = _kernel.tab_collective(x, data, flags, **kw)
+    if not gather:
+        return out
+    return out.view(x.dtype).view((size,) + tuple(x.shape))

@@ -15,8 +15,12 @@ rank (:mod:`repro_torch.runtime.transport`) that the TAB collectives
 connect on the loopback device), and, for the shared-region transport,
 hands every rank one region of memory that the parent allocates and
 keeps alive until the ranks exit: shared host memory for CPU ranks, one
-CUDA allocation passed to the ranks by IPC for ranks on a card.  Inside
-a rank, :func:`make_serving_mesh` builds the mesh over that world.
+CUDA allocation passed to the ranks by IPC for ranks on a card.  The
+region holds the TAB's two halves and, beside them, its flag area (the
+ranks' arrival and error words, zeroed), in that one allocation.  Ranks
+run on the card unless the caller asks for the CPU
+(:func:`repro_torch.resolve_device`).  Inside a rank,
+:func:`make_serving_mesh` builds the mesh over that world.
 Outside one, a mesh of more than one rank is *abstract*: it carries the
 axis sizes (a server checks a config against them) and no transport.
 """
@@ -116,18 +120,40 @@ class Mesh:
 # The world of ranks a spawned process belongs to
 # ---------------------------------------------------------------------------
 
+def _flag_offset(region_bytes: int) -> int:
+    """Where the flag area starts in a region of two ``region_bytes``
+    halves: past them, at a multiple of 16 bytes."""
+    return -(-2 * region_bytes // 16) * 16
+
+
 class World:
     """The ranks :func:`spawn` started, as one of them sees them: its
-    rank, their number and the shared region (None when the parent
-    allocated none).  The region's half
-    alternates with every shared-region collective of this rank, whatever
-    transport issued it, so every rank walks the halves in step."""
+    rank, their number, the shared region's two halves (``region``, None
+    when the parent allocated none) and its flag area (``flags``: int64
+    arrival words, then an error word a rank;
+    :func:`repro_torch.kernels.write_accumulate.ops.flag_words`).
 
-    def __init__(self, rank: int, size: int, region: torch.Tensor | None):
+    The two completion notices keep their own count of the halves: the
+    barrier's on the host (:meth:`next_half`, advanced by every
+    barrier-notice collective of this rank), the flags' on the device
+    (each rank's arrival words).  A world does not mix them: the first
+    collective of a notice after one of the other drains the world
+    (:meth:`use`), so no rank still reads a half the other notice writes
+    next."""
+
+    def __init__(self, rank: int, size: int, region: torch.Tensor | None,
+                 region_bytes: int = 0):
+        from repro_torch.kernels.write_accumulate.ops import flag_words
         self.rank = rank
         self.size = size
-        self.region = region
+        self.region = self.flags = None
+        if region is not None:
+            off = _flag_offset(region_bytes)
+            self.region = region[: 2 * region_bytes]
+            self.flags = region[off: off + 8 * flag_words(size)].view(
+                torch.int64)
         self._phase = 0
+        self._notice: str | None = None
         self._cache: dict = {}
 
     def next_half(self) -> int:
@@ -135,15 +161,29 @@ class World:
         self._phase ^= 1
         return half
 
-    def transport(self, kind: str, axis: str):
+    def use(self, notice: str) -> None:
+        """Note that the next shared-region collective goes through
+        ``notice``; the first after one of the other notice drains the
+        world: this rank's stream is synchronised, then every rank passes
+        a host barrier (every rank switches at the same collective)."""
+        if self._notice not in (None, notice):
+            import torch.distributed as dist
+            if self.region.device.type == "cuda":
+                torch.cuda.current_stream(self.region.device).synchronize()
+            dist.barrier()
+        self._notice = notice
+
+    def transport(self, kind: str, axis: str, notice: str = "flags"):
         """This rank's transport of ``kind`` (``"shared"``: the TAB's
-        shared region; ``"group"``: the process group) for ``axis``, one
-        instance a (kind, axis)."""
+        shared region, its completion notice ``notice``; ``"group"``: the
+        process group) for ``axis``, one instance a (kind, axis,
+        notice)."""
         from repro_torch.runtime import transport as tr
-        key = (kind, axis)
+        key = (kind, axis) + ((notice,) if kind == "shared" else ())
         if key not in self._cache:
             if kind == "shared":
-                self._cache[key] = tr.SharedRegionTransport(self, axis)
+                self._cache[key] = tr.SharedRegionTransport(self, axis,
+                                                            notice=notice)
             elif kind == "group":
                 self._cache[key] = tr.ProcessGroupTransport(self, axis)
             else:
@@ -160,7 +200,7 @@ def world() -> World | None:
     return _WORLD
 
 
-def _mesh(sizes: dict[str, int], transport: str) -> Mesh:
+def _mesh(sizes: dict[str, int], transport: str, notice: str) -> Mesh:
     n = math.prod(sizes.values())
     w = _WORLD
     if n == 1:
@@ -176,7 +216,8 @@ def _mesh(sizes: dict[str, int], transport: str) -> Mesh:
             f"mesh {sizes}: collectives over an axis that spans part of "
             f"the world (data > 1 and model > 1) are not wired yet")
     return Mesh(sizes, rank=w.rank,
-                transports={live[0]: w.transport(transport, live[0])})
+                transports={live[0]: w.transport(transport, live[0],
+                                                 notice)})
 
 
 def make_smoke_mesh() -> Mesh:
@@ -185,18 +226,25 @@ def make_smoke_mesh() -> Mesh:
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *,
-                   transport: str = "shared") -> Mesh:
+                   transport: str = "shared", notice: str = "flags") -> Mesh:
     """A ``(data, model)`` mesh over this process's world of ranks
     (abstract outside one); ``transport`` picks the TAB's shared region
-    (``"shared"``) or the process group (``"group"``)."""
-    return _mesh({"data": data, "model": model}, transport)
+    (``"shared"``) or the process group (``"group"``), and ``notice`` the
+    shared region's completion notice: ``"flags"``, on the device (the
+    TAB's collective kernel; a decode block over it can be a CUDA
+    graph), or ``"barrier"``, on the host (a stream synchronisation and
+    a ``gloo`` barrier)."""
+    return _mesh({"data": data, "model": model}, transport, notice)
 
 
 def make_serving_mesh(model: int = 1, data: int = 1, *,
-                      transport: str = "shared") -> Mesh:
+                      transport: str = "shared", notice: str = "flags"
+                      ) -> Mesh:
     """Tensor-parallel serving mesh: ``model`` shards of the weights and
-    KV heads, ``data`` replicas.  ``model=1`` is the degenerate mesh."""
-    return make_host_mesh(data=data, model=model, transport=transport)
+    KV heads, ``data`` replicas.  ``model=1`` is the degenerate mesh.
+    ``transport`` and ``notice`` as :func:`make_host_mesh`'s."""
+    return make_host_mesh(data=data, model=model, transport=transport,
+                          notice=notice)
 
 
 def serving_model_shards(max_shards: int, *heads: int,
@@ -235,8 +283,8 @@ def _rank_main(rank: int, size: int, store: str, device: str,
         # which live as long as the process: shared tensors dropped here
         # are released to the parent (CUDA IPC memory stays held in the
         # parent until every rank released it)
-        fn, args, region = inbox.get()
-        _WORLD = World(rank, size, region)
+        fn, args, region, region_bytes = inbox.get()
+        _WORLD = World(rank, size, region, region_bytes)
         # pickled by value: a tensor shared by handle would die with this
         # process before the parent reads it
         result = pickle.dumps(fn(*args))
@@ -252,7 +300,7 @@ def _rank_main(rank: int, size: int, store: str, device: str,
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, nprocs: int, *args, device: str = "cpu",
+def spawn(fn: Callable, nprocs: int, *args, device: str | None = None,
           region_bytes: int | None = REGION_BYTES,
           threads: int | None = None, timeout: float = 600.0) -> list:
     """Run ``fn(*args)`` in ``nprocs`` new processes, the ranks of one
@@ -263,15 +311,21 @@ def spawn(fn: Callable, nprocs: int, *args, device: str = "cpu",
     reach the ranks as IPC handles on the same memory (the parent keeps
     them alive, and takes back what the ranks released once they
     exited).  ``region_bytes`` sizes each half of the shared region (None:
-    no region, only the process-group transport); the region lives on
-    ``device``.  ``threads`` caps each rank's intra-op threads.  Raises
-    with the rank's traceback if any rank fails, and after ``timeout``
-    seconds; every process is gone when it returns."""
+    no region, only the process-group transport); the region and its
+    flag area live on ``device`` (default the card; ``"cpu"`` only when
+    asked for, :func:`repro_torch.resolve_device`).  ``threads`` caps each
+    rank's intra-op threads.  Raises with the rank's traceback if any
+    rank fails, and after ``timeout`` seconds; every process is gone when
+    it returns."""
+    from repro_torch import resolve_device
+    from repro_torch.kernels.write_accumulate.ops import flag_words
+    device = str(resolve_device(device))
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     region = None
     if region_bytes:
-        region = torch.zeros(2 * region_bytes, dtype=torch.uint8,
+        region = torch.zeros(_flag_offset(region_bytes)
+                             + 8 * flag_words(nprocs), dtype=torch.uint8,
                              device=device)
         if region.device.type == "cpu":
             region.share_memory_()
@@ -285,7 +339,7 @@ def spawn(fn: Callable, nprocs: int, *args, device: str = "cpu",
     try:
         for p, inbox in zip(procs, inboxes):
             p.start()
-            inbox.put((fn, args, region))
+            inbox.put((fn, args, region, region_bytes or 0))
         deadline = time.monotonic() + timeout
         while len(results) < nprocs:
             try:

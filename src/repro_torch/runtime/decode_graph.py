@@ -11,7 +11,9 @@ reference's jitted, donated ``lax.scan`` of ``block_size`` decode steps
   the cache and the state a caller passes are the ones it gets back, and
   every block reads its inputs from the same buffers.
 * **Two routes, chosen once** (:func:`choose_route`): ``graph`` on a CUDA
-  device with the weights and the KV resident, ``eager`` otherwise.  The
+  device with the weights and the KV resident -- over a mesh too, when
+  its collectives stay on the device (the shared region's flags notice)
+  --, ``eager`` otherwise.  The
   eager route issues every op from the host (the plain loop, the CPU's
   only route).  Weights paged from the remote tier, ``offload_kv`` and
   MoE expert paging stay eager: their copy stream's events and their
@@ -34,6 +36,11 @@ reference's jitted, donated ``lax.scan`` of ``block_size`` decode steps
   replay adds the tally to the counts: K1 once a layer a step, replayed
   or not.  The split counters K1 shares (``build.counters``) are sized
   before a capture; growing them inside one raises.
+* **Over a mesh** each rank captures its own graph.  A capture runs no
+  kernel, so no rank waits on a peer while capturing; the collectives'
+  sequence numbers live on the device (the flag area), so a replay stays
+  in step with the eager collectives of the admissions and the votes,
+  and a key's first block runs eagerly on every rank in lockstep.
 * **Nothing in a block waits for the host**: no ``.item()``, no
   ``bool()`` of a tensor, no ``nonzero`` or boolean-mask indexing, no
   tensor made from host data, no shape that depends on data.  A capture
@@ -80,11 +87,23 @@ def paged_classes(model) -> list[str]:
 
 def eager_reasons(model) -> list[str]:
     """Why ``model``'s decode block cannot be captured: the paged classes
-    (:func:`paged_classes`), and a bound mesh of several ranks (each
-    collective passes a host barrier, which a graph cannot hold)."""
+    (:func:`paged_classes`), and a mesh of several ranks whose
+    collectives wait on the host (a process group, or a shared region
+    under the barrier notice: a graph cannot hold a host wait) or that
+    has no transport (abstract).  A shared region under the flags notice
+    keeps the whole collective on the device, so its mesh is captured as
+    one card is."""
     reasons = paged_classes(model)
+    mesh = model.mem.mesh
     if model.mem.model_shards > 1:
-        reasons.append("a mesh (each collective passes a host barrier)")
+        waits = sorted(f"{axis}: {type(t).__name__}"
+                       + (f" notice={t.notice}" if hasattr(t, "notice")
+                          else "")
+                       for axis, t in mesh.transports().items()
+                       if not t.capturable)
+        if waits or not mesh.bound:
+            reasons.append(f"a mesh whose collectives wait on the host "
+                           f"({', '.join(waits) or 'no transport'})")
     return reasons
 
 

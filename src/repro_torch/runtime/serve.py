@@ -134,9 +134,16 @@ live batch — no batch restart.
   collective is a TAB collective over the mesh's transport (the shared
   region: K4 is the embedding's accumulate), so tokens are bit-identical
   to one card's wherever the shards' products are.  The mesh is checked
-  before it is bound; a sharded server decodes eagerly (a host barrier
-  cannot sit inside a CUDA graph); ``stats["model_shards"]``, and the
-  ledger counts one rank's bytes (``shards``).  The memory tiers and the
+  before it is bound.  Its decode route follows from
+  :func:`~repro_torch.runtime.decode_graph.choose_route`: over the
+  shared region's flags notice (the default) every collective is one
+  kernel on the rank's stream, so a resident mesh on the card replays
+  its decode block as one CUDA graph, as one card does; over the
+  barrier notice or the process group it decodes eagerly (a host wait
+  cannot sit inside a graph).  The collectives' watchdog is read where
+  the server already waits for the device (a block's harvest, an
+  admission) and raises.  ``stats["route"]``, ``stats["model_shards"]``,
+  and the ledger counts one rank's bytes (``shards``).  The memory tiers and the
   request lifecycle run over the mesh too: with the pager on, each rank
   pages its shard of the layer weights from the remote tier through its
   own Tensor Prefetcher (the server places it:
@@ -413,6 +420,7 @@ class BatchedServer:
     overload_factor: float | None = None
     handoff_lease_blocks: int = 64
     cold_park_after_blocks: int | None = None
+    _watched: tuple = ()
 
     def __init__(self, model, params, *, batch_size: int = 4,
                  max_seq: int = 256, temperature: float = 0.0,
@@ -538,7 +546,13 @@ class BatchedServer:
             # the reference's make_decode_loop, built once (its :451); the
             # route is chosen here, before the first block, from placement
             self.route, why = choose_route(model, self.device, graph)
+            self.stats["route"] = self.route
             log.info("decode route %s (%s)", self.route, why)
+            # the transports whose failures only the device saw (the
+            # flags notice's watchdog), read at the host's own waits
+            self._watched = tuple(t for t in (mesh.transports().values()
+                                              if mesh is not None else ())
+                                  if t.capturable)
             self._loop = make_decode_loop(
                 model, block_size=block_size, temperature=temperature,
                 eos_id=eos_id, detect_nonfinite=True,
@@ -1033,6 +1047,8 @@ class BatchedServer:
         st.slot_keys[slot] = req_key
         first, finite = torch.stack(
             [nxt[0, 0], torch.isfinite(logits).all().long()]).tolist()
+        for t in self._watched:
+            t.check()
         self.stats["nonfinite_logits"] += int(not finite)
         self._slot_pos[slot] = plen
         self._planned[slot] = 0
@@ -1604,7 +1620,8 @@ class BatchedServer:
         self.stats["compiles"] = blocks.captures
         self.stats["graph_blocks"] = blocks.replays
         self.stats["eager_blocks"] = blocks.eager
-        host, event = self._d2h_async(toks, valid, bad)
+        host, event = self._d2h_async(
+            toks, valid, bad, *(t.status() for t in self._watched))
         self._fold_stall()
         self.stats["dispatches"] += 1
         self.stats["blocks"] += 1
@@ -1618,9 +1635,11 @@ class BatchedServer:
         safe: a slot that finished here is inactive in that block, so its
         only writes are frozen-position writes into its own tail page,
         which a new owner overwrites (prefill) or masks until it writes."""
-        (toks, valid, bad), event, advances = block
+        (toks, valid, bad, *status), event, advances = block
         if event is not None:
             event.synchronize()
+        for t, words in zip(self._watched, status):
+            t.check(words.tolist())
         toks_h, valid_h, bad_h = toks.numpy(), valid.numpy(), bad.numpy()
         self.stats["host_syncs"] += 1
         self.stats["nonfinite_logits"] += int(bad_h.sum())

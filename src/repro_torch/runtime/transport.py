@@ -4,16 +4,36 @@ which XLA lowers onto the TPU's links).
 
 * :class:`SharedRegionTransport` is the FengHuang TAB itself (§3.3): one
   region of memory that every rank of the axis writes into and reads
-  from.  A collective writes this rank's contribution into its slot of
-  one half of the region, synchronises its stream (the write has
-  landed), passes a ``gloo`` CPU barrier (the TAB's completion notice)
-  and reads.  All-reduce and reduce-scatter accumulate the N slots with
-  K4 (:func:`repro_torch.kernels.write_accumulate.ops.accumulate`) in
-  slot order, so the sum is deterministic and equal on every rank; on
-  the CPU K4's plain version does it.  The two halves alternate: a rank
-  writes a half again only after a later barrier, which every rank
-  passes only once it read the half before.  ``ppermute`` writes into
-  the target's slot.
+  from, two halves of N slots.  A collective writes this rank's
+  contribution into its slot of one half, passes the TAB's completion
+  notice, and reads: all-reduce and reduce-scatter accumulate the N
+  slots in slot order in fp32, so the sum is deterministic and equal on
+  every rank; the other kinds read every slot (the gather).  The notice
+  comes in two kinds (``notice=``):
+
+  - ``"flags"`` (the default, on every device): on the device.  One
+    kernel a collective (``csrc/write_accumulate.cu``, the TAB's
+    collective: K4 redesigned for the card) writes the slot, publishes
+    the rank's arrival in the region's flag area, waits for its peers'
+    arrival there and reads, on the rank's stream.  The sequence number
+    that picks the half lives in the flag area too, so nothing waits on
+    the host and a decode block's collectives can sit inside a CUDA
+    graph.  A wait past ``timeout_s`` (the watchdog) sets the rank's
+    error word; the host reads the words where it already waits for the
+    device (:meth:`SharedRegionTransport.check`; the server's harvest
+    and admissions, every vote) and raises ``RuntimeError`` naming the
+    rank and the sequence.  On the CPU the kernel's plain version runs
+    the same protocol over shared host memory, and raises at once.
+  - ``"barrier"``: on the host.  The rank's stream is synchronised (the
+    write has landed), then a ``gloo`` CPU barrier is passed, then K4
+    (:func:`repro_torch.kernels.write_accumulate.ops.accumulate`)
+    accumulates the slots; the host picks the half.  It is the plain
+    version of the notice, taken only when asked for.
+
+  Every kind of collective goes through the transport's one notice
+  (``_collect``): ``reduce_scatter`` is this rank's chunk of the
+  all-reduced contribution, ``all_to_all`` and ``ppermute`` read what
+  they need of the gather.
 * :class:`ProcessGroupTransport` runs the same interface over
   ``torch.distributed``: ``gloo`` between CPU ranks; where every rank
   has a card of its own, NCCL runs the same code.  Data movement goes as
@@ -22,14 +42,19 @@ which XLA lowers onto the TPU's links).
 
 ``vote`` is the agreement the server and the orchestrator take their
 rank-local decisions through: the largest of the ranks' values, by one
-all-gather (tallied as one).
+all-gather (tallied as one).  ``capturable`` says whether a transport's
+collectives can sit inside a CUDA graph (the flags notice's only).
 
 Every collective is tallied by kind on its transport: ``transfers`` (one
 a collective step), the ``writes`` and ``reads`` this rank made, and the
-payload ``bytes`` it wrote; ``wait_s`` is the time spent in the
-completion notice (stream synchronisation and barrier).  A TAB
-collective is one write and one read a rank; the ring baselines of
-:mod:`repro_torch.core.tab` are 2(N-1) ``ppermute`` transfers.
+payload ``bytes`` it wrote; ``wait_s`` is the host's time in the
+completion notice (the barrier's stream synchronisation and barrier; on
+the CPU the flags' plain version's whole collective; 0 for the flags on
+the card, whose wait is device time).  The tally counts the collectives
+Python issued: a CUDA graph's replays add none (their launches are
+counted by the kernel's launch count).  A TAB collective is one write
+and one read a rank; the ring baselines of :mod:`repro_torch.core.tab`
+are 2(N-1) ``ppermute`` transfers.
 """
 from __future__ import annotations
 
@@ -37,8 +62,16 @@ import time
 
 import torch
 
+from repro_torch.kernels.write_accumulate.kernel import FLAG_CTAS
+from repro_torch.kernels.write_accumulate.ops import collective, slot_stride
+from repro_torch.kernels.write_accumulate.ref import notice_error
+
 KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all",
          "ppermute")
+#: the shared region's completion notices: on the device, or on the host
+NOTICES = ("flags", "barrier")
+#: seconds a flags collective waits for a peer before its watchdog fires
+WATCHDOG_S = 60.0
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +155,13 @@ class Transport:
 
     #: where :meth:`vote` puts its value (a shared region's device)
     flag_device = torch.device("cpu")
+    #: whether the collectives can sit inside a CUDA graph (none of them
+    #: waits on the host)
+    capturable = False
+
+    def check(self, words=None) -> None:
+        """Raise if a collective failed where the host did not see it (the
+        flags notice's watchdog); nothing for the other transports."""
 
     def vote(self, value: int) -> int:
         """The largest ``value`` any rank of the axis passed: one
@@ -165,14 +205,17 @@ class SelfTransport(Transport):
 class SharedRegionTransport(Transport):
     """The TAB: collectives through one shared region (see the module
     docstring).  ``world.region`` holds two halves; a collective of an
-    n-byte contribution uses slots ``[i n, (i + 1) n)`` of one half.  A
-    contribution whose ``size * n`` bytes do not fit a half goes in
-    rounds (:meth:`_rounds`), each a write, a notice and a read of one
-    half, tallied as one transfer: the gathers move bytes and the
-    accumulate is elementwise, so the result is the one-round result,
-    bit for bit."""
+    n-byte contribution uses N slots of one half (``n`` bytes each under
+    the barrier, rounded up to 16 under the flags).  A contribution whose
+    N slots do not fit a half goes in rounds (:meth:`_rounds`), each one
+    collective of a piece, tallied as one transfer: the gathers move
+    bytes and the accumulate is elementwise, so the result is the
+    one-round result, bit for bit."""
 
-    def __init__(self, world, axis: str):
+    def __init__(self, world, axis: str, notice: str = "flags",
+                 timeout_s: float = WATCHDOG_S):
+        if notice not in NOTICES:
+            raise ValueError(f"notice {notice!r}: one of {NOTICES}")
         if world.region is None:
             raise ValueError("the world has no shared region (spawn with "
                              "region_bytes)")
@@ -181,42 +224,82 @@ class SharedRegionTransport(Transport):
         self.region = world.region
         self.half = self.region.numel() // 2
         self.device = self.flag_device = self.region.device
+        self.notice = notice
+        self.timeout_s = timeout_s
 
-    def _write(self, x: torch.Tensor, slot: int | None) -> tuple[int, int]:
-        """Write ``x``'s bytes into ``slot`` of the next half (nothing
-        when ``slot`` is None), then pass the completion notice.  Returns
-        (the half's offset, the contribution's bytes)."""
+    @property
+    def capturable(self) -> bool:
+        return self.notice == "flags"
+
+    def status(self) -> torch.Tensor:
+        """The flag area's error words (one a rank, 0 while none waited
+        past the watchdog), on the region's device."""
+        return self.world.flags[self.size * FLAG_CTAS:]
+
+    def check(self, words=None) -> None:
+        """Raise ``RuntimeError`` if a rank's collective waited past the
+        watchdog.  ``words``: the error words already on the host (a copy
+        of :meth:`status` taken with the caller's own wait); else they
+        are read here, which waits for this rank's stream."""
+        if self.notice != "flags":
+            return
+        if words is None:
+            words = self.status().tolist()
+        failed = notice_error(list(words), self.timeout_s)
+        if failed:
+            raise RuntimeError(f"TAB notice over {self.axis!r}: {failed}")
+
+    def _slot_bytes(self, nbytes: int) -> int:
+        return slot_stride(nbytes) if self.notice == "flags" else nbytes
+
+    def _fits(self, x: torch.Tensor) -> bool:
+        return (self._slot_bytes(x.numel() * x.element_size()) * self.size
+                <= self.half)
+
+    def _collect(self, x: torch.Tensor, reduce: bool) -> torch.Tensor:
+        """One collective of ``x`` through the transport's notice:
+        ``reduce`` -> the fp32 sum of every rank's ``x`` in rank order,
+        x's shape and dtype; else (N, *x.shape), every rank's ``x`` (under
+        the barrier a view of the region, valid until the next
+        collective: copy what is kept)."""
         if x.device != self.device:
             raise ValueError(f"a {x.device} tensor on a region on "
                              f"{self.device}")
-        n = x.numel() * x.element_size()
-        if n * self.size > self.half:
-            raise ValueError(f"a collective of {self.size} x {n} bytes does "
+        if not self._fits(x):
+            raise ValueError(f"a collective of {self.size} x "
+                             f"{x.numel() * x.element_size()} bytes does "
                              f"not fit a half of the shared region "
                              f"({self.half} bytes)")
+        self.world.use(self.notice)
+        if self.notice == "flags":
+            t0 = time.perf_counter()
+            out = collective(x, self.region, self.world.flags,
+                             rank=self.rank, size=self.size,
+                             gather=not reduce, timeout_s=self.timeout_s)
+            if self.device.type == "cpu":
+                self.wait_s += time.perf_counter() - t0
+            return out
+        x = x.contiguous()
+        n = x.numel() * x.element_size()
         base = self.world.next_half() * self.half
-        if slot is not None:
-            self.region[base + slot * n: base + (slot + 1) * n].copy_(
-                _bytes(x))
+        self.region[base + self.rank * n: base + (self.rank + 1) * n].copy_(
+            _bytes(x))
         self.barrier()
-        return base, n
-
-    def _slots(self, base: int, n: int, x: torch.Tensor) -> torch.Tensor:
-        """The half's N contributions as an (N, *x.shape) view."""
-        return self.region[base: base + self.size * n].view(x.dtype).view(
+        slots = self.region[base: base + self.size * n].view(x.dtype).view(
             (self.size,) + tuple(x.shape))
-
-    def _fits(self, x: torch.Tensor) -> bool:
-        return x.numel() * x.element_size() * self.size <= self.half
+        return _accumulate(slots) if reduce else slots
 
     def _rounds(self, x: torch.Tensor, kind: str, reduce: bool
                 ) -> torch.Tensor:
         """A contribution too large for a half, in rounds of the most
         whole elements whose N slots fit one: (N, *x.shape), every
         rank's ``x`` (``reduce`` False: their bytes, gathered), or the
-        accumulated sum (``reduce``: K4 over each round's slots)."""
+        accumulated sum (``reduce``)."""
         flat = x.contiguous().reshape(-1)
-        per = self.half // (self.size * x.element_size())
+        room = self.half // self.size
+        if self.notice == "flags":
+            room -= room % 16
+        per = room // x.element_size()
         if per < 1:
             raise ValueError(f"an element of {x.element_size()} bytes from "
                              f"{self.size} ranks does not fit a half of the "
@@ -224,10 +307,9 @@ class SharedRegionTransport(Transport):
         parts = []
         for i in range(0, flat.numel(), per):
             piece = flat[i: i + per]
-            base, n = self._write(piece, self.rank)
-            slots = self._slots(base, n, piece)
-            parts.append(_accumulate(slots) if reduce else slots.clone())
-            self._count(kind, n)
+            got = self._collect(piece, reduce)
+            parts.append(got if reduce else got.clone())
+            self._count(kind, piece.numel() * piece.element_size())
         out = torch.cat(parts, dim=-1)
         return (out.view(x.shape) if reduce
                 else out.view((self.size,) + tuple(x.shape)))
@@ -243,53 +325,50 @@ class SharedRegionTransport(Transport):
     def all_gather(self, x, dim=0):
         if not self._fits(x):
             slots = self._rounds(x, "all_gather", reduce=False)
-            return torch.cat(list(slots.unbind(0)), dim=dim)
-        base, n = self._write(x, self.rank)
-        out = torch.cat(list(self._slots(base, n, x).unbind(0)), dim=dim)
-        self._count("all_gather", n)
-        return out
+        else:
+            slots = self._collect(x, reduce=False)
+            self._count("all_gather", x.numel() * x.element_size())
+        return torch.cat(list(slots.unbind(0)), dim=dim)
 
     def all_reduce(self, x):
         if not self._fits(x):
             return self._rounds(x, "all_reduce", reduce=True)
-        base, n = self._write(x, self.rank)
-        out = _accumulate(self._slots(base, n, x))
-        self._count("all_reduce", n)
+        out = self._collect(x, reduce=True)
+        self._count("all_reduce", x.numel() * x.element_size())
         return out
 
     def reduce_scatter(self, x, dim=0):
+        # this rank's chunk of the elementwise sum of the whole
         if not self._fits(x):
-            # this rank's chunk of the elementwise sum of the whole
             whole = self._rounds(x, "reduce_scatter", reduce=True)
-            return _chunks(whole, self.size, dim)[self.rank].contiguous()
-        base, n = self._write(x, self.rank)
-        slots = self._slots(base, n, x)
-        mine = _chunks(slots, self.size, dim + 1)[self.rank]
-        out = _accumulate(mine)
-        self._count("reduce_scatter", n)
-        return out
+        else:
+            whole = self._collect(x, reduce=True)
+            self._count("reduce_scatter", x.numel() * x.element_size())
+        return _chunks(whole, self.size, dim)[self.rank].contiguous()
 
     def all_to_all(self, x, split_dim=0, concat_dim=0):
-        base, n = self._write(x, self.rank)
-        slots = self._slots(base, n, x)
+        slots = self._collect(x, reduce=False)
         got = [_chunks(s, self.size, split_dim)[self.rank]
                for s in slots.unbind(0)]
         out = torch.cat(got, dim=concat_dim)
-        self._count("all_to_all", n)
+        self._count("all_to_all", x.numel() * x.element_size())
         return out
 
     def ppermute(self, x, perm):
         perm = [(int(s), int(d)) for s, d in perm]
         dst = [d for s, d in perm if s == self.rank]
         src = _ring_source(perm, self.rank)
-        base, n = self._write(x, dst[0] if dst else None)
-        if src is None:
-            out = torch.zeros_like(x)
-        else:
-            out = self._slots(base, n, x)[self.rank].clone()
-        self._count("ppermute", n, writes=len(dst[:1]),
-                    reads=int(src is not None))
+        slots = self._collect(x, reduce=False)
+        out = (torch.zeros_like(x) if src is None
+               else slots[src].clone())
+        self._count("ppermute", x.numel() * x.element_size(),
+                    writes=len(dst[:1]), reads=int(src is not None))
         return out
+
+    def vote(self, value: int) -> int:
+        got = super().vote(value)
+        self.check()
+        return got
 
 
 class ProcessGroupTransport(Transport):

@@ -85,8 +85,8 @@ def ranks(granite, tmp_path_factory):
         try:
             if not path.exists():
                 path.write_bytes(pickle.dumps(M.spawn(
-                    rank_ep, M_SHARDS, pp, pcfg, _inputs(cfg), threads=1,
-                    timeout=300)))
+                    rank_ep, M_SHARDS, pp, pcfg, _inputs(cfg), device="cpu",
+                    threads=1, timeout=300)))
             return pickle.loads(path.read_bytes())
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)

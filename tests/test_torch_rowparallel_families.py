@@ -236,8 +236,8 @@ def ranks(tmp_path_factory):
             pairs[fam] = (cfg, pparams)
             ckpts[fam] = str(tmp_path_factory.mktemp(f"rowpar_{fam}"))
             checkpoint.save(ckpts[fam], 2, pparams)
-        return M.spawn(rank_cases, M_SHARDS, pairs, ckpts, threads=1,
-                       timeout=300)
+        return M.spawn(rank_cases, M_SHARDS, pairs, ckpts, device="cpu",
+                       threads=1, timeout=300)
     return _shared(tmp_path_factory, "torch_rowparallel_families", compute)
 
 

@@ -270,7 +270,8 @@ def ranks(tmp_path_factory):
         _, _, pparams = _reference()
         ckpt = tmp_path_factory.mktemp("rowpar_ckpt")
         checkpoint.save(ckpt, 5, pparams)
-        return M.spawn(rank_cases, M_SHARDS, pparams, str(ckpt), threads=1,
+        return M.spawn(rank_cases, M_SHARDS, pparams, str(ckpt),
+                       device="cpu", threads=1,
                        timeout=300)
     return _shared(tmp_path_factory, "torch_rowparallel_serve", compute)
 

@@ -313,8 +313,8 @@ def reference():
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     def compute():
-        out = M.spawn(rank_cases, M_SHARDS, reference()[2], threads=1,
-                      timeout=300)
+        out = M.spawn(rank_cases, M_SHARDS, reference()[2], device="cpu",
+                      threads=1, timeout=300)
         singles = {k: v for r in out for k, v in r.items()
                    if isinstance(k, tuple) and k[0] == "single"}
         for r in out:

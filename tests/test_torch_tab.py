@@ -123,7 +123,8 @@ def ranks(tmp_path_factory):
     """n -> (inputs, per-rank results)."""
     def compute():
         return {n: (_inputs(n), M.spawn(rank_cases, n, _inputs(n),
-                                        threads=1, timeout=300))
+                                        device="cpu", threads=1,
+                                        timeout=300))
                 for n in NS}
     return _shared(tmp_path_factory, "torch_tab_ranks", compute)
 
