@@ -2,16 +2,32 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--layers N]
-                          [--phases kernels,parity,moe,gpt3,families,
-                                    train,tp,serve,dense,tiers,disagg]
+                          [--phases dryrun,kernels,parity,moe,gpt3,
+                                    families,train,tp,serve,dense,tiers,
+                                    disagg]
 
-Phases (kernels, parity, moe, gpt3, families, train, tp, serve, dense,
-tiers and disagg by default):
+Phases (dryrun, kernels, parity, moe, gpt3, families, train, tp, serve,
+dense, tiers and disagg by default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
    per source, all at once) and print each kernel's registers, shared
    memory and spills as ``ptxas -v`` reports them;
+1b. ``dryrun`` (first, while the card's segments are empty): the dry
+   run's predictions (``repro_torch.launch.dryrun``: the step traced on
+   fake tensors) held to the card's own allocator, Qwen2.5-14B at full
+   width and the serve phase's depth: for the serving workload's decode
+   step (batch 4, max_seq 384) and one 2048-token prefill, the predicted
+   argument bytes equal to the rise of ``memory_allocated()`` across
+   making them, and the predicted transient within max(10 %, 1 MiB) of
+   the measured one (the second of two steps); with the weights paged,
+   the device bytes equal too and the host bytes equal to the ledger's
+   remote tier; the resident / paged ratio printed, and the dry run's
+   flops and bytes of the decode step at 48 layers and at this depth with
+   the least time they allow (printed, and after the serve phase beside
+   its replayed step).  In the tp phase's m = 2 ranks, each rank's tally
+   of a row-parallel decode step and an admission's prefill must equal
+   the dry run's shape-only tally of the same step;
 2. ``kernels``: run each kernel against its plain PyTorch version on the
    card at the serving path's shapes, within a stated tolerance — K1 over
    bf16/fp32 pools and, scaled, over int8 and fp8_e4m3 pools, at the
@@ -1773,6 +1789,219 @@ def qwen_params(torch, layers: int):
     return cfg, params
 
 
+#: the dryrun phase's steps: the serving workload's decode (batch 4,
+#: max_seq 384) and one 2048-token prompt's prefill into a cache of 2048
+DRYRUN_STEPS = (("decode", 4, 384), ("prefill", 1, 2048))
+#: a transient's tolerance: max(10 %, 1 MiB)
+DRYRUN_REL, DRYRUN_ABS = 0.10, 1 << 20
+#: the tp phase's dry-run tally checks: one decode step, one admission's
+#: prefill
+DRYRUN_TP_STEPS = (("decode", 4, 384), ("prefill", 1, 8))
+#: what the dryrun phase predicted, for the serve phase's comparison
+DRYRUN: dict = {}
+
+
+def dryrun_build(torch, model, kind: str, b: int, s: int) -> dict:
+    """A step's real inputs on the card, made in the order the dry run
+    counts them (``dryrun._arguments``) with nothing else allocated in
+    between: each parameter leaf an ``empty`` filled in place, the
+    pageable layers placed in the remote tier (the device copies freed,
+    their segments returned), the cache, the tokens, the positions, the
+    key."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import prng
+    from repro_torch.memory.accounting import tree_map
+
+    def real(x):
+        t = torch.empty(x.shape, dtype=x.dtype, device="cuda")
+        return t.normal_(0.0, 0.02) if t.is_floating_point() else t.zero_()
+
+    with FakeTensorMode():
+        shapes = model.init(0, device="cpu")       # no memory
+    params = tree_map(real, shapes)
+    if model.cfg.pager.enabled:
+        params["layers"] = model.mem.place_layer_weights(params["layers"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = dict(params=params, cache=model.init_cache(b, s, device="cuda"))
+    if kind == "prefill":
+        out["tokens"] = torch.zeros((b, s), dtype=torch.int64, device="cuda")
+    else:
+        out["tokens"] = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
+        out["cur_pos"] = torch.full((b,), s // 2, dtype=torch.int32,
+                                    device="cuda")
+        out["key"] = prng.PRNGKey(0, "cuda")
+    return out
+
+
+def dryrun_step(torch, model, kind: str, x: dict):
+    from repro_torch.runtime.serve import make_prefill_step, make_serve_step
+    with torch.no_grad():
+        if kind == "prefill":
+            return make_prefill_step(model)(x["params"], x["tokens"],
+                                            x["cache"])
+        return make_serve_step(model)(x["params"], x["tokens"], x["cache"],
+                                      x["cur_pos"], x["key"])
+
+
+def dryrun_bound(cost: dict) -> float:
+    """The least ms a step's counted work allows on an H100 SXM: its
+    flops at the bf16 peak or its bytes at the HBM rate, the larger."""
+    from repro_torch.core.hw import H100_SXM
+    return 1e3 * max(cost["flops"] / H100_SXM.peak_bf16_flops,
+                     cost["bytes_accessed"] / H100_SXM.hbm_bw)
+
+
+def check_dryrun(torch, card: str, layers: int) -> None:
+    """The dryrun phase: the dry run's predictions held against the
+    card's own allocator, Qwen2.5-14B at full width and ``layers`` deep
+    (the serve phase's depth), tp=1.
+
+    For each step of ``DRYRUN_STEPS``, resident: the predicted
+    ``argument_bytes`` must equal the rise of ``memory_allocated()``
+    across making the inputs (``dryrun_build``, from empty segments:
+    this phase runs first), and the predicted transient (peak minus
+    arguments) the measured one -- ``max_memory_allocated()`` after
+    ``reset_peak_memory_stats()`` less ``memory_allocated()`` before the
+    second of two steps, so that cuBLAS's workspace is in the baseline --
+    within max(10 %, 1 MiB).  With the weights paged
+    (``with_pager(enabled=True, lookahead=1)``), the decode step: the
+    device rise equal to the prediction, the predicted host bytes equal
+    to the remote tier's line in the ledger; the resident / paged device
+    bytes printed.  Printed only: the dry run's flops and bytes of the
+    resident decode step at 48 layers and at this depth with the least
+    time they allow (``dryrun_bound``), the latter beside the replayed
+    step the serve phase measures (``DRYRUN``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.memory import tiers
+    from repro_torch.models.transformer import DenseLM
+    base_cfg = dataclasses.replace(get_config("qwen2.5-14b"), tp=1,
+                                   num_layers=layers)
+    log(f"dryrun: DEPTH CUT: Qwen2.5-14B at full width and {layers} of 48 "
+        f"layers")
+    problems, device = [], {}
+    cases = [(False, kind, b, s) for kind, b, s in DRYRUN_STEPS]
+    cases.append((True,) + DRYRUN_STEPS[0])
+    for paged, kind, b, s in cases:
+        cfg = (base_cfg.with_pager(enabled=True, lookahead=1) if paged
+               else base_cfg)
+        tag = f"{kind} B={b} S={s}{' paged' if paged else ''}"
+        t0 = time.perf_counter()
+        pred = dryrun.trace_step(DenseLM(cfg), kind, b, s)
+        trace_s = time.perf_counter() - t0
+        mem = pred["memory"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        model = DenseLM(cfg)
+        x = dryrun_build(torch, model, kind, b, s)
+        rise = torch.cuda.memory_allocated() - before
+        device[paged, kind] = rise
+        out = dryrun_step(torch, model, kind, x)
+        torch.cuda.synchronize()
+        del out
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = dryrun_step(torch, model, kind, x)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+        finite = bool(torch.isfinite(out[1] if kind == "decode"
+                                     else out[0]).all())
+        del out
+        host = model.mem.ledger.in_use(tiers.REMOTE)
+        packed = sum(p.nbytes for p in getattr(x["params"]["layers"],
+                                               "packed", ()))
+        tol = max(DRYRUN_REL * mem["temp_bytes"], DRYRUN_ABS)
+        log(f"dryrun {tag} [{card}]: arguments predicted "
+            f"{mem['argument_bytes']} B, measured {rise} B; transient "
+            f"predicted {mem['temp_bytes']} B, measured {measured} B "
+            f"({measured / max(mem['temp_bytes'], 1):.4f}x, tolerance "
+            f"{tol:.0f} B); host predicted {mem['host_argument_bytes']} B "
+            f"allocated (the packed layers: {packed} B) holding "
+            f"{mem['params']['host']} B of weights (the ledger's remote "
+            f"tier: {host} B); flops {pred['cost']['flops']}"
+            f", bytes {pred['cost']['bytes_accessed']}, {pred['ops']} ops "
+            f"traced in {trace_s:.2f} s")
+        if rise != mem["argument_bytes"]:
+            problems.append(f"{tag}: argument bytes {rise} measured, "
+                            f"{mem['argument_bytes']} predicted")
+        if not paged and abs(measured - mem["temp_bytes"]) > tol:
+            problems.append(f"{tag}: transient {measured} measured, "
+                            f"{mem['temp_bytes']} predicted")
+        if paged and (host != mem["params"]["host"]
+                      or packed != mem["host_argument_bytes"]):
+            problems.append(f"{tag}: host bytes {host} in the ledger, "
+                            f"{mem['params']['host']} predicted; {packed} "
+                            f"packed, {mem['host_argument_bytes']} "
+                            f"predicted")
+        if not finite:
+            problems.append(f"{tag}: non-finite output")
+        del x, model
+    on_card, at_rest = device[False, "decode"], device[True, "decode"]
+    log(f"dryrun [{card}]: resident / paged device bytes of the decode "
+        f"step at {layers} layers {on_card / max(at_rest, 1):.4f} "
+        f"({on_card} / {at_rest} B, measured and predicted alike)")
+    for depth in (48, layers):
+        cfg = dataclasses.replace(base_cfg, num_layers=depth)
+        kind, b, s = DRYRUN_STEPS[0]
+        cost = dryrun.trace_step(DenseLM(cfg), kind, b, s)["cost"]
+        DRYRUN[depth] = dict(cost, bound_ms=dryrun_bound(cost))
+        log(f"dryrun decode B={b} S={s} at {depth} layers (counted, not "
+            f"measured) [{card}]: flops {cost['flops']}, bytes "
+            f"{cost['bytes_accessed']}: at least "
+            f"{DRYRUN[depth]['bound_ms']:.4f} ms a step on an H100 SXM "
+            f"(bf16 peak 989 TFLOP/s, HBM 3.35 TB/s)")
+    if problems:
+        raise AssertionError("dryrun: " + "; ".join(problems))
+
+
+def tp_dryrun_tally(torch, cfg, params, mesh) -> dict:
+    """In a rank of the tp phase: one row-parallel decode step and one
+    admission's prefill (``DRYRUN_TP_STEPS``) over the mesh's shared
+    region, each step's tally beside the dry run's of the same step on
+    this rank's shape-only view of the mesh (the same region and
+    notice).  Returns kind -> (real tally, dry-run tally)."""
+    from repro_torch import prng
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import shape_mesh
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime.serve import make_prefill_step, make_serve_step
+    model = DenseLM(cfg)
+    model.mem.bind_mesh(mesh, row_parallel=True)
+    t = mesh.transport("model")
+    out = {}
+    try:
+        shard = model.mem.place_params(params, model.param_specs())
+        for kind, b, s in DRYRUN_TP_STEPS:
+            cache = model.init_cache(b, s, device="cuda")
+            t.reset_tally()
+            with torch.no_grad():
+                if kind == "decode":
+                    make_serve_step(model)(
+                        shard, torch.zeros((b, 1), dtype=torch.int64,
+                                           device="cuda"), cache,
+                        torch.full((b,), s // 2, dtype=torch.int32,
+                                   device="cuda"), prng.PRNGKey(0, "cuda"))
+                else:
+                    make_prefill_step(model)(
+                        shard, torch.zeros((b, s), dtype=torch.int64,
+                                           device="cuda"), cache)
+            torch.cuda.synchronize()
+            real = {k: dict(v) for k, v in t.tally.items() if v["transfers"]}
+            view = shape_mesh(dict(mesh.shape), rank=mesh.rank,
+                              region_bytes=t.half, notice=t.notice)
+            dryrun.trace_step(DenseLM(cfg), kind, b, s, view)
+            dry = {k: dict(v) for k, v in view.transport("model").tally.items()
+                   if v["transfers"]}
+            out[kind] = (real, dry)
+            del cache
+    finally:
+        model.mem.bind_mesh(None)
+    return out
+
+
 #: the depth of the serve, dense, tiers and disagg phases, which share one
 #: set of Qwen2.5-14B weights: 8 of its 48 layers.  At 48 the default run
 #: took 945-998 s on an H100 80GB HBM3 at 700 W (the serve phase 206-233
@@ -2274,7 +2503,8 @@ def check_steady(torch, card: str, cfg, params) -> None:
         out[graph] = ([r.output for r in reqs], decode_s / tail)
         if graph:
             GRAPH_RUN.update(total=n, by_instance=instance_counts(),
-                             replayed=dict(b.replayed))
+                             replayed=dict(b.replayed),
+                             replay_ms=1e3 * decode_s / tail)
         del server
     if out[True][0] != out[False][0]:
         raise AssertionError("steady: the graph route's tokens differ from "
@@ -5846,6 +6076,7 @@ def tp_rank(cfg, params, cfg32, params32, work: list,
                                       barrier, hidden=False,
                                       deterministic=False, **greedy)
     if lifecycle:
+        out["dryrun_tally"] = tp_dryrun_tally(torch, cfg, params, mesh)
         life = (*_cut(cfg, params, TP_LIFE_LAYERS),
                 *_cut(cfg32, params32, TP_LIFE_LAYERS))
         out["lifecycle"] = tp_lifecycle(torch, *life, mesh)
@@ -6428,6 +6659,12 @@ def check_tp(torch, card: str, counts: dict, results: dict) -> None:
             check_tp_rowpar(torch, card, cfg, params, r, m, one, one32,
                             problems)
             tag = f"tp m={m} rank {r['rank']}"
+            for kind, (real, dry) in r.get("dryrun_tally", {}).items():
+                log(f"{tag} row-parallel {kind} step, the shared region's "
+                    f"tally {real}, the dry run's {dry}")
+                if not real or real != dry:
+                    problems.append(f"{tag}: the {kind} step's tally {real}"
+                                    f" is not the dry run's {dry}")
             bar = r["barrier"]
             moved = {k: (v["transfers"], v["bytes"])
                      for k, v in r["tally"].items() if v["transfers"]}
@@ -6562,9 +6799,9 @@ def main() -> int:
                          "phases (Qwen2.5-14B has 48; the default run "
                          f"serves {SERVE_LAYERS} to stay inside its time)")
     ap.add_argument("--phases",
-                    default="kernels,parity,moe,gpt3,families,train,tp,"
-                            "serve,dense,tiers,disagg",
-                    help="comma list of kernels, parity, moe, gpt3, "
+                    default="dryrun,kernels,parity,moe,gpt3,families,"
+                            "train,tp,serve,dense,tiers,disagg",
+                    help="comma list of dryrun, kernels, parity, moe, gpt3, "
                          "families, train, tp, serve, dense, tiers, disagg, "
                          "profile (a traced serving run), sweep (K3's "
                          "routes over M) and notice (the TAB's collective "
@@ -6611,6 +6848,12 @@ def main() -> int:
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         clock[0] = now
 
+    if "dryrun" in phases:
+        # first: its allocations start from empty segments
+        check_dryrun(torch, card, args.layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("dryrun")
     if "kernels" in phases:
         for kv in (None, "int8", "fp8_e4m3"):
             check_paged(torch, card, results, kv)
@@ -6690,6 +6933,16 @@ def main() -> int:
     if "serve" in phases:
         *launches, served = check_serve(torch, card, cfg, params,
                                         "profile" in phases)
+        if args.layers in DRYRUN and "replay_ms" in GRAPH_RUN:
+            log(f"dryrun vs serve [{card}]: the decode step at "
+                f"{args.layers} layers, counted by the dry run at B=4 "
+                f"S=384, allows at least "
+                f"{DRYRUN[args.layers]['bound_ms']:.4f} ms; the steady "
+                f"state's replayed step (B=4, pools of max_seq 1024) took "
+                f"{GRAPH_RUN['replay_ms']:.4f} ms "
+                f"({GRAPH_RUN['replay_ms'] / DRYRUN[args.layers]['bound_ms']:.2f}"
+                f"x); at 48 layers the dry run allows "
+                f"{DRYRUN[48]['bound_ms']:.4f} ms")
         took("serve")
     if "tiers" in phases:
         tiers = Launches()

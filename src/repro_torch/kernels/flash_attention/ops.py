@@ -11,6 +11,7 @@ the kernel is called as it is."""
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
@@ -51,8 +52,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, kv_valid=kv_valid)
+    if isinstance(q, FakeTensor):
+        return _shape_only(q, k, v, causal=causal, q_offset=q_offset,
+                           kv_valid=kv_valid)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return Attention.apply(q, k, v, causal, window, q_offset, kv_valid)
     return _kernel.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_valid=kv_valid)
+
+
+def _shape_only(q, k, v, *, causal: bool, q_offset: int,
+                kv_valid: int) -> torch.Tensor:
+    """K2 in a shape-only run: its output, unlaunched, and its cost
+    charged to the cost model (the plain version's products; the
+    kernel's bytes: q, k and v read once, the output written once)."""
+    from repro_torch.launch import op_cost
+    b, sq, hq, d = q.shape
+    flops, trans = _ref.flash_attention_cost(
+        b, sq, hq, k.shape[1], d, causal=causal, q_offset=q_offset,
+        kv_valid=kv_valid)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    op_cost.charge(flops=flops, transcendentals=trans,
+                   nbytes=sum(t.numel() * t.element_size()
+                              for t in (q, k, v, out)))
+    return out

@@ -120,3 +120,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = o / torch.clamp(l_, min=1e-30)[..., None]
         out[:, i:end] = o.reshape(b, n, hq, d).to(q.dtype)
     return out
+
+
+def flash_attention_cost(b: int, sq: int, hq: int, sk: int, d: int, *,
+                         causal: bool, q_offset: int, kv_valid: int,
+                         q_block: int = 16, kv_block: int = 64
+                         ) -> tuple[int, int]:
+    """(flops, transcendentals) of :func:`flash_attention_ref` on these
+    shapes: its two products over every key tile it visits (those up to
+    the causal frontier of each query tile; a window masks inside tiles
+    and skips none), and its exps (the probabilities and each tile's
+    rescale).  What a shape-only run charges for K2."""
+    flops = trans = 0
+    for i, end in _q_tiles(sq, q_offset, q_block):
+        k_end = min(sk, kv_valid)
+        if causal:
+            k_end = min(k_end, q_offset + end)
+        tiles = -(-max(k_end, 1) // kv_block)
+        width = min(tiles * kv_block, sk)
+        rows = b * (end - i) * hq
+        flops += 4 * rows * d * width
+        trans += rows * (width + tiles)
+    return flops, trans

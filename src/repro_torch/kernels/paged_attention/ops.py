@@ -17,10 +17,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels.paged_attention import kernel as _kernel
 from repro_torch.kernels.paged_attention.ref import (gather_pages,
                                                      gather_scales,
+                                                     paged_attention_cost,
                                                      paged_attention_ref)
 from repro_torch.launch.mesh import P
 
@@ -46,9 +48,36 @@ def attend(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
                                    extra_kv=extra_kv, k_scales=k_scales,
                                    v_scales=v_scales)
+    if isinstance(q, FakeTensor):
+        return _shape_only(q, k_pages, page_table, seq_lens, extra_kv,
+                           k_scales)
     return _kernel.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                                    extra_kv=extra_kv, k_scales=k_scales,
                                    v_scales=v_scales)
+
+
+def _shape_only(q, k_pages, page_table, seq_lens, extra_kv, k_scales
+                ) -> torch.Tensor:
+    """K1 in a shape-only run: its output, unlaunched, and its cost
+    charged to the cost model (the plain version's products; the
+    kernel's bytes: q, the mapped pages of both pools and their scales,
+    the table, the lengths and the extra column read once, the output
+    written once)."""
+    from repro_torch.launch import op_cost
+    b, hkv, g, d = q.shape
+    n, page = page_table.shape[1], k_pages.shape[1]
+    flops, trans = paged_attention_cost(b, hkv, g, d, n * page,
+                                        extra_kv is not None)
+    out = torch.empty_like(q)
+    mapped = b * n * page * hkv
+    nbytes = (2 * mapped * d * k_pages.element_size()
+              + sum(t.numel() * t.element_size()
+                    for t in (q, out, page_table, seq_lens,
+                              *(extra_kv or ()))))
+    if k_scales is not None:
+        nbytes += 2 * mapped * k_scales.element_size()
+    op_cost.charge(flops=flops, transcendentals=trans, nbytes=nbytes)
+    return out
 
 
 def gather_pages_sharded(pages: torch.Tensor, page_table: torch.Tensor,

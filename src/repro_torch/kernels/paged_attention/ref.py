@@ -98,6 +98,17 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
     return o.to(q.dtype)
 
 
+def paged_attention_cost(b: int, hkv: int, g: int, d: int, positions: int,
+                         extra: bool) -> tuple[int, int]:
+    """(flops, transcendentals) of :func:`paged_attention_ref` over
+    ``positions`` gathered positions a slot (the table's pages x the page
+    size): its score and value products, the extra column's score, and
+    the exps of its softmax.  What a shape-only run charges for K1."""
+    cols = positions + int(extra)
+    return (4 * b * hkv * g * d * positions + 2 * b * hkv * g * d * int(extra),
+            b * hkv * g * cols)
+
+
 def paged_attention_split_ref(q, k_pages, v_pages, page_table, seq_lens,
                               extra_kv=None, k_scales=None, v_scales=None,
                               *, pages_per_split: int = 2):

@@ -6,6 +6,7 @@ the other."""
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels.streamed_matmul import kernel as _kernel
 from repro_torch.kernels.streamed_matmul.ref import streamed_matmul_ref
@@ -38,6 +39,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = 256,
                          f"bk={bk} bn={bn}")
     if x.device.type == "cpu":
         return streamed_matmul_ref(x, w)
+    if isinstance(x, FakeTensor):
+        # a shape-only run: the output unlaunched, the cost charged (the
+        # plain version's product; x and w read once, the output written)
+        from repro_torch.launch import op_cost
+        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+        op_cost.charge(flops=2 * m * n * k,
+                       nbytes=sum(t.numel() * t.element_size()
+                                  for t in (x, w, out)))
+        return out
     return _kernel.streamed_matmul(
         x if x.stride(-1) == 1 else x.contiguous(),
         w if w.stride(-1) == 1 else w.contiguous())

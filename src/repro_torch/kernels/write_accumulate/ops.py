@@ -5,6 +5,7 @@ the hand-written kernels; there is no fallback from one to the other."""
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels.write_accumulate import kernel as _kernel
 from repro_torch.kernels.write_accumulate.kernel import FLAG_CTAS, GATHER, SUM
@@ -26,6 +27,8 @@ def accumulate(shards: torch.Tensor, *, block: int = 512) -> torch.Tensor:
         raise ValueError(f"block must be positive, got {block}")
     if shards.device.type == "cpu":
         return write_accumulate_ref(shards)
+    if isinstance(shards, FakeTensor):
+        return _shape_only(shards, shards.shape[1:])
     flat = shards.reshape(shards.shape[0], -1).contiguous()
     return _kernel.write_accumulate(flat).reshape(shards.shape[1:])
 
@@ -60,8 +63,20 @@ def collective(x: torch.Tensor, data: torch.Tensor, flags: torch.Tensor, *,
               timeout_s=timeout_s)
     if x.device.type == "cpu":
         out = tab_collective_ref(x, data, flags, **kw)
+    elif isinstance(x, FakeTensor):
+        return _shape_only(x, ((size,) if gather else ()) + tuple(x.shape))
     else:
         out = _kernel.tab_collective(x, data, flags, **kw)
     if not gather:
         return out
     return out.view(x.dtype).view((size,) + tuple(x.shape))
+
+
+def _shape_only(x: torch.Tensor, shape) -> torch.Tensor:
+    """K4 (or the TAB's collective) in a shape-only run: its output of
+    ``shape`` in x's dtype, unlaunched, and its bytes charged to the cost
+    model (x read once, the output written once; no products)."""
+    from repro_torch.launch import op_cost
+    out = torch.empty(tuple(shape), dtype=x.dtype, device=x.device)
+    op_cost.charge(nbytes=(x.numel() + out.numel()) * x.element_size())
+    return out

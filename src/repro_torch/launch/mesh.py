@@ -220,6 +220,36 @@ def _mesh(sizes: dict[str, int], transport: str, notice: str) -> Mesh:
                                                  notice)})
 
 
+def shape_mesh(axis_sizes: dict[str, int], *, rank: int = 0,
+               region_bytes: int | None = None,
+               notice: str = "flags") -> Mesh:
+    """One rank's view of a mesh whose other ranks do not exist, for a
+    shape-only run (:mod:`repro_torch.launch.dryrun`): every axis of more
+    than one rank gets a :class:`repro_torch.runtime.transport.
+    ShapeTransport` (the rank's coordinate on it), so the model's
+    collectives return tensors of the right shape and are tallied as the
+    shared region's would be (``region_bytes`` a half and ``notice`` as
+    :func:`spawn`'s and :func:`make_host_mesh`'s).  No world is spawned,
+    so ``data > 1`` beside ``model > 1`` is no refusal here: the batch a
+    rank holds is its own and no collective spans the data axis."""
+    from repro_torch.runtime.transport import ShapeTransport
+    view = Mesh(axis_sizes, rank=rank)
+    return Mesh(axis_sizes, rank=rank, transports={
+        a: ShapeTransport(a, view.coords[a], s, region_bytes=region_bytes,
+                          notice=notice)
+        for a, s in view.shape.items() if s > 1})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh (``repro.launch.mesh``): 16 x 16
+    = 256 chips a pod as ``("data", "model")``, or two pods as ``("pod",
+    "data", "model")``, seen as rank 0 with shape-only transports
+    (:func:`shape_mesh`)."""
+    if multi_pod:
+        return shape_mesh({"pod": 2, "data": 16, "model": 16})
+    return shape_mesh({"data": 16, "model": 16})
+
+
 def make_smoke_mesh() -> Mesh:
     """The one-rank mesh."""
     return Mesh({"data": 1, "model": 1})

@@ -52,6 +52,7 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.launch import op_cost
 from repro_torch.launch.mesh import P
 from repro_torch.models.base import ModelConfig
 from repro_torch.runtime import sharding
@@ -172,7 +173,17 @@ def by_rows(fn: Callable, rows: int, *xs: torch.Tensor):
     n = xs[0].shape[1]
     if rows <= 0 or n <= rows:
         return fn(*xs)
-    outs = [fn(*(x[:, i:i + rows] for x in xs)) for i in range(0, n, rows)]
+    if op_cost.traced(xs[0]):
+        # a dry run: the chunks of one shape traced once, counted for all
+        # (repro_torch.launch.op_cost, "Loops")
+        full, tail = divmod(n, rows)
+        _, outs = op_cost.repeat_loop(
+            full, lambda: fn(*(x[:, :rows] for x in xs)))
+        if tail:
+            outs.append(fn(*(x[:, n - tail:] for x in xs)))
+    else:
+        outs = [fn(*(x[:, i:i + rows] for x in xs))
+                for i in range(0, n, rows)]
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
     return torch.cat(outs, dim=1)

@@ -32,8 +32,13 @@ Expert parallelism over a mesh (:func:`moe_ffn_ep`, the reference's
 ``shard_map`` EP): each rank routes its slice of the sequence, ships its
 per-expert queues to the experts' owners by ``tab_all_to_all`` (the
 paper's Fig 3.6 AllToAll), runs its own experts' GEMMs and brings the
-outputs back the same way.  Serving an MoE over a mesh stays refused,
-as in the reference (``ModelConfig.assert_mesh_compatible``).
+outputs back the same way.  Bound to a mesh of several ranks (as a dry
+run binds it, :mod:`repro_torch.launch.dryrun`), the model's FFN takes
+that route where the sequence splits over the ranks and the dense
+dispatch over expert-sharded banks elsewhere (:func:`moe_ffn_mesh`), as
+the reference's program over a mesh does.  Serving an MoE over a mesh
+stays refused, as in the reference
+(``ModelConfig.assert_mesh_compatible``).
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from repro_torch.launch.mesh import P
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.transformer import DenseLM, attn_params, dense_init
+from repro_torch.runtime.sharding import model_shards
 
 def capacity(tokens: int, num_experts: int, top_k: int, factor: float) -> int:
     c = int(math.ceil(tokens * top_k * factor / num_experts))
@@ -207,6 +213,36 @@ def moe_ffn_ep(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return _combine(out_e, ei, pi, routing).reshape(b, s, d)
 
 
+def moe_ffn_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                 mesh=None) -> torch.Tensor:
+    """The MoE FFN over the ``"model"`` axis of ``mesh`` (default the
+    ambient one), x (B, S, d) whole on every rank and ``p`` this rank's
+    E/tp experts of each bank (:func:`moe_specs`), as the reference's
+    program runs it over a mesh: expert parallel where the sequence
+    splits over the ranks (:func:`moe_ffn_ep` on this rank's slice, the
+    slices all-gathered back along the sequence, where the reference's
+    ``shard_map`` output meets the replicated residual), else the dense
+    dispatch over every token with the experts sharded (the queues
+    computed whole, this rank's block of them run, the experts' outputs
+    all-gathered before the combine).  Returns (B, S, d)."""
+    from repro_torch.core.tab import tab_allgather
+    from repro_torch.runtime.sharding import ambient_mesh
+    mesh = mesh if mesh is not None else ambient_mesh()
+    tp, r = mesh.axis_size("model"), mesh.axis_index("model")
+    b, s, d = x.shape
+    if _moe_ep_available(cfg, s, mesh):
+        n = s // tp
+        local = moe_ffn_ep(p, x[:, r * n:(r + 1) * n], cfg, mesh=mesh)
+        return tab_allgather(local, "model", 1, mesh=mesh)
+    xt = x.reshape(b * s, d)
+    routing = route(p["router"], xt, cfg)
+    buf, ei, pi = _queues(xt, routing, cfg.padded_experts)
+    el = cfg.padded_experts // tp
+    out_e = tab_allgather(_experts(p, buf[r * el:(r + 1) * el]), "model", 0,
+                          mesh=mesh)
+    return _combine(out_e, ei, pi, routing).reshape(b, s, d)
+
+
 class MoELM(DenseLM):
     """DenseLM with the FFN swapped for a top-k expert bank."""
 
@@ -230,4 +266,8 @@ class MoELM(DenseLM):
         # tier and only the routed experts are paged in
         if self.mem.expert_policy is not None:
             return moe_ffn_topk(lp["moe"], x, self.cfg, self.mem)
+        if model_shards() > 1:
+            # over a mesh (a dry run's; the server refuses one): the
+            # banks sharded by expert
+            return moe_ffn_mesh(lp["moe"], x, self.cfg)
         return moe_ffn(lp["moe"], x, self.cfg)

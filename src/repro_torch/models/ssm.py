@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.launch import op_cost
 from repro_torch.launch.mesh import P
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
@@ -65,6 +66,12 @@ def chunked_time_scan(step, carry: tuple, length: int, grad: bool):
     unchunked, as in the reference.  The steps and their order are the
     same either way."""
     chunk = min(TIME_CHUNK, length)
+    if op_cost.traced(carry[0]) and length > 1:
+        # a dry run: one step traced, counted for all of them
+        # (repro_torch.launch.op_cost, "Loops")
+        (c, _), ys = op_cost.repeat_loop(length, lambda: step(carry, 0),
+                                         kept=lambda out: out[1])
+        return c, ys
 
     def run(t0: int, t1: int, *c):
         ys = []

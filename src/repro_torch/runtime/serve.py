@@ -320,6 +320,22 @@ def make_decode_loop(model, *, block_size: int, temperature: float = 0.0,
                       detect_nonfinite=detect_nonfinite, graph=graph)
 
 
+def mesh_pager_refusal(model, deterministic: bool = False) -> str | None:
+    """Why ``model``'s pager cannot run over a mesh of several ranks
+    (None when it can): the grouped and encoder-decoder families page
+    neither weights nor KV under row-parallel TP yet.  The server raises
+    it; a dry run skips such a cell with it."""
+    pager = model.cfg.pager
+    if (not deterministic and model.cfg.family in ("hybrid", "ssm", "encdec")
+            and (pager.enabled or pager.offload_kv)):
+        return (f"{type(model).__name__} under row-parallel TP with the "
+                f"pager on (enabled={pager.enabled}, offload_kv="
+                f"{pager.offload_kv}): the memory tiers of the grouped and "
+                f"encoder-decoder families over a mesh are not wired yet "
+                f"(ROADMAP, Queue 1 item 3); serve them resident")
+    return None
+
+
 def _check_mesh(model, mesh, deterministic: bool = True):
     """Validate a serving mesh BEFORE the server binds it (a rejected mesh
     must leave the model's orchestrator unbound): the config must shard
@@ -347,15 +363,9 @@ def _check_mesh(model, mesh, deterministic: bool = True):
             f"row-parallel (param_specs), deterministic within a run")
     if mesh.size == 1:
         return mesh, spec_fn()
-    pager = model.cfg.pager
-    if (not deterministic and model.cfg.family in ("hybrid", "ssm", "encdec")
-            and (pager.enabled or pager.offload_kv)):
-        raise ValueError(
-            f"{type(model).__name__} under row-parallel TP with the pager "
-            f"on (enabled={pager.enabled}, offload_kv={pager.offload_kv}): "
-            f"the memory tiers of the grouped and encoder-decoder families "
-            f"over a mesh are not wired yet (ROADMAP, Queue 1 item 3); "
-            f"serve them resident")
+    refusal = mesh_pager_refusal(model, deterministic)
+    if refusal:
+        raise ValueError(refusal)
     if not mesh.bound:
         raise ValueError(f"{mesh!r} has no transports: serve it in the "
                          f"ranks repro_torch.launch.mesh.spawn starts")

@@ -34,6 +34,13 @@ which XLA lowers onto the TPU's links).
   (``_collect``): ``reduce_scatter`` is this rank's chunk of the
   all-reduced contribution, ``all_to_all`` and ``ppermute`` read what
   they need of the gather.
+* :class:`ShapeTransport` is the collectives of a dry run
+  (:mod:`repro_torch.launch.dryrun`): one rank's view of an axis whose
+  peers do not exist.  Each collective returns a fresh tensor of the
+  shape and dtype the real one returns and moves nothing; its tally is
+  the one :class:`SharedRegionTransport` keeps for the same call, so a
+  dry run's tally is the traffic of the program it traced (the
+  reference's ``collective_bytes``).
 * :class:`ProcessGroupTransport` runs the same interface over
   ``torch.distributed``: ``gloo`` between CPU ranks; where every rank
   has a card of its own, NCCL runs the same code.  Data movement goes as
@@ -369,6 +376,105 @@ class SharedRegionTransport(Transport):
         got = super().vote(value)
         self.check()
         return got
+
+
+class ShapeTransport(Transport):
+    """The collectives of one rank of an axis of ``size`` ranks in a
+    shape-only run: every collective returns a new tensor of the result's
+    shape and dtype (``all_gather`` multiplies ``dim`` by the ranks,
+    ``reduce_scatter`` divides it, the rest keep the shape), with the
+    tally :class:`SharedRegionTransport` counts for the same call: one
+    transfer a collective, or one a round when a region of
+    ``region_bytes`` a half is named and the contribution does not fit
+    it (its ``_rounds``).  ``barrier`` does nothing; ``vote`` returns its
+    value, tallied as the one all-gather of an int32 it is.  The traffic
+    (each input read once, the result written once) is charged to the
+    cost model counting (:func:`repro_torch.launch.op_cost.charge`), and
+    a collective traced once for a loop's ``n`` iterations counts ``n``
+    times."""
+
+    def __init__(self, axis: str, rank: int, size: int, *,
+                 region_bytes: int | None = None, notice: str = "flags"):
+        if notice not in NOTICES:
+            raise ValueError(f"notice {notice!r}: one of {NOTICES}")
+        super().__init__(axis, rank, size)
+        self.half = region_bytes
+        self.notice = notice
+
+    def _pieces(self, x: torch.Tensor, rounds: bool = True) -> list[int]:
+        """The payload bytes of each transfer of a collective of ``x``."""
+        n, item = x.numel() * x.element_size(), x.element_size()
+        slot = slot_stride(n) if self.notice == "flags" else n
+        if not rounds or self.half is None or slot * self.size <= self.half:
+            return [n]
+        room = self.half // self.size
+        if self.notice == "flags":
+            room -= room % 16
+        per = room // item
+        if per < 1:
+            raise ValueError(f"an element of {item} bytes from {self.size} "
+                             f"ranks does not fit a half of the shared "
+                             f"region ({self.half} bytes)")
+        return [min(per, x.numel() - i) * item
+                for i in range(0, x.numel(), per)]
+
+    def _tally(self, kind: str, x: torch.Tensor, out: torch.Tensor, *,
+               rounds: bool = True, writes: int = 1, reads: int = 1
+               ) -> torch.Tensor:
+        from repro_torch.launch import op_cost
+        times = op_cost.repeat_factor()
+        for nbytes in self._pieces(x, rounds):
+            for _ in range(times):
+                self._count(kind, nbytes, writes=writes, reads=reads)
+        op_cost.charge(nbytes=x.numel() * x.element_size()
+                       + out.numel() * out.element_size())
+        return out
+
+    def _new(self, x: torch.Tensor, shape) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=x.dtype, device=x.device)
+
+    def _resized(self, x: torch.Tensor, dim: int, size: int) -> list[int]:
+        shape = list(x.shape)
+        shape[dim] = size
+        return shape
+
+    def all_gather(self, x, dim=0):
+        out = self._new(x, self._resized(x, dim, x.shape[dim] * self.size))
+        return self._tally("all_gather", x, out)
+
+    def all_reduce(self, x):
+        return self._tally("all_reduce", x, self._new(x, x.shape))
+
+    def reduce_scatter(self, x, dim=0):
+        if x.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"into {self.size} equal chunks")
+        out = self._new(x, self._resized(x, dim, x.shape[dim] // self.size))
+        return self._tally("reduce_scatter", x, out)
+
+    def all_to_all(self, x, split_dim=0, concat_dim=0):
+        if x.shape[split_dim] % self.size:
+            raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                             f"split into {self.size} equal chunks")
+        shape = self._resized(x, split_dim, x.shape[split_dim] // self.size)
+        shape[concat_dim] *= self.size
+        return self._tally("all_to_all", x, self._new(x, shape),
+                           rounds=False)
+
+    def ppermute(self, x, perm):
+        perm = [(int(s), int(d)) for s, d in perm]
+        dst = [d for s, d in perm if s == self.rank]
+        src = _ring_source(perm, self.rank)
+        return self._tally("ppermute", x, self._new(x, x.shape),
+                           rounds=False, writes=len(dst[:1]),
+                           reads=int(src is not None))
+
+    def barrier(self) -> None:
+        pass
+
+    def vote(self, value: int) -> int:
+        self._count("all_gather", 4)
+        return int(value)
 
 
 class ProcessGroupTransport(Transport):
