@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py [--layers N]
                           [--phases dryrun,kernels,parity,moe,gpt3,
-                                    families,train,tp,serve,dense,tiers,
-                                    disagg]
+                                    families,train,train_mesh,tp,serve,
+                                    dense,tiers,disagg]
 
-Phases (dryrun, kernels, parity, moe, gpt3, families, train, tp, serve,
-dense, tiers and disagg by default):
+Phases (dryrun, kernels, parity, moe, gpt3, families, train, train_mesh,
+tp, serve, dense, tiers and disagg by default):
 
 1. print the card (``nvidia-smi`` name and power limit), build every CUDA
    kernel of the port from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
@@ -199,6 +199,35 @@ dense, tiers and disagg by default):
    microbatches x the forward and its remat recompute), counts reset
    just before the run and read just after.  It prints ms a step (the
    median of steps 2-6), tokens/s and peak device memory;
+4d2. ``train_mesh``: training over a (data 2, model 2) mesh of 4 ranks
+   on the one card (``make_train_step(model, tcfg, mesh)``: params
+   row-parallel by ``param_specs``, the batch and the ZeRO-1 moments over
+   "data", each group of ranks with its own slice of one shared region,
+   every collective the TAB's collective kernel), minicpm-2b at full width
+   (tp=2).  Gate A, the fp32 witness (2 of 40 layers, one step of 4 x
+   1024 tokens, accum 2) against the one-card step on the same params and
+   batch: the loss within 1e-5 and grad_norm within 1e-4 relative, every
+   gathered gradient leaf within 1e-4 of its largest magnitude (floored
+   at 1e-3 of the tree's largest) or twice the gap of one card against
+   itself over 4 microbatches (measured first: the tied embedding's is
+   ~1e-4); K2 8 times on mma on every rank.  Gate B (bf16 weights, fp32
+   moments, 4 layers, 3 steps, WSD): each step's loss within 0.05 of one
+   card's loss at the same params (the mesh's, gathered before the
+   step; one card's own run is printed beside it, not held: bf16 Adam
+   steps part two valid orders by up to ~0.7 at full width), the two
+   data replicas of each model shard bit-equal after every step, K2 16
+   times a step on every rank (4 layers x 2 microbatches x the forward
+   and its remat recompute) and TAB collectives on every rank.  The
+   ZeRO-1 witness: one update over the mesh (fp32 reduce-scatter, the
+   shard's update, the bf16 all-gather) of the mesh's gradients, scaled
+   below the clip, gives one card's AdamW params and moments bit for
+   bit.  Gate C: a rank's argument bytes (params, moments, batch rows)
+   equal to the dry run's prediction of the same step, to the byte; the
+   measured peak printed beside the predicted one.  It prints ms a step
+   per rank, each step's collectives by axis and kind (transfers, bytes)
+   and ``wait_s``, and the TAB collective at the phase's shapes (K4 rows:
+   an fp32 gradient round and a bf16 param round over the data axis, the
+   model axis's activation all-reduce in bf16 and fp32, timed);
 4e. ``tp``: tensor-parallel serving on the one card, after the train
    phase and before the serve phase's weights exist.  Qwen2.5-14B at
    full width and 12 of its 48 layers (``TP_LAYERS``; random bf16
@@ -446,8 +475,9 @@ the gather's, reads ``launches`` from the moe phase, by route; a row at
 gpt3-175b's from the gpt3 phase; at whisper-base's or
 recurrentgemma-9b's from the families phase; at minicpm-2b's, and the
 train phase's rows at the training shapes, from the train phase's
-40-layer run; a row whose instantiation its path never launched reads
-0); the last is ``{"ok": true, "device": {...}}``.  Any
+40-layer run; the train_mesh phase's rows, K2 at a rank's 18/18 heads
+and K4 at the phase's shapes, from its ranks' gates A and B, summed; a
+row whose instantiation its path never launched reads 0); the last is ``{"ok": true, "device": {...}}``.  Any
 failed phase raises, and the script exits non-zero without that line.
 It exits non-zero at once when no CUDA device is present.
 """
@@ -762,7 +792,9 @@ def check_paged(torch, card: str, results: dict, kv: str | None = None,
 #: 64, one request an admission).  The train phase's: minicpm-2b's
 #: training shape (batch 4, 1024 causal tokens, 36/36 heads at d = 64,
 #: 16 key tiles) and whisper-base's training cross-attention (64 queries
-#: against the 1500 frames)
+#: against the 1500 frames).  The train_mesh phase's: a rank's of
+#: minicpm-2b over (data 2, model 2) (one row of a microbatch, 1024
+#: causal tokens, 18/18 heads at d = 64)
 FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 384, 384, 40, 8, 128, {}),
                (1, 2048, 2048, 40, 8, 128, {}),
@@ -795,7 +827,8 @@ FLASH_CASES = ((1, 8, 8, 40, 8, 128, {}), (1, 64, 64, 40, 8, 128, {}),
                (1, 8, 8, 8, 1, 256, {"window": 2048}),
                (1, 1500, 1500, 4, 4, 64, {"causal": False}),
                (1, 8, 1500, 4, 4, 64, {"causal": False}),
-               (1, 8, 8, 4, 4, 64, {}))
+               (1, 8, 8, 4, 4, 64, {}),
+               (1, 1024, 1024, 18, 18, 64, {}))
 #: the prefix contract's cases: (Sq = Sk, q_offset, Hq, Hkv, d, window).
 #: At 130 a row sits at another place of its query tile than unshared
 #: (25 positions a tile at 40/8 heads, 4 at 16/1), and with a window of
@@ -808,13 +841,14 @@ FLASH_PREFIX = ((64, 48, 40, 8, 128, 0), (384, 200, 40, 8, 128, 0),
 #: d): granite-moe-3b-a800m's (moe phase), gpt3-175b's MHA (gpt3 phase),
 #: minicpm-2b's MHA (its training, train phase), whisper-base's and
 #: recurrentgemma-9b's (families phase), a rank's of Qwen2.5-14B at m = 2
-#: and 4 (tp phase, its mesh) and of whisper-base and recurrentgemma-9b
-#: at m = 2 (tp phase, the family spawn); else serve
+#: and 4 (tp phase, its mesh), of whisper-base and recurrentgemma-9b
+#: at m = 2 (tp phase, the family spawn) and of minicpm-2b at m = 2
+#: (train_mesh phase); else serve
 ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
               (36, 36, 64): "train", (8, 8, 64): "families",
               (16, 1, 256): "families", (20, 4, 128): "tp2",
               (10, 2, 128): "tp4", (8, 1, 256): "tpfam",
-              (4, 4, 64): "tpfam"}
+              (4, 4, 64): "tpfam", (18, 18, 64): "train_mesh"}
 #: K2's timed shapes (route, dtype, Sq = Sk, Hq, Hkv, d): the main path's
 #: route at Qwen2.5-14B's width over four prompt lengths, at
 #: granite-moe-3b-a800m's admission (8 tokens, 24/8 heads, d = 64), at
@@ -824,9 +858,10 @@ ATTN_PHASE = {(24, 8, 64): "moe", (96, 96, 128): "gpt3",
 #: at 384 and 2048 tokens, and in bf16 over a view of head stride d + 9
 #: (not TMA's; the field after d is that padding); the families phase's
 #: whisper-base encoder, cross- and self-attention and recurrentgemma-9b's
-#: admission and 2100-token prompt, and the tp phase's rank shapes (its
-#: family spawn's too), at the batch and keywords its path gives them
-#: (the first and last fields)
+#: admission and 2100-token prompt, the tp phase's rank shapes (its
+#: family spawn's too), and the train_mesh phase's rank shape in bf16
+#: (gate B, wgmma) and fp32 (gate A, mma), at the batch and keywords its
+#: path gives them (the first and last fields)
 FLASH_TIMED = ((1, "wgmma", "bfloat16", 8, 8, 40, 8, 128, 0, {}),
                (1, "wgmma", "bfloat16", 8, 8, 24, 8, 64, 0, {}),
                (1, "wgmma", "bfloat16", 8, 8, 96, 96, 128, 0, {}),
@@ -855,7 +890,9 @@ FLASH_TIMED = ((1, "wgmma", "bfloat16", 8, 8, 40, 8, 128, 0, {}),
                 {"causal": False}),
                (1, "wgmma", "bfloat16", 8, 1500, 4, 4, 64, 0,
                 {"causal": False}),
-               (1, "wgmma", "bfloat16", 8, 8, 4, 4, 64, 0, {}))
+               (1, "wgmma", "bfloat16", 8, 8, 4, 4, 64, 0, {}),
+               (1, "wgmma", "bfloat16", 1024, 1024, 18, 18, 64, 0, {}),
+               (1, "mma", "float32", 1024, 1024, 18, 18, 64, 0, {}))
 
 
 def _flash_pairs(torch, sq, sk, causal=True, window=0, q_offset=None,
@@ -4035,6 +4072,520 @@ def check_train(torch, card: str, results: dict, counts: Launches,
     log("train: every gate held")
 
 
+#: the train_mesh phase: minicpm-2b at full width (tp=2: 36/36 heads
+#: shard whole) over a (data 2, model 2) mesh of 4 ranks on the one card
+TRAIN_MESH = {"data": 2, "model": 2}
+#: gate A's layers (fp32, one step), gate B's layers and steps (bf16)
+TRAIN_MESH_A_LAYERS, TRAIN_MESH_B_LAYERS, TRAIN_MESH_STEPS = 2, 4, 3
+#: bytes of each half of a group's slice: the data axis moves fp32
+#: gradient sums and bf16 params in rounds of half / 2 bytes a rank; the
+#: model axis a microbatch's (1, 1024, 2304) activations, fp32 in gate A
+TRAIN_MESH_REGION = {"data": 64 << 20, "model": 32 << 20}
+#: seconds the ranks may take, their start included
+TRAIN_MESH_TIMEOUT = 300
+#: gate B's loss bound: each step's mesh loss against one card's loss
+#: at the same params (the mesh's, gathered before the step): bf16, each
+#: rank's partial products round on their own.  The one-card run's own
+#: losses are printed beside them but not held: Adam's first steps turn
+#: rounding-level differences of near-zero bf16 gradients into moves of
+#: a whole lr (two one-card runs of other microbatch splits parted by
+#: 0.051 and 0.664 after their first two updates on an H100 80GB HBM3 at
+#: 700 W), so the update is held directly instead (``zero1_witness``)
+TRAIN_MESH_LOSS_ATOL = 0.05
+#: gate A's bound on each gathered gradient leaf (of its scale), or
+#: twice that leaf's gap of one card against itself over 4 microbatches
+#: when that is larger (the tied embedding's: 9.5e-5 on the same card)
+TRAIN_MESH_GRAD_TOL = 1e-4
+#: the K4 rows at the train_mesh phase's shapes: a gradient
+#: reduce-scatter's round of fp32 sums and a ZeRO-1 param all-gather's
+#: round of bf16 over the data axis, and the model axis's all-reduce of a
+#: microbatch's (1, 1024, 2304) activations (or their gradients): bf16 in
+#: gate B, fp32 in gate A
+TRAIN_MESH_TAB = (("gradient reduce-scatter round", 2,
+                   ((TRAIN_MESH_REGION["data"] // 2) // 4,), False,
+                   "train_mesh", "float32"),
+                  ("ZeRO-1 param all-gather round", 2,
+                   ((TRAIN_MESH_REGION["data"] // 2) // 2,), True,
+                   "train_mesh", "bfloat16"),
+                  ("model-axis activation all-reduce", 2, (1024, 2304),
+                   False, "train_mesh", "bfloat16"),
+                  ("model-axis activation all-reduce", 2, (1024, 2304),
+                   False, "train_mesh", "float32"))
+TRAIN_MESH_PATH = ("make_train_step(model, tcfg, mesh), minicpm-2b at full "
+                   "width over (data 2, model 2): 4 ranks on one card, one "
+                   "shared-region slice a group, gate B's 3 steps (4 of 40 "
+                   "layers, bf16) and gate A's step (2 layers, fp32) of 4 x "
+                   "1024 tokens in 2 microbatches (the forward and the "
+                   "remat recompute), the ranks summed (train_mesh phase)")
+
+
+def train_mesh_config(torch, layers: int, dtype):
+    """minicpm-2b at its published widths, ``layers`` of its 40, tp=2 (36
+    heads split whole over the model axis; no padding)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("minicpm-2b"), tp=2,
+                               num_layers=layers, dtype=dtype)
+
+
+def train_mesh_tcfg(torch, dtype):
+    from repro_torch.runtime import optim, train
+    return train.TrainConfig(adamw=optim.AdamWConfig(
+        lr=3e-3, schedule="wsd", warmup_steps=2, total_steps=TRAIN_STEPS,
+        decay_fraction=0.5), accum_steps=TRAIN_ACCUM)
+
+
+def _param_hashes(torch, params) -> "torch.Tensor":
+    """Two int64 hashes a leaf of its bits (their sum, and their sum
+    weighted by position mod 1021), on the leaves' device."""
+    out = []
+    for x in _leaves(params):
+        v = x.contiguous().view(torch.int16 if x.element_size() == 2
+                                else torch.int32).reshape(-1).long()
+        w = torch.arange(v.numel(), device=v.device) % 1021 + 1
+        out += [v.sum(), (v * w).sum()]
+    return torch.stack(out)
+
+
+def _tallies(mesh) -> dict:
+    """axis -> kind -> {transfers, bytes} of the mesh's transports (the
+    kinds that moved), and axis -> wait_s."""
+    out = {}
+    for axis, t in mesh.transports().items():
+        out[axis] = {k: {"transfers": v["transfers"], "bytes": v["bytes"]}
+                     for k, v in t.tally.items() if v["transfers"]}
+        out[axis]["wait_s"] = t.wait_s
+    return out
+
+
+def _leaf_errors(want: list, got: list) -> list[float]:
+    """Each leaf's largest |got - want| over its scale: its largest
+    |want|, floored at 1e-3 of the tree's largest
+    (``tests/test_torch_train.py``'s ``_hold``)."""
+    top = max(float(w.abs().max()) for w in want)
+    return [float((w.float() - g.float()).abs().max())
+            / max(float(w.abs().max()), 1e-3 * top)
+            for w, g in zip(want, got)]
+
+
+def _traced_mesh_step(torch, step, params, opt, rows, rank: int) -> dict:
+    """One more step of every rank, traced on rank 0 (``torch.profiler``):
+    its wall ms, the card's busy ms and the device ms of the TAB's
+    collective, of K2, of the matmuls (cuBLAS) and of the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if rank == 0 else contextlib.nullcontext())
+    with ctx as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, rows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rank != 0:
+        return {}
+    kinds = {"tab": ("tab_sum_kernel", "tab_gather_kernel"),
+             "k2": ("flash_",), "gemm": ("gemm", "xmma", "cutlass", "sm90")}
+    out = dict.fromkeys(("busy", *kinds, "other"), 0.0)
+    calls = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        out["busy"] += dev
+        kind = next((k for k, names in kinds.items()
+                     if any(n in ev.key for n in names)), "other")
+        out[kind] += dev
+        calls += ev.count
+    return {"wall_ms": 1e3 * wall, "kernels": calls,
+            **{f"{k}_ms": v for k, v in out.items()}}
+
+
+def zero1_witness(torch, model, tcfg, full, rows, mesh) -> dict:
+    """One ZeRO-1 update over the mesh held to the one-card AdamW update
+    of the same gradients (every rank runs it): the mesh's gradients at
+    ``full`` (reduced over "data" in fp32), scaled by a power of two
+    until their norm is below half the clip (the clip then does not act,
+    so the norm's summation order cannot matter), each data rank passing
+    half of them (their fp32 sum is exact), go through ``zero1_apply``
+    (the fp32 reduce-scatter onto the shard, the shard's update, the
+    all-gather of the bf16 shards); rank 0 holds the gathered params and
+    moments against ``optim.adamw_update`` of the gathered gradients on
+    one card, bit for bit.  Returns the counts of elements that differ
+    (rank 0) and the gradients' norm and scale."""
+    import torch.distributed as dist
+    from repro_torch.memory.accounting import tree_leaves, tree_map
+    from repro_torch.runtime import optim, sharding, train
+    specs = model.param_specs()
+    dev = next(tree_leaves(full)).device
+    params = sharding.shard_tree(full, specs, mesh, device=dev)
+    _, grads = train.loss_and_grads(model, tcfg, params, rows, mesh)
+    it = iter(grads)
+    whole = sharding.gather_tree(tree_map(lambda _: next(it), params),
+                                 specs, mesh)
+    norm = float(optim.global_norm(whole))
+    scale = 2.0 ** -(math.floor(math.log2(norm / tcfg.adamw.grad_clip)) + 2)
+    plan = optim.zero1_plan(params, specs, mesh)
+    accs = plan.accumulators(dev)
+    plan.accumulate(accs, [g * (0.5 * scale) for g in grads])
+    del grads
+    opt = optim.init_opt_state(params, mesh=mesh, specs=specs)
+    optim.zero1_apply(tcfg.adamw, params, accs, opt, plan)
+    del accs
+    out = {"norm": norm, "scale": scale}
+    want = wopt = None
+    if mesh.rank == 0:
+        want = tree_map(lambda x: x.clone(), full)
+        wopt = optim.init_opt_state(want)
+        _, _, m = optim.adamw_update(
+            tcfg.adamw, want, tree_map(lambda g: g * scale, whole), wopt)
+        out["card_norm"] = float(m["grad_norm"])
+    del whole
+    zspecs = optim.zero1_specs(params, specs, mesh)
+    for name, tree, spec, ref in (
+            ("params", params, specs, lambda: want),
+            ("m", opt["m"], zspecs["m"], lambda: optim.stack_groups(
+                wopt["m"])),
+            ("v", opt["v"], zspecs["v"], lambda: optim.stack_groups(
+                wopt["v"]))):
+        got = sharding.gather_tree(tree, spec, mesh)
+        if mesh.rank == 0:
+            out[f"{name}_differ"] = sum(
+                int((a != b).sum()) for a, b in zip(
+                    tree_leaves(ref()), tree_leaves(got)))
+            out[f"{name}_elements"] = sum(x.numel()
+                                          for x in tree_leaves(got))
+        del got
+    del params, opt, want, wopt
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+def train_mesh_rank(full16, full32, grads32) -> dict:
+    """One rank of the train_mesh phase (``launch.mesh.spawn``'s target,
+    the world spawned with ``TRAIN_MESH``'s axes): gate B first (on the
+    empty card: the bytes of its state, for gate C; one card's loss at
+    each step's params on rank 0), the ZeRO-1 witness, then gate A.
+    ``full16`` / ``full32`` and ``grads32``
+    arrive as CUDA IPC handles on the parent's full trees; each rank
+    copies its shards."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import (_kernel_modules, build, instance_counts,
+                                     launch_counts, reset_launch_counts)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.memory.accounting import tree_leaves, tree_map
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime import optim, sharding, train
+    build.require_built([m.SOURCE for m in _kernel_modules()])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(TRAIN_MESH["data"], TRAIN_MESH["model"])
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords)}
+
+    # gate B (and C): bf16, TRAIN_MESH_B_LAYERS layers, 3 steps
+    cfg = train_mesh_config(torch, TRAIN_MESH_B_LAYERS, torch.bfloat16)
+    model = DenseLM(cfg)
+    specs = model.param_specs()
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = sharding.shard_tree(full16, specs, mesh, device="cuda")
+    opt = optim.init_opt_state(params, mesh=mesh, specs=specs)
+    rows = train.to_device(train.shard_batch(batch, mesh, TRAIN_ACCUM),
+                           torch.device("cuda"))
+    torch.cuda.synchronize()
+    out["argument_bytes"] = torch.cuda.memory_allocated() - base
+    tcfg16 = train_mesh_tcfg(torch, torch.bfloat16)
+    step = train.make_train_step(model, tcfg16, mesh)
+    td = mesh.transport("data")
+    card_model = DenseLM(cfg)           # one card's, bound to no mesh
+    whole_batch = train.to_device(batch, torch.device("cuda"))
+    steps, total, by_instance = [], {}, {}
+
+    def tally(got: dict, inst: dict) -> None:
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        for k, d in inst.items():
+            for j, n in d.items():
+                by_instance.setdefault(k, {})
+                by_instance[k][j] = by_instance[k].get(j, 0) + n
+
+    for i in range(TRAIN_MESH_STEPS):
+        # one card's loss at this step's params (the mesh's, gathered),
+        # on rank 0, before the step's counts and clocks start
+        snap = sharding.gather_tree(params, specs, mesh)
+        card_loss = None
+        if mesh.rank == 0:
+            card_loss = float(train.loss_and_grads(
+                card_model, tcfg16, snap, whole_batch)[0])
+        del snap
+        torch.cuda.synchronize()
+        dist.barrier()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+        for t in mesh.transports().values():
+            t.reset_tally()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, rows)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got, inst = launch_counts(), instance_counts()
+        tally(got, inst)
+        if i == 0:
+            out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        # the data replicas of this model shard: the same bits
+        hashes = td.all_gather(_param_hashes(torch, params)[None], 0)
+        steps.append({"loss": loss, "card_loss": card_loss,
+                      "grad_norm": float(m["grad_norm"]),
+                      "s": secs, "launches": {k: n for k, n in got.items()
+                                              if n},
+                      "tally": _tallies(mesh),
+                      "replicas_equal": bool((hashes == hashes[0]).all())})
+    out["steps"] = steps
+    out["trace"] = _traced_mesh_step(torch, step, params, opt, rows,
+                                     mesh.rank)
+    out["state_bytes"] = {"params": sum(x.numel() * x.element_size()
+                                        for x in tree_leaves(params)),
+                          "moments": sum(x.numel() * x.element_size()
+                                         for x in tree_leaves(opt)),
+                          "batch": sum(x.numel() * x.element_size()
+                                       for x in rows.values())}
+    del params, opt, step, m, card_model, whole_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["zero1"] = zero1_witness(torch, model, tcfg16, full16, rows, mesh)
+    del rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gate A: the fp32 witness, one step's loss, gradients and norm
+    cfg = train_mesh_config(torch, TRAIN_MESH_A_LAYERS, torch.float32)
+    model = DenseLM(cfg)
+    specs = model.param_specs()
+    tcfg = train_mesh_tcfg(torch, torch.float32)
+    rows = train.to_device(train.shard_batch(
+        _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ), mesh, TRAIN_ACCUM),
+        torch.device("cuda"))
+    params = sharding.shard_tree(full32, specs, mesh, device="cuda")
+    loss, grads = train.loss_and_grads(model, tcfg, params, rows, mesh)
+    it = iter(grads)
+    gtree = tree_map(lambda _: next(it), params)
+    whole = sharding.gather_tree(gtree, specs, mesh)
+    errs = _leaf_errors(list(tree_leaves(grads32)), list(tree_leaves(whole)))
+    del grads, gtree, whole
+    opt = optim.init_opt_state(params, mesh=mesh, specs=specs)
+    step = train.make_train_step(model, tcfg, mesh)
+    reset_launch_counts()
+    _, _, m = step(params, opt, rows)
+    torch.cuda.synchronize()
+    got, inst = launch_counts(), instance_counts()
+    tally(got, inst)
+    out["gate_a"] = {"loss": float(loss), "step_loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "grad_rel_err": max(errs), "leaf_errs": errs,
+                     "launches": {k: n for k, n in got.items() if n}}
+    out["launches"], out["instances"] = total, by_instance
+    return out
+
+
+def check_train_mesh(torch, card: str, results: dict, counts: Launches
+                     ) -> None:
+    """The ``train_mesh`` phase: minicpm-2b at full width trained over a
+    (data 2, model 2) mesh of 4 ranks on the one card (``make_train_step``
+    with the mesh: row-parallel params, the batch and the ZeRO-1 moments
+    over "data", every collective a TAB collective kernel in its group's
+    slice of one shared region).  The floor first: one card's fp32
+    gradients against its own over 4 microbatches (the same loss; other
+    products and another summation order).  Gate A (fp32, 2 of 40
+    layers, batch 4 x 1024, accum 2) against the one-card step on the
+    same params and batch: the loss within 1e-5 relative, grad_norm
+    within 1e-4, every gathered gradient leaf within 1e-4 of its largest
+    magnitude (floored at 1e-3 of the tree's;
+    ``tests/test_torch_train.py``'s bound) or twice that leaf's floor,
+    K2 layers x accum x 2 launches on mma.  Gate B (bf16, 4 layers, 3
+    steps, WSD): each step's loss within 0.05 of one card's at the same
+    params, the two data replicas of each model shard bit-equal after
+    every step, K2 layers x accum x 2 launches a step on every rank and
+    TAB collectives on every rank.  The ZeRO-1 witness
+    (:func:`zero1_witness`): 0 elements apart.  Gate C: a rank's
+    argument bytes (params, moments, batch rows) equal
+    ``dryrun.trace_step``'s to the byte; the measured peak printed
+    beside the predicted one.  Then the TAB collective at the phase's
+    shapes (K4 rows)."""
+    import statistics
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import shape_mesh, spawn
+    from repro_torch.memory.accounting import tree_map
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.runtime import optim, train
+    t0 = time.perf_counter()
+    problems = []
+    # one card: gate B's bf16 losses, gate A's fp32 loss, grads and norm
+    cfg16 = train_mesh_config(torch, TRAIN_MESH_B_LAYERS, torch.bfloat16)
+    full16 = DenseLM(cfg16).init(0, device="cuda")
+    params = tree_map(lambda x: x.clone(), full16)
+    opt = optim.init_opt_state(params)
+    step = train.make_train_step(DenseLM(cfg16),
+                                 train_mesh_tcfg(torch, torch.bfloat16))
+    batch16 = _train_batch(torch, cfg16, TRAIN_BATCH, TRAIN_SEQ)
+    want16, norms16, secs16 = [], [], []
+    for _ in range(TRAIN_MESH_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(params, opt, batch16)
+        want16.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs16.append(time.perf_counter() - t)
+        norms16.append(float(m["grad_norm"]))
+    del params, opt, step, m
+    cfg32 = train_mesh_config(torch, TRAIN_MESH_A_LAYERS, torch.float32)
+    model32 = DenseLM(cfg32)
+    full32 = model32.init(0, device="cuda")
+    tcfg32 = train_mesh_tcfg(torch, torch.float32)
+    batch32 = train.to_device(_train_batch(torch, cfg32, TRAIN_BATCH,
+                                           TRAIN_SEQ), torch.device("cuda"))
+    loss32, grads32 = train.loss_and_grads(model32, tcfg32, full32, batch32)
+    it = iter(grads32)
+    grads32 = tree_map(lambda _: next(it), full32)
+    want32 = {"loss": float(loss32),
+              "grad_norm": float(optim.global_norm(grads32))}
+    _, grads4 = train.loss_and_grads(
+        model32, dataclasses.replace(tcfg32, accum_steps=2 * TRAIN_ACCUM),
+        full32, batch32)
+    floor32 = _leaf_errors(list(_leaves(grads32)), grads4)
+    del grads4
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dry run's prediction of one rank's gate B step (every rank's
+    # shards are the same size)
+    pred = dryrun.trace_step(DenseLM(cfg16), "train", TRAIN_BATCH, TRAIN_SEQ,
+                             shape_mesh(TRAIN_MESH), accum_steps=TRAIN_ACCUM)
+    predicted = {k: pred["memory"][k] for k in
+                 ("argument_bytes", "temp_bytes", "peak_device_bytes",
+                  "moment_bytes", "grad_bytes", "batch_bytes")}
+    log(f"train_mesh: one-card references and the dry run took "
+        f"{time.perf_counter() - t0:.1f} s; one card's bf16 losses "
+        f"{want16} (grad norms {norms16}; ms a step "
+        f"{[round(1e3 * x, 1) for x in secs16]} [{card}]), fp32 loss "
+        f"{want32['loss']:.6f} "
+        f"grad_norm {want32['grad_norm']:.6f}; one card against itself "
+        f"over {2 * TRAIN_ACCUM} microbatches: fp32 gradients' worst leaf "
+        f"{max(floor32):.2e} of its "
+        f"scale (leaves {[f'{e:.1e}' for e in floor32]}); the dry run of "
+        f"a rank's step: {predicted}, collectives {pred['collectives']}")
+    t1 = time.perf_counter()
+    ranks = spawn(train_mesh_rank, math.prod(TRAIN_MESH.values()), full16,
+                  full32, grads32, device="cuda",
+                  axes=TRAIN_MESH, region_bytes=TRAIN_MESH_REGION,
+                  timeout=TRAIN_MESH_TIMEOUT)
+    wall = time.perf_counter() - t1
+    del full16, full32, grads32
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_k2 = TRAIN_MESH_B_LAYERS * TRAIN_ACCUM * 2
+    want_a = TRAIN_MESH_A_LAYERS * TRAIN_ACCUM * 2
+    leaf_tol = [max(TRAIN_MESH_GRAD_TOL, 2 * f) for f in floor32]
+    log(f"train_mesh: gate A's leaf bounds {[f'{t:.1e}' for t in leaf_tol]}")
+    card_losses = [s["card_loss"] for s in ranks[0]["steps"]]
+    z = ranks[0]["zero1"]
+    log(f"train_mesh ZeRO-1 witness (bf16, {TRAIN_MESH_B_LAYERS} layers): "
+        f"the mesh's gradients (norm {z['norm']:.4f}) scaled by "
+        f"{z['scale']:g} (the one card's norm {z['card_norm']:.6f}, below "
+        f"the clip); after one update, elements that differ from one "
+        f"card's AdamW: params {z['params_differ']} of "
+        f"{z['params_elements']}, m {z['m_differ']} of {z['m_elements']}, "
+        f"v {z['v_differ']} of {z['v_elements']} (0 required)")
+    if z["params_differ"] or z["m_differ"] or z["v_differ"]:
+        problems.append(f"train_mesh: ZeRO-1's update parts from one "
+                        f"card's: {z}")
+    for r in ranks:
+        tag = f"train_mesh rank {r['rank']} {r['coords']}"
+        a = r["gate_a"]
+        rel_loss = abs(a["loss"] - want32["loss"]) / abs(want32["loss"])
+        rel_step = abs(a["step_loss"] - want32["loss"]) / abs(want32["loss"])
+        rel_norm = (abs(a["grad_norm"] - want32["grad_norm"])
+                    / want32["grad_norm"])
+        log(f"{tag} gate A (fp32, {TRAIN_MESH_A_LAYERS} of 40 layers, "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, accum {TRAIN_ACCUM}): loss "
+            f"{a['loss']:.6f} (rel {rel_loss:.2e}; the step's {rel_step:.2e}; "
+            f"bound 1e-5), grad_norm {a['grad_norm']:.6f} (rel "
+            f"{rel_norm:.2e}, bound 1e-4), gathered gradients' worst error "
+            f"{a['grad_rel_err']:.2e} of their leaf's scale (leaves "
+            f"{[f'{e:.1e}' for e in a['leaf_errs']]}, each within its "
+            f"bound)")
+        log(f"{tag} gate A launches {a['launches']} (want {want_a} K2 "
+            f"on mma and TAB collectives)")
+        if not (rel_loss <= 1e-5 and rel_step <= 1e-5 and rel_norm <= 1e-4
+                and all(e <= t for e, t in zip(a["leaf_errs"], leaf_tol))):
+            problems.append(f"{tag}: gate A {a} against {want32}")
+        if a["launches"].get("flash_attention_mma", 0) != want_a or a[
+                "launches"].get("flash_attention_wgmma", 0) or not a[
+                "launches"].get("tab_collective", 0):
+            problems.append(f"{tag}: gate A launches {a['launches']}")
+        secs = [s["s"] for s in r["steps"]]
+        for i, s in enumerate(r["steps"]):
+            k2 = s["launches"].get("flash_attention_wgmma", 0)
+            k4 = s["launches"].get("tab_collective", 0)
+            gap = abs(s["loss"] - card_losses[i])
+            log(f"{tag} gate B step {i}: loss {s['loss']:.4f} (one card at "
+                f"the same params {card_losses[i]:.4f}, apart {gap:.4f} of "
+                f"{TRAIN_MESH_LOSS_ATOL}; one card's own run {want16[i]:.4f},"
+                f" apart {abs(s['loss'] - want16[i]):.4f}, not held), "
+                f"grad_norm {s['grad_norm']:.4f}, "
+                f"{1e3 * s['s']:.1f} ms, K2 {k2} (want {want_k2}), TAB "
+                f"collectives {k4}, data replicas bit-equal "
+                f"{s['replicas_equal']}; tally {s['tally']}")
+            if gap > TRAIN_MESH_LOSS_ATOL:
+                problems.append(f"{tag} step {i}: loss {s['loss']} against "
+                                f"one card's {card_losses[i]} at the same "
+                                f"params")
+            if not s["replicas_equal"]:
+                problems.append(f"{tag} step {i}: data replicas differ")
+            if k2 != want_k2 or s["launches"].get(
+                    "flash_attention_mma", 0) or not k4:
+                problems.append(f"{tag} step {i}: launches {s['launches']}, "
+                                f"want {want_k2} K2 on wgmma and TAB "
+                                f"collectives")
+        log(f"{tag} [{card}]: {1e3 * statistics.median(secs[1:]):.1f} ms a "
+            f"step (median of steps 2..{len(secs)}; the first "
+            f"{1e3 * secs[0]:.1f} ms), {TRAIN_BATCH * TRAIN_SEQ / statistics.median(secs[1:]):.0f} "
+            f"tokens/s across the mesh; peak device memory above its "
+            f"arguments {r['peak_bytes'] - r['argument_bytes']} B, of "
+            f"{r['peak_bytes']} B in all (predicted "
+            f"{predicted['peak_device_bytes']} B in all, "
+            f"{predicted['temp_bytes']} B above the arguments); state "
+            f"{r['state_bytes']}")
+        log(f"{tag} gate C: argument bytes {r['argument_bytes']} measured, "
+            f"{predicted['argument_bytes']} predicted by the dry run")
+        if r["trace"]:
+            t = r["trace"]
+            log(f"{tag} [{card}]: one more step traced: {t['wall_ms']:.1f} "
+                f"ms of wall, the card busy {t['busy_ms']:.1f} ms "
+                f"({100 * t['busy_ms'] / t['wall_ms']:.1f} %; the 4 ranks' "
+                f"contexts take turns): the TAB's collective "
+                f"{t['tab_ms']:.1f} ms, K2 {t['k2_ms']:.1f}, matmuls "
+                f"{t['gemm_ms']:.1f}, the rest {t['other_ms']:.1f} "
+                f"({t['kernels']} kernels)")
+        if r["argument_bytes"] != predicted["argument_bytes"]:
+            problems.append(f"{tag}: argument bytes {r['argument_bytes']} "
+                            f"against the dry run's "
+                            f"{predicted['argument_bytes']}")
+        counts.add(r["launches"], r["instances"])
+    log(f"train_mesh: the ranks took {wall:.1f} s (their start included)")
+    check_tab_kernel(torch, card, results, TRAIN_MESH_TAB)
+    log(f"train_mesh: the phase took {time.perf_counter() - t0:.1f} s")
+    if problems:
+        raise AssertionError("train_mesh phase: " + "; ".join(problems))
+    log("train_mesh: every gate held")
+
+
 #: the dense phase's runs over the slab: (kv_quant, temperature)
 DENSE_RUNS = ((False, 0.0), (False, 0.7), (True, 0.0))
 #: the first-8 rule for tokens that need not be bit-equal: the first 8 tokens
@@ -5656,12 +6207,18 @@ TAB_PROBE_REPLAYS = 8
 def _tab_round(torch, streams, xs, data, flags, gather: bool) -> list:
     """One collective of len(xs) ranks in this process: rank r's kernel
     on ``streams[r]``, all issued together (their 32 CTAs each fit the
-    card at once), joined back into the current stream."""
+    card at once), joined back into the current stream.  Every stream
+    waits for the current one before any kernel is issued: PyTorch hands
+    out streams from a pool of 32, so one of ``streams`` can be the
+    current stream (a graph's capture stream), and a wait issued after a
+    peer's kernel on it would make this rank's kernel wait for its
+    peer's, which spins on this one until the watchdog fires."""
     from repro_torch.kernels.write_accumulate import ops
     cur = torch.cuda.current_stream()
     outs = []
-    for r, s in enumerate(streams):
+    for s in streams:
         s.wait_stream(cur)
+    for r, s in enumerate(streams):
         with torch.cuda.stream(s):
             outs.append(ops.collective(xs[r], data, flags, rank=r,
                                        size=len(xs), gather=gather,
@@ -5715,11 +6272,13 @@ def check_tab_kernel(torch, card: str, results: dict, cases) -> None:
     from repro_torch.kernels.write_accumulate import ops
     gen = torch.Generator(device="cuda").manual_seed(9)
     done = set()
-    for label, n, shape, gather, phase in cases:
-        if (n, math.prod(shape), gather) in done:
+    for label, n, shape, gather, phase, *kind in cases:
+        dtype = getattr(torch, kind[0] if kind else "bfloat16")
+        size = torch.empty((), dtype=dtype).element_size()
+        if (n, math.prod(shape), gather, dtype) in done:
             continue
-        done.add((n, math.prod(shape), gather))
-        stride = ops.slot_stride(math.prod(shape) * 2)
+        done.add((n, math.prod(shape), gather, dtype))
+        stride = ops.slot_stride(math.prod(shape) * size)
         data = torch.zeros(2 * n * stride, dtype=torch.uint8, device="cuda")
         flags = torch.zeros(ops.flag_words(n), dtype=torch.int64,
                             device="cuda")
@@ -5727,7 +6286,7 @@ def check_tab_kernel(torch, card: str, results: dict, cases) -> None:
 
         def inputs():
             return [torch.randn(shape, generator=gen, device="cuda")
-                    .to(torch.bfloat16) for _ in range(n)]
+                    .to(dtype) for _ in range(n)]
         xs = inputs()
         got = [o.float().cpu() for o in _tab_round(torch, streams, xs, data,
                                                    flags, gather)]
@@ -5735,21 +6294,23 @@ def check_tab_kernel(torch, card: str, results: dict, cases) -> None:
         words = flags[n * ops.FLAG_CTAS:].tolist()
         want = [o.float() for o in _tab_plain(torch, xs, gather)]
         tag = (f"TAB collective {label} m={n} ({n}, "
-               f"{', '.join(map(str, shape))}) bf16 "
+               f"{', '.join(map(str, shape))}) "
+               f"{'bf16' if dtype == torch.bfloat16 else str(dtype)[6:]} "
                f"{'gather' if gather else 'sum'}")
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         same = all(torch.equal(a, b) for a, b in zip(got, want))
+        mantissa = 7 if dtype == torch.bfloat16 else 23
         if gather:
             ok = same
         else:
             ok = all(bool(((a - b).abs() <= torch.exp2(torch.floor(
-                torch.log2(b.abs().clamp_min(2.0 ** -126))) - 7)).all())
-                for a, b in zip(got, want))
+                torch.log2(b.abs().clamp_min(2.0 ** -126))) - mantissa))
+                .all()) for a, b in zip(got, want))
         ok = ok and all(torch.equal(a, got[0]) for a in got) and not any(
             words)
         log(f"{tag}: max_abs_err {err:.3e} against the plain protocol "
             f"({'bit-equal' if same else 'not bit-equal'}; "
-            f"{'exact' if gather else 'within one bf16 ulp'} required), "
+            f"{'exact' if gather else 'within one ulp'} required), "
             f"every rank's output equal, error words {words}")
         if not ok:
             raise AssertionError(f"{tag}: parts from its plain version "
@@ -5767,7 +6328,7 @@ def check_tab_kernel(torch, card: str, results: dict, cases) -> None:
             stacks = [(torch.stack(v),) for (v,) in sets]
             lib_ms = time_ms(torch, lambda s: torch.sum(
                 s, 0, dtype=torch.float32).to(s.dtype), stacks)
-        nbytes = math.prod(shape) * 2
+        nbytes = math.prod(shape) * size
         out_bytes = n * nbytes if gather else nbytes
         b_ms, b_by = bound(n * (nbytes + n * nbytes + out_bytes),
                            0 if gather else n * (n - 1) * math.prod(shape),
@@ -6800,9 +7361,10 @@ def main() -> int:
                          f"serves {SERVE_LAYERS} to stay inside its time)")
     ap.add_argument("--phases",
                     default="dryrun,kernels,parity,moe,gpt3,families,"
-                            "train,tp,serve,dense,tiers,disagg",
+                            "train,train_mesh,tp,serve,dense,tiers,disagg",
                     help="comma list of dryrun, kernels, parity, moe, gpt3, "
-                         "families, train, tp, serve, dense, tiers, disagg, "
+                         "families, train, train_mesh, tp, serve, dense, "
+                         "tiers, disagg, "
                          "profile (a traced serving run), sweep (K3's "
                          "routes over M) and notice (the TAB's collective "
                          "against its plain version and its notice timed "
@@ -6917,6 +7479,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         took("train")
+    train_meshed = None
+    if "train_mesh" in phases:
+        # before the Qwen2.5-14B weights: 4 ranks' training state
+        train_meshed = Launches("train_mesh")
+        check_train_mesh(torch, card, results, train_meshed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("train_mesh")
     tp = None
     if "tp" in phases:
         # before the Qwen2.5-14B weights of the serve phase: the ranks'
@@ -6994,8 +7564,9 @@ def main() -> int:
                 return "fam"
             return int(phase[2:]) if phase.startswith("tp") else 1
 
-        tiered, moed, gpt3d, densed, familied, trainedd = (
-            summed(r) for r in (tiers, moe, gpt3, dense, families, trained))
+        tiered, moed, gpt3d, densed, familied, trainedd, meshd = (
+            summed(r) for r in (tiers, moe, gpt3, dense, families, trained,
+                                train_meshed))
         tpd = {m: summed(tp[m] if tp else None)
                for m in (1, *TP_SHARDS, "fam")}
         moe_path = ("BatchedServer, granite-moe-3b-a800m at full width, "
@@ -7015,6 +7586,7 @@ def main() -> int:
                       f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
                       "tokens in 2 microbatches, the forward and the remat "
                       "recompute (train phase)", trainedd),
+            "train_mesh": (TRAIN_MESH_PATH, meshd),
             "kernels": ("kernels phase only", ({}, {})),
             **{f"tp{m}": (TP_PATH[m], tpd[m]) for m in TP_SHARDS},
             "tpfam": (TP_PATH["fam"], tpd["fam"])}
@@ -7057,6 +7629,8 @@ def main() -> int:
                                         familied, name, row),
                                     "train_launches": count(trainedd, name,
                                                             row),
+                                    "train_mesh_launches": count(meshd, name,
+                                                                 row),
                                     "tp_launches": count(tpd[tp_mesh(row)],
                                                          name, row),
                                     "tp_path": TP_PATH[tp_mesh(row)],

@@ -24,6 +24,26 @@ version (:mod:`repro_torch.runtime.transport`).
 Every function takes a mesh axis name and runs over ``mesh`` (default:
 the ambient mesh of :func:`repro_torch.runtime.sharding.activate_mesh`);
 every rank of the axis must call it, in the same order.
+
+Training differentiates through the tensor-parallel boundaries with one
+``torch.autograd.Function`` a boundary (Megatron's "f" and "g"), each
+backward chosen by how the forward's output is consumed:
+
+* :func:`enter_ranks`: the identity forward, an all-reduce backward -- a
+  tensor every rank holds alike enters rank-specific columns (a
+  column-sharded product), so each rank's gradient is a part of it.
+* :func:`sum_partials`: the all-reduce forward, the identity backward --
+  the ranks' partial products summed into a tensor every rank consumes
+  alike.
+* :func:`gather_replicated`: the all-gather forward, this rank's slice of
+  the gradient backward -- the gathered tensor is consumed alike on every
+  rank.
+* :func:`gather_for_local`: the all-gather forward, the sum over the
+  ranks then this rank's slice backward -- each rank consumes the
+  gathered tensor for its own slice only (a statistic, its columns).
+
+Without grad each is its forward collective called as it is, so serving
+runs the same collectives.
 """
 from __future__ import annotations
 
@@ -174,3 +194,89 @@ def allgather(x: torch.Tensor, axis_name: str, schedule: Schedule = "tab",
     if schedule == "ring":
         return ring_allgather(x, axis_name, mesh=mesh)
     return tab_allgather(x, axis_name, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# Autograd through the tensor-parallel boundaries.
+# ---------------------------------------------------------------------------
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        ctx.axis, ctx.mesh = axis_name, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (tab_allreduce(g.contiguous(), ctx.axis, mesh=ctx.mesh),
+                None, None)
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        return tab_allreduce(x, axis_name, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, dim, mesh, local):
+        ctx.axis, ctx.dim, ctx.mesh, ctx.local = axis_name, dim, mesh, local
+        return tab_allgather(x, axis_name, axis=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        t = _transport(ctx.axis, ctx.mesh)
+        g = g.contiguous()
+        if ctx.local:
+            mine = t.reduce_scatter(g, ctx.dim)
+        else:
+            mine = g.chunk(t.size, dim=ctx.dim)[t.rank].contiguous()
+        return mine, None, None, None, None
+
+
+def enter_ranks(x: torch.Tensor, axis_name: str, *, mesh=None
+                ) -> torch.Tensor:
+    """``x`` (alike on every rank of the axis) where it enters
+    rank-specific work: the identity; its gradient summed over the
+    ranks by ``tab_allreduce``."""
+    if not _needs_grad(x):
+        return x
+    return _Enter.apply(x, axis_name, mesh)
+
+
+def sum_partials(x: torch.Tensor, axis_name: str, *, mesh=None
+                 ) -> torch.Tensor:
+    """:func:`tab_allreduce` of the ranks' partial products, consumed
+    alike on every rank: its gradient passes through unchanged."""
+    if not _needs_grad(x):
+        return tab_allreduce(x, axis_name, mesh=mesh)
+    return _SumPartials.apply(x, axis_name, mesh)
+
+
+def gather_replicated(x: torch.Tensor, axis_name: str, dim: int = 0, *,
+                      mesh=None) -> torch.Tensor:
+    """:func:`tab_allgather` along ``dim``, the result consumed alike on
+    every rank: the gradient of this rank's slice is its slice of the
+    result's gradient."""
+    if not _needs_grad(x):
+        return tab_allgather(x, axis_name, axis=dim, mesh=mesh)
+    return _Gather.apply(x, axis_name, dim, mesh, False)
+
+
+def gather_for_local(x: torch.Tensor, axis_name: str, dim: int = 0, *,
+                     mesh=None) -> torch.Tensor:
+    """:func:`tab_allgather` along ``dim``, the result consumed by each
+    rank for its own slice only: the gradient of this rank's slice is
+    its slice of the ranks' gradients summed (a reduce-scatter)."""
+    if not _needs_grad(x):
+        return tab_allgather(x, axis_name, axis=dim, mesh=mesh)
+    return _Gather.apply(x, axis_name, dim, mesh, True)

@@ -25,8 +25,13 @@ class Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_valid):
-        o = _kernel.flash_attention(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset, kv_valid=kv_valid)
+        if isinstance(q, FakeTensor):      # a dry run's training step
+            o = _shape_only(q, k, v, causal=causal, q_offset=q_offset,
+                            kv_valid=kv_valid)
+        else:
+            o = _kernel.flash_attention(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset,
+                                        kv_valid=kv_valid)
         ctx.save_for_backward(q, k, v)
         ctx.mask = dict(causal=causal, window=window, q_offset=q_offset,
                         kv_valid=kv_valid)
@@ -52,12 +57,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, kv_valid=kv_valid)
-    if isinstance(q, FakeTensor):
-        return _shape_only(q, k, v, causal=causal, q_offset=q_offset,
-                           kv_valid=kv_valid)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return Attention.apply(q, k, v, causal, window, q_offset, kv_valid)
+    if isinstance(q, FakeTensor):
+        return _shape_only(q, k, v, causal=causal, q_offset=q_offset,
+                           kv_valid=kv_valid)
     return _kernel.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_valid=kv_valid)
 

@@ -47,12 +47,25 @@ at the peak, and the cache is written in place), ``lower_s`` and
 ``xla_flops`` and ``xla_bytes_accessed`` (no XLA), and
 ``once_per_loop`` (loops run per iteration; see ``op_cost``, "Loops").
 
+A ``train_4k`` cell traces the mesh's training step
+(:func:`repro_torch.runtime.train.make_train_step` with the mesh: the
+forward, the backward through the TAB's autograd boundaries, the
+``"data"`` reductions and the ZeRO-1 update) on rank 0's shards: its
+params, its ZeRO-1 moments (the reference's ``zero1`` rule) and its
+``"data"`` shard of the batch (256 / 16 rows), with ``accum_steps`` 2
+where ``d_model >= 5120``, as the reference sets it.  ``memory`` then
+adds ``moment_bytes`` and ``grad_bytes`` (the rank's fp32 gradient sums,
+part of the transient); the gradients, moments and params all count in
+the peak.
+
 Cells the port cannot trace yet are recorded with ``status:
 "skipped"`` and the reason (:func:`skip_reason`), decided before any
-tracing: every ``train_4k`` cell (``runtime/train.py`` takes no mesh),
-``long_500k`` outside the sub-quadratic families (the reference's own
-reason), and ``--paged`` for the grouped and encoder-decoder families
-(the server's refusal of their tiers over a mesh).
+tracing: the MoE configs' ``train_4k`` (expert-parallel training is not
+ported) and ``train_4k`` under ``--paged`` (training over paged
+weights), ``long_500k`` outside the sub-quadratic families (the
+reference's own reason), and ``--paged`` for the grouped and
+encoder-decoder families (the server's refusal of their tiers over a
+mesh).
 """
 from __future__ import annotations
 
@@ -71,7 +84,7 @@ from repro_torch.configs import ARCH_IDS, SUBQUADRATIC, build_model, get_config
 from repro_torch.launch import op_cost
 from repro_torch.launch.mesh import Mesh, P, make_production_mesh
 from repro_torch.memory.accounting import tree_bytes, tree_leaves, tree_map
-from repro_torch.runtime import sharding
+from repro_torch.runtime import optim, sharding, train
 from repro_torch.runtime.serve import (make_prefill_step, make_serve_step,
                                        mesh_pager_refusal)
 
@@ -88,8 +101,9 @@ SHAPES = {
     "long_500k": dict(kind="decode", seq=524288, batch=1),
 }
 
-TRAIN_REASON = ("training over a mesh is not ported yet: "
-                "repro_torch.runtime.train.make_train_step takes no mesh")
+#: why the MoE configs' and ``--paged`` train cells are skipped
+TRAIN_MOE_REASON = train.MOE_MESH_REASON
+TRAIN_PAGED_REASON = train.PAGED_REASON
 LONG_REASON = ("full quadratic attention at 512k context "
                "(DESIGN.md long_500k policy)")
 
@@ -135,14 +149,21 @@ def skip_reason(arch: str, shape_name: str, *, paged: bool = False,
                 kv_quant: bool = False) -> str | None:
     """Why the port cannot trace this cell over the production mesh
     (None when it can), decided before any tracing."""
-    if SHAPES[shape_name]["kind"] == "train":
-        return TRAIN_REASON
     if shape_name == "long_500k" and arch not in SUBQUADRATIC:
         return LONG_REASON
     cfg = get_config(arch)
     if paged:
         cfg = cfg.with_pager(enabled=True, lookahead=1)
-    return mesh_pager_refusal(build_model(cfg))
+    model = build_model(cfg)
+    if SHAPES[shape_name]["kind"] == "train":
+        return train.mesh_train_refusal(model)
+    return mesh_pager_refusal(model)
+
+
+def train_accum_steps(cfg) -> int:
+    """The reference's microbatching of a ``train_4k`` cell: 2 where
+    ``d_model >= 5120`` (per-microbatch activations fit HBM), else 1."""
+    return 2 if cfg.d_model >= 5120 else 1
 
 
 def _one_rank(mesh: Mesh | None) -> bool:
@@ -173,25 +194,29 @@ def fake_mode() -> FakeTensorMode:
 
 def make_inputs(model, kind: str, batch: int, seq: int,
                 mesh: Mesh | None = None) -> dict:
-    """The inputs of one ``kind`` step ("prefill" or "decode") of
-    ``model`` as the rank of ``mesh`` holds them (one device without
+    """The inputs of one ``kind`` step ("prefill", "decode" or "train")
+    of ``model`` as the rank of ``mesh`` holds them (one device without
     one), as fake tensors on :data:`DEVICE`: call it inside a
     ``FakeTensorMode``.  ``batch`` is the global batch, split over the
     batch axes by the reference's ``_fit_spec`` rule; the cache holds
     ``seq`` positions a slot (the reference's ``abstract_cache``), the
     rank's KV heads.  Binds ``model`` to ``mesh`` row-parallel (the
     reference lowers with ``param_specs``).  Returns ``{"kind", "params",
-    "cache", "tokens", "cur_pos", "key", "extra"}``."""
+    "cache", "tokens", "cur_pos", "key", "extra"}``; a train step's
+    ``{"kind", "params", "opt", "batch"}`` (``seq`` its tokens a row:
+    the rank's batch rows, its ZeRO-1 moments over a mesh)."""
     cfg = model.cfg
     mesh = mesh if mesh is not None else Mesh({"data": 1, "model": 1})
     # the cache's full shapes before the bind (which shards the KV heads)
-    full_cache = model.cache_shapes(batch, seq)
+    full_cache = model.cache_shapes(batch, seq) if kind != "train" else None
     bspec = sharding.batch_spec(mesh)
     full = tree_map(lambda x: x.to(DEVICE), model.init(0, device="cpu"))
     if not _one_rank(mesh):
         model.mem.bind_mesh(mesh, row_parallel=True)
     params = _place_params(model, full, mesh)
     del full
+    if kind == "train":
+        return _train_inputs(model, params, batch, seq, mesh)
     cache = sharding._map_specs(
         lambda _, spec, leaf: torch.zeros(shard_shape(leaf[0], spec, mesh),
                                           dtype=leaf[1], device=DEVICE),
@@ -215,6 +240,27 @@ def make_inputs(model, kind: str, batch: int, seq: int,
                 tokens=torch.zeros((b, 1), dtype=torch.int64, device=DEVICE),
                 cur_pos=torch.zeros((b,), dtype=torch.int32, device=DEVICE),
                 key=prng.PRNGKey(0, DEVICE))
+
+
+def _train_inputs(model, params: dict, batch: int, seq: int,
+                  mesh: Mesh) -> dict:
+    """A train step's inputs (:func:`make_inputs`): the rank's params,
+    its moments (ZeRO-1 shards over a mesh), its rows of the batch."""
+    cfg = model.cfg
+    b = shard_shape((batch,), P(sharding.batch_spec(mesh)[0]), mesh)[0]
+    text = seq - cfg.num_patches if cfg.family == "vlm" else seq
+    rows = {"tokens": torch.zeros((b, text), dtype=torch.int32,
+                                  device=DEVICE),
+            "labels": torch.zeros((b, text), dtype=torch.int32,
+                                  device=DEVICE)}
+    if cfg.family == "encdec":
+        rows["frames"] = torch.zeros((b, cfg.encoder_seq, cfg.d_model),
+                                     device=DEVICE)
+    if cfg.family == "vlm":
+        rows["patches"] = torch.zeros((b, cfg.num_patches, cfg.d_model),
+                                      device=DEVICE)
+    opt = optim.init_opt_state(params, mesh=mesh, specs=model.param_specs())
+    return dict(kind="train", params=params, opt=opt, batch=rows)
 
 
 def input_specs(arch: str, shape_name: str, mesh: Mesh, *,
@@ -243,6 +289,9 @@ def _arguments(model, inputs: dict) -> list[torch.Tensor]:
     window's device buffers, the cache, the step's inputs."""
     mem = model.mem
     out = list(tree_leaves(inputs["params"]))
+    if inputs["kind"] == "train":
+        return (out + list(tree_leaves(inputs["opt"]))
+                + list(tree_leaves(inputs["batch"])))
     if mem.prefetcher is not None:
         out += mem.prefetcher.window
     if mem.kv_window is not None:
@@ -262,20 +311,27 @@ def _by_tier(tree) -> dict[str, int]:
     return out
 
 
-def trace(model, inputs: dict, mesh: Mesh | None = None) -> dict:
+def trace(model, inputs: dict, mesh: Mesh | None = None, *,
+          accum_steps: int = 1) -> dict:
     """Run one step of ``inputs["kind"]`` on the fake ``inputs``
     (:func:`make_inputs`) under the cost model; returns ``memory``,
     ``cost``, ``collectives`` and ``ops`` (the ATen ops traced) for one
-    rank."""
-    fake = next(iter(tree_leaves(inputs["cache"]))).fake_mode
+    rank.  A train step takes ``accum_steps`` microbatches."""
+    fake = next(iter(tree_leaves(inputs["batch" if inputs["kind"] == "train"
+                                        else "cache"]))).fake_mode
     transports = {} if mesh is None else mesh.transports()
     for t in transports.values():
         t.reset_tally()
     cost = op_cost.OpCost()
     t0 = time.perf_counter()
-    with fake, torch.no_grad(), cost:
+    training = inputs["kind"] == "train"
+    with fake, torch.set_grad_enabled(training), cost:
         args = cost.track(_arguments(model, inputs))
-        if inputs["kind"] == "prefill":
+        if training:
+            step = train.make_train_step(model, train.TrainConfig(
+                accum_steps=accum_steps), mesh)
+            out = step(inputs["params"], inputs["opt"], inputs["batch"])
+        elif inputs["kind"] == "prefill":
             out = make_prefill_step(model)(inputs["params"],
                                            inputs["tokens"], inputs["cache"],
                                            inputs["extra"] or None)
@@ -294,18 +350,25 @@ def trace(model, inputs: dict, mesh: Mesh | None = None) -> dict:
                 coll_counts[name] = (coll_counts.get(name, 0)
                                      + tal["transfers"])
     params = _by_tier(inputs["params"])
+    memory = {
+        "argument_bytes": args["device"],
+        "temp_bytes": cost.device_peak - args["device"],
+        "peak_device_bytes": cost.device_peak,
+        "host_argument_bytes": args["host"],
+        "host_temp_bytes": cost.host_peak - args["host"],
+        "params": params}
+    if training:
+        memory["moment_bytes"] = tree_bytes(inputs["opt"])
+        # the fp32 gradient sums: the params' local shapes in fp32
+        memory["grad_bytes"] = 4 * sum(x.numel() for x in
+                                       tree_leaves(inputs["params"]))
+        memory["batch_bytes"] = tree_bytes(inputs["batch"])
+    else:
+        memory["cache_bytes"] = tree_bytes(inputs["cache"])
     return {
         "trace_s": round(time.perf_counter() - t0, 2),
         "ops": cost.ops,
-        "memory": {
-            "argument_bytes": args["device"],
-            "temp_bytes": cost.device_peak - args["device"],
-            "peak_device_bytes": cost.device_peak,
-            "host_argument_bytes": args["host"],
-            "host_temp_bytes": cost.host_peak - args["host"],
-            "params": params,
-            "cache_bytes": tree_bytes(inputs["cache"]),
-        },
+        "memory": memory,
         "cost": cost.result(),
         "collectives": {"bytes": coll_bytes, "counts": coll_counts,
                         "total_bytes": float(sum(coll_bytes.values()))},
@@ -313,17 +376,18 @@ def trace(model, inputs: dict, mesh: Mesh | None = None) -> dict:
 
 
 def trace_step(model, kind: str, batch: int, seq: int,
-               mesh: Mesh | None = None) -> dict:
-    """One ``kind`` step of ``model`` ("prefill" or "decode") at a global
-    ``batch`` and a cache of ``seq`` positions, traced as the rank of
-    ``mesh`` runs it (one device without one): :func:`make_inputs` then
-    :func:`trace` (``run_cell`` traces a cell so); what the card's own
-    allocator is held to (``chip_smoke.py``)."""
+               mesh: Mesh | None = None, *, accum_steps: int = 1) -> dict:
+    """One ``kind`` step of ``model`` ("prefill", "decode" or "train") at
+    a global ``batch`` and a cache (or rows) of ``seq`` positions, traced
+    as the rank of ``mesh`` runs it (one device without one):
+    :func:`make_inputs` then :func:`trace` (``run_cell`` traces a cell
+    so); what the card's own allocator is held to (``chip_smoke.py``).
+    A train step takes ``accum_steps`` microbatches."""
     fake = fake_mode()
     try:
         with fake:
             inputs = make_inputs(model, kind, batch, seq, mesh)
-        return trace(model, inputs, mesh)
+        return trace(model, inputs, mesh, accum_steps=accum_steps)
     finally:
         if not _one_rank(mesh):
             model.mem.bind_mesh(None)
@@ -350,10 +414,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             _save(tag, result)
         return result
     mesh = make_production_mesh(multi_pod=multi_pod)
-    model, _, inputs = input_specs(arch, shape_name, mesh, paged=paged,
-                                   kv_quant=kv_quant)
+    model, cfg, inputs = input_specs(arch, shape_name, mesh, paged=paged,
+                                     kv_quant=kv_quant)
     try:
-        traced = trace(model, inputs, mesh)
+        traced = trace(model, inputs, mesh,
+                       accum_steps=train_accum_steps(cfg))
     finally:
         model.mem.bind_mesh(None)
     result = {"cell": tag, "status": "ok", "arch": arch, "shape": shape_name,

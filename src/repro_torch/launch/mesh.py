@@ -17,7 +17,13 @@ hands every rank one region of memory that the parent allocates and
 keeps alive until the ranks exit: shared host memory for CPU ranks, one
 CUDA allocation passed to the ranks by IPC for ranks on a card.  The
 region holds the TAB's two halves and, beside them, its flag area (the
-ranks' arrival and error words, zeroed), in that one allocation.  Ranks
+ranks' arrival and error words, zeroed), in that one allocation.  A
+world spawned with ``axes`` (a ``(data D, model M)`` mesh) lays out one
+such slice a group instead: D ``"model"`` groups and M ``"data"``
+groups, each with its own two halves (``region_bytes`` of its axis) and
+its own flag words, and one ``gloo`` process group a group; a rank's
+collectives over an axis run in its group's slice with its index in the
+group and the group's size (:meth:`World.axis`).  Ranks
 run on the card unless the caller asks for the CPU
 (:func:`repro_torch.resolve_device`).  Inside a rank,
 :func:`make_serving_mesh` builds the mesh over that world.
@@ -126,6 +132,42 @@ def _flag_offset(region_bytes: int) -> int:
     return -(-2 * region_bytes // 16) * 16
 
 
+def _slice_bytes(region_bytes: int, size: int) -> int:
+    """Bytes of one group's slice of the region: two ``region_bytes``
+    halves and the flag area of ``size`` ranks, rounded up to 256."""
+    from repro_torch.kernels.write_accumulate.ops import flag_words
+    return -(-(_flag_offset(region_bytes) + 8 * flag_words(size)) // 256) \
+        * 256
+
+
+def axis_groups(axes: dict[str, int], axis: str) -> list[list[int]]:
+    """The groups of world ranks along ``axis`` of a mesh of ``axes``
+    (row-major, the last axis fastest): each group the ranks that differ
+    only in their ``axis`` coordinate, in that coordinate's order."""
+    names = list(axes)
+    sizes = [axes[n] for n in names]
+    k = names.index(axis)
+    stride = math.prod(sizes[k + 1:])
+    n = math.prod(sizes)
+    return [[r + j * stride for j in range(sizes[k])]
+            for r in range(n) if (r // stride) % sizes[k] == 0]
+
+
+def region_layout(axes: dict[str, int], region_bytes: dict[str, int]
+                  ) -> dict[str, tuple[int, int]]:
+    """Axis -> (offset of its first group's slice, bytes of a slice) in
+    the region of a world spawned with ``axes``: the axes of more than
+    one rank in order, each its groups' slices one after another."""
+    out, off = {}, 0
+    n = math.prod(axes.values())
+    for a, size in axes.items():
+        if size > 1:
+            one = _slice_bytes(region_bytes[a], size)
+            out[a] = (off, one)
+            off += (n // size) * one
+    return out
+
+
 class World:
     """The ranks :func:`spawn` started, as one of them sees them: its
     rank, their number, the shared region's two halves (``region``, None
@@ -142,12 +184,22 @@ class World:
     next."""
 
     def __init__(self, rank: int, size: int, region: torch.Tensor | None,
-                 region_bytes: int = 0):
+                 region_bytes: int | dict = 0, *,
+                 axes: dict[str, int] | None = None, group=None,
+                 ranks: list[int] | None = None):
         from repro_torch.kernels.write_accumulate.ops import flag_words
         self.rank = rank
         self.size = size
+        self.axes = dict(axes) if axes else None
+        #: the process group of these ranks (None: the default group)
+        self.group = group
+        #: the world ranks of these ranks, by index here
+        self.ranks = list(ranks) if ranks is not None else list(range(size))
         self.region = self.flags = None
-        if region is not None:
+        self._axes: dict[str, World] = {}
+        if self.axes:
+            self._split(region, region_bytes)
+        elif region is not None:
             off = _flag_offset(region_bytes)
             self.region = region[: 2 * region_bytes]
             self.flags = region[off: off + 8 * flag_words(size)].view(
@@ -155,6 +207,41 @@ class World:
         self._phase = 0
         self._notice: str | None = None
         self._cache: dict = {}
+
+    def _split(self, region, region_bytes: dict) -> None:
+        """One sub-world a group this rank belongs to, each over its
+        group's slice of the region and its own process group (every
+        rank creates every group, in the same order, as
+        ``dist.new_group`` asks)."""
+        import torch.distributed as dist
+        layout = region_layout(self.axes, region_bytes) if region is not None \
+            else {}
+        for a, size in self.axes.items():
+            if size == 1:
+                continue
+            groups = axis_groups(self.axes, a)
+            pgs = [dist.new_group(g) for g in groups]
+            for i, (g, pg) in enumerate(zip(groups, pgs)):
+                if self.rank not in g:
+                    continue
+                sub = None
+                if a in layout:
+                    off, one = layout[a]
+                    sub = region[off + i * one: off + (i + 1) * one]
+                self._axes[a] = World(g.index(self.rank), size, sub,
+                                      region_bytes[a] if sub is not None
+                                      else 0, group=pg, ranks=g)
+
+    def axis(self, name: str) -> "World":
+        """The ranks this rank shares mesh axis ``name`` with, as a world
+        of their own (its group's slice of the region, its process
+        group); the whole world when it was spawned without ``axes``."""
+        if not self.axes:
+            return self
+        if name not in self._axes:
+            raise ValueError(f"no group of more than one rank along "
+                             f"{name!r} in a world of axes {self.axes}")
+        return self._axes[name]
 
     def next_half(self) -> int:
         half = self._phase
@@ -170,22 +257,23 @@ class World:
             import torch.distributed as dist
             if self.region.device.type == "cuda":
                 torch.cuda.current_stream(self.region.device).synchronize()
-            dist.barrier()
+            dist.barrier(group=self.group)
         self._notice = notice
 
     def transport(self, kind: str, axis: str, notice: str = "flags"):
         """This rank's transport of ``kind`` (``"shared"``: the TAB's
         shared region, its completion notice ``notice``; ``"group"``: the
-        process group) for ``axis``, one instance a (kind, axis,
-        notice)."""
+        process group) for ``axis`` (over the axis's group, :meth:`axis`),
+        one instance a (kind, axis, notice)."""
         from repro_torch.runtime import transport as tr
         key = (kind, axis) + ((notice,) if kind == "shared" else ())
         if key not in self._cache:
+            group = self.axis(axis)
             if kind == "shared":
-                self._cache[key] = tr.SharedRegionTransport(self, axis,
+                self._cache[key] = tr.SharedRegionTransport(group, axis,
                                                             notice=notice)
             elif kind == "group":
-                self._cache[key] = tr.ProcessGroupTransport(self, axis)
+                self._cache[key] = tr.ProcessGroupTransport(group, axis)
             else:
                 raise ValueError(f"transport kind {kind!r}: 'shared' or "
                                  f"'group'")
@@ -211,13 +299,17 @@ def _mesh(sizes: dict[str, int], transport: str, notice: str) -> Mesh:
         raise ValueError(f"a mesh of {n} ranks {sizes} in a world of "
                          f"{w.size}")
     live = [a for a, s in sizes.items() if s > 1]
-    if len(live) > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: collectives over an axis that spans part of "
-            f"the world (data > 1 and model > 1) are not wired yet")
+    if w.axes is not None and [(a, s) for a, s in w.axes.items() if s > 1] \
+            != [(a, sizes[a]) for a in live]:
+        raise ValueError(f"a mesh {sizes} in a world spawned with axes "
+                         f"{w.axes}")
+    if w.axes is None and len(live) > 1:
+        raise ValueError(
+            f"mesh {sizes}: an axis that spans part of the world needs a "
+            f"region a group (spawn(..., axes={sizes}))")
     return Mesh(sizes, rank=w.rank,
-                transports={live[0]: w.transport(transport, live[0],
-                                                 notice)})
+                transports={a: w.transport(transport, a, notice)
+                            for a in live})
 
 
 def shape_mesh(axis_sizes: dict[str, int], *, rank: int = 0,
@@ -267,6 +359,21 @@ def make_host_mesh(data: int = 1, model: int = 1, *,
     return _mesh({"data": data, "model": model}, transport, notice)
 
 
+def make_axis_mesh(axis: str, *, transport: str = "shared",
+                   notice: str = "flags") -> Mesh:
+    """The mesh of this rank's group along ``axis`` of a world spawned
+    with ``axes``: that axis alone (the other of ``("data", "model")`` of
+    size 1), this rank's index in the group, its collectives over the
+    group's slice of the region (or its process group)."""
+    w = _WORLD
+    if w is None:
+        raise RuntimeError("make_axis_mesh runs inside a rank of spawn")
+    g = w.axis(axis)
+    sizes = {"data": 1, "model": 1, axis: g.size}
+    return Mesh(sizes, rank=g.rank,
+                transports={axis: w.transport(transport, axis, notice)})
+
+
 def make_serving_mesh(model: int = 1, data: int = 1, *,
                       transport: str = "shared", notice: str = "flags"
                       ) -> Mesh:
@@ -296,7 +403,7 @@ def serving_model_shards(max_shards: int, *heads: int,
 # ---------------------------------------------------------------------------
 
 def _rank_main(rank: int, size: int, store: str, device: str,
-               threads: int | None, inbox, out) -> None:
+               threads: int | None, axes: dict | None, inbox, out) -> None:
     import torch.distributed as dist
     global _WORLD
     # gloo's pairs connect on the loopback device: the ranks share a host
@@ -314,7 +421,7 @@ def _rank_main(rank: int, size: int, store: str, device: str,
         # are released to the parent (CUDA IPC memory stays held in the
         # parent until every rank released it)
         fn, args, region, region_bytes = inbox.get()
-        _WORLD = World(rank, size, region, region_bytes)
+        _WORLD = World(rank, size, region, region_bytes, axes=axes)
         # pickled by value: a tensor shared by handle would die with this
         # process before the parent reads it
         result = pickle.dumps(fn(*args))
@@ -331,7 +438,8 @@ def _rank_main(rank: int, size: int, store: str, device: str,
 
 
 def spawn(fn: Callable, nprocs: int, *args, device: str | None = None,
-          region_bytes: int | None = REGION_BYTES,
+          region_bytes: int | dict[str, int] | None = REGION_BYTES,
+          axes: dict[str, int] | None = None,
           threads: int | None = None, timeout: float = 600.0) -> list:
     """Run ``fn(*args)`` in ``nprocs`` new processes, the ranks of one
     world, and return their results in rank order.
@@ -343,27 +451,38 @@ def spawn(fn: Callable, nprocs: int, *args, device: str | None = None,
     exited).  ``region_bytes`` sizes each half of the shared region (None:
     no region, only the process-group transport); the region and its
     flag area live on ``device`` (default the card; ``"cpu"`` only when
-    asked for, :func:`repro_torch.resolve_device`).  ``threads`` caps each
+    asked for, :func:`repro_torch.resolve_device`).  ``axes`` (axis ->
+    size, their product ``nprocs``; :func:`make_host_mesh` then builds
+    that mesh) gives every group along each axis its own slice and
+    process group, ``region_bytes`` a half of each group's slice (one
+    size, or one an axis).  ``threads`` caps each
     rank's intra-op threads.  Raises with the rank's traceback if any
     rank fails, and after ``timeout`` seconds; every process is gone when
     it returns."""
     from repro_torch import resolve_device
-    from repro_torch.kernels.write_accumulate.ops import flag_words
     device = str(resolve_device(device))
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     region = None
+    if axes is not None:
+        if math.prod(axes.values()) != nprocs:
+            raise ValueError(f"axes {axes} are not {nprocs} ranks")
+        if region_bytes and not isinstance(region_bytes, dict):
+            region_bytes = dict.fromkeys(axes, region_bytes)
     if region_bytes:
-        region = torch.zeros(_flag_offset(region_bytes)
-                             + 8 * flag_words(nprocs), dtype=torch.uint8,
-                             device=device)
+        if axes is not None:
+            total = sum((nprocs // axes[a]) * one for a, (_, one)
+                        in region_layout(axes, region_bytes).items())
+        else:                           # one group: the whole world
+            total = _slice_bytes(region_bytes, nprocs)
+        region = torch.zeros(total, dtype=torch.uint8, device=device)
         if region.device.type == "cpu":
             region.share_memory_()
     out = ctx.Queue()
     inboxes = [ctx.Queue() for _ in range(nprocs)]
     procs = [ctx.Process(target=_rank_main,
                          args=(r, nprocs, os.path.join(tmp, "store"), device,
-                               threads, inboxes[r], out), daemon=True)
+                               threads, axes, inboxes[r], out), daemon=True)
              for r in range(nprocs)]
     results: dict[int, Any] = {}
     try:

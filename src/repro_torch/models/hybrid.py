@@ -97,7 +97,7 @@ def _rglru_gates(p: dict, u: torch.Tensor):
     reduced-precision product); the gates read every rank's channels of
     ``u`` (gathered), their columns are the rank's."""
     u32 = u.float()
-    ug = L._tp_gathered(u, -1).float()
+    ug = L._tp_gathered(u, -1, local=True).float()
     r = torch.sigmoid(ug @ p["w_a"].float() + p["b_a"].float())
     i = torch.sigmoid(ug @ p["w_i"].float() + p["b_i"].float())
     log_a = -RGLRU_C * F.softplus(p["lam"]) * r
@@ -139,6 +139,7 @@ def rglru_seq(p: dict, x: torch.Tensor, h0: torch.Tensor | None = None):
     """Full-sequence RG-LRU over the normed input x (B, S, d).  Returns
     (out (B, S, d), (h at the last position, conv state)); h is rounded
     to x's dtype, as the reference stores it."""
+    x = L.to_ranks(x)
     xb = x @ p["w_x"]
     gate = F.gelu(x @ p["w_y"], approximate="tanh")
     u, conv_state = _causal_conv(p, xb)
@@ -155,6 +156,7 @@ def rglru_step(p: dict, x: torch.Tensor, h: torch.Tensor,
                conv_state: torch.Tensor):
     """One token.  x: (B, 1, d); h: (B, d); conv_state: (B, W-1, d).
     Returns (out (B, 1, d), h, conv state)."""
+    x = L.to_ranks(x)
     xb = x @ p["w_x"]
     gate = F.gelu(x @ p["w_y"], approximate="tanh")
     u, conv_state = _causal_conv(p, xb, conv_state)

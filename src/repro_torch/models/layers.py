@@ -119,34 +119,61 @@ def _heads_sharded(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t
 
 
-def _tp_gathered(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """The all-gather TP boundary of serving: every rank's slice of ``t``
-    along ``dim`` (sharded heads, the MLP's hidden columns, the vocab),
-    gathered by ``tab_allgather`` over the ambient mesh's ``"model"``
-    axis before a projection against a replicated weight (or sampling).
-    A gather is pure data movement and the dot after it is the
-    single-card dot, so sharded serving is bit-identical by construction.
-    Without a mesh, the identity."""
+def _model_mesh():
+    """The ambient mesh when its ``"model"`` axis has several ranks."""
     mesh = sharding.ambient_mesh()
-    if mesh is None or mesh.axis_size("model") == 1:
+    return None if mesh is None or mesh.axis_size("model") == 1 else mesh
+
+
+def _tp_gathered(t: torch.Tensor, dim: int, *, local: bool = False
+                 ) -> torch.Tensor:
+    """The all-gather TP boundary: every rank's slice of ``t`` along
+    ``dim`` (sharded heads, the MLP's hidden columns, the vocab, a
+    recurrent block's channels), gathered by ``tab_allgather`` over the
+    ambient mesh's ``"model"`` axis.  Serving gathers before a
+    projection against a replicated weight (or sampling): a gather is
+    pure data movement and the dot after it is the single-card dot, so
+    sharded serving is bit-identical by construction.  ``local``: each
+    rank consumes the result for its own slice only (a statistic, its
+    columns of a product), so training sums the ranks' gradients before
+    taking this rank's slice (:func:`repro_torch.core.tab.
+    gather_for_local`); else the result is consumed alike on every rank
+    (``gather_replicated``).  Without a mesh, the identity."""
+    mesh = _model_mesh()
+    if mesh is None:
         return t
-    from repro_torch.core.tab import tab_allgather
-    return tab_allgather(t, "model", axis=dim % t.dim(), mesh=mesh)
+    from repro_torch.core import tab
+    gather = tab.gather_for_local if local else tab.gather_replicated
+    return gather(t, "model", dim % t.dim(), mesh=mesh)
+
+
+def to_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The column-parallel TP boundary: ``t``, alike on every rank of the
+    ambient mesh's ``"model"`` axis, where it enters this rank's columns
+    (a column-sharded product, a replicated weight used on the rank's
+    heads).  The identity; under autograd the ranks' gradients of ``t``
+    are summed (:func:`repro_torch.core.tab.enter_ranks`, Megatron's
+    "f").  The identity without a mesh."""
+    mesh = _model_mesh()
+    if mesh is None:
+        return t
+    from repro_torch.core.tab import enter_ranks
+    return enter_ranks(t, "model", mesh=mesh)
 
 
 def tp_reduce(t: torch.Tensor) -> torch.Tensor:
-    """The row-parallel TP boundary of serving: this rank's partial
-    product against its contraction rows of an output projection,
-    summed over the ambient mesh's ``"model"`` axis by ``tab_allreduce``
-    (fp32 accumulation in rank order, in ``t``'s dtype).  The identity
-    without a mesh and under all-gather TP, where each rank's product
-    is already the whole one."""
-    mesh = sharding.ambient_mesh()
-    if (mesh is None or mesh.axis_size("model") == 1
-            or not sharding.row_parallel()):
+    """The row-parallel TP boundary: this rank's partial product against
+    its contraction rows of an output projection, summed over the
+    ambient mesh's ``"model"`` axis by ``tab_allreduce`` (fp32
+    accumulation in rank order, in ``t``'s dtype); its gradient passes
+    through unchanged (:func:`repro_torch.core.tab.sum_partials`,
+    Megatron's "g").  The identity without a mesh and under all-gather
+    TP, where each rank's product is already the whole one."""
+    mesh = _model_mesh()
+    if mesh is None or not sharding.row_parallel():
         return t
-    from repro_torch.core.tab import tab_allreduce
-    return tab_allreduce(t, "model", mesh=mesh)
+    from repro_torch.core.tab import sum_partials
+    return sum_partials(t, "model", mesh=mesh)
 
 
 def local_slice(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -193,11 +220,18 @@ def checkpointed(fn: Callable, on: bool, *args):
     """``fn(*args)``; with ``on`` and grad enabled, under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are not
     kept but recomputed in the backward pass (the reference's
-    ``jax.checkpoint``, its ``remat``)."""
-    if on and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
-    return fn(*args)
+    ``jax.checkpoint``, its ``remat``).  The recomputation runs over the
+    ambient mesh of the forward: the backward of CUDA tensors runs on
+    the autograd engine's device thread, where the thread-local ambient
+    mesh is not set."""
+    if not (on and torch.is_grad_enabled()):
+        return fn(*args)
+    mesh, rowpar = sharding.ambient_mesh(), sharding.row_parallel()
+
+    def run(*a):
+        with sharding.activate_mesh(mesh, row_parallel=rowpar):
+            return fn(*a)
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +254,7 @@ def rmsnorm_sharded(x: torch.Tensor, scale: torch.Tensor,
     norm's, bit for bit.  Plain :func:`rmsnorm` without a mesh."""
     if sharding.model_shards() == 1:
         return rmsnorm(x, scale, eps)
-    full = _tp_gathered(x, -1).float()
+    full = _tp_gathered(x, -1, local=True).float()
     var = full.square().mean(dim=-1, keepdim=True)
     out = x.float() * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
@@ -398,6 +432,8 @@ def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
     b, s = x.shape[:2]
     skv = x_kv.shape[1]
     (hq, hkv), hd = local_heads(cfg), cfg.head_dim
+    x, x_kv = (to_ranks(x),) * 2 if x_kv is x else (to_ranks(x),
+                                                      to_ranks(x_kv))
     q = x @ p["wq"]
     k = x_kv @ p["wk"]
     v = x_kv @ p["wv"]
@@ -407,8 +443,9 @@ def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
     k = _heads_sharded(k.reshape(b, skv, hkv, hd), hkv)
     v = _heads_sharded(v.reshape(b, skv, hkv, hd), hkv)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        # replicated scales used on this rank's heads
+        q = rmsnorm(q, to_ranks(p["q_norm"]), cfg.norm_eps)
+        k = rmsnorm(k, to_ranks(p["k_norm"]), cfg.norm_eps)
     return q, k, v
 
 
@@ -449,6 +486,7 @@ def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
     hd), unroped."""
     b, s = enc_out.shape[:2]
     hkv, hd = local_heads(cfg)[1], cfg.head_dim
+    enc_out = to_ranks(enc_out)
     return ((enc_out @ p["wk"]).reshape(b, s, hkv, hd),
             (enc_out @ p["wv"]).reshape(b, s, hkv, hd))
 
@@ -459,7 +497,8 @@ def cross_attn_forward(p: dict, x: torch.Tensor,
     """Decoder cross-attention over the encoder's precomputed (k, v): no
     RoPE, no mask.  x: (B, S, d); returns (B, S, d)."""
     b, s = x.shape[:2]
-    q = (x @ p["wq"]).reshape(b, s, local_heads(cfg)[0], cfg.head_dim)
+    q = (to_ranks(x) @ p["wq"]).reshape(b, s, local_heads(cfg)[0],
+                                        cfg.head_dim)
     o = flash_attention(q, *enc_kv, causal=False)
     return _out_proj(p, o)
 
@@ -584,6 +623,7 @@ def mlp_partial(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU before the ranks' sum: over a mesh the rank's hidden
     columns go into the down projection as :func:`_out_partial`'s heads
     do (gathered against the whole ``wo``, or alone against its rows)."""
+    x = to_ranks(x)
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     return _contraction_input(h) @ p["wo"]
 
@@ -596,7 +636,7 @@ def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
 def mlp2_partial(p: dict, x: torch.Tensor) -> torch.Tensor:
     """The non-gated GELU MLP (whisper's) before the ranks' sum; GELU's
     tanh form, as ``jax.nn.gelu`` computes it by default."""
-    h = F.gelu(x @ p["wi"], approximate="tanh")
+    h = F.gelu(to_ranks(x) @ p["wi"], approximate="tanh")
     return _contraction_input(h) @ p["wo"]
 
 
@@ -609,22 +649,31 @@ def mlp2_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
 def embed_lookup(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings.  Over a mesh the table is sharded by vocab row:
     each rank looks up the tokens in its rows, zeros elsewhere, and
-    ``tab_allreduce`` sums the ranks' rows (exact: one non-zero term)."""
+    ``tab_allreduce`` sums the ranks' rows (exact: one non-zero term;
+    under autograd its gradient passes through, ``sum_partials``)."""
     tok = p["tok"]
-    mesh = sharding.ambient_mesh()
-    if mesh is None or mesh.axis_size("model") == 1:
+    mesh = _model_mesh()
+    if mesh is None:
         return tok[tokens.long()]
-    from repro_torch.core.tab import tab_allreduce
+    from repro_torch.core.tab import sum_partials
     rows = tok.shape[0]
     local = tokens.long() - mesh.axis_index("model") * rows
     inside = (local >= 0) & (local < rows)
     x = tok[local.clamp(0, rows - 1)]
     x = torch.where(inside[..., None], x, torch.zeros_like(x))
-    return tab_allreduce(x, "model", mesh=mesh)
+    return sum_partials(x, "model", mesh=mesh)
+
+
+def lm_head_local(p: dict, x: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """This rank's vocab columns of the logits (all of them without a
+    mesh): what training's sharded cross entropy reads."""
+    x = to_ranks(x)
+    if cfg.tie_embeddings:
+        return x @ p["tok"].T
+    return x @ p["head"]
 
 
 def lm_head(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits; over a mesh the rank's vocab columns, all-gathered."""
-    if cfg.tie_embeddings:
-        return _tp_gathered(x @ p["tok"].T, -1)
-    return _tp_gathered(x @ p["head"], -1)
+    return _tp_gathered(lm_head_local(p, x, cfg), -1)

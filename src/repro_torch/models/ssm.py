@@ -55,10 +55,12 @@ M0 = -1e30
 TIME_CHUNK = 128
 
 
-def chunked_time_scan(step, carry: tuple, length: int, grad: bool):
-    """``carry, y = step(carry, t)`` for t = 0 .. length - 1; returns
-    (the last carry, [y_t]).  With ``grad`` (the step's tensors require
-    it) and grad enabled, and ``length`` a multiple of
+def chunked_time_scan(step, carry: tuple, length: int, grad: bool,
+                      xs: tuple = ()):
+    """``carry, y = step(carry, t, *xs)`` for t = 0 .. length - 1;
+    returns (the last carry, [y_t]).  ``xs``: the whole-sequence tensors
+    the step reads its step's slice of.  With ``grad`` (the step's
+    tensors require it) and grad enabled, and ``length`` a multiple of
     ``min(TIME_CHUNK, length)``, each chunk of steps runs under a
     checkpoint: only the carries at chunk boundaries are kept, and a
     chunk's steps are recomputed in the backward pass (the reference's
@@ -66,28 +68,66 @@ def chunked_time_scan(step, carry: tuple, length: int, grad: bool):
     unchunked, as in the reference.  The steps and their order are the
     same either way."""
     chunk = min(TIME_CHUNK, length)
+    training = grad and torch.is_grad_enabled()
     if op_cost.traced(carry[0]) and length > 1:
         # a dry run: one step traced, counted for all of them
         # (repro_torch.launch.op_cost, "Loops")
-        (c, _), ys = op_cost.repeat_loop(length, lambda: step(carry, 0),
+        if training:
+            out = _TracedScan.apply(step, length, len(carry), *carry, *xs)
+            return tuple(out[:len(carry)]), list(out[len(carry):])
+        (c, _), ys = op_cost.repeat_loop(length,
+                                         lambda: step(carry, 0, *xs),
                                          kept=lambda out: out[1])
         return c, ys
+    nc = len(carry)
 
-    def run(t0: int, t1: int, *c):
-        ys = []
+    def run(t0: int, t1: int, *args):
+        c, ys = args[:nc], []
         for t in range(t0, t1):
-            c, y = step(c, t)
+            c, y = step(c, t, *args[nc:])
             ys.append(y)
         return c, ys
 
-    if not (grad and torch.is_grad_enabled()) or length % chunk:
-        return run(0, length, *carry)
+    if not training or length % chunk:
+        return run(0, length, *carry, *xs)
     ys = []
     for t0 in range(0, length, chunk):
-        carry, part = torch.utils.checkpoint.checkpoint(
-            run, t0, t0 + chunk, *carry, use_reentrant=False)
+        carry, part = L.checkpointed(run, True, t0, t0 + chunk, *carry, *xs)
         ys += part
     return carry, ys
+
+
+class _TracedScan(torch.autograd.Function):
+    """A training step's time scan in a dry run: one step traced for all
+    ``n`` (``op_cost``'s repeat), forward and backward.  The forward
+    counts one step n times and makes the n outputs (the first step's
+    and n - 1 of its shape); the backward recomputes one step and takes
+    its gradients, n times counted -- the chunked checkpoint's recompute
+    and backward of every step, as the real scan runs them."""
+
+    @staticmethod
+    def forward(ctx, step, n, nc, *tensors):
+        ctx.step, ctx.n, ctx.nc = step, n, nc
+        ctx.save_for_backward(*tensors)
+        with op_cost.active().repeat(n):
+            c, y = step(tensors[:nc], 0, *tensors[nc:])
+        return (*c, y, *(torch.empty_like(y) for _ in range(n - 1)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        tensors, nc = ctx.saved_tensors, ctx.nc
+        need = ctx.needs_input_grad[3:]
+        leaves = [t.detach().requires_grad_(w) for t, w in zip(tensors, need)]
+        with torch.enable_grad(), op_cost.active().repeat(ctx.n):
+            c, y = ctx.step(tuple(leaves[:nc]), 0, *leaves[nc:])
+            outs = [*c, y]
+            gos = [torch.zeros_like(o) if g is None else g
+                   for o, g in zip(outs, grads[:nc + 1])]
+            wanted = [t for t, w in zip(leaves, need) if w]
+            got = iter(torch.autograd.grad(outs, wanted, gos,
+                                           allow_unused=True))
+        return (None, None, None,
+                *(next(got) if w else None for w in need))
 
 
 def mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -148,7 +188,8 @@ def mlstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dp, nh, hd = mlstm_dims(cfg)
     nh //= model_shards()
     b, s, _ = x.shape
-    up = L._tp_gathered(x @ p["w_up"], -1)                  # (B, S, 2 dp)
+    # every rank reads the gathered inner space for its own heads only
+    up = L._tp_gathered(L.to_ranks(x) @ p["w_up"], -1, local=True)
     z, gate = up.chunk(2, dim=-1)                           # (B, S, dp) each
     q = (z @ p["w_q"]).reshape(b, s, nh, hd) / math.sqrt(hd)
     k = (z @ p["w_k"]).reshape(b, s, nh, hd) / math.sqrt(hd)
@@ -162,7 +203,7 @@ def mlstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         c, n, m = state["C"], state["n"], state["m"]
 
-    def step(carry, t):
+    def step(carry, t, q, k, v, log_i, log_f):
         c, n, m = carry
         qt, kt, vt = q[:, t].float(), k[:, t].float(), v[:, t].float()
         li, lf = log_i[:, t], log_f[:, t]
@@ -176,7 +217,8 @@ def mlstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", n, qt).abs(), 1.0)
         return (c, n, m_new), (hq / denom[..., None]).to(x.dtype)
 
-    (c, n, m), hs = chunked_time_scan(step, (c, n, m), s, q.requires_grad)
+    (c, n, m), hs = chunked_time_scan(step, (c, n, m), s, q.requires_grad,
+                                      (q, k, v, log_i, log_f))
     hs = torch.stack(hs, dim=1).reshape(b, s, nh * hd)
     hs = L.rmsnorm_sharded(hs, p["gn"], 1e-6) * L.local_slice(gate)
     out = L.tp_reduce(hs @ p["w_down"])
@@ -224,7 +266,8 @@ def slstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (B, S, d), the new state)."""
     nh, hd = slstm_dims(cfg)
     b, s, _ = x.shape
-    zifo = L._tp_gathered(x @ p["w_in"], -1).reshape(b, s, 4, nh, hd)
+    zifo = L._tp_gathered(L.to_ranks(x) @ p["w_in"], -1,
+                          local=True).reshape(b, s, 4, nh, hd)
     zifo = L.local_slice(zifo, 3)
     nh = zifo.shape[3]
     if state is None:
@@ -239,7 +282,7 @@ def slstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
     def rec(h, r):      # (b, nh, hd) x (nh, hd, hd) -> (b, nh, hd)
         return torch.einsum("bhd,hde->bhe", h, r)
 
-    def step(carry, t):
+    def step(carry, t, zifo, bias, r_z, r_i, r_f, r_o):
         c, n, h, m = carry
         z_in, i_in, f_in, o_in = (zifo[:, t, j].float() + bias[j]
                                   for j in range(4))
@@ -255,9 +298,9 @@ def slstm_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         h = o * c / torch.clamp_min(n, 1.0)
         return (c, n, h, m_new), h
 
+    xs = (zifo, bias, r_z, r_i, r_f, r_o)
     (c, n, h, m), hs = chunked_time_scan(
-        step, (c, n, h, m), s,
-        any(t.requires_grad for t in (zifo, r_z, r_i, r_f, r_o)))
+        step, (c, n, h, m), s, any(t.requires_grad for t in xs), xs)
     hs = torch.stack(hs, dim=1).reshape(b, s, nh * hd).to(x.dtype)
     hs = L.rmsnorm_sharded(hs, p["gn"], 1e-6)
     out = F.gelu(L.tp_reduce(hs @ p["w_up"]), approximate="tanh") \

@@ -326,7 +326,7 @@ class SharedRegionTransport(Transport):
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        dist.barrier()
+        dist.barrier(group=self.world.group)
         self.wait_s += time.perf_counter() - t0
 
     def all_gather(self, x, dim=0):
@@ -478,16 +478,19 @@ class ShapeTransport(Transport):
 
 
 class ProcessGroupTransport(Transport):
-    """The interface over ``torch.distributed``'s default process group
-    (gloo between CPU ranks; NCCL where every rank has a card)."""
+    """The interface over ``torch.distributed``: the process group of the
+    axis's ranks (``world.group``; the default group for a whole world),
+    gloo between CPU ranks, NCCL where every rank has a card."""
 
     def __init__(self, world, axis: str):
         super().__init__(axis, world.rank, world.size)
+        self.group = world.group
+        self.ranks = world.ranks
 
     def barrier(self) -> None:
         import torch.distributed as dist
         t0 = time.perf_counter()
-        dist.barrier()
+        dist.barrier(group=self.group)
         self.wait_s += time.perf_counter() - t0
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -497,7 +500,7 @@ class ProcessGroupTransport(Transport):
         out = torch.empty((self.size, b.numel()), dtype=torch.uint8,
                           device=x.device)
         t0 = time.perf_counter()
-        dist.all_gather(list(out.unbind(0)), b)
+        dist.all_gather(list(out.unbind(0)), b, group=self.group)
         self.wait_s += time.perf_counter() - t0
         return out.view(x.dtype).view((self.size,) + tuple(x.shape))
 
@@ -523,7 +526,7 @@ class ProcessGroupTransport(Transport):
         send = torch.stack([_bytes(c) for c in chunks])
         recv = torch.empty_like(send)
         t0 = time.perf_counter()
-        dist.all_to_all_single(recv, send)
+        dist.all_to_all_single(recv, send, group=self.group)
         self.wait_s += time.perf_counter() - t0
         shape = tuple(chunks[0].shape)
         got = [r.view(x.dtype).view(shape) for r in recv.unbind(0)]
@@ -540,9 +543,11 @@ class ProcessGroupTransport(Transport):
         recv = torch.empty_like(b)
         ops = []
         if dst:
-            ops.append(dist.P2POp(dist.isend, b, dst[0]))
+            ops.append(dist.P2POp(dist.isend, b, self.ranks[dst[0]],
+                                  self.group))
         if src is not None:
-            ops.append(dist.P2POp(dist.irecv, recv, src))
+            ops.append(dist.P2POp(dist.irecv, recv, self.ranks[src],
+                                  self.group))
         t0 = time.perf_counter()
         if ops:
             for w in dist.batch_isend_irecv(ops):

@@ -4,7 +4,9 @@
   and decode: the flops of the port's own step traced on fake tensors
   equal, exactly, the reference walker's count of the reference's step
   lowered in-process (``module_cost(jax.jit(...).lower(...).compile()
-  .as_text())["flops"]``).
+  .as_text())["flops"]``).  The training step (two microbatches) equals
+  it but for the products the two programs compute differently, each in
+  closed form (:func:`train_flops_difference`).
 * **Bytes.**  Over a ``(data 1, model 2)`` mesh, each rank's parameter
   bytes by tier and its cache bytes, resident, ``--paged`` and
   ``kv_quant``, equal the reference's ``abstract_params`` /
@@ -13,7 +15,8 @@
 * **Full width without allocation.**  Production cells traced in a
   subprocess whose peak RSS grows by less than 256 MiB.
 * **The skipped cells** over ``ARCH_IDS x SHAPES x {resident, paged}``,
-  pinned.
+  pinned: 36, the MoE configs' ``train_4k`` and every ``--paged``
+  ``train_4k`` among them.
 * **Tallies.**  In one 2-rank CPU spawn, the shared region's tally of a
   row-parallel decode step and of a prefill (an admission's program)
   equals the shape-only transport's in the dry run of the same step,
@@ -105,6 +108,112 @@ def test_flops_equal_the_reference_walker(arch, kind):
     got = dryrun.trace_step(model, kind, b, s)
     assert got["cost"]["flops"] == _reference_flops(arch, kind, b, s)
     assert got["memory"]["temp_bytes"] > 0
+    assert got["collectives"]["total_bytes"] == 0.0
+
+
+#: (global batch, tokens a row, microbatches) of the train flops cases:
+#: one key tile of K2 covers each row's keys, so its charged forward is
+#: both full products
+TRAIN_STEP = (2, 64, 2)
+
+
+def _reference_train_flops(arch: str, b: int, s: int, accum: int) -> float:
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as rc
+    from repro.launch.hlo_cost import module_cost
+    from repro.runtime import optim as ref_optim
+    from repro.runtime.train import TrainConfig, make_train_step
+    cfg = rc.get_config(arch).reduced()
+    model = rc.build_model(cfg)
+    params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    opt = jax.eval_shape(ref_optim.init_opt_state, params)
+    sds = jax.ShapeDtypeStruct
+    text = s - cfg.num_patches if cfg.family == "vlm" else s
+    batch = {"tokens": sds((b, text), jnp.int32),
+             "labels": sds((b, text), jnp.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = sds((b, cfg.encoder_seq, cfg.d_model), jnp.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = sds((b, cfg.num_patches, cfg.d_model),
+                               jnp.float32)
+    step = make_train_step(model, TrainConfig(accum_steps=accum))
+    hlo = jax.jit(step).lower(params, opt, batch).compile().as_text()
+    return module_cost(hlo)["flops"]
+
+
+def _attention_calls(cfg, s: int) -> list[tuple[int, int, bool, int]]:
+    """The attention calls of one microbatch's training forward: (query
+    rows, keys, causal, forward runs: 2 under the layer's remat, 1 for
+    whisper's encoder, which runs once)."""
+    if cfg.family == "encdec":
+        enc = cfg.encoder_seq
+        return ([(enc, enc, False, 1)] * cfg.num_encoder_layers
+                + [(s, s, True, 2), (s, enc, False, 2)] * cfg.num_layers)
+    if cfg.family == "ssm":
+        return []
+    layers = cfg.num_layers
+    if cfg.family == "hybrid":
+        pattern = cfg.block_pattern
+        kinds = [pattern[i % len(pattern)] for i in range(layers)]
+        layers = kinds.count("att")
+    return [(s, s, True, 2)] * layers
+
+
+def train_flops_difference(cfg, b: int, s: int, accum: int) -> int:
+    """The reference's train-step flops minus the port's, in closed form:
+
+    * attention, per call: the reference's blocked jnp attention computes
+      both products (QK^T, PV) over full blocks in each forward run, again
+      in the backward pass (its ``jax.checkpoint(q_step)`` recomputes the
+      block's forward), and four products in the backward (dP, dQ, dK,
+      dV): (runs + 1) x 2F + 4F, F = 2 B Hq Sq Sk d.  The port charges
+      K2's products (``flash_attention_cost``: key tiles up to the causal
+      frontier) in each forward run, and its plain backward recomputes
+      the scores only (no P V) before the same four: runs x K + 5F.
+    * the mLSTM's recurrence, per time step and block: XLA's autodiff of
+      ``h = C q`` forms dC by a broadcast multiply, not a dot, and of the
+      rank-1 update ``v k^T`` takes dk and dv as dots from dC (two
+      products of 2 B nh hd^2), where the port's autograd forms dC as a
+      one-column batched product and dk, dv elementwise: the reference one
+      product more; the normaliser ``n . q``'s backward is elementwise in
+      XLA and two one-column batched products in the port (2 x 2 B nh
+      hd): the port these."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_cost
+    from repro_torch.models.ssm import mlstm_dims
+    mb = b // accum
+    hq, d = cfg.padded_heads, cfg.head_dim
+    diff = 0
+    for sq, sk, causal, runs in _attention_calls(cfg, s):
+        full = 2 * mb * hq * sq * sk * d
+        k2 = flash_attention_cost(mb, sq, hq, sk, d, causal=causal,
+                                  q_offset=sk - sq, kv_valid=sk)[0]
+        diff += (runs + 1) * 2 * full + 4 * full - runs * k2 - 5 * full
+    if cfg.family == "ssm":
+        _, nh, hd = mlstm_dims(cfg)
+        pattern = cfg.block_pattern
+        blocks = [pattern[i % len(pattern)] for i in range(cfg.num_layers)]
+        per_step = 2 * mb * nh * hd * hd - 2 * (2 * mb * nh * hd)
+        diff += blocks.count("m") * s * per_step
+    return diff * accum
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_flops_equal_the_reference_walker(arch):
+    """The one-device train step (two microbatches) against the
+    reference walker's count of the reference's ``make_train_step``
+    lowered in-process: equal but for :func:`train_flops_difference`."""
+    pytest.importorskip("jax")
+    b, s, accum = TRAIN_STEP
+    cfg = get_config(arch).reduced()
+    got = dryrun.trace_step(build_model(cfg), "train", b, s,
+                            accum_steps=accum)
+    want = _reference_train_flops(arch, b, s, accum)
+    assert want - got["cost"]["flops"] == train_flops_difference(cfg, b, s,
+                                                                 accum)
+    # two fp32 moments and the int32 step count
+    assert (got["memory"]["moment_bytes"]
+            == 2 * got["memory"]["grad_bytes"] + 4)
     assert got["collectives"]["total_bytes"] == 0.0
 
 
@@ -262,16 +371,24 @@ def test_skipped_cells_are_pinned():
     skipped = {(a, s, p) for a in ARCH_IDS for s in dryrun.SHAPES
                for p in (False, True)
                if dryrun.skip_reason(a, s, paged=p) is not None}
-    want = {(a, "train_4k", p) for a in ARCH_IDS for p in (False, True)}
+    moe = ("moonshot-v1-16b-a3b", "granite-moe-3b-a800m")
+    want = {(a, "train_4k", p) for a in moe for p in (False, True)}
+    want |= {(a, "train_4k", True) for a in ARCH_IDS}
     want |= {(a, "long_500k", p) for a in ARCH_IDS for p in (False, True)
              if a not in ("recurrentgemma-9b", "xlstm-125m")}
     want |= {(a, s, True) for a in ("recurrentgemma-9b", "xlstm-125m",
                                      "whisper-base")
              for s in ("prefill_32k", "decode_32k", "long_500k")}
     assert skipped == want
-    assert len(skipped) == 44
-    assert dryrun.skip_reason("qwen2.5-14b", "train_4k") \
-        == dryrun.TRAIN_REASON
+    assert len(skipped) == 36
+    for a in moe:
+        for p in (False, True):
+            assert dryrun.skip_reason(a, "train_4k", paged=p) \
+                == dryrun.TRAIN_MOE_REASON
+    assert dryrun.skip_reason("qwen2.5-14b", "train_4k", paged=True) \
+        == dryrun.TRAIN_PAGED_REASON
+    assert dryrun.skip_reason("qwen2.5-14b", "train_4k") is None
+    assert "expert-parallel" in dryrun.TRAIN_MOE_REASON
     assert "not wired yet" in dryrun.skip_reason("whisper-base",
                                                  "decode_32k", paged=True)
 
@@ -296,12 +413,13 @@ def test_no_stream_event_or_sync_in_a_dry_run(monkeypatch):
 def test_cli_writes_a_json_a_cell(tmp_path, monkeypatch):
     monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
     with pytest.raises(SystemExit) as done:
-        dryrun.main(["--arch", "xlstm-125m", "--shape", "train_4k"])
+        dryrun.main(["--arch", "xlstm-125m", "--shape", "train_4k",
+                     "--paged"])
     assert done.value.code == 0
-    got = json.loads((tmp_path / "xlstm-125m__train_4k__pod16x16.json")
-                     .read_text())
-    assert got == {"cell": "xlstm-125m__train_4k__pod16x16",
-                   "status": "skipped", "reason": dryrun.TRAIN_REASON}
+    got = json.loads((tmp_path / "xlstm-125m__train_4k__pod16x16__paged"
+                      ".json").read_text())
+    assert got == {"cell": "xlstm-125m__train_4k__pod16x16__paged",
+                   "status": "skipped", "reason": dryrun.TRAIN_PAGED_REASON}
 
 
 # ---------------------------------------------------------------------------
